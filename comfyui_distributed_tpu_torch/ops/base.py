@@ -1,0 +1,148 @@
+"""Op protocol, registry and execution context: the counterpart of
+``comfyui_distributed_tpu/ops/base.py`` for the single-device path.
+
+Each op mirrors a ComfyUI node's schema: ``WIDGETS`` is the widget order
+(``CONTROL`` marks UI-only slots such as control_after_generate) and
+``HIDDEN`` lists the hidden inputs the op accepts.  Tensor-plane values
+(latents, images) travel between ops as :class:`DeviceTensor` wrappers
+around a torch tensor on the run's device; the only host edge is
+:meth:`DeviceTensor.to_host`, taken by output nodes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+# sentinel for widget slots that are UI chrome (control_after_generate)
+CONTROL = "__control__"
+
+
+@dataclasses.dataclass
+class Conditioning:
+    """CLIP encoding result (comfy CONDITIONING): context [1, T, C] and,
+    for SDXL, the pooled text embedding [1, P]."""
+    context: torch.Tensor
+    pooled: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class SeedValue:
+    """INT seed that knows whether it came from a DistributedSeed node.
+    With fan-out, replica r of a ``distributed`` seed takes ``base + r``;
+    at fanout 1, the port's only mode, every row takes ``base``."""
+    base: int
+    distributed: bool = False
+
+    def __index__(self) -> int:
+        return int(self.base)
+
+
+@dataclasses.dataclass
+class OpContext:
+    """Per-run execution context.  ``device`` is where every tensor of
+    the run lives: ``cuda`` unless the caller asks for ``cpu``."""
+    device: str = "cuda"
+    models_dir: Optional[str] = None
+    output_dir: Optional[str] = None
+    # distributed identity (hidden-input defaults for all ops)
+    is_worker: bool = False
+    worker_id: str = ""
+    # collected artifacts
+    saved_images: List[np.ndarray] = dataclasses.field(default_factory=list)
+    node_timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class Op:
+    """Base class for workflow ops.
+
+    Class attributes:
+        TYPE: node class name
+        WIDGETS: widget names in UI order (CONTROL for chrome slots)
+        DEFAULTS: default values for optional widgets
+        HIDDEN: hidden input names this op accepts
+    """
+
+    TYPE = ""
+    WIDGETS: List[str] = []
+    DEFAULTS: Dict[str, Any] = {}
+    HIDDEN: List[str] = []
+
+    def execute(self, ctx: OpContext, **inputs) -> Tuple:
+        raise NotImplementedError
+
+
+NODE_CLASS_MAPPINGS: Dict[str, type] = {}
+_registry_lock = threading.Lock()
+
+
+def register_op(cls: type) -> type:
+    with _registry_lock:
+        NODE_CLASS_MAPPINGS[cls.TYPE] = cls
+    return cls
+
+
+def get_op(type_name: str) -> Op:
+    try:
+        cls = NODE_CLASS_MAPPINGS[type_name]
+    except KeyError:
+        raise KeyError(
+            f"unknown node type {type_name!r}; ported: "
+            f"{sorted(NODE_CLASS_MAPPINGS)}") from None
+    return cls()
+
+
+class DeviceTensor:
+    """Device-resident tensor-plane value, handed between ops without
+    leaving the device."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: torch.Tensor):
+        self.data = data
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    def to_host(self) -> np.ndarray:
+        """The device -> host edge: float32 numpy."""
+        return self.data.detach().float().cpu().numpy()
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(shape={self.shape})"
+
+
+class DeviceImage(DeviceTensor):
+    """IMAGE wire value ([B, H, W, C] float32 in [0, 1])."""
+
+
+class DeviceLatent(DeviceTensor):
+    """LATENT ``samples`` value ([B, h, w, C] float32)."""
+
+
+def as_device_array(x, device) -> torch.Tensor:
+    """A wire value as a float32 tensor on ``device``; device-resident
+    values are used as they are."""
+    if isinstance(x, DeviceTensor):
+        x = x.data
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def as_image_array(x) -> np.ndarray:
+    """IMAGE value -> numpy [B, H, W, C] float32 (a host edge)."""
+    if isinstance(x, DeviceTensor):
+        arr = x.to_host()
+    elif isinstance(x, torch.Tensor):
+        arr = x.detach().float().cpu().numpy()
+    else:
+        arr = np.asarray(x, dtype=np.float32)
+    if arr.ndim == 3:
+        arr = arr[None]
+    return arr
