@@ -104,38 +104,71 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def timed_build_all(force: bool = False) -> Dict[str, object]:
-    """Build every kernel and report seconds, library paths and what
-    ``ptxas`` says of each kernel's registers, shared memory and
-    spills."""
+    """Build every kernel and report seconds, library paths, what
+    ``ptxas`` says of each kernel's registers, shared memory and spills,
+    and its problems (:func:`ptxas_problems`) by source."""
     t0 = time.perf_counter()
     paths = build_all(force=force)
     return {"seconds": time.perf_counter() - t0,
             "libraries": {n: str(p) for n, p in paths.items()},
-            "ptxas": {n: ptxas_summary(log) for n, log in build_logs.items()}}
+            "ptxas": {n: ptxas_summary(log) for n, log in build_logs.items()},
+            "problems": {n: ptxas_problems(log)
+                         for n, log in build_logs.items()}}
 
 
 def ptxas_summary(log: str) -> Dict[str, str]:
-    """kernel -> "Used N registers, ... bytes smem" from ``nvcc -Xptxas
-    -v`` output; kernel names are shortened from their mangled form
-    (``flash_fwd_bf16ILi64E...`` -> ``flash_fwd_bf16<64>``)."""
+    """kernel -> "Used N registers, ... bytes smem; S bytes stack frame,
+    ... spill loads" from ``nvcc -Xptxas -v`` output; kernel names are
+    shortened from their mangled form (``flash_fwd_bf16ILi64E...`` ->
+    ``flash_fwd_bf16<64>``)."""
     out: Dict[str, str] = {}
+    spills: Dict[str, str] = {}
     name = "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", ln)
         if m:
             name = _short_name(m.group(1))
+        elif "spill" in ln:
+            spills[name] = ln.strip()
         elif "registers" in ln:
             out[name] = ln.split(":", 1)[-1].strip()
-    return out
+    return {n: f"{v}; {spills[n]}" if n in spills else v
+            for n, v in out.items()}
+
+
+def ptxas_problems(log: str) -> List[str]:
+    """What in ``nvcc -Xptxas -v`` output says a kernel lost its design:
+    spills to local memory, ``wgmma`` instructions that ptxas serialized
+    (the products then run without overlap), and ``setmaxnreg`` that it
+    ignored."""
+    problems = []
+    name = "?"
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for ([^' ]+)", ln)
+        if m:
+            name = _short_name(m.group(1))
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if s and (int(s.group(1)) or int(s.group(2))):
+            problems.append(f"{name}: {ln.strip()}")
+        if "serialized" in ln or "setmaxnreg ignored" in ln:
+            problems.append(ln.strip())
+    return problems
 
 
 def _short_name(symbol: str) -> str:
-    """``_ZN..13flash_fwd_f32ILi64EEv..`` -> ``flash_fwd_f32<64>``: the
-    last length-prefixed identifier before the first template argument."""
-    t = re.search(r"ILi(\d+)E", symbol)
-    head = symbol[:t.start()] if t else symbol
-    name = symbol
-    for k in range(1, len(head)):
-        if head[:-k].endswith(str(k)):
-            name = head[-k:]
+    """``_ZN12_GLOBAL__N_113flash_fwd_f32ILi64EEv..`` ->
+    ``flash_fwd_f32<64>``: the last identifier of the (nested) name and
+    its first integer template argument; an unmangled name stays."""
+    m = re.match(r"_ZN?", symbol)
+    if not m:
+        return symbol
+    i, name = m.end(), symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[i:j])
+        name, i = symbol[j:j + n], j + n
+    t = re.match(r"ILi(\d+)E", symbol[i:])
     return f"{name}<{t.group(1)}>" if t else name
