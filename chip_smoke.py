@@ -9,37 +9,52 @@ Run from the root of a checkout on a machine with a CUDA card (and
 1. the card's name and power limit (``nvidia-smi``);
 2. build: every ``comfyui_distributed_tpu_torch/csrc/*.cu`` compiled for
    ``sm_90a`` anew, all at once, with ptxas' register, shared-memory and
-   spill report; it fails if ptxas reports spills, serialized ``wgmma``
-   instructions or an ignored ``setmaxnreg`` for the sm90 kernel;
+   spill report; it fails if ptxas reports spills in any kernel (every
+   ``flash_fwd_bf16``/``flash_fwd_f32`` instantiation and the sm90
+   kernel), serialized ``wgmma`` instructions or an ignored
+   ``setmaxnreg``;
 3. kernel checks: the flash-attention kernels against their plain
-   PyTorch version on the card at every shape the SDXL 1024^2 path gives
-   them, plus the sm90 kernel's edges (N and M not multiples of 128,
-   M < 16, one batch-head, N < 64), fp32 and other head dims (bf16:
-   relative error < 2e-2; fp32: absolute error < 2e-4, TF32 off).  Each
-   shape is
-   timed beside the plain version, ``scaled_dot_product_attention`` (a
-   yardstick the port never calls), at bf16 D = 64 the older
+   PyTorch version on the card at every shape the three paths below give
+   them (SDXL's D = 64 and SD1.5's D = 40/80/160), plus the edges of
+   both kernels (N and M not multiples of the tile, M < 16, one
+   batch-head, N < 64), fp32 and the other head dims (bf16: relative
+   error < 2e-2; fp32: absolute error < 2e-4, TF32 off).  The plain
+   version runs in batch chunks, so its fp32 scores fit the card.  Each
+   shape is timed beside the plain version, ``scaled_dot_product_attention``
+   (a yardstick the port never calls), at bf16 D = 64 the older
    ``mma.sync`` kernel on the same inputs, and the least time the card
    could take (``bound_ms``).  Times are device times: the card is kept
    busy by a sleep kernel while the host enqueues, the candidates run in
    turns (forward, then reversed) and each time is the median of five
    rounds;
-4. a tiny-family txt2img on the card against the same run on the CPU
-   (plain versions): images must agree within 1e-3;
-5. the main path: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
+4. the tiny family on the card against the same runs on the CPU (plain
+   versions): txt2img, img2img and the tiled upscale must agree within
+   1e-3;
+5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
-   port's WorkflowExecutor as three requests with three seeds.  Launch
-   counts are zeroed just before and read just after; each request must
+   port's WorkflowExecutor as three requests with three seeds; each must
    launch the sm90 kernel 2800 times (70 transformer blocks x 2
    attentions x 20 steps) and give a finite, non-constant
-   (1, 1024, 1024, 3) image.
+   (1, 1024, 1024, 3) image;
+6. img2img: ``workflows/distributed-img2img.json`` unchanged (the 512^2
+   test card of a missing input file, lanczos to 1024^2, SDXL encode,
+   20 steps at denoise 0.6) as one request: 2800 sm90 launches, a finite,
+   non-constant (1, 1024, 1024, 3) image;
+7. upscale: ``workflows/distributed-upscale.json`` unchanged (SD1.5;
+   the 512^2 test card, 4x RRDB to 2048^2, 16 tiles of 512^2 + 32 px
+   refined as one batch, 20 euler/normal steps at denoise 0.35, cfg 8)
+   as two requests, cold and warm: each exactly 640 ``mma_sync``
+   launches (16 transformer blocks x 2 attentions x 20 steps) and a
+   finite, non-constant (1, 2048, 2048, 3) image.
 
-The line before the last is ``{"kernels": [...]}``: for each kernel
-variant phase 5 launched, its launches and, over exactly those launches
-(each shape's measured time times its launch count), ``ms``,
-``plain_ms``, ``library_ms``, ``bound_ms`` and, for sm90, ``mma_sync_ms``.
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
-or outside a checkout, it exits non-zero before printing any result.
+Launch counts are zeroed just before each request of phases 5-7 and
+read just after.  The line before the last is ``{"kernels": [...]}``: for
+each kernel variant those phases launched, its launches and, over exactly
+those launches (each shape's measured time times its launch count),
+``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and, for sm90,
+``mma_sync_ms``.  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA card, or outside a checkout, it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -51,17 +66,18 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WORKFLOW = os.path.join(ROOT, "workflows", "distributed-txt2img.json")
+WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{name}.json")
+             for name in ("txt2img", "img2img", "upscale")}
 REPLACES = "comfyui_distributed_tpu/ops/pallas/flash_attention.py:134"
 SOURCES = {
     "sm90": "comfyui_distributed_tpu_torch/csrc/flash_attention_sm90.cu",
     "mma_sync": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
     "fp32": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
 }
-SM90_SOURCE = "flash_attention_sm90"
 ROUNDS = 5
 # host seconds one launch may take to enqueue, at most: the sleep that
 # keeps the card busy while the host enqueues a timed run is sized by it
@@ -76,7 +92,15 @@ BF16_REL_BAR = 2e-2
 FP32_ABS_BAR = 2e-4
 SEEDS = (123456789, 987654321, 42)
 DEVICE = "cuda"
-LAUNCHES_PER_REQUEST = 2800
+# (variant, launches) of one request of each path
+EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
+            "upscale": ("mma_sync", 640)}
+# the plain version's fp32 scores of one batch chunk stay below this
+PLAIN_CHUNK_BYTES = 2 << 30
+# instantiations of csrc/flash_attention.cu that the upscale path and
+# phases 3-4 launch
+LAUNCHED_KERNELS = [f"flash_fwd_bf16<{d}>" for d in (16, 40, 80, 160)] \
+    + [f"flash_fwd_f32<{d}>" for d in (16, 32, 40, 80, 160)]
 
 
 def fail(msg: str) -> None:
@@ -141,14 +165,30 @@ def time_in_turns(fns, reps):
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
+def plain_in_chunks(q, k, v):
+    """The plain version over batch chunks whose fp32 scores fit in
+    PLAIN_CHUNK_BYTES (at (32, 4096, 4096, 8, 40) the whole batch's are
+    17 GB)."""
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_plain)
+    B, N, H, _ = q.shape
+    per = max(PLAIN_CHUNK_BYTES // (4 * H * N * k.shape[1]), 1)
+    if per >= B:
+        return flash_attention_plain(q, k, v)
+    return torch.cat([flash_attention_plain(q[i:i + per], k[i:i + per],
+                                            v[i:i + per])
+                      for i in range(0, B, per)])
+
+
 def check_kernel(shapes):
     """Phase 3: every shape against the plain version, timed."""
     import torch
     import torch.nn.functional as F
 
     from comfyui_distributed_tpu_torch.ops.kernels.flash_attention import (
-        _launch_variant, flash_attention, flash_attention_plain,
-        kernel_variant)
+        _launch_variant, flash_attention, kernel_variant)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for B, N, M, H, D, dt, role in shapes:
@@ -160,7 +200,7 @@ def check_kernel(shapes):
                                dtype=torch.float32).to(dtype)
 
         q, k, v = rnd(N), rnd(M), rnd(M)
-        ref = flash_attention_plain(q, k, v)
+        ref = plain_in_chunks(q, k, v)
         errs = {}
         outs = {"ms": lambda: flash_attention(q, k, v)}
         if variant == "sm90":
@@ -185,7 +225,7 @@ def check_kernel(shapes):
 
         # (function, share of the reps): the plain version is slow
         fns = {"ms": (outs["ms"], 1.0), "library_ms": (sdpa, 1.0),
-               "plain_ms": (lambda: flash_attention_plain(q, k, v), 0.25)}
+               "plain_ms": (lambda: plain_in_chunks(q, k, v), 0.25)}
         if "mma_sync_ms" in outs:
             fns["mma_sync_ms"] = (outs["mma_sync_ms"], 1.0)
         times = time_in_turns(fns, 20 if N * M >= 1 << 20 else 100)
@@ -204,35 +244,65 @@ def check_kernel(shapes):
     return rows
 
 
-def tiny_against_cpu(doc):
-    """Phase 4: the tiny family's txt2img on the card against the CPU
-    run of the same graph (kernels' plain versions)."""
-    import numpy as np
+def small_docs(docs):
+    """Phase 4's tiny-family runs: each workflow shrunk to a few steps
+    and a small image."""
+    txt = copy.deepcopy(docs["txt2img"])
+    txt["5"]["inputs"].update(width=64, height=64)
+    txt["3"]["inputs"]["steps"] = 4
+    i2i = copy.deepcopy(docs["img2img"])
+    i2i["2"]["inputs"].update(width=64, height=64)
+    i2i["3"]["inputs"]["steps"] = 4
+    up = copy.deepcopy(docs["upscale"])
+    up["16"]["inputs"].update(width=128, height=128)
+    up["2"]["inputs"].update(steps=2, tile_width=64, tile_height=64,
+                             padding=8, mask_blur=2)
+    return {"txt2img": txt, "img2img": i2i, "upscale": up}
 
-    from comfyui_distributed_tpu_torch.models import registry
+
+def tiny_against_cpu(docs, input_dir):
+    """Phase 4: the tiny family's txt2img, img2img and tiled upscale on
+    the card against the CPU runs of the same graphs (kernels' plain
+    versions).  The tiny RRDB runs in fp32 here: its bf16 convolutions
+    round differently in cuDNN and on the CPU, which the refine then
+    amplifies past 1e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry, upscalers
     from comfyui_distributed_tpu_torch.ops.base import OpContext
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
-    small = copy.deepcopy(doc)
-    small["5"]["inputs"].update(width=64, height=64)
-    small["3"]["inputs"]["steps"] = 4
     os.environ["DTPU_DEFAULT_FAMILY"] = "tiny"
+    tiny_rrdb = upscalers.TINY_RRDB_CONFIG
+    upscalers.TINY_RRDB_CONFIG = dataclasses.replace(tiny_rrdb,
+                                                     dtype=torch.float32)
+    out = {}
     try:
-        imgs = {dev: WorkflowExecutor(OpContext(device=dev)).execute(
-            copy.deepcopy(small)).image_batch for dev in (DEVICE, "cpu")}
+        for name, doc in small_docs(docs).items():
+            imgs = {dev: WorkflowExecutor(OpContext(
+                device=dev, input_dir=input_dir)).execute(
+                    copy.deepcopy(doc)).image_batch
+                for dev in (DEVICE, "cpu")}
+            card, host = imgs[DEVICE], imgs["cpu"]
+            err = float(np.abs(card - host).max())
+            if card.shape != host.shape or not err < 1e-3:
+                fail(f"tiny {name} on the card disagrees with the CPU run: "
+                     f"shapes {card.shape} {host.shape}, max err {err}")
+            out[name] = {"shape": list(card.shape), "max_abs_err": err,
+                         "atol": 1e-3}
     finally:
         del os.environ["DTPU_DEFAULT_FAMILY"]
+        upscalers.TINY_RRDB_CONFIG = tiny_rrdb
         registry.clear_pipeline_cache()
-    card, host = imgs[DEVICE], imgs["cpu"]
-    err = float(np.abs(card - host).max())
-    if card.shape != host.shape or not err < 1e-3:
-        fail(f"tiny txt2img on the card disagrees with the CPU run: "
-             f"shapes {card.shape} {host.shape}, max err {err}")
-    return {"shape": list(card.shape), "max_abs_err": err, "atol": 1e-3}
+    return out
 
 
-def main_path(doc):
-    """Phase 5: three SDXL 1024^2 requests; returns the per-request
-    report and the launch counts of the whole run."""
+def run_requests(path, doc, seeds, input_dir, shape_counts):
+    """Phases 5-7: one request of ``path`` per seed, its launch counts
+    zeroed just before it and read just after (and added to
+    ``shape_counts``); returns the per-request report."""
     import numpy as np
     import torch
 
@@ -240,42 +310,46 @@ def main_path(doc):
     from comfyui_distributed_tpu_torch.ops.kernels import flash_attention \
         as fa
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+    variant, want = EXPECTED[path]
+    side = 2048 if path == "upscale" else 1024
+    seed_node = next(n for n, node in doc.items() if isinstance(node, dict)
+                     and node.get("class_type") in ("DistributedSeed",
+                                                    "UltimateSDUpscaleDistributed"))
     requests = []
-    fa.reset_counts()
-    for seed in SEEDS:
+    for seed in seeds:
         req = copy.deepcopy(doc)
-        req["13"]["inputs"]["seed"] = seed
+        req[seed_node]["inputs"]["seed"] = seed
         torch.cuda.reset_peak_memory_stats()
-        before = fa.flash_attention.launches
-        sm90_before = fa.flash_attention.variants["sm90"]
+        fa.reset_counts()
         t0 = time.perf_counter()
-        res = WorkflowExecutor(OpContext(device="cuda")).execute(req)
+        res = WorkflowExecutor(OpContext(device=DEVICE,
+                                         input_dir=input_dir)).execute(req)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = fa.flash_attention.launches - before
-        sm90 = fa.flash_attention.variants["sm90"] - sm90_before
+        launches = fa.flash_attention.launches
+        variants = dict(fa.flash_attention.variants)
+        shape_counts.update(fa.flash_attention.shapes)
         img = res.image_batch
         finite = bool(img is not None and np.isfinite(img).all())
         std = float(img.std()) if img is not None else 0.0
         requests.append({
-            "seed": seed, "seconds": seconds,
-            "node_seconds": {k: round(v, 4) for k, v in
-                             res.timings.items()},
+            "path": path, "seed": seed, "seconds": seconds,
+            "node_seconds": {f"{k} {doc[k]['class_type']}": round(v, 4)
+                             for k, v in res.timings.items()},
+            "stage_seconds": {k: round(v, 4) for k, v in res.stages.items()},
             "shape": list(img.shape) if img is not None else None,
             "finite": finite, "std": std, "launches": launches,
-            "sm90_launches": sm90,
+            "variants": variants,
             "max_memory_allocated": torch.cuda.max_memory_allocated()})
-        if img is None or img.shape != (1, 1024, 1024, 3) or not finite \
+        if img is None or img.shape != (1, side, side, 3) or not finite \
                 or not std > 0.0:
-            fail(f"request seed {seed}: image shape "
+            fail(f"{path} request seed {seed}: image shape "
                  f"{None if img is None else img.shape}, finite {finite}, "
                  f"std {std}")
-        if launches != LAUNCHES_PER_REQUEST or sm90 != LAUNCHES_PER_REQUEST:
-            fail(f"request seed {seed}: {launches} flash-attention "
-                 f"launches, {sm90} of them sm90; expected "
-                 f"{LAUNCHES_PER_REQUEST} sm90 launches")
-    return requests, dict(fa.flash_attention.variants), \
-        dict(fa.flash_attention.shapes)
+        if launches != want or variants != {variant: want}:
+            fail(f"{path} request seed {seed}: {launches} flash-attention "
+                 f"launches {variants}; expected {want} {variant} launches")
+    return requests
 
 
 def kernels_line(rows, variant_counts, shape_counts):
@@ -337,7 +411,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke runs on a "
              "CUDA card only")
     if not os.path.isdir(os.path.join(ROOT, "comfyui_distributed_tpu_torch")) \
-            or not os.path.exists(WORKFLOW):
+            or not all(os.path.exists(p) for p in WORKFLOWS.values()):
         fail("run chip_smoke.py from the root of a checkout")
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -348,40 +422,77 @@ def main() -> int:
     from comfyui_distributed_tpu_torch.ops.kernels import build
     report = build.timed_build_all(force=True)
     emit("build", report)
-    if report["problems"].get(SM90_SOURCE):
-        fail(f"ptxas: {report['problems'][SM90_SOURCE]}")
+    problems = {n: p for n, p in report["problems"].items() if p}
+    if problems:
+        fail(f"ptxas: {problems}")
+    # the spill check above covers only what ptxas reported
+    missing = [k for k in LAUNCHED_KERNELS
+               if k not in report["ptxas"]["flash_attention"]]
+    if missing:
+        fail(f"ptxas reported nothing for {missing}")
 
+    bf, f32 = "torch.bfloat16", "torch.float32"
     main_shapes = [
-        (2, 4096, 4096, 10, 64, "torch.bfloat16", "self 64x64 latent"),
-        (2, 1024, 1024, 20, 64, "torch.bfloat16", "self 32x32 latent"),
-        (2, 4096, 77, 10, 64, "torch.bfloat16", "cross 64x64 latent"),
-        (2, 1024, 77, 20, 64, "torch.bfloat16", "cross 32x32 latent"),
+        (2, 4096, 4096, 10, 64, bf, "SDXL self 64x64 latent"),
+        (2, 1024, 1024, 20, 64, bf, "SDXL self 32x32 latent"),
+        (2, 4096, 77, 10, 64, bf, "SDXL cross 64x64 latent"),
+        (2, 1024, 77, 20, 64, bf, "SDXL cross 32x32 latent"),
+        # SD1.5 at B = 32: 16 tiles x (cond, uncond), 8 heads
+        (32, 4096, 4096, 8, 40, bf, "SD1.5 self 64x64 latent"),
+        (32, 4096, 77, 8, 40, bf, "SD1.5 cross 64x64 latent"),
+        (32, 1024, 1024, 8, 80, bf, "SD1.5 self 32x32 latent"),
+        (32, 1024, 77, 8, 80, bf, "SD1.5 cross 32x32 latent"),
+        (32, 256, 256, 8, 160, bf, "SD1.5 self 16x16 latent"),
+        (32, 256, 77, 8, 160, bf, "SD1.5 cross 16x16 latent"),
+        (32, 64, 64, 8, 160, bf, "SD1.5 mid self 8x8 latent"),
+        (32, 64, 77, 8, 160, bf, "SD1.5 mid cross 8x8 latent"),
     ]
     extra_shapes = [
-        (1, 1000, 77, 3, 64, "torch.bfloat16", "sm90: N % 128 != 0"),
-        (1, 300, 300, 2, 64, "torch.bfloat16", "sm90: M % 128 != 0"),
-        (2, 256, 7, 2, 64, "torch.bfloat16", "sm90: M < 16"),
-        (1, 128, 128, 1, 64, "torch.bfloat16", "sm90: one batch-head"),
-        (2, 40, 77, 3, 64, "torch.bfloat16", "sm90: N < 64"),
-        (2, 200, 77, 2, 16, "torch.float32", "fp32 tiny, ragged"),
-        (2, 256, 256, 2, 16, "torch.float32", "fp32 tiny self"),
-        (1, 100, 50, 3, 16, "torch.bfloat16", "bf16 ragged N and M"),
-        (1, 90, 33, 4, 32, "torch.bfloat16", "bf16 D = 32, ragged"),
-        (1, 90, 33, 4, 32, "torch.float32", "fp32 D = 32, ragged"),
+        (1, 1000, 77, 3, 64, bf, "sm90: N % 128 != 0"),
+        (1, 300, 300, 2, 64, bf, "sm90: M % 128 != 0"),
+        (2, 256, 7, 2, 64, bf, "sm90: M < 16"),
+        (1, 128, 128, 1, 64, bf, "sm90: one batch-head"),
+        (2, 40, 77, 3, 64, bf, "sm90: N < 64"),
+        (2, 200, 77, 2, 16, f32, "fp32 tiny, ragged"),
+        (2, 256, 256, 2, 16, f32, "fp32 tiny self"),
+        (1, 100, 50, 3, 16, bf, "bf16 ragged N and M"),
+        (1, 90, 33, 4, 32, bf, "bf16 D = 32, ragged"),
+        (1, 90, 33, 4, 32, f32, "fp32 D = 32, ragged"),
+        (1, 100, 50, 3, 40, bf, "mma_sync D = 40: ragged N and M"),
+        (2, 90, 7, 2, 80, bf, "mma_sync D = 80: M < 16"),
+        (1, 33, 200, 2, 160, bf, "mma_sync D = 160: N < 64, ragged M"),
+        (1, 5, 3, 1, 40, bf, "mma_sync D = 40: one batch-head, N, M < 16"),
+        (1, 100, 50, 3, 40, f32, "fp32 D = 40, ragged"),
+        (2, 90, 7, 2, 80, f32, "fp32 D = 80: two threads a row"),
+        (1, 33, 200, 2, 160, f32, "fp32 D = 160: four threads a row"),
     ]
     rows = check_kernel(main_shapes + extra_shapes)
     emit("kernel_checks", rows)
 
-    with open(WORKFLOW, "r", encoding="utf-8") as f:
-        doc = json.load(f)
-    emit("tiny_workflow", tiny_against_cpu(doc))
-
-    requests, variant_counts, shape_counts = main_path(doc)
+    docs = {}
+    for name, path in WORKFLOWS.items():
+        with open(path, "r", encoding="utf-8") as f:
+            docs[name] = json.load(f)
+    import collections
+    with tempfile.TemporaryDirectory() as input_dir:
+        # an empty input dir: LoadImage synthesises its 512^2 test card
+        emit("tiny_workflows", tiny_against_cpu(docs, input_dir))
+        shape_counts = collections.Counter()
+        requests = run_requests("txt2img", docs["txt2img"], SEEDS,
+                                input_dir, shape_counts)
+        requests += run_requests("img2img", docs["img2img"], SEEDS[:1],
+                                 input_dir, shape_counts)
+        requests += run_requests("upscale", docs["upscale"], (42, 43),
+                                 input_dir, shape_counts)
     emit("workflow", {"requests": requests,
                       "seconds": [r["seconds"] for r in requests],
                       "launches_per_request": [r["launches"]
                                                for r in requests]})
-    emit("kernels", kernels_line(rows, variant_counts, shape_counts))
+    variant_counts = collections.Counter()
+    for r in requests:
+        variant_counts.update(r["variants"])
+    emit("kernels", kernels_line(rows, dict(variant_counts),
+                                 dict(shape_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

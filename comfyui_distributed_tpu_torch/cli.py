@@ -1,7 +1,7 @@
 """Command-line interface of the torch package: ``run`` only.
 
   python -m comfyui_distributed_tpu_torch.cli run workflow.json \\
-      [--out DIR] [--models-dir DIR] [--device cuda|cpu]
+      [--out DIR] [--models-dir DIR] [--input-dir DIR] [--device cuda|cpu]
 
 Runs an API-format workflow through the port's executor, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -21,6 +21,7 @@ def cmd_run(args) -> int:
     from comfyui_distributed_tpu_torch.utils.image import save_png
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
     ctx = OpContext(device=args.device, models_dir=args.models_dir,
+                    input_dir=args.input_dir,
                     output_dir=args.out or os.path.join(os.getcwd(),
                                                         "output"))
     res = WorkflowExecutor(ctx).execute(args.workflow)
@@ -43,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("workflow")
     r.add_argument("--out", default=None)
     r.add_argument("--models-dir", default=None)
+    r.add_argument("--input-dir", default=None,
+                   help="where LoadImage finds its files")
     r.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs each "
                         "kernel's plain version)")

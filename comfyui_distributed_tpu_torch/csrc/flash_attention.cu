@@ -12,6 +12,9 @@
 // 42 MB at N = M = 4096, so it is bound by the tensor cores (87 us at
 // 989 TFLOP/s against 12.5 us at 3.35 TB/s).  Cross-attention (M = 77) reads
 // and writes the long Q and O and is bound by memory (6.3 us at N = 4096).
+// The SD1.5 shapes (B = 32, 8 heads, D = 40/80/160) split the same way:
+// self-attention at N = 4096, D = 40 is 687 GFLOP (0.69 ms at 989 TFLOP/s),
+// cross-attention reads Q and writes O (50 us at N = 4096).
 //
 // Design.  The TPU kernel held one head's whole padded K/V in VMEM and padded
 // D to 128 lanes; neither carries over.  Here one CTA of four warps owns a
@@ -23,12 +26,18 @@
 // the probabilities are re-packed from the score accumulators into the A
 // operand of the PV product without touching shared memory.  Shared rows are
 // padded by 8 elements so the fragment loads are free of bank conflicts; V is
-// stored transposed so its fragments are single 32-bit loads.  fp32 input
-// takes a plain FMA path (one query row per thread), kept for exact fp32
-// comparisons.  Ragged edges of N and M are masked in the kernel.  The loads
-// are synchronous (no cp.async/TMA pipeline) and the products are mma.sync,
-// not wgmma: the design is simple first, and falls short of the tensor-core
-// bound by the latency those leave exposed.
+// stored transposed so its fragments are single 32-bit loads.  A head dim
+// that is not a multiple of the 16-deep k-step (D = 40) runs Q K^T over Q and
+// K zero-filled to the next multiple of 16 in shared memory; P V needs only
+// D % 8 == 0.  Q's tile is dead once its fragments sit in registers, so each
+// K tile reuses its shared memory, which keeps D = 160 (66 KB otherwise)
+// within the 48 KB of static shared memory.  fp32 input takes a plain FMA
+// path (one query row per one, two or four threads, so that no thread holds
+// more than 64 of a row's columns), kept for exact fp32 comparisons.  Ragged
+// edges of N and M are masked in the kernel.  The loads are synchronous (no
+// cp.async/TMA pipeline) and the products are mma.sync, not wgmma: the
+// design is simple first, and falls short of the tensor-core bound by the
+// latency those leave exposed.
 //
 // Layout: q, k, v and o are read and written in place as contiguous
 // [B, rows, H, D] through the row stride H*D; no transpose is made.
@@ -72,15 +81,17 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                int N, int M, int H, float scale_log2, int q_tiles) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DP = D + 8;        // padded Q/K row
-  constexpr int KP = BLOCK_K + 8;  // padded V^T row
-  constexpr int CH = D / 8;        // 16-byte chunks per row
-  constexpr int KC = D / 16;       // k-steps of QK^T
-  constexpr int NB = BLOCK_K / 8;  // 8-key column blocks of S
-  constexpr int ND = D / 8;        // 8-wide column blocks of O
-  __shared__ __align__(16) __nv_bfloat16 qs[BLOCK_Q][DP];
-  __shared__ __align__(16) __nv_bfloat16 ks[BLOCK_K][DP];
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(BLOCK_Q == BLOCK_K, "each K tile reuses the Q tile's shared memory");
+  constexpr int DK = (D + 15) / 16 * 16;  // Q/K columns in shared memory, zero past D
+  constexpr int DP = DK + 8;              // padded Q/K row
+  constexpr int KP = BLOCK_K + 8;         // padded V^T row
+  constexpr int CH = DK / 8;              // 16-byte chunks per shared Q/K row
+  constexpr int KC = DK / 16;             // k-steps of QK^T
+  constexpr int NB = BLOCK_K / 8;         // 8-key column blocks of S
+  constexpr int ND = D / 8;               // 8-wide column blocks of O
+  // the Q tile until its fragments are in registers, then each K tile
+  __shared__ __align__(16) __nv_bfloat16 qk[BLOCK_Q][DP];
   __shared__ __align__(16) __nv_bfloat16 vt[D][KP];
 
   const int tile = blockIdx.x % q_tiles;
@@ -99,8 +110,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   for (int i = tid; i < BLOCK_Q * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 8;
     uint4 val = zero;
-    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(&qs[r][c]) = val;
+    if (c < D && q0 + r < N) val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(&qk[r][c]) = val;
   }
   __syncthreads();
 
@@ -108,10 +119,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   uint32_t qa[KC][4];
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
-    qa[kc][0] = ld32(&qs[r0][kc * 16 + t * 2]);
-    qa[kc][1] = ld32(&qs[r0 + 8][kc * 16 + t * 2]);
-    qa[kc][2] = ld32(&qs[r0][kc * 16 + 8 + t * 2]);
-    qa[kc][3] = ld32(&qs[r0 + 8][kc * 16 + 8 + t * 2]);
+    qa[kc][0] = ld32(&qk[r0][kc * 16 + t * 2]);
+    qa[kc][1] = ld32(&qk[r0 + 8][kc * 16 + t * 2]);
+    qa[kc][2] = ld32(&qk[r0][kc * 16 + 8 + t * 2]);
+    qa[kc][3] = ld32(&qk[r0 + 8][kc * 16 + 8 + t * 2]);
   }
 
   float acc[ND][4];
@@ -123,18 +134,21 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   for (int k0 = 0; k0 < M; k0 += BLOCK_K) {
-    __syncthreads();  // every warp is done with the previous K/V tile
+    // every warp is done with the previous K/V tile (or, first, with Q)
+    __syncthreads();
     for (int i = tid; i < BLOCK_K * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
       uint4 kv = zero, vv = zero;
-      if (k0 + r < M) {
+      if (c < D && k0 + r < M) {
         kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * stride + c);
         vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * stride + c);
       }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+      *reinterpret_cast<uint4*>(&qk[r][c]) = kv;
+      if (c < D) {
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt[c + j][r] = ve[j];
+        for (int j = 0; j < 8; ++j) vt[c + j][r] = ve[j];
+      }
     }
     __syncthreads();
 
@@ -146,8 +160,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
-        mma_bf16_16816(s[nb], qa[kc], ld32(&ks[nb * 8 + g][kc * 16 + t * 2]),
-                       ld32(&ks[nb * 8 + g][kc * 16 + 8 + t * 2]));
+        mma_bf16_16816(s[nb], qa[kc], ld32(&qk[nb * 8 + g][kc * 16 + t * 2]),
+                       ld32(&qk[nb * 8 + g][kc * 16 + 8 + t * 2]));
     }
 
     // scale into the log2 domain, mask keys past M, row max over the tile
@@ -220,12 +234,25 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 }
 
-// fp32: one thread per query row, K/V tiles in shared memory, FMA products.
+// fp32: TPR threads per query row, each holding DS = D / TPR of its columns
+// (at most 64, so D = 80 and 160 do not spill), K/V tiles in shared memory,
+// FMA products; the TPR partial dot products meet by warp shuffles.
 template <int D>
-__global__ void __launch_bounds__(BLOCK_Q)
+struct F32Layout {
+  static constexpr int TPR = D <= 64 ? 1 : (D <= 128 ? 2 : 4);
+  static constexpr int DS = D / TPR;
+  static constexpr int THREADS = BLOCK_Q * TPR;
+  static_assert(D % TPR == 0, "head dim must split evenly over a row's threads");
+};
+
+template <int D>
+__global__ void __launch_bounds__(F32Layout<D>::THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               int N, int M, int H, float scale_log2, int q_tiles) {
+  constexpr int TPR = F32Layout<D>::TPR;
+  constexpr int DS = F32Layout<D>::DS;
+  constexpr int NT = F32Layout<D>::THREADS;
   __shared__ float ks[F32_BLOCK_K][D];
   __shared__ float vs[F32_BLOCK_K][D];
   const int tile = blockIdx.x % q_tiles;
@@ -235,13 +262,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t stride = (int64_t)H * D;
   const float* kb = k + (int64_t)b * M * stride + (int64_t)h * D;
   const float* vb = v + (int64_t)b * M * stride + (int64_t)h * D;
-  const int row = tile * BLOCK_Q + tid;
+  const int row = tile * BLOCK_Q + tid / TPR;
+  const int d0 = (tid % TPR) * DS;  // this thread's first column
   const bool live = row < N;
-  const float* qr = q + ((int64_t)b * N + (live ? row : 0)) * stride + (int64_t)h * D;
+  const float* qr = q + ((int64_t)b * N + (live ? row : 0)) * stride + (int64_t)h * D + d0;
 
-  float qv[D], acc[D];
+  float qv[DS], acc[DS];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DS; ++d) {
     qv[d] = live ? qr[d] : 0.f;
     acc[d] = 0.f;
   }
@@ -249,7 +277,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < M; k0 += F32_BLOCK_K) {
     __syncthreads();
-    for (int i = tid; i < F32_BLOCK_K * D; i += BLOCK_Q) {
+    for (int i = tid; i < F32_BLOCK_K * D; i += NT) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < M;
       ks[r][c] = in ? kb[(k0 + r) * stride + c] : 0.f;
@@ -264,7 +292,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < F32_CHUNK; ++j) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qv[d], ks[c0 + j][d], dot);
+        for (int d = 0; d < DS; ++d) dot = fmaf(qv[d], ks[c0 + j][d0 + d], dot);
+#pragma unroll
+        for (int off = 1; off < TPR; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
         s[j] = k0 + c0 + j < M ? dot * scale_log2 : NEG_INF;
         mx = fmaxf(mx, s[j]);
       }
@@ -273,21 +303,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       m_run = m_new;
       l_run *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      for (int d = 0; d < DS; ++d) acc[d] *= corr;
 #pragma unroll
       for (int j = 0; j < F32_CHUNK; ++j) {
         const float p = exp2f(s[j] - m_new);
         l_run += p;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[c0 + j][d], acc[d]);
+        for (int d = 0; d < DS; ++d) acc[d] = fmaf(p, vs[c0 + j][d0 + d], acc[d]);
       }
     }
   }
   if (live) {
     const float inv = 1.f / fmaxf(l_run, 1e-20f);
-    float* orow = o + ((int64_t)b * N + row) * stride + (int64_t)h * D;
+    float* orow = o + ((int64_t)b * N + row) * stride + (int64_t)h * D + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
+    for (int d = 0; d < DS; ++d) orow[d] = acc[d] * inv;
   }
 }
 
@@ -302,7 +332,7 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int N, 
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, M, H,
         scale_log2, q_tiles);
   } else {
-    flash_fwd_f32<D><<<grid, BLOCK_Q, 0, stream>>>(
+    flash_fwd_f32<D><<<grid, F32Layout<D>::THREADS, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), N, M, H, scale_log2, q_tiles);
   }
@@ -322,7 +352,10 @@ extern "C" int dtpu_flash_attention_fwd(const void* q, const void* k, const void
   switch (head_dim) {
     case 16: launch<16>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
     case 32: launch<32>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
+    case 40: launch<40>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
     case 64: launch<64>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
+    case 80: launch<80>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
+    case 160: launch<160>(q, k, v, o, batch, n, m, heads, scale_log2, dtype, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -2,9 +2,10 @@
 PyTorch: the counterpart of ``comfyui_distributed_tpu/models/registry.py``.
 
 CheckpointLoaderSimple hands back one :class:`DiffusionPipeline` as
-(MODEL, CLIP, VAE).  With no weights file, parameters are virtually
-initialized from the checkpoint name (``models/weights.py``): the same
-name gives the same weights as the JAX package, on any host.  Loading a
+(MODEL, CLIP, VAE), and UpscaleModelLoader an RRDB network
+(:func:`load_upscaler`).  With no weights file, parameters are virtually
+initialized from the model name (``models/weights.py``): the same name
+gives the same weights as the JAX package, on any host.  Loading a
 weights file waits until a checkpoint is in the repository.
 """
 
@@ -23,6 +24,7 @@ from torch import nn
 from comfyui_distributed_tpu_torch.models import clip as clip_mod
 from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models import unet as unet_mod
+from comfyui_distributed_tpu_torch.models import upscalers as up_mod
 from comfyui_distributed_tpu_torch.models import vae as vae_mod
 from comfyui_distributed_tpu_torch.models.denoiser import make_denoiser
 from comfyui_distributed_tpu_torch.models.prng import (
@@ -158,6 +160,12 @@ class DiffusionPipeline:
         return torch.cat(outs, dim=-1), pooled
 
     @torch.inference_mode()
+    def vae_encode(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, 3] in [0, 1] -> scaled latents (the mean: no
+        sample is drawn, as in the JAX pipeline)."""
+        return self.vae.encode(images.to(self.device, torch.float32))
+
+    @torch.inference_mode()
     def vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(latents.to(self.device, torch.float32))
 
@@ -243,3 +251,57 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
 def clear_pipeline_cache() -> None:
     with _pipeline_lock:
         _pipeline_cache.clear()
+        _upscaler_cache.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class Upscaler:
+    """UPSCALE_MODEL wire value: the network and its scale."""
+    name: str
+    net: nn.Module
+    scale: int
+
+    @torch.inference_mode()
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        dev = next(self.net.parameters()).device
+        return self.net(images.to(dev, torch.float32))
+
+
+_upscaler_cache: Dict[Tuple, Upscaler] = {}
+
+
+def upscaler_config(model_name: str) -> up_mod.RRDBConfig:
+    """The JAX package's rules: "tiny" in the name or
+    ``DTPU_DEFAULT_FAMILY=tiny`` -> the tiny RRDB; else ESRGAN's 4x
+    network at the first of 8x, 4x, 2x, 1x that the name holds (4 when
+    none does)."""
+    lowered = model_name.lower()
+    if "tiny" in lowered or os.environ.get(FAMILY_ENV) == "tiny":
+        return up_mod.TINY_RRDB_CONFIG
+    scale = next((s for s in (8, 4, 2, 1) if f"{s}x" in lowered), 4)
+    return dataclasses.replace(up_mod.ESRGAN_4X_CONFIG, scale=scale)
+
+
+def load_upscaler(model_name: str, models_dir: Optional[str] = None,
+                  device="cuda") -> Upscaler:
+    """Virtually initialize the named super-resolution network on
+    ``device``, cached per name, config and device.  Its weights are the
+    JAX package's: the name's seed with no offset, flax paths from the
+    network's root.  Weights are stored in fp32 and cast per layer, as
+    flax does."""
+    device = torch.device(device)
+    cfg = upscaler_config(model_name)
+    key = (model_name, cfg, str(device))
+    with _pipeline_lock:
+        up = _upscaler_cache.get(key)
+        if up is not None:
+            return up
+        if models_dir and os.path.exists(
+                os.path.join(models_dir, model_name.replace("\\", "/"))):
+            raise NotImplementedError(
+                f"loading upscaler files ({model_name}) is not ported to "
+                "the torch package yet; only virtual upscalers load")
+        net = _virtual_module(lambda: up_mod.RRDBNet(cfg),
+                              _name_seed(model_name), device, torch.float32)
+        up = _upscaler_cache[key] = Upscaler(model_name, net, cfg.scale)
+        return up

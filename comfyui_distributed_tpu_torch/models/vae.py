@@ -1,10 +1,10 @@
-"""KL-VAE decoder (the SD latent codec's image side) in PyTorch: the
-counterpart of ``comfyui_distributed_tpu/models/vae.py``.
+"""KL-VAE (the SD latent codec) in PyTorch: the counterpart of
+``comfyui_distributed_tpu/models/vae.py``.
 
 Images are NHWC in [0, 1] and latents NHWC, scaled by ``scaling_factor``,
-at :meth:`VAE.decode`; the layers run NCHW.  The encoder waits for a
-later port slice (img2img).  The bottleneck attention is plain torch
-math (fp32 scores): the JAX package has no kernel there either.
+at :meth:`VAE.encode` and :meth:`VAE.decode`; the layers run NCHW.  The
+bottleneck attention is plain torch math (fp32 scores): the JAX package
+has no kernel there either.
 """
 
 from __future__ import annotations
@@ -86,6 +86,47 @@ class VAEAttnBlock(nn.Module):
         return x + out.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
+class Encoder(nn.Module):
+    """Images in [-1, 1] -> moments (mean and log-variance, 2 x
+    ``latent_channels``), fp32."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.dtype
+        self.conv_in = Conv(3, cfg.base_channels, 3, padding=1, dtype=dt)
+        cur = cfg.base_channels
+        for level, mult in enumerate(cfg.channel_mult):
+            out_ch = cfg.base_channels * mult
+            for i in range(cfg.num_res_blocks):
+                self.add_module(f"down_{level}_res_{i}",
+                                VAEResBlock(cur, out_ch, dt))
+                cur = out_ch
+            if level != len(cfg.channel_mult) - 1:
+                self.add_module(f"down_{level}_ds",
+                                Conv(cur, cur, 3, stride=2, dtype=dt))
+        self.mid_res_0 = VAEResBlock(cur, cur, dt)
+        self.mid_attn = VAEAttnBlock(cur, dt)
+        self.mid_res_1 = VAEResBlock(cur, cur, dt)
+        self.out_norm = GroupNorm32(cur, epsilon=1e-6)
+        self.conv_out = Conv(cur, 2 * cfg.latent_channels, 3, padding=1,
+                             dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = self.conv_in(x)
+        for level in range(len(cfg.channel_mult)):
+            for i in range(cfg.num_res_blocks):
+                h = getattr(self, f"down_{level}_res_{i}")(h)
+            if level != len(cfg.channel_mult) - 1:
+                # CompVis Downsample: pad right and bottom by one, then a
+                # stride-2 conv with no padding (symmetric padding would
+                # shift the grid by half a stride)
+                h = getattr(self, f"down_{level}_ds")(F.pad(h, (0, 1, 0, 1)))
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h)))
+        return self.conv_out(F.silu(self.out_norm(h))).float()
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -122,14 +163,27 @@ class Decoder(nn.Module):
 
 
 class VAE(nn.Module):
-    """The decode side of the autoencoder: scaled latents -> images."""
+    """The autoencoder: images <-> scaled latents."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = Conv(2 * cfg.latent_channels,
+                               2 * cfg.latent_channels, 1,
+                               dtype=torch.float32)
         self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels,
                                     1, dtype=torch.float32)
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, 3] in [0, 1] -> latents [B, h, w, C], the
+        distribution's mean times ``scaling_factor``.  The pipeline's
+        encode draws no sample (the JAX pipeline passes no key)."""
+        x = images.permute(0, 3, 1, 2) * 2.0 - 1.0
+        moments = self.quant_conv(self.encoder(x))
+        mean = moments[:, :self.cfg.latent_channels]
+        return (mean * self.cfg.scaling_factor).permute(0, 2, 3, 1).contiguous()
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """latents [B, h, w, C] -> images [B, H, W, 3] in [0, 1]."""

@@ -150,7 +150,8 @@ def state_dict_from_flax(module: nn.Module,
 def from_flax(family, unet_params, clip_params, vae_params):
     """The JAX package's parameter trees -> the port's state dicts
     ``(unet, [clip...], vae)`` for ``family`` (a ``registry.ModelFamily``
-    of the port)."""
+    of the port).  The VAE's is its whole tree: encoder, ``quant_conv``,
+    ``post_quant_conv`` and decoder."""
     from comfyui_distributed_tpu_torch.models.unet import UNet
     from comfyui_distributed_tpu_torch.models.vae import VAE
     with torch.device("meta"):
@@ -160,3 +161,13 @@ def from_flax(family, unet_params, clip_params, vae_params):
     return (state_dict_from_flax(unet, unet_params),
             [state_dict_from_flax(m, p) for m, p in zip(clips, clip_params)],
             state_dict_from_flax(vae, vae_params))
+
+
+def rrdb_from_flax(cfg, params):
+    """The JAX package's RRDB tree (rooted at the network, as
+    ``registry.load_upscaler`` holds it) -> the port's ``RRDBNet`` state
+    dict for ``cfg`` (an ``upscalers.RRDBConfig`` of the port)."""
+    from comfyui_distributed_tpu_torch.models.upscalers import RRDBNet
+    with torch.device("meta"):
+        net = RRDBNet(cfg)
+    return state_dict_from_flax(net, params)

@@ -11,9 +11,11 @@ around a torch tensor on the run's device; the only host edge is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,8 @@ class OpContext:
     the run lives: ``cuda`` unless the caller asks for ``cpu``."""
     device: str = "cuda"
     models_dir: Optional[str] = None
+    # where LoadImage resolves relative file names
+    input_dir: Optional[str] = None
     output_dir: Optional[str] = None
     # distributed identity (hidden-input defaults for all ops)
     is_worker: bool = False
@@ -55,6 +59,22 @@ class OpContext:
     # collected artifacts
     saved_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     node_timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # seconds of named stages inside ops (``stage``), summed over the run
+    stage_seconds: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+
+@contextlib.contextmanager
+def stage(ctx: OpContext, name: str) -> Iterator[None]:
+    """Add the seconds of the enclosed block to ``ctx.stage_seconds[name]``;
+    on a card the block ends in a synchronize, so the time is the
+    stage's own device time."""
+    t0 = time.perf_counter()
+    yield
+    if torch.device(ctx.device).type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    ctx.stage_seconds[name] = ctx.stage_seconds.get(name, 0.0) \
+        + time.perf_counter() - t0
 
 
 class Op:
@@ -133,6 +153,12 @@ def as_device_array(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def as_device_image(x, device) -> torch.Tensor:
+    """IMAGE value -> float32 [B, H, W, C] tensor on ``device``."""
+    arr = as_device_array(x, device)
+    return arr[None] if arr.ndim == 3 else arr
 
 
 def as_image_array(x) -> np.ndarray:

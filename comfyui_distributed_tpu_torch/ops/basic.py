@@ -1,7 +1,10 @@
-"""Standard workflow ops on the txt2img path: the counterparts of
-``CheckpointLoaderSimple``, ``CLIPTextEncode``, ``EmptyLatentImage``,
-``KSampler``, ``VAEDecode`` and ``PreviewImage`` in
-``comfyui_distributed_tpu/ops/basic.py``.
+"""Standard workflow ops on the txt2img, img2img and upscale paths: the
+counterparts of ``CheckpointLoaderSimple``, ``CLIPTextEncode``,
+``EmptyLatentImage``, ``KSampler``, ``VAEDecode``, ``VAEEncode``,
+``LoadImage``, ``ImageScale``, ``UpscaleModelLoader``,
+``ImageUpscaleWithModel`` and ``PreviewImage`` in
+``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode neither
+memoises nor expands the batch).
 
 Only the plain single-entry conditioning path is ported: regional
 prompts, ControlNet, inpaint masks, GLIGEN and the other patches that
@@ -12,6 +15,7 @@ slice.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -28,9 +32,12 @@ from comfyui_distributed_tpu_torch.ops.base import (
     OpContext,
     SeedValue,
     as_device_array,
+    as_device_image,
     as_image_array,
     register_op,
 )
+from comfyui_distributed_tpu_torch.ops.tiling import tiled_apply
+from comfyui_distributed_tpu_torch.utils.image import decode_png, resize_image
 
 
 @register_op
@@ -154,6 +161,105 @@ class VAEDecode(Op):
     def execute(self, ctx: OpContext, samples, vae):
         img = vae.vae_decode(as_device_array(samples["samples"], vae.device))
         return (DeviceImage(img.clamp(0.0, 1.0)),)
+
+
+@register_op
+class VAEEncode(Op):
+    """Pixels -> latent through the pipeline's encoder (the mean)."""
+    TYPE = "VAEEncode"
+
+    def execute(self, ctx: OpContext, pixels, vae):
+        lat = vae.vae_encode(as_device_image(pixels, vae.device))
+        return ({"samples": DeviceLatent(lat)},)
+
+
+def synthetic_test_card() -> np.ndarray:
+    """The JAX package's stand-in for a missing input file: a 512^2
+    gradient, [1, H, W, 3] float32."""
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32)
+    return np.stack([xx / 512, yy / 512, (xx + yy) / 1024], axis=-1)[None]
+
+
+@register_op
+class LoadImage(Op):
+    """-> (IMAGE, MASK).  Reads an 8-bit PNG from ``ctx.input_dir`` (or an
+    absolute path); a missing file gives the JAX package's gradient test
+    card.  An RGBA file's mask is 1 - alpha, otherwise zeros."""
+    TYPE = "LoadImage"
+    WIDGETS = ["image", CONTROL]  # second widget is the upload button slot
+
+    def execute(self, ctx: OpContext, image: str):
+        path = image
+        if ctx.input_dir and not os.path.isabs(path):
+            path = os.path.join(ctx.input_dir, image)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                arr = decode_png(f.read())
+        else:
+            arr = synthetic_test_card()
+        mask = 1.0 - arr[..., 3] if arr.shape[-1] == 4 else \
+            np.zeros(arr.shape[:3], np.float32)
+        return (DeviceImage(torch.from_numpy(np.ascontiguousarray(
+                    arr[..., :3])).to(ctx.device)),
+                torch.from_numpy(np.ascontiguousarray(mask)).to(ctx.device))
+
+
+def resize_maybe_center(img: torch.Tensor, width: int, height: int,
+                        method: str, crop: str) -> torch.Tensor:
+    """Resize [B, H, W, C] to (width, height); crop="center" scales
+    keeping the aspect, then cuts the centre (ComfyUI's common_upscale)."""
+    if crop == "center":
+        _, h, w, _ = img.shape
+        ratio = max(width / w, height / h)
+        iw, ih = round(w * ratio), round(h * ratio)
+        img = resize_image(img, iw, ih, method)
+        x0, y0 = (iw - width) // 2, (ih - height) // 2
+        return img[:, y0:y0 + height, x0:x0 + width, :]
+    return resize_image(img, width, height, method)
+
+
+@register_op
+class ImageScale(Op):
+    TYPE = "ImageScale"
+    WIDGETS = ["upscale_method", "width", "height", "crop"]
+    DEFAULTS = {"crop": "disabled"}
+
+    def execute(self, ctx: OpContext, image, upscale_method: str,
+                width: int, height: int, crop: str = "disabled"):
+        img = as_device_image(image, ctx.device)
+        return (DeviceImage(resize_maybe_center(img, int(width), int(height),
+                                                str(upscale_method),
+                                                str(crop))),)
+
+
+@register_op
+class UpscaleModelLoader(Op):
+    TYPE = "UpscaleModelLoader"
+    WIDGETS = ["model_name"]
+
+    def execute(self, ctx: OpContext, model_name: str):
+        return (registry.load_upscaler(model_name, models_dir=ctx.models_dir,
+                                       device=ctx.device),)
+
+
+@register_op
+class ImageUpscaleWithModel(Op):
+    """Super-resolution of the whole image, or above ``TILE_THRESHOLD``
+    input pixels over feathered overlapping tiles (``tiled_apply``)."""
+    TYPE = "ImageUpscaleWithModel"
+    TILE_THRESHOLD = 1024 * 1024
+    TILE = 512
+    OVERLAP = 32
+
+    def execute(self, ctx: OpContext, upscale_model, image):
+        img = as_device_image(image, ctx.device)
+        _, h, w, _ = img.shape
+        if h * w <= self.TILE_THRESHOLD:
+            out = upscale_model(img)
+        else:
+            out = tiled_apply(upscale_model, img, self.TILE, self.OVERLAP,
+                              upscale_model.scale, out_channels=img.shape[-1])
+        return (DeviceImage(out),)
 
 
 @register_op

@@ -25,16 +25,18 @@ import torch
 
 from comfyui_distributed_tpu_torch.ops.kernels import build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+# D = 64: every SDXL attention; D = 40/80/160: SD1.5's eight heads at
+# widths 320/640/1280; D = 16/32: the tiny family
+SUPPORTED_HEAD_DIMS = (16, 32, 40, 64, 80, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variant -> (csrc/<source>.cu, C entry point)
 VARIANTS = {
     # TMA, a K/V ring in shared memory, wgmma, warp-specialised: bf16, D = 64
     "sm90": ("flash_attention_sm90", "dtpu_flash_attention_sm90_fwd"),
-    # mma.sync m16n8k16, synchronous loads: bf16, D in {16, 32, 64}
+    # mma.sync m16n8k16, synchronous loads: bf16, every supported D
     "mma_sync": ("flash_attention", "dtpu_flash_attention_fwd"),
-    # one query row per thread, FMA: fp32, D in {16, 32, 64}
+    # one query row per 1, 2 or 4 threads, FMA: fp32, every supported D
     "fp32": ("flash_attention", "dtpu_flash_attention_fwd"),
 }
 
@@ -53,8 +55,9 @@ _fns: Dict[str, Callable[..., int]] = {}
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA launch of this dtype and head dim takes: bf16
     with D = 64 (every SDXL attention) -> ``"sm90"``; bf16 with D in
-    {16, 32} -> ``"mma_sync"``; fp32 -> ``"fp32"``.  A rule of the shape,
-    not a fallback: raises for what no kernel takes."""
+    {16, 32, 40, 80, 160} (SD1.5 and the tiny family) -> ``"mma_sync"``;
+    fp32 -> ``"fp32"``.  A rule of the shape, not a fallback: raises for
+    what no kernel takes."""
     if head_dim not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention head dim {head_dim} not in "
                          f"{SUPPORTED_HEAD_DIMS}")

@@ -1,11 +1,15 @@
-"""Where one SDXL 1024^2 denoise step spends the card's time.
+"""Where one denoise step spends the card's time.
 
     python -m comfyui_distributed_tpu_torch.tools.profile_step \\
-        [--steps 3] [--trace build/profile_step.json]
+        [--steps 3] [--trace build/profile_step.json] \\
+        [--family sd15 --size 512 --batch 16]
 
-Loads the virtual SDXL pipeline on the card and makes the txt2img path's
-model call (cond and uncond stacked, B = 2, a 128x128 latent, cfg 7):
-twice to warm up, ``--steps`` times timed, then ``--steps`` times under
+Loads a virtual pipeline on the card (SDXL unless ``--family`` says
+otherwise) and makes one model call of ``--batch`` images (cond and
+uncond stacked: B = 2 x batch) on a ``--size / 8`` square latent, cfg 7.
+The defaults are the txt2img path's call (SDXL, B = 2, a 128x128
+latent); ``--family sd15 --size 512 --batch 16`` is the tiled
+upscaler's (16 tiles of 512^2, B = 32).  The call runs twice to warm up, ``--steps`` times timed, then ``--steps`` times under
 ``torch.profiler``.  Prints the card (``nvidia-smi``) and one JSON line:
 the wall time of a step without and with the profiler (host clock around
 synchronized calls), the device time of a step by kernel class (the
@@ -50,6 +54,8 @@ def main(argv=None) -> int:
     p.add_argument("--family", default="sdxl",
                    help="model family (tiny: a CPU rehearsal)")
     p.add_argument("--size", type=int, default=1024, help="image side, px")
+    p.add_argument("--batch", type=int, default=1,
+                   help="images per call (the upscaler's tiles)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     on_cuda = torch.device(args.device).type == "cuda"
@@ -78,18 +84,20 @@ def main(argv=None) -> int:
     dev = pipe.device
     side = args.size // 8
     with torch.inference_mode():
+        n = args.batch
         ctx, pooled = pipe.encode_prompt(["a lighthouse on a cliff"])
         unc, _ = pipe.encode_prompt(["blurry"])
         y = None
         if pipe.family.unet.adm_in_channels is not None:
-            y = _sdxl_vector_cond(pipe, Conditioning(ctx, pooled), 1,
+            y = _sdxl_vector_cond(pipe, Conditioning(ctx, pooled), n,
                                   args.size, args.size)
+        ctx, unc = ctx.repeat(n, 1, 1), unc.repeat(n, 1, 1)
         model = cfg_denoiser_multi(
             make_denoiser(pipe.unet, pipe.schedule, device=dev),
             [(ctx, None, 1.0)], unc, 7.0)
         sigma = torch.tensor(float(compute_sigmas(pipe.schedule, "karras",
                                                   20)[0]), device=dev)
-        x = torch.randn((1, side, side, 4), device=dev) * sigma
+        x = torch.randn((n, side, side, 4), device=dev) * sigma
 
         def step():
             return model(x, sigma, y=y)
@@ -127,6 +135,7 @@ def main(argv=None) -> int:
     # the profiler slows the host, not the kernels: the busy share is the
     # profiled device time over the unprofiled wall time of a step
     report = {
+        "family": args.family, "size": args.size, "batch": args.batch,
         "steps": n,
         "unprofiled_wall_ms_per_step": plain_wall * 1e3 / n,
         "wall_ms_per_step": wall * 1e3 / n,

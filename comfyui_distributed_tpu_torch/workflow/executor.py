@@ -22,6 +22,8 @@ class ExecutionResult:
     images: List[np.ndarray]             # all Preview-collected images
     timings: Dict[str, float]            # node id -> seconds
     total_s: float = 0.0
+    # named stages inside ops -> seconds (``ops.base.stage``)
+    stages: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def image_batch(self) -> Optional[np.ndarray]:
@@ -40,6 +42,7 @@ class WorkflowExecutor:
         graph = workflow if isinstance(workflow, Graph) \
             else parse_workflow(workflow)
         self.ctx.saved_images = []
+        self.ctx.stage_seconds = {}
         on_cuda = torch.device(self.ctx.device).type == "cuda"
         outputs: Dict[str, Tuple] = {}
         timings: Dict[str, float] = {}
@@ -72,4 +75,5 @@ class WorkflowExecutor:
         self.ctx.node_timings.update(timings)
         return ExecutionResult(outputs=outputs,
                                images=list(self.ctx.saved_images),
-                               timings=timings, total_s=total)
+                               timings=timings, total_s=total,
+                               stages=dict(self.ctx.stage_seconds))

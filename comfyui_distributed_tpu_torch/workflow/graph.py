@@ -13,7 +13,8 @@ import json
 from typing import Any, Dict, List, Tuple, Union
 
 # importing the op modules registers their ops
-from comfyui_distributed_tpu_torch.ops import basic, distributed  # noqa: F401
+from comfyui_distributed_tpu_torch.ops import (  # noqa: F401
+    basic, distributed, tiled_upscale)
 from comfyui_distributed_tpu_torch.ops.base import NODE_CLASS_MAPPINGS
 
 Link = Tuple[str, int]  # (source node id, output slot)

@@ -77,7 +77,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         q, k, v = q.half(), k.half(), v.half()
         err = TypeError
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 16, 2, 40) for _ in range(3))
+        q, k, v = (torch.zeros(1, 16, 2, 48) for _ in range(3))
         err = ValueError
     elif bad == "rank":
         q = q[0]

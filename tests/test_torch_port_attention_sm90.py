@@ -2,8 +2,8 @@
 chip smoke's accounting, on a host without a card.
 
 ``kernel_variant`` sends bf16 with head dim 64 (every SDXL attention) to
-``csrc/flash_attention_sm90.cu`` and everything else to the older
-``csrc/flash_attention.cu``.  The kernel itself runs only on the card
+``csrc/flash_attention_sm90.cu`` and everything else (SD1.5's 40/80/160,
+the tiny family, fp32) to the older ``csrc/flash_attention.cu``.  The kernel itself runs only on the card
 (tests marked ``cuda``); here the plain version it is held against there
 is held against the Pallas kernel (interpret mode) and
 ``parallel/ring.py:attention_reference`` at the new kernel's edge shapes,
@@ -50,8 +50,17 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("dtype,D", list(itertools.product(
-    [torch.bfloat16, torch.float32], fa.SUPPORTED_HEAD_DIMS)))
+# the first six keep their ids; SD1.5's head dims follow
+ACCEPTED = list(itertools.product([torch.bfloat16, torch.float32],
+                                  (16, 32, 64))) + list(itertools.product(
+    [torch.bfloat16, torch.float32], (40, 80, 160)))
+
+
+def test_accepted_list_covers_every_supported_head_dim():
+    assert {D for _, D in ACCEPTED} == set(fa.SUPPORTED_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype,D", ACCEPTED)
 def test_kernel_variant_maps_every_accepted_dtype_and_head_dim(dtype, D):
     want = ("fp32" if dtype == torch.float32
             else "sm90" if D == 64 else "mma_sync")
@@ -63,8 +72,9 @@ def test_kernel_variant_maps_every_accepted_dtype_and_head_dim(dtype, D):
 
 
 @pytest.mark.parametrize("dtype,D,err", [(torch.float16, 64, TypeError),
-                                         (torch.bfloat16, 40, ValueError),
-                                         (torch.float32, 128, ValueError)])
+                                         (torch.bfloat16, 48, ValueError),
+                                         (torch.float32, 128, ValueError),
+                                         (torch.bfloat16, 96, ValueError)])
 def test_kernel_variant_refuses_what_no_kernel_takes(dtype, D, err):
     with pytest.raises(err):
         fa.kernel_variant(dtype, D)
