@@ -10,23 +10,25 @@ Run from the root of a checkout on a machine with a CUDA card (and
 2. build: every ``comfyui_distributed_tpu_torch/csrc/*.cu`` compiled for
    ``sm_90a`` anew, all at once, with ptxas' register, shared-memory and
    spill report; it fails if ptxas reports spills in any kernel (every
-   ``flash_fwd_bf16``/``flash_fwd_f32`` instantiation and the sm90
-   kernel), serialized ``wgmma`` instructions or an ignored
-   ``setmaxnreg``;
+   ``flash_fwd_bf16``/``flash_fwd_f32`` instantiation and every
+   ``flash_fwd_sm90`` head dim), serialized ``wgmma`` instructions or an
+   ignored ``setmaxnreg``;
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the three paths below give
-   them (SDXL's D = 64 and SD1.5's D = 40/80/160), plus the edges of
-   both kernels (N and M not multiples of the tile, M < 16, one
-   batch-head, N < 64), fp32 and the other head dims (bf16: relative
-   error < 2e-2; fp32: absolute error < 2e-4, TF32 off).  The plain
-   version runs in batch chunks, so its fp32 scores fit the card.  Each
-   shape is timed beside the plain version, ``scaled_dot_product_attention``
-   (a yardstick the port never calls), at bf16 D = 64 the older
-   ``mma.sync`` kernel on the same inputs, and the least time the card
-   could take (``bound_ms``).  Times are device times: the card is kept
-   busy by a sleep kernel while the host enqueues, the candidates run in
-   turns (forward, then reversed) and each time is the median of five
-   rounds;
+   them (SDXL's D = 64 and SD1.5's D = 40/80/160, all in the sm90
+   kernel), plus the edges of both kernels at every head dim (N and M not
+   multiples of the tile, M < 16, one batch-head, N < 64; the older
+   ``mma.sync`` kernel's launched by name), fp32 and the tiny head dims
+   (bf16: relative error < 2e-2; fp32: absolute error < 2e-4, TF32 off).
+   The plain version runs in batch chunks, so its fp32 scores fit the
+   card.  Each shape is timed beside the plain version,
+   ``scaled_dot_product_attention`` (a yardstick the port never calls),
+   at every sm90 shape the older ``mma.sync`` kernel on the same inputs,
+   the least time the card could take (``bound_ms``) and the least time
+   its SFUs could take for one exp2 a score (``exp2_ms``).  Times are
+   device times: the card is kept busy by a sleep kernel while the host
+   enqueues, the candidates run in turns (forward, then reversed) and
+   each time is the median of five rounds;
 4. the tiny family on the card against the same runs on the CPU (plain
    versions): txt2img, img2img and the tiled upscale must agree within
    1e-3;
@@ -43,9 +45,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
 7. upscale: ``workflows/distributed-upscale.json`` unchanged (SD1.5;
    the 512^2 test card, 4x RRDB to 2048^2, 16 tiles of 512^2 + 32 px
    refined as one batch, 20 euler/normal steps at denoise 0.35, cfg 8)
-   as two requests, cold and warm: each exactly 640 ``mma_sync``
-   launches (16 transformer blocks x 2 attentions x 20 steps) and a
-   finite, non-constant (1, 2048, 2048, 3) image.
+   as two requests, cold and warm: each exactly 640 ``sm90`` launches
+   (16 transformer blocks x 2 attentions x 20 steps) and a finite,
+   non-constant (1, 2048, 2048, 3) image.
 
 Launch counts are zeroed just before each request of phases 5-7 and
 read just after.  The line before the last is ``{"kernels": [...]}``: for
@@ -59,6 +61,7 @@ printing any result.
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -88,19 +91,26 @@ SLEEP_CYCLES_PER_S = 2e9
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+# exp2 on the SFUs: 16 a clock on each of 132 SMs at the 1.83 GHz behind
+# the tensor-core peak
+PEAK_EXP2_PER_S = 3.865e12
 BF16_REL_BAR = 2e-2
 FP32_ABS_BAR = 2e-4
 SEEDS = (123456789, 987654321, 42)
 DEVICE = "cuda"
 # (variant, launches) of one request of each path
 EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
-            "upscale": ("mma_sync", 640)}
+            "upscale": ("sm90", 640)}
 # the plain version's fp32 scores of one batch chunk stay below this
 PLAIN_CHUNK_BYTES = 2 << 30
-# instantiations of csrc/flash_attention.cu that the upscale path and
-# phases 3-4 launch
-LAUNCHED_KERNELS = [f"flash_fwd_bf16<{d}>" for d in (16, 40, 80, 160)] \
-    + [f"flash_fwd_f32<{d}>" for d in (16, 32, 40, 80, 160)]
+# source -> the instantiations that phases 3-7 launch
+LAUNCHED_KERNELS = {
+    "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
+                             for d in (40, 64, 80, 160)],
+    "flash_attention": [f"flash_fwd_bf16<{d}>"
+                        for d in (16, 32, 40, 64, 80, 160)]
+    + [f"flash_fwd_f32<{d}>" for d in (16, 32, 40, 80, 160)],
+}
 
 
 def fail(msg: str) -> None:
@@ -132,6 +142,11 @@ def bound(B, N, M, H, D, dtype):
     t_mem = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes", flops, nbytes)
+
+
+def exp2_ms(B, N, M, H, D, dtype):
+    """ms the SFUs need for one exp2 a score of one launch."""
+    return B * H * N * M / PEAK_EXP2_PER_S * 1e3
 
 
 def time_ms(fn, reps: int) -> float:
@@ -191,9 +206,11 @@ def check_kernel(shapes):
         _launch_variant, flash_attention, kernel_variant)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
-    for B, N, M, H, D, dt, role in shapes:
+    for B, N, M, H, D, dt, role, *named in shapes:
         dtype = getattr(torch, dt.split(".")[1])
-        variant = kernel_variant(dtype, D)
+        # a row may name the kernel it launches (the older one at a head
+        # dim the main path gives to sm90); else the main path's own
+        variant = named[0] if named else kernel_variant(dtype, D)
 
         def rnd(n):
             return torch.randn((B, n, H, D), generator=gen, device=DEVICE,
@@ -202,7 +219,10 @@ def check_kernel(shapes):
         q, k, v = rnd(N), rnd(M), rnd(M)
         ref = plain_in_chunks(q, k, v)
         errs = {}
-        outs = {"ms": lambda: flash_attention(q, k, v)}
+        if named:
+            outs = {"ms": lambda: _launch_variant(q, k, v, variant)}
+        else:
+            outs = {"ms": lambda: flash_attention(q, k, v)}
         if variant == "sm90":
             outs["mma_sync_ms"] = lambda: _launch_variant(q, k, v,
                                                           "mma_sync")
@@ -234,6 +254,7 @@ def check_kernel(shapes):
                "H": H, "D": D, "dtype": dt, "max_abs_err": errs["ms"][0],
                "rel_err": errs["ms"][1], **times, "bound_ms": b_ms,
                "bound_us": b_ms * 1e3, "bound_by": b_by,
+               "exp2_ms": exp2_ms(B, N, M, H, D, dt), "named": bool(named),
                "tflops": flops / (times["ms"] * 1e-3) / 1e12,
                "roofline_share": b_ms / times["ms"]}
         if "mma_sync_ms" in errs:
@@ -352,11 +373,29 @@ def run_requests(path, doc, seeds, input_dir, shape_counts):
     return requests
 
 
+def totals(shapes, by_shape, keys):
+    """Over ``shapes`` (shape -> launches): each key's measured ms times
+    the launches, and the bound of that work."""
+    tot = dict.fromkeys(keys, 0.0)
+    flops = nbytes = 0.0
+    for shape, n in shapes.items():
+        for key in keys:
+            tot[key] += n * by_shape[shape][key]
+        _, _, f, b = bound(*shape)
+        flops += n * f
+        nbytes += n * b
+    dt = next(iter(shapes))[5]
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {**tot, "bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
 def kernels_line(rows, variant_counts, shape_counts):
-    """The contract's entries over phase 5's launches: one per kernel
-    variant that phase 5 launched, each over exactly its shapes."""
+    """The contract's entries over phases 5-7's launches: one per kernel
+    variant that they launched, each over exactly its shapes."""
     by_shape = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
-                for r in rows}
+                for r in rows if not r.get("named")}
     missing = [s for s in shape_counts if s not in by_shape]
     if missing:
         fail(f"main path launched shapes that phase 3 did not check: "
@@ -372,17 +411,6 @@ def kernels_line(rows, variant_counts, shape_counts):
         keys = ["ms", "plain_ms", "library_ms"]
         if variant == "sm90":
             keys.append("mma_sync_ms")
-        tot = dict.fromkeys(keys, 0.0)
-        flops = nbytes = 0.0
-        for shape, n in shapes.items():
-            for key in keys:
-                tot[key] += n * by_shape[shape][key]
-            _, _, f, b = bound(*shape)
-            flops += n * f
-            nbytes += n * b
-        dt = next(iter(shapes))[5]
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
-        t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
         entries.append({
             "name": f"flash_attention_{variant}",
             "route": "cuda",
@@ -390,10 +418,9 @@ def kernels_line(rows, variant_counts, shape_counts):
             "replaces": REPLACES,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows
-                               if r["variant"] == variant),
-            **tot,
-            "bound_ms": max(t_ops, t_mem),
-            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                               if r["variant"] == variant
+                               and not r.get("named")),
+            **totals(shapes, by_shape, keys),
             "launches_by_shape": [
                 {"B": s[0], "N": s[1], "M": s[2], "H": s[3], "D": s[4],
                  "dtype": s[5], "launches": n}
@@ -426,8 +453,8 @@ def main() -> int:
     if problems:
         fail(f"ptxas: {problems}")
     # the spill check above covers only what ptxas reported
-    missing = [k for k in LAUNCHED_KERNELS
-               if k not in report["ptxas"]["flash_attention"]]
+    missing = [k for src, names in LAUNCHED_KERNELS.items() for k in names
+               if k not in report["ptxas"][src]]
     if missing:
         fail(f"ptxas reported nothing for {missing}")
 
@@ -448,6 +475,24 @@ def main() -> int:
         (32, 64, 77, 8, 160, bf, "SD1.5 mid cross 8x8 latent"),
     ]
     extra_shapes = [
+        # the sm90 kernel's edges at SD1.5's head dims: N off the Q tile
+        # (192 rows at D = 40, 128 else), M off the K/V stage (128 keys,
+        # 64 at D = 160), M < 16, N < 64, one batch-head
+        (1, 1000, 77, 3, 40, bf, "sm90 D = 40: N % 192 != 0"),
+        (1, 300, 300, 2, 40, bf, "sm90 D = 40: M % 128 != 0"),
+        (2, 256, 7, 2, 40, bf, "sm90 D = 40: M < 16"),
+        (2, 40, 77, 3, 40, bf, "sm90 D = 40: N < 64"),
+        (1, 192, 192, 1, 40, bf, "sm90 D = 40: one batch-head"),
+        (1, 1000, 77, 3, 80, bf, "sm90 D = 80: N % 128 != 0"),
+        (1, 300, 300, 2, 80, bf, "sm90 D = 80: M % 128 != 0"),
+        (2, 256, 7, 2, 80, bf, "sm90 D = 80: M < 16"),
+        (2, 40, 77, 3, 80, bf, "sm90 D = 80: N < 64"),
+        (1, 128, 128, 1, 80, bf, "sm90 D = 80: one batch-head"),
+        (1, 300, 77, 3, 160, bf, "sm90 D = 160: N % 128 != 0"),
+        (1, 200, 100, 2, 160, bf, "sm90 D = 160: M % 64 != 0"),
+        (2, 256, 7, 2, 160, bf, "sm90 D = 160: M < 16"),
+        (2, 40, 77, 3, 160, bf, "sm90 D = 160: N < 64"),
+        (1, 128, 128, 1, 160, bf, "sm90 D = 160: one batch-head"),
         (1, 1000, 77, 3, 64, bf, "sm90: N % 128 != 0"),
         (1, 300, 300, 2, 64, bf, "sm90: M % 128 != 0"),
         (2, 256, 7, 2, 64, bf, "sm90: M < 16"),
@@ -458,10 +503,13 @@ def main() -> int:
         (1, 100, 50, 3, 16, bf, "bf16 ragged N and M"),
         (1, 90, 33, 4, 32, bf, "bf16 D = 32, ragged"),
         (1, 90, 33, 4, 32, f32, "fp32 D = 32, ragged"),
-        (1, 100, 50, 3, 40, bf, "mma_sync D = 40: ragged N and M"),
-        (2, 90, 7, 2, 80, bf, "mma_sync D = 80: M < 16"),
-        (1, 33, 200, 2, 160, bf, "mma_sync D = 160: N < 64, ragged M"),
-        (1, 5, 3, 1, 40, bf, "mma_sync D = 40: one batch-head, N, M < 16"),
+        (1, 100, 50, 3, 40, bf, "mma_sync D = 40: ragged N and M",
+         "mma_sync"),
+        (2, 90, 7, 2, 80, bf, "mma_sync D = 80: M < 16", "mma_sync"),
+        (1, 33, 200, 2, 160, bf, "mma_sync D = 160: N < 64, ragged M",
+         "mma_sync"),
+        (1, 5, 3, 1, 40, bf, "mma_sync D = 40: one batch-head, N, M < 16",
+         "mma_sync"),
         (1, 100, 50, 3, 40, f32, "fp32 D = 40, ragged"),
         (2, 90, 7, 2, 80, f32, "fp32 D = 80: two threads a row"),
         (1, 33, 200, 2, 160, f32, "fp32 D = 160: four threads a row"),
@@ -473,7 +521,6 @@ def main() -> int:
     for name, path in WORKFLOWS.items():
         with open(path, "r", encoding="utf-8") as f:
             docs[name] = json.load(f)
-    import collections
     with tempfile.TemporaryDirectory() as input_dir:
         # an empty input dir: LoadImage synthesises its 512^2 test card
         emit("tiny_workflows", tiny_against_cpu(docs, input_dir))

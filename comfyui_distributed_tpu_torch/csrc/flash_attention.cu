@@ -1,5 +1,11 @@
 // Flash attention forward for Hopper (sm_90a), with a plain C interface.
 //
+// Which launches reach it: on a main path only the tiny family's bf16 head
+// dims (D = 16, 32) and fp32 at every head dim.  bf16 at D = 40, 64, 80 and
+// 160 (every SDXL and SD1.5 attention) takes csrc/flash_attention_sm90.cu;
+// the mma.sync kernel here still takes those head dims when it is launched
+// by name, as the comparator timed beside that kernel.
+//
 // Replaces the Pallas TPU kernel `_flash_kernel`, launched by
 // `flash_attention` in comfyui_distributed_tpu/ops/pallas/flash_attention.py:
 // non-causal multi-head attention, q [B, N, H, D] against k/v [B, M, H, D]

@@ -8,7 +8,8 @@ input dtype.  Every UNet attention goes through :func:`flash_attention`.
 On a CUDA tensor it launches one of three kernels (built for ``sm_90a``
 on first use) on the current stream, reading and writing the
 [B, N, H, D] layout in place.  Which one is fixed by dtype and head dim
-(:func:`kernel_variant`); on a CPU tensor it runs
+(:func:`kernel_variant`): every SDXL and SD1.5 attention (bf16, D in
+{40, 64, 80, 160}) takes ``sm90``.  On a CPU tensor it runs
 :func:`flash_attention_plain`.  The checks are the same on both, so a
 shape no kernel takes fails on the CPU too.
 """
@@ -28,13 +29,18 @@ from comfyui_distributed_tpu_torch.ops.kernels import build
 # D = 64: every SDXL attention; D = 40/80/160: SD1.5's eight heads at
 # widths 320/640/1280; D = 16/32: the tiny family
 SUPPORTED_HEAD_DIMS = (16, 32, 40, 64, 80, 160)
+# the head dims the sm90 kernel is instantiated for (bf16)
+SM90_HEAD_DIMS = (40, 64, 80, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # variant -> (csrc/<source>.cu, C entry point)
 VARIANTS = {
-    # TMA, a K/V ring in shared memory, wgmma, warp-specialised: bf16, D = 64
+    # TMA, a K/V ring in shared memory, wgmma, warp-specialised: bf16,
+    # D in SM90_HEAD_DIMS (SDXL and SD1.5)
     "sm90": ("flash_attention_sm90", "dtpu_flash_attention_sm90_fwd"),
-    # mma.sync m16n8k16, synchronous loads: bf16, every supported D
+    # mma.sync m16n8k16, synchronous loads: bf16, every supported D; on a
+    # main path only for the tiny family's D in {16, 32}, else the
+    # comparator timed beside sm90
     "mma_sync": ("flash_attention", "dtpu_flash_attention_fwd"),
     # one query row per 1, 2 or 4 threads, FMA: fp32, every supported D
     "fp32": ("flash_attention", "dtpu_flash_attention_fwd"),
@@ -54,15 +60,15 @@ _fns: Dict[str, Callable[..., int]] = {}
 
 def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA launch of this dtype and head dim takes: bf16
-    with D = 64 (every SDXL attention) -> ``"sm90"``; bf16 with D in
-    {16, 32, 40, 80, 160} (SD1.5 and the tiny family) -> ``"mma_sync"``;
-    fp32 -> ``"fp32"``.  A rule of the shape, not a fallback: raises for
-    what no kernel takes."""
+    with D in {40, 64, 80, 160} (every SDXL and SD1.5 attention) ->
+    ``"sm90"``; bf16 with D in {16, 32} (the tiny family) ->
+    ``"mma_sync"``; fp32 -> ``"fp32"``.  A rule of the shape, not a
+    fallback: raises for what no kernel takes."""
     if head_dim not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention head dim {head_dim} not in "
                          f"{SUPPORTED_HEAD_DIMS}")
     if dtype == torch.bfloat16:
-        return "sm90" if head_dim == 64 else "mma_sync"
+        return "sm90" if head_dim in SM90_HEAD_DIMS else "mma_sync"
     if dtype == torch.float32:
         return "fp32"
     raise TypeError(f"flash_attention takes float32 or bfloat16, not {dtype}")
@@ -132,13 +138,14 @@ def _launch_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     variant: str, scale: Optional[float] = None
                     ) -> torch.Tensor:
     """Launch the named variant where it takes these inputs (``mma_sync``
-    also takes bf16 with D = 64), to time one kernel beside another on
-    the same inputs.  The main path never calls it."""
+    also takes bf16 at sm90's head dims), to time one kernel beside
+    another on the same inputs.  The main path never calls it."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError("a named variant launches a kernel: needs CUDA "
                          "tensors")
-    takes = {"sm90": q.dtype == torch.bfloat16 and q.shape[-1] == 64,
+    takes = {"sm90": q.dtype == torch.bfloat16
+             and q.shape[-1] in SM90_HEAD_DIMS,
              "mma_sync": q.dtype == torch.bfloat16,
              "fp32": q.dtype == torch.float32}
     if not takes.get(variant, False):

@@ -1,14 +1,15 @@
 """The sm90 flash-attention kernel's wrapper, its variant rule and the
 chip smoke's accounting, on a host without a card.
 
-``kernel_variant`` sends bf16 with head dim 64 (every SDXL attention) to
-``csrc/flash_attention_sm90.cu`` and everything else (SD1.5's 40/80/160,
-the tiny family, fp32) to the older ``csrc/flash_attention.cu``.  The kernel itself runs only on the card
+``kernel_variant`` sends bf16 with head dim 40, 64, 80 or 160 (every
+SDXL and SD1.5 attention) to ``csrc/flash_attention_sm90.cu`` and the
+rest (the tiny family's 16/32, fp32) to the older
+``csrc/flash_attention.cu``.  The kernel itself runs only on the card
 (tests marked ``cuda``); here the plain version it is held against there
 is held against the Pallas kernel (interpret mode) and
-``parallel/ring.py:attention_reference`` at the new kernel's edge shapes,
-rtol = atol = 2e-4 in fp32, as ``tests/test_attention.py`` holds the
-Pallas kernel.
+``parallel/ring.py:attention_reference`` at the new kernel's edge shapes
+at every head dim it takes, rtol = atol = 2e-4 in fp32, as
+``tests/test_attention.py`` holds the Pallas kernel.
 """
 
 import importlib.util
@@ -34,6 +35,14 @@ MAIN_SHAPES = [(2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
                (2, 4096, 77, 10, 64), (2, 1024, 77, 20, 64)]
 EDGE_SHAPES = [(1, 1000, 77, 3, 64), (1, 300, 300, 2, 64), (2, 256, 7, 2, 64),
                (1, 128, 128, 1, 64), (2, 40, 77, 3, 64)]
+# the same edges at SD1.5's head dims, small enough for interpret mode:
+# N off the Q tile (192 rows at D = 40, 128 else), M off the K/V stage
+# (128 keys, 64 at D = 160), M < 16, N < 64, one batch-head
+SD15_EDGE_SHAPES = [(1, 200, 77, 2, 40), (1, 192, 150, 1, 40),
+                    (2, 70, 7, 2, 40), (2, 40, 77, 3, 40),
+                    (1, 130, 77, 2, 80), (1, 128, 150, 1, 80),
+                    (2, 40, 7, 2, 80), (1, 130, 70, 2, 160),
+                    (2, 40, 7, 2, 160), (1, 128, 128, 1, 160)]
 
 
 def _qkv(seed, B, N, M, H, D):
@@ -63,7 +72,7 @@ def test_accepted_list_covers_every_supported_head_dim():
 @pytest.mark.parametrize("dtype,D", ACCEPTED)
 def test_kernel_variant_maps_every_accepted_dtype_and_head_dim(dtype, D):
     want = ("fp32" if dtype == torch.float32
-            else "sm90" if D == 64 else "mma_sync")
+            else "sm90" if D in (40, 64, 80, 160) else "mma_sync")
     assert fa.kernel_variant(dtype, D) == want
     source, entry = fa.VARIANTS[want]
     assert (ROOT / "comfyui_distributed_tpu_torch" / "csrc"
@@ -140,7 +149,7 @@ def test_named_variant_needs_a_card(variant):
         fa._launch_variant(q, k, v, variant)
 
 
-@pytest.mark.parametrize("B,N,M,H,D", EDGE_SHAPES)
+@pytest.mark.parametrize("B,N,M,H,D", EDGE_SHAPES + SD15_EDGE_SHAPES)
 def test_plain_matches_pallas_at_the_sm90_edges(B, N, M, H, D):
     # imported here: the card's machine runs this file's cuda tests
     # without JAX (``--noconftest``)
@@ -252,6 +261,30 @@ ptxas info    : Used 255 registers, used 1 barriers, 27648 bytes smem
 """
 
 
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+def test_ptxas_report_names_each_sm90_head_dim(D):
+    """The templated kernel's symbol (as ptxas prints it on the card)
+    shortens to flash_fwd_sm90<D>, and ptxas' note that it serialized the
+    products for want of registers counts as a problem."""
+    ns = "_GLOBAL__N__afa863f4_23_flash_attention_sm90_cu_e2d8f02d"
+    symbol = (f"_ZN56{ns}14flash_fwd_sm90ILi{D}EEEvNS_4MapsIXsr56{ns}"
+              f"8GeometryIXT_EEE2NBEEEiiiif")
+    spills = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    log = (f"ptxas info    : Compiling entry function '{symbol}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {symbol}\n"
+           f"    {spills}\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
+    assert build.ptxas_summary(log) == {
+        f"flash_fwd_sm90<{D}>": f"Used 168 registers, used 16 barriers; "
+        f"{spills}"}
+    assert build.ptxas_problems(log) == []
+    serialized = ("ptxas info    : (C7512) Potential Performance Loss: "
+                  "wgmma.mma_async instructions are serialized due to "
+                  "insufficient register resources for the function "
+                  f"'{symbol}'\n") + log
+    assert len(build.ptxas_problems(serialized)) == 1
+
+
 def test_ptxas_report_names_kernels_and_finds_spills_and_serialization():
     summary = build.ptxas_summary(PTXAS_LOG)
     assert set(summary) == {"flash_fwd_sm90", "flash_fwd_bf16<64>"}
@@ -277,7 +310,8 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,M,H,D", MAIN_SHAPES + EDGE_SHAPES)
+@pytest.mark.parametrize("B,N,M,H,D", MAIN_SHAPES + EDGE_SHAPES
+                         + SD15_EDGE_SHAPES)
 def test_sm90_matches_plain_on_the_card(card, B, N, M, H, D):
     """bf16 relative error < 2e-2, counted as an sm90 launch."""
     q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16)
