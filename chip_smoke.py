@@ -47,7 +47,24 @@ Run from the root of a checkout on a machine with a CUDA card (and
    refined as one batch, 20 euler/normal steps at denoise 0.35, cfg 8)
    as two requests, cold and warm: each exactly 640 ``sm90`` launches
    (16 transformer blocks x 2 attentions x 20 steps) and a finite,
-   non-constant (1, 2048, 2048, 3) image.
+   non-constant (1, 2048, 2048, 3) image;
+8. the HTTP fan-out on one card: in-process txt2img at the two shares'
+   seeds first; then the pipelines are released and a
+   ``python -m comfyui_distributed_tpu_torch.cli serve`` master and a
+   ``... worker`` start on free ports of 127.0.0.1 (own config, input
+   and output directories, logs on file; both killed at the end), w0 is
+   enabled through ``/distributed/config/update_worker``, and the two
+   workflows, PreviewImage swapped for SaveImage, go to the master's
+   ``/prompt`` cold and then warm.  Each request must fan out to
+   ``["w0"]``; txt2img must save 2 images (seed s from the master, s + 1
+   from the worker, over ``/distributed/job_complete``) and the upscale
+   one 2048^2 image with tiles 8-15 over ``/distributed/tile_complete``;
+   each server's log line must show exactly 2800 (txt2img) or 640
+   (upscale) ``sm90`` launches for its share and no other variant; and
+   each saved image must agree within ``FANOUT_ATOL`` with an in-process
+   run in the same batches (the upscale's tiles 0-7 and 8-15 refined as
+   two batches), and the upscale also with phase 7's one-batch image.
+   It prints a ``fanout`` line.
 
 Launch counts are zeroed just before each request of phases 5-7 and
 read just after.  The line before the last is ``{"kernels": [...]}``: for
@@ -103,6 +120,17 @@ EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
             "upscale": ("sm90", 640)}
 # the plain version's fp32 scores of one batch chunk stay below this
 PLAIN_CHUNK_BYTES = 2 << 30
+# phase 8: (max, mean) |difference| of a fan-out image from an
+# in-process image, both as 8-bit files, in [0, 1].  "same": an
+# in-process run whose batches are the fan-out's (each txt2img share is
+# a batch of one; the upscale's tiles 0-7 and 8-15 each a batch of 8),
+# measured equal to the bit on the card, the limit leaving room for one
+# bf16 rounding flip; "one_batch": phase 7's upscale, all 16 tiles in
+# one batch, whose other kernel choices move the image by a measured
+# max 13/255 and mean 0.0053 (about half of these limits).
+FANOUT_ATOL = {"same": (2 / 255, 1e-4), "one_batch": (0.1, 0.01)}
+FANOUT_START_S = 180     # a server must answer /prompt within this
+FANOUT_REQUEST_S = 300   # a fan-out request must finish within this
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -320,10 +348,11 @@ def tiny_against_cpu(docs, input_dir):
     return out
 
 
-def run_requests(path, doc, seeds, input_dir, shape_counts):
+def run_requests(path, doc, seeds, input_dir, shape_counts, images=None):
     """Phases 5-7: one request of ``path`` per seed, its launch counts
     zeroed just before it and read just after (and added to
-    ``shape_counts``); returns the per-request report."""
+    ``shape_counts``); returns the per-request report, and puts each
+    seed's image into ``images`` when given."""
     import numpy as np
     import torch
 
@@ -370,6 +399,8 @@ def run_requests(path, doc, seeds, input_dir, shape_counts):
         if launches != want or variants != {variant: want}:
             fail(f"{path} request seed {seed}: {launches} flash-attention "
                  f"launches {variants}; expected {want} {variant} launches")
+        if images is not None:
+            images[seed] = img[0]
     return requests
 
 
@@ -429,6 +460,308 @@ def kernels_line(rows, variant_counts, shape_counts):
     return entries
 
 
+def with_save_image(doc):
+    """``doc`` with its PreviewImage swapped for SaveImage, nothing else
+    changed."""
+    doc = copy.deepcopy(doc)
+    for node in doc.values():
+        if isinstance(node, dict) and node.get("class_type") == "PreviewImage":
+            node["class_type"] = "SaveImage"
+    return doc
+
+
+def image_diff(png_path, ref):
+    """(max, mean) |pixel difference| in [0, 1] between a saved PNG and
+    the 8-bit image of ``ref`` [H, W, 3]: 0 when the floats behind both
+    round alike."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
+    with open(png_path, "rb") as f:
+        got = decode_png(f.read())[0]
+    want = to_uint8(ref).astype(np.float32) / 255.0
+    if got.shape != want.shape:
+        fail(f"fan-out image {png_path}: shape {got.shape}, expected "
+             f"{want.shape}")
+    d = np.abs(got - want)
+    return float(d.max()), float(d.mean())
+
+
+class Cluster:
+    """A ``cli serve`` master and a ``cli worker`` on free ports of
+    127.0.0.1, each with its own config, input and output directories
+    and log file under ``root``."""
+
+    def __init__(self, root):
+        from comfyui_distributed_tpu_torch.utils.net import find_free_port
+        self.root = root
+        self.procs, self.dirs, self.ports, self.logs = {}, {}, {}, {}
+        for role in ("serve", "worker"):
+            d = os.path.join(root, role)
+            os.makedirs(os.path.join(d, "input"))
+            self.dirs[role] = d
+            self.ports[role] = find_free_port()
+            self.logs[role] = os.path.join(d, "log.txt")
+
+    def url(self, role):
+        return f"http://127.0.0.1:{self.ports[role]}"
+
+    def start(self):
+        for role, d in self.dirs.items():
+            with open(self.logs[role], "w") as log:
+                self.procs[role] = subprocess.Popen(
+                    [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli",
+                     role, "--host", "127.0.0.1",
+                     "--port", str(self.ports[role]), "--device", DEVICE,
+                     "--config", os.path.join(d, "cluster_config.json"),
+                     "--input-dir", os.path.join(d, "input"),
+                     "--output-dir", os.path.join(d, "output")],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        from comfyui_distributed_tpu_torch.utils.net import get_json
+        deadline = time.time() + FANOUT_START_S
+        for role in self.dirs:
+            while True:
+                if self.procs[role].poll() is not None:
+                    self.fail(f"{role} exited {self.procs[role].returncode}")
+                try:
+                    get_json(self.url(role) + "/prompt", timeout=2)
+                    break
+                except OSError:
+                    if time.time() > deadline:
+                        self.fail(f"{role} did not answer in "
+                                  f"{FANOUT_START_S} s")
+                    time.sleep(0.5)
+
+    def prompt_lines(self, role):
+        """The ``dtpu-torch prompt {...}`` lines of a server's log."""
+        with open(self.logs[role], "r", errors="replace") as f:
+            return [json.loads(ln.split(" ", 2)[2]) for ln in f
+                    if ln.startswith("dtpu-torch prompt ")]
+
+    def outputs(self):
+        d = os.path.join(self.dirs["serve"], "output")
+        return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+    def fail(self, msg):
+        for role, path in self.logs.items():
+            try:
+                with open(path, "r", errors="replace") as f:
+                    tail = f.read()[-4000:]
+            except OSError:
+                tail = ""
+            print(f"--- {role} log tail ---\n{tail}", file=sys.stderr)
+        fail(f"fan-out: {msg}")
+
+    def stop(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs.values():
+            p.wait()
+
+
+def fanout_request(cluster, path, doc, want_launches, refs, checked):
+    """One fan-out request of ``path`` through the master's /prompt; fails
+    unless the worker took part, the counters and the saved images are
+    what the fan-out gives, each server launched ``want_launches`` sm90
+    and nothing else for its share, and every image agrees with its
+    in-process references (``refs``: per image, {FANOUT_ATOL key:
+    [H, W, 3] image}).  Every shape a server launched must be one that
+    phase 3 checked (``checked``: shape -> its row); each share's
+    attention is priced from those rows."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    master, worker = cluster.url("serve"), cluster.url("worker")
+    m0 = get_json(master + "/distributed/metrics")
+    n_lines = {r: len(cluster.prompt_lines(r)) for r in ("serve", "worker")}
+    files0 = set(cluster.outputs())
+    t0 = time.perf_counter()
+    resp = post_json(master + "/prompt", {"prompt": doc,
+                                          "client_id": "chip_smoke"})
+    if resp.get("workers") != ["w0"] or resp.get("failed_workers") != []:
+        cluster.fail(f"{path}: the master did not fan out to w0: {resp}")
+    pid = resp["prompt_id"]
+    deadline = time.time() + FANOUT_REQUEST_S
+    # the worker's GET /prompt (the preflight probe, 0.3 s) while both
+    # servers fill weights and sample: the handler threads must answer
+    probe_s = []
+    while True:
+        hist = get_json(master + "/history")
+        if pid in hist:
+            break
+        if time.time() > deadline:
+            cluster.fail(f"{path}: no history after {FANOUT_REQUEST_S} s")
+        t1 = time.perf_counter()
+        get_json(worker + "/prompt", timeout=10)
+        probe_s.append(time.perf_counter() - t1)
+        time.sleep(0.05)
+    seconds = time.perf_counter() - t0
+    entry = hist[pid]
+    m1 = get_json(master + "/distributed/metrics")
+    if entry.get("status") != "success" or entry.get("images") != len(refs):
+        cluster.fail(f"{path}: history {entry}, expected success with "
+                     f"{len(refs)} images")
+    got = {k: m1[k] - m0[k] for k in ("images_received", "tiles_received",
+                                      "wire_tensor_bytes", "wire_png_bytes",
+                                      "wire_tensor_msgs", "wire_png_msgs")}
+    want = {"images_received": 1, "tiles_received": 0}
+    if path == "upscale":
+        # the worker's part of partition_tiles(tiles, 1): 8 of 16
+        from comfyui_distributed_tpu_torch.ops import tiling
+        size, p = doc["16"]["inputs"], doc["2"]["inputs"]
+        n = len(tiling.calculate_tiles(size["width"], size["height"],
+                                       p["tile_width"], p["tile_height"]))
+        want = {"images_received": 0,
+                "tiles_received": len(tiling.partition_tiles(n, 1)[1])}
+    if any(got[k] != v for k, v in want.items()):
+        cluster.fail(f"{path}: the master received {got}, expected {want}")
+    # the worker's line follows its last upload, so it may come last
+    shares = {}
+    while True:
+        lines = {r: cluster.prompt_lines(r)[n_lines[r]:]
+                 for r in ("serve", "worker")}
+        if all(lines.values()):
+            break
+        if time.time() > deadline:
+            cluster.fail(f"{path}: no prompt line in {lines}")
+        time.sleep(0.05)
+    for role, new in lines.items():
+        share = shares[role] = new[0]
+        if share["status"] != "success" or share["launches"] != {
+                "sm90": want_launches, "mma_sync": 0, "fp32": 0}:
+            cluster.fail(f"{path}: {role}'s share {share}; expected "
+                         f"{want_launches} sm90 launches")
+        by_shape = {tuple(s[:6]): s[6] for s in share["launches_by_shape"]}
+        missing = [s for s in by_shape if s not in checked]
+        if missing:
+            cluster.fail(f"{path}: {role} launched shapes that phase 3 did "
+                         f"not check: {missing}")
+        share["attention"] = totals(by_shape, checked, [
+            "ms", "plain_ms", "library_ms"]) if by_shape else None
+    new_files = sorted(set(cluster.outputs()) - files0)
+    if len(new_files) != len(refs):
+        cluster.fail(f"{path}: {len(new_files)} new PNGs {new_files}, "
+                     f"expected {len(refs)}")
+    paths = [os.path.join(cluster.dirs["serve"], "output", f)
+             for f in new_files]
+    diffs = [{key: image_diff(f, ref) for key, ref in r.items()}
+             for f, r in zip(paths, refs)]
+    for f, d in zip(new_files, diffs):
+        for key, (dmax, dmean) in d.items():
+            tol_max, tol_mean = FANOUT_ATOL[key]
+            if not (dmax <= tol_max and dmean <= tol_mean):
+                cluster.fail(f"{path}: {f} differs from the {key!r} "
+                             f"in-process image by max {dmax}, mean {dmean} "
+                             f"(limits {tol_max}, {tol_mean})")
+    # a yardstick: image 0 against the other seed's image
+    wrong = image_diff(paths[0], refs[-1]["same"]) if len(refs) > 1 \
+        else None
+    return {"path": path, "prompt_id": pid, "seconds": seconds,
+            "files": new_files, "master_received": got,
+            "abs_diff": [{key: {"max": v[0], "mean": v[1]}
+                          for key, v in d.items()} for d in diffs],
+            "wrong_seed_diff": wrong,
+            "worker_probe_s": {"n": len(probe_s),
+                               "max": max(probe_s, default=None),
+                               "median": statistics.median(probe_s)
+                               if probe_s else None},
+            "shares": {r: {k: s.get(k) for k in (
+                "seconds", "launches", "launches_by_shape", "attention",
+                "max_memory_allocated", "node_seconds", "stage_seconds")}
+                for r, s in shares.items()}}
+
+
+def fanout(docs, input_dir, upscale_ref, rows):
+    """Phase 8: the HTTP fan-out on one card.  The in-process images of
+    the two txt2img shares and of the upscale in the fan-out's two tile
+    batches first; then the pipelines are released and a master and a
+    worker server start; parallel SDXL generation and the distributed
+    SD1.5 upscale each run cold and warm.  ``rows``: phase 3's checks."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.ops.kernels import flash_attention \
+        as fa
+    from comfyui_distributed_tpu_torch.ops import tiling
+    from comfyui_distributed_tpu_torch.ops.tiled_upscale import (
+        UltimateSDUpscaleDistributed as Upscaler)
+    from comfyui_distributed_tpu_torch.utils.net import post_json
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+
+    def run(doc):
+        return WorkflowExecutor(OpContext(
+            device=DEVICE, input_dir=input_dir)).execute(doc).image_batch[0]
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    seed = SEEDS[0]
+    txt_refs = []
+    for s in (seed, seed + 1):   # the master's share, the worker's
+        req = copy.deepcopy(docs["txt2img"])
+        req["13"]["inputs"]["seed"] = s
+        txt_refs.append({"same": run(req)})
+    # the upscale with its tiles refined in the fan-out's batches:
+    # partition_tiles(16, 1), tiles 0-7 then 8-15
+    whole = Upscaler._refine_tiles
+
+    def in_parts(self, ctx, pipe, image, all_tiles, indices, *a):
+        out = {}
+        for part in tiling.partition_tiles(len(indices), 1):
+            out.update(whole(self, ctx, pipe, image, all_tiles,
+                             [indices[i] for i in part], *a))
+        return out
+
+    Upscaler._refine_tiles = in_parts
+    try:
+        up_ref = run(copy.deepcopy(docs["upscale"]))
+    finally:
+        Upscaler._refine_tiles = whole
+    fa.reset_counts()
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 8: {free} of {total} bytes of device memory free before "
+          f"the servers start", flush=True)
+    txt = with_save_image(docs["txt2img"])
+    txt["13"]["inputs"]["seed"] = seed
+    up = with_save_image(docs["upscale"])
+    up["2"]["inputs"]["seed"] = 42
+    requests = []
+    with tempfile.TemporaryDirectory() as root:
+        cluster = Cluster(root)
+        try:
+            t0 = time.perf_counter()
+            cluster.start()
+            started_s = time.perf_counter() - t0
+            post_json(cluster.url("serve")
+                      + "/distributed/config/update_worker",
+                      {"id": "w0", "name": "w0",
+                       "port": cluster.ports["worker"], "enabled": True})
+            for path, doc, want, refs in (
+                    ("txt2img", txt, EXPECTED["txt2img"][1], txt_refs),
+                    ("upscale", up, EXPECTED["upscale"][1],
+                     [{"same": up_ref, "one_batch": upscale_ref}])):
+                for run in ("cold", "warm"):
+                    r = fanout_request(cluster, path, copy.deepcopy(doc),
+                                       want, refs, checked)
+                    requests.append({"run": run, **r})
+        finally:
+            cluster.stop()
+    return {"free_bytes_before": free, "servers_start_s": started_s,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "atol": {k: {"max": v[0], "mean": v[1]}
+                     for k, v in FANOUT_ATOL.items()},
+            "requests": requests,
+            "seconds": {f"{r['path']} {r['run']}": r["seconds"]
+                        for r in requests},
+            "peak_memory": {f"{r['path']} {r['run']}": {
+                role: s["max_memory_allocated"]
+                for role, s in r["shares"].items()} for r in requests}}
+
+
 def main() -> int:
     try:
         import torch
@@ -473,6 +806,15 @@ def main() -> int:
         (32, 256, 77, 8, 160, bf, "SD1.5 cross 16x16 latent"),
         (32, 64, 64, 8, 160, bf, "SD1.5 mid self 8x8 latent"),
         (32, 64, 77, 8, 160, bf, "SD1.5 mid cross 8x8 latent"),
+        # phase 8's upscale shares: 8 tiles x (cond, uncond) a server
+        (16, 4096, 4096, 8, 40, bf, "SD1.5 share self 64x64 latent"),
+        (16, 4096, 77, 8, 40, bf, "SD1.5 share cross 64x64 latent"),
+        (16, 1024, 1024, 8, 80, bf, "SD1.5 share self 32x32 latent"),
+        (16, 1024, 77, 8, 80, bf, "SD1.5 share cross 32x32 latent"),
+        (16, 256, 256, 8, 160, bf, "SD1.5 share self 16x16 latent"),
+        (16, 256, 77, 8, 160, bf, "SD1.5 share cross 16x16 latent"),
+        (16, 64, 64, 8, 160, bf, "SD1.5 share mid self 8x8 latent"),
+        (16, 64, 77, 8, 160, bf, "SD1.5 share mid cross 8x8 latent"),
     ]
     extra_shapes = [
         # the sm90 kernel's edges at SD1.5's head dims: N off the Q tile
@@ -529,12 +871,14 @@ def main() -> int:
                                 input_dir, shape_counts)
         requests += run_requests("img2img", docs["img2img"], SEEDS[:1],
                                  input_dir, shape_counts)
+        upscaled = {}
         requests += run_requests("upscale", docs["upscale"], (42, 43),
-                                 input_dir, shape_counts)
-    emit("workflow", {"requests": requests,
-                      "seconds": [r["seconds"] for r in requests],
-                      "launches_per_request": [r["launches"]
-                                               for r in requests]})
+                                 input_dir, shape_counts, upscaled)
+        emit("workflow", {"requests": requests,
+                          "seconds": [r["seconds"] for r in requests],
+                          "launches_per_request": [r["launches"]
+                                                   for r in requests]})
+        emit("fanout", fanout(docs, input_dir, upscaled[42], rows))
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

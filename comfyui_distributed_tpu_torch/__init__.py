@@ -13,6 +13,10 @@ Packages:
     models/    UNet, CLIP, VAE decoder, schedules, samplers, seed-to-noise
     ops/       workflow node library; ``ops/kernels/`` holds the kernel
                wrappers and their build
-    workflow/  API-format graph parser and executor
+    workflow/  API-format graph parser and executor; the HTTP fan-out's
+               graph rewrites (dispatcher) and orchestration
+    server/    the master/worker HTTP server (standard library)
+    runtime/   per-job result queues of the fan-out
+    utils/     PNG, resampling, the tensor wire, HTTP helpers, config
     csrc/      CUDA sources
 """

@@ -35,8 +35,10 @@ class Conditioning:
 @dataclasses.dataclass
 class SeedValue:
     """INT seed that knows whether it came from a DistributedSeed node.
-    With fan-out, replica r of a ``distributed`` seed takes ``base + r``;
-    at fanout 1, the port's only mode, every row takes ``base``."""
+    With SPMD fan-out, replica r of a ``distributed`` seed takes
+    ``base + r``; the port runs fanout 1 in a process (every row takes
+    ``base``) and fans out over HTTP, where a worker's seed node already
+    adds its offset."""
     base: int
     distributed: bool = False
 
@@ -56,6 +58,12 @@ class OpContext:
     # distributed identity (hidden-input defaults for all ops)
     is_worker: bool = False
     worker_id: str = ""
+    master_url: str = ""
+    # the server's per-job result queues (runtime/jobs.JobStore); a
+    # master's collector and tiled upscaler drain them
+    job_store: Any = None
+    # the API-format graph being run (SaveImage stores it in its PNGs)
+    prompt_json: Any = None
     # collected artifacts
     saved_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     node_timings: Dict[str, float] = dataclasses.field(default_factory=dict)

@@ -2,7 +2,7 @@
 counterparts of ``CheckpointLoaderSimple``, ``CLIPTextEncode``,
 ``EmptyLatentImage``, ``KSampler``, ``VAEDecode``, ``VAEEncode``,
 ``LoadImage``, ``ImageScale``, ``UpscaleModelLoader``,
-``ImageUpscaleWithModel`` and ``PreviewImage`` in
+``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
 ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode neither
 memoises nor expands the batch).
 
@@ -15,7 +15,10 @@ slice.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import re
+import threading
 from typing import Optional
 
 import numpy as np
@@ -37,7 +40,11 @@ from comfyui_distributed_tpu_torch.ops.base import (
     register_op,
 )
 from comfyui_distributed_tpu_torch.ops.tiling import tiled_apply
-from comfyui_distributed_tpu_torch.utils.image import decode_png, resize_image
+from comfyui_distributed_tpu_torch.utils.image import (
+    decode_png,
+    resize_image,
+    save_png,
+)
 
 
 @register_op
@@ -270,4 +277,51 @@ class PreviewImage(Op):
 
     def execute(self, ctx: OpContext, images):
         ctx.saved_images.extend(list(as_image_array(images)))
+        return ()
+
+
+# one counter scan and write at a time: two runs saving under one
+# prefix must not take the same numbers
+_save_counter_lock = threading.Lock()
+
+
+def _next_image_counter(dirpath: str, base: str) -> int:
+    """First unused counter of ``base_#####.png`` in ``dirpath``."""
+    pat = re.compile(re.escape(base) + r"_(\d+)\.png$")
+    taken = [int(m.group(1)) for f in os.listdir(dirpath)
+             if (m := pat.match(f))]
+    return max(taken, default=-1) + 1
+
+
+@register_op
+class SaveImage(Op):
+    """Output node: writes each image as ``{prefix}_NNNNN.png`` into the
+    output directory, the counter continuing after the highest file
+    there, with the run's API-format graph in a ``prompt`` text chunk;
+    the images also go into the run's collected images."""
+    TYPE = "SaveImage"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "DistributedTPU"}
+
+    def execute(self, ctx: OpContext, images,
+                filename_prefix: str = "DistributedTPU"):
+        arr = as_image_array(images)
+        if ctx.output_dir:
+            root = os.path.realpath(ctx.output_dir)
+            probe = os.path.realpath(os.path.join(
+                root, f"{filename_prefix}_00000.png"))
+            if os.path.commonpath([root, probe]) != root:
+                raise ValueError(f"filename prefix {filename_prefix!r} "
+                                 f"escapes the output directory {root!r}")
+            d, fname = os.path.split(probe)
+            base = fname[:-len("_00000.png")]
+            os.makedirs(d, exist_ok=True)
+            text = None if ctx.prompt_json is None else \
+                {"prompt": json.dumps(ctx.prompt_json)}
+            with _save_counter_lock:
+                start = _next_image_counter(d, base)
+                for i, img in enumerate(arr):
+                    save_png(os.path.join(d, f"{base}_{start + i:05d}.png"),
+                             img, text)
+        ctx.saved_images.extend(list(arr))
         return ()

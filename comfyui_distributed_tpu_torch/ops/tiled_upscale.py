@@ -1,23 +1,36 @@
-"""UltimateSDUpscaleDistributed on one card: the counterpart of
-``comfyui_distributed_tpu/ops/tiled_upscale.py`` at fanout 1.
+"""UltimateSDUpscaleDistributed: the counterpart of
+``comfyui_distributed_tpu/ops/tiled_upscale.py``.
 
 The upscaled image is cut into a row-major grid of tiles, each widened
-by ``padding`` (edges repeat) and resized to the tile size; all tiles are
-refined as ONE batch (VAE-encode -> sampler at ``denoise`` -> VAE-decode,
+by ``padding`` (edges repeat) and resized to the tile size; tiles are
+refined as one batch (VAE-encode -> sampler at ``denoise`` -> VAE-decode,
 tile ``i`` seeded ``seed + i`` with fold-in index 0, so a tile's result
 does not depend on where it runs); each refined window is resized back,
 cut to its clamped extraction region and alpha-blended into the image in
 tile order through its blurred mask.  Every step but the masks (host
-uint8, cached by geometry) runs on the run's device.
+uint8, cached by geometry) runs on the run's device.  Three modes:
 
-Not ported: the worker/master HTTP modes (a ``multi_job_id``), regional
-conditioning and PerpNeg raise ``NotImplementedError``; the changed-tile
-cache waits for the reuse plane (a single run misses every tile anyway,
-so the image is the same).
+- one process (no ``multi_job_id``): every tile in one batch;
+- a worker of the HTTP fan-out: it refines its contiguous range of
+  ``tiling.partition_tiles`` (found by its own id in
+  ``enabled_worker_ids``, or the explicit ``tile_indices``) and POSTs
+  each tile, cut to its extraction region, to the master's
+  ``/distributed/tile_complete``;
+- the master: it refines ``parts[0]`` while the workers run, then drains
+  the tile queue (a deadline keeps what arrived: missing tiles keep the
+  image's pixels) and blends every tile in index order.
+
+Not ported: regional conditioning and PerpNeg raise
+``NotImplementedError``; the JAX package's work ledger (recovery,
+hedging) and changed-tile cache wait (a single run misses every tile
+anyway, so the image is the same).
 """
 
 from __future__ import annotations
 
+import json
+import queue
+import time
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +48,15 @@ from comfyui_distributed_tpu_torch.ops.base import (
     stage,
 )
 from comfyui_distributed_tpu_torch.ops.basic import _sdxl_vector_cond
+from comfyui_distributed_tpu_torch.ops.distributed import wire_payload
+from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils.image import resize_image
+from comfyui_distributed_tpu_torch.utils.net import (
+    FormData,
+    negotiate_wire_format,
+    post_form_with_retry,
+    wire_codec,
+)
 
 
 def _is_regional(c: Conditioning) -> bool:
@@ -64,10 +85,6 @@ class UltimateSDUpscaleDistributed(Op):
                 force_uniform_tiles=True, multi_job_id="", is_worker=None,
                 master_url="", enabled_worker_ids="[]", worker_id="",
                 tile_indices="", dispatch_attempt=0):
-        if multi_job_id:
-            raise NotImplementedError(
-                "the tiled upscaler's worker/master HTTP modes are not "
-                "ported yet; the torch package runs one process on one card")
         if _is_regional(positive) or _is_regional(negative):
             raise NotImplementedError(
                 "regional conditioning in the tiled upscaler is not ported "
@@ -82,6 +99,17 @@ class UltimateSDUpscaleDistributed(Op):
                  tile_w=tiling.round_to_multiple(int(tile_width)),
                  tile_h=tiling.round_to_multiple(int(tile_height)),
                  padding=int(padding), mask_blur=int(mask_blur))
+        is_worker = ctx.is_worker if is_worker is None else is_worker
+        if multi_job_id and is_worker:
+            self._run_worker(ctx, image, model, positive, negative, p,
+                             multi_job_id, master_url or ctx.master_url,
+                             worker_id or ctx.worker_id, enabled_worker_ids,
+                             tile_indices, int(dispatch_attempt or 0))
+            return (DeviceImage(image),)
+        if multi_job_id:
+            return (DeviceImage(self._run_master_http(
+                ctx, image, model, positive, negative, p, multi_job_id,
+                enabled_worker_ids)),)
         return (DeviceImage(self._run(ctx, image, model, positive, negative,
                                       p)),)
 
@@ -90,13 +118,31 @@ class UltimateSDUpscaleDistributed(Op):
              p: Dict[str, Any]) -> torch.Tensor:
         h, w = image.shape[1:3]
         all_tiles = tiling.calculate_tiles(w, h, p["tile_w"], p["tile_h"])
-        with stage(ctx, "tile_extract"):
-            tiles = tiling.extract_tiles(image, all_tiles, p["tile_w"],
-                                         p["tile_h"], p["padding"])
-        refined = self._refine_batch(ctx, pipe, tiles, range(len(all_tiles)),
+        everything = list(range(len(all_tiles)))
+        windows = self._refine_tiles(ctx, pipe, image, all_tiles, everything,
                                      positive, negative, p)
         with stage(ctx, "tile_blend"):
-            return self._blend_all(image, refined, all_tiles, p)
+            return self._blend_all(image, windows, all_tiles, p)
+
+    def _refine_tiles(self, ctx: OpContext, pipe, image: torch.Tensor,
+                      all_tiles: List[Tuple[int, int]],
+                      indices: Sequence[int], positive: Conditioning,
+                      negative: Conditioning,
+                      p: Dict[str, Any]) -> Dict[int, torch.Tensor]:
+        """Extract and refine tiles ``indices`` as one batch -> tile index
+        -> refined window at the padded window size."""
+        with stage(ctx, "tile_extract"):
+            tiles = tiling.extract_tiles(image, [all_tiles[i] for i in indices],
+                                         p["tile_w"], p["tile_h"],
+                                         p["padding"])
+        refined = self._refine_batch(ctx, pipe, tiles, indices, positive,
+                                     negative, p)
+        pad = p["padding"]
+        if pad > 0:
+            with stage(ctx, "tile_resize"):
+                refined = resize_image(refined, p["tile_w"] + 2 * pad,
+                                       p["tile_h"] + 2 * pad)
+        return {int(i): refined[k] for k, i in enumerate(indices)}
 
     def _refine_batch(self, ctx: OpContext, pipe, tiles: torch.Tensor,
                       tile_indices: Sequence[int], positive: Conditioning,
@@ -127,26 +173,187 @@ class UltimateSDUpscaleDistributed(Op):
             # clamped at the decode boundary, as the JAX package does
             return pipe.vae_decode(lat).clamp(0.0, 1.0)
 
-    def _blend_all(self, image: torch.Tensor, refined: torch.Tensor,
+    def _window_to_extracted(self, window: torch.Tensor,
+                             pos: Tuple[int, int], p: Dict[str, Any],
+                             img_size: Tuple[int, int]
+                             ) -> Tuple[torch.Tensor,
+                                        Tuple[int, int, int, int]]:
+        """A refined window at the padded window size -> (its clamped
+        extraction region at natural size, the region's bounds).  The one
+        transform from a window to what is blended and what goes on the
+        wire.  Without padding the tile is returned whole and resized to
+        its region at the blend."""
+        w, h = img_size
+        x, y = pos
+        tw, th, pad = p["tile_w"], p["tile_h"], p["padding"]
+        x1, y1, x2, y2 = tiling.extraction_region(x, y, tw, th, pad, w, h)
+        if pad > 0:
+            ox, oy = x1 - (x - pad), y1 - (y - pad)
+            window = window[oy:oy + (y2 - y1), ox:ox + (x2 - x1), :]
+        return window, (x1, y1, x2, y2)
+
+    def _blend_all(self, image: torch.Tensor,
+                   windows: Dict[int, torch.Tensor],
                    all_tiles: List[Tuple[int, int]],
                    p: Dict[str, Any]) -> torch.Tensor:
-        """Blend the refined windows (row ``i`` is tile ``i``) into a copy
-        of the image in tile order: each window is resized back to its
-        padded size, cut to its clamped extraction region and composited
-        through the mask of its grid rectangle (without padding the tile
-        is resized to its region instead)."""
+        """Blend the refined windows into a copy of the image in tile
+        index order, each through the mask of its grid rectangle; a tile
+        with no window (a worker's that never came) keeps the image's
+        pixels."""
         h, w = image.shape[1:3]
-        tw, th, pad = p["tile_w"], p["tile_h"], p["padding"]
-        if pad > 0:
-            refined = resize_image(refined, tw + 2 * pad, th + 2 * pad)
         canvas = image[0].clone()
-        for i, (x, y) in enumerate(all_tiles):
-            x1, y1, x2, y2 = tiling.extraction_region(x, y, tw, th, pad,
-                                                      w, h)
-            tile = refined[i]
-            if pad > 0:
-                ox, oy = x1 - (x - pad), y1 - (y - pad)
-                tile = tile[oy:oy + (y2 - y1), ox:ox + (x2 - x1), :]
-            tiling.blend_tile(canvas, tile, x1, y1, (x, y), tw, th,
-                              (x2 - x1, y2 - y1), p["mask_blur"])
+        for i in sorted(windows):
+            x, y = all_tiles[i]
+            tile, (x1, y1, x2, y2) = self._window_to_extracted(
+                windows[i], (x, y), p, (w, h))
+            tiling.blend_tile(canvas, tile, x1, y1, (x, y), p["tile_w"],
+                              p["tile_h"], (x2 - x1, y2 - y1), p["mask_blur"])
         return canvas.clamp(0.0, 1.0)[None]
+
+    # --- worker --------------------------------------------------------------
+
+    def _run_worker(self, ctx: OpContext, image: torch.Tensor, pipe,
+                    positive: Conditioning, negative: Conditioning,
+                    p: Dict[str, Any], multi_job_id: str, master_url: str,
+                    worker_id: str, enabled_worker_ids: str,
+                    tile_indices: str = "", attempt: int = 0) -> None:
+        h, w = image.shape[1:3]
+        all_tiles = tiling.calculate_tiles(w, h, p["tile_w"], p["tile_h"])
+        if tile_indices:
+            mine = [int(i) for i in json.loads(tile_indices)
+                    if 0 <= int(i) < len(all_tiles)]
+        else:
+            workers = [str(x) for x in json.loads(enabled_worker_ids or "[]")]
+            if str(worker_id) not in workers:
+                return   # not a participant of this job: nothing to do
+            parts = tiling.partition_tiles(len(all_tiles), len(workers))
+            mine = parts[1 + workers.index(str(worker_id))]
+        if not mine:
+            return
+        windows = self._refine_tiles(ctx, pipe, image, all_tiles, mine,
+                                     positive, negative, p)
+        with stage(ctx, "tile_send"):
+            self._send_tiles(windows, mine, all_tiles, p, multi_job_id,
+                             master_url, worker_id, (w, h), attempt)
+
+    def _send_tiles(self, windows: Dict[int, torch.Tensor],
+                    indices: Sequence[int], all_tiles, p: Dict[str, Any],
+                    multi_job_id: str, master_url: str, worker_id: str,
+                    img_size: Tuple[int, int], attempt: int = 0) -> None:
+        """POST each tile cut to its clamped extraction region at natural
+        size (the form the master blends), with the JAX package's form
+        fields."""
+        fmt = negotiate_wire_format(master_url)
+        codec = wire_codec(master_url)
+        for k, tile_idx in enumerate(indices):
+            tile, (x1, y1, x2, y2) = self._window_to_extracted(
+                windows[tile_idx], all_tiles[tile_idx], p, img_size)
+            arr = tile[None].detach().float().cpu().numpy()
+            payload, ctype, ext = wire_payload(arr, fmt, codec)
+            last = k == len(indices) - 1
+
+            def make_form(tile_idx=tile_idx, x1=x1, y1=y1, x2=x2, y2=y2,
+                          payload=payload, ctype=ctype, ext=ext, last=last):
+                form = FormData()
+                form.add_field("multi_job_id", multi_job_id)
+                form.add_field("worker_id", str(worker_id))
+                form.add_field("tile_idx", str(tile_idx))
+                form.add_field("x", str(x1))
+                form.add_field("y", str(y1))
+                form.add_field("extracted_width", str(x2 - x1))
+                form.add_field("extracted_height", str(y2 - y1))
+                form.add_field("padding", str(p["padding"]))
+                form.add_field("idem_key",
+                               f"{worker_id}:{tile_idx}:{attempt}")
+                form.add_field("is_last", "true" if last else "false")
+                form.add_field("tile", payload,
+                               filename=f"tile_{tile_idx}.{ext}",
+                               content_type=ctype)
+                return form
+
+            post_form_with_retry(f"{master_url}/distributed/tile_complete",
+                                 make_form, timeout=C.TILE_TRANSFER_TIMEOUT,
+                                 what="tile_complete")
+
+    # --- master --------------------------------------------------------------
+
+    def _run_master_http(self, ctx: OpContext, image: torch.Tensor, pipe,
+                         positive: Conditioning, negative: Conditioning,
+                         p: Dict[str, Any], multi_job_id: str,
+                         enabled_worker_ids: str) -> torch.Tensor:
+        h, w = image.shape[1:3]
+        all_tiles = tiling.calculate_tiles(w, h, p["tile_w"], p["tile_h"])
+        workers = [str(x) for x in json.loads(enabled_worker_ids or "[]")]
+        if not workers:
+            return self._run(ctx, image, pipe, positive, negative, p)
+        parts = tiling.partition_tiles(len(all_tiles), len(workers))
+        active_workers = sum(1 for part in parts[1:] if part)
+        if active_workers and ctx.job_store is not None:
+            # a worker may finish first: its tiles need the queue now
+            ctx.job_store.prepare_tile_job(multi_job_id)
+        try:
+            windows = self._refine_tiles(ctx, pipe, image, all_tiles,
+                                         parts[0], positive, negative, p) \
+                if parts[0] else {}
+            if active_workers and ctx.job_store is not None:
+                with stage(ctx, "tile_collect"):
+                    collected = self._collect_tiles(ctx, multi_job_id,
+                                                    active_workers)
+                for i, item in collected.items():
+                    windows[i] = self._worker_tile_to_window(
+                        item, all_tiles[i], p, (w, h), image.device)
+            with stage(ctx, "tile_blend"):
+                return self._blend_all(image, windows, all_tiles, p)
+        finally:
+            if ctx.job_store is not None:
+                ctx.job_store.remove_tile_queue(multi_job_id)
+
+    def _worker_tile_to_window(self, item: Dict[str, Any],
+                               pos: Tuple[int, int], p: Dict[str, Any],
+                               img_size: Tuple[int, int],
+                               device) -> torch.Tensor:
+        """A worker's tile at its extraction region's size -> the padded
+        window (edges repeated), so every tile blends alike; the blend
+        cuts the same region back out."""
+        w, h = img_size
+        x, y = pos
+        tw, th, pad = p["tile_w"], p["tile_h"], p["padding"]
+        x1, y1, x2, y2 = tiling.extraction_region(x, y, tw, th, pad, w, h)
+        tile = as_device_image(item["tensor"], device)[0]
+        want_w, want_h = x2 - x1, y2 - y1
+        if (tile.shape[1], tile.shape[0]) != (want_w, want_h):
+            tile = resize_image(tile, want_w, want_h)
+        ox, oy = x1 - (x - pad), y1 - (y - pad)
+        rows = (torch.arange(th + 2 * pad, device=device) - oy).clamp_(
+            0, want_h - 1)
+        cols = (torch.arange(tw + 2 * pad, device=device) - ox).clamp_(
+            0, want_w - 1)
+        return tile[rows][:, cols]
+
+    def _collect_tiles(self, ctx: OpContext, multi_job_id: str,
+                       num_workers: int) -> Dict[int, Dict[str, Any]]:
+        """Drain the tile queue until every worker sent its last tile,
+        ``TILE_WAIT_TIMEOUT`` passes without a tile, or the overall
+        ``TILE_COLLECTION_TIMEOUT`` fires; returns what arrived, by tile
+        index."""
+        q = ctx.job_store.get_tile_queue(multi_job_id)
+        collected: Dict[int, Dict[str, Any]] = {}
+        done = set()
+        deadline = time.monotonic() + C.TILE_COLLECTION_TIMEOUT
+        last_progress = time.monotonic()
+        while len(done) < num_workers:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                item = q.get(timeout=max(min(C.TILE_WAIT_TIMEOUT, remaining),
+                                         0.01))
+            except queue.Empty:
+                if time.monotonic() - last_progress > C.TILE_WAIT_TIMEOUT:
+                    break
+                continue
+            last_progress = time.monotonic()
+            collected[int(item["tile_idx"])] = item
+            if item.get("is_last"):
+                done.add(str(item["worker_id"]))
+        return collected

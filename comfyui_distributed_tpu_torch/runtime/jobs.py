@@ -1,0 +1,107 @@
+"""Per-job result queues of the HTTP fan-out: the counterpart of
+``JobStore`` in ``comfyui_distributed_tpu/runtime/jobs.py`` on
+thread-safe queues (the port's server runs handler threads and one
+execution thread, not an event loop).
+
+A master prepares a job's queue before it dispatches the job, so a
+worker's result can never arrive first; a result for a job with no queue
+is refused (``put_*`` returns False and the route answers 404, so the
+sender retries).  Each upload carries an idempotency key
+``worker_id:unit:attempt``; a key seen before for the job is acknowledged
+but not queued again, so a retried POST counts once.  The keys go with
+the queue.  The write-ahead log and shard scopes of the JAX package wait.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Optional, Set
+
+
+class JobStore:
+    """Image-job and tile-job queues under one lock."""
+
+    def __init__(self) -> None:
+        self._jobs: Dict[str, queue.Queue] = {}        # guarded-by: _lock
+        self._tile_jobs: Dict[str, queue.Queue] = {}   # guarded-by: _lock
+        self._seen: Dict[str, Set[str]] = {}           # guarded-by: _lock
+        self._tile_seen: Dict[str, Set[str]] = {}      # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _put(jobs: Dict[str, queue.Queue], seen: Dict[str, Set[str]],
+             job_id: str, item: Dict[str, Any], require_existing: bool,
+             idem_key: Optional[str]) -> bool:
+        q = jobs.get(job_id)
+        if q is None:
+            if require_existing:
+                return False
+            q = jobs[job_id] = queue.Queue()
+        if idem_key:
+            keys = seen.setdefault(job_id, set())
+            if idem_key in keys:
+                return True
+            keys.add(idem_key)
+        q.put(item)
+        return True
+
+    # --- image jobs ----------------------------------------------------------
+
+    def prepare_job(self, job_id: str) -> None:
+        with self._lock:
+            self._jobs.setdefault(job_id, queue.Queue())
+
+    def get_queue(self, job_id: str) -> queue.Queue:
+        with self._lock:
+            return self._jobs.setdefault(job_id, queue.Queue())
+
+    def has_job(self, job_id: str) -> bool:
+        with self._lock:
+            return job_id in self._jobs
+
+    def put_result(self, job_id: str, item: Dict[str, Any],
+                   require_existing: bool = True,
+                   idem_key: Optional[str] = None) -> bool:
+        """Queue a worker's image; False for an unknown job."""
+        with self._lock:
+            return self._put(self._jobs, self._seen, job_id, item,
+                             require_existing, idem_key)
+
+    def remove_job(self, job_id: str) -> None:
+        with self._lock:
+            self._jobs.pop(job_id, None)
+            self._seen.pop(job_id, None)
+
+    # --- tile jobs -----------------------------------------------------------
+
+    def prepare_tile_job(self, job_id: str) -> None:
+        with self._lock:
+            self._tile_jobs.setdefault(job_id, queue.Queue())
+
+    def get_tile_queue(self, job_id: str) -> queue.Queue:
+        with self._lock:
+            return self._tile_jobs.setdefault(job_id, queue.Queue())
+
+    def has_tile_job(self, job_id: str) -> bool:
+        with self._lock:
+            return job_id in self._tile_jobs
+
+    def put_tile(self, job_id: str, item: Dict[str, Any],
+                 require_existing: bool = True,
+                 idem_key: Optional[str] = None) -> bool:
+        """Queue a worker's tile; False for an unknown job, so a late
+        tile cannot bring back a queue the master has dropped."""
+        with self._lock:
+            return self._put(self._tile_jobs, self._tile_seen, job_id, item,
+                             require_existing, idem_key)
+
+    def remove_tile_queue(self, job_id: str) -> None:
+        with self._lock:
+            self._tile_jobs.pop(job_id, None)
+            self._tile_seen.pop(job_id, None)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"image_jobs": sorted(self._jobs),
+                    "tile_jobs": sorted(self._tile_jobs)}

@@ -2,7 +2,10 @@
 counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 ``resize_image`` in ``comfyui_distributed_tpu/utils/image.py``.
 
-- PNG: an 8-bit RGB writer and an 8-bit L/RGB/RGBA reader on ``zlib``.
+- PNG: an 8-bit RGB writer (with ``tEXt`` chunks) and an 8-bit
+  L/RGB/RGBA reader on ``zlib``.
+- The raw-tensor wire of the HTTP fan-out (``encode_tensor`` /
+  ``decode_tensor``): the JAX package's ``DTT1`` framing, zlib codec.
 - :func:`resize_image` reproduces Pillow's resampling of float ("F")
   images (``Resample.c``), which the JAX package runs per channel: a
   separable pass over the width, then one over the height, each with the
@@ -16,10 +19,11 @@ counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 from __future__ import annotations
 
 import functools
+import io
 import math
 import struct
 import zlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +39,14 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
                    255).astype(np.uint8)
 
 
-def encode_png(img: np.ndarray) -> bytes:
-    """[H, W, 3] float image in [0, 1] -> PNG bytes (8-bit RGB, no
-    filter)."""
+def encode_png(img: np.ndarray,
+               text: Optional[Dict[str, str]] = None) -> bytes:
+    """[H, W, 3] (or [1, H, W, 3]) float image in [0, 1] -> PNG bytes
+    (8-bit RGB, no filter); each ``text`` item becomes a ``tEXt`` chunk,
+    as ComfyUI stores the ``prompt`` of a saved image."""
     px = to_uint8(img)
+    if px.ndim == 4 and px.shape[0] == 1:
+        px = px[0]
     if px.ndim != 3 or px.shape[-1] != 3:
         raise ValueError(f"encode_png takes [H, W, 3]; got {px.shape}")
     h, w, _ = px.shape
@@ -50,14 +58,68 @@ def encode_png(img: np.ndarray) -> bytes:
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (_PNG_MAGIC + chunk(b"IHDR", header)
+    texts = b"".join(chunk(b"tEXt", k.encode("latin-1") + b"\0"
+                           + v.encode("latin-1"))
+                     for k, v in (text or {}).items())
+    return (_PNG_MAGIC + chunk(b"IHDR", header) + texts
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
 
 
-def save_png(path: str, img: np.ndarray) -> None:
+def save_png(path: str, img: np.ndarray,
+             text: Optional[Dict[str, str]] = None) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(img))
+        f.write(encode_png(img, text))
+
+
+# --- raw-tensor wire format (application/x-dtpu-tensor) ---------------------
+#
+# The JAX package's framing: 4-byte magic, one codec byte, then the
+# array's npy bytes compressed.  The port decodes and writes zlib only
+# (the card's machine has no zstandard) and says so in ``tensor_codecs``,
+# so a peer never sends it zstd.
+
+_TENSOR_WIRE_MAGIC = b"DTT1"
+_CODEC_ZLIB = 1
+_CODEC_ZSTD = 2
+
+
+def tensor_codecs() -> List[str]:
+    """The codecs this process decodes, best first."""
+    return ["zlib"]
+
+
+def encode_tensor(x, codec: str = "zlib") -> bytes:
+    """Array -> wire bytes: lossless, dtype kept (a float32 image stays
+    float32)."""
+    if codec != "zlib":
+        raise ValueError(f"tensor codec {codec!r} not in {tensor_codecs()}")
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(x), allow_pickle=False)
+    return (_TENSOR_WIRE_MAGIC + bytes([_CODEC_ZLIB])
+            + zlib.compress(buf.getvalue(), 1))
+
+
+def decode_tensor(data: bytes) -> np.ndarray:
+    """Wire bytes -> [B, H, W, C] float32, as a decoded PNG upload."""
+    if data[:4] != _TENSOR_WIRE_MAGIC:
+        raise ValueError("bad tensor wire magic")
+    codec, payload = data[4], data[5:]
+    if codec == _CODEC_ZSTD:
+        raise ValueError("zstd tensor payload: this process decodes "
+                         f"{tensor_codecs()} only")
+    if codec != _CODEC_ZLIB:
+        raise ValueError(f"unknown tensor wire codec {codec}")
+    arr = np.asarray(np.load(io.BytesIO(zlib.decompress(payload)),
+                             allow_pickle=False), np.float32)
+    if arr.ndim == 3:
+        arr = arr[None]
+    if arr.ndim != 4:
+        raise ValueError(f"tensor wire payload of shape {arr.shape}; "
+                         "expected [B, H, W, C] or [H, W, C]")
+    return arr
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:

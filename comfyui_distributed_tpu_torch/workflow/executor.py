@@ -19,7 +19,7 @@ from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
 @dataclasses.dataclass
 class ExecutionResult:
     outputs: Dict[str, Tuple]            # node id -> op outputs
-    images: List[np.ndarray]             # all Preview-collected images
+    images: List[np.ndarray]             # Preview/SaveImage-collected
     timings: Dict[str, float]            # node id -> seconds
     total_s: float = 0.0
     # named stages inside ops -> seconds (``ops.base.stage``)
@@ -43,6 +43,7 @@ class WorkflowExecutor:
             else parse_workflow(workflow)
         self.ctx.saved_images = []
         self.ctx.stage_seconds = {}
+        self.ctx.prompt_json = graph.to_api_format()
         on_cuda = torch.device(self.ctx.device).type == "cuda"
         outputs: Dict[str, Tuple] = {}
         timings: Dict[str, float] = {}

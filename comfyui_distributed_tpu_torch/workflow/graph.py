@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Set, Tuple, Union
 
 # importing the op modules registers their ops
 from comfyui_distributed_tpu_torch.ops import (  # noqa: F401
@@ -40,6 +40,22 @@ def _is_link(v: Any) -> bool:
 class Graph:
     nodes: Dict[str, Node]
 
+    def to_api_format(self) -> Dict[str, Any]:
+        """The graph as API-format JSON; a node's hidden inputs ride under
+        ``hidden`` and parse back as hidden inputs."""
+        out = {}
+        for nid, n in self.nodes.items():
+            entry: Dict[str, Any] = {"class_type": n.class_type,
+                                     "inputs": dict(n.inputs)}
+            if n.hidden:
+                entry["hidden"] = dict(n.hidden)
+            out[nid] = entry
+        return out
+
+    def find_by_type(self, *types: str) -> List[str]:
+        return [nid for nid, n in self.nodes.items()
+                if n.class_type in types]
+
     def topo_order(self) -> List[str]:
         """Dependency order; raises on cycles."""
         state: Dict[str, int] = {}
@@ -63,6 +79,27 @@ class Graph:
         for nid in self.nodes:
             visit(nid)
         return order
+
+
+def connected_component(graph: Graph, roots: List[str]) -> Set[str]:
+    """The nodes reachable from ``roots`` over links in either
+    direction: what a worker keeps of a fanned-out graph."""
+    adj: Dict[str, Set[str]] = {nid: set() for nid in graph.nodes}
+    for nid, node in graph.nodes.items():
+        for src, _ in node.link_inputs().values():
+            src = str(src)
+            if src in adj:
+                adj[nid].add(src)
+                adj[src].add(nid)
+    seen: Set[str] = set()
+    frontier = [r for r in roots if r in adj]
+    while frontier:
+        cur = frontier.pop()
+        if cur in seen:
+            continue
+        seen.add(cur)
+        frontier.extend(adj[cur] - seen)
+    return seen
 
 
 def parse_api_format(doc: Dict[str, Any]) -> Graph:

@@ -13,6 +13,7 @@ head dims) against the JAX UNet.  Tests marked ``cuda`` run the kernels
 themselves and skip without a card.
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -67,7 +68,7 @@ def test_kernel_variant_of_sd15_head_dims(D, dtype, variant):
     assert fa.kernel_variant(dtype, D) == variant
 
 
-def test_every_sd15_attention_takes_the_mma_sync_kernel():
+def test_every_sd15_attention_takes_the_sm90_kernel():
     """All 32 attentions of the SD1.5 UNet (16 transformer blocks, self
     and cross) run in bf16 with 8 heads at D = 40/80/160, which the sm90
     kernel takes; the mma_sync kernel of the name, which took them
@@ -93,8 +94,8 @@ def test_sd15_upscale_launch_table_adds_up_to_640():
 
 
 @pytest.mark.parametrize("channels", [320, 640, 1280])
-def test_sd15_width_block_hands_the_wrapper_mma_sync_inputs(monkeypatch,
-                                                            channels):
+def test_sd15_width_block_hands_the_wrapper_sm90_inputs(monkeypatch,
+                                                         channels):
     """What models/layers.py passes at each SD1.5 width: bf16, contiguous
     [B, N, 8, channels / 8], self- and cross-attention on a 768-wide
     context: inputs the mma_sync kernel of the name takes, and which the
@@ -282,15 +283,41 @@ def _chip_smoke():
     return mod
 
 
-def test_kernels_line_has_an_mma_sync_entry_over_the_upscale_launches():
-    """Two variants in one line: the SD1.5 upscale's launches in sm90 and
-    bf16 launches at the tiny family's head dims (D = 16, 32), which
-    kernel_variant gives to mma_sync.  One entry per variant, each over
-    exactly its own launches, with bound_ms the only computed number."""
+def _tiny_bf16_launches(monkeypatch, steps=4):
+    """(B, N, M, H, D) -> launches of the tiny family's UNet in bf16 (the
+    inputs kernel_variant gives to mma_sync) over ``steps`` CFG steps of
+    a 64^2 txt2img: a 32x32 latent (the tiny VAE downscales 2x), B = 2."""
+    seen = collections.Counter()
+
+    def spy(q, k, v, scale=None):
+        seen[(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+              q.shape[3])] += steps
+        return fa.flash_attention(q, k, v, scale)
+
+    monkeypatch.setattr(tlayers, "flash_attention", spy)
+    cfg = dataclasses.replace(tunet.TINY_CONFIG, dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    unet = tunet.UNet(cfg).to(torch.bfloat16)
+    with torch.no_grad():
+        unet(torch.randn(2, 32, 32, 4), torch.tensor([500.0, 500.0]),
+             torch.randn(2, 77, cfg.context_dim))
+    return dict(seen)
+
+
+def test_kernels_line_has_an_mma_sync_entry_over_tiny_family_launches(
+        monkeypatch):
+    """Two variants in one line: the tiny family's UNet in bf16 (head dim
+    16, which kernel_variant gives to mma_sync), at the shapes it hands
+    the wrapper, beside the SD1.5 upscale's launches in sm90.  One entry
+    per variant, each over exactly its own launches, with bound_ms the
+    only computed number."""
     smoke = _chip_smoke()
     bf = "torch.bfloat16"
-    tiny = {(8, 100, 100, 2, 16): 40, (8, 100, 77, 2, 16): 40,
-            (8, 25, 25, 2, 32): 20, (8, 25, 77, 2, 32): 20}
+    tiny = _tiny_bf16_launches(monkeypatch)
+    assert {s[-1] for s in tiny} == {16}
+    assert {fa.kernel_variant(torch.bfloat16, s[-1]) for s in tiny} \
+        == {"mma_sync"}
+    n_tiny = sum(tiny.values())
     rows, counts = [], {}
     for shape, n in list(SD15_SHAPES.items()) + list(tiny.items()):
         key = shape + (bf,)
@@ -306,14 +333,15 @@ def test_kernels_line_has_an_mma_sync_entry_over_the_upscale_launches():
         rows.append(row)
         counts[key] = 2 * n
     entries = {e["name"]: e for e in smoke.kernels_line(
-        rows, {"sm90": 1280, "mma_sync": 240}, counts)}
+        rows, {"sm90": 1280, "mma_sync": 2 * n_tiny}, counts)}
     assert set(entries) == {"flash_attention_mma_sync",
                             "flash_attention_sm90"}
     mma, sm90 = (entries["flash_attention_mma_sync"],
                  entries["flash_attention_sm90"])
-    assert mma["launches"] == 240 and mma["ms"] == pytest.approx(240.0)
-    assert mma["plain_ms"] == pytest.approx(1200.0)
-    assert mma["library_ms"] == pytest.approx(120.0)
+    assert mma["launches"] == 2 * n_tiny
+    assert mma["ms"] == pytest.approx(2.0 * n_tiny)
+    assert mma["plain_ms"] == pytest.approx(10.0 * n_tiny)
+    assert mma["library_ms"] == pytest.approx(1.0 * n_tiny)
     assert mma["source"].endswith("csrc/flash_attention.cu")
     assert "mma_sync_ms" not in mma
     assert sm90["launches"] == 1280

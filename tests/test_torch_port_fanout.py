@@ -1,0 +1,332 @@
+"""The HTTP fan-out over real sockets, on the CPU at the tiny family's
+size: a torch master (``cli serve --device cpu``) with a torch worker
+(``cli worker --device cpu``), and the same master with the JAX
+package's own ``cli worker`` (the test that the HTTP surface is the
+same).
+
+Images are read back from the master's SaveImage files, 8-bit PNGs, so
+each comparison is between 8-bit images: ``to_uint8(reference) / 255``
+against the file.  The tensor wire is lossless, so a generated image
+equals the port's single-process run exactly there (1e-6), and so does
+the tiled upscale against a single-process run whose tiles are refined
+in the fan-out's batches (tiles 0-1, then 2-3).  Against one batch of
+all four tiles the blended floats move by up to 9.4e-6 on this CPU
+(measured), which may flip an 8-bit value by one step: the bound there
+is one step (1/255) on at most 1% of the values.
+A float difference within the 2e-3 that the port holds against the JAX
+executor also moves an 8-bit value by at most one step, so against the
+JAX package's images the bound is one step."""
+
+import copy
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from comfyui_distributed_tpu_torch.models import registry as treg
+from comfyui_distributed_tpu_torch.models import upscalers as tup
+from comfyui_distributed_tpu_torch.ops import tiling
+from comfyui_distributed_tpu_torch.ops.base import OpContext
+from comfyui_distributed_tpu_torch.ops.tiled_upscale import (
+    UltimateSDUpscaleDistributed as Upscaler)
+from comfyui_distributed_tpu_torch.utils.image import (decode_png, save_png,
+                                                       to_uint8)
+from comfyui_distributed_tpu_torch.utils.net import (find_free_port,
+                                                     get_json, post_json)
+from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+
+pytestmark = pytest.mark.integration
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DEADLINE_S = 180          # each test's own limit
+EXACT = 1e-6              # the lossless tensor wire
+ONE_STEP = 1.0 / 255 + 1e-6
+SEED = 123456789
+# the tiny RRDB in fp32 in every process, as tests/test_torch_port_
+# upscale.py runs it: its bf16 convolutions round differently in XLA
+# and in torch, and the refine amplifies one bf16 step past 2e-3
+TORCH_CLI = ("import dataclasses, sys, torch\n"
+             "from comfyui_distributed_tpu_torch.models import upscalers\n"
+             "upscalers.TINY_RRDB_CONFIG = dataclasses.replace("
+             "upscalers.TINY_RRDB_CONFIG, dtype=torch.float32)\n"
+             "from comfyui_distributed_tpu_torch import cli\n"
+             "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+def _txt2img(seed=SEED, save=True):
+    doc = json.loads((ROOT / "workflows" / "distributed-txt2img.json")
+                     .read_text())
+    doc["5"]["inputs"].update(width=64, height=64)
+    doc["3"]["inputs"]["steps"] = 4
+    doc["13"]["inputs"]["seed"] = seed
+    if save:
+        doc["9"]["class_type"] = "SaveImage"
+    return doc
+
+
+def _upscale(save=True):
+    doc = json.loads((ROOT / "workflows" / "distributed-upscale.json")
+                     .read_text())
+    doc["16"]["inputs"].update(width=64, height=64)
+    doc["2"]["inputs"].update(steps=2, tile_width=32, tile_height=32,
+                              padding=8, mask_blur=2)
+    if save:
+        doc["9"]["class_type"] = "SaveImage"
+    return doc
+
+
+def _input_png(path):
+    """The small input image every participant loads (48 x 40)."""
+    rng = np.random.default_rng(8)
+    save_png(str(path), rng.uniform(size=(40, 48, 3)).astype(np.float32))
+
+
+class Cluster:
+    def __init__(self, root):
+        self.root = root
+        self.procs, self.ports, self.dirs = {}, {}, {}
+        env = {**os.environ, "DTPU_DEFAULT_FAMILY": "tiny",
+               "PYTHONPATH": str(ROOT), "JAX_PLATFORMS": "cpu",
+               "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
+               "DTPU_COMPILE_CACHE_DIR": "off"}
+        for name, argv in (
+                ("master", [sys.executable, "-c", TORCH_CLI, "serve"]),
+                ("w0", [sys.executable, "-c", TORCH_CLI, "worker"]),
+                ("j0", [sys.executable, "-m", "comfyui_distributed_tpu.cli",
+                        "worker"])):
+            d = root / name
+            (d / "input").mkdir(parents=True)
+            _input_png(d / "input" / "input.png")
+            port = find_free_port()
+            args = ["--host", "127.0.0.1", "--port", str(port),
+                    "--config", str(d / "cfg.json")]
+            if name != "j0":
+                args += ["--device", "cpu", "--input-dir", str(d / "input"),
+                         "--output-dir", str(d / "output")]
+            log = open(d / "log.txt", "w")
+            self.procs[name] = (subprocess.Popen(
+                argv + args, cwd=str(d), env=env, stdout=log,
+                stderr=subprocess.STDOUT), log)
+            self.ports[name], self.dirs[name] = port, d
+
+    def url(self, name):
+        return f"http://127.0.0.1:{self.ports[name]}"
+
+    def wait_up(self, timeout=120):
+        deadline = time.time() + timeout
+        for name, (proc, _) in self.procs.items():
+            while True:
+                assert proc.poll() is None, self.logs()
+                try:
+                    get_json(self.url(name) + "/prompt", timeout=2)
+                    break
+                except OSError:
+                    assert time.time() < deadline, self.logs()
+                    time.sleep(0.3)
+
+    def logs(self):
+        return "\n".join(f"--- {n} ---\n"
+                         + (self.dirs[n] / "log.txt").read_text()[-3000:]
+                         for n in self.procs)
+
+    def enable_only(self, name):
+        for w in ("w0", "j0"):
+            post_json(self.url("master") + "/distributed/config/update_worker",
+                      {"id": w, "name": w, "host": "127.0.0.1",
+                       "port": self.ports[w], "enabled": w == name})
+
+    def outputs(self):
+        d = self.dirs["master"] / "output"
+        return sorted(d.glob("*.png")) if d.exists() else []
+
+    def run(self, doc, deadline):
+        """POST ``doc`` to the master; returns (response, history entry,
+        metrics delta, new PNG paths)."""
+        url = self.url("master")
+        m0 = get_json(url + "/distributed/metrics")
+        before = set(self.outputs())
+        resp = post_json(url + "/prompt", {"prompt": doc, "client_id": "t"})
+        while resp["prompt_id"] not in get_json(url + "/history"):
+            assert time.time() < deadline, self.logs()
+            time.sleep(0.2)
+        entry = get_json(url + "/history")[resp["prompt_id"]]
+        m1 = get_json(url + "/distributed/metrics")
+        delta = {k: m1[k] - m0[k] for k in m0 if isinstance(m0[k], int)}
+        return resp, entry, delta, sorted(set(self.outputs()) - before)
+
+    def stop(self):
+        for proc, _ in self.procs.values():
+            proc.terminate()
+        for proc, log in self.procs.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+@pytest.fixture(scope="module")
+def cluster(tmp_path_factory):
+    c = Cluster(tmp_path_factory.mktemp("fanout"))
+    try:
+        c.wait_up()
+        yield c
+    finally:
+        c.stop()
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    """Single-process images of the port and of the JAX package: txt2img
+    at SEED and SEED + 1, and the upscale; tiny family, fp32 tiny RRDB."""
+    import jax.numpy as jnp
+
+    from comfyui_distributed_tpu.models import registry as jreg
+    from comfyui_distributed_tpu.ops.base import OpContext as JaxOpContext
+    from comfyui_distributed_tpu.workflow import \
+        WorkflowExecutor as JaxExecutor
+    inp = tmp_path_factory.mktemp("refs_input")
+    _input_png(inp / "input.png")
+    saved = (os.environ.get("DTPU_DEFAULT_FAMILY"), tup.TINY_RRDB_CONFIG,
+             jreg.TINY_RRDB_CONFIG, jreg._upscaler_cache)
+    os.environ["DTPU_DEFAULT_FAMILY"] = "tiny"
+    tup.TINY_RRDB_CONFIG = dataclasses.replace(tup.TINY_RRDB_CONFIG,
+                                               dtype=torch.float32)
+    jreg.TINY_RRDB_CONFIG = dataclasses.replace(jreg.TINY_RRDB_CONFIG,
+                                                dtype=jnp.float32)
+    jreg._upscaler_cache = {}
+    out = {"torch": {}, "jax": {}}
+
+    def port(doc):
+        return WorkflowExecutor(OpContext(device="cpu", input_dir=str(
+            inp))).execute(copy.deepcopy(doc)).image_batch[0]
+
+    try:
+        docs = {SEED: _txt2img(SEED, save=False),
+                SEED + 1: _txt2img(SEED + 1, save=False),
+                "upscale": _upscale(save=False)}
+        for key, doc in docs.items():
+            out["torch"][key] = port(doc)
+            res = JaxExecutor(JaxOpContext(input_dir=str(inp))).execute(
+                copy.deepcopy(doc))
+            res.wait_host()
+            out["jax"][key] = res.image_batch[0]
+        # the tiles refined in the fan-out's batches, in this process
+        whole = Upscaler._refine_tiles
+
+        def in_parts(self, ctx, pipe, image, all_tiles, indices, *a):
+            out = {}
+            for part in tiling.partition_tiles(len(indices), 1):
+                out.update(whole(self, ctx, pipe, image, all_tiles,
+                                 [indices[i] for i in part], *a))
+            return out
+
+        Upscaler._refine_tiles = in_parts
+        try:
+            out["torch"]["upscale_parts"] = port(docs["upscale"])
+        finally:
+            Upscaler._refine_tiles = whole
+    finally:
+        if saved[0] is None:
+            os.environ.pop("DTPU_DEFAULT_FAMILY", None)
+        else:
+            os.environ["DTPU_DEFAULT_FAMILY"] = saved[0]
+        tup.TINY_RRDB_CONFIG, jreg.TINY_RRDB_CONFIG, \
+            jreg._upscaler_cache = saved[1:]
+        treg.clear_pipeline_cache()
+    return out
+
+
+def _diff(png_path, ref, share=False):
+    """max |8-bit file - 8-bit reference| in [0, 1] (and, with
+    ``share``, the share of values that differ)."""
+    got = decode_png(png_path.read_bytes())[0]
+    want = to_uint8(ref).astype(np.float32) / 255.0
+    assert got.shape == want.shape
+    d = np.abs(got - want)
+    return (float(d.max()), float((d > 0).mean())) if share \
+        else float(d.max())
+
+
+def _parallel_generation(cluster, worker):
+    deadline = time.time() + DEADLINE_S
+    cluster.enable_only(worker)
+    resp, entry, delta, files = cluster.run(_txt2img(), deadline)
+    assert resp["workers"] == [worker] and resp["failed_workers"] == [], \
+        (resp, cluster.logs())
+    assert entry["status"] == "success" and entry["images"] == 2, entry
+    assert delta["images_received"] == 1 and delta["tiles_received"] == 0
+    assert len(files) == 2
+    # SaveImage stores the graph that ran: the master's prepared share
+    from PIL import Image
+    with Image.open(files[0]) as im:
+        prompt = json.loads(im.text["prompt"])
+    assert prompt["14"]["hidden"]["enabled_worker_ids"] == f'["{worker}"]'
+    return files, delta
+
+
+def test_parallel_generation_torch_worker(cluster, refs):
+    """Image 0 is the master's, at seed s; image 1 the worker's, at
+    s + 1, sent over /distributed/job_complete as a zlib tensor."""
+    files, delta = _parallel_generation(cluster, "w0")
+    assert delta["wire_tensor_msgs"] == 1 and delta["wire_png_msgs"] == 0
+    for f, seed in zip(files, (SEED, SEED + 1)):
+        assert _diff(f, refs["torch"][seed]) <= EXACT, (f, seed)
+        assert _diff(f, refs["jax"][seed]) <= ONE_STEP, (f, seed)
+    # a wrong seed is far off
+    assert _diff(files[1], refs["torch"][SEED]) > 0.1
+
+
+def test_distributed_upscale_torch_worker(cluster, refs):
+    """partition_tiles(4, 1): tiles 0-1 on the master, 2-3 on the worker,
+    POSTed to /distributed/tile_complete and blended with the master's.
+    Each side refines its two tiles as a batch of two, against one batch
+    of four in one process (see the module's note on the bound)."""
+    deadline = time.time() + DEADLINE_S
+    cluster.enable_only("w0")
+    assert tiling.partition_tiles(4, 1) == [[0, 1], [2, 3]]
+    resp, entry, delta, files = cluster.run(_upscale(), deadline)
+    assert resp["workers"] == ["w0"] and resp["failed_workers"] == [], \
+        (resp, cluster.logs())
+    assert entry["status"] == "success" and entry["images"] == 1, entry
+    assert delta["tiles_received"] == 2 and delta["images_received"] == 0
+    (f,) = files
+    assert _diff(f, refs["torch"]["upscale_parts"]) <= EXACT
+    dmax, share = _diff(f, refs["torch"]["upscale"], share=True)
+    assert dmax <= ONE_STEP and share <= 0.01, (dmax, share)
+    assert _diff(f, refs["jax"]["upscale"]) <= ONE_STEP
+
+
+def test_torch_master_with_jax_worker(cluster, refs):
+    """The JAX package's own ``cli worker`` behind the port's master: it
+    negotiates the tensor wire (zlib, the only codec the port lists), and
+    the gathered batch equals the all-torch cluster's: image 0 (the
+    master's) exactly, image 1 (the JAX worker's) within one 8-bit
+    step."""
+    files, delta = _parallel_generation(cluster, "j0")
+    assert delta["wire_tensor_msgs"] == 1 and delta["wire_png_msgs"] == 0
+    assert _diff(files[0], refs["torch"][SEED]) <= EXACT
+    assert _diff(files[1], refs["torch"][SEED + 1]) <= ONE_STEP
+    assert _diff(files[1], refs["jax"][SEED + 1]) <= ONE_STEP
+    cluster.enable_only("w0")
+
+
+def test_cli_run_via_master(cluster, tmp_path, capsys):
+    """``cli run --via``: queued on the master, which fans it out."""
+    from comfyui_distributed_tpu_torch import cli
+    cluster.enable_only("w0")
+    wf = tmp_path / "wf.json"
+    wf.write_text(json.dumps(_txt2img(SEED + 7)))
+    assert cli.main(["run", str(wf), "--via", cluster.url("master"),
+                     "--timeout", str(DEADLINE_S)]) == 0
+    out = capsys.readouterr()
+    assert json.loads(out.out.strip().splitlines()[-1])["images"] == 2
+    assert "dispatched to workers: ['w0']" in out.err

@@ -341,12 +341,18 @@ def test_upscale_tiles_are_refined_as_one_batch(tiny_family, tmp_path,
 
 @pytest.mark.parametrize("what", ["multi_job_id", "regional", "perp_neg"])
 def test_what_is_not_ported_raises(what):
+    """Regional conditioning and PerpNeg raise in every mode: the HTTP
+    worker mode (a ``multi_job_id``) refuses regional conditioning as the
+    single-process mode does."""
     ctx = OpContext(device="cpu")
     cond = types.SimpleNamespace(context=torch.zeros(1, 77, 64))
     model = types.SimpleNamespace(device=torch.device("cpu"))
     kw = {}
     if what == "multi_job_id":
-        kw["multi_job_id"] = "job-1"
+        kw.update(multi_job_id="job-1", is_worker=True,
+                  master_url="http://127.0.0.1:9", worker_id="w0",
+                  enabled_worker_ids='["w0"]')
+        cond.area_mask = torch.ones(1, 8, 8, 1)
     elif what == "regional":
         cond.siblings = (cond,)
     else:

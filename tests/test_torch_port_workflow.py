@@ -135,11 +135,19 @@ def _modules():
 
 
 def test_imports_load_no_jax_and_nothing_of_the_jax_package():
+    """Every module of the port, the HTTP fan-out's too, imports without
+    JAX, the JAX package, Pillow or aiohttp (the card's machine has none
+    of the last two)."""
+    assert {"comfyui_distributed_tpu_torch.server.app",
+            "comfyui_distributed_tpu_torch.cli",
+            "comfyui_distributed_tpu_torch.workflow.orchestrate",
+            "comfyui_distributed_tpu_torch.utils.net"} <= set(_modules())
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'comfyui_distributed_tpu', 'PIL')]\n"
+            "('jax', 'jaxlib', 'flax', 'comfyui_distributed_tpu', 'PIL', "
+            "'aiohttp')]\n"
             "assert not bad, bad\n"
             "print(len([m for m in sys.modules if m.startswith("
             "'comfyui_distributed_tpu_torch')]))\n")
@@ -156,7 +164,9 @@ FORBIDDEN = [r"scaled_dot_product_attention", r"torch\.compile",
              r"cudnn\w*attention",
              r"CUDAGraph|cuda\.graph",
              # the card's machine has no Pillow
-             r"^\s*(import|from)\s+PIL\b"]
+             r"^\s*(import|from)\s+PIL\b",
+             # nor aiohttp, and the cgi module is gone in Python 3.13
+             r"^\s*(import|from)\s+(aiohttp|cgi)\b"]
 
 
 @pytest.mark.parametrize("pattern", FORBIDDEN)
