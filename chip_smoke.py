@@ -30,8 +30,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
    enqueues, the candidates run in turns (forward, then reversed) and
    each time is the median of five rounds;
 4. the tiny family on the card against the same runs on the CPU (plain
-   versions): txt2img, img2img and the tiled upscale must agree within
-   1e-3;
+   versions): txt2img, img2img, the tiled upscale, the SDXL workflow
+   (``tiny_sdxl``, 4 dpmpp_2m steps) and txt2img from a tiny checkpoint
+   file the port wrote must agree within 1e-3;
 5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
    port's WorkflowExecutor as three requests with three seeds; each must
@@ -65,10 +66,29 @@ Run from the root of a checkout on a machine with a CUDA card (and
    run in the same batches (the upscale's tiles 0-7 and 8-15 refined as
    two batches), and the upscale also with phase 7's one-batch image.
    It prints a ``fanout`` line.
+9. SDXL dual prompt: ``workflows/distributed-sdxl.json`` unchanged
+   (CLIPTextEncodeSDXL, 20 dpmpp_2m/karras steps, cfg 7, seed 777,
+   virtual weights) as two requests, cold and warm, with an
+   ``extra_pnginfo``: each exactly 2800 sm90 launches, a finite,
+   non-constant (1, 1024, 1024, 3) image, the two equal to the bit, and
+   a saved PNG whose text chunks are ``prompt`` and ``workflow``; the
+   ADM vector built from node 3's conditioning differs from the one
+   with a 512^2 target;
+10. weights from disk: the free bytes of the directory first (it fails
+   if the files cannot fit); SDXL base written from its virtual weights
+   by the port's ``save_checkpoint`` (bf16 UNet and CLIP, fp32 VAE),
+   phase 9's request run from that file, equal to phase 9's image to
+   the bit; the file deleted, then SD1.5 written and the 4x RRDB saved
+   as an old-arch ``.pth`` (``torch.save``), and phase 7's upscale at
+   seed 42 run from the two files, equal to phase 7's image to the bit.
+   Each write's and load's seconds, and the host's resident memory
+   (anonymous and file-backed) at its peak during each load, go into a
+   ``from_disk`` line.
 
-Launch counts are zeroed just before each request of phases 5-7 and
-read just after.  The line before the last is ``{"kernels": [...]}``: for
-each kernel variant those phases launched, its launches and, over exactly
+Launch counts are zeroed just before each request of phases 5-7, 9 and
+10 and read just after.  The line before the last is ``{"kernels":
+[...]}``: for each kernel variant those phases launched, its launches
+and, over exactly
 those launches (each shape's measured time times its launch count),
 ``ms``, ``plain_ms``, ``library_ms``, ``bound_ms`` and, for sm90,
 ``mma_sync_ms``.  The last line is ``{"ok": true, "device": {...}}``.
@@ -83,15 +103,18 @@ import copy
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{name}.json")
-             for name in ("txt2img", "img2img", "upscale")}
+             for name in ("txt2img", "img2img", "upscale", "sdxl")}
 REPLACES = "comfyui_distributed_tpu/ops/pallas/flash_attention.py:134"
 SOURCES = {
     "sm90": "comfyui_distributed_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -117,7 +140,10 @@ SEEDS = (123456789, 987654321, 42)
 DEVICE = "cuda"
 # (variant, launches) of one request of each path
 EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
-            "upscale": ("sm90", 640)}
+            "upscale": ("sm90", 640), "sdxl": ("sm90", 2800)}
+# phase 9's request carries this UI workflow for SaveImage's PNG
+EXTRA_PNGINFO = {"workflow": {"last_node_id": 9, "nodes": [],
+                              "links": [], "version": 0.4}}
 # the plain version's fp32 scores of one batch chunk stay below this
 PLAIN_CHUNK_BYTES = 2 << 30
 # phase 8: (max, mean) |difference| of a fan-out image from an
@@ -306,15 +332,25 @@ def small_docs(docs):
     up["16"]["inputs"].update(width=128, height=128)
     up["2"]["inputs"].update(steps=2, tile_width=64, tile_height=64,
                              padding=8, mask_blur=2)
-    return {"txt2img": txt, "img2img": i2i, "upscale": up}
+    xl = copy.deepcopy(docs["sdxl"])
+    xl["2"]["inputs"].update(width=64, height=64)
+    xl["6"]["inputs"]["steps"] = 4
+    from_file = copy.deepcopy(txt)
+    from_file["4"]["inputs"]["ckpt_name"] = TINY_FILE
+    return {"txt2img": txt, "img2img": i2i, "upscale": up, "sdxl": xl,
+            "txt2img_from_file": from_file}
+
+
+TINY_FILE = "tiny-from-disk.safetensors"
 
 
 def tiny_against_cpu(docs, input_dir):
-    """Phase 4: the tiny family's txt2img, img2img and tiled upscale on
-    the card against the CPU runs of the same graphs (kernels' plain
-    versions).  The tiny RRDB runs in fp32 here: its bf16 convolutions
-    round differently in cuDNN and on the CPU, which the refine then
-    amplifies past 1e-3."""
+    """Phase 4: the tiny family's txt2img, img2img, tiled upscale, the
+    SDXL graph (on ``tiny_sdxl``) and txt2img from a checkpoint file the
+    port wrote, on the card against the CPU runs of the same graphs
+    (kernels' plain versions).  The tiny RRDB runs in fp32 here: its
+    bf16 convolutions round differently in cuDNN and on the CPU, which
+    the refine then amplifies past 1e-3."""
     import dataclasses
 
     import numpy as np
@@ -328,10 +364,20 @@ def tiny_against_cpu(docs, input_dir):
     upscalers.TINY_RRDB_CONFIG = dataclasses.replace(tiny_rrdb,
                                                      dtype=torch.float32)
     out = {}
+    models_dir = tempfile.mkdtemp(prefix="tiny_models_")
     try:
+        from comfyui_distributed_tpu_torch.models.checkpoints import (
+            save_checkpoint)
+        pipe = registry.load_pipeline("tiny-to-disk.safetensors",
+                                      device="cpu")
+        save_checkpoint(os.path.join(models_dir, TINY_FILE), pipe.unet,
+                        pipe.clip_models, pipe.vae, pipe.family)
         for name, doc in small_docs(docs).items():
+            os.environ["DTPU_DEFAULT_FAMILY"] = \
+                "tiny_sdxl" if name == "sdxl" else "tiny"
             imgs = {dev: WorkflowExecutor(OpContext(
-                device=dev, input_dir=input_dir)).execute(
+                device=dev, input_dir=input_dir,
+                models_dir=models_dir)).execute(
                     copy.deepcopy(doc)).image_batch
                 for dev in (DEVICE, "cpu")}
             card, host = imgs[DEVICE], imgs["cpu"]
@@ -345,14 +391,18 @@ def tiny_against_cpu(docs, input_dir):
         del os.environ["DTPU_DEFAULT_FAMILY"]
         upscalers.TINY_RRDB_CONFIG = tiny_rrdb
         registry.clear_pipeline_cache()
+        shutil.rmtree(models_dir, ignore_errors=True)
     return out
 
 
-def run_requests(path, doc, seeds, input_dir, shape_counts, images=None):
-    """Phases 5-7: one request of ``path`` per seed, its launch counts
-    zeroed just before it and read just after (and added to
-    ``shape_counts``); returns the per-request report, and puts each
-    seed's image into ``images`` when given."""
+def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
+                 results=None, **ctx_kw):
+    """Phases 5-7, 9 and 10: one request of ``path`` per seed, its launch
+    counts zeroed just before it and read just after (and added to
+    ``shape_counts``); returns the per-request report, puts each seed's
+    image into ``images`` and each run's result into ``results`` when
+    given.  ``ctx_kw``: more of the run's OpContext (models_dir,
+    output_dir, extra_pnginfo)."""
     import numpy as np
     import torch
 
@@ -372,8 +422,8 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None):
         torch.cuda.reset_peak_memory_stats()
         fa.reset_counts()
         t0 = time.perf_counter()
-        res = WorkflowExecutor(OpContext(device=DEVICE,
-                                         input_dir=input_dir)).execute(req)
+        res = WorkflowExecutor(OpContext(device=DEVICE, input_dir=input_dir,
+                                         **ctx_kw)).execute(req)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = fa.flash_attention.launches
@@ -401,6 +451,8 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None):
                  f"launches {variants}; expected {want} {variant} launches")
         if images is not None:
             images[seed] = img[0]
+        if results is not None:
+            results.append(res)
     return requests
 
 
@@ -762,6 +814,255 @@ def fanout(docs, input_dir, upscale_ref, rows):
                 for role, s in r["shares"].items()} for r in requests}}
 
 
+def png_text_chunks(path):
+    """[(key, value)] of a PNG's tEXt chunks, in file order."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 8
+    while pos + 8 <= len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out.append((key.decode("latin-1"), value.decode("latin-1")))
+        pos += 12 + n
+    return out
+
+
+def sdxl_requests(doc, input_dir, shape_counts):
+    """Phase 9: ``distributed-sdxl.json`` cold and warm; returns (the
+    report, the requests, the image)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.basic import \
+        _prepare_sample_inputs
+    images, results = {}, []
+    with tempfile.TemporaryDirectory() as out_dir:
+        requests = []
+        for run in ("cold", "warm"):
+            requests += run_requests("sdxl", doc, (777,), input_dir,
+                                     shape_counts, images, results,
+                                     output_dir=out_dir,
+                                     extra_pnginfo=EXTRA_PNGINFO)
+            requests[-1]["run"] = run
+            if run == "cold":
+                first = images[777]
+        saved = sorted(os.listdir(out_dir))
+        if saved != ["sdxl_00000.png", "sdxl_00001.png"]:
+            fail(f"sdxl: SaveImage wrote {saved}")
+        chunks = png_text_chunks(os.path.join(out_dir, saved[0]))
+    keys = [k for k, _ in chunks]
+    if keys != ["prompt", "workflow"] \
+            or json.loads(chunks[1][1]) != EXTRA_PNGINFO["workflow"] \
+            or json.loads(chunks[0][1])["3"]["class_type"] \
+            != "CLIPTextEncodeSDXL":
+        fail(f"sdxl: the PNG's text chunks are {keys}: "
+             f"{[v[:80] for _, v in chunks]}")
+    if not np.array_equal(first, images[777]):
+        fail("sdxl: the warm request's image differs from the cold one's")
+    # the size scalars reach the UNet: node 3's ADM vector against the
+    # one with a 512^2 target
+    res = results[-1]
+    pipe, cond = res.outputs["1"][0], res.outputs["3"][0]
+    lat = res.outputs["2"][0]
+    y = _prepare_sample_inputs(pipe, 777, lat, cond, cond).y
+    y512 = _prepare_sample_inputs(
+        pipe, 777, lat, dataclasses.replace(
+            cond, size_cond=cond.size_cond[:4] + (512, 512)), cond).y
+    adm_diff = float((y - y512).abs().max())
+    if cond.size_cond != (1024, 1024, 0, 0, 1024, 1024) \
+            or y.shape != (1, 2816) or not adm_diff > 0:
+        fail(f"sdxl: size scalars {cond.size_cond}, ADM {tuple(y.shape)}, "
+             f"difference from a 512^2 target {adm_diff}")
+    torch.cuda.synchronize()
+    return ({"png_text_chunks": [k for k, _ in chunks],
+             "adm_max_diff_vs_512_target": adm_diff,
+             "cold_equals_warm": True,
+             "seconds": {r["run"]: r["seconds"] for r in requests}},
+            requests, images[777])
+
+
+class HostMemory:
+    """The process's peak resident bytes while the block runs, sampled
+    every 20 ms from ``/proc/self/status``: ``VmRSS``, and its anonymous
+    and file-backed parts where the kernel reports them."""
+
+    KEYS = ("VmRSS", "RssAnon", "RssFile")
+
+    @classmethod
+    def now(cls):
+        out = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key in cls.KEYS:
+                    out[key] = int(value.split()[0]) * 1024
+        return out
+
+    def __enter__(self):
+        self.before = self.now()
+        self.peak = dict(self.before)
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                for k, v in self.now().items():
+                    self.peak[k] = max(self.peak.get(k, 0), v)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        for k, v in self.now().items():
+            self.peak[k] = max(self.peak.get(k, 0), v)
+
+    def report(self):
+        return {**{f"{k}_before": v for k, v in self.before.items()},
+                **{f"{k}_peak": v for k, v in self.peak.items()}}
+
+
+def models_dir_root():
+    """The directory for phase 10's files: whichever of the temporary
+    directory and the checkout has more free bytes."""
+    cands = {d: shutil.disk_usage(d).free
+             for d in (tempfile.gettempdir(), ROOT)}
+    return max(cands, key=cands.get), cands
+
+
+def rrdb_old_arch(net):
+    """The port's RRDB parameters under the old ESRGAN arch's keys
+    (``model.N``, ``model.1.sub.i.RDBj.convk.0``)."""
+    n = net.cfg.num_blocks
+    ups = [f"up_{i}" for i in range({1: 0, 2: 1, 4: 2, 8: 3}[net.cfg.scale])]
+    tail = ups + ["hr_conv", "conv_last"]
+    # 4x: model.3, 6 (upconvs), 8 (HRconv), 10 (conv_last)
+    index = {name: 3 + 3 * i for i, name in enumerate(ups)}
+    index["hr_conv"] = 2 + 3 * len(ups)
+    index["conv_last"] = 4 + 3 * len(ups)
+    out = {}
+    for name, t in net.state_dict().items():
+        mod, leaf = name.rsplit(".", 1)
+        parts = mod.split(".")
+        if mod == "conv_first":
+            key = "model.0"
+        elif mod == "trunk_conv":
+            key = f"model.1.sub.{n}"
+        elif parts[0].startswith("rrdb_"):
+            i, j, k = (int(re.sub(r"\D", "", p)) for p in parts)
+            key = f"model.1.sub.{i}.RDB{j + 1}.conv{k + 1}.0"
+        elif mod in tail:
+            key = f"model.{index[mod]}"
+        else:
+            fail(f"rrdb: no old-arch key for {name}")
+        out[f"{key}.{leaf}"] = t.detach().cpu().clone()
+    return out
+
+
+def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
+    """Phase 10: SDXL base, then SD1.5 and the 4x RRDB, written from
+    their virtual weights by the port and read back by its loaders; the
+    requests must give phase 9's and phase 7's images to the bit."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.models.checkpoints import (
+        save_checkpoint)
+
+    def nbytes(*modules):
+        return sum(p.numel() * p.element_size() for m in modules
+                   for p in m.parameters())
+
+    def release():
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    root, free = models_dir_root()
+    print(f"phase 10: free bytes {json.dumps(free)}; files go under {root}",
+          flush=True)
+    report, requests = {"free_bytes": free, "dir": root}, []
+    models_dir = tempfile.mkdtemp(prefix="chip_smoke_models_", dir=root)
+    try:
+        # SDXL base: bf16 UNet and CLIP, fp32 VAE
+        xl_name = docs["sdxl"]["1"]["inputs"]["ckpt_name"]
+        pipe = registry.load_pipeline(xl_name, device=DEVICE)
+        need = nbytes(pipe.unet, pipe.vae, *pipe.clip_models)
+        if shutil.disk_usage(models_dir).free < need + (1 << 30):
+            fail(f"phase 10 needs {need} bytes and 1 GiB to spare for "
+                 f"{xl_name} in {models_dir}; "
+                 f"{shutil.disk_usage(models_dir).free} are free")
+        path = os.path.join(models_dir, xl_name)
+        t0 = time.perf_counter()
+        save_checkpoint(path, pipe.unet, pipe.clip_models, pipe.vae,
+                        pipe.family)
+        report["sdxl_write_s"] = time.perf_counter() - t0
+        report["sdxl_file_bytes"] = os.path.getsize(path)
+        del pipe
+        release()
+        images, results = {}, []
+        with HostMemory() as mem:
+            requests += run_requests("sdxl", docs["sdxl"], (777,), input_dir,
+                                     shape_counts, images, results,
+                                     models_dir=models_dir)
+        requests[-1]["run"] = "from_disk"
+        report["sdxl_load_s"] = results[-1].timings["1"]
+        report["sdxl_host_memory"] = mem.report()
+        report["sdxl_request_s"] = requests[-1]["seconds"]
+        if not np.array_equal(images[777], sdxl_img):
+            fail("phase 10: SDXL from its file differs from phase 9's "
+                 f"image (max {np.abs(images[777] - sdxl_img).max()})")
+        del results
+        release()
+        os.remove(path)
+        # SD1.5 and the 4x RRDB (old-arch .pth)
+        up_doc = docs["upscale"]
+        sd_name = up_doc["4"]["inputs"]["ckpt_name"]
+        up_name = up_doc["14"]["inputs"]["model_name"]
+        pipe = registry.load_pipeline(sd_name, device=DEVICE)
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(models_dir, sd_name), pipe.unet,
+                        pipe.clip_models, pipe.vae, pipe.family)
+        report["sd15_write_s"] = time.perf_counter() - t0
+        report["sd15_file_bytes"] = os.path.getsize(
+            os.path.join(models_dir, sd_name))
+        up = registry.load_upscaler(up_name, device=DEVICE)
+        t0 = time.perf_counter()
+        torch.save(rrdb_old_arch(up.net), os.path.join(models_dir, up_name))
+        report["rrdb_write_s"] = time.perf_counter() - t0
+        report["rrdb_file_bytes"] = os.path.getsize(
+            os.path.join(models_dir, up_name))
+        del pipe, up
+        release()
+        images, results = {}, []
+        with HostMemory() as mem:
+            requests += run_requests("upscale", up_doc, (42,), input_dir,
+                                     shape_counts, images, results,
+                                     models_dir=models_dir)
+        requests[-1]["run"] = "from_disk"
+        report["sd15_load_s"] = results[-1].timings["4"]
+        report["rrdb_load_s"] = results[-1].timings["14"]
+        report["upscale_host_memory"] = mem.report()
+        report["upscale_request_s"] = requests[-1]["seconds"]
+        if not np.array_equal(images[42], upscale_img):
+            fail("phase 10: the upscale from files differs from phase 7's "
+                 f"image (max {np.abs(images[42] - upscale_img).max()})")
+        del results
+        release()
+    finally:
+        shutil.rmtree(models_dir, ignore_errors=True)
+    report["equal_to_virtual"] = True
+    return report, requests
+
+
 def main() -> int:
     try:
         import torch
@@ -879,6 +1180,15 @@ def main() -> int:
                           "launches_per_request": [r["launches"]
                                                    for r in requests]})
         emit("fanout", fanout(docs, input_dir, upscaled[42], rows))
+        sdxl_report, sdxl_reqs, sdxl_img = sdxl_requests(
+            docs["sdxl"], input_dir, shape_counts)
+        requests += sdxl_reqs
+        emit("sdxl", sdxl_report)
+        disk_report, disk_reqs = from_disk(docs, input_dir, shape_counts,
+                                           sdxl_img, upscaled[42])
+        requests += disk_reqs
+        emit("from_disk", disk_report)
+        emit("workflow_9_10", {"requests": sdxl_reqs + disk_reqs})
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

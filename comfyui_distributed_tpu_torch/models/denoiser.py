@@ -37,8 +37,9 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
                   prediction_type: str = "eps",
                   device=None) -> Callable:
     """``model(x, sigma, context=..., y=...) -> denoised`` over
-    ``unet(x, timesteps, context, y)``; ``sigma`` is a float32 scalar
-    tensor."""
+    ``unet(x, timesteps, context, y)``; ``sigma`` is a host float (made
+    a float32 scalar on x's device by a fill, not a copy that would wait
+    for the card) or a float32 scalar tensor."""
     if prediction_type not in ("eps", "v"):
         raise ValueError(f"prediction type {prediction_type!r} is not "
                          "ported to the torch package")
@@ -47,7 +48,11 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
     def denoiser(x: torch.Tensor, sigma: torch.Tensor,
                  context: Optional[torch.Tensor] = None,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma.to(device=x.device, dtype=torch.float32)
+        else:
+            sigma = torch.full((), float(sigma), dtype=torch.float32,
+                               device=x.device)
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
         ts = t_from_sigma(sigma).expand(x.shape[0])
         out = unet(x * c_in, ts, context, y)

@@ -3,10 +3,12 @@ PyTorch: the counterpart of ``comfyui_distributed_tpu/models/registry.py``.
 
 CheckpointLoaderSimple hands back one :class:`DiffusionPipeline` as
 (MODEL, CLIP, VAE), and UpscaleModelLoader an RRDB network
-(:func:`load_upscaler`).  With no weights file, parameters are virtually
-initialized from the model name (``models/weights.py``): the same name
-gives the same weights as the JAX package, on any host.  Loading a
-weights file waits until a checkpoint is in the repository.
+(:func:`load_upscaler`).  A file of that name in ``models_dir`` is
+loaded (``models/checkpoints.py``); with no file, parameters are
+virtually initialized from the name (``models/weights.py``): the same
+name gives the same weights as the JAX package, on any host.  Either
+way the modules are built on ``meta`` and get their storage on the
+device directly, so no copy of the weights is built on the host.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
 from comfyui_distributed_tpu_torch.models import clip as clip_mod
 from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models import unet as unet_mod
@@ -65,6 +68,15 @@ FAMILIES: Dict[str, ModelFamily] = {
     "tiny": ModelFamily(
         name="tiny",
         unet=unet_mod.TINY_CONFIG,
+        vae=vae_mod.TINY_VAE_CONFIG,
+        clips=(clip_mod.TINY_CLIP_CONFIG,),
+    ),
+    # SDXL-shaped tiny family: an ADM head wide enough (128 > the tiny
+    # pooled width 64) that CLIPTextEncodeSDXL's size embeddings reach
+    # the UNet
+    "tiny_sdxl": ModelFamily(
+        name="tiny_sdxl",
+        unet=dataclasses.replace(unet_mod.TINY_CONFIG, adm_in_channels=128),
         vae=vae_mod.TINY_VAE_CONFIG,
         clips=(clip_mod.TINY_CLIP_CONFIG,),
     ),
@@ -141,19 +153,24 @@ class DiffusionPipeline:
                                  for c in family.clips))
 
     @torch.inference_mode()
-    def encode_prompt(self, texts: List[str]
+    def encode_prompt(self, texts: List[str],
+                      texts_alt: Optional[List[str]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(context [B, 77, sum(widths)], pooled [B, pooled_dim]), fp32.
         Multi-tower families (SDXL) concatenate the hidden widths; pooled
         comes from the last tower.  Token weights scale the hidden states
-        around the per-sequence mean (ComfyUI-style emphasis)."""
+        around the per-sequence mean (ComfyUI-style emphasis).
+        ``texts_alt``: the prompts of every tower after the first
+        (CLIPTextEncodeSDXL's text_g beside text_l); single-tower
+        families ignore it."""
         outs, pooled = [], None
-        pairs = [self.tokenizer.encode(t) for t in texts]
-        ids = torch.as_tensor(np.stack([x for x, _ in pairs]),
-                              device=self.device).long()
-        wa = torch.as_tensor(np.stack([w for _, w in pairs]),
-                             device=self.device)
-        for m in self.clip_models:
+        for i, m in enumerate(self.clip_models):
+            ts = texts if i == 0 or texts_alt is None else texts_alt
+            pairs = [self.tokenizer.encode(t) for t in ts]
+            ids = torch.as_tensor(np.stack([x for x, _ in pairs]),
+                                  device=self.device).long()
+            wa = torch.as_tensor(np.stack([w for _, w in pairs]),
+                                 device=self.device)
             hidden, pooled = m(ids)
             mean = hidden.mean(dim=1, keepdim=True)
             outs.append(mean + (hidden - mean) * wa[..., None])
@@ -183,30 +200,40 @@ class DiffusionPipeline:
         sample, scaled by the first sigma and added to ``latents``."""
         sampler = get_sampler(sampler_name)
         dev = self.device
-        sigmas = torch.as_tensor(sch.compute_sigmas(
-            self.schedule, scheduler, steps, denoise), device=dev)
+        # host float32 sigmas: the sampler's branches and coefficients
+        # never wait for the card
+        sigmas = sch.compute_sigmas(self.schedule, scheduler, steps, denoise)
         x = latents.to(dev, torch.float32)
+        keys = sample_keys(seeds, sample_idx)
         if add_noise:
-            keys = sample_keys(seeds, sample_idx)
             x = x + batch_normal(keys, INIT_NOISE_INDEX, x.shape[1:],
-                                 dev) * sigmas[0]
+                                 dev) * float(sigmas[0])
         den = make_denoiser(self.unet, self.schedule, self.prediction_type,
                             device=dev)
         model = cfg_denoiser_multi(den, [(context.to(dev), None, 1.0)],
                                    uncond_context.to(dev), float(cfg))
         extra = {} if y is None else {"y": y.to(dev)}
-        return sampler(model, x, sigmas, extra_args=extra)
+        return sampler(model, x, sigmas, extra_args=extra, keys=keys)
 
 
-def _virtual_module(make: Callable[[], nn.Module], seed: int,
-                    device: torch.device, dtype: torch.dtype) -> nn.Module:
-    """Build a module without allocating, then give it its weights
-    directly on ``device`` in ``dtype`` and fill them virtually."""
+def _build(make: Callable[[], nn.Module], device: torch.device,
+           dtype: torch.dtype, fill: Callable[[nn.Module], None]
+           ) -> nn.Module:
+    """Build a module without allocating, give it storage directly on
+    ``device`` in ``dtype``, then ``fill`` its parameters."""
     with torch.device("meta"):
         module = make()
     module = module.to(dtype=dtype).to_empty(device=device)
-    fill_virtual(module, seed)
+    fill(module)
     return module.eval()
+
+
+def _model_file(models_dir: Optional[str], name: str) -> Optional[str]:
+    """The file ``name`` names in ``models_dir``, when it is there."""
+    if not models_dir:
+        return None
+    path = os.path.join(models_dir, name.replace("\\", "/"))
+    return path if os.path.exists(path) else None
 
 
 _pipeline_cache: Dict[Tuple, DiffusionPipeline] = {}
@@ -216,8 +243,12 @@ _pipeline_lock = threading.Lock()
 def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
                   family_name: Optional[str] = None,
                   device="cuda") -> DiffusionPipeline:
-    """Virtually initialize the named checkpoint on ``device`` (cached
-    per name, resolved family, models dir and device)."""
+    """The named checkpoint on ``device``: loaded from ``models_dir``
+    when the file is there, else virtually initialized (cached per name,
+    resolved family, models dir and device).  UNet and CLIP weights are
+    stored in the family's compute dtype (bf16 on the real families,
+    fp32 on the tiny ones), the VAE's in fp32 (its decode is where bf16
+    weights visibly cost quality), whatever the file holds."""
     device = torch.device(device)
     fam = get_family(family_name or detect_family(ckpt_name))
     key = (ckpt_name, fam.name, models_dir or "", str(device))
@@ -225,23 +256,29 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
         pipe = _pipeline_cache.get(key)
         if pipe is not None:
             return pipe
-        if models_dir and os.path.exists(
-                os.path.join(models_dir, ckpt_name.replace("\\", "/"))):
-            raise NotImplementedError(
-                f"loading checkpoint files ({ckpt_name}) is not ported to "
-                "the torch package yet; only virtual checkpoints load")
-        seed = _name_seed(ckpt_name)
-        # UNet/CLIP weights stored in the family's compute dtype (bf16 on
-        # the real families, fp32 on 'tiny'); the VAE stays fp32 (its
-        # decode is where bf16 weights visibly cost quality)
         tower_dt = fam.unet.dtype
-        unet = _virtual_module(lambda: unet_mod.UNet(fam.unet), seed,
-                               device, tower_dt)
-        clips = [_virtual_module(lambda c=c: clip_mod.CLIPTextModel(c),
-                                 seed + 1 + i, device, tower_dt)
-                 for i, c in enumerate(fam.clips)]
-        vae = _virtual_module(lambda: vae_mod.VAE(fam.vae), seed + 100,
-                              device, torch.float32)
+        # the modules in order: UNet, each CLIP tower, VAE
+        makes = ([(lambda: unet_mod.UNet(fam.unet), tower_dt)]
+                 + [(lambda c=c: clip_mod.CLIPTextModel(c), tower_dt)
+                    for c in fam.clips]
+                 + [(lambda: vae_mod.VAE(fam.vae), torch.float32)])
+        path = _model_file(models_dir, ckpt_name)
+        if path is not None:
+            unet_sd, clip_sds, vae_sd = ckpt.load_checkpoint(path, fam)
+            states = [unet_sd] + clip_sds + [vae_sd]
+
+            def fill(i: int, m: nn.Module) -> None:
+                ckpt.load_into(m, states[i])
+        else:
+            seed = _name_seed(ckpt_name)
+            seeds = [seed + i for i in range(1 + len(fam.clips))] \
+                + [seed + 100]
+
+            def fill(i: int, m: nn.Module) -> None:
+                fill_virtual(m, seeds[i])
+        unet, *clips, vae = [
+            _build(make, device, dt, lambda m, i=i: fill(i, m))
+            for i, (make, dt) in enumerate(makes)]
         pipe = DiffusionPipeline(ckpt_name, fam, unet, clips, vae, device,
                                  assets_dir=models_dir)
         _pipeline_cache[key] = pipe
@@ -284,24 +321,27 @@ def upscaler_config(model_name: str) -> up_mod.RRDBConfig:
 
 def load_upscaler(model_name: str, models_dir: Optional[str] = None,
                   device="cuda") -> Upscaler:
-    """Virtually initialize the named super-resolution network on
-    ``device``, cached per name, config and device.  Its weights are the
-    JAX package's: the name's seed with no offset, flax paths from the
-    network's root.  Weights are stored in fp32 and cast per layer, as
-    flax does."""
+    """The named super-resolution network on ``device``, cached per name,
+    config, models dir and device: loaded from ``models_dir`` when the
+    file is there (any of the three ESRGAN namings), else virtually
+    initialized with the JAX package's weights (the name's seed with no
+    offset, flax paths from the network's root).  Weights are stored in
+    fp32 and cast per layer, as flax does."""
     device = torch.device(device)
     cfg = upscaler_config(model_name)
-    key = (model_name, cfg, str(device))
+    key = (model_name, cfg, models_dir or "", str(device))
     with _pipeline_lock:
         up = _upscaler_cache.get(key)
         if up is not None:
             return up
-        if models_dir and os.path.exists(
-                os.path.join(models_dir, model_name.replace("\\", "/"))):
-            raise NotImplementedError(
-                f"loading upscaler files ({model_name}) is not ported to "
-                "the torch package yet; only virtual upscalers load")
-        net = _virtual_module(lambda: up_mod.RRDBNet(cfg),
-                              _name_seed(model_name), device, torch.float32)
+        path = _model_file(models_dir, model_name)
+        if path is not None:
+            state = ckpt.load_upscaler_checkpoint(path, cfg)
+            fill = lambda m: ckpt.load_into(m, state)  # noqa: E731
+        else:
+            seed = _name_seed(model_name)
+            fill = lambda m: fill_virtual(m, seed)  # noqa: E731
+        net = _build(lambda: up_mod.RRDBNet(cfg), device, torch.float32,
+                     fill)
         up = _upscaler_cache[key] = Upscaler(model_name, net, cfg.scale)
         return up

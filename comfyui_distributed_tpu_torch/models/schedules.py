@@ -1,7 +1,8 @@
-"""Noise schedules and sigma tables (numpy): the port's own copy of the
-part of ``comfyui_distributed_tpu/models/schedules.py`` that the txt2img
-path uses — the discrete VP table and the ``normal`` and ``karras`` step
-schedules.
+"""Noise schedules and sigma tables (numpy): the port's own copy of
+``comfyui_distributed_tpu/models/schedules.py``'s discrete VP table and
+its nine step schedulers (KSampler's ``scheduler`` widget).  The
+custom-sampler schedule functions (polyexponential, VP, Laplace, AYS,
+SD-Turbo) are not ported yet.
 
 Sigmas are returned descending with a trailing 0.0, shape ``[steps +
 1]`` (the k-diffusion convention).
@@ -10,9 +11,11 @@ Sigmas are returned descending with a trailing 0.0, shape ``[steps +
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import math
+from typing import Callable, Dict, Optional
 
 import numpy as np
+import scipy.stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +60,17 @@ def _append_zero(sigmas: np.ndarray) -> np.ndarray:
     return np.concatenate([sigmas, [0.0]]).astype(np.float32)
 
 
-def normal_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:
-    """Uniform in timestep space over the model's sigma table."""
+def normal_scheduler(ds: DiscreteSchedule, steps: int,
+                     sgm: bool = False) -> np.ndarray:
+    """Uniform in timestep space over the model's sigma table; ``sgm``
+    drops the endpoint (``sgm_uniform``)."""
     start = ds.t_from_sigma(ds.sigma_max)
     end = ds.t_from_sigma(ds.sigma_min)
-    return _append_zero(ds.sigma_from_t(np.linspace(start, end, steps)))
+    if sgm:
+        ts = np.linspace(start, end, steps + 1)[:-1]
+    else:
+        ts = np.linspace(start, end, steps)
+    return _append_zero(ds.sigma_from_t(ts))
 
 
 def karras_scheduler(ds: DiscreteSchedule, steps: int,
@@ -72,9 +81,78 @@ def karras_scheduler(ds: DiscreteSchedule, steps: int,
     return _append_zero((max_r + ramp * (min_r - max_r)) ** rho)
 
 
+def exponential_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:
+    """Uniform in log sigma between the table's bounds."""
+    return _append_zero(np.exp(np.linspace(math.log(ds.sigma_max),
+                                           math.log(ds.sigma_min), steps)))
+
+
+def simple_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:
+    """Every (T/steps)-th entry of the model table, descending."""
+    ss = len(ds.sigmas) / steps
+    return _append_zero(np.asarray(
+        [float(ds.sigmas[-(1 + int(i * ss))]) for i in range(steps)]))
+
+
+def ddim_uniform_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:
+    """Every (T // steps)-th timestep from 1, descending."""
+    T = len(ds.sigmas)
+    ss = max(T // steps, 1)
+    timesteps = np.asarray(list(range(1, T + 1, ss))[:steps], dtype=np.int64)
+    return _append_zero(ds.sigmas[timesteps - 1][::-1])
+
+
+def beta_scheduler(ds: DiscreteSchedule, steps: int, alpha: float = 0.6,
+                   beta: float = 0.6) -> np.ndarray:
+    """Timesteps at the beta(alpha, beta) quantiles, rounded onto the
+    table and deduplicated in order (fewer sigmas when two round to one
+    timestep)."""
+    ts = scipy.stats.beta.ppf(1.0 - np.linspace(0, 1, steps, endpoint=False),
+                              alpha, beta)
+    T = len(ds.sigmas)
+    idx = np.clip((ts * (T - 1)).round().astype(np.int64), 0, T - 1)
+    chosen = list(dict.fromkeys(int(i) for i in idx))
+    return _append_zero(ds.sigmas[np.asarray(chosen)])
+
+
+def linear_quadratic_scheduler(ds: DiscreteSchedule, steps: int,
+                               threshold_noise: float = 0.025,
+                               linear_steps: Optional[int] = None
+                               ) -> np.ndarray:
+    """Denoising progress p(i) rises linearly to ``threshold_noise`` over
+    the first ``linear_steps`` (half by default), then follows the
+    quadratic that matches its value and slope there and reaches 1 at
+    the last step; sigma = (1 - p) * sigma_max."""
+    if steps == 1:
+        return _append_zero(np.asarray([ds.sigma_max]))
+    L = linear_steps if linear_steps is not None else steps // 2
+    L = int(np.clip(L, 1, steps - 1))
+    i = np.arange(steps + 1, dtype=np.float64)
+    slope = threshold_noise / L
+    u_end = steps - L
+    a = (1.0 - threshold_noise - slope * u_end) / (u_end ** 2)
+    u = i - L
+    p = np.where(i <= L, slope * i, a * u ** 2 + slope * u + threshold_noise)
+    return _append_zero((1.0 - p[:-1]) * ds.sigma_max)
+
+
+def kl_optimal_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:
+    """KL-optimal spacing (arctan interpolation, Sabour et al. 2024)."""
+    t = np.linspace(0, 1, steps)
+    return _append_zero(np.tan((1 - t) * math.atan(ds.sigma_max)
+                               + t * math.atan(ds.sigma_min)))
+
+
 SCHEDULERS: Dict[str, Callable[[DiscreteSchedule, int], np.ndarray]] = {
     "normal": normal_scheduler,
     "karras": karras_scheduler,
+    "exponential": exponential_scheduler,
+    "sgm_uniform": lambda ds, n: normal_scheduler(ds, n, sgm=True),
+    "simple": simple_scheduler,
+    "ddim_uniform": ddim_uniform_scheduler,
+    "beta": beta_scheduler,
+    "linear_quadratic": linear_quadratic_scheduler,
+    "kl_optimal": kl_optimal_scheduler,
 }
 
 
@@ -83,8 +161,8 @@ def compute_sigmas(ds: DiscreteSchedule, scheduler: str, steps: int,
     """Full sigma sequence for a run; ``denoise < 1`` keeps the final
     fraction of the steps (img2img semantics)."""
     if scheduler not in SCHEDULERS:
-        raise ValueError(f"scheduler {scheduler!r} is not ported to the "
-                         f"torch package; available: {tuple(SCHEDULERS)}")
+        raise ValueError(f"unknown scheduler {scheduler!r}; "
+                         f"available: {tuple(SCHEDULERS)}")
     if denoise >= 0.9999:
         return SCHEDULERS[scheduler](ds, steps)
     if denoise <= 0.0:

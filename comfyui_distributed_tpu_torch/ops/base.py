@@ -27,9 +27,13 @@ CONTROL = "__control__"
 @dataclasses.dataclass
 class Conditioning:
     """CLIP encoding result (comfy CONDITIONING): context [1, T, C] and,
-    for SDXL, the pooled text embedding [1, P]."""
+    for SDXL, the pooled text embedding [1, P] and the size scalars of
+    CLIPTextEncodeSDXL (height, width, crop_h, crop_w, target_height,
+    target_width); without them the sampler derives (H, W, 0, 0, H, W)
+    from the latent."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
+    size_cond: Optional[Tuple[float, ...]] = None
 
 
 @dataclasses.dataclass
@@ -62,8 +66,11 @@ class OpContext:
     # the server's per-job result queues (runtime/jobs.JobStore); a
     # master's collector and tiled upscaler drain them
     job_store: Any = None
-    # the API-format graph being run (SaveImage stores it in its PNGs)
+    # the API-format graph being run and the request's
+    # ``extra_data["extra_pnginfo"]`` (the UI's ``workflow``): SaveImage
+    # stores each in a text chunk of its PNGs
     prompt_json: Any = None
+    extra_pnginfo: Optional[Dict[str, Any]] = None
     # collected artifacts
     saved_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     node_timings: Dict[str, float] = dataclasses.field(default_factory=dict)

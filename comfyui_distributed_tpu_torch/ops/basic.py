@@ -1,5 +1,6 @@
-"""Standard workflow ops on the txt2img, img2img and upscale paths: the
-counterparts of ``CheckpointLoaderSimple``, ``CLIPTextEncode``,
+"""Standard workflow ops on the txt2img, img2img, SDXL and upscale
+paths: the counterparts of ``CheckpointLoaderSimple``,
+``CheckpointSave``, ``CLIPTextEncode``, ``CLIPTextEncodeSDXL``,
 ``EmptyLatentImage``, ``KSampler``, ``VAEDecode``, ``VAEEncode``,
 ``LoadImage``, ``ImageScale``, ``UpscaleModelLoader``,
 ``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.models import registry
+from comfyui_distributed_tpu_torch.models.checkpoints import save_checkpoint
 from comfyui_distributed_tpu_torch.models.layers import timestep_embedding
 from comfyui_distributed_tpu_torch.ops.base import (
     CONTROL,
@@ -59,6 +61,37 @@ class CheckpointLoaderSimple(Op):
         return (pipe, pipe, pipe)
 
 
+def _safe_output_path(root: str, rel: str) -> str:
+    """``rel`` under the output directory ``root``; a name that would
+    leave it raises."""
+    root = os.path.realpath(root)
+    path = os.path.realpath(os.path.join(root, rel))
+    if os.path.commonpath([root, path]) != root:
+        raise ValueError(f"filename prefix {rel!r} escapes the output "
+                         f"directory {root!r}")
+    return path
+
+
+@register_op
+class CheckpointSave(Op):
+    """Writes the pipeline back as a single-file torch-layout checkpoint
+    (``{prefix}.safetensors`` in the output directory), each tower from
+    its own input, in its storage dtype: bf16 UNet and CLIP on the real
+    families, fp32 VAE."""
+    TYPE = "CheckpointSave"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "checkpoints/save"}
+
+    def execute(self, ctx: OpContext, model, clip, vae,
+                filename_prefix: str = "checkpoints/save"):
+        path = _safe_output_path(ctx.output_dir or os.getcwd(),
+                                 f"{filename_prefix}.safetensors")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_checkpoint(path, model.unet, clip.clip_models, vae.vae,
+                        model.family)
+        return ()
+
+
 @register_op
 class CLIPTextEncode(Op):
     TYPE = "CLIPTextEncode"
@@ -67,6 +100,30 @@ class CLIPTextEncode(Op):
     def execute(self, ctx: OpContext, clip, text: str):
         context, pooled = clip.encode_prompt([text])
         return (Conditioning(context=context, pooled=pooled),)
+
+
+@register_op
+class CLIPTextEncodeSDXL(Op):
+    """SDXL's dual-prompt encode: text_l feeds the CLIP-L tower, text_g
+    the OpenCLIP tower (whose pooled output starts the ADM vector), and
+    the size widgets ride the conditioning as the ADM scalars (height,
+    width, crop_h, crop_w, target_height, target_width); a target of 0
+    takes the size."""
+    TYPE = "CLIPTextEncodeSDXL"
+    WIDGETS = ["width", "height", "crop_w", "crop_h", "target_width",
+               "target_height", "text_g", "text_l"]
+    DEFAULTS = {"crop_w": 0, "crop_h": 0}
+
+    def execute(self, ctx: OpContext, clip, width: int, height: int,
+                crop_w: int = 0, crop_h: int = 0, target_width: int = 0,
+                target_height: int = 0, text_g: str = "", text_l: str = ""):
+        context, pooled = clip.encode_prompt([str(text_l)],
+                                             texts_alt=[str(text_g)])
+        return (Conditioning(
+            context=context, pooled=pooled,
+            size_cond=(int(height), int(width), int(crop_h), int(crop_w),
+                       int(target_height) or int(height),
+                       int(target_width) or int(width))),)
 
 
 @register_op
@@ -125,13 +182,16 @@ def _prepare_sample_inputs(model, seed, latent_image,
 def _sdxl_vector_cond(pipe, cond: Conditioning, batch: int, height: int,
                       width: int) -> torch.Tensor:
     """SDXL ADM vector: the pooled text embedding plus 256-dim sinusoidal
-    embeddings of (H, W, crop_h=0, crop_w=0, target_H, target_W)."""
+    embeddings of the conditioning's size scalars, or of (H, W, 0, 0, H,
+    W) from the latent when it carries none."""
     dev = pipe.device
     pooled = cond.pooled
     if pooled is None:
         pooled = torch.zeros((1, 1280), device=dev)
-    sizes = torch.tensor([height, width, 0, 0, height, width],
-                         dtype=torch.float32, device=dev)
+    sc = cond.size_cond if cond.size_cond is not None else \
+        (height, width, 0, 0, height, width)
+    sizes = torch.tensor([float(v) for v in sc], dtype=torch.float32,
+                         device=dev)
     emb = timestep_embedding(sizes, 256).reshape(1, -1)
     vec = torch.cat([pooled.to(dev, torch.float32), emb], dim=-1)
     want = pipe.family.unet.adm_in_channels
@@ -297,8 +357,9 @@ def _next_image_counter(dirpath: str, base: str) -> int:
 class SaveImage(Op):
     """Output node: writes each image as ``{prefix}_NNNNN.png`` into the
     output directory, the counter continuing after the highest file
-    there, with the run's API-format graph in a ``prompt`` text chunk;
-    the images also go into the run's collected images."""
+    there, with the run's API-format graph and the request's
+    ``extra_pnginfo`` in text chunks (:func:`png_text`); the images also
+    go into the run's collected images."""
     TYPE = "SaveImage"
     WIDGETS = ["filename_prefix"]
     DEFAULTS = {"filename_prefix": "DistributedTPU"}
@@ -307,21 +368,28 @@ class SaveImage(Op):
                 filename_prefix: str = "DistributedTPU"):
         arr = as_image_array(images)
         if ctx.output_dir:
-            root = os.path.realpath(ctx.output_dir)
-            probe = os.path.realpath(os.path.join(
-                root, f"{filename_prefix}_00000.png"))
-            if os.path.commonpath([root, probe]) != root:
-                raise ValueError(f"filename prefix {filename_prefix!r} "
-                                 f"escapes the output directory {root!r}")
+            probe = _safe_output_path(ctx.output_dir,
+                                      f"{filename_prefix}_00000.png")
             d, fname = os.path.split(probe)
             base = fname[:-len("_00000.png")]
             os.makedirs(d, exist_ok=True)
-            text = None if ctx.prompt_json is None else \
-                {"prompt": json.dumps(ctx.prompt_json)}
             with _save_counter_lock:
                 start = _next_image_counter(d, base)
                 for i, img in enumerate(arr):
                     save_png(os.path.join(d, f"{base}_{start + i:05d}.png"),
-                             img, text)
+                             img, png_text(ctx))
         ctx.saved_images.extend(list(arr))
         return ()
+
+
+def png_text(ctx: OpContext) -> Optional[dict]:
+    """The text chunks of a saved PNG, in the JAX package's order and
+    encoding: ``prompt`` (the API-format graph), then one per key of the
+    request's ``extra_pnginfo`` (the UI's ``workflow``), each value
+    JSON-encoded; None when there is neither."""
+    text = {}
+    if ctx.prompt_json is not None:
+        text["prompt"] = json.dumps(ctx.prompt_json)
+    for k, v in dict(ctx.extra_pnginfo or {}).items():
+        text[str(k)] = json.dumps(v)
+    return text or None

@@ -106,10 +106,12 @@ class ServerState:
 
     # --- queue ---------------------------------------------------------------
 
-    def enqueue_prompt(self, prompt: Dict[str, Any]) -> str:
+    def enqueue_prompt(self, prompt: Dict[str, Any],
+                       extra_data: Optional[Dict[str, Any]] = None) -> str:
         pid = uuid.uuid4().hex
         with self._cond:
-            self._queue.append({"id": pid, "prompt": prompt})
+            self._queue.append({"id": pid, "prompt": prompt,
+                                "extra_data": extra_data or {}})
             self._cond.notify()
         return pid
 
@@ -143,7 +145,9 @@ class ServerState:
         t0 = time.perf_counter()
         ctx = OpContext(device=self.device, models_dir=self.models_dir,
                         input_dir=self.input_dir, output_dir=self.output_dir,
-                        is_worker=self.is_worker, job_store=self.jobs)
+                        is_worker=self.is_worker, job_store=self.jobs,
+                        extra_pnginfo=item["extra_data"].get(
+                            "extra_pnginfo"))
         res, err = None, None
         try:
             res = WorkflowExecutor(ctx).execute(item["prompt"])
@@ -217,14 +221,15 @@ class ServerState:
                 host = cfg.get("master", {}).get("host") or "127.0.0.1"
                 out = run_distributed(
                     prompt, f"http://{host}:{self.port or 8288}",
-                    lambda g: self.enqueue_prompt(g.to_api_format()),
+                    lambda g: self.enqueue_prompt(g.to_api_format(),
+                                                  extra_data),
                     cfg_mod.enabled_workers(cfg), job_store=self.jobs,
                     client_id=client_id, extra_data=extra_data)
                 return 200, {"prompt_id": out["result"],
                              "number": self.queue_remaining(),
                              "workers": out["workers"],
                              "failed_workers": out["failed"]}
-            pid = self.enqueue_prompt(prompt)
+            pid = self.enqueue_prompt(prompt, extra_data)
         except Exception as e:  # noqa: BLE001 - reported to the client
             return 400, {"error": str(e)}
         return 200, {"prompt_id": pid, "number": self.queue_remaining()}

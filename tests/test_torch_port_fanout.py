@@ -142,17 +142,20 @@ class Cluster:
                       {"id": w, "name": w, "host": "127.0.0.1",
                        "port": self.ports[w], "enabled": w == name})
 
-    def outputs(self):
-        d = self.dirs["master"] / "output"
+    def outputs(self, name="master"):
+        d = self.dirs[name] / "output"
         return sorted(d.glob("*.png")) if d.exists() else []
 
-    def run(self, doc, deadline):
-        """POST ``doc`` to the master; returns (response, history entry,
-        metrics delta, new PNG paths)."""
+    def run(self, doc, deadline, extra_data=None):
+        """POST ``doc`` (with ``extra_data``) to the master; returns
+        (response, history entry, metrics delta, new PNG paths)."""
         url = self.url("master")
         m0 = get_json(url + "/distributed/metrics")
         before = set(self.outputs())
-        resp = post_json(url + "/prompt", {"prompt": doc, "client_id": "t"})
+        body = {"prompt": doc, "client_id": "t"}
+        if extra_data is not None:
+            body["extra_data"] = extra_data
+        resp = post_json(url + "/prompt", body)
         while resp["prompt_id"] not in get_json(url + "/history"):
             assert time.time() < deadline, self.logs()
             time.sleep(0.2)
@@ -330,3 +333,52 @@ def test_cli_run_via_master(cluster, tmp_path, capsys):
     out = capsys.readouterr()
     assert json.loads(out.out.strip().splitlines()[-1])["images"] == 2
     assert "dispatched to workers: ['w0']" in out.err
+
+
+def _text_chunks(path):
+    """[(key, value)] of a PNG's tEXt chunks, in file order."""
+    data, out, pos = pathlib.Path(path).read_bytes(), [], 8
+    while pos + 8 <= len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"tEXt":
+            key, _, value = data[pos + 8:pos + 8 + n].partition(b"\0")
+            out.append((key.decode("latin-1"), value.decode("latin-1")))
+        pos += 12 + n
+    return out
+
+
+def test_saved_pngs_carry_the_requests_extra_pnginfo(cluster, tmp_path):
+    """The request's ``extra_data["extra_pnginfo"]`` reaches SaveImage on
+    the master and on the worker: each PNG holds ``prompt`` (its own
+    share's graph) and ``workflow``, with the chunks, keys and values
+    the JAX package's SaveImage writes for that graph."""
+    from comfyui_distributed_tpu.ops.base import OpContext as JaxOpContext
+    from comfyui_distributed_tpu.ops.basic import SaveImage as JaxSaveImage
+    deadline = time.time() + DEADLINE_S
+    cluster.enable_only("w0")
+    doc = _txt2img(SEED + 3)
+    # each participant also saves its own share's image
+    doc["20"] = {"class_type": "SaveImage",
+                 "inputs": {"images": ["8", 0], "filename_prefix": "share"}}
+    extra = {"extra_pnginfo": {"workflow": {
+        "last_node_id": 20, "nodes": [{"id": 3, "type": "KSampler"}],
+        "links": [], "version": 0.4}}}
+    w_before = set(cluster.outputs("w0"))
+    resp, entry, _, files = cluster.run(doc, deadline, extra_data=extra)
+    assert entry["status"] == "success" and resp["workers"] == ["w0"]
+    mine = [f for f in files if f.name.startswith("share_")]
+    theirs = [f for f in cluster.outputs("w0")
+              if f not in w_before and f.name.startswith("share_")]
+    assert len(mine) == 1 and len(theirs) == 1, (files, theirs)
+    for f, role in ((mine[0], "master"), (theirs[0], "worker")):
+        got = _text_chunks(f)
+        assert [k for k, _ in got] == ["prompt", "workflow"], (role, got)
+        prompt = json.loads(got[0][1])
+        assert prompt["20"]["class_type"] == "SaveImage"
+        # the JAX SaveImage on the same graph, extra_pnginfo and image
+        out = tmp_path / role
+        JaxSaveImage().execute(
+            JaxOpContext(output_dir=str(out), prompt_json=prompt,
+                         extra_pnginfo=extra["extra_pnginfo"]),
+            decode_png(f.read_bytes()), filename_prefix="ref")
+        assert got == _text_chunks(out / "ref_00000.png"), role

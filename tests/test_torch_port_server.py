@@ -2,12 +2,16 @@
 worker halves against an in-thread server, the tiled upscaler's wire
 form of a tile, SaveImage, input staging and the CLI's device rule."""
 
+import base64
+import collections
 import json
 import os
 import pathlib
 import subprocess
 import sys
 import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from comfyui_distributed_tpu_torch.server.app import ServerState, make_server
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import net
 from comfyui_distributed_tpu_torch.utils.image import decode_png, save_png
+from comfyui_distributed_tpu_torch.workflow import orchestrate as orch
 from comfyui_distributed_tpu_torch.workflow.orchestrate import (
     stage_images_on_worker)
 
@@ -201,6 +206,107 @@ def test_stage_images_on_worker(server, tmp_path):
     assert (tmp_path / "w" / "input" / "in.png").read_bytes() == \
         (tmp_path / "m" / "input" / "in.png").read_bytes()
     assert not (tmp_path / "w" / "input" / "missing.png").exists()
+
+
+def _fake(host, handlers):
+    """An HTTP server on ``host`` answering ``handlers[(method, path)]
+    (body) -> (status, JSON)`` and counting its hits; returns (server,
+    port, hits)."""
+    hits = collections.Counter()
+
+    class Handler(BaseHTTPRequestHandler):
+        def _do(self, method):
+            body = self.rfile.read(int(self.headers.get("Content-Length")
+                                       or 0))
+            hits[(method, self.path)] += 1
+            status, payload = handlers.get((method, self.path),
+                                           lambda b: (404, {}))(body)
+            data = json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            self._do("GET")
+
+        def do_POST(self):
+            self._do("POST")
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer((host, 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, srv.server_address[1], hits
+
+
+def _master_with_image():
+    def load_image(body):
+        time.sleep(0.2)       # both stagers arrive while the read is out
+        return 200, {"image_data": base64.b64encode(b"png").decode()}
+    return _fake("127.0.0.1", {("POST", "/distributed/load_image"):
+                               load_image})
+
+
+def _remote_worker(upload_status):
+    """A worker on another loopback address, so the orchestrator takes
+    it for a remote host and stages input images on it."""
+    return _fake("127.0.0.2", {
+        ("GET", "/prompt"): lambda b: (200, {"exec_info": {}}),
+        ("POST", "/prompt"): lambda b: (200, {"prompt_id": "p"}),
+        ("POST", "/upload/image"): lambda b: (upload_status, {})})
+
+
+def _upscale_doc():
+    return json.loads((ROOT / "workflows" / "distributed-upscale.json")
+                      .read_text())
+
+
+def test_staging_reads_each_image_once_for_two_remote_workers():
+    """Staging happens before any dispatch, on every remote worker at
+    once, and the master is read once per image for all of them."""
+    master, mport, mhits = _master_with_image()
+    workers = [_remote_worker(200) for _ in range(2)]
+    calls = []
+    try:
+        out = orch.run_distributed(
+            _upscale_doc(), f"http://127.0.0.1:{mport}",
+            lambda g: calls.append(g) or "master-result",
+            [{"id": f"w{i}", "host": "127.0.0.2", "port": port}
+             for i, (_, port, _) in enumerate(workers)],
+            job_store=JobStore())
+    finally:
+        for srv in [master] + [w[0] for w in workers]:
+            srv.shutdown()
+            srv.server_close()
+    assert out["result"] == "master-result" and len(calls) == 1
+    assert out["workers"] == ["w0", "w1"] and out["failed"] == []
+    assert mhits[("POST", "/distributed/load_image")] == 1
+    for _, _, hits in workers:
+        assert hits[("POST", "/upload/image")] == 1
+        assert hits[("POST", "/prompt")] == 1
+
+
+def test_failed_staging_fails_the_request_before_anything_is_queued():
+    master, mport, _ = _master_with_image()
+    good, bad = _remote_worker(200), _remote_worker(500)
+    store, calls = JobStore(), []
+    try:
+        with pytest.raises(RuntimeError, match="image staging to w1"):
+            orch.run_distributed(
+                _upscale_doc(), f"http://127.0.0.1:{mport}", calls.append,
+                [{"id": "w0", "host": "127.0.0.2", "port": good[1]},
+                 {"id": "w1", "host": "127.0.0.2", "port": bad[1]}],
+                job_store=store)
+    finally:
+        for srv in (master, good[0], bad[0]):
+            srv.shutdown()
+            srv.server_close()
+    assert calls == []
+    assert store.snapshot() == {"image_jobs": [], "tile_jobs": []}
+    assert good[2][("POST", "/prompt")] == bad[2][("POST", "/prompt")] == 0
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path):
