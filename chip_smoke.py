@@ -14,9 +14,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``flash_fwd_sm90`` head dim), serialized ``wgmma`` instructions or an
    ignored ``setmaxnreg``;
 3. kernel checks: the flash-attention kernels against their plain
-   PyTorch version on the card at every shape the three paths below give
-   them (SDXL's D = 64 and SD1.5's D = 40/80/160, all in the sm90
-   kernel), plus the edges of both kernels at every head dim (N and M not
+   PyTorch version on the card at every shape the paths below give them
+   (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, the SDXL refiner's 12 and
+   24 heads, and SD1.5's D = 40/80/160, all in the sm90 kernel), plus the edges of both kernels at every head dim (N and M not
    multiples of the tile, M < 16, one batch-head, N < 64; the older
    ``mma.sync`` kernel's launched by name), fp32 and the tiny head dims
    (bf16: relative error < 2e-2; fp32: absolute error < 2e-4, TF32 off).
@@ -31,8 +31,11 @@ Run from the root of a checkout on a machine with a CUDA card (and
    each time is the median of five rounds;
 4. the tiny family on the card against the same runs on the CPU (plain
    versions): txt2img, img2img, the tiled upscale, the SDXL workflow
-   (``tiny_sdxl``, 4 dpmpp_2m steps) and txt2img from a tiny checkpoint
-   file the port wrote must agree within 1e-3;
+   (``tiny_sdxl``, 4 dpmpp_2m steps), txt2img from a tiny checkpoint
+   file the port wrote, and the refiner and hires-fix workflows shrunk
+   (each checkpoint name on a tiny stand-in of its family: a two-tower
+   base with an ADM head, a one-tower OpenCLIP refiner under the
+   refiner's checkpoint prefix) must agree within 1e-3;
 5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
    port's WorkflowExecutor as three requests with three seeds; each must
@@ -84,9 +87,21 @@ Run from the root of a checkout on a machine with a CUDA card (and
    Each write's and load's seconds, and the host's resident memory
    (anonymous and file-backed) at its peak during each load, go into a
    ``from_disk`` line.
+11. staged SDXL: ``workflows/distributed-sdxl-refiner.json`` (SDXL base
+   then the SDXL refiner: KSamplerAdvanced windows 0-18 and 18-24 of 24
+   euler/normal steps, the leftover noise handed on) and
+   ``workflows/distributed-hires-fix.json`` (the virtual LoRA, clip-skip
+   -2, 14 of 20 euler/karras steps at 832^2, a nearest-exact latent
+   upscale to 1216^2, steps 14-20 there), unchanged with virtual
+   weights, each cold (every pipeline released first) and then warm:
+   exactly 3048 (refiner: 18 x 70 x 2 + 6 x 44 x 2) and 2800 (hires-fix:
+   14 x 70 x 2 + 6 x 70 x 2) sm90 launches a request, finite,
+   non-constant (1, 1024, 1024, 3) and (1, 1216, 1216, 3) images, the
+   cold and the warm image equal to the bit; the LoRA-patched pipeline
+   must share the base's UNet.  It prints a ``staged`` line.
 
-Launch counts are zeroed just before each request of phases 5-7, 9 and
-10 and read just after.  The line before the last is ``{"kernels":
+Launch counts are zeroed just before each request of phases 5-7, 9, 10
+and 11 and read just after.  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -113,8 +128,12 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{name}.json")
-             for name in ("txt2img", "img2img", "upscale", "sdxl")}
+WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{file}.json")
+             for name, file in (("txt2img", "txt2img"),
+                                ("img2img", "img2img"),
+                                ("upscale", "upscale"), ("sdxl", "sdxl"),
+                                ("refiner", "sdxl-refiner"),
+                                ("hires_fix", "hires-fix"))}
 REPLACES = "comfyui_distributed_tpu/ops/pallas/flash_attention.py:134"
 SOURCES = {
     "sm90": "comfyui_distributed_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -140,7 +159,10 @@ SEEDS = (123456789, 987654321, 42)
 DEVICE = "cuda"
 # (variant, launches) of one request of each path
 EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
-            "upscale": ("sm90", 640), "sdxl": ("sm90", 2800)}
+            "upscale": ("sm90", 640), "sdxl": ("sm90", 2800),
+            "refiner": ("sm90", 3048), "hires_fix": ("sm90", 2800)}
+# the side of each path's square image (1024 where not listed)
+SIDE = {"upscale": 2048, "hires_fix": 1216}
 # phase 9's request carries this UI workflow for SaveImage's PNG
 EXTRA_PNGINFO = {"workflow": {"last_node_id": 9, "nodes": [],
                               "links": [], "version": 0.4}}
@@ -337,20 +359,56 @@ def small_docs(docs):
     xl["6"]["inputs"]["steps"] = 4
     from_file = copy.deepcopy(txt)
     from_file["4"]["inputs"]["ckpt_name"] = TINY_FILE
+    refiner = copy.deepcopy(docs["refiner"])
+    refiner["3"]["inputs"].update(width=64, height=64)
+    refiner["8"]["inputs"].update(steps=4, end_at_step=3)
+    refiner["9"]["inputs"].update(steps=4, start_at_step=3)
+    hires = copy.deepcopy(docs["hires_fix"])
+    hires["5"]["inputs"].update(width=32, height=32)
+    hires["3"]["inputs"].update(steps=2, end_at_step=1)
+    hires["10"]["inputs"].update(width=64, height=64)
+    hires["11"]["inputs"].update(steps=2, start_at_step=1)
     return {"txt2img": txt, "img2img": i2i, "upscale": up, "sdxl": xl,
-            "txt2img_from_file": from_file}
+            "txt2img_from_file": from_file, "refiner": refiner,
+            "hires_fix": hires}
 
 
 TINY_FILE = "tiny-from-disk.safetensors"
+# phase 4's stand-ins for the staged workflows' two checkpoints
+TINY_BASE, TINY_REFINER = "tiny_xl_base", "tiny_xl_refiner"
+
+
+def staged_stand_ins(registry):
+    """Registers phase 4's tiny stand-ins of SDXL base and refiner in the
+    port's registry; returns the family rule that sends each checkpoint
+    name to its own (a name holding "refiner" to the refiner's)."""
+    import dataclasses
+
+    from comfyui_distributed_tpu_torch.models import clip, unet, vae
+    tower = dataclasses.replace(clip.TINY_CLIP_CONFIG, layers=3,
+                                output_layer=-2)
+    bigg = dataclasses.replace(tower, projection_dim=48, layout="openclip")
+    registry.FAMILIES[TINY_BASE] = registry.ModelFamily(
+        name=TINY_BASE, vae=vae.TINY_VAE_CONFIG, clips=(tower, bigg),
+        unet=dataclasses.replace(unet.TINY_CONFIG, context_dim=128,
+                                 adm_in_channels=48 + 6 * 256))
+    registry.FAMILIES[TINY_REFINER] = registry.ModelFamily(
+        name=TINY_REFINER, vae=vae.TINY_VAE_CONFIG, clips=(bigg,),
+        unet=dataclasses.replace(unet.TINY_CONFIG, context_dim=64,
+                                 adm_in_channels=48 + 5 * 256),
+        clip_prefixes=("conditioner.embedders.0.model.",))
+    return lambda name: TINY_REFINER if "refiner" in name.lower() \
+        else TINY_BASE
 
 
 def tiny_against_cpu(docs, input_dir):
     """Phase 4: the tiny family's txt2img, img2img, tiled upscale, the
-    SDXL graph (on ``tiny_sdxl``) and txt2img from a checkpoint file the
-    port wrote, on the card against the CPU runs of the same graphs
-    (kernels' plain versions).  The tiny RRDB runs in fp32 here: its
-    bf16 convolutions round differently in cuDNN and on the CPU, which
-    the refine then amplifies past 1e-3."""
+    SDXL graph (on ``tiny_sdxl``), txt2img from a checkpoint file the
+    port wrote, and the shrunk refiner and hires-fix graphs (on
+    :func:`staged_stand_ins`), on the card against the CPU runs of the
+    same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
+    here: its bf16 convolutions round differently in cuDNN and on the
+    CPU, which the refine then amplifies past 1e-3."""
     import dataclasses
 
     import numpy as np
@@ -363,6 +421,8 @@ def tiny_against_cpu(docs, input_dir):
     tiny_rrdb = upscalers.TINY_RRDB_CONFIG
     upscalers.TINY_RRDB_CONFIG = dataclasses.replace(tiny_rrdb,
                                                      dtype=torch.float32)
+    detect_family = registry.detect_family
+    staged_family = staged_stand_ins(registry)
     out = {}
     models_dir = tempfile.mkdtemp(prefix="tiny_models_")
     try:
@@ -373,8 +433,14 @@ def tiny_against_cpu(docs, input_dir):
         save_checkpoint(os.path.join(models_dir, TINY_FILE), pipe.unet,
                         pipe.clip_models, pipe.vae, pipe.family)
         for name, doc in small_docs(docs).items():
-            os.environ["DTPU_DEFAULT_FAMILY"] = \
-                "tiny_sdxl" if name == "sdxl" else "tiny"
+            staged = name in ("refiner", "hires_fix")
+            registry.detect_family = staged_family if staged \
+                else detect_family
+            if staged:
+                os.environ.pop("DTPU_DEFAULT_FAMILY", None)
+            else:
+                os.environ["DTPU_DEFAULT_FAMILY"] = \
+                    "tiny_sdxl" if name == "sdxl" else "tiny"
             imgs = {dev: WorkflowExecutor(OpContext(
                 device=dev, input_dir=input_dir,
                 models_dir=models_dir)).execute(
@@ -388,8 +454,11 @@ def tiny_against_cpu(docs, input_dir):
             out[name] = {"shape": list(card.shape), "max_abs_err": err,
                          "atol": 1e-3}
     finally:
-        del os.environ["DTPU_DEFAULT_FAMILY"]
+        os.environ.pop("DTPU_DEFAULT_FAMILY", None)
         upscalers.TINY_RRDB_CONFIG = tiny_rrdb
+        registry.detect_family = detect_family
+        for name in (TINY_BASE, TINY_REFINER):
+            registry.FAMILIES.pop(name, None)
         registry.clear_pipeline_cache()
         shutil.rmtree(models_dir, ignore_errors=True)
     return out
@@ -397,7 +466,7 @@ def tiny_against_cpu(docs, input_dir):
 
 def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
                  results=None, **ctx_kw):
-    """Phases 5-7, 9 and 10: one request of ``path`` per seed, its launch
+    """Phases 5-7 and 9-11: one request of ``path`` per seed, its launch
     counts zeroed just before it and read just after (and added to
     ``shape_counts``); returns the per-request report, puts each seed's
     image into ``images`` and each run's result into ``results`` when
@@ -411,7 +480,7 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
         as fa
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
     variant, want = EXPECTED[path]
-    side = 2048 if path == "upscale" else 1024
+    side = SIDE.get(path, 1024)
     seed_node = next(n for n, node in doc.items() if isinstance(node, dict)
                      and node.get("class_type") in ("DistributedSeed",
                                                     "UltimateSDUpscaleDistributed"))
@@ -437,6 +506,7 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
             "node_seconds": {f"{k} {doc[k]['class_type']}": round(v, 4)
                              for k, v in res.timings.items()},
             "stage_seconds": {k: round(v, 4) for k, v in res.stages.items()},
+            "node_max_memory": res.node_max_memory,
             "shape": list(img.shape) if img is not None else None,
             "finite": finite, "std": std, "launches": launches,
             "variants": variants,
@@ -475,8 +545,9 @@ def totals(shapes, by_shape, keys):
 
 
 def kernels_line(rows, variant_counts, shape_counts):
-    """The contract's entries over phases 5-7's launches: one per kernel
-    variant that they launched, each over exactly its shapes."""
+    """The contract's entries over the launches of phases 5-7 and 9-11:
+    one per kernel variant that they launched, each over exactly its
+    shapes."""
     by_shape = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
                 for r in rows if not r.get("named")}
     missing = [s for s in shape_counts if s not in by_shape]
@@ -1063,6 +1134,89 @@ def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
     return report, requests
 
 
+def staged_request_pair(path, doc, input_dir, shape_counts):
+    """One staged workflow of phase 11, cold and then warm: (its report,
+    its requests).  Everything it held is released when it returns."""
+    import numpy as np
+    import torch
+
+    seed = doc["13"]["inputs"]["seed"]
+    images, results, requests = {}, [], []
+    for run in ("cold", "warm"):
+        requests += run_requests(path, doc, (seed,), input_dir, shape_counts,
+                                 images, results)
+        requests[-1]["run"] = run
+        if run == "cold":
+            first = images[seed]
+    if not np.array_equal(first, images[seed]):
+        fail(f"{path}: the warm request's image differs from the cold "
+             f"one's (max {np.abs(first - images[seed]).max()})")
+    report = {"seconds": {r["run"]: r["seconds"] for r in requests},
+              "max_memory_allocated": {r["run"]: r["max_memory_allocated"]
+                                       for r in requests},
+              "cold_equals_warm": True}
+    res = results[-1]
+    # the decode's own peak above what the request holds: the sampled
+    # latent decoded again with the peak counter reset
+    edges = doc[{"refiner": "10", "hires_fix": "8"}[path]]["inputs"]
+    vae = res.outputs[edges["vae"][0]][edges["vae"][1]]
+    lat = res.outputs[edges["samples"][0]][0]["samples"].data
+    torch.cuda.synchronize()
+    report["held_bytes"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vae.vae_decode(lat)
+    torch.cuda.synchronize()
+    report["decode_peak_above_held_bytes"] = \
+        torch.cuda.max_memory_allocated() - report["held_bytes"]
+    if path == "refiner":
+        base, refiner = res.outputs["1"][0], res.outputs["2"][0]
+        if refiner.family.name != "sdxl_refiner" \
+                or res.outputs["6"][0].size_cond != (1024, 1024, 0, 0, 6.0):
+            fail(f"refiner: family {refiner.family.name}, size scalars "
+                 f"{res.outputs['6'][0].size_cond}")
+        report["weight_bytes"] = {
+            p.name: sum(t.numel() * t.element_size() for m in
+                        [p.unet, p.vae, *p.clip_models]
+                        for t in m.parameters())
+            for p in (base, refiner)}
+    else:
+        base, patched = res.outputs["4"][0], res.outputs["20"][0]
+        new = [n for m, b in zip([patched.unet, *patched.clip_models],
+                                 [base.unet, *base.clip_models])
+               for (n, p), q in zip(m.named_parameters(), b.parameters())
+               if p is not q]
+        if patched.unet is not base.unet or len(new) != 8 \
+                or res.outputs["21"][0] is not patched:
+            fail(f"hires_fix: the LoRA replaced {new}; the UNet shared "
+                 f"{patched.unet is base.unet}")
+        report["lora_new_tensors"] = new
+    return report, requests
+
+
+def staged(docs, input_dir, shape_counts):
+    """Phase 11: the refiner and hires-fix workflows, each cold (every
+    pipeline released first) and then warm; returns (the report, the
+    requests)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    def release():
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    report, requests = {}, []
+    for path in ("refiner", "hires_fix"):
+        release()
+        report[path], reqs = staged_request_pair(path, docs[path], input_dir,
+                                                 shape_counts)
+        requests += reqs
+    release()
+    return report, requests
+
+
 def main() -> int:
     try:
         import torch
@@ -1098,6 +1252,22 @@ def main() -> int:
         (2, 1024, 1024, 20, 64, bf, "SDXL self 32x32 latent"),
         (2, 4096, 77, 10, 64, bf, "SDXL cross 64x64 latent"),
         (2, 1024, 77, 20, 64, bf, "SDXL cross 32x32 latent"),
+        # phase 11: the SDXL refiner at 1024^2 (12 heads at 768 channels,
+        # 24 at 1536) and SDXL's hires-fix at 832^2 and 1216^2
+        (2, 4096, 4096, 12, 64, bf, "refiner self 64x64 latent"),
+        (2, 4096, 77, 12, 64, bf, "refiner cross 64x64 latent"),
+        (2, 1024, 1024, 24, 64, bf, "refiner self 32x32 latent"),
+        (2, 1024, 77, 24, 64, bf, "refiner cross 32x32 latent"),
+        (2, 256, 256, 24, 64, bf, "refiner mid self 16x16 latent"),
+        (2, 256, 77, 24, 64, bf, "refiner mid cross 16x16 latent"),
+        (2, 2704, 2704, 10, 64, bf, "SDXL 832^2 self 52x52 latent"),
+        (2, 2704, 77, 10, 64, bf, "SDXL 832^2 cross 52x52 latent"),
+        (2, 676, 676, 20, 64, bf, "SDXL 832^2 self 26x26 latent"),
+        (2, 676, 77, 20, 64, bf, "SDXL 832^2 cross 26x26 latent"),
+        (2, 5776, 5776, 10, 64, bf, "SDXL 1216^2 self 76x76 latent"),
+        (2, 5776, 77, 10, 64, bf, "SDXL 1216^2 cross 76x76 latent"),
+        (2, 1444, 1444, 20, 64, bf, "SDXL 1216^2 self 38x38 latent"),
+        (2, 1444, 77, 20, 64, bf, "SDXL 1216^2 cross 38x38 latent"),
         # SD1.5 at B = 32: 16 tiles x (cond, uncond), 8 heads
         (32, 4096, 4096, 8, 40, bf, "SD1.5 self 64x64 latent"),
         (32, 4096, 77, 8, 40, bf, "SD1.5 cross 64x64 latent"),
@@ -1188,7 +1358,11 @@ def main() -> int:
                                            sdxl_img, upscaled[42])
         requests += disk_reqs
         emit("from_disk", disk_report)
-        emit("workflow_9_10", {"requests": sdxl_reqs + disk_reqs})
+        staged_report, staged_reqs = staged(docs, input_dir, shape_counts)
+        requests += staged_reqs
+        emit("staged", staged_report)
+        emit("workflow_9_11", {"requests": sdxl_reqs + disk_reqs
+                               + staged_reqs})
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

@@ -8,7 +8,9 @@ A single-file SD checkpoint (safetensors, or a torch pickle) holds:
 - ``cond_stage_model.transformer.text_model.*`` -> CLIP-L (SD1.x);
 - ``cond_stage_model.model.*``               -> an OpenCLIP tower (SD2.x);
 - ``conditioner.embedders.0.transformer.text_model.*`` and
-  ``conditioner.embedders.1.model.*``        -> SDXL's CLIP-L and bigG.
+  ``conditioner.embedders.1.model.*``        -> SDXL's CLIP-L and bigG;
+- ``conditioner.embedders.0.model.*``        -> the SDXL refiner's bigG
+  (a family's declared ``clip_prefixes``).
 
 One walk a model (``_run_unet``, ``_run_vae``, ``_run_clip_hf``,
 ``_run_openclip``) names each torch key beside the flax path of the
@@ -518,6 +520,11 @@ CLIP_PREFIXES_SDXL = ("conditioner.embedders.0.transformer.text_model.",
 
 
 def _clip_prefixes(family) -> List[str]:
+    """The text towers' key prefixes: the family's own when it declares
+    them (the SDXL refiner's bigG is embedder 0 of the conditioner),
+    else the standard layout for its towers."""
+    if family.clip_prefixes is not None:
+        return list(family.clip_prefixes)
     if len(family.clips) == 1:
         return [CLIP_PREFIX_SD2 if family.clips[0].layout == "openclip"
                 else CLIP_PREFIX_SD15]

@@ -8,6 +8,7 @@ it outside its Pallas kernel: 77 tokens need no kernel.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -135,3 +136,26 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return out.float(), pooled.float()
+
+
+# the config fields that shape a tower's parameters or its numbers
+# everywhere but its output selection
+_WEIGHT_FIELDS = ("vocab_size", "width", "layers", "heads", "max_length",
+                  "act", "projection_dim", "layout", "dtype")
+
+
+def with_config(model: CLIPTextModel, cfg: CLIPConfig) -> CLIPTextModel:
+    """``model``'s weights under ``cfg``, which may differ from its own
+    config only in ``output_layer`` (clip-skip): ``model`` itself when
+    the configs are equal, else a shallow copy that shares every
+    parameter and reads ``cfg``."""
+    if cfg == model.cfg:
+        return model
+    changed = [f for f in _WEIGHT_FIELDS
+               if getattr(cfg, f) != getattr(model.cfg, f)]
+    if changed:
+        raise ValueError(f"with_config: {changed} differ; only "
+                         "output_layer may change on shared weights")
+    out = copy.copy(model)
+    out.cfg = cfg
+    return out

@@ -13,8 +13,10 @@ device directly, so no copy of the weights is built on the host.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
+import itertools
 import os
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
@@ -50,6 +52,10 @@ class ModelFamily:
     vae: vae_mod.VAEConfig
     clips: Tuple[clip_mod.CLIPConfig, ...]
     latent_channels: int = 4
+    # the text towers' key prefixes in a single-file checkpoint, where
+    # the family departs from the standard layouts
+    # (``checkpoints._clip_prefixes`` falls back to those when None)
+    clip_prefixes: Optional[Tuple[str, ...]] = None
 
 
 FAMILIES: Dict[str, ModelFamily] = {
@@ -64,6 +70,16 @@ FAMILIES: Dict[str, ModelFamily] = {
         unet=unet_mod.SDXL_CONFIG,
         vae=vae_mod.SDXL_VAE_CONFIG,
         clips=(clip_mod.CLIP_L_SDXL_CONFIG, clip_mod.OPEN_CLIP_BIGG_CONFIG),
+    ),
+    # SDXL refiner: the bigG tower only, stored as embedder 0 of the
+    # conditioner, and a 2560-wide ADM laid out as
+    # CLIPTextEncodeSDXLRefiner emits it (pooled + 5 size scalars)
+    "sdxl_refiner": ModelFamily(
+        name="sdxl_refiner",
+        unet=unet_mod.SDXL_REFINER_CONFIG,
+        vae=vae_mod.SDXL_VAE_CONFIG,
+        clips=(clip_mod.OPEN_CLIP_BIGG_CONFIG,),
+        clip_prefixes=("conditioner.embedders.0.model.",),
     ),
     "tiny": ModelFamily(
         name="tiny",
@@ -131,8 +147,13 @@ def _name_seed(name: str) -> int:
     return int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little")
 
 
+_pipeline_tokens = itertools.count()
+
+
 class DiffusionPipeline:
-    """(MODEL, CLIP, VAE) bundle + tokenizer + schedule, on one device."""
+    """(MODEL, CLIP, VAE) bundle + tokenizer + schedule, on one device.
+    ``cache_token`` names this pipeline in the caches of the pipelines
+    derived from it (:func:`derive_pipeline`, ``models/lora.py``)."""
 
     def __init__(self, name: str, family: ModelFamily, unet: nn.Module,
                  clip_models: List[nn.Module], vae: nn.Module,
@@ -143,6 +164,8 @@ class DiffusionPipeline:
         self.clip_models = clip_models
         self.vae = vae
         self.device = device
+        self.assets_dir = assets_dir
+        self.cache_token = next(_pipeline_tokens)
         self.prediction_type = family.unet.prediction_type
         self.schedule = sch.make_discrete_schedule()
         # CLIP pads with EOT, OpenCLIP-only families with 0
@@ -191,18 +214,37 @@ class DiffusionPipeline:
                uncond_context: torch.Tensor, seeds, steps: int, cfg: float,
                sampler_name: str, scheduler: str, denoise: float = 1.0,
                y: Optional[torch.Tensor] = None, add_noise: bool = True,
-               sample_idx=None) -> torch.Tensor:
+               sample_idx=None, start_step: int = 0,
+               end_step: Optional[int] = None,
+               force_full_denoise: bool = False) -> torch.Tensor:
         """schedule -> initial noise -> sampler loop -> latents.
 
         ``seeds``: per-sample 64-bit host seeds [B]; ``sample_idx``:
         per-sample fold-in indices (default: the batch position).  The
         initial noise is ``normal(fold_in(key_b, 0x7FFFFFFF))`` per
-        sample, scaled by the first sigma and added to ``latents``."""
+        sample, scaled by the first sigma and added to ``latents``
+        (nothing is added without ``add_noise``).
+        ``start_step``/``end_step`` run a window of the schedule
+        (KSamplerAdvanced): the sampler takes ``sigmas[start:end + 1]``,
+        its step indices (and so its noise fold-ins) counting from 0 at
+        the window's start, as the JAX sampler runs the sliced sigmas;
+        the initial noise scales by the window's first sigma, and a
+        window that stops early returns a still-noisy latent unless
+        ``force_full_denoise`` zeroes its last sigma.  A window with
+        start >= end returns ``latents`` unchanged."""
         sampler = get_sampler(sampler_name)
         dev = self.device
         # host float32 sigmas: the sampler's branches and coefficients
         # never wait for the card
         sigmas = sch.compute_sigmas(self.schedule, scheduler, steps, denoise)
+        start = max(int(start_step), 0)
+        end = steps if end_step is None else min(int(end_step), steps)
+        if start >= end:
+            return latents
+        if start > 0 or end < steps:
+            sigmas = sigmas[start:end + 1].copy()
+            if force_full_denoise:
+                sigmas[-1] = 0.0
         x = latents.to(dev, torch.float32)
         keys = sample_keys(seeds, sample_idx)
         if add_noise:
@@ -286,9 +328,53 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
 
 
 def clear_pipeline_cache() -> None:
+    """Drop every cached pipeline, derived pipeline, LoRA-patched
+    pipeline and upscaler, so their device memory can go."""
     with _pipeline_lock:
         _pipeline_cache.clear()
+        _derived_cache.clear()
         _upscaler_cache.clear()
+    from comfyui_distributed_tpu_torch.models import lora as lora_mod
+    lora_mod.clear_lora_cache()
+
+
+# derived pipelines (clip-skip variants): modules shared with the base,
+# each clone cached per (base, tag) so a repeated run gets the same one
+_derived_cache: "collections.OrderedDict[Tuple, DiffusionPipeline]" = \
+    collections.OrderedDict()
+_DERIVED_CACHE_CAP = 8
+
+
+def copy_sampler_patches(src: DiffusionPipeline,
+                         dst: DiffusionPipeline) -> None:
+    """What a derived or LoRA-patched pipeline keeps of its base's
+    sampling: the schedule (the JAX package's other sampling patches,
+    RescaleCFG and PerpNeg, are not ported)."""
+    dst.schedule = src.schedule
+
+
+def derive_pipeline(base: DiffusionPipeline, tag: str,
+                    family: ModelFamily) -> DiffusionPipeline:
+    """Cached clone of ``base`` with a replacement family, everything
+    else shared by reference: the UNet and VAE as they are, each text
+    tower's weights under the new family's tower config
+    (:func:`clip_mod.with_config`)."""
+    key = (base.cache_token, tag)
+    with _pipeline_lock:
+        if key in _derived_cache:
+            _derived_cache.move_to_end(key)
+            return _derived_cache[key]
+    clone = DiffusionPipeline(
+        f"{base.name}|{tag}", family, base.unet,
+        [clip_mod.with_config(m, c)
+         for m, c in zip(base.clip_models, family.clips, strict=True)],
+        base.vae, base.device, assets_dir=base.assets_dir)
+    copy_sampler_patches(base, clone)
+    with _pipeline_lock:
+        clone = _derived_cache.setdefault(key, clone)
+        while len(_derived_cache) > _DERIVED_CACHE_CAP:
+            _derived_cache.popitem(last=False)
+    return clone
 
 
 @dataclasses.dataclass(frozen=True)

@@ -74,6 +74,20 @@ SDXL_CONFIG = UNetConfig(
     use_linear_in_transformer=True,
 )
 
+# SDXL refiner: 384 base channels over four levels, depth-4 transformers
+# at the two middle levels and in the middle block, the bigG context
+# (1280), and an ADM of the pooled bigG output (1280) plus five 256-wide
+# size embeddings (height, width, crop_h, crop_w, aesthetic score)
+SDXL_REFINER_CONFIG = UNetConfig(
+    model_channels=384,
+    channel_mult=(1, 2, 4, 4),
+    transformer_depth=(0, 4, 4, 0),
+    transformer_depth_middle=4,
+    context_dim=1280,
+    adm_in_channels=2560,
+    use_linear_in_transformer=True,
+)
+
 TINY_CONFIG = UNetConfig(
     model_channels=32,
     channel_mult=(1, 2),

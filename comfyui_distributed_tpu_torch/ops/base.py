@@ -27,10 +27,11 @@ CONTROL = "__control__"
 @dataclasses.dataclass
 class Conditioning:
     """CLIP encoding result (comfy CONDITIONING): context [1, T, C] and,
-    for SDXL, the pooled text embedding [1, P] and the size scalars of
-    CLIPTextEncodeSDXL (height, width, crop_h, crop_w, target_height,
-    target_width); without them the sampler derives (H, W, 0, 0, H, W)
-    from the latent."""
+    for SDXL, the pooled text embedding [1, P] and the ADM scalars: those
+    of CLIPTextEncodeSDXL (height, width, crop_h, crop_w, target_height,
+    target_width) or of CLIPTextEncodeSDXLRefiner (height, width, 0, 0,
+    aesthetic score); without them the sampler derives them from the
+    latent."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
     size_cond: Optional[Tuple[float, ...]] = None

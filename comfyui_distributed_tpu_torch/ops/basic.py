@@ -1,7 +1,10 @@
-"""Standard workflow ops on the txt2img, img2img, SDXL and upscale
-paths: the counterparts of ``CheckpointLoaderSimple``,
-``CheckpointSave``, ``CLIPTextEncode``, ``CLIPTextEncodeSDXL``,
-``EmptyLatentImage``, ``KSampler``, ``VAEDecode``, ``VAEEncode``,
+"""Standard workflow ops on the txt2img, img2img, SDXL, refiner,
+hires-fix and upscale paths: the counterparts of
+``CheckpointLoaderSimple``, ``CheckpointSave``, ``LoraLoader``,
+``LoraLoaderModelOnly``, ``CLIPSetLastLayer``, ``CLIPTextEncode``,
+``CLIPTextEncodeSDXL``, ``CLIPTextEncodeSDXLRefiner``,
+``EmptyLatentImage``, ``KSampler``, ``KSamplerAdvanced``,
+``LatentUpscale``, ``LatentUpscaleBy``, ``VAEDecode``, ``VAEEncode``,
 ``LoadImage``, ``ImageScale``, ``UpscaleModelLoader``,
 ``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
 ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode neither
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import threading
@@ -28,6 +32,7 @@ import torch
 from comfyui_distributed_tpu_torch.models import registry
 from comfyui_distributed_tpu_torch.models.checkpoints import save_checkpoint
 from comfyui_distributed_tpu_torch.models.layers import timestep_embedding
+from comfyui_distributed_tpu_torch.models.lora import apply_lora_to_pipeline
 from comfyui_distributed_tpu_torch.ops.base import (
     CONTROL,
     Conditioning,
@@ -93,6 +98,72 @@ class CheckpointSave(Op):
 
 
 @register_op
+class LoraLoader(Op):
+    """Merges a kohya-format LoRA (the file in the models directory, or
+    the JAX package's virtual one from the name) into the UNet and text
+    towers at the given strengths; returns the patched (MODEL, CLIP).
+    The base pipeline stays untouched, and the patched one is cached."""
+    TYPE = "LoraLoader"
+    WIDGETS = ["lora_name", "strength_model", "strength_clip"]
+    DEFAULTS = {"strength_model": 1.0, "strength_clip": 1.0}
+
+    def execute(self, ctx: OpContext, model, clip, lora_name: str,
+                strength_model: float = 1.0, strength_clip: float = 1.0):
+        sm, sc, name = float(strength_model), float(strength_clip), \
+            str(lora_name)
+        if sm == 0.0 and sc == 0.0:
+            return (model, clip)
+        if model is clip:
+            patched = apply_lora_to_pipeline(model, name, sm, sc,
+                                             models_dir=ctx.models_dir)
+            return (patched, patched)
+        # MODEL and CLIP from different pipelines: each patched on its own
+        m2 = apply_lora_to_pipeline(model, name, sm, 0.0,
+                                    models_dir=ctx.models_dir) \
+            if sm != 0.0 else model
+        c2 = apply_lora_to_pipeline(clip, name, 0.0, sc,
+                                    models_dir=ctx.models_dir) \
+            if sc != 0.0 else clip
+        return (m2, c2)
+
+
+@register_op
+class LoraLoaderModelOnly(Op):
+    """LoraLoader on the UNet only."""
+    TYPE = "LoraLoaderModelOnly"
+    WIDGETS = ["lora_name", "strength_model"]
+    DEFAULTS = {"strength_model": 1.0}
+
+    def execute(self, ctx: OpContext, model, lora_name: str,
+                strength_model: float = 1.0):
+        sm = float(strength_model)
+        if sm == 0.0:
+            return (model,)
+        return (apply_lora_to_pipeline(model, str(lora_name), sm, 0.0,
+                                       models_dir=ctx.models_dir),)
+
+
+@register_op
+class CLIPSetLastLayer(Op):
+    """Clip-skip: cross-attention conditioning from an earlier hidden
+    layer of every text tower (-1 the last, -2 the one before...).  The
+    weights are shared; the returned CLIP is the input itself when every
+    tower already stops there."""
+    TYPE = "CLIPSetLastLayer"
+    WIDGETS = ["stop_at_clip_layer"]
+    DEFAULTS = {"stop_at_clip_layer": -1}
+
+    def execute(self, ctx: OpContext, clip, stop_at_clip_layer: int = -1):
+        stop = int(stop_at_clip_layer)
+        fam = clip.family
+        if all(c.output_layer == stop for c in fam.clips):
+            return (clip,)
+        fam2 = dataclasses.replace(fam, clips=tuple(
+            dataclasses.replace(c, output_layer=stop) for c in fam.clips))
+        return (registry.derive_pipeline(clip, f"clip{stop}", family=fam2),)
+
+
+@register_op
 class CLIPTextEncode(Op):
     TYPE = "CLIPTextEncode"
     WIDGETS = ["text"]
@@ -124,6 +195,23 @@ class CLIPTextEncodeSDXL(Op):
             size_cond=(int(height), int(width), int(crop_h), int(crop_w),
                        int(target_height) or int(height),
                        int(target_width) or int(width))),)
+
+
+@register_op
+class CLIPTextEncodeSDXLRefiner(Op):
+    """The SDXL refiner's encode: one prompt, and the ADM scalars
+    (height, width, crop_h, crop_w, aesthetic score) of the refiner's
+    five-embedding layout."""
+    TYPE = "CLIPTextEncodeSDXLRefiner"
+    WIDGETS = ["ascore", "width", "height", "text"]
+    DEFAULTS = {"ascore": 6.0}
+
+    def execute(self, ctx: OpContext, clip, ascore: float, width: int,
+                height: int, text: str):
+        context, pooled = clip.encode_prompt([str(text)])
+        return (Conditioning(
+            context=context, pooled=pooled,
+            size_cond=(int(height), int(width), 0, 0, float(ascore))),)
 
 
 @register_op
@@ -163,11 +251,11 @@ def _prepare_sample_inputs(model, seed, latent_image,
     total = int(lat.shape[0])
     base = seed.base if isinstance(seed, SeedValue) else int(seed)
     seeds = np.full((total,), np.uint64(base), np.uint64)
-    if positive.context.shape[1] != negative.context.shape[1]:
-        raise NotImplementedError(
-            "conditionings of different token lengths are not ported yet")
-    context = positive.context.to(dev).repeat(total, 1, 1)
-    uncond = negative.context.to(dev).repeat(total, 1, 1)
+    t_align = cond_token_align([positive, negative])
+    context = align_cond_tokens(positive.context, t_align).to(dev).repeat(
+        total, 1, 1)
+    uncond = align_cond_tokens(negative.context, t_align).to(dev).repeat(
+        total, 1, 1)
     y = None
     if model.family.unet.adm_in_channels is not None:
         # the single-entry path: the positive's ADM vector rides both
@@ -179,17 +267,43 @@ def _prepare_sample_inputs(model, seed, latent_image,
                          sample_idx=np.arange(total, dtype=np.uint32), y=y)
 
 
+def cond_token_align(entries) -> int:
+    """The common token length of conditionings: the lcm of their lengths
+    (each repeats to it whole, as ComfyUI does), or the longest when the
+    lcm would pass 8 times it (the shorter are zero-padded then)."""
+    lengths = {int(e.context.shape[1]) for e in entries}
+    t_max = max(lengths)
+    t_align = math.lcm(*lengths)
+    return t_max if t_align > 8 * t_max else t_align
+
+
+def align_cond_tokens(c: torch.Tensor, t_align: int) -> torch.Tensor:
+    """One context [B, T, C] repeated (when T divides ``t_align``) or
+    zero-padded to ``t_align`` tokens."""
+    t = int(c.shape[1])
+    if t == t_align:
+        return c
+    if t_align % t == 0:
+        return c.repeat(1, t_align // t, 1)
+    return torch.nn.functional.pad(c, (0, 0, 0, t_align - t))
+
+
 def _sdxl_vector_cond(pipe, cond: Conditioning, batch: int, height: int,
                       width: int) -> torch.Tensor:
     """SDXL ADM vector: the pooled text embedding plus 256-dim sinusoidal
-    embeddings of the conditioning's size scalars, or of (H, W, 0, 0, H,
-    W) from the latent when it carries none."""
+    embeddings of the conditioning's size scalars.  Without them the
+    latent's size stands in: (H, W, 0, 0, H, W) on the base, and (H, W,
+    0, 0, 6.0) on a refiner family, whose fifth scalar is the aesthetic
+    score (6.0 the usual one), not a size."""
     dev = pipe.device
     pooled = cond.pooled
     if pooled is None:
         pooled = torch.zeros((1, 1280), device=dev)
-    sc = cond.size_cond if cond.size_cond is not None else \
-        (height, width, 0, 0, height, width)
+    sc = cond.size_cond
+    if sc is None:
+        sc = (height, width, 0, 0, 6.0) \
+            if pipe.family.name.endswith("refiner") \
+            else (height, width, 0, 0, height, width)
     sizes = torch.tensor([float(v) for v in sc], dtype=torch.float32,
                          device=dev)
     emb = timestep_embedding(sizes, 256).reshape(1, -1)
@@ -219,6 +333,84 @@ class KSampler(Op):
             scheduler=str(scheduler), denoise=float(denoise), y=prep.y,
             sample_idx=prep.sample_idx)
         return ({"samples": DeviceLatent(out)},)
+
+
+@register_op
+class KSamplerAdvanced(Op):
+    """The staged sampler: runs the window [start_at_step, end_at_step)
+    of the schedule, with or without adding noise first, and returns a
+    still-noisy latent for a later stage when
+    ``return_with_leftover_noise`` is enabled."""
+    TYPE = "KSamplerAdvanced"
+    WIDGETS = ["add_noise", "noise_seed", CONTROL, "steps", "cfg",
+               "sampler_name", "scheduler", "start_at_step", "end_at_step",
+               "return_with_leftover_noise"]
+    DEFAULTS = {"start_at_step": 0, "end_at_step": 10000,
+                "add_noise": "enable",
+                "return_with_leftover_noise": "disable"}
+
+    def execute(self, ctx: OpContext, model, add_noise, noise_seed, steps,
+                cfg, sampler_name, scheduler, positive: Conditioning,
+                negative: Conditioning, latent_image,
+                start_at_step: int = 0, end_at_step: int = 10000,
+                return_with_leftover_noise: str = "disable"):
+        prep = _prepare_sample_inputs(model, noise_seed, latent_image,
+                                      positive, negative)
+        out = model.sample(
+            prep.latents, prep.context, prep.uncond, prep.seeds,
+            steps=int(steps), cfg=float(cfg), sampler_name=str(sampler_name),
+            scheduler=str(scheduler), y=prep.y, sample_idx=prep.sample_idx,
+            add_noise=str(add_noise) != "disable",
+            start_step=int(start_at_step),
+            end_step=min(int(end_at_step), int(steps)),
+            force_full_denoise=str(return_with_leftover_noise) == "disable")
+        return ({"samples": DeviceLatent(out)},)
+
+
+@register_op
+class LatentUpscale(Op):
+    """Latent resize (hires-fix stage 1 -> 2), on the device.  The pixel
+    widgets are divided by 8, as ComfyUI does; a 0 dimension follows the
+    other keeping the aspect, 0/0 passes the latent through, and
+    crop="center" resizes keeping the aspect and cuts the centre."""
+    TYPE = "LatentUpscale"
+    WIDGETS = ["upscale_method", "width", "height", "crop"]
+    DEFAULTS = {"crop": "disabled", "upscale_method": "nearest-exact"}
+
+    def execute(self, ctx: OpContext, samples, upscale_method: str,
+                width: int, height: int, crop: str = "disabled"):
+        lat = as_device_array(samples["samples"], ctx.device)
+        _, h, w, _ = lat.shape
+        width, height = int(width), int(height)
+        if width == 0 and height == 0:
+            return ({"samples": DeviceLatent(lat)},)
+        if width == 0:
+            lh = max(height // 8, 1)
+            lw = max(round(w * lh / h), 1)
+        elif height == 0:
+            lw = max(width // 8, 1)
+            lh = max(round(h * lw / w), 1)
+        else:
+            lw, lh = max(width // 8, 1), max(height // 8, 1)
+        out = resize_maybe_center(lat, lw, lh, str(upscale_method),
+                                  str(crop) if width and height
+                                  else "disabled")
+        return ({"samples": DeviceLatent(out)},)
+
+
+@register_op
+class LatentUpscaleBy(Op):
+    TYPE = "LatentUpscaleBy"
+    WIDGETS = ["upscale_method", "scale_by"]
+    DEFAULTS = {"upscale_method": "nearest-exact", "scale_by": 1.5}
+
+    def execute(self, ctx: OpContext, samples, upscale_method: str,
+                scale_by: float = 1.5):
+        lat = as_device_array(samples["samples"], ctx.device)
+        lh = max(round(lat.shape[1] * float(scale_by)), 1)
+        lw = max(round(lat.shape[2] * float(scale_by)), 1)
+        return ({"samples": DeviceLatent(resize_image(
+            lat, lw, lh, str(upscale_method)))},)
 
 
 @register_op

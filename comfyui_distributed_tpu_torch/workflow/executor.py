@@ -24,6 +24,10 @@ class ExecutionResult:
     total_s: float = 0.0
     # named stages inside ops -> seconds (``ops.base.stage``)
     stages: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # on a card: node id -> torch.cuda.max_memory_allocated() after the
+    # node, so the node where it rises to the request's peak set it
+    node_max_memory: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def image_batch(self) -> Optional[np.ndarray]:
@@ -47,6 +51,7 @@ class WorkflowExecutor:
         on_cuda = torch.device(self.ctx.device).type == "cuda"
         outputs: Dict[str, Tuple] = {}
         timings: Dict[str, float] = {}
+        max_memory: Dict[str, int] = {}
         order = graph.topo_order()
         # an unported node type fails the run before any node runs
         ops = {nid: get_op(graph.nodes[nid].class_type) for nid in order}
@@ -71,10 +76,13 @@ class WorkflowExecutor:
                 outputs[nid] = op.execute(self.ctx, **kwargs)
             if on_cuda:
                 torch.cuda.synchronize(self.ctx.device)
+                max_memory[nid] = torch.cuda.max_memory_allocated(
+                    self.ctx.device)
             timings[nid] = time.perf_counter() - t0
         total = time.perf_counter() - t_start
         self.ctx.node_timings.update(timings)
         return ExecutionResult(outputs=outputs,
                                images=list(self.ctx.saved_images),
                                timings=timings, total_s=total,
-                               stages=dict(self.ctx.stage_seconds))
+                               stages=dict(self.ctx.stage_seconds),
+                               node_max_memory=max_memory)

@@ -82,6 +82,21 @@ def _upscale(save=True):
     return doc
 
 
+def _hires(seed=SEED, save=True):
+    """distributed-hires-fix.json shrunk as tests/test_workflow.py shrinks
+    it: 32^2 and 64^2 pixel widgets, one step in each window of two."""
+    doc = json.loads((ROOT / "workflows" / "distributed-hires-fix.json")
+                     .read_text())
+    doc["5"]["inputs"].update(width=32, height=32)
+    doc["3"]["inputs"].update(steps=2, end_at_step=1)
+    doc["10"]["inputs"].update(width=64, height=64)
+    doc["11"]["inputs"].update(steps=2, start_at_step=1)
+    doc["13"]["inputs"]["seed"] = seed
+    if save:
+        doc["9"]["class_type"] = "SaveImage"
+    return doc
+
+
 def _input_png(path):
     """The small input image every participant loads (48 x 40)."""
     rng = np.random.default_rng(8)
@@ -333,6 +348,38 @@ def test_cli_run_via_master(cluster, tmp_path, capsys):
     out = capsys.readouterr()
     assert json.loads(out.out.strip().splitlines()[-1])["images"] == 2
     assert "dispatched to workers: ['w0']" in out.err
+
+
+def test_hires_fix_through_master_and_worker(cluster, monkeypatch):
+    """The staged hires-fix (LoraLoader, CLIPSetLastLayer, two
+    KSamplerAdvanced windows around a LatentUpscale) fanned out: the
+    worker's DistributedSeed gives s + 1 to both of its windows, so its
+    image is the in-process run at s + 1 (the JAX executor's within one
+    8-bit step), and the master's the run at s."""
+    from comfyui_distributed_tpu.ops.base import OpContext as JaxOpContext
+    from comfyui_distributed_tpu.workflow import \
+        WorkflowExecutor as JaxExecutor
+    deadline = time.time() + DEADLINE_S
+    cluster.enable_only("w0")
+    resp, entry, delta, files = cluster.run(_hires(), deadline)
+    assert resp["workers"] == ["w0"] and resp["failed_workers"] == [], \
+        (resp, cluster.logs())
+    assert entry["status"] == "success" and entry["images"] == 2, entry
+    assert delta["images_received"] == 1 and len(files) == 2
+    monkeypatch.setenv("DTPU_DEFAULT_FAMILY", "tiny")
+    treg.clear_pipeline_cache()
+    try:
+        refs = {s: WorkflowExecutor(OpContext(device="cpu")).execute(
+            _hires(s, save=False)).image_batch[0] for s in (SEED, SEED + 1)}
+        jres = JaxExecutor(JaxOpContext()).execute(_hires(SEED + 1,
+                                                          save=False))
+        jres.wait_host()
+    finally:
+        treg.clear_pipeline_cache()
+    for f, seed in zip(files, (SEED, SEED + 1)):
+        assert _diff(f, refs[seed]) <= EXACT, (f, seed)
+    assert _diff(files[1], jres.image_batch[0]) <= ONE_STEP
+    assert _diff(files[1], refs[SEED]) > ONE_STEP
 
 
 def _text_chunks(path):
