@@ -16,10 +16,13 @@ Run from the root of a checkout on a machine with a CUDA card (and
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the paths below give them
    (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, the SDXL refiner's 12 and
-   24 heads, and SD1.5's D = 40/80/160, all in the sm90 kernel), plus the edges of both kernels at every head dim (N and M not
-   multiples of the tile, M < 16, one batch-head, N < 64; the older
-   ``mma.sync`` kernel's launched by name), fp32 and the tiny head dims
-   (bf16: relative error < 2e-2; fp32: absolute error < 2e-4, TF32 off).
+   24 heads, and SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
+   and at B = 2 for the inpaint requests at 512^2 and 768 x 512, all in
+   the sm90 kernel), plus the edges of both kernels at every head dim
+   (N and M not multiples of the tile, M < 16, one batch-head, N < 64;
+   the older ``mma.sync`` kernel's launched by name), fp32 and the tiny
+   head dims (bf16: relative error < 2e-2; fp32: absolute error < 2e-4,
+   TF32 off).
    The plain version runs in batch chunks, so its fp32 scores fit the
    card.  Each shape is timed beside the plain version,
    ``scaled_dot_product_attention`` (a yardstick the port never calls),
@@ -35,7 +38,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
    file the port wrote, and the refiner and hires-fix workflows shrunk
    (each checkpoint name on a tiny stand-in of its family: a two-tower
    base with an ADM head, a one-tower OpenCLIP refiner under the
-   refiner's checkpoint prefix) must agree within 1e-3;
+   refiner's checkpoint prefix), and the three inpaint workflows shrunk
+   (``tiny``, and ``tiny_inpaint`` for the inpaint model; 64 px, 3
+   steps, their own small RGBA inputs) must agree within 1e-3;
 5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
    port's WorkflowExecutor as three requests with three seeds; each must
@@ -99,9 +104,23 @@ Run from the root of a checkout on a machine with a CUDA card (and
    non-constant (1, 1024, 1024, 3) and (1, 1216, 1216, 3) images, the
    cold and the warm image equal to the bit; the LoRA-patched pipeline
    must share the base's UNet.  It prints a ``staged`` line.
+12. inpainting: ``workflows/distributed-inpaint.json`` (SD1.5,
+   VAEEncodeForInpaint with a grown mask), ``distributed-outpaint.json``
+   (ImagePadForOutpaint to 768 x 512) and ``distributed-inpaint-model.json``
+   (the 9-channel ``sd15_inpaint`` family, LoadImageMask,
+   InpaintModelConditioning), unchanged with virtual weights, each cold
+   (every pipeline released first) and then warm, on inputs this script
+   writes with the port's PNG writer (a 640 x 480 ``input.png`` and a
+   512^2 ``source.png``, both RGBA with a transparent region): exactly
+   640 sm90 launches a request (16 x 2 x 20) at shapes phase 3 checked,
+   finite, non-constant images of 512^2 (the outpaint 768 wide, 512
+   high), the warm image equal to the cold one to the bit, and the
+   sampled latent equal to the encoded source to the bit where the
+   latent mask is 0 and different where it is 1.  It prints a
+   ``phase12`` line for each request.
 
-Launch counts are zeroed just before each request of phases 5-7, 9, 10
-and 11 and read just after.  The line before the last is ``{"kernels":
+Launch counts are zeroed just before each request of phases 5-7 and
+9-12 and read just after.  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -133,7 +152,10 @@ WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{file}.json")
                                 ("img2img", "img2img"),
                                 ("upscale", "upscale"), ("sdxl", "sdxl"),
                                 ("refiner", "sdxl-refiner"),
-                                ("hires_fix", "hires-fix"))}
+                                ("hires_fix", "hires-fix"),
+                                ("inpaint", "inpaint"),
+                                ("outpaint", "outpaint"),
+                                ("inpaint_model", "inpaint-model"))}
 REPLACES = "comfyui_distributed_tpu/ops/pallas/flash_attention.py:134"
 SOURCES = {
     "sm90": "comfyui_distributed_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -160,9 +182,17 @@ DEVICE = "cuda"
 # (variant, launches) of one request of each path
 EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
             "upscale": ("sm90", 640), "sdxl": ("sm90", 2800),
-            "refiner": ("sm90", 3048), "hires_fix": ("sm90", 2800)}
-# the side of each path's square image (1024 where not listed)
-SIDE = {"upscale": 2048, "hires_fix": 1216}
+            "refiner": ("sm90", 3048), "hires_fix": ("sm90", 2800),
+            "inpaint": ("sm90", 640), "outpaint": ("sm90", 640),
+            "inpaint_model": ("sm90", 640)}
+# (height, width) of each path's image ((1024, 1024) where not listed)
+IMAGE_HW = {"upscale": (2048, 2048), "hires_fix": (1216, 1216),
+            "inpaint": (512, 512), "outpaint": (512, 768),
+            "inpaint_model": (512, 512)}
+# phase 12: (sampler node, the node whose latent it samples) of each
+# inpaint workflow
+INPAINT_NODES = {"inpaint": ("3", "5"), "outpaint": ("3", "5"),
+                 "inpaint_model": ("8", "6")}
 # phase 9's request carries this UI workflow for SaveImage's PNG
 EXTRA_PNGINFO = {"workflow": {"last_node_id": 9, "nodes": [],
                               "links": [], "version": 0.4}}
@@ -368,9 +398,49 @@ def small_docs(docs):
     hires["3"]["inputs"].update(steps=2, end_at_step=1)
     hires["10"]["inputs"].update(width=64, height=64)
     hires["11"]["inputs"].update(steps=2, start_at_step=1)
+    inpaint = copy.deepcopy(docs["inpaint"])
+    inpaint["2"]["inputs"].update(width=64, height=64)
+    inpaint["3"]["inputs"]["steps"] = 3
+    outpaint = copy.deepcopy(docs["outpaint"])
+    outpaint["2"]["inputs"].update(width=64, height=64)
+    # 40 px of feather does not fit twice into 64
+    outpaint["10"]["inputs"].update(right=32, feathering=12)
+    outpaint["3"]["inputs"]["steps"] = 3
+    inpaint_model = copy.deepcopy(docs["inpaint_model"])
+    inpaint_model["8"]["inputs"]["steps"] = 3
     return {"txt2img": txt, "img2img": i2i, "upscale": up, "sdxl": xl,
             "txt2img_from_file": from_file, "refiner": refiner,
-            "hires_fix": hires}
+            "hires_fix": hires, "inpaint": inpaint, "outpaint": outpaint,
+            "inpaint_model": inpaint_model}
+
+
+# the family of each inpaint workflow's tiny stand-in (phase 4)
+TINY_INPAINT_FAMILY = {"inpaint": "tiny", "outpaint": "tiny",
+                       "inpaint_model": "tiny_inpaint"}
+
+
+def write_inpaint_inputs(input_dir, scale):
+    """The RGBA files the inpaint workflows read, written by the port's
+    PNG writer: ``input.png`` (80 x 60 times ``scale``; phase 12's 8
+    gives 640 x 480) and ``source.png`` (64^2 times ``scale``), each a
+    colour gradient with a transparent rectangle, the region to
+    resample (a missing file would give a mask of zeros)."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.image import encode_png
+
+    def card(h, w, hole):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = np.stack([xx / w, yy / h, (xx + yy) / (h + w),
+                        np.ones((h, w), np.float32)], axis=-1)
+        y0, y1, x0, x1 = (v * scale for v in hole)
+        img[y0:y1, x0:x1, 3] = 0.0
+        return img
+
+    for name, (h, w), hole in (("input.png", (60, 80), (18, 42, 30, 56)),
+                               ("source.png", (64, 64), (20, 44, 16, 40))):
+        with open(os.path.join(input_dir, name), "wb") as f:
+            f.write(encode_png(card(h * scale, w * scale, hole)))
 
 
 TINY_FILE = "tiny-from-disk.safetensors"
@@ -404,8 +474,10 @@ def staged_stand_ins(registry):
 def tiny_against_cpu(docs, input_dir):
     """Phase 4: the tiny family's txt2img, img2img, tiled upscale, the
     SDXL graph (on ``tiny_sdxl``), txt2img from a checkpoint file the
-    port wrote, and the shrunk refiner and hires-fix graphs (on
-    :func:`staged_stand_ins`), on the card against the CPU runs of the
+    port wrote, the shrunk refiner and hires-fix graphs (on
+    :func:`staged_stand_ins`) and the three inpaint graphs (on ``tiny``
+    and ``tiny_inpaint``, from their own small RGBA inputs), on the card
+    against the CPU runs of the
     same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
     here: its bf16 convolutions round differently in cuDNN and on the
     CPU, which the refine then amplifies past 1e-3."""
@@ -425,7 +497,9 @@ def tiny_against_cpu(docs, input_dir):
     staged_family = staged_stand_ins(registry)
     out = {}
     models_dir = tempfile.mkdtemp(prefix="tiny_models_")
+    inpaint_dir = tempfile.mkdtemp(prefix="tiny_inpaint_inputs_")
     try:
+        write_inpaint_inputs(inpaint_dir, 1)
         from comfyui_distributed_tpu_torch.models.checkpoints import (
             save_checkpoint)
         pipe = registry.load_pipeline("tiny-to-disk.safetensors",
@@ -440,9 +514,11 @@ def tiny_against_cpu(docs, input_dir):
                 os.environ.pop("DTPU_DEFAULT_FAMILY", None)
             else:
                 os.environ["DTPU_DEFAULT_FAMILY"] = \
-                    "tiny_sdxl" if name == "sdxl" else "tiny"
+                    "tiny_sdxl" if name == "sdxl" \
+                    else TINY_INPAINT_FAMILY.get(name, "tiny")
             imgs = {dev: WorkflowExecutor(OpContext(
-                device=dev, input_dir=input_dir,
+                device=dev, input_dir=inpaint_dir
+                if name in TINY_INPAINT_FAMILY else input_dir,
                 models_dir=models_dir)).execute(
                     copy.deepcopy(doc)).image_batch
                 for dev in (DEVICE, "cpu")}
@@ -461,6 +537,7 @@ def tiny_against_cpu(docs, input_dir):
             registry.FAMILIES.pop(name, None)
         registry.clear_pipeline_cache()
         shutil.rmtree(models_dir, ignore_errors=True)
+        shutil.rmtree(inpaint_dir, ignore_errors=True)
     return out
 
 
@@ -480,7 +557,7 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
         as fa
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
     variant, want = EXPECTED[path]
-    side = SIDE.get(path, 1024)
+    hw = IMAGE_HW.get(path, (1024, 1024))
     seed_node = next(n for n, node in doc.items() if isinstance(node, dict)
                      and node.get("class_type") in ("DistributedSeed",
                                                     "UltimateSDUpscaleDistributed"))
@@ -497,7 +574,8 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
         seconds = time.perf_counter() - t0
         launches = fa.flash_attention.launches
         variants = dict(fa.flash_attention.variants)
-        shape_counts.update(fa.flash_attention.shapes)
+        shapes = dict(fa.flash_attention.shapes)
+        shape_counts.update(shapes)
         img = res.image_batch
         finite = bool(img is not None and np.isfinite(img).all())
         std = float(img.std()) if img is not None else 0.0
@@ -510,8 +588,9 @@ def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
             "shape": list(img.shape) if img is not None else None,
             "finite": finite, "std": std, "launches": launches,
             "variants": variants,
+            "launches_by_shape": [[*k, n] for k, n in sorted(shapes.items())],
             "max_memory_allocated": torch.cuda.max_memory_allocated()})
-        if img is None or img.shape != (1, side, side, 3) or not finite \
+        if img is None or img.shape != (1, *hw, 3) or not finite \
                 or not std > 0.0:
             fail(f"{path} request seed {seed}: image shape "
                  f"{None if img is None else img.shape}, finite {finite}, "
@@ -1217,6 +1296,99 @@ def staged(docs, input_dir, shape_counts):
     return report, requests
 
 
+def inpaint_request_pair(path, doc, input_dir, shape_counts, checked):
+    """One inpaint workflow of phase 12, cold and then warm: (its report,
+    its requests).  Each request's attention is priced from phase 3's
+    rows (``checked``), and its sampled latent is held against the
+    encoded source under the latent mask.  Everything it held is
+    released when it returns."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.basic import (
+        as_mask, image_mask_to_latent)
+    seed = next(node["inputs"]["seed"] for node in doc.values()
+                if isinstance(node, dict)
+                and node.get("class_type") == "DistributedSeed")
+    images, results, requests = {}, [], []
+    for run in ("cold", "warm"):
+        requests += run_requests(path, doc, (seed,), input_dir, shape_counts,
+                                 images, results)
+        requests[-1]["run"] = run
+        if run == "cold":
+            first = images[seed]
+    if not np.array_equal(first, images[seed]):
+        fail(f"{path}: the warm request's image differs from the cold "
+             f"one's (max {np.abs(first - images[seed]).max()})")
+    ks, enc = INPAINT_NODES[path]
+    for req, res in zip(requests, results):
+        shapes = {tuple(s[:6]): s[6] for s in req["launches_by_shape"]}
+        missing = [s for s in shapes if s not in checked]
+        if missing:
+            fail(f"{path}: launched shapes that phase 3 did not check: "
+                 f"{missing}")
+        req["attention"] = totals(shapes, checked, [
+            "ms", "plain_ms", "library_ms", "mma_sync_ms"])
+        # where the latent mask is 0 the sampler must hand back the
+        # encoded source to the bit, where it is 1 something else
+        out = res.outputs[ks][0]
+        sampled = out["samples"].data
+        source = res.outputs[enc][-1]["samples"].data
+        m = image_mask_to_latent(
+            as_mask(out["noise_mask"], sampled.device), sampled.shape[1],
+            sampled.shape[2], 1).expand_as(sampled)
+        keep, redo = m == 0, m == 1
+        kept_equal = bool(torch.equal(sampled[keep], source[keep]))
+        change = float((sampled[redo] - source[redo]).abs().max()) \
+            if redo.any() else 0.0
+        req["anchoring"] = {"kept_values": int(keep.sum()),
+                            "resampled_values": int(redo.sum()),
+                            "kept_equal_to_the_bit": kept_equal,
+                            "resampled_max_abs_change": change}
+        if not keep.any() or not kept_equal or not change > 0.0:
+            fail(f"{path}: anchoring {req['anchoring']}")
+        if path == "inpaint_model" and (
+                res.outputs["1"][0].family.name != "sd15_inpaint"
+                or res.outputs["6"][0].concat_latent.shape[-1] != 5):
+            fail(f"inpaint_model: family {res.outputs['1'][0].family.name}")
+        emit("phase12", req)
+    report = {"seconds": {r["run"]: r["seconds"] for r in requests},
+              "max_memory_allocated": {r["run"]: r["max_memory_allocated"]
+                                       for r in requests},
+              "attention_ms": {r["run"]: r["attention"]["ms"]
+                               for r in requests},
+              "cold_equals_warm": True,
+              "anchoring": requests[-1]["anchoring"]}
+    return report, requests
+
+
+def inpainting(docs, input_dir, shape_counts, rows):
+    """Phase 12: the three inpaint workflows, each cold (every pipeline
+    released first) and then warm, on the RGBA inputs in ``input_dir``;
+    returns (the report, the requests)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+
+    def release():
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    report, requests = {}, []
+    for path in ("inpaint", "outpaint", "inpaint_model"):
+        release()
+        report[path], reqs = inpaint_request_pair(
+            path, docs[path], input_dir, shape_counts, checked)
+        requests += reqs
+    release()
+    return report, requests
+
+
 def main() -> int:
     try:
         import torch
@@ -1286,6 +1458,23 @@ def main() -> int:
         (16, 256, 77, 8, 160, bf, "SD1.5 share cross 16x16 latent"),
         (16, 64, 64, 8, 160, bf, "SD1.5 share mid self 8x8 latent"),
         (16, 64, 77, 8, 160, bf, "SD1.5 share mid cross 8x8 latent"),
+        # phase 12: SD1.5 at B = 2 (cond, uncond), 512^2 and 768 x 512
+        (2, 4096, 4096, 8, 40, bf, "SD1.5 512^2 self 64x64 latent"),
+        (2, 4096, 77, 8, 40, bf, "SD1.5 512^2 cross 64x64 latent"),
+        (2, 1024, 1024, 8, 80, bf, "SD1.5 512^2 self 32x32 latent"),
+        (2, 1024, 77, 8, 80, bf, "SD1.5 512^2 cross 32x32 latent"),
+        (2, 256, 256, 8, 160, bf, "SD1.5 512^2 self 16x16 latent"),
+        (2, 256, 77, 8, 160, bf, "SD1.5 512^2 cross 16x16 latent"),
+        (2, 64, 64, 8, 160, bf, "SD1.5 512^2 mid self 8x8 latent"),
+        (2, 64, 77, 8, 160, bf, "SD1.5 512^2 mid cross 8x8 latent"),
+        (2, 6144, 6144, 8, 40, bf, "SD1.5 768x512 self 64x96 latent"),
+        (2, 6144, 77, 8, 40, bf, "SD1.5 768x512 cross 64x96 latent"),
+        (2, 1536, 1536, 8, 80, bf, "SD1.5 768x512 self 32x48 latent"),
+        (2, 1536, 77, 8, 80, bf, "SD1.5 768x512 cross 32x48 latent"),
+        (2, 384, 384, 8, 160, bf, "SD1.5 768x512 self 16x24 latent"),
+        (2, 384, 77, 8, 160, bf, "SD1.5 768x512 cross 16x24 latent"),
+        (2, 96, 96, 8, 160, bf, "SD1.5 768x512 mid self 8x12 latent"),
+        (2, 96, 77, 8, 160, bf, "SD1.5 768x512 mid cross 8x12 latent"),
     ]
     extra_shapes = [
         # the sm90 kernel's edges at SD1.5's head dims: N off the Q tile
@@ -1363,6 +1552,14 @@ def main() -> int:
         emit("staged", staged_report)
         emit("workflow_9_11", {"requests": sdxl_reqs + disk_reqs
                                + staged_reqs})
+        # phase 12's own inputs: the other phases read the empty dir
+        inpaint_dir = os.path.join(input_dir, "inpaint")
+        os.makedirs(inpaint_dir)
+        write_inpaint_inputs(inpaint_dir, 8)
+        inpaint_report, inpaint_reqs = inpainting(docs, inpaint_dir,
+                                                  shape_counts, rows)
+        requests += inpaint_reqs
+        emit("inpainting", inpaint_report)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

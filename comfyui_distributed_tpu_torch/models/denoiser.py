@@ -1,6 +1,7 @@
 """Denoiser wrapper: UNet (eps/v prediction) -> k-diffusion interface.
 The counterpart of ``comfyui_distributed_tpu/models/denoiser.py`` for
-the plain path (no ControlNet, inpaint channels or hypernetworks yet).
+the plain path and the inpaint models' extra input channels (no
+ControlNet or hypernetworks yet).
 
 The UNet input is pre-scaled by ``1/sqrt(sigma^2+1)`` and the timestep is
 the continuous index of sigma in the model's table.
@@ -35,11 +36,15 @@ def make_t_from_sigma(ds: DiscreteSchedule, device=None) -> Callable:
 
 def make_denoiser(unet: Callable, ds: DiscreteSchedule,
                   prediction_type: str = "eps",
-                  device=None) -> Callable:
+                  device=None,
+                  concat: Optional[torch.Tensor] = None) -> Callable:
     """``model(x, sigma, context=..., y=...) -> denoised`` over
     ``unet(x, timesteps, context, y)``; ``sigma`` is a host float (made
     a float32 scalar on x's device by a fill, not a copy that would wait
-    for the card) or a float32 scalar tensor."""
+    for the card) or a float32 scalar tensor.  ``concat`` [B, h, w, K]:
+    the inpaint models' extra input channels (mask and masked latent),
+    appended unscaled after the ``c_in`` scaling, its rows repeated to
+    the CFG-stacked batch ([cond rows; uncond rows] each get them)."""
     if prediction_type not in ("eps", "v"):
         raise ValueError(f"prediction type {prediction_type!r} is not "
                          "ported to the torch package")
@@ -55,7 +60,12 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
                                device=x.device)
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
         ts = t_from_sigma(sigma).expand(x.shape[0])
-        out = unet(x * c_in, ts, context, y)
+        xin = x * c_in
+        if concat is not None:
+            reps = x.shape[0] // concat.shape[0]
+            xin = torch.cat([xin, concat.to(xin.dtype).repeat(reps, 1, 1, 1)],
+                            dim=-1)
+        out = unet(xin, ts, context, y)
         if prediction_type == "v":
             # VP parameterization: denoised = c_skip*x - c_out*v
             c_skip = 1.0 / (sigma ** 2 + 1.0)

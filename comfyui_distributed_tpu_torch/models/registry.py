@@ -81,6 +81,15 @@ FAMILIES: Dict[str, ModelFamily] = {
         clips=(clip_mod.OPEN_CLIP_BIGG_CONFIG,),
         clip_prefixes=("conditioner.embedders.0.model.",),
     ),
+    # inpaint models: the UNet takes [latent (4), mask (1), masked-image
+    # latent (4)] = 9 input channels (the sd-v1.5-inpainting layout);
+    # everything else is the base family's
+    "sd15_inpaint": ModelFamily(
+        name="sd15_inpaint",
+        unet=dataclasses.replace(unet_mod.SD15_CONFIG, in_channels=9),
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.CLIP_L_CONFIG,),
+    ),
     "tiny": ModelFamily(
         name="tiny",
         unet=unet_mod.TINY_CONFIG,
@@ -93,6 +102,12 @@ FAMILIES: Dict[str, ModelFamily] = {
     "tiny_sdxl": ModelFamily(
         name="tiny_sdxl",
         unet=dataclasses.replace(unet_mod.TINY_CONFIG, adm_in_channels=128),
+        vae=vae_mod.TINY_VAE_CONFIG,
+        clips=(clip_mod.TINY_CLIP_CONFIG,),
+    ),
+    "tiny_inpaint": ModelFamily(
+        name="tiny_inpaint",
+        unet=dataclasses.replace(unet_mod.TINY_CONFIG, in_channels=9),
         vae=vae_mod.TINY_VAE_CONFIG,
         clips=(clip_mod.TINY_CLIP_CONFIG,),
     ),
@@ -216,7 +231,9 @@ class DiffusionPipeline:
                y: Optional[torch.Tensor] = None, add_noise: bool = True,
                sample_idx=None, start_step: int = 0,
                end_step: Optional[int] = None,
-               force_full_denoise: bool = False) -> torch.Tensor:
+               force_full_denoise: bool = False,
+               noise_mask: Optional[torch.Tensor] = None,
+               c_concat: Optional[torch.Tensor] = None) -> torch.Tensor:
         """schedule -> initial noise -> sampler loop -> latents.
 
         ``seeds``: per-sample 64-bit host seeds [B]; ``sample_idx``:
@@ -231,7 +248,15 @@ class DiffusionPipeline:
         the initial noise scales by the window's first sigma, and a
         window that stops early returns a still-noisy latent unless
         ``force_full_denoise`` zeroes its last sigma.  A window with
-        start >= end returns ``latents`` unchanged."""
+        start >= end returns ``latents`` unchanged.
+        ``noise_mask`` [1 or B, h, w, 1] inpaints (1 = resample, 0 =
+        keep the source), as ComfyUI's KSamplerX0Inpaint: every model
+        call sees the source re-noised to the current sigma outside the
+        mask (with the initial noise, zero without ``add_noise``), its
+        output and its CFG++ ``last_uncond`` are re-anchored to the
+        clean source there, and so is the sampler's result.
+        ``c_concat`` [B, h, w, K]: the inpaint models' extra UNet input
+        channels (``make_denoiser``'s ``concat``)."""
         sampler = get_sampler(sampler_name)
         dev = self.device
         # host float32 sigmas: the sampler's branches and coefficients
@@ -245,17 +270,54 @@ class DiffusionPipeline:
             sigmas = sigmas[start:end + 1].copy()
             if force_full_denoise:
                 sigmas[-1] = 0.0
-        x = latents.to(dev, torch.float32)
+        want = self.family.unet.in_channels - int(latents.shape[-1])
+        have = 0 if c_concat is None else int(c_concat.shape[-1])
+        if want != have:
+            raise ValueError(
+                f"{self.family.name}'s UNet takes {want} channels beside "
+                f"the latent's; the conditioning brings {have} (an inpaint "
+                "model needs InpaintModelConditioning)")
+        src = latents.to(dev, torch.float32)
         keys = sample_keys(seeds, sample_idx)
-        if add_noise:
-            x = x + batch_normal(keys, INIT_NOISE_INDEX, x.shape[1:],
-                                 dev) * float(sigmas[0])
+        noise = batch_normal(keys, INIT_NOISE_INDEX, src.shape[1:], dev) \
+            if add_noise else None
+        x = src + noise * float(sigmas[0]) if add_noise else src
         den = make_denoiser(self.unet, self.schedule, self.prediction_type,
-                            device=dev)
+                            device=dev, concat=None if c_concat is None
+                            else c_concat.to(dev, torch.float32))
         model = cfg_denoiser_multi(den, [(context.to(dev), None, 1.0)],
                                    uncond_context.to(dev), float(cfg))
+        if noise_mask is not None:
+            m = noise_mask.to(dev, torch.float32)
+            model = _masked_model(model, m, src, noise)
         extra = {} if y is None else {"y": y.to(dev)}
-        return sampler(model, x, sigmas, extra_args=extra, keys=keys)
+        out = sampler(model, x, sigmas, extra_args=extra, keys=keys)
+        if noise_mask is not None:
+            out = out * m + src * (1.0 - m)
+        return out
+
+
+def _masked_model(inner: Callable, m: torch.Tensor, src: torch.Tensor,
+                  noise: Optional[torch.Tensor]) -> Callable:
+    """KSamplerX0Inpaint around ``inner``: the input blended with the
+    source re-noised to the current sigma where ``m`` is 0 (zero noise
+    when ``noise`` is None: the latent already is the noised state), the
+    output re-anchored to ``src`` there; the CFG++ samplers read
+    ``last_uncond`` off this callable, so it is re-exposed through the
+    same blend."""
+    keep = 1.0 - m
+    noise = torch.zeros_like(src) if noise is None else noise
+
+    def model(xi: torch.Tensor, sigma, **kw) -> torch.Tensor:
+        s = sigma.reshape((-1,) + (1,) * (xi.ndim - 1)) \
+            if isinstance(sigma, torch.Tensor) else float(sigma)
+        xi = xi * m + (src + noise * s) * keep
+        out = inner(xi, sigma, **kw)
+        lu = getattr(inner, "last_uncond", out)
+        model.last_uncond = lu * m + src * keep
+        return out * m + src * keep
+
+    return model
 
 
 def _build(make: Callable[[], nn.Module], device: torch.device,

@@ -31,10 +31,13 @@ class Conditioning:
     of CLIPTextEncodeSDXL (height, width, crop_h, crop_w, target_height,
     target_width) or of CLIPTextEncodeSDXLRefiner (height, width, 0, 0,
     aesthetic score); without them the sampler derives them from the
-    latent."""
+    latent.  ``concat_latent`` [B, h, w, K]: an inpaint model's extra
+    UNet input channels (InpaintModelConditioning's [mask, masked
+    latent]), set on both CFG sides."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
     size_cond: Optional[Tuple[float, ...]] = None
+    concat_latent: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass

@@ -1,19 +1,24 @@
 """Standard workflow ops on the txt2img, img2img, SDXL, refiner,
-hires-fix and upscale paths: the counterparts of
+hires-fix, inpaint, outpaint and upscale paths: the counterparts of
 ``CheckpointLoaderSimple``, ``CheckpointSave``, ``LoraLoader``,
 ``LoraLoaderModelOnly``, ``CLIPSetLastLayer``, ``CLIPTextEncode``,
 ``CLIPTextEncodeSDXL``, ``CLIPTextEncodeSDXLRefiner``,
 ``EmptyLatentImage``, ``KSampler``, ``KSamplerAdvanced``,
 ``LatentUpscale``, ``LatentUpscaleBy``, ``VAEDecode``, ``VAEEncode``,
-``LoadImage``, ``ImageScale``, ``UpscaleModelLoader``,
-``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
-``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode neither
-memoises nor expands the batch).
+``LoadImage``, ``LoadImageMask``, ``ImageScale``,
+``ImagePadForOutpaint``, ``VAEEncodeForInpaint``,
+``InpaintModelConditioning``, ``SetLatentNoiseMask``,
+``UpscaleModelLoader``, ``ImageUpscaleWithModel``, ``PreviewImage`` and
+``SaveImage`` in ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1:
+VAEEncode neither memoises nor expands the batch).
 
-Only the plain single-entry conditioning path is ported: regional
-prompts, ControlNet, inpaint masks, GLIGEN and the other patches that
-``_prepare_sample_inputs`` handles in the JAX package wait for a later
-slice.
+A MASK travels as a float32 tensor on the run's device ([H, W] or
+[B, H, W], 1 = resample); a latent's ``noise_mask`` stays at image
+resolution until the sampler takes it to the latent's
+(:func:`image_mask_to_latent`).  Only the single-entry conditioning
+path is ported: regional prompts, ControlNet, GLIGEN and the other
+patches that ``_prepare_sample_inputs`` handles in the JAX package wait
+for a later slice.
 """
 
 from __future__ import annotations
@@ -237,15 +242,50 @@ class _SampleInputs:
     seeds: np.ndarray
     sample_idx: np.ndarray
     y: Optional[torch.Tensor]
+    noise_mask: Optional[torch.Tensor] = None
+    c_concat: Optional[torch.Tensor] = None
+
+
+def as_mask(mask, device) -> torch.Tensor:
+    """MASK value -> float32 [B, H, W] tensor on ``device``."""
+    m = as_device_array(mask, device)
+    return m[None] if m.ndim == 2 else m
+
+
+def cycle_batch(x: torch.Tensor, n: int) -> torch.Tensor:
+    """One row per sample, a short batch cycled (row i takes row i mod
+    B): the JAX package's ``_cycle_batch`` pairing rule."""
+    if x.shape[0] == n:
+        return x
+    return x[torch.arange(n, device=x.device) % x.shape[0]]
+
+
+def image_mask_to_latent(mask: torch.Tensor, h: int, w: int,
+                         total: int) -> torch.Tensor:
+    """Image-resolution mask [B, H, W] -> latent-resolution weights
+    [1 or total, h, w, 1]: area-downsampled, clipped to [0, 1]; a
+    single mask broadcasts, others cycle to ``total`` (the JAX package's
+    ``_image_mask_to_latent``)."""
+    m = resize_image(mask[..., None], w, h, "area").clamp(0.0, 1.0)
+    return m if m.shape[0] == 1 else cycle_batch(m, total)
+
+
+def _latent_meta(samples) -> dict:
+    """What a latent-space op carries on from its input besides the
+    samples: the inpaint mask."""
+    return {k: samples[k] for k in ("noise_mask",) if k in samples}
 
 
 def _prepare_sample_inputs(model, seed, latent_image,
                            positive: Conditioning,
                            negative: Conditioning) -> _SampleInputs:
     """Latent unpack, per-row seeds and fold-in indices, the conditioning
-    batch repeat and the SDXL vector cond.  At fanout 1 every row takes
-    the base seed (a DistributedSeed's replica 0 keeps it too) and its
-    batch position as fold-in index."""
+    batch repeat, the SDXL vector cond, the latent's inpaint mask at the
+    latent's resolution and an inpaint model's concat channels (from
+    the first conditioning that carries them, resized bilinear to the
+    latent and cycled to the batch).  At fanout 1 every row takes the
+    base seed (a DistributedSeed's replica 0 keeps it too) and its batch
+    position as fold-in index."""
     dev = model.device
     lat = as_device_array(latent_image["samples"], dev)
     total = int(lat.shape[0])
@@ -262,9 +302,22 @@ def _prepare_sample_inputs(model, seed, latent_image,
         # CFG halves
         y = _sdxl_vector_cond(model, positive, total, lat.shape[1] * 8,
                               lat.shape[2] * 8)
+    mask = latent_image.get("noise_mask")
+    if mask is not None:
+        mask = image_mask_to_latent(as_mask(mask, dev), lat.shape[1],
+                                    lat.shape[2], total)
+    c_concat = next((c.concat_latent for c in (positive, negative)
+                     if c.concat_latent is not None), None)
+    if c_concat is not None:
+        c_concat = as_device_array(c_concat, dev)
+        if c_concat.shape[1:3] != lat.shape[1:3]:
+            c_concat = resize_image(c_concat, lat.shape[2], lat.shape[1],
+                                    "bilinear")
+        c_concat = cycle_batch(c_concat, total)
     return _SampleInputs(latents=lat, context=context, uncond=uncond,
                          seeds=seeds,
-                         sample_idx=np.arange(total, dtype=np.uint32), y=y)
+                         sample_idx=np.arange(total, dtype=np.uint32), y=y,
+                         noise_mask=mask, c_concat=c_concat)
 
 
 def cond_token_align(entries) -> int:
@@ -331,8 +384,10 @@ class KSampler(Op):
             prep.latents, prep.context, prep.uncond, prep.seeds,
             steps=int(steps), cfg=float(cfg), sampler_name=str(sampler_name),
             scheduler=str(scheduler), denoise=float(denoise), y=prep.y,
-            sample_idx=prep.sample_idx)
-        return ({"samples": DeviceLatent(out)},)
+            sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
+            c_concat=prep.c_concat)
+        # the mask stays on the latent, as ComfyUI keeps it
+        return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
 
 @register_op
@@ -363,8 +418,9 @@ class KSamplerAdvanced(Op):
             add_noise=str(add_noise) != "disable",
             start_step=int(start_at_step),
             end_step=min(int(end_at_step), int(steps)),
-            force_full_denoise=str(return_with_leftover_noise) == "disable")
-        return ({"samples": DeviceLatent(out)},)
+            force_full_denoise=str(return_with_leftover_noise) == "disable",
+            noise_mask=prep.noise_mask, c_concat=prep.c_concat)
+        return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
 
 @register_op
@@ -383,7 +439,7 @@ class LatentUpscale(Op):
         _, h, w, _ = lat.shape
         width, height = int(width), int(height)
         if width == 0 and height == 0:
-            return ({"samples": DeviceLatent(lat)},)
+            return ({**_latent_meta(samples), "samples": DeviceLatent(lat)},)
         if width == 0:
             lh = max(height // 8, 1)
             lw = max(round(w * lh / h), 1)
@@ -395,7 +451,7 @@ class LatentUpscale(Op):
         out = resize_maybe_center(lat, lw, lh, str(upscale_method),
                                   str(crop) if width and height
                                   else "disabled")
-        return ({"samples": DeviceLatent(out)},)
+        return ({**_latent_meta(samples), "samples": DeviceLatent(out)},)
 
 
 @register_op
@@ -409,8 +465,8 @@ class LatentUpscaleBy(Op):
         lat = as_device_array(samples["samples"], ctx.device)
         lh = max(round(lat.shape[1] * float(scale_by)), 1)
         lw = max(round(lat.shape[2] * float(scale_by)), 1)
-        return ({"samples": DeviceLatent(resize_image(
-            lat, lw, lh, str(upscale_method)))},)
+        return ({**_latent_meta(samples), "samples": DeviceLatent(
+            resize_image(lat, lw, lh, str(upscale_method)))},)
 
 
 @register_op
@@ -430,6 +486,94 @@ class VAEEncode(Op):
     def execute(self, ctx: OpContext, pixels, vae):
         lat = vae.vae_encode(as_device_image(pixels, vae.device))
         return ({"samples": DeviceLatent(lat)},)
+
+
+def _neutralise(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Pixels set to mid-gray where ``mask`` > 0.5, so the encoder does
+    not carry the old content of a region to be resampled into its
+    neighbours."""
+    hard = (mask > 0.5).float()
+    return (img - 0.5) * (1.0 - hard[..., None]) + 0.5
+
+
+def _mask_to_pixels(mask, img: torch.Tensor) -> torch.Tensor:
+    """MASK -> [B, H, W] at the pixels' size, resized bilinear when it
+    differs (LoadImage's mask keeps the file's size while ImageScale
+    has resized the pixels)."""
+    m = as_mask(mask, img.device)
+    if m.shape[1:3] != img.shape[1:3]:
+        m = resize_image(m[..., None], img.shape[2], img.shape[1],
+                         "bilinear")[..., 0]
+    return m
+
+
+def grow_mask(mask: torch.Tensor, grow: int) -> torch.Tensor:
+    """[B, H, W] dilated by a (2g+1)-square max filter on the mask's
+    device; max pooling's implicit -inf border gives what
+    ``scipy.ndimage.maximum_filter``'s default ``reflect`` border gives,
+    since a reflected value lies in the window already."""
+    if grow <= 0:
+        return mask
+    return torch.nn.functional.max_pool2d(
+        mask[:, None], 2 * grow + 1, stride=1, padding=grow)[:, 0]
+
+
+@register_op
+class VAEEncodeForInpaint(Op):
+    """ComfyUI's inpaint encode: the mask resized to the pixels and grown
+    by ``grow_mask_by``, the pixels under the grown mask neutralised to
+    mid-gray, then encoded; the grown mask rides on the latent as its
+    ``noise_mask``."""
+    TYPE = "VAEEncodeForInpaint"
+    WIDGETS = ["grow_mask_by"]
+    DEFAULTS = {"grow_mask_by": 6}
+
+    def execute(self, ctx: OpContext, pixels, vae, mask,
+                grow_mask_by: int = 6):
+        img = as_device_image(pixels, vae.device)
+        m = grow_mask(_mask_to_pixels(mask, img), max(int(grow_mask_by), 0))
+        lat = vae.vae_encode(_neutralise(img, m))
+        return ({"samples": DeviceLatent(lat), "noise_mask": m},)
+
+
+@register_op
+class InpaintModelConditioning(Op):
+    """An inpaint model's conditioning (9-channel checkpoints such as
+    sd-v1-5-inpainting): the original pixels encoded as the latent to
+    sample, a neutralised copy encoded for the UNet's extra channels,
+    ``[latent mask (1), masked latent (4)]`` set as ``concat_latent`` on
+    both conditionings, and the mask on the latent as its
+    ``noise_mask`` unless ``noise_mask`` is off."""
+    TYPE = "InpaintModelConditioning"
+    WIDGETS = ["noise_mask"]
+    DEFAULTS = {"noise_mask": True}
+
+    def execute(self, ctx: OpContext, positive: Conditioning,
+                negative: Conditioning, vae, pixels, mask, noise_mask=True):
+        img = as_device_image(pixels, vae.device)
+        m = _mask_to_pixels(mask, img)
+        orig = vae.vae_encode(img)
+        masked = vae.vae_encode(_neutralise(img, m))
+        b, h, w = orig.shape[:3]
+        m_lat = cycle_batch(image_mask_to_latent(m, h, w, b), b)
+        concat = torch.cat([m_lat, masked], dim=-1)
+        out = {"samples": DeviceLatent(orig)}
+        if str(noise_mask).lower() not in ("false", "0", ""):
+            out["noise_mask"] = m
+        return (dataclasses.replace(positive, concat_latent=concat),
+                dataclasses.replace(negative, concat_latent=concat), out)
+
+
+@register_op
+class SetLatentNoiseMask(Op):
+    """Puts an inpaint mask on a latent (1 = resample, 0 = keep the
+    source), in place of any it had."""
+    TYPE = "SetLatentNoiseMask"
+
+    def execute(self, ctx: OpContext, samples, mask):
+        lat = as_device_array(samples["samples"], ctx.device)
+        return ({**_latent_meta(samples), "samples": DeviceLatent(lat),
+                 "noise_mask": as_mask(mask, ctx.device)},)
 
 
 def synthetic_test_card() -> np.ndarray:
@@ -463,6 +607,40 @@ class LoadImage(Op):
                 torch.from_numpy(np.ascontiguousarray(mask)).to(ctx.device))
 
 
+@register_op
+class LoadImageMask(Op):
+    """One channel of an image as a MASK [1, H, W]: R, G, B or (any other
+    name) alpha, which inverts (transparent = 1 = resample).  An L or
+    RGB file reads as PIL's ``convert("RGBA")`` gives it (R = G = B = L,
+    alpha 1); a missing file gives the JAX package's 512^2 gradient card
+    with alpha 1."""
+    TYPE = "LoadImageMask"
+    WIDGETS = ["image", "channel", CONTROL]
+    DEFAULTS = {"channel": "alpha"}
+
+    def execute(self, ctx: OpContext, image: str, channel: str = "alpha"):
+        path = image
+        if ctx.input_dir and not os.path.isabs(path):
+            path = os.path.join(ctx.input_dir, image)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                arr = decode_png(f.read())[0]
+            if arr.shape[-1] == 1:
+                arr = np.repeat(arr, 3, axis=-1)
+            if arr.shape[-1] == 3:
+                arr = np.concatenate(
+                    [arr, np.ones(arr.shape[:2] + (1,), np.float32)], -1)
+        else:
+            arr = np.concatenate([synthetic_test_card()[0],
+                                  np.ones((512, 512, 1), np.float32)], -1)
+        idx = {"R": 0, "G": 1, "B": 2}.get(str(channel)[:1].upper(), 3)
+        m = arr[..., idx]
+        if idx == 3:
+            m = 1.0 - m
+        return (torch.from_numpy(np.ascontiguousarray(m[None])).to(
+            ctx.device),)
+
+
 def resize_maybe_center(img: torch.Tensor, width: int, height: int,
                         method: str, crop: str) -> torch.Tensor:
     """Resize [B, H, W, C] to (width, height); crop="center" scales
@@ -489,6 +667,46 @@ class ImageScale(Op):
         return (DeviceImage(resize_maybe_center(img, int(width), int(height),
                                                 str(upscale_method),
                                                 str(crop))),)
+
+
+@register_op
+class ImagePadForOutpaint(Op):
+    """The outpaint canvas: the image on mid-gray, extended on the given
+    sides, and a mask [H', W'] of 1 over the new area that feathers
+    quadratically to 0 inside the old border, counted only from the
+    sides that are extended (no feather when 2 x ``feathering`` does not
+    fit the image)."""
+    TYPE = "ImagePadForOutpaint"
+    WIDGETS = ["left", "top", "right", "bottom", "feathering"]
+    DEFAULTS = {"left": 0, "top": 0, "right": 0, "bottom": 0,
+                "feathering": 40}
+
+    def execute(self, ctx: OpContext, image, left: int = 0, top: int = 0,
+                right: int = 0, bottom: int = 0, feathering: int = 40):
+        img = as_device_image(image, ctx.device)
+        b, h, w, c = img.shape
+        left, top = max(int(left), 0), max(int(top), 0)
+        right, bottom = max(int(right), 0), max(int(bottom), 0)
+        dev = img.device
+        out = torch.full((b, h + top + bottom, w + left + right, c), 0.5,
+                         dtype=torch.float32, device=dev)
+        out[:, top:top + h, left:left + w] = img
+        mask = torch.ones(out.shape[1:3], dtype=torch.float32, device=dev)
+        inner = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        f = int(feathering)
+        if f > 0 and f * 2 < h and f * 2 < w:
+            rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+            cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+            d = torch.full((h, w), float(max(h, w)), dtype=torch.float32,
+                           device=dev)
+            for extended, dist in ((top, rows), (bottom, h - rows),
+                                   (left, cols), (right, w - cols)):
+                if extended:
+                    d = torch.minimum(d, dist)
+            v = ((f - d) / f).clamp(0.0, 1.0)
+            inner = v * v
+        mask[top:top + h, left:left + w] = inner
+        return (DeviceImage(out), mask)
 
 
 @register_op

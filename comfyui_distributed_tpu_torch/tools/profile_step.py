@@ -9,7 +9,10 @@ otherwise) and makes one model call of ``--batch`` images (cond and
 uncond stacked: B = 2 x batch) on a ``--size / 8`` square latent, cfg 7.
 The defaults are the txt2img path's call (SDXL, B = 2, a 128x128
 latent); ``--family sd15 --size 512 --batch 16`` is the tiled
-upscaler's (16 tiles of 512^2, B = 32).  The call runs twice to warm up, ``--steps`` times timed, then ``--steps`` times under
+upscaler's (16 tiles of 512^2, B = 32); ``--family sd15_inpaint --size
+512 --batch 1`` is an inpaint model's (B = 2, the UNet's 5 extra input
+channels a mask and a masked latent, random here).  The call runs twice
+to warm up, ``--steps`` times timed, then ``--steps`` times under
 ``torch.profiler``.  Prints the card (``nvidia-smi``) and one JSON line:
 the wall time of a step without and with the profiler (host clock around
 synchronized calls), the device time of a step by kernel class (the
@@ -92,8 +95,12 @@ def main(argv=None) -> int:
             y = _sdxl_vector_cond(pipe, Conditioning(ctx, pooled), n,
                                   args.size, args.size)
         ctx, unc = ctx.repeat(n, 1, 1), unc.repeat(n, 1, 1)
+        extra = pipe.family.unet.in_channels - pipe.family.latent_channels
+        concat = torch.randn((n, side, side, extra), device=dev) \
+            if extra else None
         model = cfg_denoiser_multi(
-            make_denoiser(pipe.unet, pipe.schedule, device=dev),
+            make_denoiser(pipe.unet, pipe.schedule, device=dev,
+                          concat=concat),
             [(ctx, None, 1.0)], unc, 7.0)
         sigma = torch.tensor(float(compute_sigmas(pipe.schedule, "karras",
                                                   20)[0]), device=dev)

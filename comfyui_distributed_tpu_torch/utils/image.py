@@ -2,8 +2,8 @@
 counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 ``resize_image`` in ``comfyui_distributed_tpu/utils/image.py``.
 
-- PNG: an 8-bit RGB writer (with ``tEXt`` chunks) and an 8-bit
-  L/RGB/RGBA reader on ``zlib``.
+- PNG: an 8-bit L/RGB/RGBA writer (with ``tEXt`` chunks) and reader
+  on ``zlib``.
 - The raw-tensor wire of the HTTP fan-out (``encode_tensor`` /
   ``decode_tensor``): the JAX package's ``DTT1`` framing, zlib codec.
 - :func:`resize_image` reproduces Pillow's resampling of float ("F")
@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels, for the 8-bit types the reader takes
+# PNG colour type -> channels, for the 8-bit types read and written
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+_PNG_COLOUR_TYPE = {c: t for t, c in _PNG_CHANNELS.items()}
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -41,23 +42,25 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
 
 def encode_png(img: np.ndarray,
                text: Optional[Dict[str, str]] = None) -> bytes:
-    """[H, W, 3] (or [1, H, W, 3]) float image in [0, 1] -> PNG bytes
-    (8-bit RGB, no filter); each ``text`` item becomes a ``tEXt`` chunk,
-    as ComfyUI stores the ``prompt`` of a saved image."""
+    """[H, W, C] (or [1, H, W, C]) float image in [0, 1] -> PNG bytes
+    (8-bit, no filter: L, RGB or RGBA for C = 1, 3 or 4); each ``text``
+    item becomes a ``tEXt`` chunk, as ComfyUI stores the ``prompt`` of a
+    saved image."""
     px = to_uint8(img)
     if px.ndim == 4 and px.shape[0] == 1:
         px = px[0]
-    if px.ndim != 3 or px.shape[-1] != 3:
-        raise ValueError(f"encode_png takes [H, W, 3]; got {px.shape}")
-    h, w, _ = px.shape
+    if px.ndim != 3 or px.shape[-1] not in _PNG_COLOUR_TYPE:
+        raise ValueError(f"encode_png takes [H, W, 1, 3 or 4]; got "
+                         f"{px.shape}")
+    h, w, c = px.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           px.reshape(h, w * 3)], axis=1)
+                           px.reshape(h, w * c)], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOUR_TYPE[c], 0, 0, 0)
     texts = b"".join(chunk(b"tEXt", k.encode("latin-1") + b"\0"
                            + v.encode("latin-1"))
                      for k, v in (text or {}).items())

@@ -36,7 +36,8 @@ from comfyui_distributed_tpu_torch.ops import tiling
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.tiled_upscale import (
     UltimateSDUpscaleDistributed as Upscaler)
-from comfyui_distributed_tpu_torch.utils.image import (decode_png, save_png,
+from comfyui_distributed_tpu_torch.utils.image import (decode_png,
+                                                       encode_png, save_png,
                                                        to_uint8)
 from comfyui_distributed_tpu_torch.utils.net import (find_free_port,
                                                      get_json, post_json)
@@ -101,6 +102,29 @@ def _input_png(path):
     """The small input image every participant loads (48 x 40)."""
     rng = np.random.default_rng(8)
     save_png(str(path), rng.uniform(size=(40, 48, 3)).astype(np.float32))
+
+
+def _inpaint(seed=SEED, save=True):
+    """distributed-inpaint.json at the tiny family's size: the input
+    scaled to 64^2, 3 steps."""
+    doc = json.loads((ROOT / "workflows" / "distributed-inpaint.json")
+                     .read_text())
+    doc["2"]["inputs"].update(width=64, height=64)
+    doc["3"]["inputs"]["steps"] = 3
+    doc["13"]["inputs"]["seed"] = seed
+    if save:
+        doc["9"]["class_type"] = "SaveImage"
+    return doc
+
+
+def _rgba_input():
+    """An 80 x 60 RGBA card with a transparent rectangle (the region
+    to inpaint): the pixels [60, 80, 4] and the PNG's bytes."""
+    img = np.random.default_rng(9).uniform(size=(60, 80, 4)).astype(
+        np.float32)
+    img[..., 3] = 1.0
+    img[18:42, 30:56, 3] = 0.0
+    return img, encode_png(img)
 
 
 class Cluster:
@@ -429,3 +453,81 @@ def test_saved_pngs_carry_the_requests_extra_pnginfo(cluster, tmp_path):
                          extra_pnginfo=extra["extra_pnginfo"]),
             decode_png(f.read_bytes()), filename_prefix="ref")
         assert got == _text_chunks(out / "ref_00000.png"), role
+
+
+def test_inpaint_through_master_and_remote_worker(cluster, tmp_path,
+                                                   monkeypatch):
+    """distributed-inpaint.json fanned out to a worker the master counts
+    as remote (a second torch worker on 127.0.0.2, its input directory
+    empty): the master stages its RGBA ``input.png`` there byte for
+    byte, and collects 2 images, each equal to the in-process run at
+    seed s (the master's) and s + 1 (the worker's); the two differ
+    inside the mask."""
+    deadline = time.time() + DEADLINE_S
+    card, png = _rgba_input()
+    master_png = cluster.dirs["master"] / "input" / "input.png"
+    saved = master_png.read_bytes()
+    d = tmp_path / "w1"
+    (d / "input").mkdir(parents=True)
+    port = find_free_port()
+    env = {**os.environ, "DTPU_DEFAULT_FAMILY": "tiny",
+           "PYTHONPATH": str(ROOT)}
+    log = open(d / "log.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TORCH_CLI, "worker", "--host", "127.0.0.2",
+         "--port", str(port), "--config", str(d / "cfg.json"), "--device",
+         "cpu", "--input-dir", str(d / "input"), "--output-dir",
+         str(d / "output")], cwd=str(d), env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    url = cluster.url("master") + "/distributed/config/update_worker"
+    try:
+        while True:
+            assert proc.poll() is None, (d / "log.txt").read_text()
+            try:
+                get_json(f"http://127.0.0.2:{port}/prompt", timeout=2)
+                break
+            except OSError:
+                assert time.time() < deadline, (d / "log.txt").read_text()
+                time.sleep(0.3)
+        master_png.write_bytes(png)
+        cluster.enable_only(None)
+        post_json(url, {"id": "w1", "name": "w1", "host": "127.0.0.2",
+                        "port": port, "enabled": True})
+        resp, entry, delta, files = cluster.run(_inpaint(), deadline)
+        assert resp["workers"] == ["w1"] and resp["failed_workers"] == [], \
+            (resp, cluster.logs(), (d / "log.txt").read_text())
+        assert entry["status"] == "success" and entry["images"] == 2, entry
+        assert delta["images_received"] == 1 and len(files) == 2
+        assert (d / "input" / "input.png").read_bytes() == png
+    finally:
+        post_json(url, {"id": "w1", "name": "w1", "host": "127.0.0.2",
+                        "port": port, "enabled": False})
+        master_png.write_bytes(saved)
+        cluster.enable_only("w0")
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    inp = tmp_path / "in"
+    inp.mkdir()
+    (inp / "input.png").write_bytes(png)
+    monkeypatch.setenv("DTPU_DEFAULT_FAMILY", "tiny")
+    treg.clear_pipeline_cache()
+    try:
+        refs = {s: WorkflowExecutor(OpContext(
+            device="cpu", input_dir=str(inp))).execute(
+                _inpaint(s, save=False)).image_batch[0]
+            for s in (SEED, SEED + 1)}
+    finally:
+        treg.clear_pipeline_cache()
+    for f, seed in zip(files, (SEED, SEED + 1)):
+        assert _diff(f, refs[seed]) <= EXACT, (f, seed)
+    # the card's transparent rectangle, scaled to 64^2 (80 -> 64 wide,
+    # 60 -> 64 high)
+    got = [decode_png(f.read_bytes())[0] for f in files]
+    hole = (slice(20, 44), slice(24, 44))
+    assert np.abs(got[0][hole] - got[1][hole]).mean() > 0.02
+
