@@ -16,9 +16,10 @@ Run from the root of a checkout on a machine with a CUDA card (and
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the paths below give them
    (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, the SDXL refiner's 12 and
-   24 heads, and SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
-   and at B = 2 for the inpaint requests at 512^2 and 768 x 512, all in
-   the sm90 kernel), plus the edges of both kernels at every head dim
+   24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale,
+   at B = 2 for the inpaint requests at 512^2 and 768 x 512 and at B = 3
+   for the regional request, and SD2.1's 5/10/20 heads of 64 at 768^2,
+   all in the sm90 kernel), plus the edges of both kernels at every head dim
    (N and M not multiples of the tile, M < 16, one batch-head, N < 64;
    the older ``mma.sync`` kernel's launched by name), fp32 and the tiny
    head dims (bf16: relative error < 2e-2; fp32: absolute error < 2e-4,
@@ -40,7 +41,12 @@ Run from the root of a checkout on a machine with a CUDA card (and
    base with an ADM head, a one-tower OpenCLIP refiner under the
    refiner's checkpoint prefix), and the three inpaint workflows shrunk
    (``tiny``, and ``tiny_inpaint`` for the inpaint model; 64 px, 3
-   steps, their own small RGBA inputs) must agree within 1e-3;
+   steps, their own small RGBA inputs), and the regional (``tiny``),
+   ip2p (``tiny_ip2p`` and the tiny VAE and text tower by their names)
+   and unclip (``tiny_unclip``) workflows shrunk, on small inputs of
+   their own, must agree within 1e-3 (the unclip run on the card takes
+   the CPU run's image embedding, as the unCLIP noise is keyed by its
+   bytes, and the card's own embedding must agree within 1e-3 too);
 5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
    port's WorkflowExecutor as three requests with three seeds; each must
@@ -118,9 +124,25 @@ Run from the root of a checkout on a machine with a CUDA card (and
    sampled latent equal to the encoded source to the bit where the
    latent mask is 0 and different where it is 1.  It prints a
    ``phase12`` line for each request.
+13. regional, ip2p and unclip: ``workflows/distributed-regional.json``
+   (SD1.5 at 512^2, two prompts on canvas halves and the uncond in one
+   stacked call, 20 euler/karras steps), ``distributed-ip2p.json`` (the
+   split loaders, the 8-channel ``sd15_ip2p`` UNet on a 512^2
+   ``input.png``, 12 steps) and ``distributed-unclip.json``
+   (``sd21_unclip``, v-prediction, the ViT-H image embedding of a
+   640 x 512 ``concept.png``, 20 dpmpp_2m steps at 768^2), unchanged
+   with virtual weights on inputs this script writes, each cold (every
+   pipeline released first) and then warm: exactly 640, 384 and 640 sm90
+   launches a request at shapes phase 3 checked, finite, non-constant
+   images, the warm image equal to the cold one to the bit; each half of
+   the regional latent closer (mean |difference|) to a run with its own
+   prompt alone than to one with the other half's prompt alone, the
+   ip2p latent different from a sampling with zero concat channels, and
+   the unclip image from one at noise_augmentation 0.5.  It prints a ``phase13`` line for each
+   request and a ``phase13_report`` line.
 
 Launch counts are zeroed just before each request of phases 5-7 and
-9-12 and read just after.  The line before the last is ``{"kernels":
+9-13 and read just after.  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -128,6 +150,13 @@ those launches (each shape's measured time times its launch count),
 ``mma_sync_ms``.  The last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or outside a checkout, it exits non-zero before
 printing any result.
+
+    python3 chip_smoke.py --ab DIR
+
+compares this checkout's port with the one at ``DIR`` (another commit,
+unpacked): the txt2img, sdxl and inpaint workflows' warm seconds, the
+two sides in turns in one process each, and their images to the bit
+(:func:`ab`).
 """
 
 from __future__ import annotations
@@ -155,7 +184,9 @@ WORKFLOWS = {name: os.path.join(ROOT, "workflows", f"distributed-{file}.json")
                                 ("hires_fix", "hires-fix"),
                                 ("inpaint", "inpaint"),
                                 ("outpaint", "outpaint"),
-                                ("inpaint_model", "inpaint-model"))}
+                                ("inpaint_model", "inpaint-model"),
+                                ("regional", "regional"), ("ip2p", "ip2p"),
+                                ("unclip", "unclip"))}
 REPLACES = "comfyui_distributed_tpu/ops/pallas/flash_attention.py:134"
 SOURCES = {
     "sm90": "comfyui_distributed_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -184,11 +215,13 @@ EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
             "upscale": ("sm90", 640), "sdxl": ("sm90", 2800),
             "refiner": ("sm90", 3048), "hires_fix": ("sm90", 2800),
             "inpaint": ("sm90", 640), "outpaint": ("sm90", 640),
-            "inpaint_model": ("sm90", 640)}
+            "inpaint_model": ("sm90", 640), "regional": ("sm90", 640),
+            "ip2p": ("sm90", 384), "unclip": ("sm90", 640)}
 # (height, width) of each path's image ((1024, 1024) where not listed)
 IMAGE_HW = {"upscale": (2048, 2048), "hires_fix": (1216, 1216),
             "inpaint": (512, 512), "outpaint": (512, 768),
-            "inpaint_model": (512, 512)}
+            "inpaint_model": (512, 512), "regional": (512, 512),
+            "ip2p": (512, 512), "unclip": (768, 768)}
 # phase 12: (sampler node, the node whose latent it samples) of each
 # inpaint workflow
 INPAINT_NODES = {"inpaint": ("3", "5"), "outpaint": ("3", "5"),
@@ -408,15 +441,76 @@ def small_docs(docs):
     outpaint["3"]["inputs"]["steps"] = 3
     inpaint_model = copy.deepcopy(docs["inpaint_model"])
     inpaint_model["8"]["inputs"]["steps"] = 3
+    regional = copy.deepcopy(docs["regional"])
+    regional["2"]["inputs"].update(width=64, height=64)
+    regional["3"]["inputs"]["steps"] = 3
+    # the split loaders' tiny geometry comes from the names (the UNet's
+    # and the VAE's) and CLIPLoader's type
+    ip2p = copy.deepcopy(docs["ip2p"])
+    ip2p["2"]["inputs"]["unet_name"] = "tiny-ip2p-unet.sft"
+    ip2p["3"]["inputs"].update(clip_name="tiny-clip.sft", type="tiny")
+    ip2p["4"]["inputs"]["vae_name"] = "tiny-vae.sft"
+    ip2p["9"]["inputs"]["steps"] = 2
+    unclip = copy.deepcopy(docs["unclip"])
+    unclip["7"]["inputs"].update(width=64, height=64)
+    unclip["9"]["inputs"]["steps"] = 2
     return {"txt2img": txt, "img2img": i2i, "upscale": up, "sdxl": xl,
             "txt2img_from_file": from_file, "refiner": refiner,
             "hires_fix": hires, "inpaint": inpaint, "outpaint": outpaint,
-            "inpaint_model": inpaint_model}
+            "inpaint_model": inpaint_model, "regional": regional,
+            "ip2p": ip2p, "unclip": unclip}
 
 
 # the family of each inpaint workflow's tiny stand-in (phase 4)
 TINY_INPAINT_FAMILY = {"inpaint": "tiny", "outpaint": "tiny",
                        "inpaint_model": "tiny_inpaint"}
+# phase 4's family override of the phase 13 stand-ins (None: the names
+# decide, as the split loaders' tiny names do)
+TINY_PHASE13_FAMILY = {"regional": "tiny", "ip2p": None,
+                       "unclip": "tiny_unclip"}
+
+
+def write_phase13_inputs(input_dir, size):
+    """The files the ip2p and unclip workflows read, written by the port's
+    PNG writer: ``input.png`` (``size`` square, phase 13's 512) and
+    ``concept.png`` (5/4 ``size`` wide, ``size`` high, so the CLIP-vision
+    crop cuts its sides), smooth colour fields."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils.image import encode_png
+    for name, (h, w) in (("input.png", (size, size)),
+                         ("concept.png", (size, size * 5 // 4))):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = np.stack([0.5 + 0.5 * np.sin(xx / w * 6.3),
+                        yy / h, 0.5 + 0.5 * np.cos((xx + yy) / h * 3.1)],
+                       axis=-1)
+        with open(os.path.join(input_dir, name), "wb") as f:
+            f.write(encode_png(img))
+
+
+def shared_embedding(basic, embeds):
+    """Patches ``basic.CLIPVisionEncode`` to hand on ``embeds`` (moved to
+    the run's card) in place of the tower's own, recording the largest
+    difference between the two; returns (the restore function, the
+    record).  The unCLIP vector's noise is keyed by the embedding's
+    bytes, so phase 4 gives the card the CPU's embedding and holds the
+    tower itself within the same 1e-3."""
+    real = basic.CLIPVisionEncode.execute
+    record = {"max_abs_err": 0.0}
+
+    def execute(self, ctx, **kw):
+        (out,) = real(self, ctx, **kw)
+        record["max_abs_err"] = max(record["max_abs_err"], float(
+            (out.image_embeds.cpu() - embeds).abs().max()))
+        out.image_embeds = embeds.to(out.image_embeds.device)
+        return (out,)
+
+    basic.CLIPVisionEncode.execute = execute
+
+    def restore():
+        basic.CLIPVisionEncode.execute = real
+
+    return restore, record
 
 
 def write_inpaint_inputs(input_dir, scale):
@@ -475,10 +569,12 @@ def tiny_against_cpu(docs, input_dir):
     """Phase 4: the tiny family's txt2img, img2img, tiled upscale, the
     SDXL graph (on ``tiny_sdxl``), txt2img from a checkpoint file the
     port wrote, the shrunk refiner and hires-fix graphs (on
-    :func:`staged_stand_ins`) and the three inpaint graphs (on ``tiny``
-    and ``tiny_inpaint``, from their own small RGBA inputs), on the card
-    against the CPU runs of the
-    same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
+    :func:`staged_stand_ins`), the three inpaint graphs (on ``tiny``
+    and ``tiny_inpaint``, from their own small RGBA inputs) and the
+    regional, ip2p (``tiny_ip2p`` by the names) and unclip
+    (``tiny_unclip``, the CPU's image embedding handed to the card:
+    :func:`shared_embedding`) graphs, on the card against the CPU runs
+    of the same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
     here: its bf16 convolutions round differently in cuDNN and on the
     CPU, which the refine then amplifies past 1e-3."""
     import dataclasses
@@ -487,6 +583,7 @@ def tiny_against_cpu(docs, input_dir):
     import torch
 
     from comfyui_distributed_tpu_torch.models import registry, upscalers
+    from comfyui_distributed_tpu_torch.ops import basic
     from comfyui_distributed_tpu_torch.ops.base import OpContext
     from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
     os.environ["DTPU_DEFAULT_FAMILY"] = "tiny"
@@ -498,6 +595,7 @@ def tiny_against_cpu(docs, input_dir):
     out = {}
     models_dir = tempfile.mkdtemp(prefix="tiny_models_")
     inpaint_dir = tempfile.mkdtemp(prefix="tiny_inpaint_inputs_")
+    phase13_dir = tempfile.mkdtemp(prefix="tiny_phase13_inputs_")
     try:
         write_inpaint_inputs(inpaint_dir, 1)
         from comfyui_distributed_tpu_torch.models.checkpoints import (
@@ -506,29 +604,48 @@ def tiny_against_cpu(docs, input_dir):
                                       device="cpu")
         save_checkpoint(os.path.join(models_dir, TINY_FILE), pipe.unet,
                         pipe.clip_models, pipe.vae, pipe.family)
+        write_phase13_inputs(phase13_dir, 32)
         for name, doc in small_docs(docs).items():
             staged = name in ("refiner", "hires_fix")
             registry.detect_family = staged_family if staged \
                 else detect_family
-            if staged:
+            family = "tiny_sdxl" if name == "sdxl" \
+                else TINY_PHASE13_FAMILY[name] \
+                if name in TINY_PHASE13_FAMILY \
+                else TINY_INPAINT_FAMILY.get(name, "tiny")
+            if staged or family is None:
                 os.environ.pop("DTPU_DEFAULT_FAMILY", None)
             else:
-                os.environ["DTPU_DEFAULT_FAMILY"] = \
-                    "tiny_sdxl" if name == "sdxl" \
-                    else TINY_INPAINT_FAMILY.get(name, "tiny")
-            imgs = {dev: WorkflowExecutor(OpContext(
-                device=dev, input_dir=inpaint_dir
-                if name in TINY_INPAINT_FAMILY else input_dir,
-                models_dir=models_dir)).execute(
-                    copy.deepcopy(doc)).image_batch
-                for dev in (DEVICE, "cpu")}
-            card, host = imgs[DEVICE], imgs["cpu"]
+                os.environ["DTPU_DEFAULT_FAMILY"] = family
+            run_dir = inpaint_dir if name in TINY_INPAINT_FAMILY \
+                else phase13_dir if name in TINY_PHASE13_FAMILY \
+                else input_dir
+            results = {}
+            for dev in ("cpu", DEVICE):
+                restore = None
+                if name == "unclip" and dev == DEVICE:
+                    restore, vision = shared_embedding(
+                        basic, results["cpu"].outputs["3"][0].image_embeds)
+                try:
+                    results[dev] = WorkflowExecutor(OpContext(
+                        device=dev, input_dir=run_dir,
+                        models_dir=models_dir)).execute(copy.deepcopy(doc))
+                finally:
+                    if restore is not None:
+                        restore()
+            card = results[DEVICE].image_batch
+            host = results["cpu"].image_batch
             err = float(np.abs(card - host).max())
             if card.shape != host.shape or not err < 1e-3:
                 fail(f"tiny {name} on the card disagrees with the CPU run: "
                      f"shapes {card.shape} {host.shape}, max err {err}")
             out[name] = {"shape": list(card.shape), "max_abs_err": err,
                          "atol": 1e-3}
+            if name == "unclip":
+                if not vision["max_abs_err"] < 1e-3:
+                    fail(f"tiny unclip: the card's CLIP-vision embedding "
+                         f"differs from the CPU's by {vision}")
+                out[name]["vision_max_abs_err"] = vision["max_abs_err"]
     finally:
         os.environ.pop("DTPU_DEFAULT_FAMILY", None)
         upscalers.TINY_RRDB_CONFIG = tiny_rrdb
@@ -538,12 +655,13 @@ def tiny_against_cpu(docs, input_dir):
         registry.clear_pipeline_cache()
         shutil.rmtree(models_dir, ignore_errors=True)
         shutil.rmtree(inpaint_dir, ignore_errors=True)
+        shutil.rmtree(phase13_dir, ignore_errors=True)
     return out
 
 
 def run_requests(path, doc, seeds, input_dir, shape_counts, images=None,
                  results=None, **ctx_kw):
-    """Phases 5-7 and 9-11: one request of ``path`` per seed, its launch
+    """Phases 5-7 and 9-13: one request of ``path`` per seed, its launch
     counts zeroed just before it and read just after (and added to
     ``shape_counts``); returns the per-request report, puts each seed's
     image into ``images`` and each run's result into ``results`` when
@@ -624,7 +742,7 @@ def totals(shapes, by_shape, keys):
 
 
 def kernels_line(rows, variant_counts, shape_counts):
-    """The contract's entries over the launches of phases 5-7 and 9-11:
+    """The contract's entries over the launches of phases 5-7 and 9-13:
     one per kernel variant that they launched, each over exactly its
     shapes."""
     by_shape = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
@@ -1389,6 +1507,142 @@ def inpainting(docs, input_dir, shape_counts, rows):
     return report, requests
 
 
+def phase13_request_pair(path, doc, input_dir, shape_counts, checked):
+    """One workflow of phase 13, cold and then warm, and the runs that
+    show its conditioning reached the model: (its report, its requests).
+    Everything it held is released when it returns."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.base import OpContext, get_op
+    seed = next(node["inputs"]["seed"] for node in doc.values()
+                if isinstance(node, dict)
+                and node.get("class_type") == "DistributedSeed")
+    images, results, requests = {}, [], []
+    for run in ("cold", "warm"):
+        requests += run_requests(path, doc, (seed,), input_dir, shape_counts,
+                                 images, results)
+        requests[-1]["run"] = run
+        if run == "cold":
+            first = images[seed]
+    if not np.array_equal(first, images[seed]):
+        fail(f"{path}: the warm request's image differs from the cold "
+             f"one's (max {np.abs(first - images[seed]).max()})")
+    res = results[-1]
+    report = {"cold_equals_warm": True}
+    if path == "regional":
+        # each half of the latent sits closer to a run of its own prompt
+        # alone (over the whole canvas) than to one of the other half's
+        # prompt alone: node 6 sets the left half, node 16 the right
+        lat = res.outputs["3"][0]["samples"].data
+        half = lat.shape[2] // 2
+        alone = {}
+        for node in ("6", "16"):
+            alt = copy.deepcopy(doc)
+            alt["3"]["inputs"]["positive"] = [node, 0]
+            alt_res = []
+            requests += run_requests(path, alt, (seed,), input_dir,
+                                     shape_counts, results=alt_res)
+            requests[-1]["run"] = f"positive {node} alone"
+            alone[node] = alt_res[0].outputs["3"][0]["samples"].data
+        dist = {}
+        for side, cols, own, other in (("left", slice(0, half), "6", "16"),
+                                       ("right", slice(half, None), "16",
+                                        "6")):
+            dist[side] = {f"positive {n} alone": float(
+                (lat[:, :, cols] - alone[n][:, :, cols]).abs().mean())
+                for n in (own, other)}
+            if not dist[side][f"positive {own} alone"] \
+                    < dist[side][f"positive {other} alone"]:
+                fail(f"regional: the {side} half is not closer to its own "
+                     f"prompt's run than to the other's: {dist}")
+        report["half_mean_abs_diff"] = dist
+    elif path == "ip2p":
+        # the same sampling with zero concat channels
+        pos, neg, lat = res.outputs["8"]
+        if res.outputs["2"][0].family.name != "sd15_ip2p" \
+                or tuple(pos.concat_latent.shape) != (1, 64, 64, 4):
+            fail(f"ip2p: family {res.outputs['2'][0].family.name}, concat "
+                 f"{tuple(pos.concat_latent.shape)}")
+        zero = [dataclasses.replace(c, concat_latent=torch.zeros_like(
+            c.concat_latent)) for c in (pos, neg)]
+        widgets = {k: v for k, v in doc["9"]["inputs"].items()
+                   if not isinstance(v, list)}
+        (other,) = get_op("KSampler").execute(
+            OpContext(device=DEVICE), model=res.outputs["2"][0],
+            seed=res.outputs["13"][0], positive=zero[0], negative=zero[1],
+            latent_image=lat, **widgets)
+        report["zero_concat_max_abs_diff"] = float(
+            (res.outputs["9"][0]["samples"].data - other["samples"].data)
+            .abs().max())
+        if not report["zero_concat_max_abs_diff"] > 0.0:
+            fail("ip2p: the source's concat channels change nothing")
+    else:
+        pipe, vision = res.outputs["1"][0], res.outputs["1"][3]
+        embeds = res.outputs["3"][0].image_embeds
+        if pipe.family.name != "sd21_unclip" or pipe.prediction_type != "v" \
+                or tuple(embeds.shape) != (1, 1024) \
+                or vision.cfg.width != 1280:
+            fail(f"unclip: family {pipe.family.name}, embeds "
+                 f"{tuple(embeds.shape)}, vision width {vision.cfg.width}")
+        alt = copy.deepcopy(doc)
+        alt["6"]["inputs"]["noise_augmentation"] = 0.5
+        alt_images = {}
+        requests += run_requests(path, alt, (seed,), input_dir,
+                                 shape_counts, alt_images)
+        requests[-1]["run"] = "noise_augmentation 0.5"
+        report["noise_augmentation_max_abs_diff"] = float(
+            np.abs(alt_images[seed] - images[seed]).max())
+        if not report["noise_augmentation_max_abs_diff"] > 0.0:
+            fail("unclip: noise_augmentation 0.05 and 0.5 give one image")
+    for req in requests:
+        shapes = {tuple(s[:6]): s[6] for s in req["launches_by_shape"]}
+        missing = [s for s in shapes if s not in checked]
+        if missing:
+            fail(f"{path}: launched shapes that phase 3 did not check: "
+                 f"{missing}")
+        req["attention"] = totals(shapes, checked, [
+            "ms", "plain_ms", "library_ms", "mma_sync_ms"])
+        emit("phase13", req)
+    main_reqs = [r for r in requests if r["run"] in ("cold", "warm")]
+    report.update(
+        seconds={r["run"]: r["seconds"] for r in main_reqs},
+        max_memory_allocated={r["run"]: r["max_memory_allocated"]
+                              for r in main_reqs},
+        attention_ms={r["run"]: r["attention"]["ms"] for r in main_reqs},
+        bound_ms=main_reqs[0]["attention"]["bound_ms"])
+    return report, requests
+
+
+def phase13(docs, input_dir, shape_counts, rows):
+    """Phase 13: the regional, ip2p and unclip workflows, each cold
+    (every pipeline released first) and then warm, on the inputs in
+    ``input_dir``; returns (the report, the requests)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+
+    def release():
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    report, requests = {}, []
+    for path in ("regional", "ip2p", "unclip"):
+        release()
+        report[path], reqs = phase13_request_pair(
+            path, docs[path], input_dir, shape_counts, checked)
+        requests += reqs
+    release()
+    return report, requests
+
+
 def main() -> int:
     try:
         import torch
@@ -1475,6 +1729,25 @@ def main() -> int:
         (2, 384, 77, 8, 160, bf, "SD1.5 768x512 cross 16x24 latent"),
         (2, 96, 96, 8, 160, bf, "SD1.5 768x512 mid self 8x12 latent"),
         (2, 96, 77, 8, 160, bf, "SD1.5 768x512 mid cross 8x12 latent"),
+        # phase 13: the regional request's two cond entries and one
+        # uncond in one stacked call (B = 3), SD1.5 at 512^2
+        (3, 4096, 4096, 8, 40, bf, "regional self 64x64 latent"),
+        (3, 4096, 77, 8, 40, bf, "regional cross 64x64 latent"),
+        (3, 1024, 1024, 8, 80, bf, "regional self 32x32 latent"),
+        (3, 1024, 77, 8, 80, bf, "regional cross 32x32 latent"),
+        (3, 256, 256, 8, 160, bf, "regional self 16x16 latent"),
+        (3, 256, 77, 8, 160, bf, "regional cross 16x16 latent"),
+        (3, 64, 64, 8, 160, bf, "regional mid self 8x8 latent"),
+        (3, 64, 77, 8, 160, bf, "regional mid cross 8x8 latent"),
+        # phase 13: SD2.1-unclip at 768^2, 5/10/20 heads of 64
+        (2, 9216, 9216, 5, 64, bf, "SD2.1 768^2 self 96x96 latent"),
+        (2, 9216, 77, 5, 64, bf, "SD2.1 768^2 cross 96x96 latent"),
+        (2, 2304, 2304, 10, 64, bf, "SD2.1 768^2 self 48x48 latent"),
+        (2, 2304, 77, 10, 64, bf, "SD2.1 768^2 cross 48x48 latent"),
+        (2, 576, 576, 20, 64, bf, "SD2.1 768^2 self 24x24 latent"),
+        (2, 576, 77, 20, 64, bf, "SD2.1 768^2 cross 24x24 latent"),
+        (2, 144, 144, 20, 64, bf, "SD2.1 768^2 mid self 12x12 latent"),
+        (2, 144, 77, 20, 64, bf, "SD2.1 768^2 mid cross 12x12 latent"),
     ]
     extra_shapes = [
         # the sm90 kernel's edges at SD1.5's head dims: N off the Q tile
@@ -1560,6 +1833,13 @@ def main() -> int:
                                                   shape_counts, rows)
         requests += inpaint_reqs
         emit("inpainting", inpaint_report)
+        # phase 13's own inputs: input.png (ip2p) and concept.png (unclip)
+        phase13_dir = os.path.join(input_dir, "phase13")
+        os.makedirs(phase13_dir)
+        write_phase13_inputs(phase13_dir, 512)
+        report13, reqs13 = phase13(docs, phase13_dir, shape_counts, rows)
+        requests += reqs13
+        emit("phase13_report", report13)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])
@@ -1571,5 +1851,138 @@ def main() -> int:
     return 0
 
 
+def ab_child(root, input_dir) -> int:
+    """``--ab-child ROOT INPUT_DIR``: one side of :func:`ab`.  Imports the
+    port of the checkout at ``root`` and, for each line ``NAME cold`` or
+    ``NAME warm`` on its input, runs ``workflows/distributed-NAME.json``
+    of that checkout unchanged (every pipeline released first when
+    cold), then answers with one line ``AB {...}``: the request's
+    seconds, its samplers' node seconds and the sha256 of its image's
+    float32 bytes."""
+    import gc
+    import hashlib
+
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for line in sys.stdin:
+        name, run = line.split()
+        if run == "cold":
+            registry.clear_pipeline_cache()
+            gc.collect()
+            torch.cuda.empty_cache()
+        path = os.path.join(root, "workflows", f"distributed-{name}.json")
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = WorkflowExecutor(OpContext(device="cuda",
+                                         input_dir=input_dir)).execute(doc)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        img = np.ascontiguousarray(res.image_batch, np.float32)
+        print("AB " + json.dumps({
+            "seconds": seconds,
+            "sampler_seconds": sum(
+                v for k, v in res.timings.items()
+                if doc[k]["class_type"].startswith("KSampler")),
+            "sha256": hashlib.sha256(img.tobytes()).hexdigest()}),
+            flush=True)
+    return 0
+
+
+AB_WORKFLOWS = ("txt2img", "sdxl", "inpaint")
+AB_PAIRS = 10
+
+
+def ab(parent_root) -> int:
+    """``--ab DIR``: this checkout's port against the one at ``DIR`` (an
+    unpacked parent commit) on one card.  Each side is a process of its
+    own (:func:`ab_child`) that keeps its pipelines; for each of
+    ``AB_WORKFLOWS`` both run one cold request, then ``AB_PAIRS`` pairs
+    of warm ones in turns (parent first in even pairs, the change first
+    in odd ones), so both sides see the same run length and drift.  It
+    fails unless every image of a workflow is equal to the bit on both
+    sides, and prints one ``ab`` line: each side's seconds and sampler
+    seconds per request, the warm medians and quartiles."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this comparison runs on "
+             "a CUDA card only")
+    parent_root = os.path.abspath(parent_root)
+    for root in (parent_root, ROOT):
+        if not os.path.isdir(os.path.join(root,
+                                          "comfyui_distributed_tpu_torch")):
+            fail(f"{root} is not a checkout of the port")
+    sys.path.insert(0, ROOT)
+    card = card_line()
+    print(card, flush=True)
+    sides = (("parent", parent_root), ("change", ROOT))
+    report = {"card": card, "parent": parent_root, "pairs": AB_PAIRS,
+              "workflows": {}}
+    with tempfile.TemporaryDirectory() as input_dir:
+        write_inpaint_inputs(input_dir, 8)
+        procs = {side: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ab-child", root,
+             input_dir], cwd=root, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True) for side, root in sides}
+
+        def ask(side, name, run):
+            proc = procs[side]
+            proc.stdin.write(f"{name} {run}\n")
+            proc.stdin.flush()
+            for line in proc.stdout:
+                if line.startswith("AB "):
+                    return {"run": run, **json.loads(line[3:])}
+            fail(f"{side} ended while running {name} ({run}): exit "
+                 f"{proc.wait()}")
+
+        try:
+            for name in AB_WORKFLOWS:
+                runs = {side: [ask(side, name, "cold")] for side, _ in sides}
+                for i in range(AB_PAIRS):
+                    for side, _ in (sides if i % 2 == 0 else sides[::-1]):
+                        runs[side].append(ask(side, name, "warm"))
+                digests = {r["sha256"] for rs in runs.values() for r in rs}
+                if len(digests) != 1:
+                    fail(f"{name}: the images differ: {sorted(digests)}")
+                summary = {}
+                for side, rs in runs.items():
+                    warm = [r["seconds"] for r in rs[1:]]
+                    q1, q2, q3 = statistics.quantiles(warm, n=4)
+                    summary[side] = {
+                        "cold_seconds": rs[0]["seconds"],
+                        "warm_seconds": warm,
+                        "warm_median": statistics.median(warm),
+                        "warm_quartiles": [q1, q3],
+                        "warm_sampler_seconds": [r["sampler_seconds"]
+                                                 for r in rs[1:]],
+                        "warm_sampler_median": statistics.median(
+                            r["sampler_seconds"] for r in rs[1:])}
+                summary["sha256"] = digests.pop()
+                report["workflows"][name] = summary
+        finally:
+            for proc in procs.values():
+                proc.stdin.close()
+            for proc in procs.values():
+                try:
+                    proc.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    emit("ab", report)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-child"] and len(sys.argv) == 4:
+        sys.exit(ab_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        sys.exit(ab(sys.argv[2]))
     sys.exit(main())

@@ -30,6 +30,10 @@ copy-on-write ``mmap``: each tensor is a view of the file's pages, so
 nothing of the file is copied on the host until a tensor goes to its
 device, where it is cast to its module's storage dtype.
 
+The split loaders read one part from a lone file (:func:`load_part`):
+a VAE, a UNet or a text tower with or without its checkpoint prefix,
+and an HF CLIPVisionModel file (``_run_clip_vision``).
+
 ESRGAN/RRDB upscalers ship in three namings (old-arch ``model.N``,
 xinntao ``RRDB_trunk``, Real-ESRGAN ``body``/``conv_body``);
 ``_rrdb_key_norm`` maps all three onto one.
@@ -42,7 +46,8 @@ import math
 import mmap
 import os
 import zipfile
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -509,6 +514,29 @@ def _run_openclip(m, cfg):
     return m.finish("OpenCLIP")
 
 
+def _run_clip_vision(m, cfg):
+    """HF CLIPVisionModel layout (``clip_vision/*.safetensors``; HF spells
+    the pre-norm ``pre_layrnorm``)."""
+    m.raw("vision_model.embeddings.class_embedding", "class_embedding")
+    m.raw("vision_model.embeddings.position_embedding.weight",
+          "position_embedding")
+    m.conv("vision_model.embeddings.patch_embedding", "patch_embed")
+    m.norm("vision_model.pre_layrnorm", "pre_ln")
+    for i in range(cfg.layers):
+        t, f = f"vision_model.encoder.layers.{i}", f"layers_{i}"
+        m.norm(f"{t}.layer_norm1", f"{f}/ln1")
+        m.linear(f"{t}.self_attn.q_proj", f"{f}/q")
+        m.linear(f"{t}.self_attn.k_proj", f"{f}/k")
+        m.linear(f"{t}.self_attn.v_proj", f"{f}/v")
+        m.linear(f"{t}.self_attn.out_proj", f"{f}/proj")
+        m.norm(f"{t}.layer_norm2", f"{f}/ln2")
+        m.linear(f"{t}.mlp.fc1", f"{f}/fc1")
+        m.linear(f"{t}.mlp.fc2", f"{f}/fc2")
+    m.norm("vision_model.post_layernorm", "post_ln")
+    m.linear("visual_projection", "visual_projection", bias=False)
+    return m.finish("CLIPVision")
+
+
 # --- top level -----------------------------------------------------------------
 
 UNET_PREFIX = "model.diffusion_model."
@@ -636,6 +664,51 @@ def load_checkpoint(path: str, family
 def save_checkpoint(path: str, unet: nn.Module, clips: List[nn.Module],
                     vae: nn.Module, family) -> None:
     write_safetensors(export_state_dict(unet, clips, vae, family), path)
+
+
+# --- lone files: one part of a pipeline (the split loaders) --------------------
+
+def _part(kind: str, cfg) -> Tuple[Callable[[], nn.Module], Callable]:
+    """(module factory, key walk) of a pipeline part: "unet", "vae",
+    "clip" (either text layout, from ``cfg.layout``) or
+    "clip_vision"."""
+    from comfyui_distributed_tpu_torch.models.clip import CLIPTextModel
+    from comfyui_distributed_tpu_torch.models.clip_vision import (
+        CLIPVisionModel)
+    from comfyui_distributed_tpu_torch.models.unet import UNet
+    from comfyui_distributed_tpu_torch.models.vae import VAE
+    if kind == "unet":
+        return (lambda: UNet(cfg)), _run_unet
+    if kind == "vae":
+        return (lambda: VAE(cfg)), _run_vae
+    if kind == "clip":
+        return (lambda: CLIPTextModel(cfg)), _clip_runner(cfg)
+    if kind == "clip_vision":
+        return (lambda: CLIPVisionModel(cfg)), _run_clip_vision
+    raise ValueError(f"unknown pipeline part {kind!r}")
+
+
+def load_part(sd: Tensors, kind: str, cfg,
+              prefixes: Sequence[str] = ()) -> Tensors:
+    """One part's state dict from a lone file's tensors, its keys under
+    the first of ``prefixes`` that any key starts with, else bare (the
+    split loaders' rule: a VAE with or without ``first_stage_model.``, a
+    UNet with or without ``model.diffusion_model.``, a text tower under
+    its in-checkpoint prefix, ``text_model.`` or none)."""
+    prefix = next((p for p in prefixes if any(k.startswith(p) for k in sd)),
+                  "")
+    make, walk = _part(kind, cfg)
+    with torch.device("meta"):
+        module = make()
+    return walk(_LoadMapper(sd, prefix, _by_path(module)), cfg)
+
+
+def save_part(path: str, module: nn.Module, kind: str, cfg,
+              prefix: str = "") -> None:
+    """Write one part as a lone file, its keys under ``prefix``."""
+    _, walk = _part(kind, cfg)
+    write_safetensors(walk(_ExportMapper(_by_path(module), prefix), cfg),
+                      path)
 
 
 # --- ESRGAN/RRDB upscalers ---------------------------------------------------------

@@ -46,6 +46,11 @@ CLIP_L_SDXL_CONFIG = dataclasses.replace(CLIP_L_CONFIG, output_layer=-2)
 OPEN_CLIP_BIGG_CONFIG = CLIPConfig(width=1280, layers=32, heads=20,
                                    act="gelu", output_layer=-2,
                                    projection_dim=1280, layout="openclip")
+# SD2.x's text tower: OpenCLIP ViT-H at its penultimate layer, with the
+# checkpoint's text_projection
+OPEN_CLIP_H_CONFIG = CLIPConfig(width=1024, layers=24, heads=16,
+                                act="gelu", output_layer=-2,
+                                projection_dim=1024, layout="openclip")
 TINY_CLIP_CONFIG = CLIPConfig(vocab_size=4096, width=64, layers=2, heads=4,
                               max_length=77, dtype=torch.float32)
 

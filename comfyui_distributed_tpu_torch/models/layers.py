@@ -70,18 +70,19 @@ class Conv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, stride: int = 1, padding: int = 0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = True):
         super().__init__()
         self.weight = _param(out_channels, in_channels, kernel_size,
                              kernel_size)
-        self.bias = _param(out_channels)
+        self.bias = _param(out_channels) if bias else None
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias,
                         stride=self.stride, padding=self.padding)
 
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
 from comfyui_distributed_tpu_torch.models import clip as clip_mod
+from comfyui_distributed_tpu_torch.models import clip_vision as cv_mod
 from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models import unet as unet_mod
 from comfyui_distributed_tpu_torch.models import upscalers as up_mod
@@ -38,6 +39,7 @@ from comfyui_distributed_tpu_torch.models.prng import (
     sample_keys,
 )
 from comfyui_distributed_tpu_torch.models.samplers import (
+    _norm_entries,
     cfg_denoiser_multi,
     get_sampler,
 )
@@ -52,6 +54,10 @@ class ModelFamily:
     vae: vae_mod.VAEConfig
     clips: Tuple[clip_mod.CLIPConfig, ...]
     latent_channels: int = 4
+    # how the UNet's ADM vector is built: "sdxl" (pooled text and size
+    # embeddings) or "unclip" (the noise-augmented CLIP-vision embedding
+    # and its noise level: ``ops/basic.py:_unclip_vector_cond``)
+    adm_kind: str = "sdxl"
     # the text towers' key prefixes in a single-file checkpoint, where
     # the family departs from the standard layouts
     # (``checkpoints._clip_prefixes`` falls back to those when None)
@@ -81,6 +87,18 @@ FAMILIES: Dict[str, ModelFamily] = {
         clips=(clip_mod.OPEN_CLIP_BIGG_CONFIG,),
         clip_prefixes=("conditioner.embedders.0.model.",),
     ),
+    "sd21": ModelFamily(
+        name="sd21",
+        unet=unet_mod.SD21_CONFIG,
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.OPEN_CLIP_H_CONFIG,),
+    ),
+    "sd21_base": ModelFamily(
+        name="sd21_base",
+        unet=unet_mod.SD21_BASE_CONFIG,
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.OPEN_CLIP_H_CONFIG,),
+    ),
     # inpaint models: the UNet takes [latent (4), mask (1), masked-image
     # latent (4)] = 9 input channels (the sd-v1.5-inpainting layout);
     # everything else is the base family's
@@ -90,11 +108,36 @@ FAMILIES: Dict[str, ModelFamily] = {
         vae=vae_mod.SD_VAE_CONFIG,
         clips=(clip_mod.CLIP_L_CONFIG,),
     ),
+    # InstructPix2Pix: [latent (4), source-image latent (4)] = 8 input
+    # channels, no mask
+    "sd15_ip2p": ModelFamily(
+        name="sd15_ip2p",
+        unet=dataclasses.replace(unet_mod.SD15_CONFIG, in_channels=8),
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.CLIP_L_CONFIG,),
+    ),
+    # SD2.1-unclip-h: the v-prediction SD2.1 UNet with an ADM head for
+    # the noise-augmented ViT-H image embedding (1024) and its noise
+    # level's timestep embedding (1024)
+    "sd21_unclip": ModelFamily(
+        name="sd21_unclip",
+        unet=dataclasses.replace(unet_mod.SD21_CONFIG, adm_in_channels=2048),
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.OPEN_CLIP_H_CONFIG,),
+        adm_kind="unclip",
+    ),
     "tiny": ModelFamily(
         name="tiny",
         unet=unet_mod.TINY_CONFIG,
         vae=vae_mod.TINY_VAE_CONFIG,
         clips=(clip_mod.TINY_CLIP_CONFIG,),
+    ),
+    "tiny_unclip": ModelFamily(
+        name="tiny_unclip",
+        unet=dataclasses.replace(unet_mod.TINY_CONFIG, adm_in_channels=64),
+        vae=vae_mod.TINY_VAE_CONFIG,
+        clips=(clip_mod.TINY_CLIP_CONFIG,),
+        adm_kind="unclip",
     ),
     # SDXL-shaped tiny family: an ADM head wide enough (128 > the tiny
     # pooled width 64) that CLIPTextEncodeSDXL's size embeddings reach
@@ -108,6 +151,12 @@ FAMILIES: Dict[str, ModelFamily] = {
     "tiny_inpaint": ModelFamily(
         name="tiny_inpaint",
         unet=dataclasses.replace(unet_mod.TINY_CONFIG, in_channels=9),
+        vae=vae_mod.TINY_VAE_CONFIG,
+        clips=(clip_mod.TINY_CLIP_CONFIG,),
+    ),
+    "tiny_ip2p": ModelFamily(
+        name="tiny_ip2p",
+        unet=dataclasses.replace(unet_mod.TINY_CONFIG, in_channels=8),
         vae=vae_mod.TINY_VAE_CONFIG,
         clips=(clip_mod.TINY_CLIP_CONFIG,),
     ),
@@ -168,11 +217,14 @@ _pipeline_tokens = itertools.count()
 class DiffusionPipeline:
     """(MODEL, CLIP, VAE) bundle + tokenizer + schedule, on one device.
     ``cache_token`` names this pipeline in the caches of the pipelines
-    derived from it (:func:`derive_pipeline`, ``models/lora.py``)."""
+    derived from it (:func:`derive_pipeline`, ``models/lora.py``).  A
+    split loader's pipeline holds only its own part (``unet`` or ``vae``
+    None, ``clip_models`` empty); using a part it lacks raises."""
 
-    def __init__(self, name: str, family: ModelFamily, unet: nn.Module,
-                 clip_models: List[nn.Module], vae: nn.Module,
-                 device: torch.device, assets_dir: Optional[str] = None):
+    def __init__(self, name: str, family: ModelFamily,
+                 unet: Optional[nn.Module], clip_models: List[nn.Module],
+                 vae: Optional[nn.Module], device: torch.device,
+                 assets_dir: Optional[str] = None):
         self.name = name
         self.family = family
         self.unet = unet
@@ -190,6 +242,12 @@ class DiffusionPipeline:
             pad_with_end=not all(c.layout == "openclip"
                                  for c in family.clips))
 
+    def _require(self, part, what: str):
+        if part is None or (isinstance(part, list) and not part):
+            raise ValueError(f"{self.name!r} has no {what}: it comes from "
+                             "a loader of another part")
+        return part
+
     @torch.inference_mode()
     def encode_prompt(self, texts: List[str],
                       texts_alt: Optional[List[str]] = None
@@ -202,7 +260,8 @@ class DiffusionPipeline:
         (CLIPTextEncodeSDXL's text_g beside text_l); single-tower
         families ignore it."""
         outs, pooled = [], None
-        for i, m in enumerate(self.clip_models):
+        for i, m in enumerate(self._require(self.clip_models,
+                                            "text encoder")):
             ts = texts if i == 0 or texts_alt is None else texts_alt
             pairs = [self.tokenizer.encode(t) for t in ts]
             ids = torch.as_tensor(np.stack([x for x, _ in pairs]),
@@ -218,17 +277,19 @@ class DiffusionPipeline:
     def vae_encode(self, images: torch.Tensor) -> torch.Tensor:
         """images [B, H, W, 3] in [0, 1] -> scaled latents (the mean: no
         sample is drawn, as in the JAX pipeline)."""
-        return self.vae.encode(images.to(self.device, torch.float32))
+        return self._require(self.vae, "VAE").encode(
+            images.to(self.device, torch.float32))
 
     @torch.inference_mode()
     def vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
-        return self.vae.decode(latents.to(self.device, torch.float32))
+        return self._require(self.vae, "VAE").decode(
+            latents.to(self.device, torch.float32))
 
     @torch.inference_mode()
-    def sample(self, latents: torch.Tensor, context: torch.Tensor,
-               uncond_context: torch.Tensor, seeds, steps: int, cfg: float,
+    def sample(self, latents: torch.Tensor, context, uncond_context,
+               seeds, steps: int, cfg: float,
                sampler_name: str, scheduler: str, denoise: float = 1.0,
-               y: Optional[torch.Tensor] = None, add_noise: bool = True,
+               y=None, add_noise: bool = True,
                sample_idx=None, start_step: int = 0,
                end_step: Optional[int] = None,
                force_full_denoise: bool = False,
@@ -255,10 +316,17 @@ class DiffusionPipeline:
         mask (with the initial noise, zero without ``add_noise``), its
         output and its CFG++ ``last_uncond`` are re-anchored to the
         clean source there, and so is the sampler's result.
-        ``c_concat`` [B, h, w, K]: the inpaint models' extra UNet input
-        channels (``make_denoiser``'s ``concat``)."""
+        ``c_concat`` [B, h, w, K]: the inpaint and ip2p models' extra
+        UNet input channels (``make_denoiser``'s ``concat``).
+        ``context`` / ``uncond_context``: one context [B, T, C] each, or
+        lists of ``(context, area mask [1 or B, h, w, 1] or None,
+        strength[, sigma_range])`` entries (regional prompting), every
+        entry of both sides evaluated in one stacked model call
+        (``cfg_denoiser_multi``).  ``y``: one ADM vector [B, A] for
+        every row block, or a list with one per entry, conds first."""
         sampler = get_sampler(sampler_name)
         dev = self.device
+        self._require(self.unet, "UNet")
         # host float32 sigmas: the sampler's branches and coefficients
         # never wait for the card
         sigmas = sch.compute_sigmas(self.schedule, scheduler, steps, denoise)
@@ -285,16 +353,36 @@ class DiffusionPipeline:
         den = make_denoiser(self.unet, self.schedule, self.prediction_type,
                             device=dev, concat=None if c_concat is None
                             else c_concat.to(dev, torch.float32))
-        model = cfg_denoiser_multi(den, [(context.to(dev), None, 1.0)],
-                                   uncond_context.to(dev), float(cfg))
+        conds, unconds = _entries(context, dev), _entries(uncond_context,
+                                                          dev)
+        model = cfg_denoiser_multi(den, conds, unconds, float(cfg))
         if noise_mask is not None:
             m = noise_mask.to(dev, torch.float32)
             model = _masked_model(model, m, src, noise)
-        extra = {} if y is None else {"y": y.to(dev)}
+        reps = len(conds) + (len(unconds) if float(cfg) != 1.0 else 0)
+        extra = {} if y is None else {"y": stack_y(y, reps, dev)}
         out = sampler(model, x, sigmas, extra_args=extra, keys=keys)
         if noise_mask is not None:
             out = out * m + src * (1.0 - m)
         return out
+
+
+def _entries(context, dev) -> List[Tuple]:
+    """A bare context or an entry list -> ``(context, mask, strength,
+    sigma_range)`` entries on ``dev``."""
+    if isinstance(context, torch.Tensor):
+        return [(context.to(dev), None, 1.0, None)]
+    return [(c.to(dev), None if m is None else m.to(dev), s, sr)
+            for c, m, s, sr in _norm_entries(context)]
+
+
+def stack_y(y, reps: int, dev) -> torch.Tensor:
+    """The ADM rows of a CFG model call: one vector per row block, a
+    list (one per entry, conds first) cut to the ``reps`` blocks that
+    run, a single vector repeated to them."""
+    ys = list(y)[:reps] if isinstance(y, (list, tuple)) else [y] * reps
+    ys = [v.to(dev) for v in ys]
+    return ys[0] if reps == 1 else torch.cat(ys)
 
 
 def _masked_model(inner: Callable, m: torch.Tensor, src: torch.Tensor,
@@ -389,13 +477,182 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
         return pipe
 
 
+def _find_file(models_dir: Optional[str], name: str,
+               subdirs: Tuple[str, ...] = ()) -> Optional[str]:
+    """The file ``name`` in ``models_dir`` or the first of its
+    ``subdirs`` that holds it."""
+    for sub in ("",) + subdirs:
+        path = _model_file(models_dir, os.path.join(sub, name) if sub
+                           else name)
+        if path is not None:
+            return path
+    return None
+
+
+def _part_module(kind: str, cfg, device: torch.device, dtype: torch.dtype,
+                 path: Optional[str], prefixes: Tuple[str, ...],
+                 seed: int) -> nn.Module:
+    """One pipeline part on ``device``: from the lone file at ``path``
+    (its keys under one of ``prefixes`` or bare), else virtual from
+    ``seed``."""
+    make, _ = ckpt._part(kind, cfg)
+    if path is not None:
+        state = ckpt.load_part(ckpt.load_state_dict(path), kind, cfg,
+                               prefixes)
+        return _build(make, device, dtype, lambda m: ckpt.load_into(m, state))
+    return _build(make, device, dtype, lambda m: fill_virtual(m, seed))
+
+
+def load_vae(vae_name: str, models_dir: Optional[str] = None,
+             family_name: Optional[str] = None,
+             device="cuda") -> DiffusionPipeline:
+    """VAELoader: a pipeline holding only a VAE, usable wherever a
+    checkpoint's VAE is.  A file (with or without ``first_stage_model.``)
+    loads; without one the VAE is virtual from the name's seed.  The
+    family: ``family_name``, else ``DTPU_DEFAULT_FAMILY``, else ``tiny``
+    when the name says so, else ``sd15``."""
+    device = torch.device(device)
+    default = "tiny" if "tiny" in vae_name.lower() else "sd15"
+    fam = get_family(family_name or os.environ.get(FAMILY_ENV) or default)
+    key = ("vae", vae_name, fam.name, models_dir or "", str(device))
+    with _pipeline_lock:
+        pipe = _pipeline_cache.get(key)
+        if pipe is not None:
+            return pipe
+        vae = _part_module("vae", fam.vae, device, torch.float32,
+                           _model_file(models_dir, vae_name),
+                           (ckpt.VAE_PREFIX,), _name_seed(vae_name))
+        pipe = _pipeline_cache[key] = DiffusionPipeline(
+            f"vae:{vae_name}", fam, None, [], vae, device)
+        return pipe
+
+
+# CLIPLoader/DualCLIPLoader's ``type`` -> the family whose text towers
+# the files hold
+CLIP_TYPE_FAMILIES = {
+    "stable_diffusion": "sd15",
+    "sd1": "sd15",
+    "sd2": "sd21",
+    "sdxl": "sdxl",
+    "tiny": "tiny",
+}
+
+
+def load_clip(clip_names: List[str], models_dir: Optional[str] = None,
+              family_name: Optional[str] = None,
+              device="cuda") -> DiffusionPipeline:
+    """CLIPLoader/DualCLIPLoader: a pipeline holding only text towers,
+    one file name a tower.  A file in ``models_dir``, ``clip/`` or
+    ``text_encoders/`` loads with its keys under the tower's
+    in-checkpoint prefix, ``text_model.`` or bare; a missing one is
+    virtual, tower ``i`` from the name's seed plus ``i``."""
+    device = torch.device(device)
+    fam = get_family(family_name or os.environ.get(FAMILY_ENV) or "sd15")
+    if len(clip_names) != len(fam.clips):
+        raise ValueError(
+            f"family {fam.name} has {len(fam.clips)} text tower(s), got "
+            f"{len(clip_names)} file name(s): use "
+            f"{'DualCLIPLoader' if len(fam.clips) == 2 else 'CLIPLoader'}")
+    key = ("clip", tuple(clip_names), fam.name, models_dir or "",
+           str(device))
+    with _pipeline_lock:
+        pipe = _pipeline_cache.get(key)
+        if pipe is not None:
+            return pipe
+        clips = [
+            _part_module("clip", ccfg, device, fam.unet.dtype,
+                         _find_file(models_dir, name,
+                                    ("clip", "text_encoders")),
+                         (prefix, "text_model."), _name_seed(name) + i)
+            for i, (name, ccfg, prefix) in enumerate(
+                zip(clip_names, fam.clips, ckpt._clip_prefixes(fam)))]
+        pipe = _pipeline_cache[key] = DiffusionPipeline(
+            f"clip:{':'.join(clip_names)}", fam, None, clips, None, device,
+            assets_dir=models_dir)
+        return pipe
+
+
+def load_unet(unet_name: str, models_dir: Optional[str] = None,
+              family_name: Optional[str] = None,
+              device="cuda") -> DiffusionPipeline:
+    """UNETLoader: a pipeline holding only a UNet (the family from the
+    name unless given).  A file in ``models_dir``, ``unet/`` or
+    ``diffusion_models/`` loads with or without
+    ``model.diffusion_model.``; a missing one is virtual from the name's
+    seed.  The JAX package fills text towers and a VAE beside it (seeds
+    + 1 + i and + 100) that no op reads off a MODEL wire; they are not
+    built here."""
+    device = torch.device(device)
+    fam = get_family(family_name or detect_family(unet_name))
+    key = ("unet", unet_name, fam.name, models_dir or "", str(device))
+    with _pipeline_lock:
+        pipe = _pipeline_cache.get(key)
+        if pipe is not None:
+            return pipe
+        unet = _part_module("unet", fam.unet, device, fam.unet.dtype,
+                            _find_file(models_dir, unet_name,
+                                       ("unet", "diffusion_models")),
+                            (ckpt.UNET_PREFIX,), _name_seed(unet_name))
+        pipe = _pipeline_cache[key] = DiffusionPipeline(
+            f"unet:{unet_name}", fam, unet, [], None, device,
+            assets_dir=models_dir)
+        return pipe
+
+
+_clip_vision_cache: Dict[Tuple, "cv_mod.CLIPVisionTower"] = {}
+CLIP_VISION_CONFIGS = {"vit_h": cv_mod.VIT_H_CONFIG,
+                       "vit_l": cv_mod.VIT_L_CONFIG,
+                       "tiny": cv_mod.TINY_VISION_CONFIG}
+
+
+def load_clip_vision(clip_name: str, models_dir: Optional[str] = None,
+                     config_name: Optional[str] = None,
+                     device="cuda") -> "cv_mod.CLIPVisionTower":
+    """CLIPVisionLoader: the image tower from an HF CLIPVisionModel file
+    in ``models_dir`` or ``clip_vision/`` (ViT-H or ViT-L by its width,
+    unless ``config_name`` says), else virtual from the name's seed
+    (ViT-H, the tiny tower when the name says tiny or test).  Weights
+    stay fp32, as the JAX package keeps them."""
+    device = torch.device(device)
+    key = (clip_name, config_name or "", models_dir or "", str(device))
+    with _pipeline_lock:
+        tower = _clip_vision_cache.get(key)
+        if tower is not None:
+            return tower
+        path = _find_file(models_dir, clip_name, ("clip_vision",))
+        if path is not None:
+            sd = ckpt.load_state_dict(path)
+            w = sd.get("vision_model.embeddings.class_embedding")
+            width = int(w.shape[-1]) if w is not None else 1280
+            cfg = CLIP_VISION_CONFIGS[config_name] if config_name \
+                else (cv_mod.VIT_H_CONFIG if width >= 1280
+                      else cv_mod.VIT_L_CONFIG)
+            state = ckpt.load_part(sd, "clip_vision", cfg)
+            fill = lambda m: ckpt.load_into(m, state)  # noqa: E731
+        else:
+            lowered = clip_name.lower()
+            cfg = CLIP_VISION_CONFIGS.get(config_name or "") or (
+                cv_mod.TINY_VISION_CONFIG
+                if "tiny" in lowered or "test" in lowered
+                else cv_mod.VIT_H_CONFIG)
+            seed = _name_seed(clip_name)
+            fill = lambda m: fill_virtual(m, seed)  # noqa: E731
+        make, _ = ckpt._part("clip_vision", cfg)
+        model = _build(make, device, torch.float32, fill)
+        tower = _clip_vision_cache[key] = cv_mod.CLIPVisionTower(
+            clip_name, cfg, model)
+        return tower
+
+
 def clear_pipeline_cache() -> None:
-    """Drop every cached pipeline, derived pipeline, LoRA-patched
-    pipeline and upscaler, so their device memory can go."""
+    """Drop every cached pipeline (split parts too), derived pipeline,
+    LoRA-patched pipeline, CLIP-vision tower and upscaler, so their
+    device memory can go."""
     with _pipeline_lock:
         _pipeline_cache.clear()
         _derived_cache.clear()
         _upscaler_cache.clear()
+        _clip_vision_cache.clear()
     from comfyui_distributed_tpu_torch.models import lora as lora_mod
     lora_mod.clear_lora_cache()
 

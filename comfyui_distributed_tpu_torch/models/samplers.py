@@ -1053,37 +1053,85 @@ def get_sampler(name: str) -> Callable:
     return SAMPLERS[name]
 
 
+def _norm_entries(entries):
+    """(context, mask, strength[, sigma_range]) entries -> 4-tuples."""
+    return [tuple(e) if len(e) == 4 else (*e, None) for e in entries]
+
+
+def _entry_active(sigma, srange, like: torch.Tensor):
+    """1.0 while the step's sigma lies in the entry's [s_end, s_start]
+    (ComfyUI's timestep-range gate), else 0.0, compared in float32: a
+    host sigma gives a host factor, a tensor sigma a device one."""
+    s_start, s_end = np.float32(srange[0]), np.float32(srange[1])
+    if isinstance(sigma, torch.Tensor):
+        sig = sigma.to(torch.float32).max()
+        return ((sig <= float(s_start)) & (sig >= float(s_end))).to(
+            like.dtype)
+    sig = np.float32(np.max(np.asarray(sigma, np.float32)))
+    return float(s_end <= sig <= s_start)
+
+
+def _mask_blend(entries, parts, sigma) -> torch.Tensor:
+    """``sum_i(w_i * den_i) / max(sum_i(w_i), 1e-9)`` with ``w_i =
+    strength_i * mask_i * active_i(sigma)``: the blend of one CFG
+    side's per-entry denoised predictions.  A pixel no entry covers
+    blends to about zero, as in ComfyUI."""
+    acc = wsum = None
+    for (_, m, s, srange), p in zip(entries, parts):
+        if m is None:
+            w = torch.full((1, 1, 1, 1), float(s), dtype=p.dtype,
+                           device=p.device)
+        else:
+            w = m.to(p.device, p.dtype) * float(s)
+        if srange is not None:
+            w = w * _entry_active(sigma, srange, p)
+        term = p * w
+        wb = w.expand(p.shape[:-1] + (1,))
+        acc = term if acc is None else acc + term
+        wsum = wb if wsum is None else wsum + wb
+    return acc / torch.clamp(wsum, min=1e-9)
+
+
 def cfg_denoiser_multi(model: Model, conds, uncond,
                        cfg_scale: float) -> Model:
-    """Classifier-free guidance for the single-entry case of the JAX
-    package's ``cfg_denoiser_multi``: ``conds`` is one ``(context, None,
-    1.0)`` entry (or a bare context), ``uncond`` a context.  One model
-    call per step on the stacked [cond rows; uncond rows] batch (B=2 for
-    one image), then ``uncond + (cond - uncond) * cfg``; with cfg == 1
-    only the cond rows run.  Each call leaves its uncond denoised (the
-    cond's at cfg == 1) in ``last_uncond`` for the CFG++ samplers.
-    Regional entries (masks, strengths, timestep ranges) are not ported
-    yet and raise."""
-    if isinstance(conds, (list, tuple)):
-        cond, *rest = conds[0]
-        mask, strength, srange = rest + [None, 1.0, None][len(rest):]
-        if len(conds) != 1 or mask is not None or float(strength) != 1.0 \
-                or srange is not None:
-            raise NotImplementedError(
-                "multi-entry or masked conditioning is not ported yet")
-    else:
-        cond = conds
+    """Classifier-free guidance over ComfyUI's multi-entry conditioning
+    lists (the JAX package's ``cfg_denoiser_multi``).  ``conds`` and
+    ``uncond``: lists of ``(context [B, T, C], mask [1 or B, h, w, 1] or
+    None, strength[, sigma_range])`` entries, or one bare context.
+
+    Every entry of both sides runs in ONE model call on the stacked
+    [cond_1..cond_n; uncond_1..uncond_m] rows (only the cond rows at
+    cfg == 1); each side's predictions blend by :func:`_mask_blend`,
+    then ``uncond + (cond - uncond) * cfg``.  A ``y`` in the call's
+    arguments must already be stacked to those rows
+    (``registry.stack_y``).  Each call leaves its blended uncond
+    (the blended cond at cfg == 1) in ``last_uncond`` for the CFG++
+    samplers.  One plain entry a side blends to its own prediction to
+    the bit (weight 1, sum 1)."""
+    conds = _norm_entries(conds) if isinstance(conds, (list, tuple)) \
+        else [(conds, None, 1.0, None)]
+    unconds = _norm_entries(uncond) if isinstance(uncond, (list, tuple)) \
+        else [(uncond, None, 1.0, None)]
+    n, nu = len(conds), len(unconds)
 
     def wrapped(x: torch.Tensor, sigma,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if cfg_scale == 1.0:
-            den = model(x, sigma, context=cond, y=y)
+        use_uncond = cfg_scale != 1.0
+        reps = n + (nu if use_uncond else 0)
+        if reps == 1 and conds[0][1] is None and conds[0][3] is None:
+            den = model(x, sigma, context=conds[0][0], y=y)
             wrapped.last_uncond = den
             return den
-        y2 = None if y is None else torch.cat([y, y])
-        out = model(torch.cat([x, x]), sigma,
-                    context=torch.cat([cond, uncond]), y=y2)
-        den_cond, den_uncond = out.chunk(2)
+        ctx = [c for c, _, _, _ in conds] \
+            + ([c for c, _, _, _ in unconds] if use_uncond else [])
+        out = model(torch.cat([x] * reps), sigma, context=torch.cat(ctx),
+                    y=y)
+        parts = out.chunk(reps)
+        den_cond = _mask_blend(conds, parts[:n], sigma)
+        if not use_uncond:
+            wrapped.last_uncond = den_cond
+            return den_cond
+        den_uncond = _mask_blend(unconds, parts[n:], sigma)
         wrapped.last_uncond = den_uncond
         return den_uncond + (den_cond - den_uncond) * cfg_scale
     return wrapped

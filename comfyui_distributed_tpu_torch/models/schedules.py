@@ -43,6 +43,19 @@ class DiscreteSchedule:
         return np.interp(np.asarray(t, dtype=np.float64),
                          np.arange(len(self.sigmas)), self.sigmas)
 
+    def percent_to_sigma(self, percent: float) -> float:
+        """ComfyUI's sampling percent -> sigma: 0.0 is the start of
+        sampling (above sigma_max), 1.0 the end (sigma 0), between them
+        log-sigma interpolation over the table
+        (ConditioningSetTimestepRange's gate)."""
+        if percent <= 0.0:
+            return float(self.sigmas[-1]) * 1e3
+        if percent >= 1.0:
+            return 0.0
+        t = (1.0 - percent) * (len(self.sigmas) - 1)
+        return float(np.exp(np.interp(t, np.arange(len(self.sigmas)),
+                                      np.log(self.sigmas))))
+
 
 def make_discrete_schedule(beta_start: float = 0.00085,
                            beta_end: float = 0.012,

@@ -1,4 +1,4 @@
-"""Diffusion UNet (SD1.x / SDXL families) in PyTorch: the counterpart of
+"""Diffusion UNet (SD1.x, SD2.x and SDXL families) in PyTorch: the counterpart of
 ``comfyui_distributed_tpu/models/unet.py``.
 
 The forward takes and returns the JAX package's NHWC layout (x [B, H, W,
@@ -87,6 +87,16 @@ SDXL_REFINER_CONFIG = UNetConfig(
     adm_in_channels=2560,
     use_linear_in_transformer=True,
 )
+
+# SD2.1: the SD1.x topology with 64-channel heads at every level (5, 10
+# and 20 heads), the OpenCLIP-H context (1024) and Linear transformer
+# projections; the 768-v line predicts v, the 512-base line eps
+SD21_CONFIG = UNetConfig(
+    context_dim=1024,
+    use_linear_in_transformer=True,
+    prediction_type="v",
+)
+SD21_BASE_CONFIG = dataclasses.replace(SD21_CONFIG, prediction_type="eps")
 
 TINY_CONFIG = UNetConfig(
     model_channels=32,

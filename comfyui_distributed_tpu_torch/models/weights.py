@@ -9,7 +9,8 @@ its module path plus a leaf name, and the mapping is mechanical:
 - GroupNorm32 holds flax's implicit ``GroupNorm_0`` (``in_norm/GroupNorm_0/
   scale`` -> ``in_norm.weight``);
 - Embed ``embedding``          -> ``weight``; CLIP's raw
-  ``position_embedding`` keeps its name and layout.
+  ``position_embedding`` (and the vision tower's ``class_embedding``)
+  keeps its name and layout.
 
 :func:`fill_virtual` is the virtual checkpoint: every leaf is drawn in
 flax layout by the JAX package's rule (``registry._virtual_leaf``) — a
@@ -31,6 +32,7 @@ import torch
 from torch import nn
 
 from comfyui_distributed_tpu_torch.models.clip import CLIPTextModel, Embed
+from comfyui_distributed_tpu_torch.models.clip_vision import CLIPVisionModel
 from comfyui_distributed_tpu_torch.models.layers import (
     Conv,
     Dense,
@@ -91,6 +93,9 @@ def leaves(module: nn.Module) -> List[Leaf]:
         elif isinstance(mod, CLIPTextModel):
             add(mname, ("position_embedding",), "position_embedding",
                 "same", mod)
+        elif isinstance(mod, CLIPVisionModel):
+            for raw in ("class_embedding", "position_embedding"):
+                add(mname, (raw,), raw, "same", mod)
     covered = {leaf.name for leaf in out}
     missing = [n for n, _ in module.named_parameters() if n not in covered]
     if missing:
@@ -161,6 +166,15 @@ def from_flax(family, unet_params, clip_params, vae_params):
     return (state_dict_from_flax(unet, unet_params),
             [state_dict_from_flax(m, p) for m, p in zip(clips, clip_params)],
             state_dict_from_flax(vae, vae_params))
+
+
+def clip_vision_from_flax(cfg, params):
+    """The JAX package's CLIP-vision tree -> the port's
+    ``CLIPVisionModel`` state dict for ``cfg`` (a
+    ``clip_vision.CLIPVisionConfig`` of the port)."""
+    with torch.device("meta"):
+        model = CLIPVisionModel(cfg)
+    return state_dict_from_flax(model, params)
 
 
 def rrdb_from_flax(cfg, params):

@@ -31,13 +31,30 @@ class Conditioning:
     of CLIPTextEncodeSDXL (height, width, crop_h, crop_w, target_height,
     target_width) or of CLIPTextEncodeSDXLRefiner (height, width, 0, 0,
     aesthetic score); without them the sampler derives them from the
-    latent.  ``concat_latent`` [B, h, w, K]: an inpaint model's extra
-    UNet input channels (InpaintModelConditioning's [mask, masked
-    latent]), set on both CFG sides."""
+    latent.  ``concat_latent`` [B, h, w, K]: an inpaint or ip2p model's
+    extra UNet input channels (InpaintModelConditioning's [mask, masked
+    latent], InstructPixToPixConditioning's source latent), set on both
+    CFG sides.
+
+    Regional prompting (ComfyUI's multi-entry conditioning lists):
+    ``area_mask`` is an image-resolution mask [B, H, W] or a rectangle
+    ``("px", x, y, w, h)`` (pixels, ComfyUI's //8 latent units) or
+    ``("pct", x, y, w, h)`` (canvas fractions), resolved against the
+    latent at sample time; ``area_strength`` weighs the entry's
+    denoised prediction in the blend; ``siblings`` are the further
+    entries ConditioningCombine bundled; ``timestep_range`` (start,
+    end) in sampling percent (0 = the first step) limits when the
+    entry counts.  ``unclip``: (image_embed [1, D], strength,
+    noise_augmentation) entries for an unCLIP model's ADM vector."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
     size_cond: Optional[Tuple[float, ...]] = None
     concat_latent: Optional[torch.Tensor] = None
+    area_mask: Any = None
+    area_strength: float = 1.0
+    siblings: Tuple["Conditioning", ...] = ()
+    timestep_range: Optional[Tuple[float, float]] = None
+    unclip: Optional[Tuple[Tuple[Any, float, float], ...]] = None
 
 
 @dataclasses.dataclass

@@ -1,24 +1,30 @@
-"""Standard workflow ops on the txt2img, img2img, SDXL, refiner,
-hires-fix, inpaint, outpaint and upscale paths: the counterparts of
-``CheckpointLoaderSimple``, ``CheckpointSave``, ``LoraLoader``,
-``LoraLoaderModelOnly``, ``CLIPSetLastLayer``, ``CLIPTextEncode``,
-``CLIPTextEncodeSDXL``, ``CLIPTextEncodeSDXLRefiner``,
-``EmptyLatentImage``, ``KSampler``, ``KSamplerAdvanced``,
-``LatentUpscale``, ``LatentUpscaleBy``, ``VAEDecode``, ``VAEEncode``,
-``LoadImage``, ``LoadImageMask``, ``ImageScale``,
-``ImagePadForOutpaint``, ``VAEEncodeForInpaint``,
-``InpaintModelConditioning``, ``SetLatentNoiseMask``,
-``UpscaleModelLoader``, ``ImageUpscaleWithModel``, ``PreviewImage`` and
-``SaveImage`` in ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1:
-VAEEncode neither memoises nor expands the batch).
+"""Standard workflow ops on the paths of every workflow in
+``workflows/``: the counterparts of ``CheckpointLoaderSimple``,
+``CheckpointSave``, ``VAELoader``, ``CLIPLoader``, ``DualCLIPLoader``,
+``UNETLoader``, ``LoraLoader``, ``LoraLoaderModelOnly``,
+``CLIPSetLastLayer``, ``CLIPTextEncode``, ``CLIPTextEncodeSDXL``,
+``CLIPTextEncodeSDXLRefiner``, ``ConditioningCombine``,
+``ConditioningSetMask``, ``ConditioningSetArea``,
+``ConditioningSetAreaPercentage``, ``ConditioningSetAreaStrength``,
+``ConditioningSetTimestepRange``, ``CLIPVisionLoader``,
+``CLIPVisionEncode``, ``unCLIPConditioning``,
+``unCLIPCheckpointLoader``, ``EmptyLatentImage``, ``KSampler``,
+``KSamplerAdvanced``, ``LatentUpscale``, ``LatentUpscaleBy``,
+``VAEDecode``, ``VAEEncode``, ``LoadImage``, ``LoadImageMask``,
+``ImageScale``, ``ImagePadForOutpaint``, ``VAEEncodeForInpaint``,
+``InpaintModelConditioning``, ``InstructPixToPixConditioning``,
+``SetLatentNoiseMask``, ``UpscaleModelLoader``,
+``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
+``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode
+neither memoises nor expands the batch).
 
 A MASK travels as a float32 tensor on the run's device ([H, W] or
-[B, H, W], 1 = resample); a latent's ``noise_mask`` stays at image
-resolution until the sampler takes it to the latent's
-(:func:`image_mask_to_latent`).  Only the single-entry conditioning
-path is ported: regional prompts, ControlNet, GLIGEN and the other
-patches that ``_prepare_sample_inputs`` handles in the JAX package wait
-for a later slice.
+[B, H, W], 1 = resample); a latent's ``noise_mask`` and a
+conditioning's area mask stay at image resolution until the sampler
+takes them to the latent's (:func:`image_mask_to_latent`).  ControlNet,
+GLIGEN and the 3-row guidances (DualCFG, PerpNeg) that
+``_prepare_sample_inputs`` handles in the JAX package wait for a later
+slice.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import math
 import os
 import re
 import threading
-from typing import Optional
+import zlib
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -69,6 +76,74 @@ class CheckpointLoaderSimple(Op):
         pipe = registry.load_pipeline(ckpt_name, models_dir=ctx.models_dir,
                                       device=ctx.device)
         return (pipe, pipe, pipe)
+
+
+@register_op
+class VAELoader(Op):
+    """A standalone VAE (e.g. vae-ft-mse-840000) -> VAE wire."""
+    TYPE = "VAELoader"
+    WIDGETS = ["vae_name"]
+
+    def execute(self, ctx: OpContext, vae_name: str):
+        return (registry.load_vae(str(vae_name), models_dir=ctx.models_dir,
+                                  device=ctx.device),)
+
+
+@register_op
+class CLIPLoader(Op):
+    """A standalone text encoder -> CLIP wire; ``type`` names the tower
+    geometry (``registry.CLIP_TYPE_FAMILIES``)."""
+    TYPE = "CLIPLoader"
+    WIDGETS = ["clip_name", "type"]
+    DEFAULTS = {"type": "stable_diffusion"}
+
+    def execute(self, ctx: OpContext, clip_name: str,
+                type: str = "stable_diffusion"):  # noqa: A002 - schema name
+        fam = registry.CLIP_TYPE_FAMILIES.get(str(type))
+        if fam is None:
+            raise ValueError(
+                f"CLIPLoader: unknown type {type!r}; available: "
+                f"{sorted(registry.CLIP_TYPE_FAMILIES)}")
+        if len(registry.get_family(fam).clips) != 1:
+            raise ValueError(f"CLIPLoader: type {type!r} needs "
+                             "DualCLIPLoader (two towers)")
+        return (registry.load_clip([str(clip_name)],
+                                   models_dir=ctx.models_dir,
+                                   family_name=fam, device=ctx.device),)
+
+
+@register_op
+class DualCLIPLoader(Op):
+    """Two standalone text encoders -> one two-tower CLIP wire (sdxl:
+    clip_name1 is CLIP-L, clip_name2 OpenCLIP bigG)."""
+    TYPE = "DualCLIPLoader"
+    WIDGETS = ["clip_name1", "clip_name2", "type"]
+    DEFAULTS = {"type": "sdxl"}
+
+    def execute(self, ctx: OpContext, clip_name1: str, clip_name2: str,
+                type: str = "sdxl"):  # noqa: A002 - schema name
+        fam = registry.CLIP_TYPE_FAMILIES.get(str(type))
+        if fam is None or len(registry.get_family(fam).clips) != 2:
+            raise ValueError(f"DualCLIPLoader: type {type!r} is not a "
+                             "two-tower family")
+        return (registry.load_clip([str(clip_name1), str(clip_name2)],
+                                   models_dir=ctx.models_dir,
+                                   family_name=fam, device=ctx.device),)
+
+
+@register_op
+class UNETLoader(Op):
+    """A standalone diffusion model -> MODEL wire, the family from the
+    file name.  ``weight_dtype`` is taken for the schema: weights are
+    stored in the family's compute dtype."""
+    TYPE = "UNETLoader"
+    WIDGETS = ["unet_name", "weight_dtype"]
+    DEFAULTS = {"weight_dtype": "default"}
+
+    def execute(self, ctx: OpContext, unet_name: str,
+                weight_dtype: str = "default"):
+        return (registry.load_unet(str(unet_name), models_dir=ctx.models_dir,
+                                   device=ctx.device),)
 
 
 def _safe_output_path(root: str, rel: str) -> str:
@@ -219,6 +294,180 @@ class CLIPTextEncodeSDXLRefiner(Op):
             size_cond=(int(height), int(width), 0, 0, float(ascore))),)
 
 
+# --- regional prompting -------------------------------------------------------
+
+def _on_all(cond: Conditioning, **fields) -> Conditioning:
+    """``fields`` set on the conditioning and on every sibling bundled
+    with it: ComfyUI's Set nodes loop over all entries of a list."""
+    return dataclasses.replace(
+        cond, siblings=tuple(dataclasses.replace(s, **fields)
+                             for s in cond.siblings), **fields)
+
+
+@register_op
+class ConditioningCombine(Op):
+    """Both conditionings count at sample time, their denoised
+    predictions blended by their areas and strengths: the entries are
+    bundled as siblings, and the sampler runs them all in one stacked
+    model call."""
+    TYPE = "ConditioningCombine"
+
+    def execute(self, ctx: OpContext, conditioning_1: Conditioning,
+                conditioning_2: Conditioning):
+        def flat(c: Conditioning):
+            return (dataclasses.replace(c, siblings=()),) + tuple(c.siblings)
+
+        merged = flat(conditioning_1) + flat(conditioning_2)
+        return (dataclasses.replace(merged[0], siblings=merged[1:]),)
+
+
+@register_op
+class ConditioningSetMask(Op):
+    """A conditioning's influence limited to a mask (``set_cond_area``
+    "default": every entry still runs on the whole latent, the mask
+    weighs its prediction in the blend; "mask bounds" is taken for the
+    schema and not cropped)."""
+    TYPE = "ConditioningSetMask"
+    WIDGETS = ["strength", "set_cond_area"]
+    DEFAULTS = {"strength": 1.0, "set_cond_area": "default"}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning, mask,
+                strength: float = 1.0, set_cond_area: str = "default"):
+        return (_on_all(conditioning, area_mask=as_mask(mask, ctx.device),
+                        area_strength=float(strength)),)
+
+
+@register_op
+class ConditioningSetArea(Op):
+    """A rectangle in pixels (ComfyUI's //8 latent units), resolved
+    against the latent at sample time."""
+    TYPE = "ConditioningSetArea"
+    WIDGETS = ["width", "height", "x", "y", "strength"]
+    DEFAULTS = {"strength": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                width: int, height: int, x: int, y: int,
+                strength: float = 1.0):
+        rect = ("px", int(x), int(y), int(width), int(height))
+        return (_on_all(conditioning, area_mask=rect,
+                        area_strength=float(strength)),)
+
+
+@register_op
+class ConditioningSetAreaPercentage(Op):
+    """A rectangle in canvas fractions."""
+    TYPE = "ConditioningSetAreaPercentage"
+    WIDGETS = ["width", "height", "x", "y", "strength"]
+    DEFAULTS = {"strength": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                width: float, height: float, x: float, y: float,
+                strength: float = 1.0):
+        rect = ("pct", float(x), float(y), float(width), float(height))
+        return (_on_all(conditioning, area_mask=rect,
+                        area_strength=float(strength)),)
+
+
+@register_op
+class ConditioningSetAreaStrength(Op):
+    TYPE = "ConditioningSetAreaStrength"
+    WIDGETS = ["strength"]
+    DEFAULTS = {"strength": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                strength: float = 1.0):
+        return (_on_all(conditioning, area_strength=float(strength)),)
+
+
+@register_op
+class ConditioningSetTimestepRange(Op):
+    """Prompt scheduling: the conditioning counts only while sampling is
+    inside [start, end] (percents, 0 = the first step; inclusive sigma
+    bounds, as ComfyUI)."""
+    TYPE = "ConditioningSetTimestepRange"
+    WIDGETS = ["start", "end"]
+    DEFAULTS = {"start": 0.0, "end": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                start: float = 0.0, end: float = 1.0):
+        return (_on_all(conditioning,
+                        timestep_range=(float(start), float(end))),)
+
+
+# --- unCLIP -------------------------------------------------------------------
+
+@register_op
+class CLIPVisionLoader(Op):
+    """-> CLIP_VISION: an HF CLIPVisionModel file from the models
+    directory or its ``clip_vision/``, else a virtual tower."""
+    TYPE = "CLIPVisionLoader"
+    WIDGETS = ["clip_name"]
+
+    def execute(self, ctx: OpContext, clip_name: str):
+        return (registry.load_clip_vision(str(clip_name),
+                                          models_dir=ctx.models_dir,
+                                          device=ctx.device),)
+
+
+@register_op
+class CLIPVisionEncode(Op):
+    """IMAGE -> CLIP_VISION_OUTPUT: the projected class embedding, the
+    last hidden states and those before the final layer; crop "center"
+    (ComfyUI's default) or "none"."""
+    TYPE = "CLIPVisionEncode"
+    WIDGETS = ["crop"]
+    DEFAULTS = {"crop": "center"}
+
+    def execute(self, ctx: OpContext, clip_vision, image,
+                crop: str = "center"):
+        return (clip_vision.encode(
+            as_device_image(image, clip_vision.device), crop=str(crop)),)
+
+
+@register_op
+class unCLIPConditioning(Op):
+    """An image embedding attached to a conditioning for an unCLIP model
+    (image variations): entries accumulate, on every sibling too."""
+    TYPE = "unCLIPConditioning"
+    WIDGETS = ["strength", "noise_augmentation"]
+    DEFAULTS = {"strength": 1.0, "noise_augmentation": 0.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                clip_vision_output, strength: float = 1.0,
+                noise_augmentation: float = 0.0):
+        entry = (clip_vision_output.image_embeds, float(strength),
+                 float(noise_augmentation))
+
+        def attach(e: Conditioning) -> Conditioning:
+            return dataclasses.replace(e, unclip=(e.unclip or ()) + (entry,))
+
+        return (dataclasses.replace(
+            attach(conditioning),
+            siblings=tuple(attach(s) for s in conditioning.siblings)),)
+
+
+@register_op
+class unCLIPCheckpointLoader(Op):
+    """-> (MODEL, CLIP, VAE, CLIP_VISION) of an unCLIP checkpoint: the
+    diffusion towers as CheckpointLoaderSimple loads them (the family
+    from the name, ``sd21_unclip``), and the vision tower virtual from
+    ``{name}.vision`` (ViT-H, the tiny tower on a tiny family), as in
+    the JAX package, which does not read the tower embedded in a real
+    unCLIP file either."""
+    TYPE = "unCLIPCheckpointLoader"
+    WIDGETS = ["ckpt_name"]
+
+    def execute(self, ctx: OpContext, ckpt_name: str):
+        pipe = registry.load_pipeline(str(ckpt_name),
+                                      models_dir=ctx.models_dir,
+                                      device=ctx.device)
+        vision = registry.load_clip_vision(
+            f"{ckpt_name}.vision",
+            config_name="tiny" if pipe.family.name.startswith("tiny")
+            else "vit_h", device=ctx.device)
+        return (pipe, pipe, pipe, vision)
+
+
 @register_op
 class EmptyLatentImage(Op):
     """Zero latent batch on the run's device."""
@@ -237,11 +486,14 @@ class EmptyLatentImage(Op):
 @dataclasses.dataclass
 class _SampleInputs:
     latents: torch.Tensor
-    context: torch.Tensor
-    uncond: torch.Tensor
+    # one context [B, T, C] a side, or (regional) lists of (context,
+    # mask, strength, sigma range) entries
+    context: Any
+    uncond: Any
     seeds: np.ndarray
     sample_idx: np.ndarray
-    y: Optional[torch.Tensor]
+    # one ADM vector [B, A] for every row block, or a list, one an entry
+    y: Any
     noise_mask: Optional[torch.Tensor] = None
     c_concat: Optional[torch.Tensor] = None
 
@@ -265,9 +517,57 @@ def image_mask_to_latent(mask: torch.Tensor, h: int, w: int,
     """Image-resolution mask [B, H, W] -> latent-resolution weights
     [1 or total, h, w, 1]: area-downsampled, clipped to [0, 1]; a
     single mask broadcasts, others cycle to ``total`` (the JAX package's
-    ``_image_mask_to_latent``)."""
+    ``_image_mask_to_latent``, the one rule for noise and area masks)."""
     m = resize_image(mask[..., None], w, h, "area").clamp(0.0, 1.0)
     return m if m.shape[0] == 1 else cycle_batch(m, total)
+
+
+def materialize_area_mask(cond: Conditioning, h: int, w: int, total: int,
+                          device) -> Optional[torch.Tensor]:
+    """A conditioning's area -> latent-resolution weights [1 or total,
+    h, w, 1] on ``device``, or None.  A rectangle resolves against this
+    latent: ``"px"`` in ComfyUI's //8 latent units, ``"pct"`` as
+    fractions rounded against the latent's own size (0.5 of 64 is 32
+    columns); a mask resizes as a noise mask does."""
+    am = cond.area_mask
+    if am is None:
+        return None
+    if isinstance(am, tuple):
+        kind, x, y, ww, hh = am
+        if kind == "px":
+            x0, y0 = int(x) // 8, int(y) // 8
+            x1 = x0 + max(int(ww) // 8, 1)
+            y1 = y0 + max(int(hh) // 8, 1)
+        else:
+            x0, y0 = int(round(x * w)), int(round(y * h))
+            x1 = x0 + max(int(round(ww * w)), 1)
+            y1 = y0 + max(int(round(hh * h)), 1)
+        m = torch.zeros((1, h, w, 1), dtype=torch.float32, device=device)
+        m[:, max(y0, 0):min(y1, h), max(x0, 0):min(x1, w), :] = 1.0
+        return m
+    return image_mask_to_latent(as_mask(am, device), h, w, total)
+
+
+def entry_sigma_range(schedule, cond: Conditioning):
+    """A conditioning's timestep range (sampling percents) -> (sigma
+    start, sigma end) on ``schedule`` (the entry counts while s_end <=
+    sigma <= s_start), or None."""
+    tr = cond.timestep_range
+    if tr is None:
+        return None
+    return (schedule.percent_to_sigma(float(tr[0])),
+            schedule.percent_to_sigma(float(tr[1])))
+
+
+def adm_cond_source(family, e: Conditioning,
+                    positive: Conditioning) -> Conditioning:
+    """The conditioning an entry's ADM vector is built from: on an unCLIP
+    family the entry's own (a negative without an image embedding gets
+    zeros, never the positive's); on SDXL the entry's, or the primary
+    positive's when it has no pooled embedding."""
+    if family.adm_kind == "unclip":
+        return e
+    return e if e.pooled is not None else positive
 
 
 def _latent_meta(samples) -> dict:
@@ -280,39 +580,64 @@ def _prepare_sample_inputs(model, seed, latent_image,
                            positive: Conditioning,
                            negative: Conditioning) -> _SampleInputs:
     """Latent unpack, per-row seeds and fold-in indices, the conditioning
-    batch repeat, the SDXL vector cond, the latent's inpaint mask at the
-    latent's resolution and an inpaint model's concat channels (from
-    the first conditioning that carries them, resized bilinear to the
-    latent and cycled to the batch).  At fanout 1 every row takes the
-    base seed (a DistributedSeed's replica 0 keeps it too) and its batch
-    position as fold-in index."""
+    entries, the ADM vectors, the latent's inpaint mask at the latent's
+    resolution and an inpaint or ip2p model's concat channels (from the
+    first conditioning that carries them, resized bilinear to the latent
+    and cycled to the batch).  At fanout 1 every row takes the base seed
+    (a DistributedSeed's replica 0 keeps it too) and its batch position
+    as fold-in index.
+
+    Both CFG sides build alike: the conditioning and the siblings
+    ConditioningCombine bundled, each entry's tokens aligned across
+    both sides (:func:`cond_token_align`), its area mask at the latent's
+    size, its strength, its sigma range and (on an ADM family) its own
+    vector.  With one plain entry a side the contexts go as single
+    tensors and the positive's vector rides both sides (on an unCLIP
+    family each side has its own)."""
     dev = model.device
     lat = as_device_array(latent_image["samples"], dev)
-    total = int(lat.shape[0])
+    total, h, w = int(lat.shape[0]), int(lat.shape[1]), int(lat.shape[2])
     base = seed.base if isinstance(seed, SeedValue) else int(seed)
     seeds = np.full((total,), np.uint64(base), np.uint64)
-    t_align = cond_token_align([positive, negative])
-    context = align_cond_tokens(positive.context, t_align).to(dev).repeat(
-        total, 1, 1)
-    uncond = align_cond_tokens(negative.context, t_align).to(dev).repeat(
-        total, 1, 1)
+    pos_entries = [positive, *positive.siblings]
+    neg_entries = [negative, *negative.siblings]
+    t_align = cond_token_align(pos_entries + neg_entries)
+
+    def entry(e):
+        return (align_cond_tokens(e.context, t_align).to(dev).repeat(
+                    total, 1, 1),
+                materialize_area_mask(e, h, w, total, dev),
+                float(e.area_strength), entry_sigma_range(model.schedule, e))
+
+    def vector(e):
+        return _sdxl_vector_cond(
+            model, adm_cond_source(model.family, e, positive), total,
+            h * 8, w * 8)
+
+    cond_entries = [entry(e) for e in pos_entries]
+    unc_entries = [entry(e) for e in neg_entries]
+    multi = len(cond_entries) > 1 or len(unc_entries) > 1 or any(
+        m is not None or s != 1.0 or sr is not None
+        for _, m, s, sr in cond_entries + unc_entries)
+    if multi:
+        context, uncond = cond_entries, unc_entries
+    else:
+        context, uncond = cond_entries[0][0], unc_entries[0][0]
     y = None
     if model.family.unet.adm_in_channels is not None:
-        # the single-entry path: the positive's ADM vector rides both
-        # CFG halves
-        y = _sdxl_vector_cond(model, positive, total, lat.shape[1] * 8,
-                              lat.shape[2] * 8)
+        if multi or model.family.adm_kind == "unclip":
+            y = [vector(e) for e in pos_entries + neg_entries]
+        else:
+            y = vector(positive)
     mask = latent_image.get("noise_mask")
     if mask is not None:
-        mask = image_mask_to_latent(as_mask(mask, dev), lat.shape[1],
-                                    lat.shape[2], total)
-    c_concat = next((c.concat_latent for c in (positive, negative)
+        mask = image_mask_to_latent(as_mask(mask, dev), h, w, total)
+    c_concat = next((c.concat_latent for c in pos_entries + neg_entries
                      if c.concat_latent is not None), None)
     if c_concat is not None:
         c_concat = as_device_array(c_concat, dev)
         if c_concat.shape[1:3] != lat.shape[1:3]:
-            c_concat = resize_image(c_concat, lat.shape[2], lat.shape[1],
-                                    "bilinear")
+            c_concat = resize_image(c_concat, w, h, "bilinear")
         c_concat = cycle_batch(c_concat, total)
     return _SampleInputs(latents=lat, context=context, uncond=uncond,
                          seeds=seeds,
@@ -341,13 +666,57 @@ def align_cond_tokens(c: torch.Tensor, t_align: int) -> torch.Tensor:
     return torch.nn.functional.pad(c, (0, 0, 0, t_align - t))
 
 
+def _unclip_vector_cond(pipe, cond: Conditioning,
+                        batch: int) -> torch.Tensor:
+    """unCLIP ADM vector, the JAX package's approximation of ComfyUI's
+    CLIPEmbeddingNoiseAugmentation: each of the conditioning's image
+    embeddings (row 0, cut or zero-padded to half the ADM width) noised
+    on the model's schedule to level ``round(999 * noise_augmentation)``
+    with numpy noise keyed by the embedding's bytes and the level, then
+    the level's timestep embedding beside it, scaled by the strength;
+    the entries sum.  No embedding: zeros.  Built on the host (the
+    level embedding by the port's torch math on the CPU), then moved to
+    the device, so every device gets the same vector."""
+    want = int(pipe.family.unet.adm_in_channels)
+    half = want // 2
+    entries = cond.unclip or ()
+    if not entries:
+        return torch.zeros((batch, want), dtype=torch.float32,
+                           device=pipe.device)
+    acc = np.zeros((1, want), np.float32)
+    abar = np.asarray(pipe.schedule.alphas_cumprod, np.float32)
+    for embed, strength, noise_aug in entries:
+        e = embed.detach().float().cpu().numpy() \
+            if isinstance(embed, torch.Tensor) \
+            else np.asarray(embed, np.float32)
+        if e.ndim == 1:
+            e = e[None]
+        e = e[:1]
+        if e.shape[1] < half:
+            e = np.pad(e, ((0, 0), (0, half - e.shape[1])))
+        e = e[:, :half]
+        level = min(max(int(round((abar.shape[0] - 1)
+                                  * float(noise_aug))), 0),
+                    abar.shape[0] - 1)
+        rng = np.random.default_rng(zlib.crc32(e.tobytes()) + level)
+        noised = (np.sqrt(abar[level]) * e
+                  + np.sqrt(max(1.0 - abar[level], 0.0))
+                  * rng.standard_normal(e.shape).astype(np.float32))
+        lvl = timestep_embedding(torch.tensor([float(level)]), half).numpy()
+        acc = acc + np.concatenate([noised, lvl], axis=-1) * float(strength)
+    return torch.from_numpy(acc).to(pipe.device).repeat(batch, 1)
+
+
 def _sdxl_vector_cond(pipe, cond: Conditioning, batch: int, height: int,
                       width: int) -> torch.Tensor:
     """SDXL ADM vector: the pooled text embedding plus 256-dim sinusoidal
     embeddings of the conditioning's size scalars.  Without them the
     latent's size stands in: (H, W, 0, 0, H, W) on the base, and (H, W,
     0, 0, 6.0) on a refiner family, whose fifth scalar is the aesthetic
-    score (6.0 the usual one), not a size."""
+    score (6.0 the usual one), not a size.  An unCLIP family's vector is
+    :func:`_unclip_vector_cond`'s."""
+    if pipe.family.adm_kind == "unclip":
+        return _unclip_vector_cond(pipe, cond, batch)
     dev = pipe.device
     pooled = cond.pooled
     if pooled is None:
@@ -562,6 +931,21 @@ class InpaintModelConditioning(Op):
             out["noise_mask"] = m
         return (dataclasses.replace(positive, concat_latent=concat),
                 dataclasses.replace(negative, concat_latent=concat), out)
+
+
+@register_op
+class InstructPixToPixConditioning(Op):
+    """InstructPix2Pix: the source pixels encoded and set as
+    ``concat_latent`` on both conditionings (the 8-channel UNet's extra
+    input), and a zero latent of the source's size to sample from."""
+    TYPE = "InstructPixToPixConditioning"
+
+    def execute(self, ctx: OpContext, positive: Conditioning,
+                negative: Conditioning, vae, pixels):
+        concat = vae.vae_encode(as_device_image(pixels, vae.device))
+        return (dataclasses.replace(positive, concat_latent=concat),
+                dataclasses.replace(negative, concat_latent=concat),
+                {"samples": DeviceLatent(torch.zeros_like(concat))})
 
 
 @register_op

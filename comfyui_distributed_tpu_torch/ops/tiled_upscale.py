@@ -20,7 +20,9 @@ uint8, cached by geometry) runs on the run's device.  Three modes:
   the tile queue (a deadline keeps what arrived: missing tiles keep the
   image's pixels) and blends every tile in index order.
 
-Not ported: regional conditioning and PerpNeg raise
+Regional conditionings (siblings, area masks, timestep ranges) refine
+with each entry's canvas mask cropped through the same padded tile
+windows as the pixels.  Not ported: PerpNeg raises
 ``NotImplementedError``; the JAX package's work ledger (recovery,
 hedging) and changed-tile cache wait (a single run misses every tile
 anyway, so the image is the same).
@@ -31,7 +33,7 @@ from __future__ import annotations
 import json
 import queue
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +49,15 @@ from comfyui_distributed_tpu_torch.ops.base import (
     register_op,
     stage,
 )
-from comfyui_distributed_tpu_torch.ops.basic import _sdxl_vector_cond
+from comfyui_distributed_tpu_torch.ops.basic import (
+    _sdxl_vector_cond,
+    adm_cond_source,
+    align_cond_tokens,
+    cond_token_align,
+    entry_sigma_range,
+    image_mask_to_latent,
+    materialize_area_mask,
+)
 from comfyui_distributed_tpu_torch.ops.distributed import wire_payload
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils.image import resize_image
@@ -60,9 +70,8 @@ from comfyui_distributed_tpu_torch.utils.net import (
 
 
 def _is_regional(c: Conditioning) -> bool:
-    return bool(getattr(c, "siblings", ())
-                or getattr(c, "area_mask", None) is not None
-                or getattr(c, "timestep_range", None) is not None)
+    return bool(c.siblings or c.area_mask is not None
+                or c.timestep_range is not None)
 
 
 @register_op
@@ -85,10 +94,6 @@ class UltimateSDUpscaleDistributed(Op):
                 force_uniform_tiles=True, multi_job_id="", is_worker=None,
                 master_url="", enabled_worker_ids="[]", worker_id="",
                 tile_indices="", dispatch_attempt=0):
-        if _is_regional(positive) or _is_regional(negative):
-            raise NotImplementedError(
-                "regional conditioning in the tiled upscaler is not ported "
-                "yet")
         if getattr(model, "perp_neg_cond", None) is not None:
             raise NotImplementedError(
                 "PerpNeg in the tiled upscaler is not ported yet")
@@ -135,8 +140,9 @@ class UltimateSDUpscaleDistributed(Op):
             tiles = tiling.extract_tiles(image, [all_tiles[i] for i in indices],
                                          p["tile_w"], p["tile_h"],
                                          p["padding"])
-        refined = self._refine_batch(ctx, pipe, tiles, indices, positive,
-                                     negative, p)
+        refined = self._refine_batch(
+            ctx, pipe, tiles, indices, positive, negative, p,
+            [all_tiles[i] for i in indices], (image.shape[2], image.shape[1]))
         pad = p["padding"]
         if pad > 0:
             with stage(ctx, "tile_resize"):
@@ -144,24 +150,85 @@ class UltimateSDUpscaleDistributed(Op):
                                        p["tile_h"] + 2 * pad)
         return {int(i): refined[k] for k, i in enumerate(indices)}
 
+    def _canvas_area_mask(self, entry: Conditioning, img_w: int, img_h: int,
+                          device) -> Optional[torch.Tensor]:
+        """An entry's area -> its weights over the whole canvas [1, H, W,
+        1], or None: resolved against this canvas's latent (a rectangle
+        in its //8 units or fractions), row 0 of a batched mask, resized
+        bilinear to the canvas and clipped to [0, 1]."""
+        if entry.area_mask is None:
+            return None
+        cm = materialize_area_mask(entry, max(img_h // 8, 1),
+                                   max(img_w // 8, 1), 1, device)[:1]
+        return resize_image(cm, img_w, img_h, "bilinear").clamp(0.0, 1.0)
+
+    def _regional_entries(self, pipe, src: Sequence[Conditioning], n: int,
+                          positions: Sequence[Tuple[int, int]],
+                          p: Dict[str, Any], img_size: Tuple[int, int],
+                          tiles_hw: Tuple[int, int], t_align: int,
+                          positive: Conditioning):
+        """One CFG side's conditionings -> the sampler's entries for a
+        tile batch, each canvas mask cut through the tiles' padded
+        windows (``tiling.extract_tiles``, bilinear) and taken to the
+        tile latent, and (on an ADM family) one vector an entry."""
+        th, tw = tiles_hw
+        ds = pipe.family.vae.downscale
+        dev = pipe.device
+        entries, ys = [], []
+        for e in src:
+            am = None
+            cm = self._canvas_area_mask(e, *img_size, dev)
+            if cm is not None:
+                wins = tiling.extract_tiles(cm, positions, p["tile_w"],
+                                            p["tile_h"], p["padding"],
+                                            resize_method="bilinear")
+                am = image_mask_to_latent(wins[..., 0], th // ds, tw // ds,
+                                          n)
+            entries.append((
+                align_cond_tokens(e.context, t_align).to(dev).repeat(
+                    n, 1, 1),
+                am, float(e.area_strength),
+                entry_sigma_range(pipe.schedule, e)))
+            if pipe.family.unet.adm_in_channels is not None:
+                ys.append(_sdxl_vector_cond(
+                    pipe, adm_cond_source(pipe.family, e, positive), n, th,
+                    tw))
+        return entries, ys
+
     def _refine_batch(self, ctx: OpContext, pipe, tiles: torch.Tensor,
                       tile_indices: Sequence[int], positive: Conditioning,
-                      negative: Conditioning,
-                      p: Dict[str, Any]) -> torch.Tensor:
+                      negative: Conditioning, p: Dict[str, Any],
+                      positions: Sequence[Tuple[int, int]],
+                      img_size: Tuple[int, int]) -> torch.Tensor:
         """VAE-encode -> sample(denoise) -> decode a [N, th, tw, C] tile
         batch in one go; tile ``i`` takes seed ``seed + i`` and fold-in
-        index 0, as if it were a batch of one."""
+        index 0, as if it were a batch of one.  Regional conditionings
+        refine with their masks cropped to the tiles (``positions`` in
+        the canvas of ``img_size``)."""
         n = tiles.shape[0]
         seeds = np.asarray([p["seed"] + int(t) for t in tile_indices],
                            np.uint64)
         idx = np.zeros((n,), np.uint32)
         dev = pipe.device
-        context = positive.context.to(dev).repeat(n, 1, 1)
-        uncond = negative.context.to(dev).repeat(n, 1, 1)
-        y = None
-        if pipe.family.unet.adm_in_channels is not None:
-            y = _sdxl_vector_cond(pipe, positive, n, tiles.shape[1],
-                                  tiles.shape[2])
+        if _is_regional(positive) or _is_regional(negative):
+            pos = [positive, *positive.siblings]
+            neg = [negative, *negative.siblings]
+            t_align = cond_token_align(pos + neg)
+            tiles_hw = (tiles.shape[1], tiles.shape[2])
+            context, y_conds = self._regional_entries(
+                pipe, pos, n, positions, p, img_size, tiles_hw, t_align,
+                positive)
+            uncond, y_unconds = self._regional_entries(
+                pipe, neg, n, positions, p, img_size, tiles_hw, t_align,
+                positive)
+            y = (y_conds + y_unconds) if y_conds else None
+        else:
+            context = positive.context.to(dev).repeat(n, 1, 1)
+            uncond = negative.context.to(dev).repeat(n, 1, 1)
+            y = None
+            if pipe.family.unet.adm_in_channels is not None:
+                y = _sdxl_vector_cond(pipe, positive, n, tiles.shape[1],
+                                      tiles.shape[2])
         with stage(ctx, "tile_encode"):
             lat = pipe.vae_encode(tiles)
         with stage(ctx, "tile_sample"):

@@ -83,16 +83,18 @@ def pad_image_for_tiles(image: torch.Tensor, tile_w: int, tile_h: int,
 
 
 def extract_tiles(image: torch.Tensor, positions: Sequence[Tuple[int, int]],
-                  tile_w: int, tile_h: int, padding: int) -> torch.Tensor:
-    """Fixed-size padded windows at ``positions``, lanczos-resized to the
-    processing size: [N, tile_h, tile_w, C]."""
+                  tile_w: int, tile_h: int, padding: int,
+                  resize_method: str = "lanczos") -> torch.Tensor:
+    """Fixed-size padded windows at ``positions``, resized to the
+    processing size (lanczos for pixels, bilinear for a regional
+    mask): [N, tile_h, tile_w, C]."""
     padded, ox, oy = pad_image_for_tiles(image, tile_w, tile_h, padding)
     stack = torch.stack([
         padded[0, y + oy - padding:y + oy + tile_h + padding,
                x + ox - padding:x + ox + tile_w + padding, :]
         for x, y in positions])
     if padding > 0:
-        stack = resize_image(stack, tile_w, tile_h)
+        stack = resize_image(stack, tile_w, tile_h, resize_method)
     return stack.float()
 
 

@@ -75,7 +75,8 @@ def main(argv=None) -> int:
                              text=True).stdout.strip(), flush=True)
 
     from comfyui_distributed_tpu_torch.models.denoiser import make_denoiser
-    from comfyui_distributed_tpu_torch.models.registry import load_pipeline
+    from comfyui_distributed_tpu_torch.models.registry import (
+        load_pipeline, stack_y)
     from comfyui_distributed_tpu_torch.models.samplers import (
         cfg_denoiser_multi)
     from comfyui_distributed_tpu_torch.models.schedules import compute_sigmas
@@ -92,8 +93,9 @@ def main(argv=None) -> int:
         unc, _ = pipe.encode_prompt(["blurry"])
         y = None
         if pipe.family.unet.adm_in_channels is not None:
-            y = _sdxl_vector_cond(pipe, Conditioning(ctx, pooled), n,
-                                  args.size, args.size)
+            # one vector for each of the call's two CFG row blocks
+            y = stack_y(_sdxl_vector_cond(pipe, Conditioning(ctx, pooled),
+                                          n, args.size, args.size), 2, dev)
         ctx, unc = ctx.repeat(n, 1, 1), unc.repeat(n, 1, 1)
         extra = pipe.family.unet.in_channels - pipe.family.latent_channels
         concat = torch.randn((n, side, side, extra), device=dev) \

@@ -98,6 +98,17 @@ def _hires(seed=SEED, save=True):
     return doc
 
 
+def _regional(seed=SEED):
+    """distributed-regional.json at the tiny family's size: 64^2, 3
+    steps (its SaveImage kept)."""
+    doc = json.loads((ROOT / "workflows" / "distributed-regional.json")
+                     .read_text())
+    doc["2"]["inputs"].update(width=64, height=64)
+    doc["3"]["inputs"]["steps"] = 3
+    doc["13"]["inputs"]["seed"] = seed
+    return doc
+
+
 def _input_png(path):
     """The small input image every participant loads (48 x 40)."""
     rng = np.random.default_rng(8)
@@ -403,6 +414,30 @@ def test_hires_fix_through_master_and_worker(cluster, monkeypatch):
     for f, seed in zip(files, (SEED, SEED + 1)):
         assert _diff(f, refs[seed]) <= EXACT, (f, seed)
     assert _diff(files[1], jres.image_batch[0]) <= ONE_STEP
+    assert _diff(files[1], refs[SEED]) > ONE_STEP
+
+
+def test_regional_through_master_and_worker(cluster, monkeypatch):
+    """The regional workflow fanned out: each share runs both area
+    entries and the uncond in one stacked call, the worker at s + 1; the
+    saved images equal the in-process runs at s and s + 1 (each a batch
+    of one, as each share is)."""
+    deadline = time.time() + DEADLINE_S
+    cluster.enable_only("w0")
+    resp, entry, delta, files = cluster.run(_regional(), deadline)
+    assert resp["workers"] == ["w0"] and resp["failed_workers"] == [], \
+        (resp, cluster.logs())
+    assert entry["status"] == "success" and entry["images"] == 2, entry
+    assert delta["images_received"] == 1 and len(files) == 2
+    monkeypatch.setenv("DTPU_DEFAULT_FAMILY", "tiny")
+    treg.clear_pipeline_cache()
+    try:
+        refs = {s: WorkflowExecutor(OpContext(device="cpu")).execute(
+            _regional(s)).image_batch[0] for s in (SEED, SEED + 1)}
+    finally:
+        treg.clear_pipeline_cache()
+    for f, seed in zip(files, (SEED, SEED + 1)):
+        assert _diff(f, refs[seed]) <= EXACT, (f, seed)
     assert _diff(files[1], refs[SEED]) > ONE_STEP
 
 

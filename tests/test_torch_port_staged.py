@@ -31,6 +31,7 @@ from comfyui_distributed_tpu.ops import basic as jbasic
 from comfyui_distributed_tpu.ops.base import Conditioning as JaxCond
 from comfyui_distributed_tpu.ops.base import OpContext as JaxOpContext
 from comfyui_distributed_tpu.ops.base import get_op as jax_get_op
+from comfyui_distributed_tpu.runtime import reuse as jreuse
 from comfyui_distributed_tpu.workflow import WorkflowExecutor as JaxExecutor
 from comfyui_distributed_tpu_torch.models import checkpoints as tckpt
 from comfyui_distributed_tpu_torch.models import clip as tclip
@@ -78,9 +79,21 @@ def by_name(ckpt_name):
     return REFINER if "refiner" in ckpt_name.lower() else BASE
 
 
+def clear_caches():
+    """Every pipeline cache of both packages, and the JAX package's
+    reuse plane: its encode memo keys a CLIPTextEncode* output on the
+    graph's content (checkpoint name and text), not on the family the
+    name resolved to, so a run of the same workflow under another
+    family earlier in the process would hand the executor that
+    family's conditionings."""
+    jreg.clear_pipeline_cache()
+    treg.clear_pipeline_cache()
+    jreuse.get_reuse().clear()
+
+
 def register_stand_ins(monkeypatch):
     """Both stand-ins in both registries, each checkpoint name routed to
-    its own; every pipeline cache empty."""
+    its own; every pipeline cache and the JAX reuse plane empty."""
     for name in (BASE, REFINER):
         monkeypatch.setitem(jreg.FAMILIES, name, stand_in(
             name, junet, jclip, jvae, jreg.ModelFamily))
@@ -89,16 +102,14 @@ def register_stand_ins(monkeypatch):
     monkeypatch.delenv("DTPU_DEFAULT_FAMILY", raising=False)
     monkeypatch.setattr(jreg, "detect_family", by_name)
     monkeypatch.setattr(treg, "detect_family", by_name)
-    jreg.clear_pipeline_cache()
-    treg.clear_pipeline_cache()
+    clear_caches()
 
 
 @pytest.fixture
 def stand_ins(monkeypatch):
     register_stand_ins(monkeypatch)
     yield
-    jreg.clear_pipeline_cache()
-    treg.clear_pipeline_cache()
+    clear_caches()
 
 
 def pipes(ckpt_name):

@@ -341,12 +341,14 @@ def test_upscale_tiles_are_refined_as_one_batch(tiny_family, tmp_path,
 
 @pytest.mark.parametrize("what", ["multi_job_id", "regional", "perp_neg"])
 def test_what_is_not_ported_raises(what):
-    """Regional conditioning and PerpNeg raise in every mode: the HTTP
-    worker mode (a ``multi_job_id``) refuses regional conditioning as the
-    single-process mode does."""
+    """PerpNeg raises in every mode: in the HTTP worker mode (a
+    ``multi_job_id``) with an area-masked conditioning, with regional
+    siblings and alone.  (Regional conditioning itself is ported:
+    ``tests/test_torch_port_regional.py``.)"""
     ctx = OpContext(device="cpu")
     cond = types.SimpleNamespace(context=torch.zeros(1, 77, 64))
-    model = types.SimpleNamespace(device=torch.device("cpu"))
+    model = types.SimpleNamespace(device=torch.device("cpu"),
+                                  perp_neg_cond=cond)
     kw = {}
     if what == "multi_job_id":
         kw.update(multi_job_id="job-1", is_worker=True,
@@ -355,8 +357,6 @@ def test_what_is_not_ported_raises(what):
         cond.area_mask = torch.ones(1, 8, 8, 1)
     elif what == "regional":
         cond.siblings = (cond,)
-    else:
-        model.perp_neg_cond = cond
     with pytest.raises(NotImplementedError):
         UltimateSDUpscaleDistributed().execute(
             ctx, torch.zeros(1, 64, 64, 3), model, cond, cond, None, 1, 2,

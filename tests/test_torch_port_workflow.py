@@ -135,13 +135,21 @@ def _modules():
 
 
 def test_imports_load_no_jax_and_nothing_of_the_jax_package():
-    """Every module of the port, the HTTP fan-out's too, imports without
-    JAX, the JAX package, Pillow or aiohttp (the card's machine has none
-    of the last two)."""
+    """Every module of the port, the HTTP fan-out's and the CLIP-vision
+    tower's too, imports without JAX, the JAX package, Pillow or aiohttp
+    (the card's machine has none of the last two), and the regional,
+    split-loader and unCLIP ops register."""
     assert {"comfyui_distributed_tpu_torch.server.app",
             "comfyui_distributed_tpu_torch.cli",
             "comfyui_distributed_tpu_torch.workflow.orchestrate",
-            "comfyui_distributed_tpu_torch.utils.net"} <= set(_modules())
+            "comfyui_distributed_tpu_torch.utils.net",
+            "comfyui_distributed_tpu_torch.models.clip_vision"} \
+        <= set(_modules())
+    ops = ["ConditioningCombine", "ConditioningSetAreaPercentage",
+           "ConditioningSetTimestepRange", "UNETLoader", "CLIPLoader",
+           "VAELoader", "InstructPixToPixConditioning",
+           "unCLIPCheckpointLoader", "CLIPVisionEncode",
+           "unCLIPConditioning"]
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
@@ -149,6 +157,10 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             "('jax', 'jaxlib', 'flax', 'comfyui_distributed_tpu', 'PIL', "
             "'aiohttp')]\n"
             "assert not bad, bad\n"
+            "from comfyui_distributed_tpu_torch.ops.base import "
+            "NODE_CLASS_MAPPINGS\n"
+            f"missing = set({ops!r}) - set(NODE_CLASS_MAPPINGS)\n"
+            "assert not missing, missing\n"
             "print(len([m for m in sys.modules if m.startswith("
             "'comfyui_distributed_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
