@@ -16,7 +16,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the paths below give them
    (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, the SDXL refiner's 12 and
-   24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale,
+   24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
+   and at B = 12 and 10 for phase 14's shares, hedges and reassignments,
    at B = 2 for the inpaint requests at 512^2 and 768 x 512 and at B = 3
    for the regional request, and SD2.1's 5/10/20 heads of 64 at 768^2,
    all in the sm90 kernel), plus the edges of both kernels at every head dim
@@ -67,7 +68,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
    seeds first; then the pipelines are released and a
    ``python -m comfyui_distributed_tpu_torch.cli serve`` master and a
    ``... worker`` start on free ports of 127.0.0.1 (own config, input
-   and output directories, logs on file; both killed at the end), w0 is
+   and output directories, logs on file; both killed at the end; the
+   master with ``DTPU_HEDGE=0``, so no tile is hedged), w0 is
    enabled through ``/distributed/config/update_worker``, and the two
    workflows, PreviewImage swapped for SaveImage, go to the master's
    ``/prompt`` cold and then warm.  Each request must fan out to
@@ -79,7 +81,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
    each saved image must agree within ``FANOUT_ATOL`` with an in-process
    run in the same batches (the upscale's tiles 0-7 and 8-15 refined as
    two batches), and the upscale also with phase 7's one-batch image.
-   It prints a ``fanout`` line.
+   It prints a ``fanout`` line, with the pipelined upload's split: the
+   worker's encode and POST seconds and the master's decode seconds.
 9. SDXL dual prompt: ``workflows/distributed-sdxl.json`` unchanged
    (CLIPTextEncodeSDXL, 20 dpmpp_2m/karras steps, cfg 7, seed 777,
    virtual weights) as two requests, cold and warm, with an
@@ -141,6 +144,29 @@ Run from the root of a checkout on a machine with a CUDA card (and
    the unclip image from one at noise_augmentation 0.5.  It prints a ``phase13`` line for each
    request and a ``phase13_report`` line.
 
+14. the control plane's fault drills: the in-process inpaint images of
+   three seed slices first; then the pipelines are released (it fails
+   unless ``DRILL_MIN_FREE`` bytes of device memory are free) and a
+   ``cli serve`` master and two ``cli worker``s, w0 and w1, start (leases
+   of ``DRILL_LEASE_S``, one failed probe for suspect, the master's
+   hedge wait ``DRILL_HEDGE_MIN_WAIT_S``), the workers registering
+   themselves through ``DTPU_MASTER_URL``/``DTPU_WORKER_ID``.  Drill 1:
+   the upscale (seed 42, cold) with w1 started stalling
+   ``DRILL_STALL_S`` before its first tile: the master hedges w1's 5
+   tiles and its late uploads are refused.  Drill 2: the upscale again,
+   w1's pid killed (SIGKILL) as soon as /prompt returns: its tiles are
+   reassigned.  Drill 3: w1 restarted without a fault, the inpaint
+   fan-out (three seed slices), w1 killed after dispatch: its slice is
+   redispatched to w0.  Each drill must end in success with every
+   ledger unit checked in and the lost units reassigned or hedged, w1
+   dead after a kill, every server's launches sm90 at shapes phase 3
+   checked, the upscale within ``FANOUT_ATOL["one_batch"]`` of phase 7's
+   image and the three inpaint images within ``FANOUT_ATOL["same"]`` of
+   the in-process ones.  It prints a ``drill`` line for each (seconds
+   from the stall or the kill to the success, the request's seconds,
+   each server's peak memory, the ledger's summary) and a ``phase14``
+   line.
+
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after.  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
@@ -157,6 +183,11 @@ compares this checkout's port with the one at ``DIR`` (another commit,
 unpacked): the txt2img, sdxl and inpaint workflows' warm seconds, the
 two sides in turns in one process each, and their images to the bit
 (:func:`ab`).
+
+    python3 chip_smoke.py --fanout-ab DIR
+
+compares the two checkouts' fan-out upscale through a master and a
+worker, fresh servers a turn (:func:`fanout_ab`).
 """
 
 from __future__ import annotations
@@ -168,6 +199,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -241,6 +273,22 @@ PLAIN_CHUNK_BYTES = 2 << 30
 # max 13/255 and mean 0.0053 (about half of these limits).
 FANOUT_ATOL = {"same": (2 / 255, 1e-4), "one_batch": (0.1, 0.01)}
 FANOUT_START_S = 180     # a server must answer /prompt within this
+# phase 8's master and worker; the master hedges nothing, so each share
+# refines exactly its part of the tiles (phase 14 drills the hedge)
+PHASE8_ROLES = {"serve": ("serve", {"DTPU_HEDGE": "0"}),
+                "worker": ("worker", {})}
+# phase 14: a worker's lease (it heartbeats every third of it), the
+# master's hedge wait (drill 2's kill is seen as a lease expiry well
+# before it, drill 1's stall outlasts it and the master's refine of the
+# stalled tiles), w1's stall, and the free device memory three SD1.5
+# servers need (an upscale server peaked at 17.30 GB in phase 8)
+DRILL_LEASE_S = 3.0
+DRILL_HEDGE_MIN_WAIT_S = 6.0
+# the overdue bar is max(this x the ledger's latency estimate, the wait):
+# at the default 3 a cold first refine can lift it past the stall
+DRILL_HEDGE_FACTOR = 1.0
+DRILL_STALL_S = 15.0
+DRILL_MIN_FREE = 52_000_000_000
 FANOUT_REQUEST_S = 300   # a fan-out request must finish within this
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
@@ -808,15 +856,19 @@ def image_diff(png_path, ref):
 
 
 class Cluster:
-    """A ``cli serve`` master and a ``cli worker`` on free ports of
-    127.0.0.1, each with its own config, input and output directories
-    and log file under ``root``."""
+    """Port servers on free ports of 127.0.0.1, each with its own config,
+    input and output directories and log file under ``root``:
+    ``roles`` maps a name to (the ``cli`` command, more environment);
+    by default a ``serve`` master and a ``worker``.  ``cwd``: the
+    checkout whose package the servers run."""
 
-    def __init__(self, root):
+    def __init__(self, root, roles=None, cwd=ROOT):
         from comfyui_distributed_tpu_torch.utils.net import find_free_port
-        self.root = root
+        self.root, self.cwd = root, cwd
+        self.roles = roles or {"serve": ("serve", {}),
+                               "worker": ("worker", {})}
         self.procs, self.dirs, self.ports, self.logs = {}, {}, {}, {}
-        for role in ("serve", "worker"):
+        for role in self.roles:
             d = os.path.join(root, role)
             os.makedirs(os.path.join(d, "input"))
             self.dirs[role] = d
@@ -826,20 +878,26 @@ class Cluster:
     def url(self, role):
         return f"http://127.0.0.1:{self.ports[role]}"
 
-    def start(self):
-        for role, d in self.dirs.items():
-            with open(self.logs[role], "w") as log:
-                self.procs[role] = subprocess.Popen(
-                    [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli",
-                     role, "--host", "127.0.0.1",
-                     "--port", str(self.ports[role]), "--device", DEVICE,
-                     "--config", os.path.join(d, "cluster_config.json"),
-                     "--input-dir", os.path.join(d, "input"),
-                     "--output-dir", os.path.join(d, "output")],
-                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    def launch(self, role, env=None):
+        """Start one server (its log appended to); ``env`` replaces the
+        role's own extra environment."""
+        cmd, extra = self.roles[role]
+        d = self.dirs[role]
+        with open(self.logs[role], "a") as log:
+            self.procs[role] = subprocess.Popen(
+                [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli",
+                 cmd, "--host", "127.0.0.1",
+                 "--port", str(self.ports[role]), "--device", DEVICE,
+                 "--config", os.path.join(d, "cluster_config.json"),
+                 "--input-dir", os.path.join(d, "input"),
+                 "--output-dir", os.path.join(d, "output")],
+                cwd=self.cwd, stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, **(extra if env is None else env)})
+
+    def wait_up(self, roles):
         from comfyui_distributed_tpu_torch.utils.net import get_json
         deadline = time.time() + FANOUT_START_S
-        for role in self.dirs:
+        for role in roles:
             while True:
                 if self.procs[role].poll() is not None:
                     self.fail(f"{role} exited {self.procs[role].returncode}")
@@ -851,6 +909,18 @@ class Cluster:
                         self.fail(f"{role} did not answer in "
                                   f"{FANOUT_START_S} s")
                     time.sleep(0.5)
+
+    def start(self):
+        for role in self.roles:
+            self.launch(role)
+        self.wait_up(self.roles)
+
+    def kill(self, role):
+        """SIGKILL the server's own pid (never a match on a command
+        line) and reap it."""
+        proc = self.procs[role]
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait()
 
     def prompt_lines(self, role):
         """The ``dtpu-torch prompt {...}`` lines of a server's log."""
@@ -870,6 +940,7 @@ class Cluster:
             except OSError:
                 tail = ""
             print(f"--- {role} log tail ---\n{tail}", file=sys.stderr)
+        self.stop()
         fail(f"fan-out: {msg}")
 
     def stop(self):
@@ -975,8 +1046,15 @@ def fanout_request(cluster, path, doc, want_launches, refs, checked):
     # a yardstick: image 0 against the other seed's image
     wrong = image_diff(paths[0], refs[-1]["same"]) if len(refs) > 1 \
         else None
+    # the pipelined upload's split: the worker's encode (on its pool
+    # thread) and POST seconds, the master's decode seconds
+    stages = shares["worker"].get("stage_seconds") or {}
+    wire = {"worker_encode_s": stages.get("wire_encode"),
+            "worker_post_s": stages.get("wire_post"),
+            "worker_send_stage_s": stages.get("tile_send"),
+            "master_decode_s": m1["wire_decode_s"] - m0["wire_decode_s"]}
     return {"path": path, "prompt_id": pid, "seconds": seconds,
-            "files": new_files, "master_received": got,
+            "wire_split": wire, "files": new_files, "master_received": got,
             "abs_diff": [{key: {"max": v[0], "mean": v[1]}
                           for key, v in d.items()} for d in diffs],
             "wrong_seed_diff": wrong,
@@ -1051,7 +1129,7 @@ def fanout(docs, input_dir, upscale_ref, rows):
     up["2"]["inputs"]["seed"] = 42
     requests = []
     with tempfile.TemporaryDirectory() as root:
-        cluster = Cluster(root)
+        cluster = Cluster(root, PHASE8_ROLES)
         try:
             t0 = time.perf_counter()
             cluster.start()
@@ -1077,9 +1155,293 @@ def fanout(docs, input_dir, upscale_ref, rows):
             "requests": requests,
             "seconds": {f"{r['path']} {r['run']}": r["seconds"]
                         for r in requests},
+            "wire_split": {f"{r['path']} {r['run']}": r["wire_split"]
+                           for r in requests},
             "peak_memory": {f"{r['path']} {r['run']}": {
                 role: s["max_memory_allocated"]
                 for role, s in r["shares"].items()} for r in requests}}
+
+
+def drill_env(role):
+    """Phase 14's environment of a server: short leases for all, the
+    fault policy and the hedge's wait on the master, the master's URL and
+    the worker's id on a worker (it self-registers and heartbeats)."""
+    env = {"DTPU_LEASE_S": str(DRILL_LEASE_S), "DTPU_SUSPECT_PROBES": "1"}
+    if role == "serve":
+        return {**env, "DTPU_FAULT_POLICY": "reassign", "DTPU_HEDGE": "1",
+                "DTPU_HEDGE_FACTOR": str(DRILL_HEDGE_FACTOR),
+                "DTPU_HEDGE_MIN_WAIT_S": str(DRILL_HEDGE_MIN_WAIT_S)}
+    return {**env, "DTPU_WORKER_ID": role}
+
+
+def share_attention(cluster, what, share, checked):
+    """A server's share (its ``dtpu-torch prompt`` line) must have
+    launched sm90 and no other variant, at shapes phase 3 checked
+    (``checked``: shape -> its row); returns its attention priced from
+    those rows."""
+    launches = share["launches"]
+    if launches["mma_sync"] or launches["fp32"] or not launches["sm90"]:
+        cluster.fail(f"{what}'s share launched {launches}; expected sm90 "
+                     f"launches only")
+    by_shape = {tuple(x[:6]): x[6] for x in share["launches_by_shape"]}
+    missing = [x for x in by_shape if x not in checked]
+    if missing:
+        cluster.fail(f"{what} launched shapes that phase 3 did not check: "
+                     f"{missing}")
+    return totals(by_shape, checked, ["ms", "plain_ms", "library_ms"])
+
+
+def drill_request(cluster, name, path, doc, fault, lost, refs, checked):
+    """One drill of phase 14: ``doc`` through the master's /prompt with
+    ``fault`` ("kill": w1's pid gets SIGKILL as soon as /prompt returns;
+    "stall": w1 was started stalling before its first tile).  Fails
+    unless the request succeeds with every ledger unit checked in and
+    the ``lost`` units reassigned or hedged, every server's launches are
+    sm90 at shapes phase 3 checked, and each saved image agrees with its
+    references (``refs``: per image, {FANOUT_ATOL key: [H, W, 3]})."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    master = cluster.url("serve")
+    live = [r for r in ("serve", "w0", "w1")
+            if cluster.procs[r].poll() is None]
+    m0 = get_json(master + "/distributed/metrics")
+    jobs0 = {j["job_id"] for j in get_json(
+        master + "/distributed/cluster")["ledger"]["completed_jobs"]}
+    n_lines = {r: len(cluster.prompt_lines(r)) for r in live}
+    files0 = set(cluster.outputs())
+    with open(cluster.logs["w1"], "r", errors="replace") as f:
+        w1_log0 = len(f.read())
+    t0 = time.perf_counter()
+    resp = post_json(master + "/prompt", {"prompt": doc,
+                                          "client_id": "chip_smoke"})
+    t_fault = None
+    if fault == "kill":
+        cluster.kill("w1")
+        t_fault = time.perf_counter()
+    if sorted(resp.get("workers", [])) != ["w0", "w1"]:
+        cluster.fail(f"{name}: the master did not fan out to w0 and w1: "
+                     f"{resp}")
+    pid = resp["prompt_id"]
+    deadline = time.time() + FANOUT_REQUEST_S
+    while True:
+        hist = get_json(master + "/history")
+        if pid in hist:
+            break
+        if t_fault is None and fault == "stall":
+            with open(cluster.logs["w1"], "r", errors="replace") as f:
+                if "FAULT INJECTION" in f.read()[w1_log0:]:
+                    t_fault = time.perf_counter()
+        if time.time() > deadline:
+            cluster.fail(f"{name}: no history after {FANOUT_REQUEST_S} s")
+        time.sleep(0.05)
+    t_done = time.perf_counter()
+    entry = hist[pid]
+    if entry.get("status") != "success" or entry.get("images") != len(refs):
+        cluster.fail(f"{name}: history {entry}, expected success with "
+                     f"{len(refs)} images")
+    if t_fault is None:
+        cluster.fail(f"{name}: w1 never reached its stall before the "
+                     f"request ended")
+    # w1 reads dead once its lease has run out since the kill
+    snap = get_json(master + "/distributed/cluster")
+    while fault == "kill" and snap["workers"]["w1"]["state"] != "dead":
+        if time.perf_counter() - t_fault > DRILL_LEASE_S + 3:
+            cluster.fail(f"{name}: w1 reads {snap['workers']['w1']} "
+                         f"{DRILL_LEASE_S + 3} s after the kill")
+        time.sleep(0.2)
+        snap = get_json(master + "/distributed/cluster")
+    jobs = [j for j in snap["ledger"]["completed_jobs"]
+            if j["job_id"] not in jobs0]
+    if len(jobs) != 1:
+        cluster.fail(f"{name}: expected one finished ledger job, got {jobs}")
+    job = jobs[0]
+    if job["done_units"] != job["total_units"] or job["pending_units"] \
+            or max(job["reassigned_units"], job["hedged_units"]) < lost:
+        cluster.fail(f"{name}: ledger {job}; expected every unit done and "
+                     f"{lost} reassigned or hedged")
+    # every live server's share, the stalled w1's last upload refused too
+    for role in live:
+        if role == "w1" and fault == "kill":
+            continue
+        while get_json(cluster.url(role) + "/prompt", timeout=10)[
+                "exec_info"]["queue_remaining"]:
+            if time.time() > deadline:
+                cluster.fail(f"{name}: {role} still busy")
+            time.sleep(0.2)
+    shares = {}
+    for role in live:
+        while True:
+            lines = cluster.prompt_lines(role)[n_lines[role]:]
+            if lines or (role == "w1" and fault == "kill"):
+                break
+            if time.time() > deadline:
+                cluster.fail(f"{name}: no prompt line from {role}")
+            time.sleep(0.05)
+        for k, share in enumerate(lines):
+            shares[f"{role} {k}"] = {
+                "status": share["status"], "error": share.get("error"),
+                "seconds": share["seconds"], "launches": share["launches"],
+                "launches_by_shape": share["launches_by_shape"],
+                "attention": share_attention(cluster, f"{name}: {role}",
+                                             share, checked),
+                "max_memory_allocated": share["max_memory_allocated"],
+                "stage_seconds": share.get("stage_seconds")}
+    m1 = get_json(master + "/distributed/metrics")
+    new_files = sorted(set(cluster.outputs()) - files0)
+    if len(new_files) != len(refs):
+        cluster.fail(f"{name}: {len(new_files)} new PNGs, expected "
+                     f"{len(refs)}")
+    diffs = []
+    for f, r in zip(new_files, refs):
+        d = {key: image_diff(os.path.join(cluster.dirs["serve"], "output",
+                                          f), ref)
+             for key, ref in r.items()}
+        for key, (dmax, dmean) in d.items():
+            tol_max, tol_mean = FANOUT_ATOL[key]
+            if not (dmax <= tol_max and dmean <= tol_mean):
+                cluster.fail(f"{name}: {f} differs from the {key!r} "
+                             f"in-process image by max {dmax}, mean {dmean} "
+                             f"(limits {tol_max}, {tol_mean})")
+        diffs.append({key: {"max": v[0], "mean": v[1]}
+                      for key, v in d.items()})
+    peaks = {}
+    for key, share in shares.items():
+        role = key.split()[0]
+        peaks[role] = max(peaks.get(role) or 0,
+                          share["max_memory_allocated"] or 0)
+    return {"drill": name, "path": path, "fault": fault,
+            "settings": {"lease_s": DRILL_LEASE_S, "suspect_probes": 1,
+                         "hedge_min_wait_s": DRILL_HEDGE_MIN_WAIT_S,
+                         "hedge_factor": DRILL_HEDGE_FACTOR,
+                         "stall_s": DRILL_STALL_S, "policy": "reassign"},
+            "seconds": t_done - t0, "fault_to_success_s": t_done - t_fault,
+            "ledger": job, "w1_state": snap["workers"]["w1"]["state"],
+            "received": {k: m1[k] - m0[k] for k in (
+                "images_received", "tiles_received", "wire_decode_s")},
+            "counters": {k: v - m0["cluster_counters"].get(k, 0)
+                         for k, v in m1["cluster_counters"].items()},
+            "peak_memory": peaks, "abs_diff": diffs, "shares": shares}
+
+
+def fault_drills(docs, input_dir, upscale_ref, rows):
+    """Phase 14: the control plane's fault drills on one card.  The
+    in-process inpaint images of the three seed slices first; then the
+    pipelines are released and a master and two workers (w0, w1) start,
+    the workers self-registering; drill 1 runs the upscale with w1
+    stalling before its first tile (hedged on the master), drill 2 the
+    upscale with w1 killed after dispatch (its tiles reassigned), and
+    drill 3, after w1 restarts without a fault, the inpaint fan-out with
+    w1 killed after dispatch (its seed slice redispatched to w0).
+    ``rows``: phase 3's checks."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops import tiling
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    seed = SEEDS[0]
+    inpaint = with_save_image(docs["inpaint"])
+    seed_node = next(n for n, node in inpaint.items()
+                     if isinstance(node, dict)
+                     and node.get("class_type") == "DistributedSeed")
+    inpaint[seed_node]["inputs"]["seed"] = seed
+    inpaint_refs = []
+    for k in range(3):   # the master's slice, w0's, and w1's
+        req = copy.deepcopy(docs["inpaint"])
+        req[seed_node]["inputs"]["seed"] = seed + k
+        inpaint_refs.append({"same": WorkflowExecutor(OpContext(
+            device=DEVICE, input_dir=input_dir)).execute(req).image_batch[0]})
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 14: {free} of {total} bytes of device memory free before "
+          f"the servers start", flush=True)
+    if free < DRILL_MIN_FREE:
+        fail(f"phase 14 needs {DRILL_MIN_FREE} bytes free for three SD1.5 "
+             f"servers, {free} are")
+    up = with_save_image(docs["upscale"])
+    up["2"]["inputs"]["seed"] = 42
+    # phase 7 read no file (its 512^2 test card); every server here holds
+    # the inpaint's input.png, so the upscale names a file none has
+    up["1"]["inputs"]["image"] = "drill_test_card.png"
+    size, p = up["16"]["inputs"], up["2"]["inputs"]
+    n_tiles = len(tiling.calculate_tiles(size["width"], size["height"],
+                                         p["tile_width"], p["tile_height"]))
+    lost_tiles = len(tiling.partition_tiles(n_tiles, 2)[2])
+    drills = []
+    with tempfile.TemporaryDirectory() as root:
+        roles = {"serve": ("serve", drill_env("serve")),
+                 "w0": ("worker", drill_env("w0")),
+                 "w1": ("worker", drill_env("w1"))}
+        cluster = Cluster(root, roles)
+        for role in roles:
+            for name in ("input.png", "source.png"):
+                shutil.copy(os.path.join(input_dir, name),
+                            os.path.join(cluster.dirs[role], "input"))
+        master = cluster.url("serve")
+        with open(os.path.join(cluster.dirs["serve"], "cluster_config.json"),
+                  "w") as f:
+            json.dump({"master": {"host": "127.0.0.1"},
+                       "workers": [{"id": w, "name": w, "host": "127.0.0.1",
+                                    "port": cluster.ports[w],
+                                    "enabled": True}
+                                   for w in ("w0", "w1")]}, f)
+        for role in ("w0", "w1"):
+            roles[role][1]["DTPU_MASTER_URL"] = master
+
+        def wait_healthy(role):
+            deadline = time.time() + FANOUT_START_S
+            while get_json(master + "/distributed/cluster")["workers"].get(
+                    role, {}).get("state") != "healthy":
+                if time.time() > deadline:
+                    cluster.fail(f"{role} never registered healthy")
+                time.sleep(0.2)
+
+        try:
+            t0 = time.perf_counter()
+            cluster.launch("serve")
+            cluster.launch("w0")
+            cluster.launch("w1", {**roles["w1"][1], "DTPU_FAULT_INJECT":
+                                  json.dumps({"stall_s": DRILL_STALL_S})})
+            cluster.wait_up(roles)
+            for role in ("w0", "w1"):
+                wait_healthy(role)
+            started_s = time.perf_counter() - t0
+            # partition_tiles(16, 2): master 0-5, w0 6-10, w1 11-15
+            drills.append(drill_request(
+                cluster, "1 straggler hedged (cold)", "upscale", up,
+                "stall", lost_tiles, [{"one_batch": upscale_ref}], checked))
+            emit("drill", drills[-1])
+            drills.append(drill_request(
+                cluster, "2 dead worker, tiles reassigned (warm)", "upscale",
+                up, "kill", lost_tiles, [{"one_batch": upscale_ref}],
+                checked))
+            emit("drill", drills[-1])
+            t1 = time.perf_counter()
+            cluster.launch("w1")
+            cluster.wait_up(["w1"])
+            wait_healthy("w1")
+            restart_s = time.perf_counter() - t1
+            drills.append(drill_request(
+                cluster, "3 dead worker, slice redispatched (warm master)",
+                "inpaint", copy.deepcopy(inpaint), "kill", 1, inpaint_refs,
+                checked))
+            emit("drill", drills[-1])
+        finally:
+            cluster.stop()
+    return {"free_bytes_before": free, "servers_start_s": started_s,
+            "w1_restart_s": restart_s,
+            "seconds": {d["drill"]: d["seconds"] for d in drills},
+            "fault_to_success_s": {d["drill"]: d["fault_to_success_s"]
+                                   for d in drills},
+            "peak_memory": {d["drill"]: d["peak_memory"] for d in drills},
+            "ledger": {d["drill"]: d["ledger"] for d in drills}}
 
 
 def png_text_chunks(path):
@@ -1712,6 +2074,16 @@ def main() -> int:
         (16, 256, 77, 8, 160, bf, "SD1.5 share cross 16x16 latent"),
         (16, 64, 64, 8, 160, bf, "SD1.5 share mid self 8x8 latent"),
         (16, 64, 77, 8, 160, bf, "SD1.5 share mid cross 8x8 latent"),
+        # phase 14's upscale shares over three servers:
+        # partition_tiles(16, 2) gives the master 6 tiles (B = 12), each
+        # worker 5 (B = 10), and a hedge or a reassignment 5 (B = 10)
+        *[(b, n, m, 8, d, bf, f"SD1.5 drill B = {b} {kind}")
+          for b in (12, 10)
+          for n, m, d, kind in (
+              (4096, 4096, 40, "self 64x64"), (4096, 77, 40, "cross 64x64"),
+              (1024, 1024, 80, "self 32x32"), (1024, 77, 80, "cross 32x32"),
+              (256, 256, 160, "self 16x16"), (256, 77, 160, "cross 16x16"),
+              (64, 64, 160, "mid self 8x8"), (64, 77, 160, "mid cross 8x8"))],
         # phase 12: SD1.5 at B = 2 (cond, uncond), 512^2 and 768 x 512
         (2, 4096, 4096, 8, 40, bf, "SD1.5 512^2 self 64x64 latent"),
         (2, 4096, 77, 8, 40, bf, "SD1.5 512^2 cross 64x64 latent"),
@@ -1840,6 +2212,7 @@ def main() -> int:
         report13, reqs13 = phase13(docs, phase13_dir, shape_counts, rows)
         requests += reqs13
         emit("phase13_report", report13)
+        emit("phase14", fault_drills(docs, inpaint_dir, upscaled[42], rows))
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])
@@ -1980,9 +2353,121 @@ def ab(parent_root) -> int:
     return 0
 
 
+FANOUT_AB_WARM = 4
+
+
+def fanout_ab(parent_root) -> int:
+    """``--fanout-ab DIR``: phase 8's fan-out upscale (a master and a
+    worker, ``workflows/distributed-upscale.json`` at seed 42) with the
+    servers of the checkout at ``DIR`` (an unpacked parent commit) and
+    with this checkout's, in the turns parent, change, change, parent;
+    each turn starts fresh servers and runs one cold and
+    ``FANOUT_AB_WARM`` warm requests.  Each side's kernels are built
+    first.  It fails unless every saved image is equal to the bit, and
+    prints one ``fanout_ab`` line: per side the requests' seconds through
+    the master and the worker's ``tile_send`` and the master's
+    ``tile_collect`` stage seconds, and the warm medians."""
+    import hashlib
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this comparison runs on "
+             "a CUDA card only")
+    parent_root = os.path.abspath(parent_root)
+    for root in (parent_root, ROOT):
+        if not os.path.isdir(os.path.join(root,
+                                          "comfyui_distributed_tpu_torch")):
+            fail(f"{root} is not a checkout of the port")
+    sys.path.insert(0, ROOT)
+    from comfyui_distributed_tpu_torch.utils.image import decode_png
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    card = card_line()
+    print(card, flush=True)
+    sides = {"parent": parent_root, "change": ROOT}
+    for side, root in sides.items():
+        out = subprocess.run(
+            [sys.executable, "-c", "from comfyui_distributed_tpu_torch.ops."
+             "kernels import build; build.build_all()"], cwd=root,
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            fail(f"{side}: the kernels did not build: {out.stderr[-2000:]}")
+    with open(WORKFLOWS["upscale"], "r", encoding="utf-8") as f:
+        doc = with_save_image(json.load(f))
+    doc["2"]["inputs"]["seed"] = 42
+    runs = {side: [] for side in sides}
+    digests = set()
+    for side in ("parent", "change", "change", "parent"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cluster = Cluster(tmp, PHASE8_ROLES, cwd=sides[side])
+            try:
+                cluster.start()
+                master = cluster.url("serve")
+                post_json(master + "/distributed/config/update_worker",
+                          {"id": "w0", "name": "w0",
+                           "port": cluster.ports["worker"], "enabled": True})
+                for k in range(1 + FANOUT_AB_WARM):
+                    lines0 = {r: len(cluster.prompt_lines(r))
+                              for r in ("serve", "worker")}
+                    t0 = time.perf_counter()
+                    pid = post_json(master + "/prompt", {
+                        "prompt": copy.deepcopy(doc),
+                        "client_id": "chip_smoke"})["prompt_id"]
+                    deadline = time.time() + FANOUT_REQUEST_S
+                    while pid not in get_json(master + "/history"):
+                        if time.time() > deadline:
+                            cluster.fail(f"{side}: no history")
+                        time.sleep(0.05)
+                    seconds = time.perf_counter() - t0
+                    if get_json(master + "/history")[pid]["status"] \
+                            != "success":
+                        cluster.fail(f"{side}: the request failed")
+                    stages = {}
+                    for role in ("serve", "worker"):
+                        while len(cluster.prompt_lines(role)) \
+                                <= lines0[role]:
+                            if time.time() > deadline:
+                                cluster.fail(f"{side}: no {role} line")
+                            time.sleep(0.05)
+                        stages[role] = cluster.prompt_lines(role)[
+                            lines0[role]]["stage_seconds"]
+                    # the pixels: the PNG's text chunks hold the graph,
+                    # whose job ids differ from request to request
+                    png = cluster.outputs()[-1]
+                    with open(os.path.join(cluster.dirs["serve"], "output",
+                                           png), "rb") as f:
+                        digests.add(hashlib.sha256(
+                            decode_png(f.read()).tobytes()).hexdigest())
+                    runs[side].append({
+                        "run": "cold" if k == 0 else "warm",
+                        "seconds": seconds,
+                        "worker_tile_send_s": stages["worker"].get(
+                            "tile_send"),
+                        "worker_wire_s": {key: stages["worker"].get(key)
+                                          for key in ("wire_encode",
+                                                      "wire_post")},
+                        "master_tile_collect_s": stages["serve"].get(
+                            "tile_collect")})
+            finally:
+                cluster.stop()
+    if len(digests) != 1:
+        fail(f"fan-out images differ between the sides: {sorted(digests)}")
+    report = {"card": card, "parent": parent_root, "warm": FANOUT_AB_WARM,
+              "sha256": digests.pop(), "runs": runs}
+    for side, rs in runs.items():
+        warm = [r for r in rs if r["run"] == "warm"]
+        report[f"{side}_warm_median_s"] = statistics.median(
+            r["seconds"] for r in warm)
+        report[f"{side}_warm_tile_send_median_s"] = statistics.median(
+            r["worker_tile_send_s"] for r in warm)
+    emit("fanout_ab", report)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-child"] and len(sys.argv) == 4:
         sys.exit(ab_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab(sys.argv[2]))
+    if sys.argv[1:2] == ["--fanout-ab"] and len(sys.argv) == 3:
+        sys.exit(fanout_ab(sys.argv[2]))
     sys.exit(main())

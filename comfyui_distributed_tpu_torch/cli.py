@@ -5,6 +5,7 @@
   python -m comfyui_distributed_tpu_torch.cli run workflow.json \\
       [--out DIR] [--models-dir DIR] [--input-dir DIR] [--device cuda|cpu]
   python -m comfyui_distributed_tpu_torch.cli run workflow.json --via URL
+  python -m comfyui_distributed_tpu_torch.cli cluster --url URL [--json]
 
 ``serve`` starts a master and ``worker`` a worker of the HTTP fan-out
 (``server/app.py``); both take ``--host``, ``--port``, ``--config`` (the
@@ -12,6 +13,11 @@ cluster config, else ``DISTRIBUTED_TPU_CONFIG`` or
 ``./cluster_config.json``), ``--models-dir``, ``--input-dir``,
 ``--output-dir`` and ``--device`` (``cuda`` unless the caller asks for
 ``cpu``; asked for ``cuda`` without a card, they exit with an error).
+A worker whose environment has ``DTPU_MASTER_URL`` and
+``DTPU_WORKER_ID`` registers at that master and renews its lease
+(``runtime/cluster.py``); the control plane's other knobs are
+``DTPU_LEASE_S``, ``DTPU_SUSPECT_PROBES``, ``DTPU_FAULT_POLICY`` and
+``DTPU_HEDGE*``.
 
 ``run`` executes an API-format workflow in this process, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -19,6 +25,10 @@ line, as ``python -m comfyui_distributed_tpu.cli run`` does; with
 ``--via`` it queues the workflow on a running master instead (which fans
 it out to its enabled workers), polls ``/history`` and prints the
 prompt's entry.
+
+``cluster`` prints a master's control plane (``GET
+/distributed/cluster``): each worker's lease state, the work ledger's
+active and finished jobs with their recovered units, and the policy.
 """
 
 from __future__ import annotations
@@ -106,6 +116,51 @@ def _run_via_server(args) -> int:
     return 1
 
 
+def cmd_cluster(args) -> int:
+    """The lease states, the ledger's jobs and the fault and hedge
+    policy of the master at ``--url``, as the JAX package's ``cli
+    cluster`` prints them."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    data = get_json(f"{args.url}/distributed/cluster", timeout=10)
+    if args.json:
+        print(json.dumps(data, indent=2))
+        return 0
+    hedge = data["hedge"]
+    print(f"policy={data['policy']}  lease={data['lease_s']}s  "
+          f"suspect_after={data['suspect_probes']} probes  "
+          f"hedge={'armed' if hedge['armed'] else 'off'} "
+          f"(>= {hedge['min_progress_pct']:g}% done, "
+          f"{hedge['factor']:g}x latency)")
+    workers = data.get("workers", {})
+    if not workers:
+        print("(no registered workers)")
+    for wid, w in sorted(workers.items()):
+        age, lease = w.get("last_seen_age_s"), w.get("lease_remaining_s")
+        print(f"  {wid:16s} {w['state']:8s} "
+              f"last_seen={'never' if age is None else f'{age:.1f}s ago'}"
+              f"  lease_remaining={'-' if lease is None else f'{lease:.1f}s'}"
+              f"  failed_probes={w['failed_probes']}"
+              + (f"  {w.get('host')}:{w.get('port')}"
+                 if w.get("port") else ""))
+    ledger = data.get("ledger", {})
+    for jid, job in sorted(ledger.get("active_jobs", {}).items()):
+        print(f"  job {jid}: {job['done_units']}/{job['total_units']} "
+              f"{job['kind']} units, {job['reassigned_units']} "
+              f"reassigned, {job['hedged_units']} hedged")
+    for job in ledger.get("completed_jobs", [])[-5:]:
+        extra = ""
+        if job["reassigned_units"] or job["hedged_units"]:
+            extra = (f", {job['reassigned_units']} reassigned, "
+                     f"{job['hedged_units']} hedged")
+        if job["pending_units"]:
+            extra += f", LOST {job['pending_units']}"
+        print(f"  done {job['job_id']}: {job['done_units']}/"
+              f"{job['total_units']} in {job['duration_s']}s{extra}")
+    for t in data.get("transitions", [])[-8:]:
+        print(f"  transition {t['worker_id']}: {t['from']} -> {t['to']}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="comfyui_distributed_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -141,6 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--timeout", type=float, default=600.0,
                    help="seconds to wait for the prompt with --via")
     r.set_defaults(fn=cmd_run)
+
+    c = sub.add_parser("cluster", help="print a master's lease states and "
+                                       "work ledger")
+    c.add_argument("--url", default="http://127.0.0.1:8288")
+    c.add_argument("--json", action="store_true",
+                   help="the raw /distributed/cluster body")
+    c.set_defaults(fn=cmd_cluster)
     return p
 
 

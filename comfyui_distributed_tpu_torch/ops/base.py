@@ -87,6 +87,16 @@ class OpContext:
     # the server's per-job result queues (runtime/jobs.JobStore); a
     # master's collector and tiled upscaler drain them
     job_store: Any = None
+    # the control plane (runtime/cluster.py): the worker registry with
+    # leases and the work ledger.  The collectors find dead owners in
+    # the registry and check completions in through the ledger, so lost
+    # units are recovered instead of dropped; None keeps the drains of
+    # a fan-out without a control plane
+    cluster: Any = None
+    ledger: Any = None
+    # fault injection for tests and drills ({"drop_tiles_after": k,
+    # "stall_s": t}); empty in production
+    fault_inject: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # the API-format graph being run and the request's
     # ``extra_data["extra_pnginfo"]`` (the UI's ``workflow``): SaveImage
     # stores each in a text chunk of its PNGs

@@ -8,23 +8,31 @@ The seed: the master passes it through; worker ``i`` uses
   and is returned as it stands on the device;
 - on a worker of the HTTP fan-out (``is_worker`` and a ``master_url``):
   each image is POSTed to the master's ``/distributed/job_complete``, in
-  the wire format the master advertises, with retries;
-- on the master (a ``multi_job_id``): the job's queue is drained until
-  every worker sent its last image, or a deadline fires and the partial
-  batch is kept; images are keyed by (worker, image_index) and ordered
-  master first, then by worker index.
+  the wire format the master advertises, with retries; image i + 1 is
+  encoded on a pool thread while image i is on the wire
+  (:func:`pipelined_uploads`);
+- on the master (a ``multi_job_id``): the job's queue is drained and
+  images are keyed by (worker, image_index) and ordered master first,
+  then by worker index.  With the control plane (``ctx.ledger``) each
+  worker's seed slice is a ledger unit that checks in with its last
+  image, a slice whose owner's lease expires is redispatched to a
+  healthy worker, an overdue slice is hedged, and the fault policy
+  decides what a lost slice costs (``partial`` keeps the batch that
+  arrived, ``fail`` raises).  Without one, the drain ends when every
+  worker sent its last image or a deadline fires, keeping what arrived.
 
 Downstream of a distributed upscaler it is ``pass_through`` and returns
-its input.  The JAX package's work ledger, worker registry, hedging and
-crash recovery wait; so does fan-out over several GPUs (NCCL).
+its input.  Crash recovery of the JAX package waits; so does fan-out
+over several GPUs (NCCL).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import queue
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +47,9 @@ from comfyui_distributed_tpu_torch.ops.base import (
     as_image_array,
     register_op,
 )
+from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.image import (
     encode_png,
     encode_tensor,
@@ -67,6 +77,41 @@ def wire_payload(arr: np.ndarray, fmt: str, codec: str
     if fmt == C.TENSOR_WIRE_CONTENT_TYPE:
         return encode_tensor(arr, codec), fmt, "dtt"
     return encode_png(arr), "image/png", "png"
+
+
+def pipelined_uploads(n: int, prep: Callable[[int], Any],
+                      post: Callable[[int, Any], None]) -> Dict[str, float]:
+    """Upload ``n`` items in order, ``prep(k)`` (the device-to-host copy
+    and the encode) of item k + 1 on a pool thread while ``post(k,
+    prepped)`` sends item k.  Returns the seconds summed over the items:
+    ``wire_encode`` (in ``prep``, on the pool thread) and ``wire_post``;
+    with both busy at once their sum exceeds the wall time."""
+    spent = {"wire_encode": 0.0, "wire_post": 0.0}
+    if n <= 0:
+        return spent
+
+    def timed(k: int):
+        t0 = time.perf_counter()
+        out = prep(k)
+        return out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="dtpu-encode") as ex:
+        nxt = ex.submit(timed, 0)
+        for k in range(n):
+            prepped, enc_s = nxt.result()
+            spent["wire_encode"] += enc_s
+            if k + 1 < n:
+                nxt = ex.submit(timed, k + 1)
+            t0 = time.perf_counter()
+            post(k, prepped)
+            spent["wire_post"] += time.perf_counter() - t0
+    return spent
+
+
+def add_stage_seconds(ctx: OpContext, spent: Dict[str, float]) -> None:
+    for k, v in spent.items():
+        ctx.stage_seconds[k] = ctx.stage_seconds.get(k, 0.0) + v
 
 
 @register_op
@@ -106,9 +151,9 @@ class DistributedCollector(Op):
         master_url = master_url or ctx.master_url
         if is_worker and master_url:
             arr = as_image_array(images)
-            self._send_to_master(arr, multi_job_id, master_url,
-                                 worker_id or ctx.worker_id,
-                                 attempt=int(dispatch_attempt or 0))
+            add_stage_seconds(ctx, self._send_to_master(
+                arr, multi_job_id, master_url, worker_id or ctx.worker_id,
+                attempt=int(dispatch_attempt or 0)))
             return (images,)
         if multi_job_id and ctx.job_store is not None:
             return (self._collect_http(ctx, images, multi_job_id,
@@ -119,14 +164,20 @@ class DistributedCollector(Op):
 
     def _send_to_master(self, arr: np.ndarray, multi_job_id: str,
                         master_url: str, worker_id: str,
-                        attempt: int = 0) -> None:
+                        attempt: int = 0) -> Dict[str, float]:
+        """POST each image, image i + 1 encoded while image i is on the
+        wire; returns the encode and POST seconds."""
         fmt = negotiate_wire_format(master_url)
         codec = wire_codec(master_url)
         n = arr.shape[0]
-        for i in range(n):
-            payload, ctype, ext = wire_payload(arr[i:i + 1], fmt, codec)
 
-            def make_form(i=i, payload=payload, ctype=ctype, ext=ext):
+        def prep(i: int):
+            return wire_payload(arr[i:i + 1], fmt, codec)
+
+        def post(i: int, prepped) -> None:
+            payload, ctype, ext = prepped
+
+            def make_form() -> FormData:
                 form = FormData()
                 form.add_field("multi_job_id", multi_job_id)
                 form.add_field("worker_id", str(worker_id))
@@ -143,47 +194,153 @@ class DistributedCollector(Op):
                                  make_form, timeout=C.TILE_SEND_TIMEOUT,
                                  what="job_complete")
 
+        return pipelined_uploads(n, prep, post)
+
     # --- master --------------------------------------------------------------
 
     def _collect_http(self, ctx: OpContext, images, multi_job_id: str,
                       enabled_worker_ids: str) -> DeviceImage:
         worker_ids = [str(w) for w in json.loads(enabled_worker_ids or "[]")]
-        q = ctx.job_store.get_queue(multi_job_id)
-        # worker label -> {(0, image_index) or (1, arrival): image}; a
-        # retried POST that got through twice overwrites, never adds
-        results: Dict[str, Dict[tuple, Any]] = {}
-        arrival: Dict[str, int] = {}
-        done = set()
-        deadline = time.monotonic() + C.JOB_COMPLETION_TIMEOUT
-        last_progress = time.monotonic()
+        # the wire carries positional labels ("worker_i"); the ledger and
+        # the registry speak config ids, mapped by the enabled order
+        pos_map = {f"worker_{i}": wid for i, wid in enumerate(worker_ids)}
+        ledger, registry = ctx.ledger, ctx.cluster
+        policy = cluster_mod.fault_policy()
+        if ledger is not None:
+            # one unit a seed slice, done when its last image checks in
+            ledger.create_job(multi_job_id, {w: w for w in worker_ids},
+                              kind="image")
         try:
-            while len(done) < len(worker_ids):
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break   # the deadline keeps what arrived
-                try:
-                    item = q.get(timeout=max(min(C.WORKER_JOB_TIMEOUT,
-                                                 remaining), 0.01))
-                except queue.Empty:
-                    if time.monotonic() - last_progress \
-                            > C.WORKER_JOB_TIMEOUT:
-                        break
-                    continue
-                last_progress = time.monotonic()
-                wid = str(item["worker_id"])
-                if "image_index" in item:
-                    key = (0, int(item["image_index"]))
-                else:
-                    arrival[wid] = arrival.get(wid, 0) + 1
-                    key = (1, arrival[wid])
-                results.setdefault(wid, {})[key] = item["tensor"]
-                if item.get("is_last"):
-                    done.add(wid)
+            results = self._drain_images(ctx, multi_job_id, worker_ids,
+                                         pos_map, policy)
+            if ledger is not None and policy == "fail":
+                lost = ledger.pending(multi_job_id)
+                if lost:
+                    raise cluster_mod.ClusterFaultError(
+                        f"slices {lost} of {multi_job_id} never arrived "
+                        f"({C.FAULT_POLICY_ENV}=fail)")
         finally:
             # late arrivals get 404 instead of a queue that never drains
             ctx.job_store.remove_job(multi_job_id)
+            if ledger is not None:
+                summary = ledger.finish_job(multi_job_id)
+                if summary and summary["pending_units"]:
+                    log(f"collector: job {multi_job_id} finished with lost "
+                        f"slices {summary['pending_units']} "
+                        f"(policy={policy})")
         ordered = [as_device_image(images, ctx.device)]
         for wid in sorted(results, key=lambda w: (parse_worker_index(w), w)):
             ordered.extend(as_device_image(results[wid][k], ctx.device)
                            for k in sorted(results[wid]))
         return DeviceImage(torch.cat(ordered, dim=0))
+
+    def _drain_images(self, ctx: OpContext, multi_job_id: str,
+                      worker_ids, pos_map: Dict[str, str],
+                      policy: str) -> Dict[str, Dict[tuple, Any]]:
+        """Drain the job's queue: worker label -> {(0, image_index) or
+        (1, arrival): image}.  A retried POST that got through twice
+        overwrites, never adds; an indexless sender's images keep their
+        arrival order."""
+        mj = multi_job_id
+        ledger, registry = ctx.ledger, ctx.cluster
+        q = ctx.job_store.get_queue(mj)
+        results: Dict[str, Dict[tuple, Any]] = {}
+        arrival: Dict[str, int] = {}
+        done, handled_dead = set(), set()
+        start = time.monotonic()
+        deadline = start + C.JOB_COMPLETION_TIMEOUT
+        # redispatches extend the deadline up to here
+        hard_deadline = start + 2 * C.JOB_COMPLETION_TIMEOUT \
+            + C.WORKER_JOB_TIMEOUT
+        last_progress = start
+        # the master cannot render another participant's slice itself:
+        # recovery is redispatch only, so short polls need a redispatcher
+        can_recover = (ledger is not None and registry is not None
+                       and policy != "partial"
+                       and ledger.has_redispatcher(mj))
+        hedge_on = (cluster_mod.hedge_armed() and ledger is not None
+                    and ledger.has_redispatcher(mj))
+        poll_s = C.CLUSTER_POLL_S if (can_recover or hedge_on) \
+            else C.WORKER_JOB_TIMEOUT
+
+        def missing():
+            return set(worker_ids) - {pos_map.get(w, w) for w in done}
+
+        while True:
+            if ledger is not None:
+                if not ledger.pending(mj):
+                    break
+            elif len(done) >= len(worker_ids):
+                break
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                log(f"collector: collection deadline, missing {missing()}; "
+                    f"continuing partial")
+                break
+            if ledger is not None and registry is not None \
+                    and policy != "partial":
+                # pending units by their CURRENT owner (a reassigned
+                # unit's key is its slice, not its owner)
+                dead_units: Dict[str, list] = {}
+                for u, o in ledger.owners_of_pending(
+                        mj, skip_hedged=True).items():
+                    if o not in handled_dead \
+                            and registry.state(o) == cluster_mod.DEAD:
+                        dead_units.setdefault(o, []).append(u)
+                for owner, units in dead_units.items():
+                    handled_dead.add(owner)
+                    if policy == "fail":
+                        raise cluster_mod.ClusterFaultError(
+                            f"worker {owner} died before delivering slices "
+                            f"{sorted(units)} of {mj} "
+                            f"({C.FAULT_POLICY_ENV}=fail)")
+                    log(f"collector: worker {owner} lease expired; "
+                        f"redispatching its slice")
+                    if ledger.redispatch(mj, list(units), owner):
+                        now = time.monotonic()
+                        deadline = min(max(deadline, now + C.
+                                           JOB_COMPLETION_TIMEOUT / 2),
+                                       hard_deadline)
+                        last_progress = now
+                    else:
+                        log(f"collector: no healthy participant for "
+                            f"{owner}'s slice; will keep a partial batch")
+            if hedge_on:
+                for unit, owner in sorted(ledger.overdue_units(mj).items(),
+                                          key=str):
+                    if not ledger.mark_hedged(mj, [unit]):
+                        continue
+                    if ledger.redispatch(mj, [unit], owner):
+                        log(f"collector: hedged straggler {owner}'s slice")
+                    else:
+                        # a hedge that never launched must not pin the
+                        # unit out of the dead-owner scan
+                        ledger.unmark_hedged(mj, [unit])
+            try:
+                item = q.get(timeout=max(min(poll_s, remaining), 0.01))
+            except queue.Empty:
+                if time.monotonic() - last_progress > C.WORKER_JOB_TIMEOUT:
+                    log(f"collector: timeout, missing workers {missing()}; "
+                        f"continuing with partial results")
+                    break
+                continue
+            last_progress = time.monotonic()
+            wid = str(item["worker_id"])
+            if registry is not None:
+                # the RAW wire label only: a positional label is unknown
+                # to the registry, and mapping it to the config id would
+                # let a replacement posting as the dead owner renew the
+                # dead worker's lease
+                registry.touch(wid)
+            if "image_index" in item:
+                key = (0, int(item["image_index"]))
+            else:
+                arrival[wid] = arrival.get(wid, 0) + 1
+                key = (1, arrival[wid])
+            results.setdefault(wid, {})[key] = item["tensor"]
+            if item.get("is_last"):
+                done.add(wid)
+                if ledger is not None:
+                    cfg_id = pos_map.get(wid, wid)
+                    ledger.check_in(mj, cfg_id, cfg_id)
+        return results

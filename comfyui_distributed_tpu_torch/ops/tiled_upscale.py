@@ -15,21 +15,30 @@ uint8, cached by geometry) runs on the run's device.  Three modes:
   ``tiling.partition_tiles`` (found by its own id in
   ``enabled_worker_ids``, or the explicit ``tile_indices``) and POSTs
   each tile, cut to its extraction region, to the master's
-  ``/distributed/tile_complete``;
+  ``/distributed/tile_complete``, tile k + 1 copied to the host and
+  encoded while tile k is on the wire;
 - the master: it refines ``parts[0]`` while the workers run, then drains
-  the tile queue (a deadline keeps what arrived: missing tiles keep the
-  image's pixels) and blends every tile in index order.
+  the tile queue and blends every tile in index order.  With the control
+  plane (``ctx.ledger``) the job's tiles are ledger units: the drain
+  ends when none is pending, a dead owner's tiles go to a healthy worker
+  (the exact unit list) or are refined on the master, overdue tiles are
+  hedged on the master, the first completion of a tile wins, and tiles
+  still pending at the end are refined on the master (``reassign``),
+  kept as the image's pixels (``partial``) or raise (``fail``).  Without
+  one, a deadline keeps what arrived: missing tiles keep the image's
+  pixels.
 
 Regional conditionings (siblings, area masks, timestep ranges) refine
 with each entry's canvas mask cropped through the same padded tile
 windows as the pixels.  Not ported: PerpNeg raises
-``NotImplementedError``; the JAX package's work ledger (recovery,
-hedging) and changed-tile cache wait (a single run misses every tile
-anyway, so the image is the same).
+``NotImplementedError``; the JAX package's changed-tile cache and crash
+recovery wait (a single run misses every tile anyway, so the image is
+the same).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import queue
 import time
@@ -58,8 +67,14 @@ from comfyui_distributed_tpu_torch.ops.basic import (
     image_mask_to_latent,
     materialize_area_mask,
 )
-from comfyui_distributed_tpu_torch.ops.distributed import wire_payload
+from comfyui_distributed_tpu_torch.ops.distributed import (
+    add_stage_seconds,
+    pipelined_uploads,
+    wire_payload,
+)
+from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.image import resize_image
 from comfyui_distributed_tpu_torch.utils.net import (
     FormData,
@@ -300,27 +315,50 @@ class UltimateSDUpscaleDistributed(Op):
         windows = self._refine_tiles(ctx, pipe, image, all_tiles, mine,
                                      positive, negative, p)
         with stage(ctx, "tile_send"):
-            self._send_tiles(windows, mine, all_tiles, p, multi_job_id,
-                             master_url, worker_id, (w, h), attempt)
+            add_stage_seconds(ctx, self._send_tiles(
+                windows, mine, all_tiles, p, multi_job_id, master_url,
+                worker_id, (w, h), attempt, ctx.fault_inject))
 
     def _send_tiles(self, windows: Dict[int, torch.Tensor],
                     indices: Sequence[int], all_tiles, p: Dict[str, Any],
                     multi_job_id: str, master_url: str, worker_id: str,
-                    img_size: Tuple[int, int], attempt: int = 0) -> None:
+                    img_size: Tuple[int, int], attempt: int = 0,
+                    fault_inject: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, float]:
         """POST each tile cut to its clamped extraction region at natural
         size (the form the master blends), with the JAX package's form
-        fields."""
+        fields; tile k + 1's copy to the host and encode run while tile
+        k is on the wire.  ``fault_inject`` (tests and drills):
+        ``stall_s`` delays the first send, ``drop_tiles_after`` stops
+        after that many tiles, as a worker that died would.  Returns
+        the encode and POST seconds."""
+        inject = fault_inject or {}
+        stall_s = float(inject.get("stall_s", 0) or 0)
+        drop_after = inject.get("drop_tiles_after")
+        if stall_s > 0:
+            log(f"FAULT INJECTION: worker {worker_id} stalling {stall_s}s "
+                f"before sending")
+            time.sleep(stall_s)
+        n_send = len(indices)
+        if drop_after is not None and int(drop_after) < n_send:
+            log(f"FAULT INJECTION: worker {worker_id} dying after "
+                f"{int(drop_after)} of {n_send} tiles")
+            n_send = max(int(drop_after), 0)
         fmt = negotiate_wire_format(master_url)
         codec = wire_codec(master_url)
-        for k, tile_idx in enumerate(indices):
-            tile, (x1, y1, x2, y2) = self._window_to_extracted(
-                windows[tile_idx], all_tiles[tile_idx], p, img_size)
+
+        def prep(k: int):
+            tile, region = self._window_to_extracted(
+                windows[indices[k]], all_tiles[indices[k]], p, img_size)
             arr = tile[None].detach().float().cpu().numpy()
-            payload, ctype, ext = wire_payload(arr, fmt, codec)
+            return wire_payload(arr, fmt, codec), region
+
+        def post(k: int, prepped) -> None:
+            (payload, ctype, ext), (x1, y1, x2, y2) = prepped
+            tile_idx = indices[k]
             last = k == len(indices) - 1
 
-            def make_form(tile_idx=tile_idx, x1=x1, y1=y1, x2=x2, y2=y2,
-                          payload=payload, ctype=ctype, ext=ext, last=last):
+            def make_form() -> FormData:
                 form = FormData()
                 form.add_field("multi_job_id", multi_job_id)
                 form.add_field("worker_id", str(worker_id))
@@ -342,6 +380,8 @@ class UltimateSDUpscaleDistributed(Op):
                                  make_form, timeout=C.TILE_TRANSFER_TIMEOUT,
                                  what="tile_complete")
 
+        return pipelined_uploads(n_send, prep, post)
+
     # --- master --------------------------------------------------------------
 
     def _run_master_http(self, ctx: OpContext, image: torch.Tensor, pipe,
@@ -355,25 +395,87 @@ class UltimateSDUpscaleDistributed(Op):
             return self._run(ctx, image, pipe, positive, negative, p)
         parts = tiling.partition_tiles(len(all_tiles), len(workers))
         active_workers = sum(1 for part in parts[1:] if part)
+        mj = multi_job_id
+        # the work ledger: who owns which tile, before any work happens
+        ledger = ctx.ledger
+        if ledger is not None:
+            owners: Dict[int, str] = {int(i): "master" for i in parts[0]}
+            for wi, part in enumerate(parts[1:]):
+                for i in part:
+                    owners[int(i)] = workers[wi]
+            ledger.create_job(mj, owners, kind="tile")
+
+        def refine_units(units: Sequence[int]) -> Dict[int, torch.Tensor]:
+            """The master's own refine of any units (recovery and
+            hedges): tile i takes seed + i, so it is the tile its lost
+            or late owner would have sent."""
+            return self._refine_tiles(ctx, pipe, image, all_tiles,
+                                      [int(u) for u in units], positive,
+                                      negative, p)
+
         if active_workers and ctx.job_store is not None:
             # a worker may finish first: its tiles need the queue now
-            ctx.job_store.prepare_tile_job(multi_job_id)
+            ctx.job_store.prepare_tile_job(mj)
         try:
-            windows = self._refine_tiles(ctx, pipe, image, all_tiles,
-                                         parts[0], positive, negative, p) \
-                if parts[0] else {}
+            windows: Dict[int, torch.Tensor] = {}
+            if parts[0]:
+                for i, window in refine_units(parts[0]).items():
+                    if ledger is None or ledger.check_in(mj, i, "master"):
+                        windows[i] = window
             if active_workers and ctx.job_store is not None:
                 with stage(ctx, "tile_collect"):
-                    collected = self._collect_tiles(ctx, multi_job_id,
-                                                    active_workers)
+                    collected = self._collect_tiles(
+                        ctx, mj, active_workers, refine_window=refine_units)
                 for i, item in collected.items():
-                    windows[i] = self._worker_tile_to_window(
-                        item, all_tiles[i], p, (w, h), image.device)
+                    # the master's own recovery is at the window size;
+                    # a worker's tile at its extraction region's
+                    windows[i] = item["window_tensor"] \
+                        if "window_tensor" in item \
+                        else self._worker_tile_to_window(
+                            item, all_tiles[i], p, (w, h), image.device)
+            if ledger is not None:
+                self._settle_pending(ctx, mj, refine_units, windows)
             with stage(ctx, "tile_blend"):
                 return self._blend_all(image, windows, all_tiles, p)
         finally:
             if ctx.job_store is not None:
-                ctx.job_store.remove_tile_queue(multi_job_id)
+                ctx.job_store.remove_tile_queue(mj)
+            if ledger is not None:
+                summary = ledger.finish_job(mj)
+                if summary and (summary["reassigned_units"]
+                                or summary["hedged_units"]):
+                    log(f"job {mj}: {summary['done_units']}/"
+                        f"{summary['total_units']} units, "
+                        f"{summary['reassigned_units']} reassigned, "
+                        f"{summary['hedged_units']} hedged")
+
+    @staticmethod
+    def _settle_pending(ctx: OpContext, mj: str, refine_units,
+                        windows: Dict[int, torch.Tensor]) -> None:
+        """Units still pending after the drain (a deadline fired, or a
+        recovery failed) by the fault policy: refined here
+        (``reassign``), kept as the image's pixels (``partial``), or
+        ``ClusterFaultError`` (``fail``)."""
+        ledger = ctx.ledger
+        pending = ledger.pending(mj)
+        if not pending:
+            return
+        policy = cluster_mod.fault_policy()
+        if policy == "fail":
+            raise cluster_mod.ClusterFaultError(
+                f"job {mj}: units {pending} unfinished at collection end "
+                f"({C.FAULT_POLICY_ENV}=fail)")
+        if policy == "partial":
+            log(f"tiled upscale master: units {pending} lost; blending "
+                f"partial ({C.FAULT_POLICY_ENV}=partial)")
+            return
+        moved = ledger.reassign(mj, pending, "master")
+        if moved:
+            log(f"tiled upscale master: reassigning units {moved} to "
+                f"master (job {mj})")
+            for i, window in refine_units(moved).items():
+                if ledger.check_in(mj, i, "master"):
+                    windows[i] = window
 
     def _worker_tile_to_window(self, item: Dict[str, Any],
                                pos: Tuple[int, int], p: Dict[str, Any],
@@ -398,29 +500,165 @@ class UltimateSDUpscaleDistributed(Op):
         return tile[rows][:, cols]
 
     def _collect_tiles(self, ctx: OpContext, multi_job_id: str,
-                       num_workers: int) -> Dict[int, Dict[str, Any]]:
-        """Drain the tile queue until every worker sent its last tile,
+                       num_workers: int, refine_window=None
+                       ) -> Dict[int, Dict[str, Any]]:
+        """Drain the tile queue; returns what arrived, by tile index.
+
+        With the control plane (``ctx.ledger`` planned this job) the
+        drain ends when no unit is pending.  Each poll it asks the
+        registry for dead owners, so a lease expiry starts recovery at
+        once: the exact unit list is redispatched to a healthy worker
+        (when the orchestrator registered a redispatcher), else refined
+        on the master by ``refine_window`` on a pool thread while the
+        drain goes on.  Past the progress gate, overdue tiles are hedged
+        on the master the same way; the first completion of a tile wins
+        through the ledger, a late one is dropped.  Without a ledger it
+        drains until every worker sent its last tile,
         ``TILE_WAIT_TIMEOUT`` passes without a tile, or the overall
-        ``TILE_COLLECTION_TIMEOUT`` fires; returns what arrived, by tile
-        index."""
-        q = ctx.job_store.get_tile_queue(multi_job_id)
+        ``TILE_COLLECTION_TIMEOUT`` fires."""
+        mj = multi_job_id
+        ledger = ctx.ledger if (ctx.ledger is not None
+                                and ctx.ledger.has_job(mj)) else None
+        registry = ctx.cluster
+        policy = cluster_mod.fault_policy()
+        can_refine = ledger is not None and refine_window is not None
+        hedge_on = cluster_mod.hedge_armed() and can_refine
+        q = ctx.job_store.get_tile_queue(mj)
         collected: Dict[int, Dict[str, Any]] = {}
-        done = set()
-        deadline = time.monotonic() + C.TILE_COLLECTION_TIMEOUT
-        last_progress = time.monotonic()
-        while len(done) < num_workers:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                item = q.get(timeout=max(min(C.TILE_WAIT_TIMEOUT, remaining),
-                                         0.01))
-            except queue.Empty:
-                if time.monotonic() - last_progress > C.TILE_WAIT_TIMEOUT:
+        done, handled_dead = set(), set()
+        # (future, reason, units) of the master's own refines in flight
+        recovery: List[Tuple[concurrent.futures.Future, str, list]] = []
+        start = time.monotonic()
+        deadline = start + C.TILE_COLLECTION_TIMEOUT
+        # redispatches extend the deadline up to here
+        hard_deadline = start + 2 * C.TILE_COLLECTION_TIMEOUT \
+            + C.TILE_WAIT_TIMEOUT
+        last_progress = start
+        # short polls only when the control plane can act between tiles
+        poll_s = C.CLUSTER_POLL_S if (ledger is not None and (
+            registry is not None or hedge_on)) else C.TILE_WAIT_TIMEOUT
+        pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="dtpu-recover") if can_refine else None
+
+        def recover(units, reason: str) -> None:
+            recovery.append((pool.submit(refine_window, list(units)),
+                             reason, list(units)))
+
+        def harvest(wait: bool = False) -> None:
+            """Check the finished refines in (``wait``: all of them)."""
+            keep = []
+            for fut, reason, units in recovery:
+                if not (wait or fut.done()):
+                    keep.append((fut, reason, units))
+                    continue
+                try:
+                    out = fut.result()
+                except Exception as e:  # noqa: BLE001 - the post-drain
+                    # refine still covers these units
+                    log(f"tiled upscale master: {reason} of {units} "
+                        f"failed: {type(e).__name__}: {e}")
+                    if reason == "hedge":
+                        # still hedge-marked they would be skipped by the
+                        # dead-owner scan
+                        ledger.unmark_hedged(mj, units)
+                    continue
+                for idx, window in out.items():
+                    if ledger.check_in(mj, idx, "master"):
+                        collected[int(idx)] = {"window_tensor": window}
+            recovery[:] = keep
+
+        def handle_lost(owner: str, units: List[int]) -> bool:
+            """Redispatch a lost owner's units, else refine them here;
+            True when a redispatch went out."""
+            redone = ledger.has_redispatcher(mj) and ledger.redispatch(
+                mj, sorted(units), owner)
+            if not redone and refine_window is not None:
+                moved = ledger.reassign(mj, sorted(units), "master")
+                if moved:
+                    recover(moved, "reassign")
+            return redone
+
+        def finished() -> bool:
+            if ledger is not None:
+                return not ledger.pending(mj)
+            return len(done) >= num_workers
+
+        try:
+            while True:
+                if pool is not None:
+                    harvest()
+                if finished():
                     break
-                continue
-            last_progress = time.monotonic()
-            collected[int(item["tile_idx"])] = item
-            if item.get("is_last"):
-                done.add(str(item["worker_id"]))
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    log("tiled upscale master: collection deadline; "
+                        + ("handing leftovers to the fault policy"
+                           if ledger is not None
+                           else "blending partial results"))
+                    break
+                if ledger is not None and registry is not None \
+                        and policy != "partial":
+                    # a dead worker's pending units move now, not at the
+                    # deadline
+                    by_owner: Dict[str, List[int]] = {}
+                    for u, o in ledger.owners_of_pending(
+                            mj, skip_hedged=True).items():
+                        if o != "master" and o not in handled_dead \
+                                and registry.state(o) == cluster_mod.DEAD:
+                            by_owner.setdefault(o, []).append(u)
+                    for owner, units in by_owner.items():
+                        handled_dead.add(owner)
+                        if policy == "fail":
+                            raise cluster_mod.ClusterFaultError(
+                                f"worker {owner} died with units "
+                                f"{sorted(units)} outstanding "
+                                f"({C.FAULT_POLICY_ENV}=fail)")
+                        log(f"tiled upscale master: worker {owner} lease "
+                            f"expired; recovering units {sorted(units)}")
+                        if handle_lost(owner, units):
+                            # room for the replacement; the post-drain
+                            # refine still backs it up
+                            now = time.monotonic()
+                            deadline = min(max(
+                                deadline,
+                                now + C.TILE_COLLECTION_TIMEOUT / 2),
+                                hard_deadline)
+                            last_progress = now
+                if hedge_on:
+                    overdue = ledger.overdue_units(mj)
+                    units = sorted(u for u, o in overdue.items()
+                                   if o != "master")
+                    hedged = ledger.mark_hedged(mj, units, "master") \
+                        if units else []
+                    if hedged:
+                        log(f"tiled upscale master: hedging overdue units "
+                            f"{hedged}")
+                        recover(hedged, "hedge")
+                try:
+                    item = q.get(timeout=max(min(poll_s, remaining), 0.01))
+                except queue.Empty:
+                    if recovery:
+                        continue   # the master's own refine is running
+                    if time.monotonic() - last_progress \
+                            > C.TILE_WAIT_TIMEOUT:
+                        log("tiled upscale master: timeout waiting for "
+                            "tiles; " + ("handing leftovers to the fault "
+                                         "policy" if ledger is not None
+                                         else "blending partial results"))
+                        break
+                    continue
+                last_progress = time.monotonic()
+                idx = int(item["tile_idx"])
+                wid = str(item["worker_id"])
+                if registry is not None:
+                    registry.touch(wid)
+                if ledger is None or ledger.check_in(mj, idx, wid):
+                    collected[idx] = item
+                if item.get("is_last"):
+                    done.add(wid)
+        finally:
+            if pool is not None:
+                # the refines in flight land before the blend
+                harvest(wait=True)
+                pool.shutdown()
         return collected

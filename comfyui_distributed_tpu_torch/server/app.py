@@ -18,15 +18,25 @@ other:
 - ``GET /distributed/config``, ``POST /distributed/config/update_worker``
   and ``/distributed/config/delete_worker``;
 - ``GET /distributed/metrics``: ``prompts_executed``, ``prompts_failed``,
-  ``images_received``, ``tiles_received`` and the bytes received by wire
-  format.
+  ``images_received``, ``tiles_received``, the messages and bytes
+  received by wire format, the seconds spent decoding them
+  (``wire_decode_s``) and the control plane's event counts
+  (``cluster_counters``);
+- the control plane: ``POST /distributed/register`` and
+  ``/distributed/heartbeat`` (a worker's lease; unknown workers join),
+  ``GET /distributed/cluster`` (lease states, the work ledger's active
+  and finished jobs, the fault and hedge policy), with the JAX package's
+  bodies and keys.
 
 One execution thread runs the queue in FIFO order through the port's
 ``WorkflowExecutor`` on the server's device; handler threads answer
 while it runs.  Each finished prompt logs one line,
 ``dtpu-torch prompt {...}``, with its kernel launches by variant and by
-shape and ``torch.cuda.max_memory_allocated()``.  Admission control,
-the cluster registry, tracing, the write-ahead log, previews and
+shape and ``torch.cuda.max_memory_allocated()``.  A master owns a
+``ClusterRegistry`` seeded from its config, a ``WorkLedger`` and a
+``HealthPoller`` (started by :func:`serve`); a worker started with
+``DTPU_MASTER_URL`` and ``DTPU_WORKER_ID`` heartbeats its master.
+Admission control, tracing, the write-ahead log, previews and
 ``/interrupt`` wait.
 """
 
@@ -49,6 +59,8 @@ import torch
 
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
+from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
+from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
@@ -57,6 +69,7 @@ from comfyui_distributed_tpu_torch.utils.image import (
     decode_tensor,
     tensor_codecs,
 )
+from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.net import FormPart, parse_multipart
 from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
 from comfyui_distributed_tpu_torch.workflow.orchestrate import (
@@ -65,10 +78,6 @@ from comfyui_distributed_tpu_torch.workflow.orchestrate import (
 )
 
 Response = Tuple[int, Any]
-
-
-def log(msg: str) -> None:
-    print(f"dtpu-torch {msg}", flush=True)
 
 
 class ServerState:
@@ -89,11 +98,23 @@ class ServerState:
         self.models_dir = models_dir
         self.device = device
         self.jobs = JobStore()
+        # the control plane: leases fed by the health poller, heartbeats
+        # and data-plane POSTs; the collectors read both through OpContext
+        self.cluster = cluster_mod.ClusterRegistry()
+        self.ledger = cluster_mod.WorkLedger()
+        if not is_worker:
+            self.cluster.seed_from_config(
+                cfg_mod.load_config(config_path).get("workers", []))
+        self.health = HealthPoller(config_path=config_path,
+                                   registry=self.cluster)
+        self.heartbeat: Optional[cluster_mod.HeartbeatSender] = None
+        self.fault_inject = cluster_mod.fault_injection()
         self.metrics: Dict[str, Any] = {
             "prompts_executed": 0, "prompts_failed": 0,
             "images_received": 0, "tiles_received": 0,
             "wire_tensor_msgs": 0, "wire_tensor_bytes": 0,
             "wire_png_msgs": 0, "wire_png_bytes": 0,
+            "wire_decode_s": 0.0,
         }
         self._history: Dict[str, Dict[str, Any]] = {}
         self._queue: collections.deque = collections.deque()
@@ -146,6 +167,8 @@ class ServerState:
         ctx = OpContext(device=self.device, models_dir=self.models_dir,
                         input_dir=self.input_dir, output_dir=self.output_dir,
                         is_worker=self.is_worker, job_store=self.jobs,
+                        cluster=self.cluster, ledger=self.ledger,
+                        fault_inject=self.fault_inject,
                         extra_pnginfo=item["extra_data"].get(
                             "extra_pnginfo"))
         res, err = None, None
@@ -224,7 +247,8 @@ class ServerState:
                     lambda g: self.enqueue_prompt(g.to_api_format(),
                                                   extra_data),
                     cfg_mod.enabled_workers(cfg), job_store=self.jobs,
-                    client_id=client_id, extra_data=extra_data)
+                    client_id=client_id, extra_data=extra_data,
+                    cluster=self.cluster, ledger=self.ledger)
                 return 200, {"prompt_id": out["result"],
                              "number": self.queue_remaining(),
                              "workers": out["workers"],
@@ -238,13 +262,18 @@ class ServerState:
 
     def decode_upload(self, part: FormPart):
         """An image or tile part -> [B, H, W, C] float32, by the part's
-        content type (raw tensor or PNG), counted by format."""
+        content type (raw tensor or PNG), counted by format and timed."""
+        t0 = time.perf_counter()
         if (part.content_type or "").split(";")[0].strip() \
                 == C.TENSOR_WIRE_CONTENT_TYPE:
-            self.bump(wire_tensor_msgs=1, wire_tensor_bytes=len(part.data))
-            return decode_tensor(part.data)
-        self.bump(wire_png_msgs=1, wire_png_bytes=len(part.data))
-        return decode_png(part.data)
+            out = decode_tensor(part.data)
+            self.bump(wire_tensor_msgs=1, wire_tensor_bytes=len(part.data),
+                      wire_decode_s=time.perf_counter() - t0)
+            return out
+        out = decode_png(part.data)
+        self.bump(wire_png_msgs=1, wire_png_bytes=len(part.data),
+                  wire_decode_s=time.perf_counter() - t0)
+        return out
 
 
 def _master_tile_jobs(prompt: Dict[str, Any]):
@@ -265,8 +294,8 @@ def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
 
 def routes(state: ServerState
            ) -> Dict[Tuple[str, str], Callable[..., Response]]:
-    """(method, path) -> handler(body bytes, content type, query) ->
-    (status, JSON body)."""
+    """(method, path) -> handler(body bytes, content type, query, the
+    client's address) -> (status, JSON body)."""
 
     def ok(**kw) -> Response:
         return 200, {"status": "ok", **kw}
@@ -277,17 +306,17 @@ def routes(state: ServerState
             raise ValueError("a JSON object is expected")
         return data
 
-    def get_prompt(body, ctype, query):
+    def get_prompt(body, ctype, query, remote=None):
         return 200, {"exec_info": {"queue_remaining":
                                    state.queue_remaining()}}
 
-    def post_prompt(body, ctype, query):
+    def post_prompt(body, ctype, query, remote=None):
         return state.post_prompt(json_body(body))
 
-    def history(body, ctype, query):
+    def history(body, ctype, query, remote=None):
         return 200, dict(state._history)
 
-    def prepare_job(body, ctype, query):
+    def prepare_job(body, ctype, query, remote=None):
         data = json_body(body)
         mj = data.get("multi_job_id")
         if not mj:
@@ -298,17 +327,17 @@ def routes(state: ServerState
             state.jobs.prepare_job(str(mj))
         return ok()
 
-    def queue_status(body, ctype, query):
+    def queue_status(body, ctype, query, remote=None):
         mj = query.get("multi_job_id", "")
         return 200, {"exists": state.jobs.has_tile_job(mj)
                      or state.jobs.has_job(mj),
                      "queue_remaining": state.queue_remaining()}
 
-    def wire_formats(body, ctype, query):
+    def wire_formats(body, ctype, query, remote=None):
         return 200, {"formats": [C.TENSOR_WIRE_CONTENT_TYPE, "image/png"],
                      "tensor_codecs": tensor_codecs()}
 
-    def job_complete(body, ctype, query):
+    def job_complete(body, ctype, query, remote=None):
         form = parse_multipart(body, ctype)
         mj = _form_text(form, "multi_job_id")
         if not mj or "image" not in form:
@@ -323,10 +352,12 @@ def routes(state: ServerState
         if not state.jobs.put_result(
                 mj, item, idem_key=_form_text(form, "idem_key") or None):
             return 404, {"error": f"unknown job {mj}"}
+        # a data-plane POST proves the sender alive: renew its lease
+        state.cluster.touch(item["worker_id"])
         state.bump(images_received=1)
         return ok()
 
-    def tile_complete(body, ctype, query):
+    def tile_complete(body, ctype, query, remote=None):
         form = parse_multipart(body, ctype)
         mj = _form_text(form, "multi_job_id")
         if not mj or "tile" not in form:
@@ -341,10 +372,11 @@ def routes(state: ServerState
         if not state.jobs.put_tile(
                 mj, item, idem_key=_form_text(form, "idem_key") or None):
             return 404, {"error": f"unknown tile job {mj}"}
+        state.cluster.touch(item["worker_id"])
         state.bump(tiles_received=1)
         return ok()
 
-    def load_image(body, ctype, query):
+    def load_image(body, ctype, query, remote=None):
         name = str(json_body(body).get("image_name", ""))
         safe = os.path.normpath(name).lstrip(os.sep)
         if safe.startswith(".."):
@@ -356,7 +388,7 @@ def routes(state: ServerState
             return 200, {"image_data": base64.b64encode(f.read()).decode(),
                          "name": name}
 
-    def upload_image(body, ctype, query):
+    def upload_image(body, ctype, query, remote=None):
         img = parse_multipart(body, ctype).get("image")
         if img is None:
             return 400, {"error": "missing image"}
@@ -366,10 +398,10 @@ def routes(state: ServerState
             f.write(img.data)
         return 200, {"name": name, "subfolder": "", "type": "input"}
 
-    def get_config(body, ctype, query):
+    def get_config(body, ctype, query, remote=None):
         return 200, cfg_mod.load_config(state.config_path)
 
-    def update_worker(body, ctype, query):
+    def update_worker(body, ctype, query, remote=None):
         data = json_body(body)
         if "id" not in data:
             return 400, {"error": "missing worker id"}
@@ -377,9 +409,14 @@ def routes(state: ServerState
         cfg_mod.mutate_config(
             lambda cfg: result.update(cfg_mod.upsert_worker(cfg, data)),
             state.config_path)
+        # the worker's lease described its old entry: a worker disabled
+        # (so never probed) until its lease ran out would otherwise be
+        # skipped as dead when enabled again; it starts over as unknown
+        # and the preflight probes it
+        state.cluster.forget(str(data["id"]))
         return ok(worker=result)
 
-    def delete_worker(body, ctype, query):
+    def delete_worker(body, ctype, query, remote=None):
         wid = str(json_body(body).get("id"))
         found = []
         cfg_mod.mutate_config(
@@ -387,11 +424,40 @@ def routes(state: ServerState
             state.config_path)
         if not found[0]:
             return 404, {"error": "worker not found"}
+        state.cluster.forget(wid)
         return ok()
 
-    def metrics(body, ctype, query):
+    def metrics(body, ctype, query, remote=None):
         with state._metrics_lock:
-            return 200, dict(state.metrics)
+            out = dict(state.metrics)
+        return 200, {**out,
+                     "cluster_counters": cluster_mod.COUNTERS.snapshot()}
+
+    def cluster_info(body, ctype, query, remote=None):
+        return 200, {
+            **state.cluster.snapshot(),
+            "ledger": state.ledger.snapshot(),
+            "policy": cluster_mod.fault_policy(),
+            "hedge": {"armed": cluster_mod.hedge_armed(),
+                      "min_progress_pct": cluster_mod.hedge_pct(),
+                      "factor": cluster_mod.hedge_factor()}}
+
+    def lease(renew: Callable[..., Dict[str, Any]]):
+        """The register and heartbeat routes: the worker's id and
+        address into the registry; the reply carries this server's
+        clock, as the JAX package's does."""
+        def handler(body, ctype, query, remote=None):
+            data = json_body(body)
+            wid = data.get("worker_id") or data.get("id")
+            if not wid:
+                return 400, {"error": "missing worker_id"}
+            info = {k: data[k] for k in ("host", "port", "name")
+                    if k in data}
+            if remote:
+                info.setdefault("host", remote)
+            return ok(**renew(str(wid), info=info),
+                      master_time=time.time())
+        return handler
 
     return {
         ("GET", "/prompt"): get_prompt,
@@ -408,6 +474,9 @@ def routes(state: ServerState
         ("POST", "/distributed/config/update_worker"): update_worker,
         ("POST", "/distributed/config/delete_worker"): delete_worker,
         ("GET", "/distributed/metrics"): metrics,
+        ("GET", "/distributed/cluster"): cluster_info,
+        ("POST", "/distributed/register"): lease(state.cluster.register),
+        ("POST", "/distributed/heartbeat"): lease(state.cluster.heartbeat),
     }
 
 
@@ -428,7 +497,7 @@ def make_handler(state: ServerState) -> type:
                 else:
                     status, payload = fn(body,
                                          self.headers.get("Content-Type", ""),
-                                         query)
+                                         query, self.client_address[0])
             except ValueError as e:
                 status, payload = 400, {"error": str(e)}
             except Exception as e:  # noqa: BLE001 - a 500, not a dead thread
@@ -465,8 +534,15 @@ def make_server(state: ServerState, host: str = "127.0.0.1",
 
 def serve(state: ServerState, host: str = "127.0.0.1",
           port: int = 8288) -> None:
+    """Serve until interrupted: a master polls its workers' health, a
+    worker renews its lease at ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID``
+    when both are set."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
+    if state.is_worker:
+        state.heartbeat = cluster_mod.maybe_start_heartbeat(port=state.port)
+    else:
+        state.health.start()
     log(f"{role} listening on {host}:{state.port} (device {state.device})")
     sys.stdout.flush()
     try:
@@ -474,4 +550,7 @@ def serve(state: ServerState, host: str = "127.0.0.1",
     except KeyboardInterrupt:
         pass
     finally:
+        state.health.stop()
+        if state.heartbeat is not None:
+            state.heartbeat.stop()
         server.server_close()

@@ -34,3 +34,41 @@ DISTRIBUTED_NODE_TYPES = COLLECTOR_NODE_TYPES + UPSCALER_NODE_TYPES
 # negotiated per master through GET /distributed/wire_formats; PNG for
 # peers that do not list it
 TENSOR_WIRE_CONTENT_TYPE = "application/x-dtpu-tensor"
+
+# --- fault-tolerant control plane (runtime/cluster.py) ----------------------
+# A worker is HEALTHY while its lease (renewed by heartbeats, health probes
+# and data-plane contact) is fresh, SUSPECT after DTPU_SUSPECT_PROBES
+# failed probes in a row, DEAD once the lease expires.  The work ledger
+# records which participant owns which tile or seed slice; a dead owner's
+# units are redispatched (or refined on the master) instead of dropped.
+LEASE_ENV = "DTPU_LEASE_S"
+LEASE_DEFAULT = 15.0             # s a worker stays alive without contact
+SUSPECT_PROBES_ENV = "DTPU_SUSPECT_PROBES"
+SUSPECT_PROBES_DEFAULT = 2       # failed probes in a row -> suspect
+# reassign: recover lost units (the default); partial: keep what arrived
+# at the deadline; fail: raise ClusterFaultError
+FAULT_POLICY_ENV = "DTPU_FAULT_POLICY"
+FAULT_POLICY_DEFAULT = "reassign"
+FAULT_POLICIES = ("reassign", "partial", "fail")
+# hedged stragglers: once a job is DTPU_HEDGE_PCT % done, a unit whose
+# owner has been silent longer than max(DTPU_HEDGE_FACTOR x the ledger's
+# moving latency estimate, DTPU_HEDGE_MIN_WAIT_S) is re-issued; the
+# first completion wins through the ledger
+HEDGE_ENV = "DTPU_HEDGE"                 # "0" disarms hedging
+HEDGE_PCT_ENV = "DTPU_HEDGE_PCT"
+HEDGE_PCT_DEFAULT = 50.0
+HEDGE_FACTOR_ENV = "DTPU_HEDGE_FACTOR"
+HEDGE_FACTOR_DEFAULT = 3.0
+HEDGE_MIN_WAIT_ENV = "DTPU_HEDGE_MIN_WAIT_S"
+HEDGE_MIN_WAIT_DEFAULT = 5.0
+CLUSTER_POLL_S = 0.25            # drain poll with recovery armed
+HEARTBEAT_FRACTION = 3.0         # workers heartbeat every lease / this
+CLUSTER_TRANSITIONS_KEPT = 64    # registry transition ring
+LEDGER_COMPLETED_KEPT = 32       # finished-job summary ring
+WORKER_CHECK_INTERVAL = 2.0      # s between the master's health probes
+MASTER_URL_ENV = "DTPU_MASTER_URL"   # worker -> master heartbeat target
+WORKER_ID_ENV = "DTPU_WORKER_ID"     # this worker's config id
+# fault injection for tests and drills, JSON: {"drop_tiles_after": k}
+# makes a worker stop after sending k tiles; {"stall_s": t} delays its
+# first tile send by t seconds
+FAULT_INJECT_ENV = "DTPU_FAULT_INJECT"

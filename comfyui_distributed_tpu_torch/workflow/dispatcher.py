@@ -26,7 +26,9 @@ import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from comfyui_distributed_tpu_torch.runtime import cluster as cl
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
 from comfyui_distributed_tpu_torch.workflow.graph import (
     Graph,
@@ -139,16 +141,38 @@ def worker_url(worker: Dict[str, Any]) -> str:
 
 
 def preflight_check(workers: List[Dict[str, Any]],
-                    timeout: float = C.PREFLIGHT_TIMEOUT
-                    ) -> List[Dict[str, Any]]:
+                    timeout: float = C.PREFLIGHT_TIMEOUT,
+                    registry=None) -> List[Dict[str, Any]]:
     """``GET /prompt`` on every worker at once; the ones that do not
-    answer 200 within ``timeout`` are dropped, in order."""
+    answer 200 within ``timeout`` are dropped, in order.
+
+    With a ``registry`` (``runtime/cluster.py``) a worker it holds DEAD
+    is dropped without a probe (one that died between jobs, or whose
+    socket outlives its process, gets no work), a SUSPECT one is
+    dispatched with a warning, and every probe's result feeds the
+    registry."""
     def probe(w: Dict[str, Any]) -> bool:
+        wid = str(w.get("id"))
+        if registry is not None:
+            st = registry.state(wid)
+            if st == cl.DEAD:
+                log(f"preflight: skipping worker {wid}: the registry "
+                    f"holds it dead (lease expired)")
+                return False
+            if st == cl.SUSPECT:
+                log(f"preflight: worker {wid} is suspect (failed "
+                    f"probes); dispatching anyway")
         try:
             get_json(worker_url(w) + "/prompt", timeout=timeout)
-            return True
+            ok = True
         except (OSError, ValueError, http.client.HTTPException):
-            return False
+            ok = False
+        if registry is not None:
+            registry.observe_probe(
+                wid, ok, info={"host": w.get("host") or "127.0.0.1",
+                               "port": w.get("port"),
+                               "name": w.get("name")})
+        return ok
 
     if not workers:
         return []

@@ -15,13 +15,20 @@ In order:
 5. build each participant's graph and dispatch the workers' in parallel
    while the master runs its own share.
 
-The JAX package's cluster registry, work ledger and SLO deadlines wait.
+With the control plane (``cluster`` and ``ledger``, from
+``runtime/cluster.py``) the preflight skips workers the registry holds
+dead, and each distributed job gets a redispatcher on the ledger, so a
+collector can re-issue a dead or straggling participant's units to a
+healthy worker.  The JAX package's SLO deadlines and crash-recovery
+redispatchers (``register_recovery_redispatchers``) wait for their
+slices.
 """
 
 from __future__ import annotations
 
 import base64
 import concurrent.futures
+import json
 import os
 import re
 import threading
@@ -30,7 +37,9 @@ import urllib.error
 import urllib.request
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.net import FormData, post_json
 from comfyui_distributed_tpu_torch.workflow import dispatcher as dsp
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
@@ -133,25 +142,121 @@ def stage_images_on_worker(master_url: str, worker: Dict[str, Any],
                                f"failed: {e.code}") from None
 
 
+def _register_redispatchers(graph: Graph, job_id_map: Dict[str, str],
+                            enabled_ids: List[str],
+                            alive: List[Dict[str, Any]], master_url: str,
+                            client_id: str,
+                            extra_data: Optional[Dict[str, Any]],
+                            cluster, ledger) -> None:
+    """One ``(units, lost_owner) -> bool`` callback a distributed job on
+    the ledger.  A tile job re-issues the exact lost unit list through
+    the upscaler's ``tile_indices`` input; an image job re-issues each
+    lost seed slice's pruned graph under the slice's own positional
+    identity, so its seeds and upload labels are the lost slice's.  The
+    target is a registry-HEALTHY worker with the shortest known queue.
+    Units are re-owned on the ledger only after the dispatch succeeded,
+    and only true reassignments: a hedged unit stays with its owner."""
+    by_id = {str(w["id"]): w for w in alive}
+
+    def pick_target(lost_owner: str) -> Optional[Dict[str, Any]]:
+        snap = cluster.snapshot()["workers"] if cluster is not None else {}
+        candidates = []
+        for wid, w in by_id.items():
+            if wid == str(lost_owner):
+                continue
+            depth = 0
+            if cluster is not None:
+                info = snap.get(wid, {})
+                if info.get("state") != cluster_mod.HEALTHY:
+                    continue
+                depth = info.get("queue_remaining") or 0
+            candidates.append((depth, wid, w))
+        return min(candidates, key=lambda c: (c[0], c[1]))[2] \
+            if candidates else None
+
+    for nid, mj in job_id_map.items():
+        kind = "tile" if graph.nodes[nid].class_type in dsp.UPSCALER_TYPES \
+            else "image"
+        if kind == "image" and dsp.has_upstream_type(graph, nid,
+                                                     dsp.UPSCALER_TYPES):
+            # a pass-through collector never collects: its job never
+            # reaches the ledger
+            continue
+
+        def redispatch(units, lost_owner, nid=nid, mj=mj, kind=kind):
+            pending = set(ledger.pending(mj))
+            units = [u for u in units if u in pending]
+            if not units:
+                return False
+            target = pick_target(lost_owner)
+            if target is None:
+                return False
+            tid = str(target["id"])
+            attempt = 1 + max(ledger.attempts(mj, u) for u in units)
+
+            def send(wgraph: Graph, batch: List[Any]) -> None:
+                log(f"cluster: redispatching {kind} units {batch} of {mj} "
+                    f"({lost_owner} -> {tid})")
+                dsp.dispatch_to_worker(target, wgraph, client_id=client_id,
+                                       extra_data=extra_data)
+                moved = [u for u in batch if not ledger.is_hedged(mj, u)]
+                if moved:
+                    ledger.reassign(mj, moved, tid)
+
+            if kind == "tile":
+                wgraph = dsp.prepare_for_participant(
+                    graph, "worker", job_id_map, enabled_ids,
+                    master_url=master_url,
+                    worker_index=enabled_ids.index(tid))
+                node = wgraph.nodes.get(str(nid))
+                if node is None:
+                    return False
+                node.hidden["tile_indices"] = json.dumps(
+                    [int(u) for u in units])
+                node.hidden["dispatch_attempt"] = attempt
+                send(wgraph, list(units))
+                return True
+            # an image unit's key is its slice's config id: the identity
+            # follows the unit, not its current owner (after a first
+            # reassignment they differ)
+            sent = 0
+            for u in units:
+                if str(u) not in enabled_ids:
+                    continue
+                wgraph = dsp.prepare_for_participant(
+                    graph, "worker", job_id_map, enabled_ids,
+                    master_url=master_url,
+                    worker_index=enabled_ids.index(str(u)))
+                for n2 in wgraph.nodes.values():
+                    if n2.class_type in dsp.COLLECTOR_TYPES:
+                        n2.hidden["dispatch_attempt"] = attempt
+                send(wgraph, [u])
+                sent += 1
+            return sent > 0
+
+        ledger.set_redispatcher(mj, redispatch)
+
+
 def run_distributed(graph_or_doc: Any, master_url: str,
                     master_dispatch: Callable[[Graph], Any],
                     workers: List[Dict[str, Any]],
                     job_store=None,
                     client_id: str = "dtpu-orchestrator",
-                    extra_data: Optional[Dict[str, Any]] = None
-                    ) -> Dict[str, Any]:
+                    extra_data: Optional[Dict[str, Any]] = None,
+                    cluster=None, ledger=None) -> Dict[str, Any]:
     """Fan a workflow out to the master and the enabled ``workers``.
 
     ``master_dispatch(graph)`` runs (or queues) the master's share and
     its result is returned under ``result``; ``job_store`` is the
     master's own queue store when the caller is the master process, else
-    the queues are prepared over ``master_url``.  Returns ``{"result",
+    the queues are prepared over ``master_url``; ``cluster`` and
+    ``ledger`` opt into the control plane.  Returns ``{"result",
     "workers": ids dispatched to, "failed": ids whose dispatch failed,
     "job_ids": node id -> multi_job_id}``.
     """
     graph = graph_or_doc if isinstance(graph_or_doc, Graph) \
         else parse_workflow(graph_or_doc)
-    alive = dsp.preflight_check(workers)
+    alive = dsp.preflight_check(workers, registry=cluster)
     if not alive or not graph.find_by_type(*dsp.DISTRIBUTED_TYPES):
         return {"result": master_dispatch(graph), "workers": [],
                 "failed": [], "job_ids": {}}
@@ -178,6 +283,12 @@ def run_distributed(graph_or_doc: Any, master_url: str,
     enabled_ids = [str(w["id"]) for w in alive]
     master_graph = dsp.prepare_for_participant(
         graph, "master", job_id_map, enabled_ids, master_url=master_url)
+    # before the master starts collecting, so a collector that sees a
+    # lease expire can re-issue the lost units
+    if ledger is not None:
+        _register_redispatchers(graph, job_id_map, enabled_ids, alive,
+                                master_url, client_id, extra_data,
+                                cluster, ledger)
 
     def dispatch(worker: Dict[str, Any], index: int) -> Any:
         wgraph = dsp.prepare_for_participant(
@@ -196,7 +307,8 @@ def run_distributed(graph_or_doc: Any, master_url: str,
             try:
                 fut.result()
                 ok_workers.append(str(w["id"]))
-            except Exception:  # noqa: BLE001 - reported as a failed worker
+            except Exception as e:  # noqa: BLE001 - a failed worker
+                log(f"orchestrator: dispatch to {w.get('id')} failed: {e}")
                 failed.append(str(w["id"]))
     return {"result": result, "workers": ok_workers, "failed": failed,
             "job_ids": job_id_map}
