@@ -166,9 +166,44 @@ Run from the root of a checkout on a machine with a CUDA card (and
    from the stall or the kill to the success, the request's seconds,
    each server's peak memory, the ledger's summary) and a ``phase14``
    line.
+15. worker management and the control routes: the pipelines released,
+   a ``cli serve`` master starts in its own directory with w0 in its
+   config (local, enabled, not running).  (1) ``POST
+   /distributed/launch_worker`` starts w0 under the master-death
+   monitor; ``managed_workers`` shows it alive and its ``launching``
+   must clear (the health poller's first contact) within
+   ``PHASE15_READY_S``; its log holds the session header and its
+   ``listening`` line.  (2) A cold ``distributed-txt2img.json`` fan-out
+   (SaveImage) to ``["w0"]``, checked as phase 8 checks it against
+   phase 8's in-process images.  (3) With w0 disabled, the master alone:
+   one request to time by, one with ``POST /interrupt`` half that run's
+   KSampler seconds after the master logs the KSampler's start (its
+   debug tier's ``exec node`` line, on through the config's
+   ``settings.debug``), which must end as ``execution interrupted``
+   within ``PHASE15_INTERRUPT_END_S`` with ``sm90`` launches a whole
+   number of steps (140 each) between 0 and 2800 at shapes phase 3
+   checked, and (4) the same seed again, whose image must equal the
+   first run's to the bit.  (5) w0 enabled,
+   ``/distributed/cluster/interrupt`` during a fan-out, timed the same
+   way from the master's KSampler start: ``{"w0": 200}``, both shares
+   ``execution interrupted`` with whole steps between 0 and 2800 at
+   checked shapes, the request over within
+   ``PHASE15_CLUSTER_INTERRUPT_END_S``.  (6)
+   ``/distributed/cluster/clear_memory`` must free over
+   ``PHASE15_CLEAR_MIN_FREED`` bytes on each server (``nvidia-smi``'s
+   compute apps printed before and after).  (7) ``stop_worker``: no
+   process of w0's tree, listed from ``/proc`` before, may be alive
+   after; the master's log names the kill branch, and the ``ps`` branch
+   is drilled on a three-process tree with psutil set aside, whichever
+   the server took.  (8) w0 launched
+   again, the master SIGKILLed: the monitor must end w0's tree within
+   2 x ``WORKER_CHECK_INTERVAL`` + ``PROCESS_TERMINATION_TIMEOUT``.  It
+   prints a ``phase15`` line with the card; the interrupted request's
+   launches count in the ``kernels`` line.
 
 Launch counts are zeroed just before each request of phases 5-7 and
-9-13 and read just after.  The line before the last is ``{"kernels":
+9-13 and read just after (phase 15's interrupted request: its server's
+prompt line).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -290,6 +325,20 @@ DRILL_HEDGE_FACTOR = 1.0
 DRILL_STALL_S = 15.0
 DRILL_MIN_FREE = 52_000_000_000
 FANOUT_REQUEST_S = 300   # a fan-out request must finish within this
+# phase 15: a managed worker answers and its ``launching`` clears within
+# READY_S of its launch (a cold start imports torch and opens the card);
+# an interrupted request ends within INTERRUPT_END_S of /interrupt (the
+# step in flight, ~0.1 s alone, then VAEDecode's check), and within
+# CLUSTER_INTERRUPT_END_S of /distributed/cluster/interrupt on a card
+# shared with the worker, well under the collector's 10 s
+# WORKER_JOB_TIMEOUT; each server's SDXL pipeline (about 7 GB of
+# weights) must free over CLEAR_MIN_FREED bytes; one SDXL step is 70
+# transformer blocks x 2 attentions
+PHASE15_READY_S = 120
+PHASE15_INTERRUPT_END_S = 2.0
+PHASE15_CLUSTER_INTERRUPT_END_S = 5.0
+PHASE15_CLEAR_MIN_FREED = 5_000_000_000
+SDXL_STEP_LAUNCHES = 140
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -922,6 +971,11 @@ class Cluster:
         os.kill(proc.pid, signal.SIGKILL)
         proc.wait()
 
+    def count_lines(self, role, text):
+        """How many lines of a server's log hold ``text``."""
+        with open(self.logs[role], "r", errors="replace") as f:
+            return sum(text in ln for ln in f)
+
     def prompt_lines(self, role):
         """The ``dtpu-torch prompt {...}`` lines of a server's log."""
         with open(self.logs[role], "r", errors="replace") as f:
@@ -1073,7 +1127,9 @@ def fanout(docs, input_dir, upscale_ref, rows):
     the two txt2img shares and of the upscale in the fan-out's two tile
     batches first; then the pipelines are released and a master and a
     worker server start; parallel SDXL generation and the distributed
-    SD1.5 upscale each run cold and warm.  ``rows``: phase 3's checks."""
+    SD1.5 upscale each run cold and warm.  ``rows``: phase 3's checks.
+    Returns the report and the in-process txt2img images of the two
+    shares (phase 15 holds its fan-out against them)."""
     import gc
 
     import torch
@@ -1148,18 +1204,19 @@ def fanout(docs, input_dir, upscale_ref, rows):
                     requests.append({"run": run, **r})
         finally:
             cluster.stop()
-    return {"free_bytes_before": free, "servers_start_s": started_s,
-            "cudnn_benchmark": torch.backends.cudnn.benchmark,
-            "atol": {k: {"max": v[0], "mean": v[1]}
-                     for k, v in FANOUT_ATOL.items()},
-            "requests": requests,
-            "seconds": {f"{r['path']} {r['run']}": r["seconds"]
-                        for r in requests},
-            "wire_split": {f"{r['path']} {r['run']}": r["wire_split"]
-                           for r in requests},
-            "peak_memory": {f"{r['path']} {r['run']}": {
-                role: s["max_memory_allocated"]
-                for role, s in r["shares"].items()} for r in requests}}
+    report = {"free_bytes_before": free, "servers_start_s": started_s,
+              "cudnn_benchmark": torch.backends.cudnn.benchmark,
+              "atol": {k: {"max": v[0], "mean": v[1]}
+                       for k, v in FANOUT_ATOL.items()},
+              "requests": requests,
+              "seconds": {f"{r['path']} {r['run']}": r["seconds"]
+                          for r in requests},
+              "wire_split": {f"{r['path']} {r['run']}": r["wire_split"]
+                             for r in requests},
+              "peak_memory": {f"{r['path']} {r['run']}": {
+                  role: s["max_memory_allocated"]
+                  for role, s in r["shares"].items()} for r in requests}}
+    return report, [r["same"] for r in txt_refs]
 
 
 def drill_env(role):
@@ -1442,6 +1499,420 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
                                    for d in drills},
             "peak_memory": {d["drill"]: d["peak_memory"] for d in drills},
             "ledger": {d["drill"]: d["ledger"] for d in drills}}
+
+
+def proc_tree(pid):
+    """``pid`` and its descendants, from the parent pids in
+    ``/proc/*/stat``."""
+    children = collections.defaultdict(list)
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat", "r", errors="replace") as f:
+                    fields = f.read().rsplit(")", 1)[-1].split()
+            except OSError:
+                continue
+            children[int(fields[1])].append(int(d))
+    tree, frontier = [pid], [pid]
+    while frontier:
+        kids = children.get(frontier.pop(), [])
+        tree.extend(kids)
+        frontier.extend(kids)
+    return tree
+
+
+def pid_alive(pid):
+    """``/proc/<pid>`` exists and is no zombie (an exited process whose
+    parent has not reaped it)."""
+    try:
+        with open(f"/proc/{pid}/stat", "r", errors="replace") as f:
+            return f.read().rsplit(")", 1)[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def compute_apps():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def ps_branch_drill(cluster):
+    """The tree kill's ``ps`` branch on this machine, whatever the server
+    used: a process, its child and its grandchild (sleeps), killed by
+    ``kill_process_tree`` with psutil set aside; none may be alive
+    after."""
+    from comfyui_distributed_tpu_torch.utils import process
+    code = ("import subprocess, sys, time; subprocess.Popen([sys.executable,"
+            " '-c', 'import subprocess, sys, time; subprocess.Popen("
+            "[sys.executable, \"-c\", \"import time; time.sleep(60)\"]); "
+            "time.sleep(60)']); time.sleep(60)")
+    root = subprocess.Popen([sys.executable, "-c", code])
+    try:
+        deadline = time.time() + 30
+        while len(proc_tree(root.pid)) < 3:
+            if time.time() > deadline:
+                cluster.fail("the ps drill's tree did not start")
+            time.sleep(0.05)
+        tree = proc_tree(root.pid)
+        saved, process.psutil = process.psutil, None
+        try:
+            t0 = time.perf_counter()
+            ok, branch = process.kill_process_tree(root.pid)
+            seconds = time.perf_counter() - t0
+        finally:
+            process.psutil = saved
+        root.wait(timeout=10)
+        alive = [p for p in tree if pid_alive(p)]
+        if not ok or branch != "ps" or alive:
+            cluster.fail(f"ps branch: {ok}, {branch}, {alive} of {tree} "
+                         f"alive")
+        return {"tree": tree, "seconds": seconds, "branch": branch}
+    finally:
+        if root.poll() is None:
+            root.kill()
+            root.wait()
+
+
+def master_request(cluster, doc, interrupt_at=None, route="/interrupt"):
+    """One request through the master's /prompt, its history entry and its
+    ``dtpu-torch prompt`` line.  ``interrupt_at``: seconds after the
+    master logs the start of the KSampler node (its debug tier's ``exec
+    node`` line) at which ``route`` is posted; the seconds from /prompt
+    to that line and from the post to the history entry are returned."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    master = cluster.url("serve")
+    n_lines = len(cluster.prompt_lines("serve"))
+    ks_line = next(f"exec node {nid} (KSampler)" for nid, node in doc.items()
+                   if isinstance(node, dict)
+                   and node.get("class_type") == "KSampler")
+    n_ks = cluster.count_lines("serve", ks_line)
+    files0 = set(cluster.outputs())
+    t0 = time.perf_counter()
+    resp = post_json(master + "/prompt", {"prompt": doc,
+                                          "client_id": "chip_smoke"})
+    deadline = time.time() + FANOUT_REQUEST_S
+    out = {"workers": resp.get("workers"), "interrupt_answer": None,
+           "interrupt_at_s": interrupt_at}
+    if interrupt_at is not None:
+        while cluster.count_lines("serve", ks_line) <= n_ks:
+            if time.time() > deadline:
+                cluster.fail(f"the master logged no '{ks_line}' line")
+            time.sleep(0.005)
+        t_ks = time.perf_counter()
+        out["ksampler_start_s"] = t_ks - t0
+        time.sleep(interrupt_at)
+        t_int = time.perf_counter()
+        out["interrupt_answer"] = post_json(master + route, {})
+    while True:
+        hist = get_json(master + "/history")
+        if resp["prompt_id"] in hist:
+            break
+        if time.time() > deadline:
+            cluster.fail(f"no history after {FANOUT_REQUEST_S} s")
+        time.sleep(0.01)
+    t_end = time.perf_counter()
+    while len(cluster.prompt_lines("serve")) <= n_lines:
+        if time.time() > deadline:
+            cluster.fail("no prompt line for the request")
+        time.sleep(0.05)
+    out.update(entry=hist[resp["prompt_id"]],
+               line=cluster.prompt_lines("serve")[n_lines],
+               seconds=t_end - t0,
+               files=sorted(set(cluster.outputs()) - files0))
+    if interrupt_at is not None:
+        out["interrupt_to_end_s"] = t_end - t_int
+    return out
+
+
+def worker_management(docs, txt_refs, rows):
+    """Phase 15: worker management and the control routes on one card.
+    A ``cli serve`` master starts with w0 in its config (local, enabled,
+    not running); w0 is launched through the master's route, runs its
+    share of a txt2img fan-out, and the master alone has an SDXL request
+    interrupted mid-sampling; then the cluster is interrupted during a
+    fan-out, both servers' memory cleared, w0 stopped, launched again and
+    left to the monitor when the master is killed.  ``txt_refs``: phase
+    8's in-process images of the two shares; ``rows``: phase 3's checks.
+    Returns the report and the interrupted request's launches (by
+    variant and by shape) for the ``kernels`` line."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.utils import constants as C
+    from comfyui_distributed_tpu_torch.utils.image import decode_png
+    from comfyui_distributed_tpu_torch.utils.net import (find_free_port,
+                                                         get_json, post_json)
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seed = SEEDS[0]
+    txt = with_save_image(docs["txt2img"])
+    txt["13"]["inputs"]["seed"] = seed
+    refs = [{"same": ref} for ref in txt_refs]
+    report = {"card": card_line()}
+    trees = []           # every worker tree this phase started
+    with tempfile.TemporaryDirectory() as root:
+        serve_dir = os.path.join(root, "serve")
+        # the master runs in its own directory (its managed workers log to
+        # serve_dir/logs/workers) and finds the package on PYTHONPATH
+        env = {**PHASE8_ROLES["serve"][1], "PYTHONPATH": os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+        cluster = Cluster(root, {"serve": ("serve", env)}, cwd=serve_dir)
+        master = cluster.url("serve")
+        wport = find_free_port()
+        w0_dir = os.path.join(root, "w0")
+        os.makedirs(os.path.join(w0_dir, "input"))
+        with open(os.path.join(serve_dir, "cluster_config.json"), "w") as f:
+            json.dump({"master": {"host": "127.0.0.1",
+                                  "port": cluster.ports["serve"]},
+                       "workers": [{
+                           "id": "w0", "name": "w0", "host": "127.0.0.1",
+                           "port": wport, "enabled": True,
+                           "extra_args": f"--host 127.0.0.1 --device "
+                                         f"{DEVICE} --input-dir "
+                                         f"{w0_dir}/input --output-dir "
+                                         f"{w0_dir}/output"}],
+                       "settings": {"auto_launch_workers": False,
+                                    "stop_workers_on_master_exit": True,
+                                    "debug": True}},
+                      f)
+
+        def saved(files):
+            with open(os.path.join(serve_dir, "output", files[-1]),
+                      "rb") as f:
+                return decode_png(f.read())[0]
+
+        def launch():
+            t0 = time.perf_counter()
+            entry = post_json(master + "/distributed/launch_worker",
+                              {"id": "w0"})["worker"]
+            trees.append([entry["pid"]])
+            if not get_json(master + "/distributed/managed_workers")[
+                    "w0"]["alive"]:
+                cluster.fail("w0 is not alive after its launch")
+            while get_json(master + "/distributed/managed_workers")[
+                    "w0"]["launching"]:
+                if time.perf_counter() - t0 > PHASE15_READY_S:
+                    cluster.fail(f"w0's launching did not clear in "
+                                 f"{PHASE15_READY_S} s")
+                time.sleep(0.1)
+            trees[-1] = proc_tree(entry["pid"])
+            return entry, time.perf_counter() - t0
+
+        try:
+            cluster.start()
+            # 1. the launch, through the master's route
+            entry, ready_s = launch()
+            wlog = get_json(master + "/distributed/worker_log?id=w0")["log"]
+            if "=== session" not in wlog or "worker listening on" not in wlog:
+                cluster.fail(f"w0's log lacks its session header or its "
+                             f"listening line: {wlog[-2000:]}")
+            cluster.ports["worker"] = wport
+            cluster.logs["worker"] = entry["log_file"]
+            report["launch"] = {"pid": entry["pid"],
+                                "tree": len(trees[-1]),
+                                "launch_to_ready_s": ready_s,
+                                "bound_s": PHASE15_READY_S}
+            print(f"phase 15: w0 launched, ready after {ready_s:.3f} s",
+                  flush=True)
+            # 2. its share of a fan-out (cold: both servers fill SDXL)
+            report["fanout"] = fanout_request(
+                cluster, "txt2img", copy.deepcopy(txt), EXPECTED["txt2img"][1],
+                refs, checked)
+            # 3. the master alone: one run to time the steps by, one
+            # interrupted at half its KSampler, then 4. the same again
+            post_json(master + "/distributed/config/update_worker",
+                      {"id": "w0", "enabled": False})
+            def check_launches(name, line, interrupted):
+                """A prompt line's launches: sm90 alone, at shapes phase 3
+                checked, and 2800 of them, or (``interrupted``) a whole
+                number of steps between 0 and 2800."""
+                launches = line["launches"]
+                bad_shapes = [x[:6] for x in line["launches_by_shape"]
+                              if tuple(x[:6]) not in checked]
+                if bad_shapes or launches["mma_sync"] or launches["fp32"]:
+                    cluster.fail(f"{name}: launches {launches}, unchecked "
+                                 f"shapes {bad_shapes}")
+                n = launches["sm90"]
+                if not interrupted:
+                    if n != EXPECTED["txt2img"][1]:
+                        cluster.fail(f"{name}: {n} sm90 launches")
+                elif not (0 < n < EXPECTED["txt2img"][1]
+                          and n % SDXL_STEP_LAUNCHES == 0):
+                    cluster.fail(f"{name}: {n} sm90 launches, not a whole "
+                                 f"number of steps between 0 and 2800")
+
+            def master_alone(name, at=None):
+                """A request on the master alone, checked: success with
+                2800 sm90 launches and one saved image, or (``at``)
+                interrupted after a whole number of steps."""
+                r = master_request(cluster, copy.deepcopy(txt), at)
+                if r["workers"] is not None:
+                    cluster.fail(f"{name}: dispatched to {r['workers']}")
+                check_launches(name, r["line"], at is not None)
+                if at is None:
+                    if r["entry"].get("status") != "success" \
+                            or len(r["files"]) != 1:
+                        cluster.fail(f"{name}: {r['entry']}, {r['files']}")
+                    return r
+                if r["entry"].get("status") != "error" \
+                        or r["entry"].get("error") != "execution interrupted":
+                    cluster.fail(f"{name}: {r['entry']}")
+                if r["interrupt_to_end_s"] > PHASE15_INTERRUPT_END_S:
+                    cluster.fail(f"{name} ended {r['interrupt_to_end_s']} "
+                                 f"s after /interrupt")
+                return r
+
+            calib = master_alone("calibration")
+            # the interrupt lands half-way through KSampler: half the
+            # calibration's KSampler seconds after the master logs the
+            # node's start
+            ksampler_s = next(v for k, v in calib["line"]["node_seconds"]
+                              .items() if k.endswith(" KSampler"))
+            intr = master_alone("interrupted", 0.5 * ksampler_s)
+            nxt = master_alone("next")
+            runs = {"calibration": calib, "interrupted": intr, "next": nxt}
+            if not np.array_equal(saved(nxt["files"]),
+                                  saved(calib["files"])):
+                cluster.fail("the request after the interrupt differs from "
+                             "the uninterrupted one")
+            same = image_diff(os.path.join(serve_dir, "output",
+                                           calib["files"][0]), txt_refs[0])
+            if not (same[0] <= FANOUT_ATOL["same"][0]
+                    and same[1] <= FANOUT_ATOL["same"][1]):
+                cluster.fail(f"the master's image differs from phase 8's "
+                             f"in-process one by {same}")
+            report["interrupt"] = {
+                "ksampler_start_s": intr["ksampler_start_s"],
+                "interrupt_after_ksampler_start_s": intr["interrupt_at_s"],
+                "interrupt_to_end_s": intr["interrupt_to_end_s"],
+                "bound_s": PHASE15_INTERRUPT_END_S,
+                "step_wall_s": ksampler_s / 20,
+                "steps_done": intr["line"]["launches"]["sm90"]
+                // SDXL_STEP_LAUNCHES,
+                "launches": intr["line"]["launches"],
+                "entry": intr["entry"],
+                "seconds": {k: v["seconds"] for k, v in runs.items()},
+                "next_equal_to_uninterrupted": True,
+                "vs_phase8": {"max": same[0], "mean": same[1]}}
+            print(f"phase 15: /interrupt to the end of the request "
+                  f"{intr['interrupt_to_end_s']:.3f} s, one step "
+                  f"{ksampler_s / 20:.3f} s, "
+                  f"{report['interrupt']['steps_done']} of 20 steps done",
+                  flush=True)
+            # 5. the cluster interrupted during a fan-out
+            post_json(master + "/distributed/config/update_worker",
+                      {"id": "w0", "enabled": True})
+            n_worker = len(cluster.prompt_lines("worker"))
+            ci = master_request(cluster, copy.deepcopy(txt),
+                                0.5 * ksampler_s,
+                                route="/distributed/cluster/interrupt")
+            if ci["workers"] != ["w0"] \
+                    or ci["interrupt_answer"].get("workers") != {"w0": 200}:
+                cluster.fail(f"cluster interrupt: dispatched to "
+                             f"{ci['workers']}, answer "
+                             f"{ci['interrupt_answer']}")
+            if ci["entry"].get("error") != "execution interrupted" \
+                    or ci["interrupt_to_end_s"] \
+                    > PHASE15_CLUSTER_INTERRUPT_END_S:
+                cluster.fail(f"cluster interrupt: {ci['entry']} after "
+                             f"{ci['interrupt_to_end_s']} s")
+            deadline = time.time() + 60
+            while len(cluster.prompt_lines("worker")) <= n_worker:
+                if time.time() > deadline:
+                    cluster.fail("w0 logged no prompt line for its share")
+                time.sleep(0.05)
+            wline = cluster.prompt_lines("worker")[n_worker]
+            if wline.get("error") != "execution interrupted":
+                cluster.fail(f"w0's share was not interrupted: {wline}")
+            check_launches("the master's interrupted share", ci["line"],
+                           True)
+            check_launches("w0's interrupted share", wline, True)
+            report["cluster_interrupt"] = {
+                "answer": ci["interrupt_answer"],
+                "ksampler_start_s": ci["ksampler_start_s"],
+                "interrupt_after_ksampler_start_s": ci["interrupt_at_s"],
+                "interrupt_to_end_s": ci["interrupt_to_end_s"],
+                "bound_s": PHASE15_CLUSTER_INTERRUPT_END_S,
+                "launches": {"master": ci["line"]["launches"],
+                             "w0": wline["launches"]}}
+            # 6. clear memory on both servers
+            apps_before = compute_apps()
+            cleared = post_json(master + "/distributed/cluster/clear_memory",
+                                {})
+            apps_after = compute_apps()
+            print(f"phase 15: nvidia-smi compute apps before "
+                  f"{apps_before}, after {apps_after}", flush=True)
+            freed = cleared.get("freed_bytes", {})
+            if cleared.get("workers") != {"w0": 200} or any(
+                    freed.get(k, 0) <= PHASE15_CLEAR_MIN_FREED
+                    for k in ("master", "w0")):
+                cluster.fail(f"clear_memory: {cleared}")
+            report["clear_memory"] = {**cleared, "apps_before": apps_before,
+                                      "apps_after": apps_after,
+                                      "min_freed": PHASE15_CLEAR_MIN_FREED}
+            # 7. the stop: no process of the tree outlives it
+            tree = proc_tree(entry["pid"])
+            t0 = time.perf_counter()
+            post_json(master + "/distributed/stop_worker", {"id": "w0"})
+            stop_s = time.perf_counter() - t0
+            alive = [p for p in tree if pid_alive(p)]
+            with open(cluster.logs["serve"], "r", errors="replace") as f:
+                branch = re.findall(r"stopped worker w0 \(pid \d+, kill "
+                                    r"branch (\w+)\)", f.read())
+            if alive or not branch:
+                cluster.fail(f"stop_worker left {alive} of {tree} alive "
+                             f"(kill branch {branch})")
+            report["stop"] = {"tree": tree, "seconds": stop_s,
+                              "kill_branch": branch[-1]}
+            print(f"phase 15: w0 stopped in {stop_s:.3f} s, tree {tree}, "
+                  f"kill branch {branch[-1]}", flush=True)
+            report["stop"]["ps_branch"] = ps_branch_drill(cluster)
+            # 8. launched again, then the master dies
+            entry, relaunch_s = launch()
+            tree = trees[-1]
+            if len(tree) < 2:
+                cluster.fail(f"w0's tree {tree}: no monitor and worker")
+            t0 = time.perf_counter()
+            cluster.kill("serve")
+            bound_s = 2 * C.WORKER_CHECK_INTERVAL \
+                + C.PROCESS_TERMINATION_TIMEOUT
+            while any(pid_alive(p) for p in tree):
+                if time.perf_counter() - t0 > 3 * bound_s:
+                    break
+                time.sleep(0.05)
+            gone_s = time.perf_counter() - t0
+            alive = [p for p in tree if pid_alive(p)]
+            if alive or gone_s > bound_s:
+                cluster.fail(f"after the master's death {alive} of {tree} "
+                             f"were alive at {gone_s:.3f} s (bound "
+                             f"{bound_s} s)")
+            report["master_death"] = {"tree": tree,
+                                      "relaunch_to_ready_s": relaunch_s,
+                                      "kill_to_gone_s": gone_s,
+                                      "bound_s": bound_s}
+            print(f"phase 15: the master killed; w0's tree gone after "
+                  f"{gone_s:.3f} s", flush=True)
+        finally:
+            cluster.stop()
+            for tree in trees:
+                for p in tree:
+                    if pid_alive(p):
+                        os.kill(p, signal.SIGKILL)
+    interrupted = {"path": "txt2img interrupted",
+                   "variants": intr["line"]["launches"],
+                   "shapes": {tuple(x[:6]): x[6] for x in
+                              intr["line"]["launches_by_shape"]}}
+    return report, interrupted
 
 
 def png_text_chunks(path):
@@ -2183,7 +2654,8 @@ def main() -> int:
                           "seconds": [r["seconds"] for r in requests],
                           "launches_per_request": [r["launches"]
                                                    for r in requests]})
-        emit("fanout", fanout(docs, input_dir, upscaled[42], rows))
+        fanout_report, txt_refs = fanout(docs, input_dir, upscaled[42], rows)
+        emit("fanout", fanout_report)
         sdxl_report, sdxl_reqs, sdxl_img = sdxl_requests(
             docs["sdxl"], input_dir, shape_counts)
         requests += sdxl_reqs
@@ -2213,6 +2685,10 @@ def main() -> int:
         requests += reqs13
         emit("phase13_report", report13)
         emit("phase14", fault_drills(docs, inpaint_dir, upscaled[42], rows))
+        report15, interrupted = worker_management(docs, txt_refs, rows)
+        shape_counts.update(interrupted["shapes"])
+        requests.append(interrupted)
+        emit("phase15", report15)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

@@ -6,6 +6,11 @@
       [--out DIR] [--models-dir DIR] [--input-dir DIR] [--device cuda|cpu]
   python -m comfyui_distributed_tpu_torch.cli run workflow.json --via URL
   python -m comfyui_distributed_tpu_torch.cli cluster --url URL [--json]
+  python -m comfyui_distributed_tpu_torch.cli workers [--config C]
+  python -m comfyui_distributed_tpu_torch.cli launch|stop|log ID \\
+      [--config C | --url URL]
+  python -m comfyui_distributed_tpu_torch.cli status [--url URL]
+  python -m comfyui_distributed_tpu_torch.cli devices
 
 ``serve`` starts a master and ``worker`` a worker of the HTTP fan-out
 (``server/app.py``); both take ``--host``, ``--port``, ``--config`` (the
@@ -29,6 +34,16 @@ prompt's entry.
 ``cluster`` prints a master's control plane (``GET
 /distributed/cluster``): each worker's lease state, the work ledger's
 active and finished jobs with their recovered units, and the policy.
+
+``workers`` prints the config's workers with one health probe each and
+their managed processes; ``launch``, ``stop`` and ``log`` start, stop
+or tail one managed worker (``runtime/manager.py``) from this process,
+or through a running master's routes with ``--url``.  A worker
+launched from here is not tied to this short-lived process (no
+master-death monitor).  ``status`` prints a server's ``GET
+/distributed/status``; ``devices`` the cards torch sees (``platform``,
+``kind`` and ``count``, 0 without a card, beside the JAX package's
+keys).
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import json
 import os
 import sys
 import time
+import urllib.parse
 
 
 def _check_device(device: str) -> None:
@@ -161,6 +177,82 @@ def cmd_cluster(args) -> int:
     return 0
 
 
+def cmd_devices(args) -> int:
+    from comfyui_distributed_tpu_torch.utils.resource import describe_devices
+    view = describe_devices("cuda")
+    print(json.dumps({**view, "kind": (view["devices"][0]["kind"]
+                                       if view["devices"] else None),
+                      "count": view["num_devices"]}, indent=2))
+    return 0
+
+
+def cmd_worker_ctl(args) -> int:
+    """``launch``, ``stop`` or ``log`` of one worker: here, or through the
+    master at ``--url``."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    if args.url:
+        if args.action == "log":
+            print(get_json(f"{args.url}/distributed/worker_log?id="
+                           f"{urllib.parse.quote(args.id)}")["log"])
+        else:
+            print(json.dumps(post_json(
+                f"{args.url}/distributed/{args.action}_worker",
+                {"id": args.id})))
+        return 0
+    from comfyui_distributed_tpu_torch.runtime.manager import (
+        WorkerProcessManager)
+    from comfyui_distributed_tpu_torch.utils import config as cfg_mod
+    manager = WorkerProcessManager(config_path=args.config)
+    if args.action == "log":
+        print(manager.tail_log(args.id))
+        return 0
+    if args.action == "stop":
+        stopped = manager.stop_worker(args.id)
+        print(json.dumps({"stopped": stopped}))
+        return 0 if stopped else 1
+    worker = next((w for w in cfg_mod.load_config(args.config)["workers"]
+                   if str(w.get("id")) == str(args.id)), None)
+    if worker is None:
+        print(json.dumps({"error": f"worker {args.id} not in config"}))
+        return 1
+    # the monitor would end the worker as soon as this command exits
+    print(json.dumps(manager.launch_worker(worker,
+                                           stop_on_master_exit=False)))
+    return 0
+
+
+def cmd_workers(args) -> int:
+    """The config's workers, each with one health probe and its managed
+    process."""
+    from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
+    from comfyui_distributed_tpu_torch.runtime.manager import (
+        WorkerProcessManager)
+    from comfyui_distributed_tpu_torch.utils import config as cfg_mod
+    cfg = cfg_mod.load_config(args.config)
+    managed = WorkerProcessManager(
+        config_path=args.config).get_managed_workers()
+    health = HealthPoller(config_path=args.config).poll_once()
+    out = []
+    for w in cfg.get("workers", []):
+        wid = str(w.get("id"))
+        out.append({
+            "id": wid, "name": w.get("name", wid),
+            "host": w.get("host") or "127.0.0.1", "port": w.get("port"),
+            "enabled": bool(w.get("enabled")),
+            "health": health.get(wid, {}).get("status", "unknown"),
+            "queue_remaining": health.get(wid, {}).get("queue_remaining"),
+            "managed": managed.get(wid)})
+    print(json.dumps({"master": cfg.get("master", {}), "workers": out},
+                     indent=2))
+    return 0
+
+
+def cmd_status(args) -> int:
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    print(json.dumps(get_json(f"{args.url}/distributed/status", timeout=5)))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="comfyui_distributed_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -203,6 +295,26 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--json", action="store_true",
                    help="the raw /distributed/cluster body")
     c.set_defaults(fn=cmd_cluster)
+
+    d = sub.add_parser("devices", help="the cards torch sees")
+    d.set_defaults(fn=cmd_devices)
+
+    w = sub.add_parser("workers", help="the config's workers: health and "
+                                       "managed processes")
+    w.add_argument("--config", default=None)
+    w.set_defaults(fn=cmd_workers)
+
+    for action in ("launch", "stop", "log"):
+        a = sub.add_parser(action, help=f"{action} a managed worker")
+        a.add_argument("id")
+        a.add_argument("--config", default=None)
+        a.add_argument("--url", default=None,
+                       help="act through the running master at URL")
+        a.set_defaults(fn=cmd_worker_ctl, action=action)
+
+    st = sub.add_parser("status", help="a running server's status")
+    st.add_argument("--url", default="http://127.0.0.1:8288")
+    st.set_defaults(fn=cmd_status)
     return p
 
 

@@ -3,12 +3,13 @@ table of ``comfyui_distributed_tpu/models/samplers.py`` (all 34 of
 KSampler's ``sampler_name`` values) and of its classifier-free guidance
 for one cond and one uncond entry.
 
-Each sampler is a Python loop over consecutive sigma pairs.  The sigmas
-are host values (float32, read once), so what the JAX package decides
-with ``lax.cond``/``lax.switch`` on a traced sigma or step index (the
-last step to sigma 0, the order ramps of the multistep solvers) is a
-plain Python branch here, and every scalar coefficient is a host float:
-nothing in the loop waits for the card.  Only ``dpm_adaptive`` reads a
+Each sampler is a Python loop over consecutive sigma pairs, ended early
+by an interrupt (:func:`_until_interrupted`, checked at the top of each
+step).  The sigmas are host values (float32, read once), so what the
+JAX package decides with ``lax.cond``/``lax.switch`` on a traced sigma
+or step index (the last step to sigma 0, the order ramps of the
+multistep solvers) is a plain Python branch here, and every scalar
+coefficient is a host float: nothing in the loop waits for the card.  Only ``dpm_adaptive`` reads a
 value back, its error estimate, once per attempt.
 
 Step noise: row b of step i's draw comes from ``fold_in(keys[b], i)``
@@ -27,12 +28,14 @@ falls back to the denoised.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.models.prng import batch_normal
+from comfyui_distributed_tpu_torch.runtime import interrupt as itr
 
 Model = Callable[..., torch.Tensor]
 Extra = Optional[Dict[str, Any]]
@@ -43,6 +46,25 @@ def _host_sigmas(sigmas) -> List[float]:
     if isinstance(sigmas, torch.Tensor):
         sigmas = sigmas.detach().cpu().numpy()
     return np.asarray(sigmas, np.float32).tolist()
+
+
+def _until_interrupted(steps: Iterable) -> Iterator:
+    """``steps`` up to the first one that finds the interrupt flag set
+    (``runtime/interrupt.py``), read at the top of each step: that step
+    and every later one skip their model calls and leave the latent as
+    it is, the JAX package's per-step contract.  A step of two or more
+    model calls is checked once, at its top."""
+    for step in steps:
+        if itr.is_interrupted():
+            return
+        yield step
+
+
+def _steps(sig: List[float]) -> Iterator[Tuple[int, float, float]]:
+    """(i, sigma_i, sigma_i+1) of each step, while not interrupted."""
+    return _until_interrupted(
+        (i, s, s_next) for i, (s, s_next) in enumerate(zip(sig[:-1],
+                                                            sig[1:])))
 
 
 def step_noise(keys: np.ndarray, index: int, x: torch.Tensor
@@ -99,7 +121,7 @@ def euler_step(model: Model, x: torch.Tensor, sigma: float,
 def sample_euler(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
                  = None, keys=None) -> torch.Tensor:
     sig = _host_sigmas(sigmas)
-    for s, s_next in zip(sig[:-1], sig[1:]):
+    for _, s, s_next in _steps(sig):
         x = euler_step(model, x, s, s_next, extra_args)
     return x
 
@@ -113,7 +135,7 @@ def sample_euler_ancestral(model: Model, x: torch.Tensor, sigmas,
     _need_keys("euler_ancestral", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         sd, su = _ancestral_sigmas(s, s_next, eta)
         x = x + _to_d(x, s, denoised) * (sd - s)
@@ -129,7 +151,7 @@ def sample_euler_cfg_pp(model: Model, x: torch.Tensor, sigmas,
     the CFG result."""
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for s, s_next in zip(sig[:-1], sig[1:]):
+    for _, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         x = denoised + _to_d(x, s, _last_uncond(model, denoised)) * s_next
     return x
@@ -141,7 +163,7 @@ def sample_euler_ancestral_cfg_pp(model: Model, x: torch.Tensor, sigmas,
     _need_keys("euler_ancestral_cfg_pp", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         sd, su = _ancestral_sigmas(s, s_next, eta)
         x = denoised + _to_d(x, s, _last_uncond(model, denoised)) * sd
@@ -154,7 +176,7 @@ def sample_heun(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
                 = None, keys=None) -> torch.Tensor:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for s, s_next in zip(sig[:-1], sig[1:]):
+    for _, s, s_next in _steps(sig):
         d = _to_d(x, s, model(x, s, **extra))
         x_euler = x + d * (s_next - s)
         if s_next > 0:
@@ -170,7 +192,7 @@ def sample_dpm_2(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
     """DPM-Solver-2 (midpoint in log sigma)."""
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for s, s_next in zip(sig[:-1], sig[1:]):
+    for _, s, s_next in _steps(sig):
         d = _to_d(x, s, model(x, s, **extra))
         if s_next > 0:
             s_mid = math.exp((math.log(s) + math.log(max(s_next, 1e-20)))
@@ -189,7 +211,7 @@ def sample_dpm_2_ancestral(model: Model, x: torch.Tensor, sigmas,
     _need_keys("dpm_2_ancestral", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         sd, su = _ancestral_sigmas(s, s_next, eta)
         d = _to_d(x, s, denoised)
@@ -211,7 +233,7 @@ def sample_dpmpp_2s_ancestral(model: Model, x: torch.Tensor, sigmas,
     _need_keys("dpmpp_2s_ancestral", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         sd, su = _ancestral_sigmas(s, s_next, eta)
         if sd > 0:
@@ -235,7 +257,7 @@ def sample_dpmpp_2m(model: Model, x: torch.Tensor, sigmas, extra_args:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         h = _t(s_next) - _t(s)
         if i > 0 and s_next > 0:
@@ -260,7 +282,7 @@ def sample_dpmpp_2m_cfg_pp(model: Model, x: torch.Tensor, sigmas,
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         anchor = _last_uncond(model, denoised)
         if s_next > 0:
@@ -285,7 +307,7 @@ def sample_dpmpp_2m_sde(model: Model, x: torch.Tensor, sigmas,
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old, h_last = None, 1.0
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next > 0:
             h = -math.log(s_next) + math.log(s)
@@ -313,7 +335,7 @@ def sample_dpmpp_sde(model: Model, x: torch.Tensor, sigmas, extra_args:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     fac = 1.0 / (2.0 * r)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next > 0:
             t = -math.log(s)
@@ -342,7 +364,7 @@ def sample_dpmpp_3m_sde(model: Model, x: torch.Tensor, sigmas,
     sig = _host_sigmas(sigmas)
     den_1 = den_2 = None
     h_1 = h_2 = 1.0
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next <= 0:
             x = denoised
@@ -406,7 +428,7 @@ def sample_lms(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
     sig = _host_sigmas(sigmas)
     order = max(1, min(int(order), 4))
     d_hist: List[torch.Tensor] = []          # newest first
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         d_hist = [_to_d(x, s, model(x, s, **extra))] + d_hist[:order - 1]
         cur = min(i, order - 1) + 1
         cs = _lms_coeff(cur, [sig[max(i - k, 0)] for k in range(cur)], s,
@@ -433,7 +455,7 @@ def sample_ipndm(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
     sig = _host_sigmas(sigmas)
     max_order = max(1, min(int(max_order), 4))
     d_hist: List[torch.Tensor] = []          # d at i-1-k
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         d = _to_d(x, s, model(x, s, **extra))
         cs = _IPNDM_COEFFS[min(i, max_order - 1)]
         upd = cs[0] * d
@@ -471,7 +493,7 @@ def _make_ab_variable(max_order: int, name: str) -> Callable:
         extra = extra_args or {}
         sig = _host_sigmas(sigmas)
         d_hist: List[torch.Tensor] = []
-        for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+        for i, s, s_next in _steps(sig):
             d = _to_d(x, s, model(x, s, **extra))
             order = min(i, max_order - 1) + 1
             nodes = [s] + [sig[max(i - k, 0)] for k in range(1, order)]
@@ -499,7 +521,7 @@ def sample_heunpp2(model: Model, x: torch.Tensor, sigmas, extra_args:
     sig = _host_sigmas(sigmas)
     s_end, s0 = sig[-1], sig[0]
     sig_ext = sig + sig[-1:]
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         s2 = sig_ext[i + 2]
         d = _to_d(x, s, model(x, s, **extra))
         dt = s_next - s
@@ -595,7 +617,7 @@ def sample_dpm_fast(model: Model, x: torch.Tensor, sigmas, extra_args:
     else:
         orders = [3] * (m - 1) + [nfe % 3]
     steps = {1: _dpm1_step, 2: _dpm2_step, 3: _dpm3_step}
-    for i, order in enumerate(orders):
+    for i, order in _until_interrupted(enumerate(orders)):
         x = steps[order](model, x, ts[i], ts[i + 1], extra)
     return x
 
@@ -627,7 +649,8 @@ def sample_dpm_adaptive(model: Model, x: torch.Tensor, sigmas,
     x_prev, s, h = x, t_start, f32(h_init)
     errs = [f32(1.0 / 1e-8), f32(1.0 / 1e-8)]
     it = 0
-    while s < t_end - f32(1e-5) and it < max_iters:
+    while s < t_end - f32(1e-5) and it < max_iters \
+            and not itr.is_interrupted():
         t = min(t_end, f32(s + h))
         x_low, x_high = _dpm3_terms(model, x, float(s), float(t), extra)
         delta = torch.clamp(rtol * torch.maximum(x_low.abs(), x_prev.abs()),
@@ -656,7 +679,7 @@ def sample_lcm(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
     _need_keys("lcm", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         x = model(x, s, **extra)
         if s_next > 0:
             x = x + step_noise(keys, i, x) * s_next
@@ -670,7 +693,7 @@ def sample_ddpm(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
     _need_keys("ddpm", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         eps = _to_d(x, s, model(x, s, **extra))
         xs = x / math.sqrt(1.0 + s ** 2)
         ac = 1.0 / (s * s + 1.0)
@@ -695,7 +718,7 @@ def _res_multistep(model: Model, x: torch.Tensor, sigmas, extra_args:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         anchor = _last_uncond(model, denoised) if cfg_pp else denoised
         if s_next <= 0:
@@ -751,7 +774,7 @@ def sample_gradient_estimation(model: Model, x: torch.Tensor, sigmas,
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old_d = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         d = _to_d(x, s, model(x, s, **extra))
         d_bar = ge_gamma * d + (1.0 - ge_gamma) * old_d if i > 0 else d
         x = x + d_bar * (s_next - s)
@@ -773,7 +796,7 @@ def sample_er_sde(model: Model, x: torch.Tensor, sigmas, extra_args:
         return sigma * (np.exp(sigma ** 0.3) + 10.0)
 
     old_den = old_den_d = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         den_d = denoised if i == 0 else \
             (denoised - old_den) / (s - sig[i - 1])
@@ -809,7 +832,7 @@ def sample_sa_solver(model: Model, x: torch.Tensor, sigmas, extra_args:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     old = None
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next > 0:
             t = -math.log(s)
@@ -842,7 +865,7 @@ def sample_seeds_2(model: Model, x: torch.Tensor, sigmas, extra_args:
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     fac = 1.0 / (2.0 * r)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next <= 0:
             x = denoised
@@ -880,7 +903,7 @@ def sample_seeds_3(model: Model, x: torch.Tensor, sigmas, extra_args:
         _need_keys("seeds_3", keys)
     extra = extra_args or {}
     sig = _host_sigmas(sigmas)
-    for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+    for i, s, s_next in _steps(sig):
         denoised = model(x, s, **extra)
         if s_next <= 0:
             x = denoised
@@ -953,9 +976,12 @@ def _make_unipc(variant: str) -> Callable:
         def lam_at(i: int) -> float:
             return _t(sig[max(i, 0)])
 
+        # the priming call obeys the flag as the steps do
+        if itr.is_interrupted():
+            return x
         m0 = model(x, sig[0], **extra)
         m1 = m2 = None
-        for i, (s, s_next) in enumerate(zip(sig[:-1], sig[1:])):
+        for i, s, s_next in _steps(sig):
             if s_next <= 0:
                 x = m0
                 m0, m1, m2 = m0, m0, m1

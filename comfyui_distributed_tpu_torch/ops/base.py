@@ -20,6 +20,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from comfyui_distributed_tpu_torch.runtime import interrupt
+
 # sentinel for widget slots that are UI chrome (control_after_generate)
 CONTROL = "__control__"
 
@@ -108,6 +110,17 @@ class OpContext:
     # seconds of named stages inside ops (``stage``), summed over the run
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=dict)
+    # the process-wide interrupt event (``runtime/interrupt.py``), the
+    # one the samplers read at each step
+    interrupt_event: threading.Event = dataclasses.field(
+        default_factory=interrupt.interrupt_event)
+
+    def check_interrupt(self) -> None:
+        """Raise once ``/interrupt`` has set the event: the ops call this
+        on entry, after sampling and between tiles, so an interrupted
+        prompt ends as an error at its next check."""
+        if self.interrupt_event.is_set():
+            raise InterruptedError("execution interrupted")
 
 
 @contextlib.contextmanager

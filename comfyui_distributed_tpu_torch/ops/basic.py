@@ -747,6 +747,7 @@ class KSampler(Op):
     def execute(self, ctx: OpContext, model, seed, steps, cfg,
                 sampler_name, scheduler, positive: Conditioning,
                 negative: Conditioning, latent_image, denoise: float = 1.0):
+        ctx.check_interrupt()
         prep = _prepare_sample_inputs(model, seed, latent_image, positive,
                                       negative)
         out = model.sample(
@@ -778,6 +779,7 @@ class KSamplerAdvanced(Op):
                 negative: Conditioning, latent_image,
                 start_at_step: int = 0, end_at_step: int = 10000,
                 return_with_leftover_noise: str = "disable"):
+        ctx.check_interrupt()
         prep = _prepare_sample_inputs(model, noise_seed, latent_image,
                                       positive, negative)
         out = model.sample(
@@ -843,6 +845,7 @@ class VAEDecode(Op):
     TYPE = "VAEDecode"
 
     def execute(self, ctx: OpContext, samples, vae):
+        ctx.check_interrupt()
         img = vae.vae_decode(as_device_array(samples["samples"], vae.device))
         return (DeviceImage(img.clamp(0.0, 1.0)),)
 
@@ -1106,7 +1109,8 @@ class UpscaleModelLoader(Op):
 @register_op
 class ImageUpscaleWithModel(Op):
     """Super-resolution of the whole image, or above ``TILE_THRESHOLD``
-    input pixels over feathered overlapping tiles (``tiled_apply``)."""
+    input pixels over feathered overlapping tiles (``tiled_apply``),
+    which stop between tiles once the prompt is interrupted."""
     TYPE = "ImageUpscaleWithModel"
     TILE_THRESHOLD = 1024 * 1024
     TILE = 512
@@ -1119,7 +1123,8 @@ class ImageUpscaleWithModel(Op):
             out = upscale_model(img)
         else:
             out = tiled_apply(upscale_model, img, self.TILE, self.OVERLAP,
-                              upscale_model.scale, out_channels=img.shape[-1])
+                              upscale_model.scale, out_channels=img.shape[-1],
+                              check_interrupt=ctx.check_interrupt)
         return (DeviceImage(out),)
 
 

@@ -109,6 +109,7 @@ class UltimateSDUpscaleDistributed(Op):
                 force_uniform_tiles=True, multi_job_id="", is_worker=None,
                 master_url="", enabled_worker_ids="[]", worker_id="",
                 tile_indices="", dispatch_attempt=0):
+        ctx.check_interrupt()
         if getattr(model, "perp_neg_cond", None) is not None:
             raise NotImplementedError(
                 "PerpNeg in the tiled upscaler is not ported yet")
@@ -251,6 +252,9 @@ class UltimateSDUpscaleDistributed(Op):
                 lat, context, uncond, seeds, steps=p["steps"], cfg=p["cfg"],
                 sampler_name=p["sampler_name"], scheduler=p["scheduler"],
                 denoise=p["denoise"], y=y, add_noise=True, sample_idx=idx)
+        # an interrupted sample returns its latent part-way: end the
+        # prompt here, so no noisy tile is blended or sent to the master
+        ctx.check_interrupt()
         with stage(ctx, "tile_decode"):
             # clamped at the decode boundary, as the JAX package does
             return pipe.vae_decode(lat).clamp(0.0, 1.0)

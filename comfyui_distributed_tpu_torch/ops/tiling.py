@@ -12,7 +12,7 @@ reproduced here without Pillow.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -270,10 +270,14 @@ def tiled_apply_down(fn: TileFn, x: torch.Tensor, tile: int, overlap: int,
 
 
 def tiled_apply(fn: TileFn, x: torch.Tensor, tile: int, overlap: int,
-                scale: int, out_channels: int) -> torch.Tensor:
+                scale: int, out_channels: int,
+                check_interrupt: Optional[Callable[[], None]] = None
+                ) -> torch.Tensor:
     """Apply ``fn`` ([B, th, tw, C] -> [B, th * scale, tw * scale,
     out_channels]) over uniform overlapping windows of ``x``,
-    feather-blending in output space (the tiled super-resolution pass)."""
+    feather-blending in output space (the tiled super-resolution pass).
+    ``check_interrupt`` (``OpContext.check_interrupt``) runs before each
+    tile, so a long pass stops between tiles."""
     b, h, w, _ = x.shape
     th, tw = min(tile, h), min(tile, w)
     canvas = x.new_zeros((b, h * scale, w * scale, out_channels))
@@ -283,6 +287,8 @@ def tiled_apply(fn: TileFn, x: torch.Tensor, tile: int, overlap: int,
                                                                 None]
     for y0 in uniform_tile_starts(h, th, overlap):
         for x0 in uniform_tile_starts(w, tw, overlap):
+            if check_interrupt is not None:
+                check_interrupt()
             out = fn(x[:, y0:y0 + th, x0:x0 + tw, :]).float()
             ys, xs = y0 * scale, x0 * scale
             canvas[:, ys:ys + th * scale, xs:xs + tw * scale] += out * mask

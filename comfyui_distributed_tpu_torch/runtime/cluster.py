@@ -71,6 +71,14 @@ class Counters:
         with self._lock:
             return dict(self._counts)
 
+    def reset(self) -> int:
+        """Zero every count (``POST /distributed/metrics/reset``);
+        returns how many names there were."""
+        with self._lock:
+            n = len(self._counts)
+            self._counts.clear()
+            return n
+
 
 COUNTERS = Counters()
 

@@ -4,9 +4,10 @@
 
 A daemon thread probes every enabled worker's ``GET /prompt`` each
 ``interval`` seconds; each result (online, processing or offline) feeds
-the registry's lease state machine (``ClusterRegistry.observe_probe``).
-The JAX package's process manager (the ``launching`` flag) and its
-status route (``/distributed/workers_status``) are not ported.
+the registry's lease state machine (``ClusterRegistry.observe_probe``),
+the first successful contact with a managed worker clears its
+``launching`` flag (``runtime/manager.py``), and the last round is kept
+for ``GET /distributed/workers_status`` (:meth:`HealthPoller.snapshot`).
 """
 
 from __future__ import annotations
@@ -39,14 +40,17 @@ def probe_worker(worker: Dict[str, Any], timeout: float = 2.0
 
 
 class HealthPoller:
-    """Daemon polling thread."""
+    """Daemon polling thread and the last round's statuses."""
 
-    def __init__(self, config_path: Optional[str] = None,
+    def __init__(self, config_path: Optional[str] = None, manager=None,
                  interval: float = WORKER_CHECK_INTERVAL,
                  registry=None):
         self.config_path = config_path
+        self.manager = manager
         self.registry = registry
         self.interval = interval
+        self._status: Dict[str, Dict[str, Any]] = {}   # guarded-by: _lock
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -85,4 +89,15 @@ class HealthPoller:
                     info={"host": w.get("host") or "127.0.0.1",
                           "port": w.get("port"), "name": w.get("name"),
                           "queue_remaining": st.get("queue_remaining")})
+            if st["status"] in ("online", "processing") \
+                    and self.manager is not None:
+                self.manager.clear_launching(wid)
+        with self._lock:
+            self._status = snapshot
         return snapshot
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """The last round: worker id -> status, as ``poll_once``
+        returned it."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._status.items()}

@@ -26,7 +26,23 @@ other:
   ``/distributed/heartbeat`` (a worker's lease; unknown workers join),
   ``GET /distributed/cluster`` (lease states, the work ledger's active
   and finished jobs, the fault and hedge policy), with the JAX package's
-  bodies and keys.
+  bodies and keys;
+- worker management (``runtime/manager.py``): ``POST
+  /distributed/launch_worker`` (404 for an id not in the config, 409
+  when it runs), ``/distributed/stop_worker`` (404 when not managed),
+  ``GET /distributed/managed_workers``, ``GET /distributed/worker_log``
+  (``?id=`` and ``?bytes=``), ``POST /distributed/worker/clear_launching``;
+- control: ``POST /interrupt`` (the running prompt stops at its next
+  sampler step and ends as an error), ``/distributed/cluster/interrupt``
+  (every enabled worker too), ``/distributed/clear_memory`` (the
+  pipeline caches, the garbage collector and ``torch.cuda.empty_cache``,
+  with the bytes freed) and ``/distributed/cluster/clear_memory``,
+  ``/distributed/config/update_setting`` and ``/update_master``, ``GET
+  /distributed/network_info``, ``/distributed/status``,
+  ``/distributed/workers_status`` (the health poller's last round),
+  ``POST /distributed/metrics/reset`` (403 under
+  ``DTPU_METRICS_RESET=0``) and ``GET /panel``, the page that drives
+  them.
 
 One execution thread runs the queue in FIFO order through the port's
 ``WorkflowExecutor`` on the server's device; handler threads answer
@@ -34,50 +50,78 @@ while it runs.  Each finished prompt logs one line,
 ``dtpu-torch prompt {...}``, with its kernel launches by variant and by
 shape and ``torch.cuda.max_memory_allocated()``.  A master owns a
 ``ClusterRegistry`` seeded from its config, a ``WorkLedger`` and a
-``HealthPoller`` (started by :func:`serve`); a worker started with
-``DTPU_MASTER_URL`` and ``DTPU_WORKER_ID`` heartbeats its master.
-Admission control, tracing, the write-ahead log, previews and
-``/interrupt`` wait.
+``HealthPoller`` (started by :func:`serve`) and a
+``WorkerProcessManager``; a worker started with ``DTPU_MASTER_URL`` and
+``DTPU_WORKER_ID`` heartbeats its master.  Admission control, tracing,
+the write-ahead log and previews wait.
 """
 
 from __future__ import annotations
 
 import base64
 import collections
+import dataclasses
+import gc
+import http.client
 import json
 import os
 import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.parse
+import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from comfyui_distributed_tpu_torch.models import registry
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
+from comfyui_distributed_tpu_torch.runtime import interrupt
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
+from comfyui_distributed_tpu_torch.runtime.manager import (
+    WorkerProcessManager,
+    auto_launch_workers,
+    install_exit_hooks,
+)
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import resource
 from comfyui_distributed_tpu_torch.utils.image import (
     decode_png,
     decode_tensor,
     tensor_codecs,
 )
 from comfyui_distributed_tpu_torch.utils.log import log
-from comfyui_distributed_tpu_torch.utils.net import FormPart, parse_multipart
+from comfyui_distributed_tpu_torch.utils.net import (
+    FormPart,
+    network_info,
+    parse_multipart,
+)
 from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+from comfyui_distributed_tpu_torch.workflow.dispatcher import worker_url
 from comfyui_distributed_tpu_torch.workflow.orchestrate import (
     is_dispatched_share,
     run_distributed,
 )
 
 Response = Tuple[int, Any]
+PANEL_HTML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "panel.html")
+
+
+@dataclasses.dataclass
+class Raw:
+    """A response body sent as it is (a route's payload is otherwise
+    sent as JSON)."""
+    data: bytes
+    content_type: str
 
 
 class ServerState:
@@ -105,7 +149,10 @@ class ServerState:
         if not is_worker:
             self.cluster.seed_from_config(
                 cfg_mod.load_config(config_path).get("workers", []))
+        self.manager = WorkerProcessManager(config_path=config_path,
+                                            models_dir=models_dir)
         self.health = HealthPoller(config_path=config_path,
+                                   manager=self.manager,
                                    registry=self.cluster)
         self.heartbeat: Optional[cluster_mod.HeartbeatSender] = None
         self.fault_inject = cluster_mod.fault_injection()
@@ -159,6 +206,9 @@ class ServerState:
                     self._running = False
 
     def _execute(self, item: Dict[str, Any]) -> None:
+        # the process-wide flag (``runtime/interrupt.py``), as in the JAX
+        # package: /interrupt sets it, each prompt clears it at its start
+        interrupt.clear_interrupt()
         on_cuda = torch.device(self.device).type == "cuda"
         fa.reset_counts()
         if on_cuda:
@@ -295,7 +345,7 @@ def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
 def routes(state: ServerState
            ) -> Dict[Tuple[str, str], Callable[..., Response]]:
     """(method, path) -> handler(body bytes, content type, query, the
-    client's address) -> (status, JSON body)."""
+    client's address) -> (status, JSON body or :class:`Raw`)."""
 
     def ok(**kw) -> Response:
         return 200, {"status": "ok", **kw}
@@ -459,6 +509,177 @@ def routes(state: ServerState
                       master_time=time.time())
         return handler
 
+    # --- worker management -------------------------------------------------
+
+    def launch_worker(body, ctype, query, remote=None):
+        wid = str(json_body(body).get("id"))
+        cfg = cfg_mod.load_config(state.config_path)
+        worker = next((w for w in cfg["workers"] if str(w.get("id")) == wid),
+                      None)
+        if worker is None:
+            return 404, {"error": "worker not found"}
+        try:
+            entry = state.manager.launch_worker(
+                worker, stop_on_master_exit=cfg["settings"].get(
+                    "stop_workers_on_master_exit", True))
+        except RuntimeError as e:
+            return 409, {"error": str(e)}
+        return ok(worker=entry)
+
+    def stop_worker(body, ctype, query, remote=None):
+        if not state.manager.stop_worker(str(json_body(body).get("id"))):
+            return 404, {"error": "not managed"}
+        return ok()
+
+    def managed_workers(body, ctype, query, remote=None):
+        return 200, state.manager.get_managed_workers()
+
+    def worker_log(body, ctype, query, remote=None):
+        try:
+            text = state.manager.tail_log(
+                query.get("id", ""),
+                max_bytes=int(query.get("bytes", C.LOG_TAIL_BYTES)))
+        except FileNotFoundError as e:
+            return 404, {"error": str(e)}
+        return 200, {"log": text}
+
+    def clear_launching(body, ctype, query, remote=None):
+        state.manager.clear_launching(str(json_body(body).get("id")))
+        return ok()
+
+    # --- control ---------------------------------------------------------------
+
+    def to_workers(path: str, bodies: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
+        """POST ``path`` on every enabled worker at once: worker id ->
+        its status code, or the error's text when none came back;
+        ``bodies`` collects each 200 answer's JSON."""
+        results: Dict[str, Any] = {}
+
+        def hit(w):
+            wid = str(w["id"])
+            req = urllib.request.Request(
+                worker_url(w) + path, data=b"{}", method="POST",
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    results[wid] = r.status
+                    raw = r.read()
+            except urllib.error.HTTPError as e:
+                results[wid] = e.code
+                return
+            except (OSError, http.client.HTTPException) as e:
+                results[wid] = str(e)
+                return
+            if bodies is not None:
+                try:
+                    bodies[wid] = json.loads(raw)
+                except ValueError:
+                    pass   # a body that is not JSON counts no bytes
+
+        threads = [threading.Thread(target=hit, args=(w,)) for w in
+                   cfg_mod.enabled_workers(cfg_mod.load_config(
+                       state.config_path))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return results
+
+    def interrupt_route(body, ctype, query, remote=None):
+        interrupt.request_interrupt()
+        log("interrupt requested")
+        return ok()
+
+    def cluster_interrupt(body, ctype, query, remote=None):
+        results = to_workers("/interrupt")
+        interrupt.request_interrupt()
+        return ok(workers=results)
+
+    def clear_memory(body, ctype, query, remote=None):
+        before = resource.device_memory_snapshot(state.device)
+        rss_before = resource.host_rss_bytes()
+        registry.clear_pipeline_cache()
+        for _ in range(3):
+            gc.collect()
+        if torch.device(state.device).type == "cuda":
+            torch.cuda.empty_cache()
+        after = resource.device_memory_snapshot(state.device)
+        freed = max(before["bytes_in_use"] - after["bytes_in_use"], 0)
+        log(f"cleared the pipeline caches (freed {freed / 1e6:.1f} MB, "
+            f"source={after['source']})")
+        # cache_freed_bytes: the JAX package's reuse plane, not ported
+        return ok(freed_bytes=freed, cache_freed_bytes=0,
+                  device_bytes_before=before["bytes_in_use"],
+                  device_bytes_after=after["bytes_in_use"],
+                  host_rss_before=rss_before,
+                  host_rss_after=resource.host_rss_bytes(),
+                  source=after["source"])
+
+    def cluster_clear_memory(body, ctype, query, remote=None):
+        bodies: Dict[str, Any] = {}
+        results = to_workers("/distributed/clear_memory", bodies)
+        freed_by = {"master": clear_memory(body, ctype, query)[1][
+            "freed_bytes"]}
+        for wid, b in bodies.items():
+            if isinstance(b, dict) and "freed_bytes" in b:
+                freed_by[wid] = int(b["freed_bytes"])
+        return ok(workers=results, freed_bytes=freed_by,
+                  freed_bytes_total=sum(freed_by.values()))
+
+    def update_setting(body, ctype, query, remote=None):
+        data = json_body(body)
+        if "key" not in data:
+            return 400, {"error": "missing key"}
+        cfg_mod.mutate_config(lambda cfg: cfg_mod.update_setting(
+            cfg, data["key"], data.get("value")), state.config_path)
+        return ok()
+
+    def update_master(body, ctype, query, remote=None):
+        data = json_body(body)
+        # an explicit null deletes a field, an absent key leaves it alone
+        fields = {k: data[k] for k in ("host", "port", "extra_args")
+                  if k in data}
+        cfg_mod.mutate_config(lambda cfg: cfg_mod.update_master(
+            cfg, **fields), state.config_path)
+        return ok()
+
+    def get_network_info(body, ctype, query, remote=None):
+        return 200, network_info()
+
+    def status(body, ctype, query, remote=None):
+        # the JAX package's mesh keys: a torch server is one device
+        return 200, {"enabled": True,
+                     "axes": {"data": 1, "tensor": 1, "seq": 1},
+                     "num_participants": 1,
+                     **resource.describe_devices(state.device),
+                     "jobs": state.jobs.snapshot(),
+                     "queue_remaining": state.queue_remaining(),
+                     "is_worker": state.is_worker}
+
+    def workers_status(body, ctype, query, remote=None):
+        return 200, state.health.snapshot()
+
+    def metrics_reset(body, ctype, query, remote=None):
+        """Zero the metric counters and ``cluster_counters``; the prompt
+        history stays."""
+        if os.environ.get(C.METRICS_RESET_ENV, "1").lower() \
+                in ("0", "false", "off"):
+            return 403, {"error": "metrics reset disabled "
+                                  f"({C.METRICS_RESET_ENV}=0)"}
+        json_body(body)
+        with state._metrics_lock:
+            for k, v in state.metrics.items():
+                state.metrics[k] = type(v)()
+        cleared = {"metrics": True,
+                   "cluster_counters": cluster_mod.COUNTERS.reset()}
+        log(f"metrics reset (by {remote or 'unknown'})")
+        return ok(cleared=cleared)
+
+    def panel(body, ctype, query, remote=None):
+        with open(PANEL_HTML, "rb") as f:
+            return 200, Raw(f.read(), "text/html; charset=utf-8")
+
     return {
         ("GET", "/prompt"): get_prompt,
         ("POST", "/prompt"): post_prompt,
@@ -477,6 +698,22 @@ def routes(state: ServerState
         ("GET", "/distributed/cluster"): cluster_info,
         ("POST", "/distributed/register"): lease(state.cluster.register),
         ("POST", "/distributed/heartbeat"): lease(state.cluster.heartbeat),
+        ("POST", "/distributed/launch_worker"): launch_worker,
+        ("POST", "/distributed/stop_worker"): stop_worker,
+        ("GET", "/distributed/managed_workers"): managed_workers,
+        ("GET", "/distributed/worker_log"): worker_log,
+        ("POST", "/distributed/worker/clear_launching"): clear_launching,
+        ("POST", "/interrupt"): interrupt_route,
+        ("POST", "/distributed/cluster/interrupt"): cluster_interrupt,
+        ("POST", "/distributed/clear_memory"): clear_memory,
+        ("POST", "/distributed/cluster/clear_memory"): cluster_clear_memory,
+        ("POST", "/distributed/config/update_setting"): update_setting,
+        ("POST", "/distributed/config/update_master"): update_master,
+        ("GET", "/distributed/network_info"): get_network_info,
+        ("GET", "/distributed/status"): status,
+        ("GET", "/distributed/workers_status"): workers_status,
+        ("POST", "/distributed/metrics/reset"): metrics_reset,
+        ("GET", "/panel"): panel,
     }
 
 
@@ -503,9 +740,13 @@ def make_handler(state: ServerState) -> type:
             except Exception as e:  # noqa: BLE001 - a 500, not a dead thread
                 traceback.print_exc()
                 status, payload = 500, {"error": str(e)}
-            data = json.dumps(payload).encode()
+            if isinstance(payload, Raw):
+                data, content_type = payload.data, payload.content_type
+            else:
+                data = json.dumps(payload).encode()
+                content_type = "application/json"
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
@@ -534,15 +775,20 @@ def make_server(state: ServerState, host: str = "127.0.0.1",
 
 def serve(state: ServerState, host: str = "127.0.0.1",
           port: int = 8288) -> None:
-    """Serve until interrupted: a master polls its workers' health, a
-    worker renews its lease at ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID``
-    when both are set."""
+    """Serve until interrupted: a master polls its workers' health,
+    launches its enabled local workers when the config's
+    ``settings.auto_launch_workers`` is true and stops its managed
+    workers when it exits (so it must run on the main thread, which
+    signal handlers need); a worker renews its lease at
+    ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID`` when both are set."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
     if state.is_worker:
         state.heartbeat = cluster_mod.maybe_start_heartbeat(port=state.port)
     else:
+        install_exit_hooks(state.manager)
         state.health.start()
+        auto_launch_workers(state.manager)
     log(f"{role} listening on {host}:{state.port} (device {state.device})")
     sys.stdout.flush()
     try:

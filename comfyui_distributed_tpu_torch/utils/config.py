@@ -17,8 +17,10 @@ Schema::
       "managed_processes": {name: {"pid": int, ...}}
     }
 
-The port reads ``master`` and ``workers``; it keeps the other sections
-so a file stays valid for the JAX package.
+The port reads ``master``, ``workers``, ``settings`` and
+``managed_processes`` (the worker manager's PIDs); it keeps ``mesh`` so
+a file stays valid for the JAX package.  Every load and save applies
+``settings.debug`` to the debug log tier (``utils/log.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import os
 import tempfile
 import threading
 from typing import Any, Callable, Dict, List, Optional
+
+from comfyui_distributed_tpu_torch.utils.log import set_debug
 
 _lock = threading.RLock()
 
@@ -81,7 +85,9 @@ def load_config(path: Optional[str] = None) -> Dict[str, Any]:
                 cfg = json.load(f)
         except (FileNotFoundError, json.JSONDecodeError):
             cfg = get_default_config()
-        return _merge_defaults(cfg)
+        cfg = _merge_defaults(cfg)
+    set_debug(bool(cfg["settings"].get("debug", False)))
+    return cfg
 
 
 def save_config(cfg: Dict[str, Any], path: Optional[str] = None) -> None:
@@ -102,6 +108,7 @@ def save_config(cfg: Dict[str, Any], path: Optional[str] = None) -> None:
             except OSError:
                 pass
             raise
+    set_debug(bool(cfg.get("settings", {}).get("debug", False)))
 
 
 def mutate_config(mutator: Callable[[Dict[str, Any]], Any],
@@ -143,6 +150,19 @@ def delete_worker(cfg: Dict[str, Any], worker_id: str) -> bool:
 
 def update_setting(cfg: Dict[str, Any], key: str, value: Any) -> None:
     cfg.setdefault("settings", {})[key] = value
+    if key == "debug":
+        set_debug(bool(value))
+
+
+def update_master(cfg: Dict[str, Any], **fields: Any) -> None:
+    """Set the master's ``host``/``port``/``extra_args``: a field given
+    as ``None`` is deleted, a field not given is left alone."""
+    master = cfg.setdefault("master", {})
+    for k, v in fields.items():
+        if v is None:
+            master.pop(k, None)
+        else:
+            master[k] = v
 
 
 def enabled_workers(cfg: Dict[str, Any]) -> List[Dict[str, Any]]:

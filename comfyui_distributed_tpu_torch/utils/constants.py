@@ -1,7 +1,8 @@
-"""Timeouts, node-type sets and wire constants of the HTTP fan-out: the
-subset of ``comfyui_distributed_tpu/utils/constants.py`` that the port's
-master/worker path reads, with the same values, so a worker of either
-package keeps to a master of the other.
+"""Timeouts, node-type sets and wire constants of the HTTP fan-out and
+the worker manager: the subset of
+``comfyui_distributed_tpu/utils/constants.py`` that the port reads, with
+the same values, so a worker of either package keeps to a master of the
+other.
 """
 
 # --- job collection --------------------------------------------------------
@@ -72,3 +73,11 @@ WORKER_ID_ENV = "DTPU_WORKER_ID"     # this worker's config id
 # makes a worker stop after sending k tiles; {"stall_s": t} delays its
 # first tile send by t seconds
 FAULT_INJECT_ENV = "DTPU_FAULT_INJECT"
+
+# --- worker lifecycle (runtime/manager.py, runtime/monitor.py) ---------------
+PROCESS_TERMINATION_TIMEOUT = 5.0  # s a TERM may take before KILL
+PROCESS_WAIT_TIMEOUT = 3.0       # s to reap a process after KILL
+WORKER_STARTUP_DELAY = 2.0       # s before auto-launching workers
+LOG_TAIL_BYTES = 65536           # default tail of GET /distributed/worker_log
+MASTER_PID_ENV = "DTPU_MASTER_PID"   # a managed worker's master
+METRICS_RESET_ENV = "DTPU_METRICS_RESET"  # "0" refuses POST .../metrics/reset

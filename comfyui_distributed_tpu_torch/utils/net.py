@@ -12,6 +12,8 @@ of ``comfyui_distributed_tpu/utils/net.py`` without ``aiohttp``.
 - :func:`negotiate_wire_format` / :func:`wire_codec`: one
   ``GET /distributed/wire_formats`` per master decides between raw-tensor
   uploads and PNG.
+- :func:`network_info`: this host's addresses and the one to give remote
+  workers (``GET /distributed/network_info``).
 """
 
 from __future__ import annotations
@@ -247,6 +249,63 @@ def negotiate_wire_format(master_url: str) -> str:
     with _wire_lock:
         _wire_formats[master_url] = (fmt, codec)
     return fmt
+
+
+# --- host addresses ------------------------------------------------------------
+
+def get_network_ips() -> List[str]:
+    """This host's IPv4 addresses: its name's, the source address of a
+    route (a UDP socket's connect sends nothing) and 127.0.0.1."""
+    ips: List[str] = []
+    try:
+        for info in socket.getaddrinfo(socket.gethostname(), None,
+                                       family=socket.AF_INET):
+            if info[4][0] not in ips:
+                ips.append(info[4][0])
+    except socket.gaierror:
+        pass
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            s.connect(("10.255.255.255", 1))
+            ip = s.getsockname()[0]
+            if ip not in ips:
+                ips.append(ip)
+        finally:
+            s.close()
+    except OSError:
+        pass
+    if "127.0.0.1" not in ips:
+        ips.append("127.0.0.1")
+    return ips
+
+
+def _private_rank(ip: str) -> int:
+    """192.168/16 first, then 10/8, 172.16/12, any other, loopback."""
+    if ip.startswith("192.168."):
+        return 0
+    if ip.startswith("10."):
+        return 1
+    if ip.startswith("172."):
+        try:
+            if 16 <= int(ip.split(".")[1]) <= 31:
+                return 2
+        except (IndexError, ValueError):
+            pass
+    if ip.startswith("127."):
+        return 9
+    return 5
+
+
+def get_recommended_ip() -> str:
+    return sorted(get_network_ips(), key=_private_rank)[0]
+
+
+def network_info() -> Dict[str, Any]:
+    """``GET /distributed/network_info``: the addresses, the one a
+    remote worker should use, the host name."""
+    return {"ips": get_network_ips(), "recommended_ip": get_recommended_ip(),
+            "hostname": socket.gethostname()}
 
 
 def find_free_port(host: str = "127.0.0.1") -> int:

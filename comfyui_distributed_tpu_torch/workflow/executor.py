@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.ops.base import OpContext, get_op
+from comfyui_distributed_tpu_torch.utils.log import debug_log
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
 
 
@@ -71,6 +72,7 @@ class WorkflowExecutor:
             for hname, hval in node.hidden.items():
                 if hname in op.HIDDEN:
                     kwargs[hname] = hval
+            debug_log(f"exec node {nid} ({node.class_type})")
             t0 = time.perf_counter()
             with torch.no_grad():
                 outputs[nid] = op.execute(self.ctx, **kwargs)

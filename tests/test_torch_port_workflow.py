@@ -135,15 +135,20 @@ def _modules():
 
 
 def test_imports_load_no_jax_and_nothing_of_the_jax_package():
-    """Every module of the port, the HTTP fan-out's and the CLIP-vision
-    tower's too, imports without JAX, the JAX package, Pillow or aiohttp
-    (the card's machine has none of the last two), and the regional,
-    split-loader and unCLIP ops register."""
+    """Every module of the port, the HTTP fan-out's, the CLIP-vision
+    tower's and the worker manager's too, imports without JAX, the JAX
+    package, Pillow or aiohttp (the card's machine has none of the last
+    two), and the regional, split-loader and unCLIP ops register."""
     assert {"comfyui_distributed_tpu_torch.server.app",
             "comfyui_distributed_tpu_torch.cli",
             "comfyui_distributed_tpu_torch.workflow.orchestrate",
             "comfyui_distributed_tpu_torch.utils.net",
-            "comfyui_distributed_tpu_torch.models.clip_vision"} \
+            "comfyui_distributed_tpu_torch.models.clip_vision",
+            "comfyui_distributed_tpu_torch.runtime.manager",
+            "comfyui_distributed_tpu_torch.runtime.monitor",
+            "comfyui_distributed_tpu_torch.runtime.interrupt",
+            "comfyui_distributed_tpu_torch.utils.process",
+            "comfyui_distributed_tpu_torch.utils.resource"} \
         <= set(_modules())
     ops = ["ConditioningCombine", "ConditioningSetAreaPercentage",
            "ConditioningSetTimestepRange", "UNETLoader", "CLIPLoader",
