@@ -200,10 +200,38 @@ Run from the root of a checkout on a machine with a CUDA card (and
    2 x ``WORKER_CHECK_INTERVAL`` + ``PROCESS_TERMINATION_TIMEOUT``.  It
    prints a ``phase15`` line with the card; the interrupted request's
    launches count in the ``kernels`` line.
+16. the master's death (the write-ahead log, ``runtime/durable.py``):
+   the pipelines released (it fails unless ``PHASE16_MIN_FREE`` bytes
+   are free), four SD1.5 ``cli`` servers start: master A with
+   ``DTPU_WAL_DIR`` (fsync always, a ``PHASE16_MASTER_LEASE_S`` lease),
+   standby B on the same log (``DTPU_STANDBY=1``), w0, and w1 stalling
+   ``PHASE16_STALL_S`` before it sends.  References on A with w1
+   disabled: the upscale (seed 42) cold and twice warm, each within
+   ``FANOUT_ATOL["one_batch"]`` of phase 7's image, with A's
+   ``wal_spill`` and ``wal_append`` seconds beside phase 8's warm
+   upscale, and the inpaint fan-out, equal to phase 14's in-process
+   slices to the bit.  Drill 1: the upscale with w1; once A holds every
+   tile but w1's, A and w1 get SIGKILL; B must take over when the lease
+   expires (epoch 2, one takeover), resume the prompt under its id to
+   ``success``, with the tile job recovered, every tile done, the tiles
+   done at the kill preloaded and w1's reassigned, w0 healthy at B
+   through its re-homed heartbeat, and the image within the one-batch
+   limits of A's reference and phase 7's.  Drill 2: w1 started again
+   (stalling), the inpaint fan-out on B; once w0's slice is in, B and w1
+   get SIGKILL and B starts again in place with its owner id (epoch 3):
+   the prompt ends ``success`` under its id with w0's slice loaded from
+   the store (preloaded, w0 renders it no more), w1's redispatched (the
+   restarted B receives that one slice), the three images equal to
+   phase 14's in-process slices and A's reference to the bit.  Then
+   ``cli wal --dir D`` must find no corrupt record.  Every server's
+   launches must be sm90 alone at shapes phase 3 checked; they count in
+   the ``kernels`` line.  It prints the seconds from each kill (to the
+   lease's expiry, the takeover and the success) and a ``phase16``
+   line.
 
 Launch counts are zeroed just before each request of phases 5-7 and
-9-13 and read just after (phase 15's interrupted request: its server's
-prompt line).  The line before the last is ``{"kernels":
+9-13 and read just after (phase 15's interrupted request and every
+request of phase 16: its servers' prompt lines).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -339,6 +367,13 @@ PHASE15_INTERRUPT_END_S = 2.0
 PHASE15_CLUSTER_INTERRUPT_END_S = 5.0
 PHASE15_CLEAR_MIN_FREED = 5_000_000_000
 SDXL_STEP_LAUNCHES = 140
+# phase 16: the master lease (renewed every third of it, the standby
+# looks as often), w1's stall before it sends (it is killed first), and
+# the free device memory four SD1.5 servers need (phase 8's upscale
+# servers peaked at 17.30 GB at B = 16, phase 14's at 8.17 GB)
+PHASE16_MASTER_LEASE_S = 3.0
+PHASE16_STALL_S = 300
+PHASE16_MIN_FREE = 60_000_000_000
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -839,9 +874,9 @@ def totals(shapes, by_shape, keys):
 
 
 def kernels_line(rows, variant_counts, shape_counts):
-    """The contract's entries over the launches of phases 5-7 and 9-13:
-    one per kernel variant that they launched, each over exactly its
-    shapes."""
+    """The contract's entries over the launches of phases 5-7, 9-13, 15's
+    interrupted request and 16: one per kernel variant that they
+    launched, each over exactly its shapes."""
     by_shape = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
                 for r in rows if not r.get("named")}
     missing = [s for s in shape_counts if s not in by_shape]
@@ -1388,7 +1423,8 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
     upscale with w1 killed after dispatch (its tiles reassigned), and
     drill 3, after w1 restarts without a fault, the inpaint fan-out with
     w1 killed after dispatch (its seed slice redispatched to w0).
-    ``rows``: phase 3's checks."""
+    ``rows``: phase 3's checks.  Returns the report and the in-process
+    inpaint slices (phase 16 holds its own against them)."""
     import gc
 
     import torch
@@ -1498,7 +1534,8 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
             "fault_to_success_s": {d["drill"]: d["fault_to_success_s"]
                                    for d in drills},
             "peak_memory": {d["drill"]: d["peak_memory"] for d in drills},
-            "ledger": {d["drill"]: d["ledger"] for d in drills}}
+            "ledger": {d["drill"]: d["ledger"] for d in drills}}, \
+        inpaint_refs
 
 
 def proc_tree(pid):
@@ -1913,6 +1950,417 @@ def worker_management(docs, txt_refs, rows):
                    "shapes": {tuple(x[:6]): x[6] for x in
                               intr["line"]["launches_by_shape"]}}
     return report, interrupted
+
+
+def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
+                    phase8_warm_s, rows):
+    """Phase 16: the fan-out survives its master's death on one card.  A
+    durable master A (``DTPU_WAL_DIR``, fsync always, a
+    ``PHASE16_MASTER_LEASE_S`` lease), a standby B on the same log, and
+    workers w0 and w1 (w1 stalling ``PHASE16_STALL_S`` before it sends)
+    start as four ``cli`` servers.  References on A with w1 disabled:
+    the upscale cold and twice warm and the inpaint fan-out.  Drill 1:
+    the upscale with w1, A and w1 SIGKILLed once every tile but w1's is
+    in; B takes over when the lease expires, resumes the prompt under
+    its id, blends the stored tiles and redispatches w1's to w0.  Drill
+    2: the inpaint fan-out on B with a new w1, B and w1 SIGKILLed once
+    w0's slice is in; B restarted in place resumes it, loads w0's slice
+    and redispatches w1's.  Then ``cli wal`` verifies the log.
+    ``upscale_ref``: phase 7's image; ``inpaint_refs``: phase 14's
+    in-process slices at seeds s, s + 1, s + 2; ``phase8_warm_s``: phase
+    8's warm fan-out upscale; ``rows``: phase 3's checks.  Returns the
+    report and every server's launches (by variant and by shape)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops import tiling
+    from comfyui_distributed_tpu_torch.runtime import durable
+    from comfyui_distributed_tpu_torch.utils.image import decode_png
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 16: {free} of {total} bytes of device memory free before "
+          f"the servers start", flush=True)
+    if free < PHASE16_MIN_FREE:
+        fail(f"phase 16 needs {PHASE16_MIN_FREE} bytes free for four SD1.5 "
+             f"servers, {free} are")
+    seed = SEEDS[0]
+    up = with_save_image(docs["upscale"])
+    up["2"]["inputs"]["seed"] = 42
+    up["1"]["inputs"]["image"] = "drill_test_card.png"   # as in phase 14
+    size, p = up["16"]["inputs"], up["2"]["inputs"]
+    n_tiles = len(tiling.calculate_tiles(size["width"], size["height"],
+                                         p["tile_width"], p["tile_height"]))
+    w1_tiles = len(tiling.partition_tiles(n_tiles, 2)[2])
+    inpaint = with_save_image(docs["inpaint"])
+    seed_node = next(n for n, node in inpaint.items()
+                     if isinstance(node, dict)
+                     and node.get("class_type") == "DistributedSeed")
+    inpaint[seed_node]["inputs"]["seed"] = seed
+    launches = {"variants": collections.Counter(),
+                "shapes": collections.Counter()}
+    report = {"card": card_line(), "free_bytes_before": free,
+              "settings": {"master_lease_s": PHASE16_MASTER_LEASE_S,
+                           "wal_sync": "always", "stall_s": PHASE16_STALL_S,
+                           "hedge": 0}}
+    with tempfile.TemporaryDirectory() as root:
+        wal_dir = os.path.join(root, "wal")
+        durable_env = {"DTPU_WAL_DIR": wal_dir, "DTPU_WAL_SYNC": "always",
+                       "DTPU_MASTER_LEASE_S": str(PHASE16_MASTER_LEASE_S),
+                       "DTPU_HEDGE": "0", "DTPU_FAULT_POLICY": "reassign"}
+        stall = json.dumps({"stall_s": PHASE16_STALL_S})
+        roles = {"A": ("serve", durable_env),
+                 "B": ("serve", {**durable_env, "DTPU_STANDBY": "1",
+                                 "DTPU_MASTER_ID": "B"}),
+                 "w0": ("worker", {"DTPU_WORKER_ID": "w0"}),
+                 "w1": ("worker", {"DTPU_WORKER_ID": "w1",
+                                   "DTPU_FAULT_INJECT": stall})}
+        cluster = Cluster(root, roles)
+        for role in roles:
+            for name in ("input.png", "source.png"):
+                shutil.copy(os.path.join(input_dir, name),
+                            os.path.join(cluster.dirs[role], "input"))
+        for role, w1_on in (("A", False), ("B", True)):
+            with open(os.path.join(cluster.dirs[role],
+                                   "cluster_config.json"), "w") as f:
+                json.dump({"master": {"host": "127.0.0.1"},
+                           "workers": [{"id": w, "name": w,
+                                        "host": "127.0.0.1",
+                                        "port": cluster.ports[w],
+                                        "enabled": w == "w0" or w1_on}
+                                       for w in ("w0", "w1")]}, f)
+        for role in ("w0", "w1"):
+            roles[role][1]["DTPU_MASTER_URL"] = cluster.url("A")
+
+        def outputs(role):
+            d = os.path.join(cluster.dirs[role], "output")
+            return sorted(os.path.join(d, f) for f in os.listdir(d)) \
+                if os.path.isdir(d) else []
+
+        def wait_healthy(master, role):
+            deadline = time.time() + FANOUT_START_S
+            while get_json(cluster.url(master) + "/distributed/cluster")[
+                    "workers"].get(role, {}).get("state") != "healthy":
+                if time.time() > deadline:
+                    cluster.fail(f"{role} never read healthy at {master}")
+                time.sleep(0.2)
+
+        def history(master, pid, what):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                try:
+                    hist = get_json(cluster.url(master) + "/history")
+                except OSError:
+                    hist = {}     # a restarted master binds a moment later
+                if pid in hist:
+                    if hist[pid].get("status") != "success":
+                        cluster.fail(f"{what}: history {hist[pid]}")
+                    return hist[pid]
+                if time.time() > deadline:
+                    cluster.fail(f"{what}: no history after "
+                                 f"{FANOUT_REQUEST_S} s")
+                time.sleep(0.05)
+
+        def post(master, doc, workers, what):
+            resp = post_json(cluster.url(master) + "/prompt",
+                             {"prompt": copy.deepcopy(doc),
+                              "client_id": "chip_smoke"})
+            if sorted(resp.get("workers", [])) != workers \
+                    or resp.get("failed_workers"):
+                cluster.fail(f"{what}: {master} did not fan out to "
+                             f"{workers}: {resp}")
+            return resp["prompt_id"]
+
+        lines_seen = {r: 0 for r in roles}
+
+        def new_lines(role, what):
+            """A server's prompt lines since the last call: sm90 alone
+            (or none) at shapes phase 3 checked, counted for the kernels
+            line."""
+            lines = cluster.prompt_lines(role)[lines_seen[role]:]
+            lines_seen[role] += len(lines)
+            for line in lines:
+                lv = line["launches"]
+                if lv["mma_sync"] or lv["fp32"] or line["status"] \
+                        != "success":
+                    cluster.fail(f"{what}: {role}'s share {line}")
+                by_shape = {tuple(x[:6]): x[6]
+                            for x in line["launches_by_shape"]}
+                missing = [x for x in by_shape if x not in checked]
+                if missing:
+                    cluster.fail(f"{what}: {role} launched shapes that "
+                                 f"phase 3 did not check: {missing}")
+                launches["variants"].update(lv)
+                launches["shapes"].update(by_shape)
+            return lines
+
+        def wait_lines(role, n, what):
+            deadline = time.time() + FANOUT_REQUEST_S
+            got = []
+            while len(got) < n:
+                got += new_lines(role, what)
+                if time.time() > deadline:
+                    cluster.fail(f"{what}: {len(got)} prompt lines from "
+                                 f"{role}, expected {n}")
+                time.sleep(0.05)
+            return got
+
+        def check_diff(path, ref_img, key, what):
+            dmax, dmean = image_diff(path, ref_img)
+            tol_max, tol_mean = (0.0, 0.0) if key == "bit" \
+                else FANOUT_ATOL[key]
+            if not (dmax <= tol_max and dmean <= tol_mean):
+                cluster.fail(f"{what}: {os.path.basename(path)} differs from "
+                             f"its {key!r} reference by max {dmax}, mean "
+                             f"{dmean} (limits {tol_max}, {tol_mean})")
+            return {"max": dmax, "mean": dmean}
+
+        def saved(path):
+            with open(path, "rb") as f:
+                return decode_png(f.read())[0]
+
+        def wait_logged(kind, units, what):
+            """Until the log holds ``units`` checked-in units of its open
+            job of ``kind``: a unit reads done in the ledger's memory
+            before its spill and record are on disk."""
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                state, _ = durable.replay(wal_dir)
+                done = [sum(u["done"] for u in job["units"].values())
+                        for job in state.jobs.values() if job["kind"] == kind]
+                if done and done[0] >= units:
+                    return done[0]
+                if time.time() > deadline:
+                    cluster.fail(f"{what}: the log never held {units} "
+                                 f"{kind} units: {state.jobs}")
+                time.sleep(0.05)
+
+        try:
+            t0 = time.perf_counter()
+            # A holds the lease before B looks at it: a standby reads no
+            # lease as an expired one
+            cluster.launch("A")
+            cluster.wait_up(["A"])
+            for role in ("B", "w0", "w1"):
+                cluster.launch(role)
+            cluster.wait_up(["B", "w0", "w1"])
+            for role in ("w0", "w1"):
+                wait_healthy("A", role)
+            report["servers_start_s"] = time.perf_counter() - t0
+            info = get_json(cluster.url("A") + "/distributed/durability")
+            binfo = get_json(cluster.url("B") + "/distributed/durability")
+            if info.get("epoch") != 1 or info.get("role") != "active" \
+                    or binfo.get("role") != "standby":
+                cluster.fail(f"A {info}, B {binfo}: expected A active at "
+                             f"epoch 1 and B standing by")
+
+            # references on A, w1 disabled: A and w0 a half each
+            refs = {}
+            for run in ("cold", "warm", "warm 2"):
+                t1 = time.perf_counter()
+                pid = post("A", up, ["w0"], f"upscale {run}")
+                history("A", pid, f"upscale {run}")
+                secs = time.perf_counter() - t1
+                (line,) = wait_lines("A", 1, f"upscale {run}")
+                wait_lines("w0", 1, f"upscale {run}")
+                path = outputs("A")[-1]
+                refs[f"upscale {run}"] = {
+                    "seconds": secs, "path": path,
+                    "stage_seconds": {k: line["stage_seconds"].get(k) for k in
+                                      ("wal_spill", "wal_append",
+                                       "tile_collect", "tile_sample")},
+                    "vs_phase7": check_diff(path, upscale_ref, "one_batch",
+                                            f"upscale {run}")}
+            files0 = set(outputs("A"))
+            pid = post("A", inpaint, ["w0"], "inpaint reference")
+            history("A", pid, "inpaint reference")
+            wait_lines("A", 1, "inpaint reference")
+            wait_lines("w0", 1, "inpaint reference")
+            inpaint_files = sorted(set(outputs("A")) - files0)
+            if len(inpaint_files) != 2:
+                cluster.fail(f"inpaint reference: {inpaint_files}")
+            refs["inpaint"] = [check_diff(f, r["same"], "bit",
+                                          "inpaint reference")
+                               for f, r in zip(inpaint_files, inpaint_refs)]
+            report["references"] = {k: {kk: vv for kk, vv in v.items()
+                                        if kk != "path"}
+                                    if isinstance(v, dict) else v
+                                    for k, v in refs.items()}
+            warm = [refs[k] for k in ("upscale warm", "upscale warm 2")]
+            report["spill"] = {
+                "warm_upscale_s": [r["seconds"] for r in warm],
+                "wal_spill_s": [r["stage_seconds"]["wal_spill"] for r in warm],
+                "wal_append_s": [r["stage_seconds"]["wal_append"]
+                                 for r in warm],
+                "phase8_warm_upscale_s": phase8_warm_s}
+            print(f"phase 16: warm durable upscale {report['spill']}",
+                  flush=True)
+
+            # drill 1: a standby takes over during the upscale
+            post_json(cluster.url("A") + "/distributed/config/update_worker",
+                      {"id": "w1", "enabled": True})
+            wait_healthy("A", "w1")
+            files_b = set(outputs("B"))
+            pid = post("A", up, ["w0", "w1"], "drill 1")
+            done_at_kill = wait_logged("tile", n_tiles - w1_tiles, "drill 1")
+            jobs = get_json(cluster.url("A") + "/distributed/cluster")[
+                "ledger"]["active_jobs"]
+            if [j["done_units"] for j in jobs.values()] != [done_at_kill]:
+                cluster.fail(f"drill 1: A's ledger {jobs}, the log "
+                             f"{done_at_kill} units done")
+            with open(os.path.join(wal_dir, "master.lease")) as f:
+                expires_at = json.load(f)["expires_at"]
+            t_kill = time.perf_counter()
+            wall_kill = time.time()
+            cluster.kill("A")
+            cluster.kill("w1")
+            new_lines("A", "drill 1")    # A's lines before the kill
+            while get_json(cluster.url("B") + "/distributed/durability").get(
+                    "role") != "active":
+                if time.perf_counter() - t_kill > FANOUT_START_S:
+                    cluster.fail("drill 1: B never took over")
+                time.sleep(0.05)
+            t_takeover = time.perf_counter()
+            history("B", pid, "drill 1")
+            t_done = time.perf_counter()
+            info = get_json(cluster.url("B") + "/distributed/durability")
+            snap = get_json(cluster.url("B") + "/distributed/cluster")
+            (job,) = [j for j in snap["ledger"]["completed_jobs"]
+                      if j["kind"] == "tile"]
+            if not (job["recovered"] and job["done_units"]
+                    == job["total_units"] == n_tiles
+                    and job["preloaded_units"] == done_at_kill
+                    and job["reassigned_units"] >= w1_tiles):
+                cluster.fail(f"drill 1: B's job {job}; expected recovered, "
+                             f"{n_tiles} done, {done_at_kill} preloaded, "
+                             f">= {w1_tiles} reassigned")
+            if info.get("epoch") != 2 or info.get("takeovers") != 1:
+                cluster.fail(f"drill 1: B's durability {info}")
+            if snap["workers"].get("w0", {}).get("state") != "healthy" \
+                    or not cluster.count_lines(
+                        "w0", f"re-homed to master {cluster.url('B')}"):
+                cluster.fail(f"drill 1: w0 at B {snap['workers'].get('w0')}, "
+                             f"re-homed lines "
+                             f"{cluster.count_lines('w0', 're-homed')}")
+            (img,) = sorted(set(outputs("B")) - files_b)
+            b_lines = wait_lines("B", 1, "drill 1")
+            w0_lines = wait_lines("w0", 2, "drill 1")
+            report["drill1"] = {
+                "prompt_id": pid, "done_at_kill": done_at_kill,
+                "kill_to_lease_expiry_s": expires_at - wall_kill,
+                "kill_to_takeover_s": t_takeover - t_kill,
+                "kill_to_success_s": t_done - t_kill,
+                "ledger": job, "durability": info,
+                "vs_A_reference": check_diff(
+                    img, saved(refs["upscale warm"]["path"]), "one_batch",
+                    "drill 1"),
+                "vs_phase7": check_diff(img, upscale_ref, "one_batch",
+                                        "drill 1"),
+                "B_line": {k: b_lines[0].get(k) for k in (
+                    "seconds", "launches", "node_seconds", "stage_seconds",
+                    "max_memory_allocated")},
+                "w0_lines": [{k: ln.get(k) for k in (
+                    "seconds", "launches", "launches_by_shape",
+                    "stage_seconds", "max_memory_allocated")}
+                    for ln in w0_lines]}
+            print(f"phase 16: drill 1 kill to lease expiry "
+                  f"{expires_at - wall_kill:.3f} s, to takeover "
+                  f"{t_takeover - t_kill:.3f} s, to success "
+                  f"{t_done - t_kill:.3f} s", flush=True)
+
+            # drill 2: B restarted in place during the inpaint fan-out
+            roles["w1"][1]["DTPU_MASTER_URL"] = cluster.url("B")
+            cluster.launch("w1")
+            cluster.wait_up(["w1"])
+            wait_healthy("B", "w1")
+            files_b = set(outputs("B"))
+            pid = post("B", inpaint, ["w0", "w1"], "drill 2")
+            wait_logged("image", 1, "drill 2")
+            t_kill = time.perf_counter()
+            cluster.kill("B")
+            cluster.kill("w1")
+            new_lines("B", "drill 2")
+            cluster.launch("B", {**durable_env, "DTPU_MASTER_ID": "B"})
+            cluster.wait_up(["B"])
+            history("B", pid, "drill 2")
+            t_done = time.perf_counter()
+            info = get_json(cluster.url("B") + "/distributed/durability")
+            snap = get_json(cluster.url("B") + "/distributed/cluster")
+            m1 = get_json(cluster.url("B") + "/distributed/metrics")
+            (job,) = [j for j in snap["ledger"]["completed_jobs"]
+                      if j["kind"] == "image"]
+            if not (job["recovered"] and job["done_units"]
+                    == job["total_units"] == 2 and job["preloaded_units"] == 1
+                    and job["reassigned_units"] >= 1):
+                cluster.fail(f"drill 2: B's job {job}; expected recovered, "
+                             f"2 done, 1 preloaded, >= 1 reassigned")
+            if info.get("epoch") != 3 or info.get("owner") != "B":
+                cluster.fail(f"drill 2: B's durability {info}")
+            if m1["images_received"] != 1:
+                cluster.fail(f"drill 2: the restarted B received "
+                             f"{m1['images_received']} images, expected w1's "
+                             f"slice alone")
+            files = sorted(set(outputs("B")) - files_b)
+            if len(files) != 3:
+                cluster.fail(f"drill 2: {len(files)} new PNGs, expected 3")
+            b_lines = wait_lines("B", 1, "drill 2")
+            # w0's own slice, then w1's redispatched: never its own again
+            w0_lines = wait_lines("w0", 2, "drill 2")
+            while get_json(cluster.url("w0") + "/prompt")["exec_info"][
+                    "queue_remaining"]:
+                time.sleep(0.1)
+            if new_lines("w0", "drill 2"):
+                cluster.fail("drill 2: w0 rendered a slice again")
+            report["drill2"] = {
+                "prompt_id": pid, "kill_to_success_s": t_done - t_kill,
+                "ledger": job, "durability": info,
+                "vs_in_process": [check_diff(f, r["same"], "bit", "drill 2")
+                                  for f, r in zip(files, inpaint_refs)],
+                "vs_A_reference": [check_diff(f, saved(r), "bit", "drill 2")
+                                   for f, r in zip(files, inpaint_files)],
+                "B_line": {k: b_lines[0].get(k) for k in (
+                    "seconds", "launches", "node_seconds", "stage_seconds",
+                    "max_memory_allocated")},
+                "w0_lines": [{k: ln.get(k) for k in (
+                    "seconds", "launches", "max_memory_allocated")}
+                    for ln in w0_lines]}
+            print(f"phase 16: drill 2 kill to success "
+                  f"{t_done - t_kill:.3f} s", flush=True)
+        finally:
+            cluster.stop()
+        out = subprocess.run(
+            [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli", "wal",
+             "--dir", wal_dir, "--json"], cwd=ROOT, capture_output=True,
+            text=True, timeout=120)
+        if out.returncode != 0:
+            fail(f"cli wal exited {out.returncode}: {out.stdout[-2000:]} "
+                 f"{out.stderr[-2000:]}")
+        verified = json.loads(out.stdout)
+        if not verified["ok"] or any(
+                s["checksum"].startswith("CORRUPT")
+                for s in verified["segments"]):
+            fail(f"cli wal: {verified['segments']}")
+        report["wal"] = {
+            "segments": [{k: s[k] for k in ("segment", "bytes", "records",
+                                             "checksum")}
+                         for s in verified["segments"]],
+            "snapshots": verified["snapshots"],
+            "records_by_type": verified["records_by_type"],
+            "lease": verified["lease"],
+            "pending_prompts": verified["replay"]["pending_prompts"],
+            "active_jobs": verified["replay"]["active_jobs"]}
+        print(f"phase 16: cli wal {json.dumps(report['wal'])}", flush=True)
+    report["launches"] = dict(launches["variants"])
+    return report, {"path": "phase 16",
+                    "variants": dict(launches["variants"]),
+                    "shapes": dict(launches["shapes"])}
 
 
 def png_text_chunks(path):
@@ -2684,11 +3132,19 @@ def main() -> int:
         report13, reqs13 = phase13(docs, phase13_dir, shape_counts, rows)
         requests += reqs13
         emit("phase13_report", report13)
-        emit("phase14", fault_drills(docs, inpaint_dir, upscaled[42], rows))
+        report14, inpaint_refs = fault_drills(docs, inpaint_dir,
+                                              upscaled[42], rows)
+        emit("phase14", report14)
         report15, interrupted = worker_management(docs, txt_refs, rows)
         shape_counts.update(interrupted["shapes"])
         requests.append(interrupted)
         emit("phase15", report15)
+        report16, failover = master_failover(
+            docs, inpaint_dir, upscaled[42], inpaint_refs,
+            fanout_report["seconds"]["upscale warm"], rows)
+        shape_counts.update(failover["shapes"])
+        requests.append(failover)
+        emit("phase16", report16)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

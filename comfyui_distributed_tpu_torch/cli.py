@@ -11,6 +11,7 @@
       [--config C | --url URL]
   python -m comfyui_distributed_tpu_torch.cli status [--url URL]
   python -m comfyui_distributed_tpu_torch.cli devices
+  python -m comfyui_distributed_tpu_torch.cli wal [--dir D] [--job S] [--json]
 
 ``serve`` starts a master and ``worker`` a worker of the HTTP fan-out
 (``server/app.py``); both take ``--host``, ``--port``, ``--config`` (the
@@ -22,7 +23,12 @@ A worker whose environment has ``DTPU_MASTER_URL`` and
 ``DTPU_WORKER_ID`` registers at that master and renews its lease
 (``runtime/cluster.py``); the control plane's other knobs are
 ``DTPU_LEASE_S``, ``DTPU_SUSPECT_PROBES``, ``DTPU_FAULT_POLICY`` and
-``DTPU_HEDGE*``.
+``DTPU_HEDGE*``.  A ``serve`` master with ``DTPU_WAL_DIR`` keeps its
+queue and work ledger in a write-ahead log there (``runtime/durable.py``;
+``DTPU_WAL_SYNC``, ``DTPU_MASTER_LEASE_S``, ``DTPU_MASTER_ID``) and
+resumes what a crash interrupted when it starts again; with
+``DTPU_STANDBY=1`` as well it waits as a standby and takes over when the
+master's lease expires.  A start refused for a live lease exits 1.
 
 ``run`` executes an API-format workflow in this process, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -43,7 +49,11 @@ launched from here is not tied to this short-lived process (no
 master-death monitor).  ``status`` prints a server's ``GET
 /distributed/status``; ``devices`` the cards torch sees (``platform``,
 ``kind`` and ``count``, 0 without a card, beside the JAX package's
-keys).
+keys).  ``wal`` verifies a write-ahead log's directory (``--dir`` or
+``DTPU_WAL_DIR``; either package's): each segment's checksums, the
+snapshots, the lease, the records by type and by job and what a
+recovering master would resume; it exits 1 on corruption (a torn last
+record is what a crash leaves, not corruption).
 """
 
 from __future__ import annotations
@@ -71,9 +81,14 @@ def _check_device(device: str) -> None:
 def _serve(args, is_worker: bool) -> int:
     _check_device(args.device)
     from comfyui_distributed_tpu_torch.server.app import ServerState, serve
-    state = ServerState(config_path=args.config, is_worker=is_worker,
-                        input_dir=args.input_dir, output_dir=args.output_dir,
-                        models_dir=args.models_dir, device=args.device)
+    try:
+        state = ServerState(config_path=args.config, is_worker=is_worker,
+                            input_dir=args.input_dir,
+                            output_dir=args.output_dir,
+                            models_dir=args.models_dir, device=args.device)
+    except RuntimeError as e:   # a live master lease held by another
+        print(f"dtpu-torch {e}", file=sys.stderr)
+        return 1
     serve(state, host=args.host, port=args.port)
     return 0
 
@@ -253,6 +268,56 @@ def cmd_status(args) -> int:
     return 0
 
 
+def cmd_wal(args) -> int:
+    """Verify a write-ahead log's directory and print what it holds, as
+    the JAX package's ``cli wal`` does; exit 1 on corruption."""
+    from comfyui_distributed_tpu_torch.runtime import durable
+    wal_dir = args.dir or durable.wal_dir()
+    if not wal_dir:
+        print("no log directory: pass --dir or set DTPU_WAL_DIR",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(wal_dir):
+        print(f"not a directory: {wal_dir}", file=sys.stderr)
+        return 2
+    report = durable.verify(wal_dir)
+    if args.json:
+        print(json.dumps(report, indent=2))
+        return 0 if report["ok"] else 1
+    lease = report["lease"]
+    print(f"wal {wal_dir}: {'OK' if report['ok'] else 'CORRUPT'}  lease="
+          + (f"held by {lease.get('owner')}" if lease.get("held")
+             else "expired/free")
+          + f"  epoch={lease.get('epoch', 0)}")
+    for seg in report["segments"]:
+        print(f"  {seg['segment']:26s} {seg['bytes']:>9d} B  "
+              f"{seg['records']:>5d} rec  {seg['checksum']}")
+    if not report["segments"]:
+        print("  (no segments)")
+    for snap in report["snapshots"]:
+        print(f"  {snap}  (snapshot)")
+    if report["records_by_type"]:
+        print("  records: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(report["records_by_type"].items())))
+    rp = report["replay"]
+    for jid, n in sorted(report["records_by_job"].items()):
+        if args.job and args.job not in jid:
+            continue
+        live = rp["active_jobs"].get(jid)
+        print(f"  job {jid}: {n} record(s), "
+              + (f"OPEN {live['done']}/{live['total']} {live['kind']}"
+                 if live else "finished"))
+    print(f"  replay: {rp['records_replayed']} record(s) past "
+          f"{'snapshot' if rp.get('snapshot') else 'genesis'}, "
+          f"{len(rp['pending_prompts'])} in-flight prompt(s), "
+          f"{len(rp['active_jobs'])} open job(s), idem keys "
+          f"{rp['idem_keys']}")
+    if rp["torn"]:
+        print(f"  torn tail(s): {rp['torn']} (expected after a crash; "
+              f"the partial record is ignored)")
+    return 0 if report["ok"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="comfyui_distributed_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -315,6 +380,16 @@ def build_parser() -> argparse.ArgumentParser:
     st = sub.add_parser("status", help="a running server's status")
     st.add_argument("--url", default="http://127.0.0.1:8288")
     st.set_defaults(fn=cmd_status)
+
+    wl = sub.add_parser("wal", help="verify a write-ahead log: segments, "
+                                    "checksums, lease, records, replay")
+    wl.add_argument("--dir", default=None,
+                    help="the log's directory (default $DTPU_WAL_DIR)")
+    wl.add_argument("--job", default=None,
+                    help="list only the jobs whose id holds this text")
+    wl.add_argument("--json", action="store_true",
+                    help="the raw report")
+    wl.set_defaults(fn=cmd_wal)
     return p
 
 

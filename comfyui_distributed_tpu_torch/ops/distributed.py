@@ -20,10 +20,14 @@ The seed: the master passes it through; worker ``i`` uses
   decides what a lost slice costs (``partial`` keeps the batch that
   arrived, ``fail`` raises).  Without one, the drain ends when every
   worker sent its last image or a deadline fires, keeping what arrived.
+  With the write-ahead log, a slice that checks in is written to the
+  unit store first; a job a restarted master recovers loads the slices
+  that checked in before the crash from there, not rendering them
+  again, and redispatches its other pending slices at once (their
+  dispatches died with the old master).
 
 Downstream of a distributed upscaler it is ``pass_through`` and returns
-its input.  Crash recovery of the JAX package waits; so does fan-out
-over several GPUs (NCCL).
+its input.  Fan-out over several GPUs (NCCL) waits.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import concurrent.futures
 import json
 import queue
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,7 +157,8 @@ class DistributedCollector(Op):
             arr = as_image_array(images)
             add_stage_seconds(ctx, self._send_to_master(
                 arr, multi_job_id, master_url, worker_id or ctx.worker_id,
-                attempt=int(dispatch_attempt or 0)))
+                attempt=int(dispatch_attempt or 0),
+                fault_inject=ctx.fault_inject))
             return (images,)
         if multi_job_id and ctx.job_store is not None:
             return (self._collect_http(ctx, images, multi_job_id,
@@ -164,9 +169,17 @@ class DistributedCollector(Op):
 
     def _send_to_master(self, arr: np.ndarray, multi_job_id: str,
                         master_url: str, worker_id: str,
-                        attempt: int = 0) -> Dict[str, float]:
+                        attempt: int = 0,
+                        fault_inject: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, float]:
         """POST each image, image i + 1 encoded while image i is on the
-        wire; returns the encode and POST seconds."""
+        wire; returns the encode and POST seconds.  ``fault_inject``
+        (tests and drills): ``stall_s`` delays the first send."""
+        stall_s = float((fault_inject or {}).get("stall_s", 0) or 0)
+        if stall_s > 0:
+            log(f"FAULT INJECTION: worker {worker_id} stalling {stall_s}s "
+                f"before sending")
+            time.sleep(stall_s)
         fmt = negotiate_wire_format(master_url)
         codec = wire_codec(master_url)
         n = arr.shape[0]
@@ -210,6 +223,11 @@ class DistributedCollector(Op):
             # one unit a seed slice, done when its last image checks in
             ledger.create_job(multi_job_id, {w: w for w in worker_ids},
                               kind="image")
+        # a recovered job's slices that checked in before the crash; one
+        # whose file is unreadable goes back to pending here, before the
+        # drain decides what is missing
+        recovered = ledger.load_payloads(multi_job_id) \
+            if ledger is not None else {}
         try:
             results = self._drain_images(ctx, multi_job_id, worker_ids,
                                          pos_map, policy)
@@ -228,6 +246,12 @@ class DistributedCollector(Op):
                     log(f"collector: job {multi_job_id} finished with lost "
                         f"slices {summary['pending_units']} "
                         f"(policy={policy})")
+        # the recovered slices under their wire labels; a fresh arrival
+        # (a redispatched redo) wins over the stored one
+        for arrays, meta in recovered.values():
+            slot = results.setdefault(str(meta["wid"]), {})
+            for k, t in zip(meta.get("keys", []), arrays):
+                slot.setdefault(tuple(k), t)
         ordered = [as_device_image(images, ctx.device)]
         for wid in sorted(results, key=lambda w: (parse_worker_index(w), w)):
             ordered.extend(as_device_image(results[wid][k], ctx.device)
@@ -266,6 +290,33 @@ class DistributedCollector(Op):
         def missing():
             return set(worker_ids) - {pos_map.get(w, w) for w in done}
 
+        def redispatched(units, owner) -> None:
+            """Redispatch a lost owner's slices; a success gives the
+            replacement room before the deadline."""
+            nonlocal deadline, last_progress
+            if ledger.redispatch(mj, list(units), owner):
+                now = time.monotonic()
+                deadline = min(max(deadline,
+                                   now + C.JOB_COMPLETION_TIMEOUT / 2),
+                               hard_deadline)
+                last_progress = now
+            else:
+                log(f"collector: no healthy participant for {owner}'s "
+                    f"slice; will keep a partial batch")
+
+        # a recovered job's pending slices were dispatched by the dead
+        # master: their owners never send here, so they go out again now
+        # instead of after the no-progress timeout
+        stale = ledger.take_recovered_lost(mj) if can_recover else {}
+        for owner, units in stale.items():
+            if policy == "fail":
+                raise cluster_mod.ClusterFaultError(
+                    f"recovered job {mj} lost slices {sorted(units)} with "
+                    f"the old master ({C.FAULT_POLICY_ENV}=fail)")
+            log(f"collector: recovered job {mj}: re-issuing slices "
+                f"{sorted(units)} stranded on {owner}")
+            redispatched(units, owner)
+
         while True:
             if ledger is not None:
                 if not ledger.pending(mj):
@@ -296,15 +347,7 @@ class DistributedCollector(Op):
                             f"({C.FAULT_POLICY_ENV}=fail)")
                     log(f"collector: worker {owner} lease expired; "
                         f"redispatching its slice")
-                    if ledger.redispatch(mj, list(units), owner):
-                        now = time.monotonic()
-                        deadline = min(max(deadline, now + C.
-                                           JOB_COMPLETION_TIMEOUT / 2),
-                                       hard_deadline)
-                        last_progress = now
-                    else:
-                        log(f"collector: no healthy participant for "
-                            f"{owner}'s slice; will keep a partial batch")
+                    redispatched(units, owner)
             if hedge_on:
                 for unit, owner in sorted(ledger.overdue_units(mj).items(),
                                           key=str):
@@ -341,6 +384,15 @@ class DistributedCollector(Op):
             if item.get("is_last"):
                 done.add(wid)
                 if ledger is not None:
+                    # the whole slice with its keys, so a recovered master
+                    # orders the images as this drain would
                     cfg_id = pos_map.get(wid, wid)
-                    ledger.check_in(mj, cfg_id, cfg_id)
+                    slot = results[wid]
+                    keys = sorted(slot)
+                    ledger.check_in(
+                        mj, cfg_id, cfg_id,
+                        payload=([as_image_array(slot[k]) for k in keys],
+                                 {"form": "slice", "wid": wid,
+                                  "keys": [list(k) for k in keys]}),
+                        spent=ctx.stage_seconds)
         return results

@@ -26,14 +26,18 @@ uint8, cached by geometry) runs on the run's device.  Three modes:
   still pending at the end are refined on the master (``reassign``),
   kept as the image's pixels (``partial``) or raise (``fail``).  Without
   one, a deadline keeps what arrived: missing tiles keep the image's
-  pixels.
+  pixels.  With the write-ahead log each winning tile (the master's
+  window, a worker's tile) is written to the unit store before it checks
+  in (``wal_spill`` and ``wal_append`` seconds on the prompt line); a
+  job a restarted master recovers blends the tiles that checked in
+  before the crash from there, refines only its own pending tiles, and
+  redispatches the workers' pending tiles at once.
 
 Regional conditionings (siblings, area masks, timestep ranges) refine
 with each entry's canvas mask cropped through the same padded tile
 windows as the pixels.  Not ported: PerpNeg raises
-``NotImplementedError``; the JAX package's changed-tile cache and crash
-recovery wait (a single run misses every tile anyway, so the image is
-the same).
+``NotImplementedError``; the JAX package's changed-tile cache waits (a
+single run misses every tile anyway, so the image is the same).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from comfyui_distributed_tpu_torch.ops.base import (
     Op,
     OpContext,
     as_device_image,
+    as_image_array,
     register_op,
     stage,
 )
@@ -87,6 +92,22 @@ from comfyui_distributed_tpu_torch.utils.net import (
 def _is_regional(c: Conditioning) -> bool:
     return bool(c.siblings or c.area_mask is not None
                 or c.timestep_range is not None)
+
+
+def _window_payload(window: torch.Tensor):
+    """A refined window's unit-store payload, made only when the ledger
+    spills it (the copy to the host is part of the spill)."""
+    return lambda: ([window.detach().float().cpu().numpy()],
+                    {"form": "window"})
+
+
+def _tile_payload(item: Dict[str, Any]):
+    """A worker's tile as the unit store keeps it: the array at its
+    extraction region's size and where it goes."""
+    return lambda: ([as_image_array(item["tensor"])],
+                    {"form": "tile", **{k: item[k] for k in (
+                        "x", "y", "extracted_width", "extracted_height",
+                        "padding")}})
 
 
 @register_op
@@ -422,9 +443,22 @@ class UltimateSDUpscaleDistributed(Op):
             ctx.job_store.prepare_tile_job(mj)
         try:
             windows: Dict[int, torch.Tensor] = {}
-            if parts[0]:
-                for i, window in refine_units(parts[0]).items():
-                    if ledger is None or ledger.check_in(mj, i, "master"):
+            mine = list(parts[0])
+            if ledger is not None:
+                # a recovered job: the tiles that checked in before the
+                # crash blend from their payloads, never refined again,
+                # and the master's range shrinks to what is pending
+                for u, (arrays, meta) in ledger.load_payloads(mj).items():
+                    windows[int(u)] = self._stored_window(
+                        arrays, meta, all_tiles[int(u)], p, (w, h),
+                        image.device)
+                pending = set(ledger.pending(mj, owner="master"))
+                mine = [i for i in mine if i in pending]
+            if mine:
+                for i, window in refine_units(mine).items():
+                    if ledger is None or ledger.check_in(
+                            mj, i, "master", payload=_window_payload(window),
+                            spent=ctx.stage_seconds):
                         windows[i] = window
             if active_workers and ctx.job_store is not None:
                 with stage(ctx, "tile_collect"):
@@ -478,8 +512,21 @@ class UltimateSDUpscaleDistributed(Op):
             log(f"tiled upscale master: reassigning units {moved} to "
                 f"master (job {mj})")
             for i, window in refine_units(moved).items():
-                if ledger.check_in(mj, i, "master"):
+                if ledger.check_in(mj, i, "master",
+                                   payload=_window_payload(window),
+                                   spent=ctx.stage_seconds):
                     windows[i] = window
+
+    def _stored_window(self, arrays, meta: Dict[str, Any],
+                       pos: Tuple[int, int], p: Dict[str, Any],
+                       img_size: Tuple[int, int], device) -> torch.Tensor:
+        """A unit store payload -> the padded window the blend takes: a
+        worker's tile is widened as on arrival, a window is put back on
+        the device."""
+        if meta.get("form") == "tile":
+            return self._worker_tile_to_window(
+                {**meta, "tensor": arrays[0]}, pos, p, img_size, device)
+        return torch.from_numpy(arrays[0]).to(device)
 
     def _worker_tile_to_window(self, item: Dict[str, Any],
                                pos: Tuple[int, int], p: Dict[str, Any],
@@ -567,7 +614,9 @@ class UltimateSDUpscaleDistributed(Op):
                         ledger.unmark_hedged(mj, units)
                     continue
                 for idx, window in out.items():
-                    if ledger.check_in(mj, idx, "master"):
+                    if ledger.check_in(mj, idx, "master",
+                                       payload=_window_payload(window),
+                                       spent=ctx.stage_seconds):
                         collected[int(idx)] = {"window_tensor": window}
             recovery[:] = keep
 
@@ -587,7 +636,30 @@ class UltimateSDUpscaleDistributed(Op):
                 return not ledger.pending(mj)
             return len(done) >= num_workers
 
+        def extend_deadline() -> None:
+            """Room for a replacement; the post-drain refine still backs
+            it up."""
+            nonlocal deadline, last_progress
+            now = time.monotonic()
+            deadline = min(max(deadline, now + C.TILE_COLLECTION_TIMEOUT / 2),
+                           hard_deadline)
+            last_progress = now
+
         try:
+            # a recovered job's workers' pending tiles were dispatched by
+            # the dead master: they never come here, so they move now
+            # instead of after the no-progress timeout
+            stale = ledger.take_recovered_lost(mj) \
+                if ledger is not None and policy != "partial" else {}
+            for owner, units in stale.items():
+                if policy == "fail":
+                    raise cluster_mod.ClusterFaultError(
+                        f"recovered job {mj} lost units {sorted(units)} "
+                        f"with the old master ({C.FAULT_POLICY_ENV}=fail)")
+                log(f"tiled upscale master: recovered job {mj}: re-issuing "
+                    f"units {sorted(units)} stranded on {owner}")
+                if handle_lost(owner, units):
+                    extend_deadline()
             while True:
                 if pool is not None:
                     harvest()
@@ -620,14 +692,7 @@ class UltimateSDUpscaleDistributed(Op):
                         log(f"tiled upscale master: worker {owner} lease "
                             f"expired; recovering units {sorted(units)}")
                         if handle_lost(owner, units):
-                            # room for the replacement; the post-drain
-                            # refine still backs it up
-                            now = time.monotonic()
-                            deadline = min(max(
-                                deadline,
-                                now + C.TILE_COLLECTION_TIMEOUT / 2),
-                                hard_deadline)
-                            last_progress = now
+                            extend_deadline()
                 if hedge_on:
                     overdue = ledger.overdue_units(mj)
                     units = sorted(u for u, o in overdue.items()
@@ -656,7 +721,9 @@ class UltimateSDUpscaleDistributed(Op):
                 wid = str(item["worker_id"])
                 if registry is not None:
                     registry.touch(wid)
-                if ledger is None or ledger.check_in(mj, idx, wid):
+                if ledger is None or ledger.check_in(
+                        mj, idx, wid, payload=_tile_payload(item),
+                        spent=ctx.stage_seconds):
                     collected[idx] = item
                 if item.get("is_last"):
                     done.add(wid)

@@ -18,14 +18,18 @@ Each transition (suspect, dead, reassign, hedge win or loss, a failed
 redispatch) bumps a counter of :data:`COUNTERS`, served by
 ``GET /distributed/cluster`` and ``/distributed/metrics``.
 
-Not ported yet: the write-ahead log and crash recovery (``attach_wal``,
-``merge_recovered``, ``load_payloads``, ``take_recovered_lost``), SLO
-deadlines (``set_deadline``, ``deadline``), clock skew and resource
-feeds, the autoscaler's retiring state, ``MultiHeartbeatSender`` and
-``rehome``.  The ledger's jobs are never recovered, so the drains take
-the JAX package's "nothing recovered" branch.  ``redispatch`` is a
-plain call here (the JAX package's is a coroutine): the port's drains
-run on threads.
+With the write-ahead log (``runtime/durable.py``) attached, every
+ownership transition is a record, a winning check-in's payload is
+written to the unit store before its record, and ``create_job`` merges
+a crash-recovered job, so a resumed job refines only its unfinished
+units (``load_payloads``, ``take_recovered_lost``); a worker's
+``HeartbeatSender.rehome`` follows a new master.
+
+Not ported yet: ``merge_recovered`` and ``MultiHeartbeatSender`` (more
+than one master), SLO deadlines (``set_deadline``, ``deadline``), clock
+skew and resource feeds, the autoscaler's retiring state.
+``redispatch`` is a plain call here (the JAX package's is a coroutine):
+the port's drains run on threads.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from comfyui_distributed_tpu_torch.utils import clock as clock_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
-from comfyui_distributed_tpu_torch.utils.log import log
+from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import post_json
 
 HEALTHY = "healthy"
@@ -321,21 +325,89 @@ class WorkLedger:
         self._redispatch: Dict[str, Callable] = {}      # guarded-by: _lock
         self._completed: collections.deque = collections.deque(
             maxlen=C.LEDGER_COMPLETED_KEPT)             # guarded-by: _lock
+        # the durability plane (runtime/durable.py), None while off: the
+        # log, the unit store, and the replayed jobs create_job merges
+        self._wal = None                                # guarded-by: _lock
+        self._unit_store = None                         # guarded-by: _lock
+        self._recovered_jobs: Dict[str, Dict[str, Any]] = {}  # guarded-by: _lock
+
+    def attach_wal(self, wal, unit_store,
+                   recovered_jobs: Optional[Dict[str, Any]] = None) -> None:
+        """Wire the durability plane in.  ``recovered_jobs`` is the
+        replayed log's jobs by id; ``create_job`` takes each one."""
+        # under the lock: a standby attaches on its watcher thread while
+        # a drain may read the recovered state
+        with self._lock:
+            self._wal = wal
+            self._unit_store = unit_store
+            if recovered_jobs is not None:
+                self._recovered_jobs = dict(recovered_jobs)
+
+    def _wal_append(self, rtype: str, **fields) -> None:
+        """Append an ownership record.  A fenced or crashed log raises
+        (a deposed master must stop changing job state); any other
+        failure leaves the state in memory only."""
+        with self._lock:
+            wal = self._wal
+        if wal is None:
+            return
+        from comfyui_distributed_tpu_torch.runtime import durable
+        try:
+            wal.append(rtype, **fields)
+        except (durable.FencedError, durable.WalCrashedError):
+            raise
+        except Exception as e:  # noqa: BLE001 - durability is best effort
+            debug_log(f"ledger: log append {rtype} failed: {e}")
 
     # -- lifecycle ------------------------------------------------------------
 
     def create_job(self, job_id: str, owners: Dict[Any, str],
                    kind: str = "tile") -> None:
+        """Plan a job.  A job the log recovered keeps the units that were
+        done and whose payload survived (``preloaded``: blended from the
+        store, never refined again) and its pending units' last owners."""
+        jid = str(job_id)
         now = self._clock.monotonic()
-        units = {u: {"owner": str(o), "state": "pending", "attempts": 1,
-                     "hedged": False, "hedge_owner": None, "done_by": None}
-                 for u, o in owners.items()}
+        preloaded = []
         with self._lock:
-            self._jobs[str(job_id)] = {
+            recovered = self._recovered_jobs.pop(jid, None)
+            store = self._unit_store
+            rec_units = (recovered or {}).get("units", {})
+            units = {}
+            for u, o in owners.items():
+                ru = rec_units.get(str(u))
+                if ru is not None and ru.get("done") and ru.get("spilled") \
+                        and store is not None and store.has(jid, u):
+                    units[u] = {"owner": str(ru.get("by") or o),
+                                "state": "done", "attempts": 1,
+                                "hedged": False, "hedge_owner": None,
+                                "done_by": str(ru.get("by") or o)}
+                    preloaded.append(u)
+                else:
+                    # pending, or done with its payload lost (recomputed:
+                    # a unit's seed makes the redo the same); a recovered
+                    # reassignment keeps its last owner
+                    owner = str(ru["owner"]) if ru is not None \
+                        and not ru.get("done") and ru.get("owner") \
+                        else str(o)
+                    units[u] = {"owner": owner, "state": "pending",
+                                "attempts": 1, "hedged": False,
+                                "hedge_owner": None, "done_by": None}
+            self._jobs[jid] = {
                 "kind": kind, "created_at": now, "units": units,
                 # each owner's last check-in, for the latency estimate
                 "owner_last": {}, "latency_ema": None,
-                "reassigned": 0, "hedged": 0}
+                "reassigned": 0, "hedged": 0,
+                "recovered": recovered is not None,
+                "recovered_handled": False,
+                "preloaded": preloaded}
+        if preloaded:
+            log(f"ledger: job {jid} recovered with {len(preloaded)}/"
+                f"{len(owners)} unit(s) already on disk; only the rest is "
+                f"refined again")
+            COUNTERS.bump("wal_preloaded_units", len(preloaded))
+        self._wal_append("job_create", job=jid, kind=kind,
+                         owners={str(u): str(o) for u, o in owners.items()})
 
     def has_job(self, job_id: str) -> bool:
         with self._lock:
@@ -360,31 +432,74 @@ class WorkLedger:
                                         if rec["state"] != "done"),
                 "reassigned_units": job["reassigned"],
                 "hedged_units": job["hedged"],
-                # crash recovery waits for the write-ahead log
-                "recovered": False, "preloaded_units": 0,
+                "recovered": job["recovered"],
+                "preloaded_units": len(job["preloaded"]),
                 "duration_s": round(self._clock.monotonic()
                                     - job["created_at"], 4),
                 "finished_at": self._clock.time(),
             }
             self._completed.append(summary)
+            store = self._unit_store
+        self._wal_append("job_finish", job=jid)
+        if store is not None:
+            # the finish record is durable: the payloads (and the job's
+            # idempotency keys, dropped by the log's state) are not
+            # needed for a recovery any more
+            store.drop_job(jid)
         return summary
 
     # -- check-in (exactly-once) ----------------------------------------------
 
-    def check_in(self, job_id: str, unit: Any, worker_id: str) -> bool:
+    def check_in(self, job_id: str, unit: Any, worker_id: str,
+                 payload: Optional[tuple] = None,
+                 spent: Optional[Dict[str, float]] = None) -> bool:
         """Record a unit's completion: True once a unit, for the first
         completion; a retried POST or a hedge's loser gets False and is
         dropped.  A job or unit the ledger never planned gets True (the
-        ledger is opt-in)."""
+        ledger is opt-in).
+
+        With the log attached, a winner's ``payload`` (``(arrays,
+        meta)`` of host numpy, or a function that makes them, called only
+        here) goes to the unit store before the check-in record, so a
+        recovered master blends the unit instead of refining it; a crash
+        between leaves an orphan file.  ``spent`` gets the seconds of the
+        two, ``wal_spill`` and ``wal_append``."""
+        status, wal, store = self._check_in_locked(job_id, unit, worker_id)
+        if status != "won" or wal is None:
+            return status != "dup"
+        spilled = False
+        t0 = time.perf_counter()
+        if payload is not None and store is not None:
+            arrays, meta = payload() if callable(payload) else payload
+            try:
+                store.put(str(job_id), unit, arrays, meta)
+                spilled = True
+            except OSError as e:
+                log(f"ledger: spill of {job_id}/{unit} failed ({e}); the "
+                    f"unit is recomputed if the master dies")
+        t1 = time.perf_counter()
+        self._wal_append("unit_checkin", job=str(job_id), unit=str(unit),
+                         by=str(worker_id), spilled=spilled)
+        if spent is not None:
+            spent["wal_spill"] = spent.get("wal_spill", 0.0) + t1 - t0
+            spent["wal_append"] = spent.get("wal_append", 0.0) \
+                + time.perf_counter() - t1
+        return True
+
+    def _check_in_locked(self, job_id: str, unit: Any,
+                         worker_id: str) -> tuple:
+        """(``"won"``, ``"dup"`` or ``"untracked"``, the log, the unit
+        store), the state change made under the lock."""
         now = self._clock.monotonic()
         with self._lock:
+            wal, store = self._wal, self._unit_store
             job = self._jobs.get(str(job_id))
             rec = None if job is None else job["units"].get(unit)
             if rec is None:
-                return True
+                return "untracked", wal, store
             if rec["state"] == "done":
                 COUNTERS.bump("cluster_duplicate_checkins")
-                return False
+                return "dup", wal, store
             rec["state"] = "done"
             rec["done_by"] = str(worker_id)
             if rec["hedge_owner"]:
@@ -402,7 +517,7 @@ class WorkLedger:
             job["latency_ema"] = sample if ema is None \
                 else 0.7 * ema + 0.3 * sample
             job["owner_last"][str(worker_id)] = now
-            return True
+            return "won", wal, store
 
     # -- queries --------------------------------------------------------------
 
@@ -469,6 +584,9 @@ class WorkLedger:
             job["reassigned"] += len(moved)
         if moved:
             COUNTERS.bump("cluster_reassigned_units", len(moved))
+            self._wal_append("unit_reassign", job=str(job_id),
+                             units=[str(u) for u in moved],
+                             to=str(new_owner))
         return moved
 
     def mark_hedged(self, job_id: str, units: List[Any],
@@ -494,6 +612,10 @@ class WorkLedger:
             job["hedged"] += len(hedged)
         if hedged:
             COUNTERS.bump("cluster_hedges", len(hedged))
+            self._wal_append("unit_hedge", job=str(job_id),
+                             units=[str(u) for u in hedged],
+                             by=(None if hedge_owner is None
+                                 else str(hedge_owner)))
         return hedged
 
     def is_hedged(self, job_id: str, unit: Any) -> bool:
@@ -550,6 +672,60 @@ class WorkLedger:
                                              job["created_at"])
                 if now - last > threshold:
                     out[u] = rec["owner"]
+            return out
+
+    # -- crash recovery (the durability plane) --------------------------------
+
+    def load_payloads(self, job_id: str) -> Dict[Any, tuple]:
+        """The stored ``(arrays, meta)`` of this job's preloaded units:
+        what the blend takes in place of a refine.  A unit whose file
+        became unreadable since ``create_job`` goes back to pending here,
+        so the drain recomputes it instead of blending a hole."""
+        jid = str(job_id)
+        with self._lock:
+            job = self._jobs.get(jid)
+            preloaded = list(job["preloaded"]) if job else []
+            store = self._unit_store
+        if not preloaded or store is None:
+            return {}
+        out: Dict[Any, tuple] = {}
+        lost = []
+        for u in preloaded:
+            payload = store.get(jid, u)
+            if payload is None:
+                lost.append(u)
+            else:
+                out[u] = payload
+        if lost:
+            with self._lock:
+                job = self._jobs.get(jid)
+                if job is not None:
+                    for u in lost:
+                        rec = job["units"].get(u)
+                        if rec is not None:
+                            rec["state"] = "pending"
+                            rec["done_by"] = None
+                    job["preloaded"] = [u for u in job["preloaded"]
+                                        if u not in lost]
+            log(f"ledger: {len(lost)} recovered payload(s) of {jid} "
+                f"unreadable; recomputing them")
+        return out
+
+    def take_recovered_lost(self, job_id: str) -> Dict[str, List[Any]]:
+        """Once a recovered job: its pending units whose owner is not the
+        master, by owner.  Their dispatches died with the old master, so
+        the drains treat them as a dead owner's: redispatched with the
+        exact unit lists, else refined on the master."""
+        with self._lock:
+            job = self._jobs.get(str(job_id))
+            if job is None or not job["recovered"] \
+                    or job["recovered_handled"]:
+                return {}
+            job["recovered_handled"] = True
+            out: Dict[str, List[Any]] = {}
+            for u, rec in job["units"].items():
+                if rec["state"] != "done" and rec["owner"] != "master":
+                    out.setdefault(rec["owner"], []).append(u)
             return out
 
     # -- redispatch (registered by the orchestrator) --------------------------
@@ -645,6 +821,18 @@ class HeartbeatSender:
             return False
         self.beats_sent += 1
         return True
+
+    def rehome(self, master_url: str, attempts: int = 3) -> bool:
+        """Point the heartbeat at a new master and register there now.
+        The first beat can meet the dying master's sockets, and a lost
+        one would leave this worker unregistered (read as dead) for a
+        whole interval, so a short burst of retries follows."""
+        self.master_url = master_url.rstrip("/")
+        for i in range(max(attempts, 1)):
+            if self.beat_once():
+                return True
+            time.sleep(min(0.2 * (2 ** i), 1.0))
+        return False
 
     def start(self) -> None:
         if self._thread is not None:

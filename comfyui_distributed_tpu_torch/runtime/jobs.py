@@ -9,7 +9,11 @@ is refused (``put_*`` returns False and the route answers 404, so the
 sender retries).  Each upload carries an idempotency key
 ``worker_id:unit:attempt``; a key seen before for the job is acknowledged
 but not queued again, so a retried POST counts once.  The keys go with
-the queue.  The write-ahead log and shard scopes of the JAX package wait.
+the queue.  With the write-ahead log attached (``runtime/durable.py``)
+a new key is logged before the upload is answered, and a restarted
+master takes the replayed keys back (``attach_wal``), so an upload
+answered before a crash still counts once after it.  The JAX package's
+shard scopes (``set_scope``) wait for more than one master.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Any, Dict, Optional, Set
+
+from comfyui_distributed_tpu_torch.utils.log import debug_log
 
 
 class JobStore:
@@ -28,21 +34,61 @@ class JobStore:
         self._seen: Dict[str, Set[str]] = {}           # guarded-by: _lock
         self._tile_seen: Dict[str, Set[str]] = {}      # guarded-by: _lock
         self._lock = threading.Lock()
+        self._wal = None                               # guarded-by: _lock
 
-    @staticmethod
-    def _put(jobs: Dict[str, queue.Queue], seen: Dict[str, Set[str]],
-             job_id: str, item: Dict[str, Any], require_existing: bool,
-             idem_key: Optional[str]) -> bool:
-        q = jobs.get(job_id)
-        if q is None:
-            if require_existing:
-                return False
-            q = jobs[job_id] = queue.Queue()
+    def attach_wal(self, wal, recovered_idem: Optional[Dict[str, Any]]
+                   = None) -> None:
+        """Log new keys from now on, and take back the replayed ones
+        (``{"image": {job: [keys]}, "tile": {...}}``)."""
+        with self._lock:
+            self._wal = wal
+        self.merge_idem(recovered_idem)
+
+    def merge_idem(self, recovered_idem: Optional[Dict[str, Any]]) -> None:
+        """Add replayed keys: an upload answered before a crash and
+        retried after it is answered again, not queued."""
+        idem = recovered_idem or {}
+        with self._lock:
+            for seen, scope in ((self._seen, "image"),
+                                (self._tile_seen, "tile")):
+                for job, keys in (idem.get(scope) or {}).items():
+                    seen.setdefault(str(job), set()).update(map(str, keys))
+
+    def _log_idem(self, scope: str, job_id: str, idem_key: str) -> None:
+        """Log an accepted key (fsync'd per ``DTPU_WAL_SYNC``) before the
+        upload is answered.  A fenced or crashed log raises, so a deposed
+        master's handlers stop answering 200."""
+        with self._lock:
+            wal = self._wal
+        if wal is None:
+            return
+        from comfyui_distributed_tpu_torch.runtime import durable
+        try:
+            wal.append("idem", scope=scope, job=str(job_id),
+                       key=str(idem_key))
+        except (durable.FencedError, durable.WalCrashedError):
+            raise
+        except Exception as e:  # noqa: BLE001 - durability is best effort
+            debug_log(f"jobstore: idempotency key not logged: {e}")
+
+    def _put(self, scope: str, jobs: Dict[str, queue.Queue],
+             seen: Dict[str, Set[str]], job_id: str, item: Dict[str, Any],
+             require_existing: bool, idem_key: Optional[str]) -> bool:
+        """Queue ``item`` unless its key was seen; the key is logged
+        outside the lock, before the item is queued and answered."""
+        with self._lock:
+            q = jobs.get(job_id)
+            if q is None:
+                if require_existing:
+                    return False
+                q = jobs[job_id] = queue.Queue()
+            if idem_key:
+                keys = seen.setdefault(job_id, set())
+                if idem_key in keys:
+                    return True
+                keys.add(idem_key)
         if idem_key:
-            keys = seen.setdefault(job_id, set())
-            if idem_key in keys:
-                return True
-            keys.add(idem_key)
+            self._log_idem(scope, job_id, idem_key)
         q.put(item)
         return True
 
@@ -64,9 +110,8 @@ class JobStore:
                    require_existing: bool = True,
                    idem_key: Optional[str] = None) -> bool:
         """Queue a worker's image; False for an unknown job."""
-        with self._lock:
-            return self._put(self._jobs, self._seen, job_id, item,
-                             require_existing, idem_key)
+        return self._put("image", self._jobs, self._seen, job_id, item,
+                         require_existing, idem_key)
 
     def remove_job(self, job_id: str) -> None:
         with self._lock:
@@ -92,9 +137,8 @@ class JobStore:
                  idem_key: Optional[str] = None) -> bool:
         """Queue a worker's tile; False for an unknown job, so a late
         tile cannot bring back a queue the master has dropped."""
-        with self._lock:
-            return self._put(self._tile_jobs, self._tile_seen, job_id, item,
-                             require_existing, idem_key)
+        return self._put("tile", self._tile_jobs, self._tile_seen, job_id,
+                         item, require_existing, idem_key)
 
     def remove_tile_queue(self, job_id: str) -> None:
         with self._lock:

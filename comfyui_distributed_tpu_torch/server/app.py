@@ -42,7 +42,14 @@ other:
   ``/distributed/workers_status`` (the health poller's last round),
   ``POST /distributed/metrics/reset`` (403 under
   ``DTPU_METRICS_RESET=0``) and ``GET /panel``, the page that drives
-  them.
+  them;
+- the durability plane (``runtime/durable.py``): ``GET
+  /distributed/durability`` (the lease, the log's size and sync lag,
+  the recovery; ``{"enabled": false}`` without ``DTPU_WAL_DIR``), ``POST
+  /distributed/takeover`` (a standby takes the expired lease, or a live
+  one with ``{"force": true}``; 409 while another master's lives) and a
+  worker's ``POST /distributed/rehome`` (its heartbeat follows a new
+  master).
 
 One execution thread runs the queue in FIFO order through the port's
 ``WorkflowExecutor`` on the server's device; handler threads answer
@@ -52,8 +59,12 @@ shape and ``torch.cuda.max_memory_allocated()``.  A master owns a
 ``ClusterRegistry`` seeded from its config, a ``WorkLedger`` and a
 ``HealthPoller`` (started by :func:`serve`) and a
 ``WorkerProcessManager``; a worker started with ``DTPU_MASTER_URL`` and
-``DTPU_WORKER_ID`` heartbeats its master.  Admission control, tracing,
-the write-ahead log and previews wait.
+``DTPU_WORKER_ID`` heartbeats its master.  With ``DTPU_WAL_DIR`` a
+master takes the master lease (or, with ``DTPU_STANDBY=1``, watches it)
+and replays its write-ahead log before the execution thread starts: each
+admission is logged before its prompt id is answered and each finished
+prompt after its run, and :func:`serve` resumes the interrupted prompts
+once the port is bound.  Admission control, tracing and previews wait.
 """
 
 from __future__ import annotations
@@ -82,6 +93,7 @@ from comfyui_distributed_tpu_torch.models import registry
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
+from comfyui_distributed_tpu_torch.runtime import durable as durable_mod
 from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
 from comfyui_distributed_tpu_torch.runtime import interrupt
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
@@ -168,6 +180,15 @@ class ServerState:
         self._running = False
         self._cond = threading.Condition()
         self._metrics_lock = threading.Lock()
+        # the durability plane: the lease taken (or watched), the log
+        # replayed and the ledger and keys preloaded before the execution
+        # thread can pop anything; a lease another master holds refuses
+        # the start
+        try:
+            self.durable = durable_mod.DurableMaster.attach(self)
+        except durable_mod.WalError as e:
+            raise RuntimeError(f"durable master start refused: {e}") \
+                from None
         if start_exec_thread:
             threading.Thread(target=self._exec_loop, name="dtpu-exec",
                              daemon=True).start()
@@ -175,8 +196,25 @@ class ServerState:
     # --- queue ---------------------------------------------------------------
 
     def enqueue_prompt(self, prompt: Dict[str, Any],
-                       extra_data: Optional[Dict[str, Any]] = None) -> str:
-        pid = uuid.uuid4().hex
+                       extra_data: Optional[Dict[str, Any]] = None,
+                       client_id: str = "unknown",
+                       pid: Optional[str] = None,
+                       _recovered: bool = False) -> str:
+        """Queue a prompt; returns its id.  With the log on, the admission
+        is durable before the id is returned (a crash after it runs the
+        prompt again on recovery).  ``pid`` and ``_recovered``: a prompt
+        resumed from the log under its original id, whose record is
+        there already and whose result queues are made here, as
+        ``post_prompt`` makes them for a prepared graph."""
+        pid = pid or uuid.uuid4().hex
+        if _recovered:
+            for kind, mj in _master_jobs(prompt):
+                if kind == "tile":
+                    self.jobs.prepare_tile_job(mj)
+                else:
+                    self.jobs.prepare_job(mj)
+        elif self.durable is not None:
+            self.durable.log_enqueue(pid, prompt, client_id, extra_data)
         with self._cond:
             self._queue.append({"id": pid, "prompt": prompt,
                                 "extra_data": extra_data or {}})
@@ -228,10 +266,18 @@ class ServerState:
             err = e
             traceback.print_exc()
         finally:
-            # a tile queue prepared at /prompt time for a run that never
-            # reached its upscaler would take tiles for ever
-            for mj in _master_tile_jobs(item["prompt"]):
-                self.jobs.remove_tile_queue(mj)
+            # a queue prepared before the run for a run that never
+            # reached its collector or upscaler would take uploads for ever
+            for kind, mj in _master_jobs(item["prompt"]):
+                if kind == "tile":
+                    self.jobs.remove_tile_queue(mj)
+                else:
+                    self.jobs.remove_job(mj)
+        if self.durable is not None:
+            # closes the admission record: a crash before this runs the
+            # prompt again on recovery, one after it leaves it settled
+            self.durable.log_exec_done(item["id"],
+                                       "ok" if err is None else "error")
         done = {"prompt_id": item["id"],
                 "status": "success" if err is None else "error",
                 "seconds": time.perf_counter() - t0,
@@ -284,8 +330,9 @@ class ServerState:
         # a master sent an already prepared graph: its tile queues exist
         # before execution starts, or a fast worker's tiles 404 through
         # every retry
-        for mj in _master_tile_jobs(prompt):
-            self.jobs.prepare_tile_job(mj)
+        for kind, mj in _master_jobs(prompt):
+            if kind == "tile":
+                self.jobs.prepare_tile_job(mj)
         client_id = data.get("client_id", "unknown")
         extra_data = data.get("extra_data") or {}
         try:
@@ -295,7 +342,7 @@ class ServerState:
                 out = run_distributed(
                     prompt, f"http://{host}:{self.port or 8288}",
                     lambda g: self.enqueue_prompt(g.to_api_format(),
-                                                  extra_data),
+                                                  extra_data, client_id),
                     cfg_mod.enabled_workers(cfg), job_store=self.jobs,
                     client_id=client_id, extra_data=extra_data,
                     cluster=self.cluster, ledger=self.ledger)
@@ -303,10 +350,17 @@ class ServerState:
                              "number": self.queue_remaining(),
                              "workers": out["workers"],
                              "failed_workers": out["failed"]}
-            pid = self.enqueue_prompt(prompt, extra_data)
+            pid = self.enqueue_prompt(prompt, extra_data, client_id)
         except Exception as e:  # noqa: BLE001 - reported to the client
             return 400, {"error": str(e)}
         return 200, {"prompt_id": pid, "number": self.queue_remaining()}
+
+    def resume_recovered(self) -> int:
+        """Queue again the prompts a crash interrupted (replayed from the
+        log when this state was made); :func:`serve` calls it once the
+        port is bound, since the recovery graphs name this master's URL.
+        A second call does nothing."""
+        return self.durable.resume() if self.durable is not None else 0
 
     # --- data plane ----------------------------------------------------------
 
@@ -326,15 +380,18 @@ class ServerState:
         return out
 
 
-def _master_tile_jobs(prompt: Dict[str, Any]):
-    """The ``multi_job_id`` of each master-side tiled upscaler of a
-    prepared graph."""
+def _master_jobs(prompt: Dict[str, Any]):
+    """(``"tile"`` or ``"image"``, ``multi_job_id``) of each master-side
+    tiled upscaler and collecting collector of a prepared graph."""
     for node in prompt.values():
-        if isinstance(node, dict) \
-                and node.get("class_type") in C.UPSCALER_NODE_TYPES:
-            h = {**node.get("inputs", {}), **node.get("hidden", {})}
-            if h.get("multi_job_id") and not h.get("is_worker"):
-                yield str(h["multi_job_id"])
+        if not isinstance(node, dict) \
+                or node.get("class_type") not in C.DISTRIBUTED_NODE_TYPES:
+            continue
+        h = {**node.get("inputs", {}), **node.get("hidden", {})}
+        if h.get("multi_job_id") and not h.get("is_worker") \
+                and not h.get("pass_through"):
+            yield ("tile" if node["class_type"] in C.UPSCALER_NODE_TYPES
+                   else "image"), str(h["multi_job_id"])
 
 
 def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
@@ -477,11 +534,16 @@ def routes(state: ServerState
         state.cluster.forget(wid)
         return ok()
 
+    def durability() -> Dict[str, Any]:
+        return state.durable.stats() if state.durable is not None \
+            else {"enabled": False}
+
     def metrics(body, ctype, query, remote=None):
         with state._metrics_lock:
             out = dict(state.metrics)
         return 200, {**out,
-                     "cluster_counters": cluster_mod.COUNTERS.snapshot()}
+                     "cluster_counters": cluster_mod.COUNTERS.snapshot(),
+                     "durability": durability()}
 
     def cluster_info(body, ctype, query, remote=None):
         return 200, {
@@ -676,6 +738,48 @@ def routes(state: ServerState
         log(f"metrics reset (by {remote or 'unknown'})")
         return ok(cleared=cleared)
 
+    # --- durability --------------------------------------------------------
+
+    def durability_info(body, ctype, query, remote=None):
+        return 200, durability()
+
+    def takeover(body, ctype, query, remote=None):
+        """Make this server the master: take the lease (expired, or any
+        with ``{"force": true}``), replay the shared log, resume the
+        interrupted prompts and re-home the workers.  A standby's watcher
+        takes the same path when the lease expires."""
+        if state.durable is None:
+            return 409, {"error": f"durability off (set {C.WAL_DIR_ENV})"}
+        data = json_body(body)
+        try:
+            out = state.durable.takeover(force=bool(data.get("force")))
+        except durable_mod.LeaseHeldError as e:
+            return 409, {"error": str(e)}
+        return ok(**out)
+
+    def rehome(body, ctype, query, remote=None):
+        """A worker's side of a failover: a new master announces itself,
+        the heartbeat follows it and registers there at once."""
+        data = json_body(body)
+        url = str(data.get("master_url", "")).rstrip("/")
+        if not url:
+            return 400, {"error": "missing master_url"}
+        wid = str(data.get("worker_id", "")
+                  or os.environ.get(C.WORKER_ID_ENV, ""))
+        os.environ[C.MASTER_URL_ENV] = url
+        if wid:
+            os.environ.setdefault(C.WORKER_ID_ENV, wid)
+        hb = state.heartbeat
+        if hb is None and wid:
+            hb = state.heartbeat = cluster_mod.HeartbeatSender(
+                url, wid, port=state.port)
+            hb.start()
+        beat = hb.rehome(url) if hb is not None else False
+        log(f"re-homed to master {url}"
+            + ("" if beat else " (first heartbeat pending)"))
+        return ok(master_url=url, heartbeat=hb is not None,
+                  registered=beat)
+
     def panel(body, ctype, query, remote=None):
         with open(PANEL_HTML, "rb") as f:
             return 200, Raw(f.read(), "text/html; charset=utf-8")
@@ -714,6 +818,9 @@ def routes(state: ServerState
         ("GET", "/distributed/workers_status"): workers_status,
         ("POST", "/distributed/metrics/reset"): metrics_reset,
         ("GET", "/panel"): panel,
+        ("GET", "/distributed/durability"): durability_info,
+        ("POST", "/distributed/takeover"): takeover,
+        ("POST", "/distributed/rehome"): rehome,
     }
 
 
@@ -780,7 +887,10 @@ def serve(state: ServerState, host: str = "127.0.0.1",
     ``settings.auto_launch_workers`` is true and stops its managed
     workers when it exits (so it must run on the main thread, which
     signal handlers need); a worker renews its lease at
-    ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID`` when both are set."""
+    ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID`` when both are set.  A
+    durable master resumes its interrupted prompts once bound, on a
+    thread (it probes the workers first), and closes its log on the way
+    out (SIGINT, or SIGTERM through the exit hooks)."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
     if state.is_worker:
@@ -789,6 +899,9 @@ def serve(state: ServerState, host: str = "127.0.0.1",
         install_exit_hooks(state.manager)
         state.health.start()
         auto_launch_workers(state.manager)
+        if state.durable is not None:
+            threading.Thread(target=state.resume_recovered,
+                             name="dtpu-resume", daemon=True).start()
     log(f"{role} listening on {host}:{state.port} (device {state.device})")
     sys.stdout.flush()
     try:
@@ -799,4 +912,6 @@ def serve(state: ServerState, host: str = "127.0.0.1",
         state.health.stop()
         if state.heartbeat is not None:
             state.heartbeat.stop()
+        if state.durable is not None:
+            state.durable.close()
         server.server_close()

@@ -1,5 +1,5 @@
-"""Timeouts, node-type sets and wire constants of the HTTP fan-out and
-the worker manager: the subset of
+"""Timeouts, node-type sets and wire constants of the HTTP fan-out, the
+worker manager and the write-ahead log: the subset of
 ``comfyui_distributed_tpu/utils/constants.py`` that the port reads, with
 the same values, so a worker of either package keeps to a master of the
 other.
@@ -71,8 +71,31 @@ MASTER_URL_ENV = "DTPU_MASTER_URL"   # worker -> master heartbeat target
 WORKER_ID_ENV = "DTPU_WORKER_ID"     # this worker's config id
 # fault injection for tests and drills, JSON: {"drop_tiles_after": k}
 # makes a worker stop after sending k tiles; {"stall_s": t} delays its
-# first tile send by t seconds
+# first tile or image send by t seconds
 FAULT_INJECT_ENV = "DTPU_FAULT_INJECT"
+
+# --- durable job state and master failover (runtime/durable.py) -------------
+# The write-ahead job log: every queue admission, ledger ownership
+# transition, unit check-in and idempotency key is appended as a
+# checksummed record to segment files under DTPU_WAL_DIR (unset:
+# durability off).  A restarted master replays it and resumes the
+# interrupted prompts, refining only their unfinished units; a standby
+# (DTPU_STANDBY=1) watches the master's lease file in the same directory
+# and takes over when it expires.  Appends carry the holder's epoch and
+# are refused once a higher epoch holds the lease (fencing).
+WAL_DIR_ENV = "DTPU_WAL_DIR"
+# fsync policy: "always" (a record is durable before its caller is
+# answered), "off" (left to the OS), or seconds between group fsyncs
+WAL_SYNC_ENV = "DTPU_WAL_SYNC"
+WAL_SYNC_DEFAULT = "always"
+WAL_SEGMENT_BYTES_ENV = "DTPU_WAL_SEGMENT_BYTES"
+WAL_SEGMENT_BYTES_DEFAULT = 1 << 20    # rotate (and snapshot) at 1 MiB
+STANDBY_ENV = "DTPU_STANDBY"           # "1": watch the lease, do not take it
+MASTER_LEASE_ENV = "DTPU_MASTER_LEASE_S"
+MASTER_LEASE_DEFAULT = 10.0            # s the master lease lives unrenewed
+MASTER_LEASE_FRACTION = 3.0            # renewed every lease / this
+WAL_FENCE_CHECK_S = 0.25               # s between re-reads of the lease
+WAL_OWNER_ENV = "DTPU_MASTER_ID"       # the lease owner (default: master)
 
 # --- worker lifecycle (runtime/manager.py, runtime/monitor.py) ---------------
 PROCESS_TERMINATION_TIMEOUT = 5.0  # s a TERM may take before KILL

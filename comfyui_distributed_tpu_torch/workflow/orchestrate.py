@@ -19,9 +19,10 @@ With the control plane (``cluster`` and ``ledger``, from
 ``runtime/cluster.py``) the preflight skips workers the registry holds
 dead, and each distributed job gets a redispatcher on the ledger, so a
 collector can re-issue a dead or straggling participant's units to a
-healthy worker.  The JAX package's SLO deadlines and crash-recovery
-redispatchers (``register_recovery_redispatchers``) wait for their
-slices.
+healthy worker.  A master that resumes a prompt from its write-ahead log
+registers the same redispatchers from the prompt's prepared graph
+(:func:`register_recovery_redispatchers`).  The JAX package's SLO
+deadlines wait for their slice.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ import urllib.request
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
+from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
-from comfyui_distributed_tpu_torch.utils.log import log
+from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import FormData, post_json
 from comfyui_distributed_tpu_torch.workflow import dispatcher as dsp
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
@@ -235,6 +237,46 @@ def _register_redispatchers(graph: Graph, job_id_map: Dict[str, str],
             return sent > 0
 
         ledger.set_redispatcher(mj, redispatch)
+
+
+def register_recovery_redispatchers(state, prompt: Dict[str, Any]) -> int:
+    """The redispatchers of a prompt that a master resumes from its
+    write-ahead log.  The log holds the master's prepared graph, whose
+    distributed nodes carry their ``multi_job_id`` and
+    ``enabled_worker_ids`` as hidden inputs, so the unfinished units can
+    go out again to live workers with exact unit lists, without running
+    the orchestration again.  Returns how many jobs got one."""
+    graph = parse_workflow(prompt)
+    job_id_map: Dict[str, str] = {}
+    enabled_ids: List[str] = []
+    for nid, node in graph.nodes.items():
+        if node.class_type not in dsp.DISTRIBUTED_TYPES:
+            continue
+        h = node.hidden
+        mj = h.get("multi_job_id")
+        if not mj or h.get("is_worker"):
+            continue
+        job_id_map[nid] = str(mj)
+        if h.get("enabled_worker_ids"):
+            try:
+                enabled_ids = [str(x) for x in
+                               json.loads(h["enabled_worker_ids"])]
+            except (ValueError, TypeError):
+                pass
+    if not job_id_map or not enabled_ids:
+        return 0
+    cfg = cfg_mod.load_config(state.config_path)
+    alive = [w for w in cfg_mod.enabled_workers(cfg)
+             if str(w.get("id")) in enabled_ids]
+    if not alive:
+        return 0
+    host = cfg.get("master", {}).get("host") or "127.0.0.1"
+    _register_redispatchers(graph, job_id_map, enabled_ids, alive,
+                            f"http://{host}:{state.port or 8288}",
+                            "dtpu-recovery", None, state.cluster,
+                            state.ledger)
+    debug_log(f"recovery: redispatchers for {sorted(job_id_map.values())}")
+    return len(job_id_map)
 
 
 def run_distributed(graph_or_doc: Any, master_url: str,

@@ -18,7 +18,7 @@ from comfyui_distributed_tpu.workflow.graph import \
     parse_workflow as jax_parse
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
 from comfyui_distributed_tpu_torch.server.app import (ServerState,
-                                                      _master_tile_jobs)
+                                                      _master_jobs)
 from comfyui_distributed_tpu_torch.utils import config as tcfg
 from comfyui_distributed_tpu_torch.utils.net import find_free_port
 from comfyui_distributed_tpu_torch.workflow import dispatcher as tdsp
@@ -295,9 +295,9 @@ def test_prepared_master_share_gets_its_tile_queue_at_prompt_time(tmp_path):
     status, _ = st.post_prompt({"prompt": g.to_api_format()})
     assert status == 200 and st.jobs.has_tile_job("exec_9_2")
     # the master's share names its tile job; a worker's names none
-    assert list(_master_tile_jobs(g.to_api_format())) == ["exec_9_2"]
+    assert list(_master_jobs(g.to_api_format())) == [("tile", "exec_9_2")]
     w = tdsp.prepare_for_participant(t, "worker",
                                      tdsp.make_job_id_map(t, "exec_9"),
                                      ["w0"], MASTER)
-    assert list(_master_tile_jobs(w.to_api_format())) == []
+    assert list(_master_jobs(w.to_api_format())) == []
     assert st.post_prompt({"prompt": {}})[0] == 400
