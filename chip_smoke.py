@@ -228,6 +228,36 @@ Run from the root of a checkout on a machine with a CUDA card (and
    the ``kernels`` line.  It prints the seconds from each kill (to the
    lease's expiry, the takeover and the success) and a ``phase16``
    line.
+17. traces, Prometheus and the resource view (``utils/trace.py``,
+   ``trace_export.py``, ``trace_analysis.py``, ``resource.py``), on
+   phase 8's master and worker before they stop, tracing on and the
+   capture files in a temporary directory a server: (1) one warm
+   fan-out upscale after ``metrics/reset``; ``GET
+   /distributed/trace/<id>`` must give one trace id and one root (the
+   master's job) over the queue wait, execute, node, preflight,
+   dispatch, collect and finalize spans, w0's shipped spans (its job,
+   queue wait, execute, the upscaler's span and its ``d2h``,
+   ``encode`` and ``upload`` stages) under the dispatch span, and no
+   dropped span; (2) ``cli why <id> --json``: the categories and the
+   unattributed gap sum to the root span's duration within
+   ``PHASE17_WHY_SUM_ATOL_S`` and ``compute`` is above 0; (3) ``cli
+   trace <id> --export-dir DIR --perfetto`` reads the same span ids
+   from the capture files; (4) ``metrics.prom`` parses (every line a
+   HELP, TYPE or sample, every histogram cumulative up to its
+   ``_count``) and its ``job_e2e`` count equals the prompts run since
+   the reset; (5) ``cluster/metrics`` lists the master and w0, neither
+   stale, each with over ``PHASE17_MIN_DEVICE_BYTES`` in use from
+   ``torch.cuda``, and ``cluster/metrics.prom`` parses; (6)
+   ``profile/start``, one more warm fan-out upscale, ``profile/stop``:
+   the master's Chrome trace holds exactly ``PHASE17_PROFILE_SM90``
+   ``flash_fwd_sm90`` kernel events and none of the other attention
+   kernels, and ``profile/status`` is not running after; (7) in this
+   process (inside phase 8, while the SDXL pipeline is warm) the
+   txt2img four times, tracing on, off, on, off, each under a job span:
+   the 8-bit images equal to the bit.  It prints a ``phase17`` line: the
+   span names, ``why``'s blame, the transfer bytes by direction, the
+   profile's top ten kernels, the traced and profiled request seconds
+   and check 7's four.
 
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after (phase 15's interrupted request and every
@@ -374,6 +404,20 @@ SDXL_STEP_LAUNCHES = 140
 PHASE16_MASTER_LEASE_S = 3.0
 PHASE16_STALL_S = 300
 PHASE16_MIN_FREE = 60_000_000_000
+# phase 17: an SD1.5 server holds its pipelines, more device memory
+# than this in the federated view (PERF.md: 7-17 GB a server); the
+# profiled request's master share is 16 UNet attentions x (self, cross)
+# x 20 steps of sm90; the blame categories and the unattributed gap of
+# ``cli why`` sum to the root span's duration within this many seconds
+PHASE17_MIN_DEVICE_BYTES = 5_000_000_000
+PHASE17_MEMORY_SOURCE = "memory_stats"   # torch.cuda's, not host RSS
+PHASE17_PROFILE_SM90 = 640
+PHASE17_WHY_SUM_ATOL_S = 1e-3
+# kernels of the variants the profiled request must not launch: the
+# older mma.sync and fp32 ones and torch's own attention
+PHASE17_FORBIDDEN_KERNELS = ("flash_fwd_bf16", "flash_fwd_f32", "fmha",
+                             "pytorch_flash", "efficient_attention",
+                             "scaled_dot_product")
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -1153,7 +1197,8 @@ def fanout_request(cluster, path, doc, want_launches, refs, checked):
                                if probe_s else None},
             "shares": {r: {k: s.get(k) for k in (
                 "seconds", "launches", "launches_by_shape", "attention",
-                "max_memory_allocated", "node_seconds", "stage_seconds")}
+                "max_memory_allocated", "node_seconds", "stage_seconds",
+                "transfers")}
                 for r, s in shares.items()}}
 
 
@@ -1191,6 +1236,10 @@ def fanout(docs, input_dir, upscale_ref, rows):
         req = copy.deepcopy(docs["txt2img"])
         req["13"]["inputs"]["seed"] = s
         txt_refs.append({"same": run(req)})
+    # phase 17's check 7 while the SDXL pipeline is warm in this process
+    req = copy.deepcopy(docs["txt2img"])
+    req["13"]["inputs"]["seed"] = seed
+    parity = tracing_parity(req, input_dir)
     # the upscale with its tiles refined in the fan-out's batches:
     # partition_tiles(16, 1), tiles 0-7 then 8-15
     whole = Upscaler._refine_tiles
@@ -1220,7 +1269,13 @@ def fanout(docs, input_dir, upscale_ref, rows):
     up["2"]["inputs"]["seed"] = 42
     requests = []
     with tempfile.TemporaryDirectory() as root:
-        cluster = Cluster(root, PHASE8_ROLES)
+        # tracing is on by default; the capture files go to a temporary
+        # directory a server
+        export = {role: os.path.join(root, f"capture-{role}")
+                  for role in PHASE8_ROLES}
+        cluster = Cluster(root, {
+            role: (cmd, {**env, "DTPU_TRACE_EXPORT_DIR": export[role]})
+            for role, (cmd, env) in PHASE8_ROLES.items()})
         try:
             t0 = time.perf_counter()
             cluster.start()
@@ -1237,8 +1292,12 @@ def fanout(docs, input_dir, upscale_ref, rows):
                     r = fanout_request(cluster, path, copy.deepcopy(doc),
                                        want, refs, checked)
                     requests.append({"run": run, **r})
+            phase17 = observability(
+                cluster, up, [{"same": up_ref, "one_batch": upscale_ref}],
+                checked, export["serve"], os.path.join(root, "profile"))
         finally:
             cluster.stop()
+    phase17["tracing_parity"] = parity
     report = {"free_bytes_before": free, "servers_start_s": started_s,
               "cudnn_benchmark": torch.backends.cudnn.benchmark,
               "atol": {k: {"max": v[0], "mean": v[1]}
@@ -1250,8 +1309,274 @@ def fanout(docs, input_dir, upscale_ref, rows):
                              for r in requests},
               "peak_memory": {f"{r['path']} {r['run']}": {
                   role: s["max_memory_allocated"]
-                  for role, s in r["shares"].items()} for r in requests}}
+                  for role, s in r["shares"].items()} for r in requests},
+              "phase17": phase17}
     return report, [r["same"] for r in txt_refs]
+
+
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|'
+    r'\\.)*",?)*\})? (\S+)( # \{[^}]*\} \S+ \S+)?$')
+PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prom(text, what):
+    """Prometheus text -> {(name, labels): value}; fails unless every
+    line is a ``# HELP``, a ``# TYPE`` or a sample, and every histogram's
+    buckets are cumulative, non-decreasing and end at ``_count``."""
+    samples = {}
+    buckets = collections.defaultdict(list)
+    for ln in text.splitlines():
+        if ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = PROM_SAMPLE.match(ln)
+        if m is None:
+            fail(f"phase 17: {what}: not a Prometheus line: {ln!r}")
+        labels = dict(PROM_LABEL.findall(m.group(2) or ""))
+        value = float(m.group(3))
+        name = m.group(1)
+        if name.endswith("_bucket") and "le" in labels:
+            le = labels.pop("le")
+            buckets[(name[:-len("_bucket")],
+                     tuple(sorted(labels.items())))].append(
+                (math.inf if le == "+Inf" else float(le), value))
+        samples[(name, tuple(sorted(labels.items())))] = value
+    for (fam, labels), series in buckets.items():
+        les = [le for le, _ in series]
+        counts = [n for _, n in series]
+        if les != sorted(les) or les[-1] != math.inf \
+                or any(b < a for a, b in zip(counts, counts[1:])) \
+                or counts[-1] != samples.get((fam + "_count", labels)):
+            fail(f"phase 17: {what}: histogram {fam}{dict(labels)} is not "
+                 f"cumulative: {series}")
+    return samples
+
+
+def tracing_parity(doc, input_dir):
+    """Phase 17, check 7: the warm in-process SDXL txt2img four times,
+    tracing on, off, on, off (``trace.set_tracing``, the JAX package's
+    switch), each under a job span as a server runs it; the four 8-bit
+    images must be equal to the bit.  Returns each run's seconds and
+    spans."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.utils import trace
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+    runs, images = [], []
+    was = trace.tracing_enabled()
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+    try:
+        for i, on in enumerate((True, False, True, False)):
+            trace.set_tracing(on)
+            sync()
+            t0 = time.perf_counter()
+            root = trace.start_span("job", attrs={"prompt_id": f"p17_{i}"})
+            with trace.use_span(root):
+                res = WorkflowExecutor(OpContext(
+                    device=DEVICE, input_dir=input_dir)).execute(
+                        copy.deepcopy(doc))
+            sync()
+            seconds = time.perf_counter() - t0
+            n_spans = 0
+            if root is not None:
+                root.end()
+                trace.GLOBAL_TRACES.commit(f"p17_{i}", root.trace_id,
+                                           root_span_id=root.span_id)
+                n_spans = trace.GLOBAL_TRACES.get(f"p17_{i}")["n_spans"]
+            if (n_spans > 0) != on:
+                fail(f"phase 17: tracing {'on' if on else 'off'} recorded "
+                     f"{n_spans} spans")
+            images.append(to_uint8(res.image_batch[0]))
+            runs.append({"tracing": on, "seconds": seconds,
+                         "spans": n_spans})
+    finally:
+        trace.set_tracing(was)
+    if any(not np.array_equal(images[0], im) for im in images[1:]):
+        fail("phase 17: the image with tracing on differs from the one "
+             "with tracing off")
+    on_s = [r["seconds"] for r in runs if r["tracing"]]
+    off_s = [r["seconds"] for r in runs if not r["tracing"]]
+    return {"runs": runs, "equal_to_the_bit": True,
+            "on_mean_s": statistics.mean(on_s),
+            "off_mean_s": statistics.mean(off_s),
+            "overhead_pct": 100.0 * (statistics.mean(on_s)
+                                     / statistics.mean(off_s) - 1.0)}
+
+
+def cli_json(args, what):
+    """Run the port's ``cli`` with ``args`` and read its JSON output."""
+    out = subprocess.run(
+        [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"phase 17: cli {what} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def observability(cluster, doc, refs, checked, export_dir, profile_dir):
+    """Phase 17: traces, Prometheus and the resource view on phase 8's
+    master and worker (checks 1-6; check 7 is :func:`tracing_parity`).
+    ``doc``: the fan-out upscale, ``refs`` its references."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+    master = cluster.url("serve")
+    t_phase = time.perf_counter()
+    post_json(master + "/distributed/metrics/reset", {})
+    # check 1: one warm upscale fan-out, one trace tree
+    req = fanout_request(cluster, "upscale", copy.deepcopy(doc),
+                         EXPECTED["upscale"][1], refs, checked)
+    pid = req["prompt_id"]
+    deadline = time.time() + 30
+    while True:   # the trace is committed just after the history entry
+        try:
+            rec = get_json(f"{master}/distributed/trace/{pid}")
+            break
+        except OSError:
+            if time.time() > deadline:
+                cluster.fail(f"phase 17: no trace for {pid}")
+            time.sleep(0.1)
+    spans = rec["spans"]
+    by_id = {sp["span_id"]: sp for sp in spans}
+    names = collections.Counter(sp["name"] for sp in spans)
+    if {sp["trace_id"] for sp in spans} != {rec["trace_id"]}:
+        cluster.fail("phase 17: more than one trace id in the tree")
+    if len(rec["tree"]) != 1 or rec["tree"][0]["span_id"] \
+            != rec["root_span_id"] or rec["tree"][0]["name"] != "job":
+        cluster.fail(f"phase 17: roots {[r['name'] for r in rec['tree']]}, "
+                     "expected the one job root")
+
+    def under(sp, anc_id):
+        while sp is not None:
+            if sp.get("parent_id") == anc_id:
+                return True
+            sp = by_id.get(sp.get("parent_id"))
+        return False
+
+    root_id = rec["root_span_id"]
+    master_nodes = {n["class_type"] for n in doc.values()
+                    if isinstance(n, dict)}
+    for name in ("queue_wait", "execute", "preflight", "dispatch",
+                 "collect", "finalize", *master_nodes):
+        if not any(sp["name"] == name and under(sp, root_id)
+                   for sp in spans):
+            cluster.fail(f"phase 17: no {name} span under the root: "
+                         f"{dict(names)}")
+    (dispatch,) = [sp for sp in spans if sp["name"] == "dispatch"]
+    w_job = [sp for sp in spans if sp["name"] == "job"
+             and (sp.get("attrs") or {}).get("role") == "worker"]
+    if len(w_job) != 1 or w_job[0]["parent_id"] != dispatch["span_id"]:
+        cluster.fail(f"phase 17: w0's job span is not under the dispatch "
+                     f"span: {w_job}")
+    w_names = collections.Counter(
+        sp["name"] for sp in spans if under(sp, dispatch["span_id"]))
+    for name in ("queue_wait", "execute", "UltimateSDUpscaleDistributed",
+                 "d2h", "encode", "upload"):
+        if not w_names.get(name):
+            cluster.fail(f"phase 17: w0 shipped no {name} span: "
+                         f"{dict(w_names)}")
+    metrics = get_json(master + "/distributed/metrics")
+    if metrics["tracing"]["dropped_spans"] != 0:
+        cluster.fail(f"phase 17: {metrics['tracing']['dropped_spans']} "
+                     "spans dropped")
+    # check 2: cli why
+    why = cli_json(["why", pid, "--url", master, "--json"], "why")
+    blamed = sum(why["categories"].values()) + why["unattributed_s"]
+    root_dur = by_id[root_id]["duration_s"]
+    if abs(blamed - root_dur) > PHASE17_WHY_SUM_ATOL_S \
+            or abs(why["e2e_s"] - root_dur) > PHASE17_WHY_SUM_ATOL_S:
+        cluster.fail(f"phase 17: why's categories sum to {blamed} s, the "
+                     f"root span lasted {root_dur} s")
+    if not why["categories"].get("compute", 0) > 0:
+        cluster.fail(f"phase 17: why blames no compute: {why['categories']}")
+    # check 3: the capture files hold the span ids the recorder served
+    doc_p = cli_json(["trace", pid, "--export-dir", export_dir,
+                      "--perfetto"], "trace")
+    captured = {ev["args"]["span_id"] for ev in doc_p["traceEvents"]
+                if ev.get("ph") in ("X", "i")}
+    if captured != set(by_id):
+        cluster.fail(f"phase 17: the capture files hold "
+                     f"{len(captured)} span ids, the recorder "
+                     f"{len(by_id)}; {len(captured ^ set(by_id))} differ")
+    # check 4: metrics.prom
+    import urllib.request
+    with urllib.request.urlopen(master + "/distributed/metrics.prom",
+                                timeout=30) as r:
+        prom = parse_prom(r.read().decode(), "metrics.prom")
+    ran = metrics["prompts_executed"] + metrics["prompts_failed"]
+    e2e_count = prom.get(("dtpu_stage_seconds_count",
+                          (("stage", "job_e2e"),)))
+    if e2e_count != ran or ran != 1:
+        cluster.fail(f"phase 17: job_e2e count {e2e_count}, prompts run "
+                     f"since the reset {ran}")
+    # check 5: the federated resource view
+    fleet = get_json(master + "/distributed/cluster/metrics")
+    parts = fleet["participants"]
+    memory = {}
+    for who in ("master", "w0"):
+        p = parts.get(who)
+        if p is None or p["stale"] \
+                or p["resources"]["source"] != PHASE17_MEMORY_SOURCE \
+                or not p["resources"]["device_bytes_in_use"] \
+                > PHASE17_MIN_DEVICE_BYTES:
+            cluster.fail(f"phase 17: {who} in the federated view: {p}")
+        memory[who] = p["resources"]["device_bytes_in_use"]
+    with urllib.request.urlopen(master + "/distributed/cluster/metrics.prom",
+                                timeout=30) as r:
+        parse_prom(r.read().decode(), "cluster/metrics.prom")
+    # check 6: a profile of one warm fan-out, its kernels by name
+    post_json(master + "/distributed/profile/start", {"dir": profile_dir})
+    prof_req = fanout_request(cluster, "upscale", copy.deepcopy(doc),
+                              EXPECTED["upscale"][1], refs, checked)
+    t0 = time.perf_counter()
+    stopped = post_json(master + "/distributed/profile/stop", {})
+    stop_s = time.perf_counter() - t0
+    if get_json(master + "/distributed/profile/status")["running"]:
+        cluster.fail("phase 17: the profile still runs after stop")
+    with open(stopped["file"], "r", encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    sm90 = [ev for ev in kernels if "flash_fwd_sm90" in ev["name"]]
+    other = sorted({ev["name"] for ev in kernels
+                    if any(k in ev["name"]
+                           for k in PHASE17_FORBIDDEN_KERNELS)})
+    if len(sm90) != PHASE17_PROFILE_SM90 or other:
+        cluster.fail(f"phase 17: the profile holds {len(sm90)} sm90 kernels "
+                     f"(expected {PHASE17_PROFILE_SM90}) and {other}")
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for ev in kernels:
+        k = by_kernel[ev["name"][:120]]
+        k[0] += 1
+        k[1] += float(ev.get("dur", 0)) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    serve_line = req["shares"]["serve"]
+    worker_line = req["shares"]["worker"]
+    return {"prompt_id": pid, "trace_id": rec["trace_id"],
+            "spans": len(spans), "span_names": dict(names),
+            "worker_span_names": dict(w_names),
+            "dropped_spans": metrics["tracing"]["dropped_spans"],
+            "why": {"e2e_s": why["e2e_s"], "categories": why["categories"],
+                    "unattributed_s": why["unattributed_s"],
+                    "unattributed_pct": why["unattributed_pct"],
+                    "negative_edges": why["negative_edges"]},
+            "captured_span_ids": len(captured),
+            "job_e2e_count": e2e_count,
+            "device_bytes_in_use": memory,
+            "transfers": {"master": serve_line.get("transfers"),
+                          "worker": worker_line.get("transfers")},
+            "profile": {"sm90_kernels": len(sm90),
+                        "kernel_events": len(kernels),
+                        "events": len(events), "stop_s": stop_s,
+                        "top_kernels": [{"name": n, "count": c, "ms": ms}
+                                        for n, (c, ms) in top]},
+            "request_s": {"traced": req["seconds"],
+                          "profiled": prof_req["seconds"]},
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def drill_env(role):
@@ -1409,8 +1734,9 @@ def drill_request(cluster, name, path, doc, fault, lost, refs, checked):
             "ledger": job, "w1_state": snap["workers"]["w1"]["state"],
             "received": {k: m1[k] - m0[k] for k in (
                 "images_received", "tiles_received", "wire_decode_s")},
-            "counters": {k: v - m0["cluster_counters"].get(k, 0)
-                         for k, v in m1["cluster_counters"].items()},
+            "counters": {k: v - m0["pipeline"]["counters"].get(k, 0)
+                         for k, v in m1["pipeline"]["counters"].items()
+                         if k.startswith("cluster_")},
             "peak_memory": peaks, "abs_diff": diffs, "shares": shares}
 
 
@@ -3103,6 +3429,7 @@ def main() -> int:
                           "launches_per_request": [r["launches"]
                                                    for r in requests]})
         fanout_report, txt_refs = fanout(docs, input_dir, upscaled[42], rows)
+        report17 = fanout_report.pop("phase17")
         emit("fanout", fanout_report)
         sdxl_report, sdxl_reqs, sdxl_img = sdxl_requests(
             docs["sdxl"], input_dir, shape_counts)
@@ -3145,6 +3472,7 @@ def main() -> int:
         shape_counts.update(failover["shapes"])
         requests.append(failover)
         emit("phase16", report16)
+        emit("phase17", {"card": card_line(), **report17})
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

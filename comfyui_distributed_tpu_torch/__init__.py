@@ -16,7 +16,10 @@ Packages:
     workflow/  API-format graph parser and executor; the HTTP fan-out's
                graph rewrites (dispatcher) and orchestration
     server/    the master/worker HTTP server (standard library)
-    runtime/   per-job result queues of the fan-out
-    utils/     PNG, resampling, the tensor wire, HTTP helpers, config
+    runtime/   per-job result queues, the control plane, the log
+    utils/     PNG, resampling, the tensor wire, HTTP helpers, config,
+               traces, capture files, trace analysis, resources
     csrc/      CUDA sources
 """
+
+__version__ = "0.1.0"

@@ -12,6 +12,13 @@
   python -m comfyui_distributed_tpu_torch.cli status [--url URL]
   python -m comfyui_distributed_tpu_torch.cli devices
   python -m comfyui_distributed_tpu_torch.cli wal [--dir D] [--job S] [--json]
+  python -m comfyui_distributed_tpu_torch.cli trace [PROMPT_ID] \\
+      [--url URL | --export-dir DIR] [--perfetto [--out FILE]]
+  python -m comfyui_distributed_tpu_torch.cli why PROMPT_ID \\
+      [--url URL | --export-dir DIR] [--json]
+  python -m comfyui_distributed_tpu_torch.cli analyze [--url URL | \\
+      --export-dir DIR | --diff DIR_A DIR_B [--seed N]] \\
+      [--baseline-out FILE] [--json]
 
 ``serve`` starts a master and ``worker`` a worker of the HTTP fan-out
 (``server/app.py``); both take ``--host``, ``--port``, ``--config`` (the
@@ -54,6 +61,17 @@ keys).  ``wal`` verifies a write-ahead log's directory (``--dir`` or
 snapshots, the lease, the records by type and by job and what a
 recovering master would resume; it exits 1 on corruption (a torn last
 record is what a crash leaves, not corruption).
+
+``trace``, ``why`` and ``analyze`` are the JAX package's readers of
+traces, over a running server's flight recorder (``--url``) or the
+capture files of either package (``--export-dir``): ``trace`` lists the
+recorded jobs or prints one job's span tree (``--perfetto``: Chrome
+trace-event JSON); ``why`` cuts one job's end-to-end seconds into blame
+categories and the unattributed gap, and prints the critical path;
+``analyze`` prints profiles by tenant, signature and worker and the
+straggler scorecard, ``--diff`` tests two capture directories for a
+regression (exit 3 on one) and ``--baseline-out`` writes the profile
+that arms ``DTPU_ANALYSIS_BASELINE``.
 """
 
 from __future__ import annotations
@@ -318,6 +336,291 @@ def cmd_wal(args) -> int:
     return 0 if report["ok"] else 1
 
 
+def cmd_trace(args) -> int:
+    """Flight-recorder reader: no id lists recent job traces; with an id,
+    pretty-prints the job's span tree (indent = parent/child, one line
+    per span with duration and status) — the headless way to answer
+    "where did THIS job spend its time, across processes".  With
+    --export-dir, reads durable capture files instead of a live server
+    (post-mortem: the server may be gone); --perfetto emits
+    Chrome/Perfetto trace-event JSON for chrome://tracing / ui.perfetto.dev.
+    """
+    import urllib.error
+    import urllib.request
+    from comfyui_distributed_tpu_torch.utils import trace_export
+
+    def emit(rec) -> int:
+        if args.perfetto:
+            doc = trace_export.to_perfetto(rec)
+            if args.out:
+                with open(args.out, "w", encoding="utf-8") as f:
+                    json.dump(doc, f)
+                print(f"wrote {len(doc['traceEvents'])} events to "
+                      f"{args.out}", file=sys.stderr)
+            else:
+                print(json.dumps(doc))
+            return 0
+        n_spans = rec.get("n_spans", len(rec.get("spans", ())))
+        print(f"trace {rec['trace_id']}  job {rec['prompt_id']}  "
+              f"status={rec['status']}  {rec.get('duration_s')}s  "
+              f"{n_spans} spans")
+
+        def walk(node, depth):
+            mark = "" if node.get("status") == "ok" else \
+                f"  !{node.get('status')}"
+            attrs = node.get("attrs") or {}
+            extra = "".join(f"  {k}={v}" for k, v in attrs.items()
+                            if k in ("worker", "node", "coalesced", "job",
+                                     "mem_peak_mb", "mem_peak_delta_mb",
+                                     "device_peak_mb", "rss_mb"))
+            print(f"{'  ' * depth}{node['name']}  "
+                  f"{node['duration_s'] * 1e3:.1f}ms{extra}{mark}")
+            for child in node.get("children", []):
+                walk(child, depth + 1)
+
+        tree = rec.get("tree")
+        if tree is None:
+            tree = trace_export.load_forest(rec)
+        for root in tree:
+            walk(root, 0)
+        return 0
+
+    if args.export_dir:
+        # offline path: the durable capture files, no server required
+        if not args.prompt_id:
+            n = 0
+            for rec in trace_export.iter_records(args.export_dir):
+                dur = rec.get("duration_s")
+                print(f"{rec['prompt_id']}  {rec['status']:5s}  "
+                      f"{dur if dur is not None else '?':>8}s  "
+                      f"{len(rec.get('spans', ())):3d} spans  "
+                      f"trace={rec['trace_id']}")
+                n += 1
+            if not n:
+                print("(no captured traces in "
+                      f"{args.export_dir})")
+            return 0
+        rec = trace_export.load_trace(args.export_dir,
+                                      prompt_id=args.prompt_id)
+        if rec is None:
+            print(f"no captured trace for {args.prompt_id!r} in "
+                  f"{args.export_dir}", file=sys.stderr)
+            return 1
+        return emit(rec)
+    if not args.prompt_id:
+        with urllib.request.urlopen(f"{args.url}/distributed/traces",
+                                    timeout=10) as r:
+            data = json.loads(r.read())
+        for t in data.get("traces", []):
+            dur = t.get("duration_s")
+            print(f"{t['prompt_id']}  {t['status']:5s}  "
+                  f"{dur if dur is not None else '?':>8}s  "
+                  f"{t['n_spans']:3d} spans  trace={t['trace_id']}")
+        if not data.get("traces"):
+            print("(no completed job traces recorded)")
+        return 0
+    try:
+        with urllib.request.urlopen(
+                f"{args.url}/distributed/trace/{args.prompt_id}",
+                timeout=10) as r:
+            rec = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        # error bodies may be plain text (older servers, proxies) — never
+        # let the JSON parse mask the real status
+        try:
+            msg = json.loads(e.read()).get("error", str(e))
+        except (ValueError, AttributeError):
+            msg = str(e)
+        print(msg, file=sys.stderr)
+        return 1
+    return emit(rec)
+
+
+def cmd_why(args) -> int:
+    """Latency autopsy for ONE job (`cli why <pid>`): the critical-path
+    blame decomposition — every instant of the end-to-end interval
+    attributed to the deepest covering span's category (queue_wait /
+    admission / dispatch / compute / d2h / encode / upload / blend /
+    park), with the uncovered remainder reported honestly as an
+    unattributed gap instead of silently inflating a category.  Reads
+    the live flight recorder, or durable capture files with
+    --export-dir (post-mortem)."""
+    import urllib.error
+    import urllib.request
+    from comfyui_distributed_tpu_torch.utils import trace_analysis
+    from comfyui_distributed_tpu_torch.utils import trace_export
+    if args.export_dir:
+        rec = trace_export.load_trace(args.export_dir,
+                                      prompt_id=args.prompt_id)
+        if rec is None:
+            print(f"no captured trace for {args.prompt_id!r} in "
+                  f"{args.export_dir}", file=sys.stderr)
+            return 1
+    else:
+        try:
+            with urllib.request.urlopen(
+                    f"{args.url}/distributed/trace/{args.prompt_id}",
+                    timeout=10) as r:
+                rec = json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            try:
+                msg = json.loads(e.read()).get("error", str(e))
+            except (ValueError, AttributeError):
+                msg = str(e)
+            print(msg, file=sys.stderr)
+            return 1
+    bd = trace_analysis.critical_path(rec)
+    if args.json:
+        print(json.dumps(bd, indent=2))
+        return 0
+    e2e = bd["e2e_s"]
+    print(f"job {bd['prompt_id']}  trace {bd['trace_id']}  "
+          f"e2e={e2e:.3f}s")
+    if e2e <= 0:
+        print("(empty or zero-length trace — nothing to blame)")
+        return 0
+    print(f"{'category':14s} {'seconds':>9s} {'share':>7s}")
+    for cat, secs in sorted(bd["categories"].items(),
+                            key=lambda kv: -kv[1]):
+        print(f"{cat:14s} {secs:>9.3f} {secs / e2e:>6.1%}")
+    print(f"{'(unattributed)':14s} {bd['unattributed_s']:>9.3f} "
+          f"{bd['unattributed_pct'] / 100:>6.1%}")
+    if bd.get("negative_edges"):
+        print(f"! {bd['negative_edges']} negative parent->child edges "
+              "(cross-process clock skew; is DTPU_SKEW_CORRECTION on?)")
+    print("critical path:")
+    for seg in bd["path"]:
+        who = f"  @{seg['worker']}" if seg.get("worker") else ""
+        print(f"  +{seg['start_s']:>8.3f}s {seg['dur_s']:>8.3f}s  "
+              f"{seg['name']} [{seg['category']}]{who}")
+    return 0
+
+
+def _print_analysis_report(report) -> None:
+    """Shared pretty-printer for `cli analyze` (live route and offline
+    capture dirs produce the same report shape)."""
+    print(f"traces analysed: {report.get('n_traces', 0)}  "
+          f"mean unattributed "
+          f"{report.get('unattributed_pct_mean', 0.0):.1f}%  "
+          f"negative_edges={report.get('negative_edges', 0)}")
+    for group_by, groups in sorted(
+            (report.get("profiles") or {}).items()):
+        print(f"by {group_by}:")
+        for key, prof in sorted(groups.items()):
+            cats = "  ".join(
+                f"{c}={v['mean_s']:.3f}s({v['share_pct']:.0f}%)"
+                for c, v in sorted(
+                    prof.get("categories", {}).items(),
+                    key=lambda kv: -kv[1]["mean_s"])
+                if v["mean_s"] > 0)
+            print(f"  {key}: n={prof['n']} "
+                  f"p50={prof['e2e_p50_s']:.3f}s "
+                  f"p95={prof['e2e_p95_s']:.3f}s  {cats}")
+    sc = report.get("stragglers") or {}
+    workers = sc.get("workers") or {}
+    if workers:
+        print(f"straggler scorecard (fleet compute p95 median "
+              f"{sc.get('fleet_median_p95_s', 0.0):.3f}s, "
+              f"threshold {sc.get('threshold_x')}x):")
+        for w, row in sorted(workers.items()):
+            flag = "  STRAGGLER" if row["straggler"] else ""
+            print(f"  {w}: n={row['n_spans']} "
+                  f"p95={row['compute_p95_s']:.3f}s "
+                  f"{row['vs_fleet_median_x']:.2f}x{flag}")
+    hedging = report.get("hedging_latency_ema_s") or {}
+    if hedging:
+        ema = "  ".join(f"{j}={v}" for j, v in sorted(hedging.items()))
+        print(f"ledger hedging EMA (active jobs): {ema}")
+    skews = report.get("skew") or {}
+    if skews:
+        offs = "  ".join(f"{w}={s['offset_s'] * 1e3:+.1f}ms"
+                         for w, s in sorted(skews.items()))
+        print(f"clock skew: {offs}")
+    live = report.get("live") or {}
+    if live.get("armed"):
+        print(f"anomaly plane armed (baseline {live.get('baseline')}): "
+              f"{live.get('anomalies_total', 0)} anomalies over "
+              f"{live.get('traces_analyzed', 0)} traces")
+
+
+def cmd_analyze(args) -> int:
+    """Cross-trace analytics (`cli analyze`): blame profiles grouped by
+    tenant / structural signature / worker plus the per-worker
+    straggler scorecard, over the live ring (GET /distributed/analysis)
+    or durable capture dirs (--export-dir).  --diff A B runs the
+    anomaly-gated regression diff between two capture dirs (permutation
+    significance test; exit 3 when a regression is flagged);
+    --baseline-out writes the profile JSON that arms the live anomaly
+    plane via DTPU_ANALYSIS_BASELINE."""
+    import urllib.request
+    from comfyui_distributed_tpu_torch.utils import trace_analysis
+    from comfyui_distributed_tpu_torch.utils import trace_export
+
+    def offline_breakdowns(dir_path):
+        stats: dict = {}
+        records = list(trace_export.iter_records(dir_path, stats=stats))
+        bds = trace_analysis.collect_breakdowns(records)
+        skipped = stats.get("torn_lines", 0) \
+            + stats.get("unknown_schema", 0)
+        if skipped or stats.get("io_errors"):
+            print(f"loader: {dir_path}: {stats['records']} records, "
+                  f"{stats['torn_lines']} torn lines, "
+                  f"{stats['unknown_schema']} unknown-schema, "
+                  f"{stats['io_errors']} io errors", file=sys.stderr)
+        return bds
+
+    if args.diff:
+        dir_a, dir_b = args.diff
+        diff = trace_analysis.diff_breakdowns(
+            offline_breakdowns(dir_a), offline_breakdowns(dir_b),
+            seed=args.seed)
+        if args.json:
+            print(json.dumps(diff, indent=2))
+        else:
+            print(f"diff {dir_a} -> {dir_b}  "
+                  f"(n={diff['n_a']} vs {diff['n_b']}, "
+                  f"{diff['n_resamples']} resamples)")
+            print(f"{'category':14s} {'mean_a':>9s} {'mean_b':>9s} "
+                  f"{'delta':>8s} {'p':>6s}")
+            for cat, row in diff["categories"].items():
+                mark = "  REGRESSED" if row["flagged"] else (
+                    "  (significant)" if row["significant"] else "")
+                # delta_pct is None when the category was absent (mean
+                # 0) in arm A -- the relative change is unbounded
+                dp = (f"{row['delta_pct']:>+7.1f}%"
+                      if row["delta_pct"] is not None else f"{'new':>8s}")
+                print(f"{cat:14s} {row['mean_a_s']:>9.3f} "
+                      f"{row['mean_b_s']:>9.3f} "
+                      f"{dp} "
+                      f"{row['p_value']:>6.3f}{mark}")
+            print("verdict: " + ("REGRESSED in "
+                                 + ", ".join(diff["flagged"])
+                                 if diff["regressed"] else "clean"))
+        return 3 if diff["regressed"] else 0
+
+    if args.export_dir:
+        records = [bd["_rec"]
+                   for bd in offline_breakdowns(args.export_dir)]
+        report = trace_analysis.analyze_records(records)
+    else:
+        with urllib.request.urlopen(
+                f"{args.url}/distributed/analysis", timeout=10) as r:
+            report = json.loads(r.read())
+    if args.baseline_out:
+        profile = report.get("fleet_profile")
+        if not profile or not profile.get("n"):
+            print("no traces to build a baseline from", file=sys.stderr)
+            return 1
+        trace_analysis.save_baseline(profile, args.baseline_out)
+        print(f"wrote baseline profile ({profile['n']} traces) to "
+              f"{args.baseline_out}", file=sys.stderr)
+    if args.json:
+        print(json.dumps(report, indent=2))
+        return 0
+    _print_analysis_report(report)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="comfyui_distributed_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -390,6 +693,57 @@ def build_parser() -> argparse.ArgumentParser:
     wl.add_argument("--json", action="store_true",
                     help="the raw report")
     wl.set_defaults(fn=cmd_wal)
+
+    tr = sub.add_parser("trace", help="read a job's distributed trace "
+                                     "from a server's flight recorder "
+                                     "or durable capture files")
+    tr.add_argument("prompt_id", nargs="?", default=None,
+                   help="prompt id to print (omit to list recent traces)")
+    tr.add_argument("--url", default="http://127.0.0.1:8288")
+    tr.add_argument("--export-dir", default=None, metavar="DIR",
+                   help="read durable capture files from DIR instead of "
+                        "a live server (post-mortem)")
+    tr.add_argument("--perfetto", action="store_true",
+                   help="emit Chrome/Perfetto trace-event JSON instead "
+                        "of the pretty tree (load in ui.perfetto.dev)")
+    tr.add_argument("--out", default=None, metavar="FILE",
+                   help="write --perfetto JSON to FILE instead of stdout")
+    tr.set_defaults(fn=cmd_trace)
+
+    wh = sub.add_parser("why", help="latency autopsy for one job: "
+                                   "critical-path blame per category + "
+                                   "the unattributed gap")
+    wh.add_argument("prompt_id", help="prompt id to autopsy")
+    wh.add_argument("--url", default="http://127.0.0.1:8288")
+    wh.add_argument("--export-dir", default=None, metavar="DIR",
+                   help="read durable capture files from DIR instead of "
+                        "a live server (post-mortem)")
+    wh.add_argument("--json", action="store_true",
+                   help="raw breakdown dict instead of the blame table")
+    wh.set_defaults(fn=cmd_why)
+
+    an = sub.add_parser("analyze", help="cross-trace analytics: blame "
+                                       "profiles by tenant/signature/"
+                                       "worker, straggler scorecard, "
+                                       "regression diffs")
+    an.add_argument("--url", default="http://127.0.0.1:8288")
+    an.add_argument("--export-dir", default=None, metavar="DIR",
+                   help="analyse durable capture files from DIR instead "
+                        "of the live flight-recorder ring")
+    an.add_argument("--diff", nargs=2, default=None,
+                   metavar=("DIR_A", "DIR_B"),
+                   help="regression diff between two capture dirs "
+                        "(baseline A vs candidate B); exit 3 when a "
+                        "significant regression is flagged")
+    an.add_argument("--baseline-out", default=None, metavar="FILE",
+                   help="write the fleet blame profile as the baseline "
+                        "JSON that arms DTPU_ANALYSIS_BASELINE")
+    an.add_argument("--seed", type=int, default=0,
+                   help="resampling seed for the --diff significance "
+                        "test (deterministic)")
+    an.add_argument("--json", action="store_true",
+                   help="the raw report")
+    an.set_defaults(fn=cmd_analyze)
     return p
 
 

@@ -6,7 +6,11 @@ Each op mirrors a ComfyUI node's schema: ``WIDGETS`` is the widget order
 ``HIDDEN`` lists the hidden inputs the op accepts.  Tensor-plane values
 (latents, images) travel between ops as :class:`DeviceTensor` wrappers
 around a torch tensor on the run's device; the only host edge is
-:meth:`DeviceTensor.to_host`, taken by output nodes.
+:meth:`DeviceTensor.to_host`, taken by output nodes.  The device edges
+(:meth:`DeviceTensor.to_host`, :func:`as_device_array` of a host value,
+:func:`as_image_array` of a device value) report their bytes through
+``utils.trace.record_transfer``, attributed to the executing node, as
+the JAX package's do (``d2h`` and ``h2d``; on a card real copies).
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.runtime import interrupt
+from comfyui_distributed_tpu_torch.utils.trace import (
+    GLOBAL_PHASES,
+    record_transfer,
+)
 
 # sentinel for widget slots that are UI chrome (control_after_generate)
 CONTROL = "__control__"
@@ -125,15 +133,17 @@ class OpContext:
 
 @contextlib.contextmanager
 def stage(ctx: OpContext, name: str) -> Iterator[None]:
-    """Add the seconds of the enclosed block to ``ctx.stage_seconds[name]``;
-    on a card the block ends in a synchronize, so the time is the
-    stage's own device time."""
+    """Add the seconds of the enclosed block to ``ctx.stage_seconds[name]``
+    and to the ``phases`` aggregate (the JAX package times these phases
+    with its ``Timer``); on a card the block ends in a synchronize, so
+    the time is the stage's own device time."""
     t0 = time.perf_counter()
     yield
     if torch.device(ctx.device).type == "cuda":
         torch.cuda.synchronize(ctx.device)
-    ctx.stage_seconds[name] = ctx.stage_seconds.get(name, 0.0) \
-        + time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    ctx.stage_seconds[name] = ctx.stage_seconds.get(name, 0.0) + dt
+    GLOBAL_PHASES.record(name, dt)
 
 
 class Op:
@@ -189,8 +199,10 @@ class DeviceTensor:
         return tuple(self.data.shape)
 
     def to_host(self) -> np.ndarray:
-        """The device -> host edge: float32 numpy."""
-        return self.data.detach().float().cpu().numpy()
+        """The device -> host edge: float32 numpy, counted."""
+        arr = self.data.detach().float().cpu().numpy()
+        record_transfer("d2h", arr.nbytes)
+        return arr
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(shape={self.shape})"
@@ -206,12 +218,18 @@ class DeviceLatent(DeviceTensor):
 
 def as_device_array(x, device) -> torch.Tensor:
     """A wire value as a float32 tensor on ``device``; device-resident
-    values are used as they are."""
+    values are used as they are, a host value pays one counted h2d
+    copy."""
     if isinstance(x, DeviceTensor):
         x = x.data
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        out = x.to(device=device, dtype=torch.float32)
+        if out.device != x.device:
+            record_transfer("h2d", out.nelement() * out.element_size())
+        return out
+    arr = np.asarray(x, np.float32)
+    record_transfer("h2d", arr.nbytes)
+    return torch.as_tensor(arr, device=device)
 
 
 def as_device_image(x, device) -> torch.Tensor:
@@ -221,11 +239,13 @@ def as_device_image(x, device) -> torch.Tensor:
 
 
 def as_image_array(x) -> np.ndarray:
-    """IMAGE value -> numpy [B, H, W, C] float32 (a host edge)."""
+    """IMAGE value -> numpy [B, H, W, C] float32 (a host edge: a device
+    value's copy is counted)."""
     if isinstance(x, DeviceTensor):
         arr = x.to_host()
     elif isinstance(x, torch.Tensor):
         arr = x.detach().float().cpu().numpy()
+        record_transfer("d2h", arr.nbytes)
     else:
         arr = np.asarray(x, dtype=np.float32)
     if arr.ndim == 3:

@@ -64,6 +64,7 @@ from comfyui_distributed_tpu_torch.utils.image import (
     resize_image,
     save_png,
 )
+from comfyui_distributed_tpu_torch.utils.log import Timer
 
 
 @register_op
@@ -750,12 +751,14 @@ class KSampler(Op):
         ctx.check_interrupt()
         prep = _prepare_sample_inputs(model, seed, latent_image, positive,
                                       negative)
-        out = model.sample(
-            prep.latents, prep.context, prep.uncond, prep.seeds,
-            steps=int(steps), cfg=float(cfg), sampler_name=str(sampler_name),
-            scheduler=str(scheduler), denoise=float(denoise), y=prep.y,
-            sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
-            c_concat=prep.c_concat)
+        with Timer(f"ksampler[{sampler_name}x{steps}]"):
+            out = model.sample(
+                prep.latents, prep.context, prep.uncond, prep.seeds,
+                steps=int(steps), cfg=float(cfg),
+                sampler_name=str(sampler_name), scheduler=str(scheduler),
+                denoise=float(denoise), y=prep.y,
+                sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
+                c_concat=prep.c_concat)
         # the mask stays on the latent, as ComfyUI keeps it
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
@@ -782,15 +785,19 @@ class KSamplerAdvanced(Op):
         ctx.check_interrupt()
         prep = _prepare_sample_inputs(model, noise_seed, latent_image,
                                       positive, negative)
-        out = model.sample(
-            prep.latents, prep.context, prep.uncond, prep.seeds,
-            steps=int(steps), cfg=float(cfg), sampler_name=str(sampler_name),
-            scheduler=str(scheduler), y=prep.y, sample_idx=prep.sample_idx,
-            add_noise=str(add_noise) != "disable",
-            start_step=int(start_at_step),
-            end_step=min(int(end_at_step), int(steps)),
-            force_full_denoise=str(return_with_leftover_noise) == "disable",
-            noise_mask=prep.noise_mask, c_concat=prep.c_concat)
+        with Timer(f"ksampler_adv[{sampler_name}x{steps}"
+                   f"@{start_at_step}-{end_at_step}]"):
+            out = model.sample(
+                prep.latents, prep.context, prep.uncond, prep.seeds,
+                steps=int(steps), cfg=float(cfg),
+                sampler_name=str(sampler_name), scheduler=str(scheduler),
+                y=prep.y, sample_idx=prep.sample_idx,
+                add_noise=str(add_noise) != "disable",
+                start_step=int(start_at_step),
+                end_step=min(int(end_at_step), int(steps)),
+                force_full_denoise=str(return_with_leftover_noise)
+                == "disable",
+                noise_mask=prep.noise_mask, c_concat=prep.c_concat)
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
 
@@ -846,7 +853,9 @@ class VAEDecode(Op):
 
     def execute(self, ctx: OpContext, samples, vae):
         ctx.check_interrupt()
-        img = vae.vae_decode(as_device_array(samples["samples"], vae.device))
+        with Timer("vae_decode"):
+            img = vae.vae_decode(as_device_array(samples["samples"],
+                                                 vae.device))
         return (DeviceImage(img.clamp(0.0, 1.0)),)
 
 
@@ -856,7 +865,8 @@ class VAEEncode(Op):
     TYPE = "VAEEncode"
 
     def execute(self, ctx: OpContext, pixels, vae):
-        lat = vae.vae_encode(as_device_image(pixels, vae.device))
+        with Timer("vae_encode"):
+            lat = vae.vae_encode(as_device_image(pixels, vae.device))
         return ({"samples": DeviceLatent(lat)},)
 
 

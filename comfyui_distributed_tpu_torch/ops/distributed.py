@@ -28,6 +28,13 @@ The seed: the master passes it through; worker ``i`` uses
 
 Downstream of a distributed upscaler it is ``pass_through`` and returns
 its input.  Fan-out over several GPUs (NCCL) waits.
+
+Tracing, as in the JAX package: a worker's encodes are ``encode`` stages
+(on the pool thread, in the job's span and transfer context) and its
+POSTs ``upload`` stages carrying the ``traceparent``; its last upload
+ships the worker's spans of the job (``spans`` form field), which the
+master's route ingests into its flight recorder.  The master's drain is
+a ``collect`` span, each recovery a ``reassign`` or ``hedge`` span.
 """
 
 from __future__ import annotations
@@ -53,13 +60,15 @@ from comfyui_distributed_tpu_torch.ops.base import (
 )
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
-from comfyui_distributed_tpu_torch.utils.log import log
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
+from comfyui_distributed_tpu_torch.utils.log import Timer, log
 from comfyui_distributed_tpu_torch.utils.image import (
     encode_png,
     encode_tensor,
 )
 from comfyui_distributed_tpu_torch.utils.net import (
     FormData,
+    in_context,
     negotiate_wire_format,
     post_form_with_retry,
     wire_codec,
@@ -86,13 +95,15 @@ def wire_payload(arr: np.ndarray, fmt: str, codec: str
 def pipelined_uploads(n: int, prep: Callable[[int], Any],
                       post: Callable[[int, Any], None]) -> Dict[str, float]:
     """Upload ``n`` items in order, ``prep(k)`` (the device-to-host copy
-    and the encode) of item k + 1 on a pool thread while ``post(k,
-    prepped)`` sends item k.  Returns the seconds summed over the items:
+    and the encode) of item k + 1 on a pool thread, in the caller's span
+    and transfer context, while ``post(k, prepped)`` sends item k as an
+    ``upload`` stage.  Returns the seconds summed over the items:
     ``wire_encode`` (in ``prep``, on the pool thread) and ``wire_post``;
     with both busy at once their sum exceeds the wall time."""
     spent = {"wire_encode": 0.0, "wire_post": 0.0}
     if n <= 0:
         return spent
+    prep = in_context(prep)
 
     def timed(k: int):
         t0 = time.perf_counter()
@@ -108,7 +119,8 @@ def pipelined_uploads(n: int, prep: Callable[[int], Any],
             if k + 1 < n:
                 nxt = ex.submit(timed, k + 1)
             t0 = time.perf_counter()
-            post(k, prepped)
+            with trace_mod.stage("upload"):
+                post(k, prepped)
             spent["wire_post"] += time.perf_counter() - t0
     return spent
 
@@ -183,9 +195,11 @@ class DistributedCollector(Op):
         fmt = negotiate_wire_format(master_url)
         codec = wire_codec(master_url)
         n = arr.shape[0]
+        sp = trace_mod.current_span()
 
         def prep(i: int):
-            return wire_payload(arr[i:i + 1], fmt, codec)
+            with trace_mod.stage("encode"):
+                return wire_payload(arr[i:i + 1], fmt, codec)
 
         def post(i: int, prepped) -> None:
             payload, ctype, ext = prepped
@@ -199,13 +213,20 @@ class DistributedCollector(Op):
                 # dispatch attempt: the master counts the image once
                 form.add_field("idem_key", f"{worker_id}:{i}:{attempt}")
                 form.add_field("is_last", "true" if i == n - 1 else "false")
+                if i == n - 1 and sp is not None:
+                    # this process's spans of the job ride the last
+                    # upload (the open ones provisional), so the master's
+                    # recorder holds the whole fan-out
+                    form.add_field("spans", json.dumps(
+                        trace_mod.GLOBAL_TRACES.export(sp.trace_id)))
                 form.add_field("image", payload, filename=f"img_{i}.{ext}",
                                content_type=ctype)
                 return form
 
             post_form_with_retry(f"{master_url}/distributed/job_complete",
                                  make_form, timeout=C.TILE_SEND_TIMEOUT,
-                                 what="job_complete")
+                                 what="job_complete",
+                                 headers=trace_mod.traceparent_headers())
 
         return pipelined_uploads(n, prep, post)
 
@@ -229,8 +250,13 @@ class DistributedCollector(Op):
         recovered = ledger.load_payloads(multi_job_id) \
             if ledger is not None else {}
         try:
-            results = self._drain_images(ctx, multi_job_id, worker_ids,
-                                         pos_map, policy)
+            # the master-side half of the fan-out's trace: the workers'
+            # shipped spans hang beside it under the same trace id
+            with Timer("collector_http_drain"), \
+                    trace_mod.span("collect", job=multi_job_id,
+                                   n_workers=len(worker_ids)):
+                results = self._drain_images(ctx, multi_job_id, worker_ids,
+                                             pos_map, policy)
             if ledger is not None and policy == "fail":
                 lost = ledger.pending(multi_job_id)
                 if lost:
@@ -290,11 +316,15 @@ class DistributedCollector(Op):
         def missing():
             return set(worker_ids) - {pos_map.get(w, w) for w in done}
 
+        def recover(units, owner, reason: str) -> bool:
+            with trace_mod.span(reason, job=mj, lost=str(owner)):
+                return ledger.redispatch(mj, list(units), owner)
+
         def redispatched(units, owner) -> None:
             """Redispatch a lost owner's slices; a success gives the
             replacement room before the deadline."""
             nonlocal deadline, last_progress
-            if ledger.redispatch(mj, list(units), owner):
+            if recover(units, owner, "reassign"):
                 now = time.monotonic()
                 deadline = min(max(deadline,
                                    now + C.JOB_COMPLETION_TIMEOUT / 2),
@@ -353,7 +383,7 @@ class DistributedCollector(Op):
                                           key=str):
                     if not ledger.mark_hedged(mj, [unit]):
                         continue
-                    if ledger.redispatch(mj, [unit], owner):
+                    if recover([unit], owner, "hedge"):
                         log(f"collector: hedged straggler {owner}'s slice")
                     else:
                         # a hedge that never launched must not pin the

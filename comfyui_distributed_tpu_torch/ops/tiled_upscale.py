@@ -33,6 +33,14 @@ uint8, cached by geometry) runs on the run's device.  Three modes:
   before the crash from there, refines only its own pending tiles, and
   redispatches the workers' pending tiles at once.
 
+Tracing, as in the JAX package: a worker's tile copies to the host are
+``d2h`` stages and its encodes ``encode`` stages (on the pool thread, in
+the job's span and transfer context), its POSTs ``upload`` stages with
+the ``traceparent``, and its last tile ships its spans of the job.  The
+master's drain is a ``collect`` span; a redispatch or a refine of lost
+tiles on the master a ``reassign`` span, a hedge a ``hedge`` span.  The
+changed-tile cache is not ported, so ``tiles_skipped`` stays 0.
+
 Regional conditionings (siblings, area masks, timestep ranges) refine
 with each entry's canvas mask cropped through the same padded tile
 windows as the pixels.  Not ported: PerpNeg raises
@@ -79,10 +87,12 @@ from comfyui_distributed_tpu_torch.ops.distributed import (
 )
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.image import resize_image
 from comfyui_distributed_tpu_torch.utils.net import (
     FormData,
+    in_context,
     negotiate_wire_format,
     post_form_with_retry,
     wire_codec,
@@ -371,12 +381,15 @@ class UltimateSDUpscaleDistributed(Op):
             n_send = max(int(drop_after), 0)
         fmt = negotiate_wire_format(master_url)
         codec = wire_codec(master_url)
+        sp = trace_mod.current_span()
 
         def prep(k: int):
             tile, region = self._window_to_extracted(
                 windows[indices[k]], all_tiles[indices[k]], p, img_size)
-            arr = tile[None].detach().float().cpu().numpy()
-            return wire_payload(arr, fmt, codec), region
+            with trace_mod.stage("d2h"):
+                arr = as_image_array(tile[None])
+            with trace_mod.stage("encode"):
+                return wire_payload(arr, fmt, codec), region
 
         def post(k: int, prepped) -> None:
             (payload, ctype, ext), (x1, y1, x2, y2) = prepped
@@ -396,6 +409,10 @@ class UltimateSDUpscaleDistributed(Op):
                 form.add_field("idem_key",
                                f"{worker_id}:{tile_idx}:{attempt}")
                 form.add_field("is_last", "true" if last else "false")
+                if last and sp is not None:
+                    # the worker's spans of the job ride its last tile
+                    form.add_field("spans", json.dumps(
+                        trace_mod.GLOBAL_TRACES.export(sp.trace_id)))
                 form.add_field("tile", payload,
                                filename=f"tile_{tile_idx}.{ext}",
                                content_type=ctype)
@@ -403,7 +420,8 @@ class UltimateSDUpscaleDistributed(Op):
 
             post_form_with_retry(f"{master_url}/distributed/tile_complete",
                                  make_form, timeout=C.TILE_TRANSFER_TIMEOUT,
-                                 what="tile_complete")
+                                 what="tile_complete",
+                                 headers=trace_mod.traceparent_headers())
 
         return pipelined_uploads(n_send, prep, post)
 
@@ -461,7 +479,9 @@ class UltimateSDUpscaleDistributed(Op):
                             spent=ctx.stage_seconds):
                         windows[i] = window
             if active_workers and ctx.job_store is not None:
-                with stage(ctx, "tile_collect"):
+                with stage(ctx, "tile_collect"), \
+                        trace_mod.span("collect", job=mj,
+                                       n_workers=active_workers):
                     collected = self._collect_tiles(
                         ctx, mj, active_workers, refine_window=refine_units)
                 for i, item in collected.items():
@@ -511,7 +531,10 @@ class UltimateSDUpscaleDistributed(Op):
         if moved:
             log(f"tiled upscale master: reassigning units {moved} to "
                 f"master (job {mj})")
-            for i, window in refine_units(moved).items():
+            with trace_mod.span("reassign", job=mj, units=len(moved),
+                                to="master"):
+                out = refine_units(moved)
+            for i, window in out.items():
                 if ledger.check_in(mj, i, "master",
                                    payload=_window_payload(window),
                                    spent=ctx.stage_seconds):
@@ -591,9 +614,20 @@ class UltimateSDUpscaleDistributed(Op):
         pool = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="dtpu-recover") if can_refine else None
 
-        def recover(units, reason: str) -> None:
-            recovery.append((pool.submit(refine_window, list(units)),
-                             reason, list(units)))
+        def recover(units, reason: str, lost: Optional[str] = None) -> None:
+            """The master's own refine of ``units`` on the pool thread,
+            a ``reassign`` or ``hedge`` span under the drain's."""
+            attrs: Dict[str, Any] = {"job": mj, "units": len(units),
+                                     "to": "master"}
+            if lost:
+                attrs["lost"] = str(lost)
+
+            @in_context
+            def run(units):
+                with trace_mod.span(reason, **attrs):
+                    return refine_window(units)
+            recovery.append((pool.submit(run, list(units)), reason,
+                             list(units)))
 
         def harvest(wait: bool = False) -> None:
             """Check the finished refines in (``wait``: all of them)."""
@@ -623,12 +657,17 @@ class UltimateSDUpscaleDistributed(Op):
         def handle_lost(owner: str, units: List[int]) -> bool:
             """Redispatch a lost owner's units, else refine them here;
             True when a redispatch went out."""
-            redone = ledger.has_redispatcher(mj) and ledger.redispatch(
-                mj, sorted(units), owner)
+            redone = False
+            if ledger.has_redispatcher(mj):
+                with trace_mod.span("reassign", job=mj, units=len(units),
+                                    lost=str(owner), to="remote") as rsp:
+                    redone = ledger.redispatch(mj, sorted(units), owner)
+                    if rsp is not None and not redone:
+                        rsp.attrs["to"] = "none"
             if not redone and refine_window is not None:
                 moved = ledger.reassign(mj, sorted(units), "master")
                 if moved:
-                    recover(moved, "reassign")
+                    recover(moved, "reassign", lost=owner)
             return redone
 
         def finished() -> bool:

@@ -15,8 +15,13 @@
 - :class:`HeartbeatSender`: a worker's lease renewal at its master.
 
 Each transition (suspect, dead, reassign, hedge win or loss, a failed
-redispatch) bumps a counter of :data:`COUNTERS`, served by
-``GET /distributed/cluster`` and ``/distributed/metrics``.
+redispatch) bumps an event counter of ``utils.trace.GLOBAL_COUNTERS``,
+where the JAX package bumps it, served in ``/distributed/metrics``'
+``pipeline.counters`` and ``metrics.prom``'s ``dtpu_events_total``.  The
+registry also keeps each worker's last resource snapshot (carried by its
+heartbeats, for the federated ``/distributed/cluster/metrics``) and a
+min-filtered estimate of its clock's offset from the heartbeats'
+``sent_at``, by which the master shifts the worker's shipped spans.
 
 With the write-ahead log (``runtime/durable.py``) attached, every
 ownership transition is a record, a winning check-in's payload is
@@ -26,8 +31,8 @@ units (``load_payloads``, ``take_recovered_lost``); a worker's
 ``HeartbeatSender.rehome`` follows a new master.
 
 Not ported yet: ``merge_recovered`` and ``MultiHeartbeatSender`` (more
-than one master), SLO deadlines (``set_deadline``, ``deadline``), clock
-skew and resource feeds, the autoscaler's retiring state.
+than one master), SLO deadlines (``set_deadline``, ``deadline``), the
+autoscaler's retiring state.
 ``redispatch`` is a plain call here (the JAX package's is a coroutine):
 the port's drains run on threads.
 """
@@ -43,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from comfyui_distributed_tpu_torch.utils import clock as clock_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import post_json
 
@@ -56,35 +62,6 @@ class ClusterFaultError(RuntimeError):
     """DTPU_FAULT_POLICY=fail: a participant died mid-job."""
 
 
-class Counters:
-    """Named event counts under one lock."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._counts: Dict[str, int] = collections.Counter()  # guarded-by: _lock
-
-    def bump(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += int(n)
-
-    def get(self, name: str) -> int:
-        with self._lock:
-            return self._counts.get(name, 0)
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._counts)
-
-    def reset(self) -> int:
-        """Zero every count (``POST /distributed/metrics/reset``);
-        returns how many names there were."""
-        with self._lock:
-            n = len(self._counts)
-            self._counts.clear()
-            return n
-
-
-COUNTERS = Counters()
 
 
 # --- policy and hedge knobs (read per call: tests set the environment) ------
@@ -228,6 +205,106 @@ class ClusterRegistry:
             rec["failed_probes"] = 0
             self._refresh_locked(wid, rec, now)
 
+    def update_resources(self, worker_id: str,
+                         snapshot: Dict[str, Any]) -> None:
+        """Retain a worker's latest resource snapshot: fed by heartbeats
+        (which carry one) and by the federation endpoint's pull-through.  Only known ids retain — same phantom
+        guard as :meth:`touch`."""
+        wid = str(worker_id)
+        if not isinstance(snapshot, dict):
+            return
+        with self._lock:
+            rec = self._workers.get(wid)
+            if rec is None:
+                return
+            rec["resources"] = dict(snapshot)
+            rec["resources_at"] = self._clock.monotonic()
+
+    def update_skew(self, worker_id: str, offset_s: float) -> None:
+        """Feed one clock-offset sample: ``master wall clock
+        at receive − worker wall clock at send`` for a heartbeat or
+        registration round trip.  Each sample is the true offset plus a
+        non-negative uplink delay, so the retained estimate is the
+        MINIMUM over a sliding window (NTP's insight: the least-delayed
+        sample is the most truthful).  Only known ids retain — same
+        phantom guard as :meth:`touch`."""
+        wid = str(worker_id)
+        try:
+            offset = float(offset_s)
+        except (TypeError, ValueError):
+            return
+        with self._lock:
+            rec = self._workers.get(wid)
+            if rec is None:
+                return
+            samples = rec.get("skew_samples")
+            if samples is None:
+                samples = rec["skew_samples"] = collections.deque(
+                    maxlen=C.SKEW_SAMPLES_KEPT)
+            samples.append(offset)
+            rec["skew_s"] = min(samples)
+            rec["skew_at"] = self._clock.monotonic()
+
+    def skew(self, worker_id: str) -> float:
+        """Current offset estimate to ADD to a worker's wall-clock
+        timestamps to land them on this master's clock; 0.0 when no
+        estimate exists."""
+        with self._lock:
+            rec = self._workers.get(str(worker_id))
+            if rec is None:
+                return 0.0
+            return float(rec.get("skew_s") or 0.0)
+
+    def skew_snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """Per-worker skew estimates with sample counts and age — the
+        /distributed/analysis + prom gauge feed."""
+        now = self._clock.monotonic()
+        with self._lock:
+            out = {}
+            for wid, rec in self._workers.items():
+                if rec.get("skew_s") is None:
+                    continue
+                at = rec.get("skew_at")
+                out[wid] = {
+                    "offset_s": round(float(rec["skew_s"]), 6),
+                    "samples": len(rec.get("skew_samples") or ()),
+                    "age_s": (None if at is None
+                              else round(now - at, 3)),
+                }
+            return out
+
+    def reset_skew(self) -> int:
+        """Drop every skew estimate (POST /distributed/metrics/reset);
+        returns how many workers had one."""
+        with self._lock:
+            n = 0
+            for rec in self._workers.values():
+                if rec.pop("skew_s", None) is not None:
+                    n += 1
+                rec.pop("skew_samples", None)
+                rec.pop("skew_at", None)
+            return n
+
+    def resource_snapshots(self) -> Dict[str, Dict[str, Any]]:
+        """Latest retained resource snapshot per worker with its age
+        and the worker's address/state — the federation merge input."""
+        now = self._clock.monotonic()
+        with self._lock:
+            out = {}
+            for wid, rec in self._workers.items():
+                st = self._refresh_locked(wid, rec, now)
+                at = rec.get("resources_at")
+                out[wid] = {
+                    "state": st,
+                    "host": rec["info"].get("host"),
+                    "port": rec["info"].get("port"),
+                    "resources": (dict(rec["resources"])
+                                  if rec.get("resources") else None),
+                    "age_s": (None if at is None
+                              else round(now - at, 3)),
+                }
+            return out
+
     def seed_from_config(self, workers: List[Dict[str, Any]]) -> None:
         """Pre-register the enabled config workers, not alive."""
         for w in workers or []:
@@ -263,7 +340,7 @@ class ClusterRegistry:
             rec["state"] = new
             self._transitions.append({"worker_id": wid, "from": old,
                                       "to": new, "t": self._clock.time()})
-            COUNTERS.bump(f"cluster_{new}_transitions")
+            trace_mod.GLOBAL_COUNTERS.bump(f"cluster_{new}_transitions")
             if new in (SUSPECT, DEAD):
                 log(f"cluster: worker {wid} {old} -> {new}")
         return new
@@ -405,7 +482,7 @@ class WorkLedger:
             log(f"ledger: job {jid} recovered with {len(preloaded)}/"
                 f"{len(owners)} unit(s) already on disk; only the rest is "
                 f"refined again")
-            COUNTERS.bump("wal_preloaded_units", len(preloaded))
+            trace_mod.GLOBAL_COUNTERS.bump("wal_preloaded_units", len(preloaded))
         self._wal_append("job_create", job=jid, kind=kind,
                          owners={str(u): str(o) for u, o in owners.items()})
 
@@ -498,7 +575,7 @@ class WorkLedger:
             if rec is None:
                 return "untracked", wal, store
             if rec["state"] == "done":
-                COUNTERS.bump("cluster_duplicate_checkins")
+                trace_mod.GLOBAL_COUNTERS.bump("cluster_duplicate_checkins")
                 return "dup", wal, store
             rec["state"] = "done"
             rec["done_by"] = str(worker_id)
@@ -507,7 +584,7 @@ class WorkLedger:
                 # (the master's local refine); a redispatched hedge
                 # posts as the owner and is not counted
                 won = str(worker_id) == rec["hedge_owner"]
-                COUNTERS.bump("cluster_hedge_wins" if won
+                trace_mod.GLOBAL_COUNTERS.bump("cluster_hedge_wins" if won
                               else "cluster_hedge_losses")
             # EMA of each owner's interval between check-ins (the first
             # from the job's creation)
@@ -583,7 +660,7 @@ class WorkLedger:
                 moved.append(u)
             job["reassigned"] += len(moved)
         if moved:
-            COUNTERS.bump("cluster_reassigned_units", len(moved))
+            trace_mod.GLOBAL_COUNTERS.bump("cluster_reassigned_units", len(moved))
             self._wal_append("unit_reassign", job=str(job_id),
                              units=[str(u) for u in moved],
                              to=str(new_owner))
@@ -611,7 +688,7 @@ class WorkLedger:
                 hedged.append(u)
             job["hedged"] += len(hedged)
         if hedged:
-            COUNTERS.bump("cluster_hedges", len(hedged))
+            trace_mod.GLOBAL_COUNTERS.bump("cluster_hedges", len(hedged))
             self._wal_append("unit_hedge", job=str(job_id),
                              units=[str(u) for u in hedged],
                              by=(None if hedge_owner is None
@@ -756,9 +833,9 @@ class WorkLedger:
         except Exception as e:  # noqa: BLE001 - recovery must not crash
             log(f"ledger: redispatch for {job_id} failed: "
                 f"{type(e).__name__}: {e}")
-            COUNTERS.bump("cluster_redispatch_failures")
+            trace_mod.GLOBAL_COUNTERS.bump("cluster_redispatch_failures")
             return False
-        COUNTERS.bump("cluster_redispatches" if ok
+        trace_mod.GLOBAL_COUNTERS.bump("cluster_redispatches" if ok
                       else "cluster_redispatch_failures")
         return ok
 
@@ -813,6 +890,17 @@ class HeartbeatSender:
         payload: Dict[str, Any] = {"worker_id": self.worker_id}
         if self.port:
             payload["port"] = self.port
+        # the beat carries this worker's resource snapshot (the master's
+        # federated view) unless DTPU_RESOURCE=0; a failed probe must
+        # not skip a beat
+        try:
+            from comfyui_distributed_tpu_torch.utils import resource
+            if resource.resource_enabled():
+                payload["resources"] = resource.fleet_sample()
+        except Exception as e:  # noqa: BLE001 - liveness first
+            debug_log(f"heartbeat resource snapshot failed: {e}")
+        # and its wall clock, stamped last so the probe above adds no
+        # delay to the master's clock-offset sample
         payload["sent_at"] = time.time()
         try:
             post_json(f"{self.master_url}/distributed/heartbeat", payload,

@@ -35,9 +35,10 @@ a record is fsync'd before its effect is answered (an idempotency key
 before the upload's 200, an admission before the prompt id reaches the
 client); a unit's payload is written (temporary file, rename) before
 its check-in record, so a crash between leaves an orphan file that
-replay ignores; replaying any prefix twice gives the same state.  The
-JAX package's trace counters are :data:`cluster.COUNTERS` here, under
-the same names.
+replay ignores; replaying any prefix twice gives the same state.  Its counters
+(``wal_records``, ``wal_fenced``, ``wal_recovered_*``,
+``wal_resumed_prompts``, ``master_takeovers``) go to
+``utils.trace.GLOBAL_COUNTERS`` under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -55,9 +56,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from comfyui_distributed_tpu_torch.runtime.cluster import COUNTERS
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils.trace import GLOBAL_COUNTERS
 from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import post_json
 
@@ -603,7 +604,7 @@ class WriteAheadLog:
         cur = self.lease.current_epoch()
         if cur > self.epoch:
             self.fenced = True
-            COUNTERS.bump("wal_fenced")
+            GLOBAL_COUNTERS.bump("wal_fenced")
             raise FencedError(
                 f"epoch {self.epoch} fenced: the lease is at epoch {cur}")
 
@@ -668,7 +669,7 @@ class WriteAheadLog:
                                       f"(the record is durable, its answer "
                                       f"lost)")
             self.tracker.apply(rec)
-            COUNTERS.bump("wal_records")
+            GLOBAL_COUNTERS.bump("wal_records")
             if self._size >= self.segment_bytes:
                 self._rotate_locked()
         return rec
@@ -869,8 +870,9 @@ class DurableMaster:
             f"{n_jobs} open job(s), {n_done} unit(s) already done"
             + (f", a torn tail in {len(torn)} segment(s)" if torn else "")
             + ")")
-        COUNTERS.bump("wal_recovered_prompts", len(self._pending_prompts))
-        COUNTERS.bump("wal_recovered_done_units", n_done)
+        GLOBAL_COUNTERS.bump("wal_recovered_prompts",
+                             len(self._pending_prompts))
+        GLOBAL_COUNTERS.bump("wal_recovered_done_units", n_done)
 
     # -- resuming the interrupted prompts ---------------------------------------
 
@@ -911,7 +913,7 @@ class DurableMaster:
         self._pending_prompts = []
         if n:
             log(f"durable: resumed {n} in-flight prompt(s) from the log")
-            COUNTERS.bump("wal_resumed_prompts", n)
+            GLOBAL_COUNTERS.bump("wal_resumed_prompts", n)
         return n
 
     # -- the queue's records --------------------------------------------------------
@@ -998,7 +1000,7 @@ class DurableMaster:
             else:
                 self._activate()   # LeaseHeldError while the lease lives
             self.takeovers += 1
-            COUNTERS.bump("master_takeovers")
+            GLOBAL_COUNTERS.bump("master_takeovers")
             resumed = self.resume()
             url = self.master_url()
             if url is not None:

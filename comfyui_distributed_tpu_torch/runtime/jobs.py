@@ -8,12 +8,14 @@ worker's result can never arrive first; a result for a job with no queue
 is refused (``put_*`` returns False and the route answers 404, so the
 sender retries).  Each upload carries an idempotency key
 ``worker_id:unit:attempt``; a key seen before for the job is acknowledged
-but not queued again, so a retried POST counts once.  The keys go with
-the queue.  With the write-ahead log attached (``runtime/durable.py``)
-a new key is logged before the upload is answered, and a restarted
-master takes the replayed keys back (``attach_wal``), so an upload
-answered before a crash still counts once after it.  The JAX package's
-shard scopes (``set_scope``) wait for more than one master.
+but not queued again (counted as ``idem_dropped`` in
+``utils.trace.GLOBAL_COUNTERS``), so a retried POST counts once.  The
+keys go with the queue.  With the write-ahead log attached
+(``runtime/durable.py``) a new key is logged before the upload is
+answered, and a restarted master takes the replayed keys back
+(``attach_wal``), so an upload answered before a crash still counts
+once after it.  The JAX package's shard scopes (``set_scope``) wait for
+more than one master.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import threading
 from typing import Any, Dict, Optional, Set
 
 from comfyui_distributed_tpu_torch.utils.log import debug_log
+from comfyui_distributed_tpu_torch.utils.trace import GLOBAL_COUNTERS
 
 
 class JobStore:
@@ -85,6 +88,7 @@ class JobStore:
             if idem_key:
                 keys = seen.setdefault(job_id, set())
                 if idem_key in keys:
+                    GLOBAL_COUNTERS.bump("idem_dropped")
                     return True
                 keys.add(idem_key)
         if idem_key:

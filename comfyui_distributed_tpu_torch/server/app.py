@@ -20,8 +20,23 @@ other:
 - ``GET /distributed/metrics``: ``prompts_executed``, ``prompts_failed``,
   ``images_received``, ``tiles_received``, the messages and bytes
   received by wire format, the seconds spent decoding them
-  (``wire_decode_s``) and the control plane's event counts
-  (``cluster_counters``);
+  (``wire_decode_s``), and the JAX package's ``phases``, ``nodes``,
+  ``tracing``, ``pipeline`` (stages, event counters, gauges),
+  ``cluster``, ``durability``, ``analysis`` and ``resources`` blocks and
+  ``transfers`` (its ``slo``, ``batching``, ``admission``, ``shard``,
+  ``autoscale``, ``chaos`` and ``reuse`` blocks belong to modules not
+  ported yet);
+- observability (``utils/trace.py``, ``trace_export.py``,
+  ``trace_analysis.py``, ``resource.py``): ``GET
+  /distributed/metrics.prom`` (Prometheus text), ``/distributed/traces``
+  (the flight recorder's index), ``/distributed/trace/<prompt_id>`` (one
+  job's spans and their tree), ``/distributed/analysis`` (critical-path
+  profiles, the straggler scorecard, clock skews), ``/distributed/resource``
+  (this process's sample), ``/distributed/cluster/metrics`` and
+  ``/distributed/cluster/metrics.prom`` (the federated resource view of
+  the master and its workers) and ``POST /distributed/profile/start``,
+  ``/stop`` and ``GET /distributed/profile/status`` (a
+  ``torch.profiler`` Chrome trace of whatever runs in between);
 - the control plane: ``POST /distributed/register`` and
   ``/distributed/heartbeat`` (a worker's lease; unknown workers join),
   ``GET /distributed/cluster`` (lease states, the work ledger's active
@@ -40,7 +55,8 @@ other:
   ``/distributed/config/update_setting`` and ``/update_master``, ``GET
   /distributed/network_info``, ``/distributed/status``,
   ``/distributed/workers_status`` (the health poller's last round),
-  ``POST /distributed/metrics/reset`` (403 under
+  ``POST /distributed/metrics/reset`` (the counters and the aggregates;
+  ``{"include_traces": true}`` the flight recorder too; 403 under
   ``DTPU_METRICS_RESET=0``) and ``GET /panel``, the page that drives
   them;
 - the durability plane (``runtime/durable.py``): ``GET
@@ -53,9 +69,16 @@ other:
 
 One execution thread runs the queue in FIFO order through the port's
 ``WorkflowExecutor`` on the server's device; handler threads answer
-while it runs.  Each finished prompt logs one line,
-``dtpu-torch prompt {...}``, with its kernel launches by variant and by
-shape and ``torch.cuda.max_memory_allocated()``.  A master owns a
+while it runs.  Every prompt gets a trace: a ``job`` root span from its
+admission to its end (a worker's takes the ``traceparent`` of the
+master's ``dispatch`` span as its parent; a master's fan-out root covers
+the ``preflight`` and ``dispatch`` spans too), a ``queue_wait`` event, an
+``execute`` span over the run and a ``finalize`` span; the root is
+committed to the flight recorder under the prompt id, and to the
+capture files and the live analyzer behind it.  Each finished prompt
+logs one line, ``dtpu-torch prompt {...}``, with its kernel launches by
+variant and by shape, its copies between host and card by direction and
+``torch.cuda.max_memory_allocated()``.  A master owns a
 ``ClusterRegistry`` seeded from its config, a ``WorkLedger`` and a
 ``HealthPoller`` (started by :func:`serve`) and a
 ``WorkerProcessManager``; a worker started with ``DTPU_MASTER_URL`` and
@@ -64,16 +87,19 @@ master takes the master lease (or, with ``DTPU_STANDBY=1``, watches it)
 and replays its write-ahead log before the execution thread starts: each
 admission is logged before its prompt id is answered and each finished
 prompt after its run, and :func:`serve` resumes the interrupted prompts
-once the port is bound.  Admission control, tracing and previews wait.
+once the port is bound; a server's resource monitor starts there too.
+Admission control and previews wait.
 """
 
 from __future__ import annotations
 
 import base64
 import collections
+import concurrent.futures
 import dataclasses
 import gc
 import http.client
+import inspect
 import json
 import os
 import sys
@@ -105,14 +131,18 @@ from comfyui_distributed_tpu_torch.runtime.manager import (
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import resource
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
+from comfyui_distributed_tpu_torch.utils import trace_analysis as analysis_mod
+from comfyui_distributed_tpu_torch.utils import trace_export as export_mod
 from comfyui_distributed_tpu_torch.utils.image import (
     decode_png,
     decode_tensor,
     tensor_codecs,
 )
-from comfyui_distributed_tpu_torch.utils.log import log
+from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import (
     FormPart,
+    get_json,
     network_info,
     parse_multipart,
 )
@@ -124,6 +154,7 @@ from comfyui_distributed_tpu_torch.workflow.orchestrate import (
 )
 
 Response = Tuple[int, Any]
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 PANEL_HTML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "panel.html")
 
@@ -167,6 +198,8 @@ class ServerState:
                                    manager=self.manager,
                                    registry=self.cluster)
         self.heartbeat: Optional[cluster_mod.HeartbeatSender] = None
+        # the process-wide resource monitor; serve() starts it
+        self.resources: Optional[resource.ResourceMonitor] = None
         self.fault_inject = cluster_mod.fault_injection()
         self.metrics: Dict[str, Any] = {
             "prompts_executed": 0, "prompts_failed": 0,
@@ -199,14 +232,31 @@ class ServerState:
                        extra_data: Optional[Dict[str, Any]] = None,
                        client_id: str = "unknown",
                        pid: Optional[str] = None,
-                       _recovered: bool = False) -> str:
+                       _recovered: bool = False,
+                       trace_parent: Optional[Tuple[str, str]] = None,
+                       trace_span: Optional[trace_mod.Span] = None) -> str:
         """Queue a prompt; returns its id.  With the log on, the admission
         is durable before the id is returned (a crash after it runs the
         prompt again on recovery).  ``pid`` and ``_recovered``: a prompt
         resumed from the log under its original id, whose record is
         there already and whose result queues are made here, as
-        ``post_prompt`` makes them for a prepared graph."""
+        ``post_prompt`` makes them for a prepared graph.
+
+        The prompt's ``job`` span lives from here to the end of its run:
+        ``trace_parent`` (trace id, parent span id) from an inbound
+        ``traceparent`` makes it a child of the caller's trace (a
+        dispatched worker share); ``trace_span`` is an open span adopted
+        as the job span (a master's fan-out root)."""
         pid = pid or uuid.uuid4().hex
+        sp = trace_span
+        if sp is None:
+            tid, par = trace_parent if trace_parent else (None, None)
+            sp = trace_mod.start_span(
+                "job", trace_id=tid, parent_id=par,
+                attrs={"prompt_id": pid, "client_id": str(client_id),
+                       "role": "worker" if self.is_worker else "master"})
+        else:
+            sp.attrs.setdefault("prompt_id", pid)
         if _recovered:
             for kind, mj in _master_jobs(prompt):
                 if kind == "tile":
@@ -217,7 +267,8 @@ class ServerState:
             self.durable.log_enqueue(pid, prompt, client_id, extra_data)
         with self._cond:
             self._queue.append({"id": pid, "prompt": prompt,
-                                "extra_data": extra_data or {}})
+                                "extra_data": extra_data or {},
+                                "span": sp, "t_enq": time.perf_counter()})
             self._cond.notify()
         return pid
 
@@ -237,6 +288,12 @@ class ServerState:
                     self._cond.wait()
                 item = self._queue.popleft()
                 self._running = True
+            wait = time.perf_counter() - item["t_enq"]
+            now_wall = time.time()
+            trace_mod.GLOBAL_STAGES.record("queue_wait", wait)
+            if item["span"] is not None:
+                trace_mod.event_span("queue_wait", now_wall - wait,
+                                     now_wall, parent=item["span"])
             try:
                 self._execute(item)
             finally:
@@ -259,20 +316,33 @@ class ServerState:
                         fault_inject=self.fault_inject,
                         extra_pnginfo=item["extra_data"].get(
                             "extra_pnginfo"))
+        sp = item["span"]
         res, err = None, None
+        trace_mod.GLOBAL_COUNTERS.bump("exec_runs")
         try:
-            res = WorkflowExecutor(ctx).execute(item["prompt"])
+            # the run executes under the prompt's job span: the node and
+            # stage spans made inside attach to its trace
+            with trace_mod.use_span(sp), trace_mod.span("execute"):
+                res = WorkflowExecutor(ctx).execute(item["prompt"])
+            trace_mod.GLOBAL_STAGES.record("compute", res.total_s)
         except Exception as e:  # noqa: BLE001 - a bad prompt fails alone
             err = e
             traceback.print_exc()
-        finally:
-            # a queue prepared before the run for a run that never
-            # reached its collector or upscaler would take uploads for ever
-            for kind, mj in _master_jobs(item["prompt"]):
-                if kind == "tile":
-                    self.jobs.remove_tile_queue(mj)
-                else:
-                    self.jobs.remove_job(mj)
+        with trace_mod.use_span(sp), trace_mod.span("finalize"):
+            self._finalize(item, res, err, t0, on_cuda)
+        self._seal_trace(item, "ok" if err is None else "error", err)
+
+    def _finalize(self, item: Dict[str, Any], res, err, t0: float,
+                  on_cuda: bool) -> None:
+        """History, metrics, the log record and the prompt line of a
+        finished run."""
+        # a queue prepared before the run for a run that never reached
+        # its collector or upscaler would take uploads for ever
+        for kind, mj in _master_jobs(item["prompt"]):
+            if kind == "tile":
+                self.jobs.remove_tile_queue(mj)
+            else:
+                self.jobs.remove_job(mj)
         if self.durable is not None:
             # closes the admission record: a crash before this runs the
             # prompt again on recovery, one after it leaves it settled
@@ -299,7 +369,8 @@ class ServerState:
             done.update(images=len(res.images),
                         node_seconds={f"{k} {types.get(k, '')}": v
                                       for k, v in res.timings.items()},
-                        stage_seconds=res.stages)
+                        stage_seconds=res.stages,
+                        transfers=_transfer_totals(res.transfers))
         else:
             self.bump(prompts_failed=1)
             self._history[item["id"]] = {
@@ -307,6 +378,41 @@ class ServerState:
                 "finished_at": time.time()}
             done["error"] = str(err)
         log(f"prompt {json.dumps(done)}")
+
+    def _seal_trace(self, item: Dict[str, Any], status: str,
+                    err: Optional[BaseException]) -> None:
+        """End the prompt's job span and commit its trace to the flight
+        recorder (the capture files and the live analyzer behind it),
+        with the slow-job line past ``DTPU_SLOW_JOB_S``."""
+        sp = item["span"]
+        if sp is None:
+            return
+        if err is not None:
+            sp.set_status(status, str(err))
+        dur = round(time.time() - sp.start_s, 6)
+        sp.end()
+        # the end-to-end histogram with an exemplar: the bucket this job
+        # landed in points at its trace
+        trace_mod.GLOBAL_STAGES.record("job_e2e", dur, trace_id=sp.trace_id)
+        trace_mod.GLOBAL_TRACES.commit(item["id"], sp.trace_id,
+                                       status=status,
+                                       root_span_id=sp.span_id,
+                                       duration_s=dur)
+        try:
+            slow_thr = float(os.environ.get(C.SLOW_JOB_ENV, "0") or 0)
+        except ValueError:
+            slow_thr = 0.0
+        if slow_thr > 0 and dur > slow_thr:
+            stages = trace_mod.GLOBAL_TRACES.breakdown(sp.trace_id)
+            stages.pop("job", None)
+            top = sorted(stages.items(), key=lambda kv: -kv[1])[:8]
+            mem = resource.device_memory_snapshot(self.device)
+            log(f"SLOW job {item['id']} ({status}): {dur:.2f}s > "
+                f"{slow_thr:g}s threshold; trace {sp.trace_id}; "
+                f"mem device_peak={mem['peak_bytes_in_use'] / 1e6:.1f}MB "
+                f"rss={resource.host_rss_bytes() / 1e6:.1f}MB "
+                f"({mem['source']}); stages "
+                + ", ".join(f"{n}={s:.2f}s" for n, s in top))
 
     # --- the interceptor -----------------------------------------------------
 
@@ -323,7 +429,12 @@ class ServerState:
         cfg = cfg_mod.load_config(self.config_path)
         return cfg if cfg_mod.enabled_workers(cfg) else None
 
-    def post_prompt(self, data: Dict[str, Any]) -> Response:
+    def post_prompt(self, data: Dict[str, Any],
+                    traceparent: Optional[str] = None) -> Response:
+        """``POST /prompt``: queue the prompt, or fan it out when this
+        master orchestrates it.  ``traceparent`` (the request's header)
+        parents the prompt's trace under the caller's span; malformed or
+        absent, the prompt gets a trace of its own."""
         prompt = data.get("prompt")
         if not isinstance(prompt, dict) or not prompt:
             return 400, {"error": "missing prompt"}
@@ -335,25 +446,56 @@ class ServerState:
                 self.jobs.prepare_tile_job(mj)
         client_id = data.get("client_id", "unknown")
         extra_data = data.get("extra_data") or {}
+        trace_parent = trace_mod.parse_traceparent(traceparent)
         try:
             cfg = self.orchestration_config(prompt)
             if cfg is not None:
-                host = cfg.get("master", {}).get("host") or "127.0.0.1"
-                out = run_distributed(
-                    prompt, f"http://{host}:{self.port or 8288}",
-                    lambda g: self.enqueue_prompt(g.to_api_format(),
-                                                  extra_data, client_id),
-                    cfg_mod.enabled_workers(cfg), job_store=self.jobs,
-                    client_id=client_id, extra_data=extra_data,
-                    cluster=self.cluster, ledger=self.ledger)
-                return 200, {"prompt_id": out["result"],
-                             "number": self.queue_remaining(),
-                             "workers": out["workers"],
-                             "failed_workers": out["failed"]}
-            pid = self.enqueue_prompt(prompt, extra_data, client_id)
+                return self._fan_out(prompt, cfg, client_id, extra_data,
+                                     trace_parent)
+            pid = self.enqueue_prompt(prompt, extra_data, client_id,
+                                      trace_parent=trace_parent)
         except Exception as e:  # noqa: BLE001 - reported to the client
             return 400, {"error": str(e)}
         return 200, {"prompt_id": pid, "number": self.queue_remaining()}
+
+    def _fan_out(self, prompt: Dict[str, Any], cfg: Dict[str, Any],
+                 client_id: str, extra_data: Dict[str, Any],
+                 trace_parent: Optional[Tuple[str, str]]) -> Response:
+        """The headless interceptor: one ``job`` root span covers the
+        whole fan-out (the preflight and dispatch spans, the master's
+        share, which adopts it, and the workers' shipped spans)."""
+        tid, par = trace_parent if trace_parent else (None, None)
+        root = trace_mod.start_span(
+            "job", trace_id=tid, parent_id=par,
+            attrs={"client_id": str(client_id), "role": "master",
+                   "fanout": True})
+        host = cfg.get("master", {}).get("host") or "127.0.0.1"
+        try:
+            with trace_mod.use_span(root):
+                out = run_distributed(
+                    prompt, f"http://{host}:{self.port or 8288}",
+                    lambda g: self.enqueue_prompt(g.to_api_format(),
+                                                  extra_data, client_id,
+                                                  trace_span=root),
+                    cfg_mod.enabled_workers(cfg), job_store=self.jobs,
+                    client_id=client_id, extra_data=extra_data,
+                    cluster=self.cluster, ledger=self.ledger)
+        except Exception:
+            # the fan-out died before the execution thread adopted the
+            # root: seal it here, so the failure leaves a trace
+            if root is not None and root.end_s is None \
+                    and not root.attrs.get("prompt_id"):
+                root.set_status("error", "fan-out failed before enqueue")
+                root.end()
+                trace_mod.GLOBAL_TRACES.commit(
+                    f"failed_{root.trace_id[:12]}", root.trace_id,
+                    status="error", root_span_id=root.span_id,
+                    duration_s=round(time.time() - root.start_s, 6))
+            raise
+        return 200, {"prompt_id": out["result"],
+                     "number": self.queue_remaining(),
+                     "workers": out["workers"],
+                     "failed_workers": out["failed"]}
 
     def resume_recovered(self) -> int:
         """Queue again the prompts a crash interrupted (replayed from the
@@ -373,11 +515,49 @@ class ServerState:
             out = decode_tensor(part.data)
             self.bump(wire_tensor_msgs=1, wire_tensor_bytes=len(part.data),
                       wire_decode_s=time.perf_counter() - t0)
+            trace_mod.GLOBAL_COUNTERS.bump("wire_tensor_msgs")
+            trace_mod.GLOBAL_COUNTERS.bump("wire_tensor_bytes",
+                                           len(part.data))
             return out
         out = decode_png(part.data)
         self.bump(wire_png_msgs=1, wire_png_bytes=len(part.data),
                   wire_decode_s=time.perf_counter() - t0)
+        trace_mod.GLOBAL_COUNTERS.bump("wire_png_msgs")
+        trace_mod.GLOBAL_COUNTERS.bump("wire_png_bytes", len(part.data))
         return out
+
+    def ingest_remote_trace(self, form: Dict[str, FormPart], name: str,
+                            t_recv: float, traceparent: Optional[str],
+                            attrs: Dict[str, Any]) -> None:
+        """Stitch a data-plane POST into the job's trace: the peer's
+        shipped spans (its last upload) go into the flight recorder,
+        moved onto this master's clock by the registry's skew estimate
+        for the sender, and the receive is an event span under the
+        sender's span named in its ``traceparent``."""
+        offset = 0.0
+        wid = str(attrs.get("worker") or "")
+        if wid and analysis_mod.skew_correction_enabled():
+            offset = self.cluster.skew(wid)
+        if "spans" in form:
+            try:
+                shipped = json.loads(form["spans"].text)
+                if offset and isinstance(shipped, list):
+                    for sd in shipped:
+                        if not isinstance(sd, dict):
+                            continue
+                        for k in ("start_s", "end_s"):
+                            if isinstance(sd.get(k), (int, float)):
+                                sd[k] = sd[k] + offset
+                trace_mod.GLOBAL_TRACES.ingest(shipped)
+            except (ValueError, TypeError) as e:
+                debug_log(f"bad spans field on {name}: {e}")
+        tp = trace_mod.parse_traceparent(traceparent)
+        if tp is not None:
+            if offset:
+                attrs = {**attrs, "skew_ms": round(offset * 1e3, 3)}
+            trace_mod.event_span(name, t_recv, time.time(),
+                                 trace_id=tp[0], parent_id=tp[1],
+                                 attrs=attrs)
 
 
 def _master_jobs(prompt: Dict[str, Any]):
@@ -394,6 +574,21 @@ def _master_jobs(prompt: Dict[str, Any]):
                    else "image"), str(h["multi_job_id"])
 
 
+def _transfer_totals(transfers: Dict[str, Dict[str, float]]
+                     ) -> Dict[str, int]:
+    """A run's transfer ledger summed over its nodes, by direction."""
+    out = {"d2h_bytes": 0, "d2h_calls": 0, "h2d_bytes": 0, "h2d_calls": 0}
+    for v in transfers.values():
+        for k in out:
+            out[k] += int(v.get(k, 0))
+    return out
+
+
+def _package_version() -> str:
+    from comfyui_distributed_tpu_torch import __version__
+    return __version__
+
+
 def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
     part = form.get(key)
     return part.text if part is not None else default
@@ -402,7 +597,9 @@ def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
 def routes(state: ServerState
            ) -> Dict[Tuple[str, str], Callable[..., Response]]:
     """(method, path) -> handler(body bytes, content type, query, the
-    client's address) -> (status, JSON body or :class:`Raw`)."""
+    client's address) -> (status, JSON body or :class:`Raw`).  A handler
+    that takes ``headers`` gets the request's; a ``{name}`` segment of a
+    path matches any one segment and comes in the query under ``name``."""
 
     def ok(**kw) -> Response:
         return 200, {"status": "ok", **kw}
@@ -417,13 +614,16 @@ def routes(state: ServerState
         return 200, {"exec_info": {"queue_remaining":
                                    state.queue_remaining()}}
 
-    def post_prompt(body, ctype, query, remote=None):
-        return state.post_prompt(json_body(body))
+    def post_prompt(body, ctype, query, remote=None, headers=None):
+        return state.post_prompt(
+            json_body(body),
+            traceparent=(headers or {}).get(C.TRACEPARENT_HEADER))
 
     def history(body, ctype, query, remote=None):
         return 200, dict(state._history)
 
-    def prepare_job(body, ctype, query, remote=None):
+    def prepare_job(body, ctype, query, remote=None, headers=None):
+        t_recv = time.time()
         data = json_body(body)
         mj = data.get("multi_job_id")
         if not mj:
@@ -432,6 +632,12 @@ def routes(state: ServerState
             state.jobs.prepare_tile_job(str(mj))
         else:
             state.jobs.prepare_job(str(mj))
+        tp = trace_mod.parse_traceparent(
+            (headers or {}).get(C.TRACEPARENT_HEADER))
+        if tp is not None:
+            trace_mod.event_span("prepare_job", t_recv, time.time(),
+                                 trace_id=tp[0], parent_id=tp[1],
+                                 attrs={"job": str(mj)})
         return ok()
 
     def queue_status(body, ctype, query, remote=None):
@@ -444,7 +650,8 @@ def routes(state: ServerState
         return 200, {"formats": [C.TENSOR_WIRE_CONTENT_TYPE, "image/png"],
                      "tensor_codecs": tensor_codecs()}
 
-    def job_complete(body, ctype, query, remote=None):
+    def job_complete(body, ctype, query, remote=None, headers=None):
+        t_recv = time.time()
         form = parse_multipart(body, ctype)
         mj = _form_text(form, "multi_job_id")
         if not mj or "image" not in form:
@@ -456,6 +663,14 @@ def routes(state: ServerState
         # an indexless sender's images keep their arrival order
         if "image_index" in form:
             item["image_index"] = int(_form_text(form, "image_index"))
+        # the spans land before the item is queued: the drain may end
+        # and the job's trace be committed the moment it is (a job with
+        # no queue answers 404 below, and its sender retries)
+        if state.jobs.has_job(mj):
+            state.ingest_remote_trace(
+                form, "receive_image", t_recv,
+                (headers or {}).get(C.TRACEPARENT_HEADER),
+                {"job": mj, "worker": item["worker_id"]})
         if not state.jobs.put_result(
                 mj, item, idem_key=_form_text(form, "idem_key") or None):
             return 404, {"error": f"unknown job {mj}"}
@@ -464,7 +679,8 @@ def routes(state: ServerState
         state.bump(images_received=1)
         return ok()
 
-    def tile_complete(body, ctype, query, remote=None):
+    def tile_complete(body, ctype, query, remote=None, headers=None):
+        t_recv = time.time()
         form = parse_multipart(body, ctype)
         mj = _form_text(form, "multi_job_id")
         if not mj or "tile" not in form:
@@ -476,6 +692,12 @@ def routes(state: ServerState
         for key in ("tile_idx", "x", "y", "extracted_width",
                     "extracted_height", "padding"):
             item[key] = int(_form_text(form, key, "0"))
+        if state.jobs.has_tile_job(mj):
+            state.ingest_remote_trace(
+                form, "receive_tile", t_recv,
+                (headers or {}).get(C.TRACEPARENT_HEADER),
+                {"job": mj, "worker": item["worker_id"],
+                 "tile_idx": item["tile_idx"]})
         if not state.jobs.put_tile(
                 mj, item, idem_key=_form_text(form, "idem_key") or None):
             return 404, {"error": f"unknown tile job {mj}"}
@@ -541,9 +763,35 @@ def routes(state: ServerState
     def metrics(body, ctype, query, remote=None):
         with state._metrics_lock:
             out = dict(state.metrics)
-        return 200, {**out,
-                     "cluster_counters": cluster_mod.COUNTERS.snapshot(),
-                     "durability": durability()}
+        tr = trace_mod.GLOBAL_TRACES
+        return 200, {
+            **out,
+            "phases": trace_mod.GLOBAL_PHASES.snapshot(),
+            # per-node-type op latency histograms
+            "nodes": trace_mod.GLOBAL_NODES.snapshot(),
+            # request tracing's health and the capture files' counters
+            "tracing": {"enabled": trace_mod.tracing_enabled(),
+                        "ring_size": tr.size(), "ring_max": tr.max_traces,
+                        "dropped_spans": tr.dropped_spans,
+                        "evictions": tr.eviction_count(),
+                        "export": export_mod.stats()},
+            # the stage timeline (queue_wait, compute, d2h, encode,
+            # upload, job_e2e, ...), the event counters and gauges
+            "pipeline": {**trace_mod.pipeline_snapshot(),
+                         "overlap": False, "coalesce": False},
+            "cluster": {**state.cluster.snapshot(),
+                        "ledger": state.ledger.snapshot(),
+                        "policy": cluster_mod.fault_policy(),
+                        "hedge_armed": cluster_mod.hedge_armed()},
+            "durability": durability(),
+            # the live anomaly plane and the workers' clock skews
+            "analysis": {**analysis_mod.LIVE.snapshot(),
+                         "skew": state.cluster.skew_snapshot()},
+            "resources": (state.resources.snapshot()
+                          if state.resources is not None
+                          else {"enabled": False}),
+            # host<->device bytes per node
+            **trace_mod.counters_snapshot()}
 
     def cluster_info(body, ctype, query, remote=None):
         return 200, {
@@ -554,10 +802,23 @@ def routes(state: ServerState
                       "min_progress_pct": cluster_mod.hedge_pct(),
                       "factor": cluster_mod.hedge_factor()}}
 
+    def feed_skew(wid: str, data: Dict[str, Any]) -> None:
+        """A clock-offset sample from a heartbeat or registration: this
+        server's wall clock now less the body's ``sent_at`` (the
+        worker's at send); the registry keeps the least-delayed one."""
+        sent = data.get("sent_at")
+        if sent is None:
+            return
+        try:
+            state.cluster.update_skew(wid, time.time() - float(sent))
+        except (TypeError, ValueError):
+            pass
+
     def lease(renew: Callable[..., Dict[str, Any]]):
         """The register and heartbeat routes: the worker's id and
-        address into the registry; the reply carries this server's
-        clock, as the JAX package's does."""
+        address into the registry, its resource snapshot and a clock
+        sample; the reply carries this server's clock, as the JAX
+        package's does."""
         def handler(body, ctype, query, remote=None):
             data = json_body(body)
             wid = data.get("worker_id") or data.get("id")
@@ -567,8 +828,11 @@ def routes(state: ServerState
                     if k in data}
             if remote:
                 info.setdefault("host", remote)
-            return ok(**renew(str(wid), info=info),
-                      master_time=time.time())
+            out = renew(str(wid), info=info)
+            if isinstance(data.get("resources"), dict):
+                state.cluster.update_resources(str(wid), data["resources"])
+            feed_skew(str(wid), data)
+            return ok(**out, master_time=time.time())
         return handler
 
     # --- worker management -------------------------------------------------
@@ -723,19 +987,29 @@ def routes(state: ServerState
         return 200, state.health.snapshot()
 
     def metrics_reset(body, ctype, query, remote=None):
-        """Zero the metric counters and ``cluster_counters``; the prompt
-        history stays."""
+        """Zero the metric counters and clear the aggregates (phases,
+        stages, nodes, event counters, transfers), the capture files'
+        counters, the live analyzer and the clock-skew estimates; with
+        ``{"include_traces": true}`` the flight recorder too.  The prompt
+        history and the capture files stay."""
         if os.environ.get(C.METRICS_RESET_ENV, "1").lower() \
                 in ("0", "false", "off"):
             return 403, {"error": "metrics reset disabled "
                                   f"({C.METRICS_RESET_ENV}=0)"}
-        json_body(body)
+        data = json_body(body)
         with state._metrics_lock:
             for k, v in state.metrics.items():
                 state.metrics[k] = type(v)()
-        cleared = {"metrics": True,
-                   "cluster_counters": cluster_mod.COUNTERS.reset()}
-        log(f"metrics reset (by {remote or 'unknown'})")
+        cleared = {"metrics": True, **trace_mod.reset_aggregate_metrics()}
+        export_mod.reset_counters()
+        cleared["export_counters"] = True
+        analysis_mod.reset_live()
+        cleared["analysis"] = True
+        cleared["skew_estimates"] = state.cluster.reset_skew()
+        if data.get("include_traces"):
+            trace_mod.GLOBAL_TRACES.reset()
+            cleared["traces"] = True
+        log(f"aggregate metrics reset (by {remote or 'unknown'})")
         return ok(cleared=cleared)
 
     # --- durability --------------------------------------------------------
@@ -780,6 +1054,243 @@ def routes(state: ServerState
         return ok(master_url=url, heartbeat=hb is not None,
                   registered=beat)
 
+    # --- observability ------------------------------------------------------
+
+    def self_sample() -> Dict[str, Any]:
+        """This process's resource sample, the queue depth read from
+        this state (the process-wide monitor may be bound to another)."""
+        return {**resource.fleet_sample(state.device),
+                "queue_depth": state.queue_remaining()}
+
+    def metrics_prom(body, ctype, query, remote=None):
+        """Prometheus text: the stage, phase and node histograms, the
+        event and transfer counters and the recorder's gauges, then this
+        server's prompt and image counters, queue and worker gauges, the
+        log's and the capture files' counters, the anomaly counter, the
+        clock skews and the resource gauges."""
+        with state._metrics_lock:
+            m = dict(state.metrics)
+        extra = [
+            ("dtpu_build_info", "gauge",
+             "Build identity (constant 1; labels carry the info).",
+             [({"version": _package_version(), "torch": torch.__version__,
+                "platform": "gpu" if torch.device(state.device).type
+                == "cuda" else "cpu"}, 1)]),
+            ("dtpu_prompts_executed_total", "counter",
+             "Prompts executed to success.", [({}, m["prompts_executed"])]),
+            ("dtpu_prompts_failed_total", "counter",
+             "Prompts that finished in error.", [({}, m["prompts_failed"])]),
+            ("dtpu_images_received_total", "counter",
+             "Worker images received on /distributed/job_complete.",
+             [({}, m["images_received"])]),
+            ("dtpu_tiles_received_total", "counter",
+             "Worker tiles received on /distributed/tile_complete.",
+             [({}, m["tiles_received"])]),
+            ("dtpu_queue_remaining", "gauge",
+             "Prompts queued or executing.",
+             [({}, state.queue_remaining())]),
+        ]
+        workers = state.cluster.snapshot()["workers"].values()
+        extra.append(
+            ("dtpu_cluster_workers", "gauge",
+             "Registered workers by lease state.",
+             [({"state": st}, sum(1 for w in workers if w["state"] == st))
+              for st in (cluster_mod.HEALTHY, cluster_mod.SUSPECT,
+                         cluster_mod.DEAD, cluster_mod.UNKNOWN)]))
+        if state.durable is not None:
+            ds = state.durable.stats()
+            wal = ds.get("wal") or {}
+            lease = ds.get("lease") or {}
+            extra.extend([
+                ("dtpu_wal_records_total", "counter",
+                 "Records appended to the write-ahead job log.",
+                 [({}, wal.get("records_appended", 0))]),
+                ("dtpu_wal_bytes", "gauge",
+                 "Live WAL segment bytes on disk.",
+                 [({}, wal.get("bytes", 0))]),
+                ("dtpu_wal_segments", "gauge",
+                 "Live WAL segment files.", [({}, wal.get("segments", 0))]),
+                ("dtpu_wal_unsynced_records", "gauge",
+                 "Appended records not yet fsync'd (sync lag).",
+                 [({}, wal.get("unsynced_records", 0))]),
+                ("dtpu_wal_last_sync_age_seconds", "gauge",
+                 "Seconds since the last WAL fsync.",
+                 [({}, wal.get("last_sync_age_s", 0) or 0)]),
+                ("dtpu_master_epoch", "gauge",
+                 "This process's master-lease epoch (fencing token); "
+                 "0 = standby.", [({}, ds.get("epoch", 0))]),
+                ("dtpu_master_lease_remaining_seconds", "gauge",
+                 "Seconds until the observed master lease expires.",
+                 [({}, max(lease.get("expires_in_s", 0) or 0, 0))]),
+                ("dtpu_master_takeovers_total", "counter",
+                 "Lease takeovers performed by this process.",
+                 [({}, ds.get("takeovers", 0))]),
+            ])
+        exp = export_mod.stats()
+        if exp.get("enabled"):
+            extra.extend([
+                ("dtpu_trace_export_traces_total", "counter",
+                 "Committed traces appended to capture segments.",
+                 [({}, exp["exported"])]),
+                ("dtpu_trace_export_dropped_total", "counter",
+                 "Capture records dropped (disk errors or "
+                 "unserializable payloads).", [({}, exp["dropped"])]),
+                ("dtpu_trace_export_bytes_total", "counter",
+                 "Bytes appended to capture segments.",
+                 [({}, exp["bytes_written"])]),
+                ("dtpu_trace_export_rotations_total", "counter",
+                 "Capture segment rotations.", [({}, exp["rotations"])]),
+                ("dtpu_trace_export_retired_total", "counter",
+                 "Oldest capture segments deleted by the retention cap.",
+                 [({}, exp["retired_segments"])]),
+            ])
+        extra.append(
+            ("dtpu_analysis_anomalies_total", "counter",
+             "Per-trace category blame exceeding the armed baseline "
+             "profile's tolerance.", [({}, analysis_mod.anomalies_total())]))
+        skews = state.cluster.skew_snapshot()
+        if skews:
+            extra.append(
+                ("dtpu_clock_skew_seconds", "gauge",
+                 "Estimated worker-clock offset vs this master "
+                 "(min-filtered heartbeat one-way samples).",
+                 [({"worker_id": w}, sk["offset_s"])
+                  for w, sk in sorted(skews.items())]))
+        extra.extend(resource.resource_prom_families({"": self_sample()}))
+        return 200, Raw(trace_mod.prometheus_text(extra=extra).encode(),
+                        PROM_CONTENT_TYPE)
+
+    def list_traces(body, ctype, query, remote=None):
+        """The flight recorder's index, newest first."""
+        return 200, {"traces": trace_mod.GLOBAL_TRACES.index(),
+                     "ring_max": trace_mod.GLOBAL_TRACES.max_traces,
+                     "tracing_enabled": trace_mod.tracing_enabled()}
+
+    def get_trace(body, ctype, query, remote=None):
+        """One finished job's spans and their tree."""
+        pid = query.get("prompt_id", "")
+        rec = trace_mod.GLOBAL_TRACES.get(pid)
+        if rec is None:
+            return 404, {"error": f"no recorded trace for {pid!r} "
+                                  "(completed jobs only; ring keeps the "
+                                  "most recent "
+                                  f"{trace_mod.GLOBAL_TRACES.max_traces})"}
+        rec["tree"] = trace_mod.build_span_tree(rec["spans"])
+        return 200, rec
+
+    def analysis(body, ctype, query, remote=None):
+        """Critical-path profiles over the flight recorder's ring (``cli
+        analyze``), with the ledger's hedging estimates, the live
+        anomaly plane and the clock skews."""
+        report = analysis_mod.analyze_records(
+            trace_mod.GLOBAL_TRACES.records())
+        ledger = state.ledger.snapshot()
+        return 200, {**report,
+                     "hedging_latency_ema_s": {
+                         jid: j.get("latency_estimate_s")
+                         for jid, j in ledger.get("active_jobs", {}).items()},
+                     "live": analysis_mod.LIVE.snapshot(),
+                     "skew": state.cluster.skew_snapshot()}
+
+    def resource_info(body, ctype, query, remote=None):
+        """This participant's resource sample and monitor state: what
+        the master's federation pulls when a heartbeat's is stale."""
+        return 200, {"resources": self_sample(),
+                     "monitor": (state.resources.snapshot()
+                                 if state.resources is not None
+                                 else {"enabled": False})}
+
+    # worker id -> monotonic time of its last failed pull
+    pull_failed_at: Dict[str, float] = {}
+
+    def fleet_resources() -> Dict[str, Any]:
+        """The master's and its workers' resources merged: each worker's
+        last heartbeat snapshot, pulled live from its
+        ``/distributed/resource`` when older than ``DTPU_RES_FED_TTL_S``
+        (a failed pull is not tried again within the TTL); a dead
+        worker keeps its last snapshot, marked stale."""
+        try:
+            ttl = float(os.environ.get(C.RES_FED_TTL_ENV,
+                                       C.RES_FED_TTL_DEFAULT))
+        except ValueError:
+            ttl = C.RES_FED_TTL_DEFAULT
+        now = time.monotonic()
+        reg = state.cluster.resource_snapshots()
+        to_pull = [(wid, v) for wid, v in reg.items()
+                   if v.get("host") and v.get("port")
+                   and v["state"] != cluster_mod.DEAD
+                   and (v["age_s"] is None or v["age_s"] > ttl)
+                   and now - pull_failed_at.get(wid, -1e9) > ttl]
+
+        def pull(item):
+            wid, v = item
+            try:
+                got = get_json(f"http://{v['host']}:{v['port']}"
+                               "/distributed/resource", timeout=2)
+                if isinstance(got.get("resources"), dict):
+                    state.cluster.update_resources(wid, got["resources"])
+                    pull_failed_at.pop(wid, None)
+                    return
+            except (OSError, ValueError, http.client.HTTPException) as e:
+                debug_log(f"resource pull from {wid} failed: {e}")
+            pull_failed_at[wid] = time.monotonic()
+
+        if to_pull:
+            with concurrent.futures.ThreadPoolExecutor(len(to_pull)) as ex:
+                list(ex.map(pull, to_pull))
+            reg = state.cluster.resource_snapshots()
+        self_id = "master" if not state.is_worker \
+            else os.environ.get(C.WORKER_ID_ENV, "self")
+        participants: Dict[str, Any] = {
+            self_id: {"state": "self", "resources": self_sample(),
+                      "age_s": 0.0, "stale": False}}
+        for wid, v in reg.items():
+            if wid == self_id:
+                wid = f"{wid}@registry"
+            participants[wid] = {
+                "state": v["state"], "host": v.get("host"),
+                "port": v.get("port"), "resources": v["resources"],
+                "age_s": v["age_s"],
+                "stale": v["age_s"] is None or v["age_s"] > ttl}
+        return {"participants": participants, "ttl_s": ttl}
+
+    def cluster_metrics(body, ctype, query, remote=None):
+        return 200, fleet_resources()
+
+    def cluster_metrics_prom(body, ctype, query, remote=None):
+        """The federated view as Prometheus gauges, one series a
+        participant (``worker_id``)."""
+        parts = fleet_resources()["participants"]
+        fams = resource.resource_prom_families(
+            {wid: p.get("resources") for wid, p in parts.items()},
+            ages={wid: p.get("age_s") for wid, p in parts.items()})
+        fams.append(("dtpu_res_participants", "gauge",
+                     "Participants in the federated resource view.",
+                     [({}, len(parts))]))
+        return 200, Raw(trace_mod.render_prom_families(fams).encode(),
+                        PROM_CONTENT_TYPE)
+
+    def profile_start(body, ctype, query, remote=None):
+        """Start a ``torch.profiler`` trace (``{"dir": ...}`` optional);
+        409 while one runs."""
+        data = json_body(body)
+        try:
+            out = trace_mod.start_device_trace(data.get("dir"))
+        except RuntimeError as e:
+            return 409, {"error": str(e)}
+        return ok(dir=out)
+
+    def profile_stop(body, ctype, query, remote=None):
+        """Stop it and write ``<dir>/trace.json``; 409 when none runs."""
+        try:
+            out = trace_mod.stop_device_trace()
+        except RuntimeError as e:
+            return 409, {"error": str(e)}
+        return ok(dir=out, file=os.path.join(out, trace_mod.TRACE_FILE))
+
+    def profile_status(body, ctype, query, remote=None):
+        return 200, trace_mod.trace_status()
+
     def panel(body, ctype, query, remote=None):
         with open(PANEL_HTML, "rb") as f:
             return 200, Raw(f.read(), "text/html; charset=utf-8")
@@ -821,17 +1332,56 @@ def routes(state: ServerState
         ("GET", "/distributed/durability"): durability_info,
         ("POST", "/distributed/takeover"): takeover,
         ("POST", "/distributed/rehome"): rehome,
+        ("GET", "/distributed/metrics.prom"): metrics_prom,
+        ("GET", "/distributed/traces"): list_traces,
+        ("GET", "/distributed/trace/{prompt_id}"): get_trace,
+        ("GET", "/distributed/analysis"): analysis,
+        ("GET", "/distributed/resource"): resource_info,
+        ("GET", "/distributed/cluster/metrics"): cluster_metrics,
+        ("GET", "/distributed/cluster/metrics.prom"): cluster_metrics_prom,
+        ("POST", "/distributed/profile/start"): profile_start,
+        ("POST", "/distributed/profile/stop"): profile_stop,
+        ("GET", "/distributed/profile/status"): profile_status,
     }
+
+
+def _match(table, method: str, path: str
+           ) -> Tuple[Optional[Callable[..., Response]], Dict[str, str]]:
+    """The route for ``path`` and its ``{name}`` segments' values."""
+    fn = table.get((method, path))
+    if fn is not None:
+        return fn, {}
+    parts = path.split("/")
+    for (m, pattern), f in table.items():
+        if m != method or "{" not in pattern:
+            continue
+        pp = pattern.split("/")
+        if len(pp) != len(parts):
+            continue
+        params = {}
+        for want, got in zip(pp, parts):
+            if want.startswith("{") and want.endswith("}"):
+                if not got:
+                    break
+                params[want[1:-1]] = urllib.parse.unquote(got)
+            elif want != got:
+                break
+        else:
+            return f, params
+    return None, {}
 
 
 def make_handler(state: ServerState) -> type:
     table = routes(state)
+    takes_headers = {fn for fn in table.values()
+                     if "headers" in inspect.signature(fn).parameters}
 
     class Handler(BaseHTTPRequestHandler):
         def _dispatch(self, method: str) -> None:
             url = urllib.parse.urlsplit(self.path)
             query = dict(urllib.parse.parse_qsl(url.query))
-            fn = table.get((method, url.path))
+            fn, params = _match(table, method, url.path)
+            query.update(params)
             try:
                 body = self.rfile.read(int(
                     self.headers.get("Content-Length") or 0))
@@ -839,9 +1389,12 @@ def make_handler(state: ServerState) -> type:
                     status, payload = 404, {"error": f"no route {method} "
                                                      f"{url.path}"}
                 else:
+                    kw = {"headers": {k.lower(): v for k, v in
+                                      self.headers.items()}} \
+                        if fn in takes_headers else {}
                     status, payload = fn(body,
                                          self.headers.get("Content-Type", ""),
-                                         query, self.client_address[0])
+                                         query, self.client_address[0], **kw)
             except ValueError as e:
                 status, payload = 400, {"error": str(e)}
             except Exception as e:  # noqa: BLE001 - a 500, not a dead thread
@@ -893,6 +1446,8 @@ def serve(state: ServerState, host: str = "127.0.0.1",
     out (SIGINT, or SIGTERM through the exit hooks)."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
+    state.resources = resource.install_monitor(
+        queue_depth_fn=state.queue_remaining, device=state.device)
     if state.is_worker:
         state.heartbeat = cluster_mod.maybe_start_heartbeat(port=state.port)
     else:

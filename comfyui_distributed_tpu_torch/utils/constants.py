@@ -1,5 +1,6 @@
 """Timeouts, node-type sets and wire constants of the HTTP fan-out, the
-worker manager and the write-ahead log: the subset of
+worker manager, the write-ahead log and the observability plane (traces,
+capture files, critical-path analysis, resources): the subset of
 ``comfyui_distributed_tpu/utils/constants.py`` that the port reads, with
 the same values, so a worker of either package keeps to a master of the
 other.
@@ -104,3 +105,85 @@ WORKER_STARTUP_DELAY = 2.0       # s before auto-launching workers
 LOG_TAIL_BYTES = 65536           # default tail of GET /distributed/worker_log
 MASTER_PID_ENV = "DTPU_MASTER_PID"   # a managed worker's master
 METRICS_RESET_ENV = "DTPU_METRICS_RESET"  # "0" refuses POST .../metrics/reset
+
+# --- observability (utils/trace.py) -----------------------------------------
+# Request tracing: every job gets a trace whose spans ride a contextvar,
+# cross the HTTP edges in a W3C traceparent header and land in a bounded
+# flight recorder behind GET /distributed/trace/<prompt_id>.
+TRACE_ENV = "DTPU_TRACE"                 # "0" disables span creation
+TRACE_RING_ENV = "DTPU_TRACE_RING"       # flight-recorder ring size
+TRACE_RING_DEFAULT = 128                 # completed job traces retained
+TRACE_MAX_SPANS = 512                    # per-trace span cap (then dropped)
+TRACEPARENT_HEADER = "traceparent"       # W3C trace-context header name
+SLOW_JOB_ENV = "DTPU_SLOW_JOB_S"         # >0: the slow-job log line
+LOG_JSON_ENV = "DTPU_LOG_JSON"           # "1": JSON log lines with trace ids
+
+# latency-histogram bucket bounds (seconds), shared by the JSON
+# percentiles and the Prometheus exposition
+HISTOGRAM_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                       0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+# --- capture files (utils/trace_export.py) -----------------------------------
+# committed traces stream to rotating, size-bounded JSONL segments in
+# either package's schema; off unless a directory is set
+TRACE_EXPORT_DIR_ENV = "DTPU_TRACE_EXPORT_DIR"       # unset/empty: off
+TRACE_EXPORT_SEGMENT_ENV = "DTPU_TRACE_EXPORT_SEGMENT_BYTES"
+TRACE_EXPORT_SEGMENT_DEFAULT = 4 * 1024 * 1024       # rotate past 4 MiB
+TRACE_EXPORT_RETAIN_ENV = "DTPU_TRACE_EXPORT_RETAIN_BYTES"
+TRACE_EXPORT_RETAIN_DEFAULT = 64 * 1024 * 1024       # dir cap (oldest out)
+TRACE_EXPORT_SCHEMA = 1                              # capture-file schema
+TRACE_EXPORT_PREFIX = "capture-"                     # segment file prefix
+# ring evictions and export drops log once per N
+TRACE_EVICT_LOG_EVERY = 50
+TRACE_EXPORT_DROP_LOG_EVERY = 20
+
+# --- resources (utils/resource.py) ------------------------------------------
+# device memory, host RSS, utilization and queue depth sampled into
+# bounded rings; heartbeats carry a snapshot and the master serves the
+# merged view on GET /distributed/cluster/metrics{,.prom}
+RESOURCE_ENV = "DTPU_RESOURCE"           # "0" disables the monitor thread
+RES_INTERVAL_ENV = "DTPU_RES_INTERVAL_S"
+RES_INTERVAL_DEFAULT = 5.0               # s between monitor samples
+RES_RING_ENV = "DTPU_RES_RING"
+RES_RING_DEFAULT = 720                   # samples per series (~1h @ 5s)
+# a worker snapshot older than this is pulled live from its
+# GET /distributed/resource and cached back into the registry
+RES_FED_TTL_ENV = "DTPU_RES_FED_TTL_S"
+RES_FED_TTL_DEFAULT = 10.0
+
+# --- critical-path analysis (utils/trace_analysis.py) ------------------------
+ANALYSIS_BASELINE_ENV = "DTPU_ANALYSIS_BASELINE"   # unset/empty: disarmed
+ANALYSIS_ANOMALY_PCT_ENV = "DTPU_ANALYSIS_ANOMALY_PCT"
+ANALYSIS_ANOMALY_PCT_DEFAULT = 50.0     # per-category regression bar (%)
+ANALYSIS_STRAGGLER_X_ENV = "DTPU_ANALYSIS_STRAGGLER_X"
+ANALYSIS_STRAGGLER_X_DEFAULT = 2.0      # worker p95 vs fleet-median bar
+ANALYSIS_MAX_TRACES_ENV = "DTPU_ANALYSIS_MAX_TRACES"
+ANALYSIS_MAX_TRACES_DEFAULT = 256       # records per aggregation pass
+# heartbeats carry the worker's wall clock; the master min-filters
+# (offset + one-way delay) samples into a per-worker estimate and shifts
+# shipped worker spans by it.  "0" keeps the estimates, shifts nothing.
+SKEW_CORRECTION_ENV = "DTPU_SKEW_CORRECTION"
+SKEW_SAMPLES_KEPT = 16                  # min-filter window per worker
+
+# every literal attr key a span carries: the vocabulary the trace
+# readers (cli trace, why, analyze) know
+TRACE_ATTR_WHITELIST = frozenset({
+    # job identity / topology
+    "prompt_id", "client_id", "tenant", "role", "fanout", "job",
+    "worker", "node", "target",
+    # coalescing / continuous batching
+    "coalesced", "coalesced_into", "bucket", "slot",
+    "step", "preempted_by",
+    "threshold_s",
+    # recovery / hedging
+    "lost", "to", "units", "tile_idx", "n_workers",
+    # resource attribution
+    "device_peak_mb", "rss_mb", "mem_peak_mb", "mem_peak_delta_mb",
+    "mem_source",
+    # cross-request compute reuse
+    "cache_hit", "cache_tier", "tiles_skipped",
+    # multi-master sharded control plane
+    "shard", "ring_epoch", "forwarded_from",
+    # the offset (ms) applied to a shipped worker span forest
+    "skew_ms",
+})

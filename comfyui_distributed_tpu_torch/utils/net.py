@@ -8,7 +8,13 @@ of ``comfyui_distributed_tpu/utils/net.py`` without ``aiohttp``.
   upload is read from its part's type).
 - :func:`post_form_with_retry`: exponential backoff with jitter; retries
   404 (a queue not prepared yet), 5xx and connection errors, and honours
-  ``Retry-After``.
+  ``Retry-After``; ``headers`` (the sender's ``traceparent``) ride every
+  attempt.
+- :func:`in_context`: a callable that runs on another thread (a pool's)
+  in the caller's transfer attribution and span context, under a
+  pipeline ``stage``: the counterpart of the JAX package's
+  ``HostIOPool.submit`` handoff, so the data plane's encodes and copies
+  stay in the job's trace and transfer ledger.
 - :func:`negotiate_wire_format` / :func:`wire_codec`: one
   ``GET /distributed/wire_formats`` per master decides between raw-tensor
   uploads and PNG.
@@ -31,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 
 # --- multipart/form-data ----------------------------------------------------
 
@@ -140,12 +147,13 @@ def get_json(url: str, timeout: float = 10.0,
         return json.loads(r.read())
 
 
-def post_json(url: str, payload: Any, timeout: float = 30.0) -> Any:
+def post_json(url: str, payload: Any, timeout: float = 30.0,
+              headers: Optional[Dict[str, str]] = None) -> Any:
     """POST JSON; an HTTP error status raises ``RuntimeError`` with the
     start of the body."""
     req = urllib.request.Request(
         url, data=json.dumps(payload).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return json.loads(r.read())
@@ -178,7 +186,8 @@ def backoff_delays(retries: int, rng=None) -> List[float]:
 
 def post_form_with_retry(url: str, make_form: Callable[[], FormData],
                          timeout: float, max_retries: Optional[int] = None,
-                         what: str = "upload") -> None:
+                         what: str = "upload",
+                         headers: Optional[Dict[str, str]] = None) -> None:
     """POST a multipart form until the server answers 200; any other
     status (404 while the master has not prepared the job, 5xx) or a
     connection error is retried after the next backoff delay, or after a
@@ -191,7 +200,8 @@ def post_form_with_retry(url: str, make_form: Callable[[], FormData],
         form = make_form()
         req = urllib.request.Request(url, data=form.encode(),
                                      headers={"Content-Type":
-                                              form.content_type})
+                                              form.content_type,
+                                              **(headers or {})})
         try:
             with urllib.request.urlopen(req, timeout=attempt_timeout) as r:
                 r.read()
@@ -206,6 +216,25 @@ def post_form_with_retry(url: str, make_form: Callable[[], FormData],
         if attempt == retries - 1:
             raise err
         time.sleep(max(delays[attempt], retry_after or 0.0))
+
+
+def in_context(fn: Callable[..., Any], stage: Optional[str] = None
+               ) -> Callable[..., Any]:
+    """``fn`` bound to this thread's transfer attribution (node label and
+    run ledgers) and span context, captured now, for a call on another
+    thread; with ``stage`` each call is timed into that pipeline stage
+    (and a span of its name in the trace)."""
+    captured = trace_mod.capture_transfer_context()
+    captured_span = trace_mod.capture_span_context()
+
+    def run(*args, **kwargs):
+        with trace_mod.transfer_context(captured), \
+                trace_mod.use_span(captured_span):
+            if stage:
+                with trace_mod.stage(stage):
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+    return run
 
 
 # --- wire-format negotiation -------------------------------------------------

@@ -15,6 +15,9 @@ Rewrite rules, the same as the JAX package's:
   ``enabled_worker_ids`` on both sides (each side computes the tile
   partition); a worker adds ``master_url`` and its config id as
   ``worker_id``, which it finds in ``enabled_worker_ids``.
+
+The dispatch and prepare requests carry the current span's W3C
+``traceparent``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from comfyui_distributed_tpu_torch.runtime import cluster as cl
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import log
 from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
 from comfyui_distributed_tpu_torch.workflow.graph import (
@@ -186,13 +190,16 @@ def dispatch_to_worker(worker: Dict[str, Any], graph: Graph,
                        extra_data: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, Any]:
     """POST the prepared graph to the worker's ``/prompt``; raises
-    ``RuntimeError`` on any status but 200."""
+    ``RuntimeError`` on any status but 200.  The current span's W3C
+    ``traceparent`` rides the request, so the worker's execution joins
+    this job's trace."""
     payload: Dict[str, Any] = {"prompt": graph.to_api_format(),
                                "client_id": client_id}
     if extra_data:
         payload["extra_data"] = extra_data
     try:
-        return post_json(worker_url(worker) + "/prompt", payload, timeout=30)
+        return post_json(worker_url(worker) + "/prompt", payload, timeout=30,
+                         headers=trace_mod.traceparent_headers())
     except RuntimeError as e:
         raise RuntimeError(f"worker {worker.get('id')} rejected prompt: "
                            f"{e}") from None
@@ -202,4 +209,5 @@ def prepare_job_on(url: str, multi_job_id: str, kind: str = "image") -> None:
     """Create the image or tile queue of a job on the master at ``url``
     before anything is dispatched."""
     post_json(f"{url}/distributed/prepare_job",
-              {"multi_job_id": multi_job_id, "kind": kind}, timeout=5)
+              {"multi_job_id": multi_job_id, "kind": kind}, timeout=5,
+              headers=trace_mod.traceparent_headers())

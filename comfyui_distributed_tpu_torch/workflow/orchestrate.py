@@ -23,6 +23,12 @@ healthy worker.  A master that resumes a prompt from its write-ahead log
 registers the same redispatchers from the prompt's prepared graph
 (:func:`register_recovery_redispatchers`).  The JAX package's SLO
 deadlines wait for their slice.
+
+Under the caller's span (the master's ``job`` root) the preflight is a
+``preflight`` span, each worker's dispatch a ``dispatch`` span whose
+``traceparent`` the worker's job span takes as its parent, and each
+redispatch a ``redispatch`` span.  The dispatch and staging pools are
+threads: each call carries the captured span onto its thread.
 """
 
 from __future__ import annotations
@@ -41,8 +47,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import debug_log, log
-from comfyui_distributed_tpu_torch.utils.net import FormData, post_json
+from comfyui_distributed_tpu_torch.utils.net import (
+    FormData,
+    in_context,
+    post_json,
+)
 from comfyui_distributed_tpu_torch.workflow import dispatcher as dsp
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
 
@@ -199,8 +210,11 @@ def _register_redispatchers(graph: Graph, job_id_map: Dict[str, str],
             def send(wgraph: Graph, batch: List[Any]) -> None:
                 log(f"cluster: redispatching {kind} units {batch} of {mj} "
                     f"({lost_owner} -> {tid})")
-                dsp.dispatch_to_worker(target, wgraph, client_id=client_id,
-                                       extra_data=extra_data)
+                with trace_mod.span("redispatch", job=mj, worker=tid,
+                                    lost=str(lost_owner), units=len(batch)):
+                    dsp.dispatch_to_worker(target, wgraph,
+                                           client_id=client_id,
+                                           extra_data=extra_data)
                 moved = [u for u in batch if not ledger.is_hedged(mj, u)]
                 if moved:
                     ledger.reassign(mj, moved, tid)
@@ -298,7 +312,9 @@ def run_distributed(graph_or_doc: Any, master_url: str,
     """
     graph = graph_or_doc if isinstance(graph_or_doc, Graph) \
         else parse_workflow(graph_or_doc)
-    alive = dsp.preflight_check(workers, registry=cluster)
+    with trace_mod.span("preflight", n_workers=len(workers or [])):
+        alive = dsp.preflight_check(workers, registry=cluster) \
+            if workers else []
     if not alive or not graph.find_by_type(*dsp.DISTRIBUTED_TYPES):
         return {"result": master_dispatch(graph), "workers": [],
                 "failed": [], "job_ids": {}}
@@ -307,8 +323,8 @@ def run_distributed(graph_or_doc: Any, master_url: str,
     remote = [w for w in alive if _is_remote(w)]
     if refs and remote:
         with concurrent.futures.ThreadPoolExecutor(len(remote)) as ex:
-            for fut in [ex.submit(stage_images_on_worker, master_url, w,
-                                  refs) for w in remote]:
+            for fut in [ex.submit(in_context(stage_images_on_worker),
+                                  master_url, w, refs) for w in remote]:
                 fut.result()
 
     job_id_map = dsp.make_job_id_map(graph)
@@ -332,12 +348,17 @@ def run_distributed(graph_or_doc: Any, master_url: str,
                                 master_url, client_id, extra_data,
                                 cluster, ledger)
 
+    @in_context
     def dispatch(worker: Dict[str, Any], index: int) -> Any:
         wgraph = dsp.prepare_for_participant(
             graph, "worker", job_id_map, enabled_ids, master_url=master_url,
             worker_index=index)
-        return dsp.dispatch_to_worker(worker, wgraph, client_id=client_id,
-                                      extra_data=extra_data)
+        # the worker's job span takes this span as its parent, through
+        # the traceparent dispatch_to_worker sends
+        with trace_mod.span("dispatch", worker=str(worker.get("id"))):
+            return dsp.dispatch_to_worker(worker, wgraph,
+                                          client_id=client_id,
+                                          extra_data=extra_data)
 
     with concurrent.futures.ThreadPoolExecutor(len(alive)) as ex:
         futures = [ex.submit(dispatch, w, i) for i, w in enumerate(alive)]

@@ -6,8 +6,9 @@ Each case drives the same sequence of calls through
 on its own copy of one fake clock that the sequence steps, and records
 every return value, every snapshot and every counter the calls move;
 the two records must be equal.  The JAX package counts in
-``utils/trace.GLOBAL_COUNTERS``, the port in ``cluster.COUNTERS``; both
-are read as differences over the case.  The JAX ledger's ``redispatch``
+``utils/trace.GLOBAL_COUNTERS``, the port in its own
+``utils/trace.GLOBAL_COUNTERS``; both are read as differences over the
+case.  The JAX ledger's ``redispatch``
 is a coroutine and the port's a plain call: the case awaits the one and
 calls the other with callbacks of the same result."""
 
@@ -22,6 +23,7 @@ from comfyui_distributed_tpu.utils import trace as jtrace
 from comfyui_distributed_tpu_torch.runtime import cluster as tcl
 from comfyui_distributed_tpu_torch.utils import clock as tclock
 from comfyui_distributed_tpu_torch.utils import constants as TC
+from comfyui_distributed_tpu_torch.utils import trace as ttrace
 
 COUNTER_NAMES = (
     "cluster_healthy_transitions", "cluster_suspect_transitions",
@@ -316,7 +318,7 @@ def test_port_matches_the_jax_control_plane(name, monkeypatch):
     jax_side = Side(jcl, jtrace.GLOBAL_COUNTERS)
     jax_out = CASES[name](jax_side)
     jax_counts = jax_side.counters()
-    port_side = Side(tcl, tcl.COUNTERS)
+    port_side = Side(tcl, ttrace.GLOBAL_COUNTERS)
     port_out = CASES[name](port_side)
     assert port_out == jax_out
     assert port_side.counters() == jax_counts

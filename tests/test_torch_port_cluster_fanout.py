@@ -50,6 +50,7 @@ from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
 from comfyui_distributed_tpu_torch.server.app import ServerState, make_server
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import net
+from comfyui_distributed_tpu_torch.utils import trace as ttrace
 from comfyui_distributed_tpu_torch.utils.image import (decode_png,
                                                        decode_tensor,
                                                        to_uint8)
@@ -106,7 +107,7 @@ def test_register_heartbeat_and_cluster_routes(torch_master, capsys):
     for route in ("/distributed/register", "/distributed/heartbeat"):
         with pytest.raises(RuntimeError, match="400"):
             net.post_json(url + route, {})
-    assert "cluster_counters" in net.get_json(url + "/distributed/metrics")
+    assert "counters" in net.get_json(url + "/distributed/metrics")["pipeline"]
     assert tcli.main(["cluster", "--url", url]) == 0
     out = capsys.readouterr().out
     assert "ext0" in out and "healthy" in out and "policy=" in out
@@ -477,17 +478,17 @@ def test_tile_drain_hedge_first_completion_wins(knobs):
     time.sleep(0.05)
     ledger.check_in(mj, 1, "master")
     ctx.job_store.prepare_tile_job(mj)
-    wins0 = cl.COUNTERS.get("cluster_hedge_wins")
-    dups0 = cl.COUNTERS.get("cluster_duplicate_checkins")
+    wins0 = ttrace.GLOBAL_COUNTERS.get("cluster_hedge_wins")
+    dups0 = ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins")
     collected = tup.UltimateSDUpscaleDistributed()._collect_tiles(
         ctx, mj, 1, refine_window=_refine([]))
     assert set(collected) == {2, 3}
     assert all("window_tensor" in collected[u] for u in (2, 3))
     assert ledger.pending(mj) == []
-    assert cl.COUNTERS.get("cluster_hedge_wins") == wins0 + 2
+    assert ttrace.GLOBAL_COUNTERS.get("cluster_hedge_wins") == wins0 + 2
     # the straggler's late tile is dropped at the ledger
     assert not ledger.check_in(mj, 2, "w0")
-    assert cl.COUNTERS.get("cluster_duplicate_checkins") == dups0 + 1
+    assert ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins") == dups0 + 1
     assert ledger.finish_job(mj)["hedged_units"] == 2
 
 
@@ -892,7 +893,7 @@ def test_drill_kill_w1_mid_tiled_upscale(tmp_path, drill_env):
     drill = Drill(tmp_path)
     try:
         drill.states["w1"].fault_inject = {"drop_tiles_after": 0}
-        dups0 = cl.COUNTERS.get("cluster_duplicate_checkins")
+        dups0 = ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins")
         resp, entry, snap, files = drill.run(doc)
         assert sorted(resp["workers"]) == ["w0", "w1"], resp
         assert entry["status"] == "success" and entry["images"] == 1, entry
@@ -902,7 +903,7 @@ def test_drill_kill_w1_mid_tiled_upscale(tmp_path, drill_env):
         assert job["pending_units"] == [] and job["reassigned_units"] >= 1
         assert snap["workers"]["w1"]["state"] == cl.DEAD
         assert snap["workers"]["w0"]["state"] == cl.HEALTHY
-        assert cl.COUNTERS.get("cluster_duplicate_checkins") == dups0
+        assert ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins") == dups0
         (f,) = files
         assert _png_diff(f, ref) <= EXACT
         assert _png_diff(f, jax_ref) <= ONE_STEP
@@ -928,8 +929,8 @@ def test_drill_kill_w1_after_an_image_fanout_dispatch(tmp_path, drill_env):
         assert snap["workers"]["w1"]["state"] == cl.DEAD
         m1 = net.get_json(drill.urls["master"] + "/distributed/metrics")
         assert m1["images_received"] - m0["images_received"] == 2
-        assert m1["cluster_counters"]["cluster_redispatches"] \
-            > m0["cluster_counters"].get("cluster_redispatches", 0)
+        assert m1["pipeline"]["counters"]["cluster_redispatches"] \
+            > m0["pipeline"]["counters"].get("cluster_redispatches", 0)
         assert len(files) == 3
         for f, ref in zip(files, refs):
             assert _png_diff(f, ref) <= EXACT, f

@@ -294,12 +294,12 @@ def test_metrics_reset_zeroes_the_counters_and_keeps_the_history(tmp_path):
     try:
         st.bump(prompts_executed=3, wire_decode_s=1.5)
         st._history["p"] = {"status": "success"}
-        tapp.cluster_mod.COUNTERS.bump("cluster_hedges", 2)
+        tapp.trace_mod.GLOBAL_COUNTERS.bump("cluster_hedges", 2)
         status, body = port_call(url, "POST", "/distributed/metrics/reset", {})
-        assert status == 200 and body["cleared"]["cluster_counters"] >= 1
+        assert status == 200 and body["cleared"]["counters"] >= 1
         m = port_call(url, "GET", "/distributed/metrics")[1]
         assert m["prompts_executed"] == 0 and m["wire_decode_s"] == 0.0
-        assert m["cluster_counters"] == {}
+        assert m["pipeline"]["counters"] == {}
         assert "p" in port_call(url, "GET", "/history")[1]
     finally:
         srv.shutdown()

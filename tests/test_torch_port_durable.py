@@ -26,6 +26,7 @@ from comfyui_distributed_tpu_torch.runtime import cluster as cl
 from comfyui_distributed_tpu_torch.runtime import durable as dur
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as ttrace
 
 
 @pytest.fixture
@@ -255,11 +256,11 @@ class TestMasterLease:
         monkeypatch.setattr(C, "WAL_FENCE_CHECK_S", 0.0)
         wal, lease = mk_wal(wal_dir, owner="m")
         wal.append("enqueue", pid="p", prompt={}, client_id="c")
-        fenced0 = cl.COUNTERS.get("wal_fenced")
+        fenced0 = ttrace.GLOBAL_COUNTERS.get("wal_fenced")
         lease.acquire("standby", 60.0, force=True)   # the fencing event
         with pytest.raises(dur.FencedError):
             wal.append("enqueue", pid="p2", prompt={}, client_id="c")
-        assert wal.fenced and cl.COUNTERS.get("wal_fenced") == fenced0 + 1
+        assert wal.fenced and ttrace.GLOBAL_COUNTERS.get("wal_fenced") == fenced0 + 1
         st, _ = dur.replay(wal_dir)
         assert "p2" not in st.prompts
 

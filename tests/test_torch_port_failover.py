@@ -45,6 +45,7 @@ from comfyui_distributed_tpu_torch.runtime import cluster as cl
 from comfyui_distributed_tpu_torch.runtime import durable as dur
 from comfyui_distributed_tpu_torch.server.app import ServerState, make_server
 from comfyui_distributed_tpu_torch.utils import constants as C
+from comfyui_distributed_tpu_torch.utils import trace as ttrace
 from comfyui_distributed_tpu_torch.utils import net
 from comfyui_distributed_tpu_torch.utils.image import decode_png, to_uint8
 from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
@@ -387,7 +388,7 @@ def test_standby_election_finishes_job_bit_identical(tmp_path, monkeypatch,
         b, _ = clu.master("B", monkeypatch, standby=True)
         assert b.durable.standby and b.durable.wal is None
         pid = clu.post_until_three_tiles_in("A", 11)
-        takeovers0 = cl.COUNTERS.get("master_takeovers")
+        takeovers0 = ttrace.GLOBAL_COUNTERS.get("master_takeovers")
         clu.kill("A")
         clu.kill("w1")
 
@@ -402,7 +403,7 @@ def test_standby_election_finishes_job_bit_identical(tmp_path, monkeypatch,
         info = net.get_json(clu.urls["B"] + "/distributed/durability")
         assert info["epoch"] == 2 and info["takeovers"] == 1
         assert info["recovery"]["resumed"]
-        assert cl.COUNTERS.get("master_takeovers") == takeovers0 + 1
+        assert ttrace.GLOBAL_COUNTERS.get("master_takeovers") == takeovers0 + 1
         (img,) = clu.output("B")
         np.testing.assert_array_equal(_pixels(img), _pixels(base))
         # w0 heartbeats its new master
@@ -449,7 +450,7 @@ def test_restart_only_master_resumes_unfinished_units(tmp_path, monkeypatch,
         pid = clu.post_until_three_tiles_in("A", 21)
         clu.kill("A")
         clu.kill("w1")
-        dups0 = cl.COUNTERS.get("cluster_duplicate_checkins")
+        dups0 = ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins")
 
         # a restart in place: A's owner id takes the live lease at once
         m2, resumed = clu.master("A2", monkeypatch)
@@ -460,7 +461,7 @@ def test_restart_only_master_resumes_unfinished_units(tmp_path, monkeypatch,
         assert job["done_units"] == job["total_units"] == 4
         assert job["recovered"] and job["preloaded_units"] == 3
         assert job["reassigned_units"] >= 1
-        assert cl.COUNTERS.get("cluster_duplicate_checkins") == dups0
+        assert ttrace.GLOBAL_COUNTERS.get("cluster_duplicate_checkins") == dups0
         metrics = net.get_json(clu.urls["A2"] + "/distributed/metrics")
         assert metrics["tiles_received"] == 1       # tile 3 alone, from w0
         (img,) = clu.output("A2")

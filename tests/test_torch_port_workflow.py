@@ -136,10 +136,11 @@ def _modules():
 
 def test_imports_load_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port, the HTTP fan-out's, the CLIP-vision
-    tower's, the worker manager's and the write-ahead log's too, imports
-    without JAX, the JAX package, Pillow or aiohttp (the card's machine
-    has none of the last two), and the regional, split-loader and unCLIP
-    ops register."""
+    tower's, the worker manager's, the write-ahead log's and the
+    observability plane's (traces, capture files, trace analysis,
+    resources, the ``cli`` readers) too, imports without JAX, the JAX
+    package, Pillow or aiohttp (the card's machine has none of the last
+    two), and the regional, split-loader and unCLIP ops register."""
     assert {"comfyui_distributed_tpu_torch.server.app",
             "comfyui_distributed_tpu_torch.cli",
             "comfyui_distributed_tpu_torch.workflow.orchestrate",
@@ -150,7 +151,11 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             "comfyui_distributed_tpu_torch.runtime.interrupt",
             "comfyui_distributed_tpu_torch.utils.process",
             "comfyui_distributed_tpu_torch.utils.resource",
-            "comfyui_distributed_tpu_torch.runtime.durable"} \
+            "comfyui_distributed_tpu_torch.runtime.durable",
+            "comfyui_distributed_tpu_torch.utils.trace",
+            "comfyui_distributed_tpu_torch.utils.trace_export",
+            "comfyui_distributed_tpu_torch.utils.trace_analysis",
+            "comfyui_distributed_tpu_torch.utils.log"} \
         <= set(_modules())
     ops = ["ConditioningCombine", "ConditioningSetAreaPercentage",
            "ConditioningSetTimestepRange", "UNETLoader", "CLIPLoader",
@@ -168,6 +173,18 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             "NODE_CLASS_MAPPINGS\n"
             f"missing = set({ops!r}) - set(NODE_CLASS_MAPPINGS)\n"
             "assert not missing, missing\n"
+            # the cli's trace readers parse, and a commit's lazy taps
+            # (capture files, analysis) load without JAX too
+            "from comfyui_distributed_tpu_torch import cli\n"
+            "for sub in ('trace', 'why', 'analyze'):\n"
+            "    assert cli.build_parser().parse_args("
+            "[sub, 'p'] if sub == 'why' else [sub]).fn\n"
+            "from comfyui_distributed_tpu_torch.utils import trace\n"
+            "trace.GLOBAL_TRACES.commit('p', 'a' * 32)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'comfyui_distributed_tpu', 'PIL', "
+            "'aiohttp')]\n"
+            "assert not bad, bad\n"
             "print(len([m for m in sys.modules if m.startswith("
             "'comfyui_distributed_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
