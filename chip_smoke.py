@@ -259,9 +259,51 @@ Run from the root of a checkout on a machine with a CUDA card (and
    profile's top ten kernels, the traced and profiled request seconds
    and check 7's four.
 
+18. admission, SLOs and more than one master (``workflow/scheduler.py``,
+   ``utils/slo.py``, ``runtime/shard.py``): the pipelines released (it
+   fails unless ``PHASE18_MIN_FREE`` bytes are free), sharded masters m0
+   and m1 (``DTPU_SHARD_ID``, one ``DTPU_SHARD_PEERS``, one
+   ``DTPU_SHARD_WAL_ROOT``, a ``PHASE18_MASTER_LEASE_S`` lease, the
+   reassign policy, hedging armed with a ``PHASE18_HEDGE_MIN_WAIT_S``
+   wait; m0 with ``DTPU_MAX_QUEUE``, ``DTPU_SLO_SPEC`` and
+   ``DTPU_DRAIN_TIMEOUT_S`` of ``PHASE18_*``), workers w0 and w1
+   heartbeating both (``DTPU_MASTER_URLS``; w1 stalling
+   ``PHASE18_STALL_S`` before it sends and disabled until drill 3) and a
+   ``cli router`` over both, which must not hold the card.  Each master's
+   ``/distributed/ring`` must name both and its log lie under the root at
+   its id.  (1) Four upscales (seed 42) through the router, each landing
+   on the owner the ring names for its id, and one posted to m1 under an
+   id m0 owns, forwarded one hop, its admission in m0's log; the router's
+   merged ``/history`` holds all five, each image within the one-batch
+   limits of phase 7's.  (2) While an upscale runs on m0, seven inpaints
+   in ``PHASE18_BURST``'s classes must meet ``PHASE18_LADDER`` (each shed
+   a 429 with ``Retry-After`` >= 1 and reason ``overload``), the four
+   admitted must start in ``PHASE18_ORDER``'s stride order (f1, b1, f2,
+   b2 on a first attempt) and equal phase 14's in-process slices to the
+   bit, and no worker may shed a dispatched share.  (3) m0's ``/distributed/slo`` fast burn rates must
+   equal those recomputed from its ``/history`` (paid 20, free 0,
+   completion 0), each paid trace hold one ``slo_breach`` span and ``cli
+   slo`` print the same; then an upscale with ``slo_s`` of
+   ``PHASE18_SLO_S`` and w1 enabled: ``/distributed/cluster`` shows its
+   deadline and w1's units are hedged after at most max(0.25 x the
+   budget left, 0.25 s) of silence.  (4) An upscale owned by m1 with w1;
+   once m1's log holds every unit but w1's, m1 gets SIGKILL: m0 absorbs
+   its shard and finishes the prompt under its id (recovered, every
+   unit done, the logged units preloaded, w1's reassigned), m0's and the
+   router's ring show m0 alone at epoch >= 2, both workers healthy at
+   m0, the image within the one-batch limits of drill 1's and phase 7's,
+   and ``cli wal`` verifies both shards' logs.  (5) SIGTERM to m0 during
+   an upscale: the upscale ends ``success``, a ``/prompt`` gets 503, and
+   m0 exits within ``PHASE18_DRAIN_TIMEOUT_S`` with no process of its
+   tree left.  Every server's launches must be sm90 alone at shapes
+   phase 3 checked; they count in the ``kernels`` line.  It prints a
+   ``phase18`` line: the card, the decisions and the order, the burn
+   rates, the hedge's silence, the kill's seconds, the drain's and each
+   server's peak memory and sm90 launches.
+
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after (phase 15's interrupted request and every
-request of phase 16: its servers' prompt lines).  The line before the last is ``{"kernels":
+request of phases 16 and 18: their servers' prompt lines).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -418,6 +460,26 @@ PHASE17_WHY_SUM_ATOL_S = 1e-3
 PHASE17_FORBIDDEN_KERNELS = ("flash_fwd_bf16", "flash_fwd_f32", "fmha",
                              "pytorch_flash", "efficient_attention",
                              "scaled_dot_product")
+# phase 18: the sharded masters' master lease, the hedge's plain wait
+# (so long that only a deadline hedges), m0's queue cap, SLO spec and
+# drain bound, the deadline drill's budget, w1's stall before it sends,
+# the burst of drill 2 with the ladder it must meet, and the free device
+# memory four SD1.5 servers need (as phase 16)
+PHASE18_MASTER_LEASE_S = 3.0
+PHASE18_HEDGE_MIN_WAIT_S = 600.0
+PHASE18_MAX_QUEUE = 4
+PHASE18_SLO_SPEC = "paid:p95<0.1s,completion>0.99;free:p95<60s"
+PHASE18_DRAIN_TIMEOUT_S = 60
+PHASE18_SLO_S = 30.0
+PHASE18_STALL_S = 300
+PHASE18_BURST = ("batch", "batch", "batch", "free", "free", "free", "paid")
+PHASE18_LADDER = ("admit", "admit", "overload", "admit", "admit",
+                  "overload", "overload")
+# the admitted prompts' start order by attempt: the stride scheduling of
+# the default weights (paid 6, free 3, batch 1) after the paid upscales
+# alone; a second attempt starts from the first one's passes
+PHASE18_ORDER = (["f1", "b1", "f2", "b2"], ["f1", "f2", "b1", "b2"])
+PHASE18_MIN_FREE = 60_000_000_000
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -2689,6 +2751,687 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
                     "shapes": dict(launches["shapes"])}
 
 
+def wal_records(dirpath):
+    """Every record of a log directory's segments, in order."""
+    from comfyui_distributed_tpu_torch.runtime import durable
+    recs = []
+    for _epoch, _seq, path in durable.list_segments(dirpath):
+        recs += durable.read_segment(path)[0]
+    return recs
+
+
+def sharded_masters(docs, input_dir, upscale_ref, inpaint_refs, rows):
+    """Phase 18: admission, SLOs and more than one master on one card.
+    Sharded masters m0 and m1, workers w0 and w1 heartbeating both, and
+    a ``cli router`` over the masters; the five drills of the module
+    docstring.  ``upscale_ref``: phase 7's image; ``inpaint_refs``: phase
+    14's in-process slices at seeds s, s + 1, s + 2; ``rows``: phase 3's
+    checks.  Returns the report and every server's launches (by variant
+    and by shape)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops import tiling
+    from comfyui_distributed_tpu_torch.runtime import durable
+    from comfyui_distributed_tpu_torch.runtime.shard import HashRing
+    from comfyui_distributed_tpu_torch.utils.net import (
+        find_free_port, get_json, post_json, request_json)
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 18: {free} of {total} bytes of device memory free before "
+          f"the servers start", flush=True)
+    if free < PHASE18_MIN_FREE:
+        fail(f"phase 18 needs {PHASE18_MIN_FREE} bytes free for four SD1.5 "
+             f"servers, {free} are")
+    up = with_save_image(docs["upscale"])
+    up["2"]["inputs"]["seed"] = 42
+    up["1"]["inputs"]["image"] = "drill_test_card.png"   # as in phase 14
+    size, p = up["16"]["inputs"], up["2"]["inputs"]
+    n_tiles = len(tiling.calculate_tiles(size["width"], size["height"],
+                                         p["tile_width"], p["tile_height"]))
+    w1_tiles = len(tiling.partition_tiles(n_tiles, 2)[2])
+    inpaint = with_save_image(docs["inpaint"])
+    seed_node = next(n for n, node in inpaint.items()
+                     if isinstance(node, dict)
+                     and node.get("class_type") == "DistributedSeed")
+    inpaint[seed_node]["inputs"]["seed"] = SEEDS[0]
+    launches = {"variants": collections.Counter(),
+                "shapes": collections.Counter()}
+    per_server = collections.defaultdict(lambda: {"sm90": 0, "peak": 0})
+    report = {"card": card_line(), "free_bytes_before": free,
+              "settings": {"master_lease_s": PHASE18_MASTER_LEASE_S,
+                           "hedge_min_wait_s": PHASE18_HEDGE_MIN_WAIT_S,
+                           "max_queue": PHASE18_MAX_QUEUE,
+                           "slo_spec": PHASE18_SLO_SPEC,
+                           "slo_s": PHASE18_SLO_S,
+                           "drain_timeout_s": PHASE18_DRAIN_TIMEOUT_S,
+                           "stall_s": PHASE18_STALL_S}}
+    with tempfile.TemporaryDirectory() as root:
+        wal_root = os.path.join(root, "wal")
+        roles = {"m0": ("serve", {}), "m1": ("serve", {}),
+                 "w0": ("worker", {}), "w1": ("worker", {})}
+        cluster = Cluster(root, roles)
+        urls = {r: cluster.url(r) for r in roles}
+        masters_env = {
+            "DTPU_SHARD_PEERS": f"m0={urls['m0']},m1={urls['m1']}",
+            "DTPU_SHARD_WAL_ROOT": wal_root,
+            "DTPU_MASTER_LEASE_S": str(PHASE18_MASTER_LEASE_S),
+            "DTPU_FAULT_POLICY": "reassign", "DTPU_HEDGE": "1",
+            "DTPU_HEDGE_MIN_WAIT_S": str(PHASE18_HEDGE_MIN_WAIT_S),
+            "DTPU_LEASE_S": str(DRILL_LEASE_S), "DTPU_SUSPECT_PROBES": "1"}
+        roles["m0"][1].update(masters_env, DTPU_SHARD_ID="m0",
+                              DTPU_MAX_QUEUE=str(PHASE18_MAX_QUEUE),
+                              DTPU_SLO_SPEC=PHASE18_SLO_SPEC,
+                              DTPU_DRAIN_TIMEOUT_S=str(
+                                  PHASE18_DRAIN_TIMEOUT_S))
+        roles["m1"][1].update(masters_env, DTPU_SHARD_ID="m1")
+        for w in ("w0", "w1"):
+            roles[w][1].update(DTPU_MASTER_URLS=f"{urls['m0']},{urls['m1']}",
+                               DTPU_WORKER_ID=w,
+                               DTPU_LEASE_S=str(DRILL_LEASE_S))
+        roles["w1"][1]["DTPU_FAULT_INJECT"] = json.dumps(
+            {"stall_s": PHASE18_STALL_S})
+        for role in roles:
+            shutil.copy(os.path.join(input_dir, "input.png"),
+                        os.path.join(cluster.dirs[role], "input"))
+        for role in ("m0", "m1"):
+            with open(os.path.join(cluster.dirs[role],
+                                   "cluster_config.json"), "w") as f:
+                json.dump({"master": {"host": "127.0.0.1"},
+                           "workers": [{"id": w, "name": w,
+                                        "host": "127.0.0.1",
+                                        "port": cluster.ports[w],
+                                        "enabled": w == "w0"}
+                                       for w in ("w0", "w1")]}, f)
+        cluster.ports["router"] = find_free_port()
+        cluster.logs["router"] = os.path.join(root, "router.log")
+        router = cluster.url("router")
+
+        def outputs(role):
+            d = os.path.join(cluster.dirs[role], "output")
+            return sorted(os.path.join(d, f) for f in os.listdir(d)) \
+                if os.path.isdir(d) else []
+
+        def history(role, pid, what):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                hist = get_json(cluster.url(role) + "/history")
+                if pid in hist:
+                    if hist[pid].get("status") != "success":
+                        cluster.fail(f"{what}: history {hist[pid]}")
+                    return hist[pid]
+                if time.time() > deadline:
+                    cluster.fail(f"{what}: no history at {role} after "
+                                 f"{FANOUT_REQUEST_S} s")
+                time.sleep(0.05)
+
+        def post(role, doc, workers, what, **fields):
+            t0 = time.perf_counter()
+            code, body, _ = request_json(
+                "POST", cluster.url(role) + "/prompt",
+                {"prompt": copy.deepcopy(doc), "client_id": "chip_smoke",
+                 **fields}, timeout=FANOUT_REQUEST_S)
+            secs = time.perf_counter() - t0
+            if code != 200 or sorted(body.get("workers", [])) != workers \
+                    or body.get("failed_workers"):
+                cluster.fail(f"{what}: {role} answered {code} {body}; "
+                             f"expected a fan-out to {workers}")
+            return body, secs
+
+        def set_worker(master, wid, enabled):
+            post_json(cluster.url(master) + "/distributed/config/"
+                      "update_worker", {"id": wid, "enabled": enabled})
+
+        def wait_healthy(master, wids):
+            deadline = time.time() + FANOUT_START_S
+            for wid in wids:
+                while get_json(cluster.url(master) + "/distributed/cluster")[
+                        "workers"].get(wid, {}).get("state") != "healthy":
+                    if time.time() > deadline:
+                        cluster.fail(f"{wid} never read healthy at {master}")
+                    time.sleep(0.2)
+
+        lines_seen = collections.Counter()
+
+        def new_lines(role, what):
+            """A server's prompt lines since the last call: sm90 alone (or
+            none) at shapes phase 3 checked, counted for the kernels
+            line."""
+            lines = cluster.prompt_lines(role)[lines_seen[role]:]
+            lines_seen[role] += len(lines)
+            for line in lines:
+                lv = line["launches"]
+                if lv["mma_sync"] or lv["fp32"] or line["status"] \
+                        != "success":
+                    cluster.fail(f"{what}: {role}'s share {line}")
+                by_shape = {tuple(x[:6]): x[6]
+                            for x in line["launches_by_shape"]}
+                missing = [x for x in by_shape if x not in checked]
+                if missing:
+                    cluster.fail(f"{what}: {role} launched shapes that "
+                                 f"phase 3 did not check: {missing}")
+                launches["variants"].update(lv)
+                launches["shapes"].update(by_shape)
+                per_server[role]["sm90"] += lv["sm90"]
+                per_server[role]["peak"] = max(
+                    per_server[role]["peak"],
+                    line.get("max_memory_allocated") or 0)
+            return lines
+
+        def wait_lines(role, n, what):
+            deadline = time.time() + FANOUT_REQUEST_S
+            got = []
+            while len(got) < n:
+                got += new_lines(role, what)
+                if time.time() > deadline:
+                    cluster.fail(f"{what}: {len(got)} prompt lines from "
+                                 f"{role}, expected {n}")
+                time.sleep(0.05)
+            return got
+
+        def check_diff(path, ref_img, key, what):
+            dmax, dmean = image_diff(path, ref_img)
+            tol_max, tol_mean = (0.0, 0.0) if key == "bit" \
+                else FANOUT_ATOL[key]
+            if not (dmax <= tol_max and dmean <= tol_mean):
+                cluster.fail(f"{what}: {os.path.basename(path)} differs from "
+                             f"its {key!r} reference by max {dmax}, mean "
+                             f"{dmean} (limits {tol_max}, {tol_mean})")
+            return {"max": dmax, "mean": dmean}
+
+        def saved(path):
+            from comfyui_distributed_tpu_torch.utils.image import decode_png
+            with open(path, "rb") as f:
+                return decode_png(f.read())[0]
+
+        def cli_run(args, what):
+            out = subprocess.run(
+                [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli",
+                 *args], cwd=ROOT, capture_output=True, text=True,
+                timeout=120)
+            if out.returncode != 0:
+                cluster.fail(f"{what}: cli {args} exited {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+            return json.loads(out.stdout)
+
+        try:
+            t0 = time.perf_counter()
+            for role in roles:
+                cluster.launch(role)
+            with open(cluster.logs["router"], "a") as log:
+                cluster.procs["router"] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "comfyui_distributed_tpu_torch.cli", "router",
+                     "--host", "127.0.0.1",
+                     "--port", str(cluster.ports["router"]),
+                     "--masters", f"{urls['m0']},{urls['m1']}"],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            cluster.wait_up(["m0", "m1", "w0", "w1"])
+            for m in ("m0", "m1"):
+                wait_healthy(m, ("w0", "w1"))
+            # each master resolved its peers as shard_config does, logs
+            # under the root at its id and holds its own lease
+            rings = {}
+            for m in ("m0", "m1"):
+                ring = get_json(cluster.url(m) + "/distributed/ring")
+                lease = os.path.join(wal_root, m, "master.lease")
+                with open(lease) as f:
+                    owner = json.load(f).get("owner")
+                dinfo = get_json(cluster.url(m) + "/distributed/durability")
+                if not ring.get("enabled") or ring.get("self") != m \
+                        or set(ring.get("members", {})) != {"m0", "m1"} \
+                        or owner != m or dinfo.get("epoch") != 1:
+                    cluster.fail(f"{m} started unsharded or not on its own "
+                                 f"log: ring {ring}, lease owner {owner}, "
+                                 f"durability {dinfo}")
+                rings[m] = ring
+            deadline = time.time() + FANOUT_START_S
+            while True:
+                try:
+                    rring = get_json(router + "/distributed/ring")
+                except OSError:
+                    rring = {}
+                if set(rring.get("members", {})) == {"m0", "m1"}:
+                    break
+                if time.time() > deadline:
+                    cluster.fail(f"the router never saw both masters: "
+                                 f"{rring}")
+                time.sleep(0.2)
+            # this process and the four servers hold the card, the router
+            # not (inside a container nvidia-smi may show every pid as 1)
+            apps = compute_apps()
+            router_pid = str(cluster.procs["router"].pid)
+            if len(apps) > 5 or any(a.split(",")[0].strip() == router_pid
+                                    for a in apps):
+                cluster.fail(f"the router holds the card: {apps}")
+            report["servers_start_s"] = time.perf_counter() - t0
+            report["compute_apps"] = apps
+            ring = HashRing(rings["m0"]["members"], rings["m0"]["vnodes"])
+
+            # drill 1: routing by hash, and one forward of one hop
+            files0 = {m: set(outputs(m)) for m in ("m0", "m1")}
+            routed = [None] * 4
+
+            def route(i):
+                t1 = time.perf_counter()
+                routed[i] = (*request_json(
+                    "POST", router + "/prompt",
+                    {"prompt": copy.deepcopy(up), "client_id": "chip_smoke"},
+                    timeout=FANOUT_REQUEST_S), time.perf_counter() - t1)
+
+            threads = [threading.Thread(target=route, args=(i,))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            placed = []
+            for code, body, _hdrs, secs in routed:
+                pid = (body or {}).get("prompt_id")
+                if code != 200 or body.get("workers") != ["w0"] \
+                        or body.get("shard") != ring.owner(pid):
+                    cluster.fail(f"drill 1: the router answered {code} "
+                                 f"{body}; the ring owner of its id is "
+                                 f"{ring.owner(pid) if pid else None}")
+                placed.append({"prompt_id": pid, "shard": body["shard"],
+                               "post_s": secs})
+            fwd_pid = next(f"fwd{i}" for i in range(10_000)
+                           if ring.owner(f"fwd{i}") == "m0")
+            body, fwd_s = post("m1", up, ["w0"], "drill 1 forward",
+                               prompt_id=fwd_pid)
+            if body.get("prompt_id") != fwd_pid or body.get("shard") != "m0" \
+                    or body.get("forwarded_from") != "m1":
+                cluster.fail(f"drill 1: the forward answered {body}")
+            if not any(r.get("t") == "enqueue" and r.get("pid") == fwd_pid
+                       for r in wal_records(os.path.join(wal_root, "m0"))):
+                cluster.fail("drill 1: m0's log holds no admission of the "
+                             "forwarded prompt")
+            placed.append({"prompt_id": fwd_pid, "shard": "m0",
+                           "post_s": fwd_s, "forwarded_from": "m1"})
+            for pl in placed:
+                history(pl["shard"], pl["prompt_id"], "drill 1")
+            per_master = collections.Counter(pl["shard"] for pl in placed)
+            for m in ("m0", "m1"):
+                wait_lines(m, per_master[m], "drill 1")
+            wait_lines("w0", len(placed), "drill 1")
+            merged = get_json(router + "/history")
+            if not all(pl["prompt_id"] in merged for pl in placed):
+                cluster.fail(f"drill 1: the router's /history lacks some of "
+                             f"{[pl['prompt_id'] for pl in placed]}")
+            images1 = []
+            for m in ("m0", "m1"):
+                new = sorted(set(outputs(m)) - files0[m])
+                if len(new) != per_master[m]:
+                    cluster.fail(f"drill 1: {m} saved {new}, expected "
+                                 f"{per_master[m]} images")
+                images1 += new
+            report["drill1"] = {
+                "placed": placed,
+                "vs_phase7": [check_diff(f, upscale_ref, "one_batch",
+                                         "drill 1") for f in images1],
+                "router": get_json(router + "/distributed/ring")}
+            print(f"phase 18: drill 1 {json.dumps(placed)}", flush=True)
+
+            # drill 2: the 429 ladder and the stride order on m0
+            adm0 = get_json(cluster.url("m0") + "/distributed/metrics")[
+                "admission"]["per_class"]
+            for attempt in (1, 2):
+                files0 = set(outputs("m0"))
+                body, _ = post("m0", up, ["w0"], "drill 2 upscale")
+                up_pid = body["prompt_id"]
+                deadline = time.time() + FANOUT_REQUEST_S
+                while get_json(cluster.url("m0") + "/distributed/metrics")[
+                        "admission"]["queued_by_class"] != {
+                        "paid": 0, "free": 0, "batch": 0}:
+                    if time.time() > deadline:
+                        cluster.fail("drill 2: m0 never started the upscale")
+                    time.sleep(0.01)
+                burst, seen = [], collections.Counter()
+                t_burst = time.perf_counter()
+                for tenant in PHASE18_BURST:
+                    t1 = time.perf_counter()
+                    code, rb, hdrs = request_json(
+                        "POST", cluster.url("m0") + "/prompt",
+                        {"prompt": copy.deepcopy(inpaint),
+                         "client_id": "chip_smoke", "priority": tenant},
+                        timeout=FANOUT_REQUEST_S)
+                    secs = time.perf_counter() - t1
+                    if code == 200:
+                        seen[tenant] += 1
+                        burst.append({"tenant": tenant, "verdict": "admit",
+                                      "id": f"{tenant[0]}{seen[tenant]}",
+                                      "prompt_id": rb["prompt_id"],
+                                      "post_s": secs})
+                    elif code == 429:
+                        burst.append({"tenant": tenant,
+                                      "verdict": rb.get("reason"),
+                                      "retry_after": hdrs.get("Retry-After"),
+                                      "body_tenant": rb.get("tenant"),
+                                      "post_s": secs})
+                    else:
+                        cluster.fail(f"drill 2: {tenant} answered {code} "
+                                     f"{rb}")
+                burst_s = time.perf_counter() - t_burst
+                still = up_pid not in get_json(cluster.url("m0")
+                                               + "/history")
+                admitted = [b for b in burst if b["verdict"] == "admit"]
+                for b in [{"prompt_id": up_pid}] + admitted:
+                    history("m0", b["prompt_id"], "drill 2")
+                wait_lines("m0", 1 + len(admitted), "drill 2")
+                wait_lines("w0", 1 + len(admitted), "drill 2")
+                if still:
+                    break
+                if attempt == 2:
+                    cluster.fail("drill 2: the upscale ended before the "
+                                 "burst did, twice")
+                print("phase 18: drill 2's upscale ended before the burst; "
+                      "once more", flush=True)
+            if tuple(b["verdict"] for b in burst) != PHASE18_LADDER:
+                cluster.fail(f"drill 2: the ladder {burst}, expected "
+                             f"{PHASE18_LADDER}")
+            for b in burst:
+                if b["verdict"] != "admit" and not (
+                        b["body_tenant"] == b["tenant"]
+                        and int(b["retry_after"] or 0) >= 1):
+                    cluster.fail(f"drill 2: a shed {b}")
+            hist = get_json(cluster.url("m0") + "/history")
+            order = [b["id"] for b in sorted(
+                admitted, key=lambda b: hist[b["prompt_id"]]["started_at"])]
+            want = PHASE18_ORDER[attempt - 1]
+            fifo = [b["id"] for b in admitted]
+            if order != want or order == fifo:
+                cluster.fail(f"drill 2: the admitted started as {order}, "
+                             f"expected {want} (FIFO {fifo})")
+            adm1 = get_json(cluster.url("m0") + "/distributed/metrics")[
+                "admission"]["per_class"]
+            delta = {c: {k: adm1[c][k] - adm0[c][k] for k in adm1[c]}
+                     for c in adm1}
+            new = sorted(set(outputs("m0")) - files0)
+            if len(new) != 1 + 2 * len(admitted):
+                cluster.fail(f"drill 2: m0 saved {len(new)} images")
+            slices = []
+            for f in new:
+                if saved(f).shape[:2] == upscale_ref.shape[:2]:
+                    continue
+                diffs = [image_diff(f, r["same"]) for r in inpaint_refs[:2]]
+                if min(d[0] for d in diffs) != 0.0:
+                    cluster.fail(f"drill 2: {os.path.basename(f)} equals "
+                                 f"no in-process slice: {diffs}")
+                slices.append(min(diffs))
+            wshed = {w: get_json(cluster.url(w) + "/distributed/metrics")[
+                "admission"]["per_class"] for w in ("w0", "w1")}
+            if any(v["shed_overload"] or v["shed_rate"]
+                   for per in wshed.values() for v in per.values()):
+                cluster.fail(f"drill 2: a worker shed a dispatched share: "
+                             f"{wshed}")
+            report["drill2"] = {
+                "attempts": attempt, "ladder": burst, "burst_s": burst_s,
+                "started_order": order, "fifo_order": fifo,
+                "admission_delta": delta,
+                "shed_post_s": [b["post_s"] for b in burst
+                                if b["verdict"] != "admit"],
+                "inpaint_slices_vs_in_process": slices,
+                "w0_admission": wshed["w0"]}
+            print(f"phase 18: drill 2 ladder {[b['verdict'] for b in burst]}"
+                  f", order {order}", flush=True)
+
+            # drill 3: the burn rates, then a deadline's hedge
+            slo = get_json(cluster.url("m0") + "/distributed/slo")
+            hist = get_json(cluster.url("m0") + "/history")
+            recomputed = {}
+            for cls, objs in (("paid", ("p95<0.1s", "completion>0.99")),
+                              ("free", ("p95<60s",))):
+                entries = [h for h in hist.values()
+                           if h.get("tenant") == cls]
+                n = len(entries)
+                slow = {"p95<0.1s": 0.1, "p95<60s": 60.0}
+                recomputed[cls] = {
+                    "count": n,
+                    "burn_rates": {o: round(
+                        (sum(h.get("duration_s", 0) > slow[o]
+                             for h in entries) / n) / 0.05, 4)
+                        if o in slow else round(
+                        (sum(h["status"] != "success" for h in entries)
+                         / n) / 0.01, 4) for o in objs}}
+            got = {cls: {"count": slo["tenants"][cls]["windows"]["fast"][
+                "count"], "burn_rates": slo["tenants"][cls]["windows"][
+                "fast"]["burn_rates"]} for cls in recomputed}
+            if got != recomputed or recomputed["paid"]["burn_rates"] != {
+                    "p95<0.1s": 20.0, "completion>0.99": 0.0} \
+                    or recomputed["free"]["burn_rates"] != {"p95<60s": 0.0}:
+                cluster.fail(f"drill 3: /distributed/slo {got}, from the "
+                             f"history {recomputed}")
+            breaches = {}
+            for pid, h in hist.items():
+                if h.get("tenant") not in ("paid", "free"):
+                    continue
+                spans = get_json(cluster.url("m0")
+                                 + f"/distributed/trace/{pid}")["spans"]
+                breaches[pid] = sum(s["name"] == "slo_breach" for s in spans)
+                if breaches[pid] != (h["tenant"] == "paid"):
+                    cluster.fail(f"drill 3: {h['tenant']} prompt {pid} has "
+                                 f"{breaches[pid]} slo_breach spans")
+            cli_slo = cli_run(["slo", "--url", cluster.url("m0"), "--json"],
+                              "drill 3")
+            if {cls: cli_slo["tenants"][cls]["windows"]["fast"]["burn_rates"]
+                    for cls in got} != {cls: g["burn_rates"]
+                                        for cls, g in got.items()}:
+                cluster.fail(f"drill 3: cli slo {cli_slo}")
+            set_worker("m0", "w1", True)
+            wait_healthy("m0", ("w1",))
+            files0 = set(outputs("m0"))
+            body, direct_s = post("m0", up, ["w0", "w1"], "drill 3 deadline",
+                                  slo_s=PHASE18_SLO_S)
+            dl_pid, seen_deadline, fired, prev = body["prompt_id"], None, \
+                None, None
+            hist = {}
+            deadline = time.time() + FANOUT_REQUEST_S
+            while dl_pid not in hist:
+                jobs = [j for j in get_json(
+                    cluster.url("m0") + "/distributed/cluster")["ledger"][
+                    "active_jobs"].values() if j["kind"] == "tile"]
+                for j in jobs:
+                    if j["slo_deadline_remaining_s"] is not None \
+                            and seen_deadline is None:
+                        seen_deadline = j
+                    if j["hedged_units"] and fired is None:
+                        fired = {"at": j, "before": prev}
+                    prev = j
+                hist = get_json(cluster.url("m0") + "/history")
+                if time.time() > deadline:
+                    cluster.fail("drill 3: the deadline upscale never ended")
+                time.sleep(0.05)
+            history("m0", dl_pid, "drill 3")
+            if seen_deadline is None or fired is None:
+                cluster.fail(f"drill 3: deadline {seen_deadline}, hedge "
+                             f"{fired}")
+            silence = fired["at"]["age_s"]
+            bar = max(0.25 * fired["at"]["slo_deadline_remaining_s"], 0.25)
+            # the drain polls every CLUSTER_POLL_S, this loop every 0.05 s
+            if not silence <= bar + 0.25 + 0.15 + 0.05 \
+                    or silence >= PHASE18_HEDGE_MIN_WAIT_S / 10:
+                cluster.fail(f"drill 3: hedged at {silence} s of silence, "
+                             f"the bar {bar} s")
+            snap = get_json(cluster.url("m0") + "/distributed/cluster")
+            job = [j for j in snap["ledger"]["completed_jobs"]
+                   if j["kind"] == "tile"][-1]
+            if not job["done_units"] == job["total_units"] == n_tiles \
+                    or job["hedged_units"] < w1_tiles:
+                cluster.fail(f"drill 3: the job {job}")
+            (img,) = sorted(set(outputs("m0")) - files0)
+            wait_lines("m0", 1, "drill 3")
+            wait_lines("w0", 1, "drill 3")
+            set_worker("m0", "w1", False)
+            report["drill3"] = {
+                "slo": got, "recomputed_from_history": recomputed,
+                "slo_breach_spans": breaches,
+                "deadline_seen": seen_deadline,
+                "hedge_silence_s": silence, "hedge_bar_s": bar,
+                "post_s": direct_s,
+                "before_hedge": fired["before"], "ledger": job,
+                "vs_phase7": check_diff(img, upscale_ref, "one_batch",
+                                        "drill 3")}
+            print(f"phase 18: drill 3 burn {got}; hedged at {silence} s of "
+                  f"silence (bar {bar} s)", flush=True)
+
+            # drill 4: m1 dies, m0 absorbs its shard
+            set_worker("m1", "w1", True)
+            wait_healthy("m1", ("w1",))
+            files0 = set(outputs("m0"))
+            body, direct_s = post("m1", up, ["w0", "w1"], "drill 4")
+            kill_pid = body["prompt_id"]
+            if ring.owner(kill_pid) != "m1":
+                cluster.fail(f"drill 4: m1 made an id it does not own: "
+                             f"{kill_pid}")
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                state, _ = durable.replay(os.path.join(wal_root, "m1"))
+                held = [sum(u["done"] and u["spilled"]
+                            for u in j["units"].values())
+                        for j in state.jobs.values() if j["kind"] == "tile"]
+                if held and held[0] >= n_tiles - w1_tiles:
+                    break
+                if time.time() > deadline:
+                    cluster.fail(f"drill 4: m1's log never held "
+                                 f"{n_tiles - w1_tiles} units: {state.jobs}")
+                time.sleep(0.05)
+            with open(os.path.join(wal_root, "m1", "master.lease")) as f:
+                expires_at = json.load(f)["expires_at"]
+            wall_kill, t_kill = time.time(), time.perf_counter()
+            cluster.kill("m1")
+            new_lines("m1", "drill 4")
+            t_absorb = None
+            deadline = time.time() + FANOUT_REQUEST_S
+            hist = {}
+            while kill_pid not in hist:
+                if t_absorb is None and "m1" not in get_json(
+                        cluster.url("m0") + "/distributed/ring")["members"]:
+                    t_absorb = time.perf_counter()
+                hist = get_json(cluster.url("m0") + "/history")
+                if time.time() > deadline:
+                    cluster.fail("drill 4: m0 never finished m1's prompt")
+                time.sleep(0.05)
+            t_done = time.perf_counter()
+            history("m0", kill_pid, "drill 4")
+            t_absorb = t_absorb or t_done
+            snap = get_json(cluster.url("m0") + "/distributed/cluster")
+            job = [j for j in snap["ledger"]["completed_jobs"]
+                   if j["kind"] == "tile"][-1]
+            if not (job["recovered"] and job["done_units"]
+                    == job["total_units"] == n_tiles
+                    and job["preloaded_units"] == held[0]
+                    and job["reassigned_units"] >= w1_tiles):
+                cluster.fail(f"drill 4: m0's job {job}; expected recovered, "
+                             f"{n_tiles} done, {held[0]} preloaded, >= "
+                             f"{w1_tiles} reassigned")
+            ring0 = get_json(cluster.url("m0") + "/distributed/ring")
+            deadline = time.time() + FANOUT_START_S
+            while True:
+                rring = get_json(router + "/distributed/ring")
+                if set(rring["members"]) == {"m0"}:
+                    break
+                if time.time() > deadline:
+                    cluster.fail(f"drill 4: the router's ring {rring}")
+                time.sleep(0.2)
+            shard0 = get_json(cluster.url("m0") + "/distributed/metrics")[
+                "shard"]
+            if set(ring0["members"]) != {"m0"} or ring0["ring_epoch"] < 2 \
+                    or ring0["owned"] != ["m0", "m1"] \
+                    or shard0["takeovers"] != 1:
+                cluster.fail(f"drill 4: m0's ring {ring0}, shard {shard0}")
+            if any(snap["workers"].get(w, {}).get("state") != "healthy"
+                   for w in ("w0", "w1")):
+                cluster.fail(f"drill 4: the workers at m0 {snap['workers']}")
+            (img,) = sorted(set(outputs("m0")) - files0)
+            wait_lines("m0", 1, "drill 4")
+            wait_lines("w0", 2, "drill 4")
+            wal = {m: cli_run(["wal", "--dir", os.path.join(wal_root, m),
+                               "--json"], "drill 4") for m in ("m0", "m1")}
+            if not all(v["ok"] for v in wal.values()):
+                cluster.fail(f"drill 4: cli wal {wal}")
+            report["drill4"] = {
+                "prompt_id": kill_pid, "held_at_kill": held[0],
+                "post_s": direct_s,
+                "kill_to_lease_expiry_s": expires_at - wall_kill,
+                "kill_to_absorb_s": t_absorb - t_kill,
+                "kill_to_success_s": t_done - t_kill,
+                "ledger": job, "ring": ring0, "router_ring": rring,
+                "shard": {k: shard0[k] for k in ("absorbed", "takeovers",
+                                                 "ring_epoch", "owned")},
+                "vs_drill1": check_diff(img, saved(images1[0]), "one_batch",
+                                        "drill 4"),
+                "vs_phase7": check_diff(img, upscale_ref, "one_batch",
+                                        "drill 4"),
+                "wal": {m: {"ok": v["ok"], "lease": v["lease"],
+                            "records_by_type": v["records_by_type"]}
+                        for m, v in wal.items()}}
+            print(f"phase 18: drill 4 kill to lease expiry "
+                  f"{expires_at - wall_kill:.3f} s, to absorb "
+                  f"{t_absorb - t_kill:.3f} s, to success "
+                  f"{t_done - t_kill:.3f} s", flush=True)
+
+            # drill 5: SIGTERM drains m0
+            body, direct_s = post("m0", up, ["w0"], "drill 5")
+            drain_pid = body["prompt_id"]
+            deadline = time.time() + FANOUT_REQUEST_S
+            while get_json(cluster.url("m0") + "/distributed/metrics")[
+                    "admission"]["queued_by_class"]["paid"]:
+                if time.time() > deadline:
+                    cluster.fail("drill 5: m0 never started the upscale")
+                time.sleep(0.01)
+            proc = cluster.procs["m0"]
+            tree = proc_tree(proc.pid)
+            t_term = time.perf_counter()
+            os.kill(proc.pid, signal.SIGTERM)
+            time.sleep(0.2)
+            code, rb, _ = request_json(
+                "POST", cluster.url("m0") + "/prompt",
+                {"prompt": copy.deepcopy(inpaint), "client_id": "chip_smoke"},
+                timeout=30)
+            if code != 503:
+                cluster.fail(f"drill 5: a /prompt while draining got {code} "
+                             f"{rb}")
+            try:
+                proc.wait(timeout=PHASE18_DRAIN_TIMEOUT_S + 10)
+            except subprocess.TimeoutExpired:
+                cluster.fail("drill 5: m0 did not exit after its drain")
+            exit_s = time.perf_counter() - t_term
+            left = [p for p in tree if pid_alive(p)]
+            done = [ln for ln in cluster.prompt_lines("m0")
+                    if ln["prompt_id"] == drain_pid]
+            if proc.returncode != 0 or exit_s > PHASE18_DRAIN_TIMEOUT_S \
+                    or left or [ln["status"] for ln in done] != ["success"] \
+                    or not cluster.count_lines("m0", "drained in"):
+                cluster.fail(f"drill 5: m0 exited {proc.returncode} after "
+                             f"{exit_s} s, left {left}, the upscale "
+                             f"{done}")
+            wait_lines("m0", 1, "drill 5")
+            wait_lines("w0", 1, "drill 5")
+            report["drill5"] = {"sigterm_to_exit_s": exit_s,
+                                "post_s": direct_s,
+                                "answer_while_draining": code,
+                                "tree": tree, "left": left}
+            print(f"phase 18: drill 5 SIGTERM to exit {exit_s:.3f} s",
+                  flush=True)
+        finally:
+            cluster.stop()
+        for role in ("m0", "m1", "w0", "w1"):
+            new_lines(role, "phase 18")
+    report["servers"] = {r: {"sm90": v["sm90"], "peak_bytes": v["peak"]}
+                         for r, v in sorted(per_server.items())}
+    report["launches"] = dict(launches["variants"])
+    return report, {"path": "phase 18",
+                    "variants": dict(launches["variants"]),
+                    "shapes": dict(launches["shapes"])}
+
+
 def png_text_chunks(path):
     """[(key, value)] of a PNG's tEXt chunks, in file order."""
     with open(path, "rb") as f:
@@ -3473,6 +4216,11 @@ def main() -> int:
         requests.append(failover)
         emit("phase16", report16)
         emit("phase17", {"card": card_line(), **report17})
+        report18, sharded = sharded_masters(docs, inpaint_dir, upscaled[42],
+                                            inpaint_refs, rows)
+        shape_counts.update(sharded["shapes"])
+        requests.append(sharded)
+        emit("phase18", report18)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

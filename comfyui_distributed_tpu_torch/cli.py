@@ -10,6 +10,9 @@
   python -m comfyui_distributed_tpu_torch.cli launch|stop|log ID \\
       [--config C | --url URL]
   python -m comfyui_distributed_tpu_torch.cli status [--url URL]
+  python -m comfyui_distributed_tpu_torch.cli router --masters URL,URL \
+      [--host H] [--port 8290]
+  python -m comfyui_distributed_tpu_torch.cli slo [--url URL] [--json]
   python -m comfyui_distributed_tpu_torch.cli devices
   python -m comfyui_distributed_tpu_torch.cli wal [--dir D] [--job S] [--json]
   python -m comfyui_distributed_tpu_torch.cli trace [PROMPT_ID] \\
@@ -36,6 +39,22 @@ queue and work ledger in a write-ahead log there (``runtime/durable.py``;
 resumes what a crash interrupted when it starts again; with
 ``DTPU_STANDBY=1`` as well it waits as a standby and takes over when the
 master's lease expires.  A start refused for a live lease exits 1.
+With ``DTPU_SHARD_ID``, ``DTPU_SHARD_PEERS`` (``id=url,...``, itself
+included) and ``DTPU_SHARD_WAL_ROOT`` a ``serve`` master is one of
+several active masters, each owning a share of the prompt ids
+(``runtime/shard.py``); its log is ``DTPU_SHARD_WAL_ROOT/<id>``, and it
+absorbs a dead peer's shard.  A worker with ``DTPU_MASTER_URLS`` (a
+comma list) heartbeats every master.  Admission (``DTPU_MAX_QUEUE``,
+``DTPU_TENANT_*``), the SLO spec (``DTPU_SLO_SPEC``) and the drain
+(``DTPU_DRAIN_TIMEOUT_S``, on SIGINT or SIGTERM) apply to both roles.
+
+``router`` runs the stateless admission router over the masters
+(``--masters`` or ``DTPU_ROUTER_MASTERS``): each ``/prompt`` goes to the
+shard that owns its id, a 429's ``Retry-After`` is relayed, and
+``/history``, ``/distributed/cluster`` and ``/distributed/cluster/
+metrics`` are merged over the shards.  It imports no torch and opens no
+card.  ``slo`` prints a server's burn rates (``GET /distributed/slo``):
+each class's objectives, its fast and slow windows and the budget left.
 
 ``run`` executes an API-format workflow in this process, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -54,7 +73,8 @@ or tail one managed worker (``runtime/manager.py``) from this process,
 or through a running master's routes with ``--url``.  A worker
 launched from here is not tied to this short-lived process (no
 master-death monitor).  ``status`` prints a server's ``GET
-/distributed/status``; ``devices`` the cards torch sees (``platform``,
+/distributed/status``, or at a router's URL the merged view (the ring
+and every shard's workers and jobs); ``devices`` the cards torch sees (``platform``,
 ``kind`` and ``count``, 0 without a card, beside the JAX package's
 keys).  ``wal`` verifies a write-ahead log's directory (``--dir`` or
 ``DTPU_WAL_DIR``; either package's): each segment's checksums, the
@@ -281,8 +301,75 @@ def cmd_workers(args) -> int:
 
 
 def cmd_status(args) -> int:
+    """A server's ``/distributed/status``; at a router's URL the merged
+    view: its ring and the shards' workers and jobs."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json, request_json
+    url = args.url.rstrip("/")
+    try:
+        code, ring, _ = request_json("GET", f"{url}/distributed/ring",
+                                     timeout=5)
+    except OSError:
+        code, ring = 0, None
+    if code == 200 and isinstance(ring, dict) and ring.get("router"):
+        cluster = get_json(f"{url}/distributed/cluster", timeout=10)
+        print(json.dumps({"router": ring, "shards": cluster.get("shards"),
+                          "workers": cluster.get("workers"),
+                          "ledger": cluster.get("ledger")}))
+        return 0
+    print(json.dumps(get_json(f"{url}/distributed/status", timeout=5)))
+    return 0
+
+
+def cmd_router(args) -> int:
+    """The stateless admission router: ``/prompt`` spread by prompt-id
+    hash over the masters' ring, the read views merged over the shards.
+    No queue, no log, no lease: any number may run."""
+    from comfyui_distributed_tpu_torch.runtime.shard import make_router_server
+    from comfyui_distributed_tpu_torch.utils import constants as C
+    masters = [u for u in (args.masters or os.environ.get(
+        C.ROUTER_MASTERS_ENV, "")).split(",") if u.strip()]
+    if not masters:
+        print(f"no masters: pass --masters or set {C.ROUTER_MASTERS_ENV}",
+              file=sys.stderr)
+        return 2
+    server = make_router_server(masters, host=args.host, port=args.port)
+    print(f"dtpu-torch router listening on {args.host}:"
+          f"{server.server_address[1]} over {len(masters)} seed "
+          f"master(s)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+def cmd_slo(args) -> int:
+    """Per-class objectives, each window's count, ok ratio, p95 and burn
+    rate, and the slow window's budget left, as the JAX package's ``cli
+    slo`` prints them."""
     from comfyui_distributed_tpu_torch.utils.net import get_json
-    print(json.dumps(get_json(f"{args.url}/distributed/status", timeout=5)))
+    data = get_json(f"{args.url}/distributed/slo", timeout=10)
+    if args.json:
+        print(json.dumps(data, indent=2))
+        return 0
+    if not data.get("enabled"):
+        print("slo engine off (set DTPU_SLO_SPEC, e.g. "
+              "'paid:p95<2s,completion>0.999')")
+        return 0
+    print(f"slo windows: fast={data['fast_window_s']:g}s "
+          f"slow={data['slow_window_s']:g}s")
+    for cls, t in sorted(data.get("tenants", {}).items()):
+        objs = ", ".join(o["raw"] for o in t["objectives"]) or "-"
+        print(f"  {cls}: {objs}  "
+              f"budget_remaining={t['budget_remaining']:.2%}")
+        for wname in ("fast", "slow"):
+            w = t["windows"][wname]
+            flag = "  BURNING" if w["burn_rate"] > 1.0 else ""
+            print(f"    {wname:4s} n={w['count']:4d} "
+                  f"ok={w['ok_ratio']:.3f} p95={w['p95_s']:.3f}s "
+                  f"burn={w['burn_rate']:.2f}{flag}")
     return 0
 
 
@@ -680,9 +767,37 @@ def build_parser() -> argparse.ArgumentParser:
                        help="act through the running master at URL")
         a.set_defaults(fn=cmd_worker_ctl, action=action)
 
-    st = sub.add_parser("status", help="a running server's status")
+    def master_alias(q) -> None:
+        # --master names a master or a router, whose URL gives the
+        # merged view over the shards
+        q.add_argument("--master", dest="url", default=argparse.SUPPRESS,
+                       metavar="URL",
+                       help="master (or router) base URL (alias of --url)")
+
+    master_alias(c)
+    st = sub.add_parser("status", help="a running server's status, or a "
+                                       "router's merged view")
     st.add_argument("--url", default="http://127.0.0.1:8288")
+    master_alias(st)
     st.set_defaults(fn=cmd_status)
+
+    ro = sub.add_parser("router", help="stateless admission router over "
+                                       "sharded masters: /prompt by "
+                                       "prompt-id hash, merged read views")
+    ro.add_argument("--host", default="0.0.0.0")
+    ro.add_argument("--port", type=int, default=8290)
+    ro.add_argument("--masters", default=None,
+                    help="comma-separated master URLs (default "
+                         "$DTPU_ROUTER_MASTERS)")
+    ro.set_defaults(fn=cmd_router)
+
+    so = sub.add_parser("slo", help="SLO burn rates: each class's "
+                                    "objectives over the fast and slow "
+                                    "windows, the budget left")
+    so.add_argument("--url", default="http://127.0.0.1:8288")
+    so.add_argument("--json", action="store_true",
+                    help="the raw /distributed/slo body")
+    so.set_defaults(fn=cmd_slo)
 
     wl = sub.add_parser("wal", help="verify a write-ahead log: segments, "
                                     "checksums, lease, records, replay")

@@ -12,7 +12,10 @@
   loser is dropped at the blend), reassignment, a moving per-unit
   latency estimate that arms hedging, and a redispatch callback per job
   that the orchestrator registers so lost units go to a healthy worker.
-- :class:`HeartbeatSender`: a worker's lease renewal at its master.
+- :class:`HeartbeatSender`: a worker's lease renewal at its master;
+  :class:`MultiHeartbeatSender` holds one per master shard
+  (``DTPU_MASTER_URLS``), so each master sees the worker's death on its
+  own.
 
 Each transition (suspect, dead, reassign, hedge win or loss, a failed
 redispatch) bumps an event counter of ``utils.trace.GLOBAL_COUNTERS``,
@@ -28,11 +31,17 @@ ownership transition is a record, a winning check-in's payload is
 written to the unit store before its record, and ``create_job`` merges
 a crash-recovered job, so a resumed job refines only its unfinished
 units (``load_payloads``, ``take_recovered_lost``); a worker's
-``HeartbeatSender.rehome`` follows a new master.
+``HeartbeatSender.rehome`` follows a new master.  A sharded master that
+absorbs a dead peer's shard adds its replayed jobs with
+``merge_recovered``; each such job blends its preloaded units from the
+dead shard's unit store.
 
-Not ported yet: ``merge_recovered`` and ``MultiHeartbeatSender`` (more
-than one master), SLO deadlines (``set_deadline``, ``deadline``), the
-autoscaler's retiring state.
+A request's SLO budget (``slo_s``) stamps its jobs with a deadline
+(``set_deadline``); under deadline pressure ``overdue_units`` hedges a
+unit silent longer than ``max(DTPU_SLO_HEDGE_FRACTION x the budget
+left, 0.25 s)``, with no min-progress gate.
+
+Not ported yet: the autoscaler's retiring state.
 ``redispatch`` is a plain call here (the JAX package's is a coroutine):
 the port's drains run on threads.
 """
@@ -98,6 +107,10 @@ def hedge_factor() -> float:
 
 def hedge_min_wait() -> float:
     return _env_float(C.HEDGE_MIN_WAIT_ENV, C.HEDGE_MIN_WAIT_DEFAULT)
+
+
+def slo_hedge_fraction() -> float:
+    return _env_float(C.SLO_HEDGE_FRACTION_ENV, C.SLO_HEDGE_FRACTION_DEFAULT)
 
 
 def fault_injection(raw: Optional[str] = None) -> Dict[str, Any]:
@@ -407,6 +420,10 @@ class WorkLedger:
         self._wal = None                                # guarded-by: _lock
         self._unit_store = None                         # guarded-by: _lock
         self._recovered_jobs: Dict[str, Dict[str, Any]] = {}  # guarded-by: _lock
+        # an absorbed shard's job -> that shard's unit store
+        self._recovered_stores: Dict[str, Any] = {}     # guarded-by: _lock
+        # job -> its SLO deadline on the monotonic clock
+        self._deadlines: Dict[str, float] = {}          # guarded-by: _lock
 
     def attach_wal(self, wal, unit_store,
                    recovered_jobs: Optional[Dict[str, Any]] = None) -> None:
@@ -419,6 +436,18 @@ class WorkLedger:
             self._unit_store = unit_store
             if recovered_jobs is not None:
                 self._recovered_jobs = dict(recovered_jobs)
+
+    def merge_recovered(self, recovered_jobs: Dict[str, Any],
+                        unit_store: Any = None) -> None:
+        """Add a dead peer shard's replayed jobs (a sharded master's
+        absorb): unlike :meth:`attach_wal` the recovered set is not
+        replaced, and each merged job keeps the dead shard's unit store,
+        so its preloaded payloads blend from that disk."""
+        with self._lock:
+            for jid, job in (recovered_jobs or {}).items():
+                self._recovered_jobs[str(jid)] = job
+                if unit_store is not None:
+                    self._recovered_stores[str(jid)] = unit_store
 
     def _wal_append(self, rtype: str, **fields) -> None:
         """Append an ownership record.  A fenced or crashed log raises
@@ -448,7 +477,10 @@ class WorkLedger:
         preloaded = []
         with self._lock:
             recovered = self._recovered_jobs.pop(jid, None)
-            store = self._unit_store
+            # an absorbed job reads its preloaded payloads from the dead
+            # shard's store, every other job from this master's
+            store = self._recovered_stores.pop(jid, None) \
+                or self._unit_store
             rec_units = (recovered or {}).get("units", {})
             units = {}
             for u, o in owners.items():
@@ -477,7 +509,7 @@ class WorkLedger:
                 "reassigned": 0, "hedged": 0,
                 "recovered": recovered is not None,
                 "recovered_handled": False,
-                "preloaded": preloaded}
+                "preloaded": preloaded, "store": store}
         if preloaded:
             log(f"ledger: job {jid} recovered with {len(preloaded)}/"
                 f"{len(owners)} unit(s) already on disk; only the rest is "
@@ -497,6 +529,7 @@ class WorkLedger:
         with self._lock:
             job = self._jobs.pop(jid, None)
             self._redispatch.pop(jid, None)
+            self._deadlines.pop(jid, None)
             if job is None:
                 return None
             units = job["units"]
@@ -523,6 +556,9 @@ class WorkLedger:
             # idempotency keys, dropped by the log's state) are not
             # needed for a recovery any more
             store.drop_job(jid)
+        if job["store"] is not None and job["store"] is not store:
+            # an absorbed job's preloads lived in the dead shard's store
+            job["store"].drop_job(jid)
         return summary
 
     # -- check-in (exactly-once) ----------------------------------------------
@@ -719,13 +755,32 @@ class WorkLedger:
                     n += 1
             job["hedged"] -= n
 
+    def set_deadline(self, job_id: str, deadline_monotonic: float) -> None:
+        """Stamp a job's SLO deadline (monotonic clock).  The orchestrator
+        stamps it at dispatch, before the op creates the job; it re-keys
+        :meth:`overdue_units` on the budget left."""
+        with self._lock:
+            self._deadlines[str(job_id)] = float(deadline_monotonic)
+            while len(self._deadlines) > 512:
+                self._deadlines.pop(next(iter(self._deadlines)))
+
+    def deadline(self, job_id: str) -> Optional[float]:
+        with self._lock:
+            return self._deadlines.get(str(job_id))
+
     def overdue_units(self, job_id: str, factor: Optional[float] = None,
                       min_progress_pct: Optional[float] = None,
                       min_wait_s: Optional[float] = None) -> Dict[Any, str]:
         """Hedge candidates: pending, not hedged, whose owner has been
         silent longer than ``max(factor x the latency estimate,
         min_wait_s)``, once the job is ``min_progress_pct`` % done (hedge
-        the last stragglers, not the whole job)."""
+        the last stragglers, not the whole job).
+
+        A job with an SLO deadline (:meth:`set_deadline`) hedges on its
+        budget left once that bar is the tighter: ``max(
+        DTPU_SLO_HEDGE_FRACTION x budget left, SLO_MIN_WAIT_S)``, with
+        the min-progress gate waived, so a job about to miss its deadline
+        hedges its first straggler."""
         factor = hedge_factor() if factor is None else factor
         min_pct = hedge_pct() if min_progress_pct is None \
             else min_progress_pct
@@ -738,8 +793,16 @@ class WorkLedger:
                 return {}
             units = job["units"]
             threshold = max(factor * job["latency_ema"], min_wait)
+            slo_pressed = False
+            dl = self._deadlines.get(str(job_id))
+            if dl is not None:
+                slo_threshold = max(max(dl - now, 0.0) * slo_hedge_fraction(),
+                                    C.SLO_MIN_WAIT_S)
+                if slo_threshold < threshold:
+                    threshold = slo_threshold
+                    slo_pressed = True
             done = sum(1 for u in units.values() if u["state"] == "done")
-            if 100.0 * done / len(units) < min_pct:
+            if not slo_pressed and 100.0 * done / len(units) < min_pct:
                 return {}
             out = {}
             for u, rec in units.items():
@@ -749,7 +812,9 @@ class WorkLedger:
                                              job["created_at"])
                 if now - last > threshold:
                     out[u] = rec["owner"]
-            return out
+        if out and slo_pressed:
+            trace_mod.GLOBAL_COUNTERS.bump("cluster_slo_overdue", len(out))
+        return out
 
     # -- crash recovery (the durability plane) --------------------------------
 
@@ -762,7 +827,7 @@ class WorkLedger:
         with self._lock:
             job = self._jobs.get(jid)
             preloaded = list(job["preloaded"]) if job else []
-            store = self._unit_store
+            store = (job["store"] if job else None) or self._unit_store
         if not preloaded or store is None:
             return {}
         out: Dict[Any, tuple] = {}
@@ -848,13 +913,14 @@ class WorkLedger:
             for jid, job in self._jobs.items():
                 units = job["units"]
                 ema = job["latency_ema"]
+                dl = self._deadlines.get(jid)
                 active[jid] = {
                     "kind": job["kind"],
                     "total_units": len(units),
                     "done_units": sum(1 for u in units.values()
                                       if u["state"] == "done"),
-                    # SLO deadlines wait for their slice
-                    "slo_deadline_remaining_s": None,
+                    "slo_deadline_remaining_s": (
+                        None if dl is None else round(dl - now, 3)),
                     "reassigned_units": job["reassigned"],
                     "hedged_units": job["hedged"],
                     "latency_estimate_s": (None if ema is None
@@ -937,14 +1003,76 @@ class HeartbeatSender:
             self.beat_once()
 
 
-def maybe_start_heartbeat(port: Optional[int] = None
-                          ) -> Optional[HeartbeatSender]:
-    """Start the worker's heartbeat when ``DTPU_MASTER_URL`` and
-    ``DTPU_WORKER_ID`` are set."""
+class MultiHeartbeatSender:
+    """A worker's heartbeats to several master shards: one
+    :class:`HeartbeatSender`, one lease, per master, so each master sees
+    and recovers this worker's death on its own.  ``rehome`` adds a
+    master and keeps the others, as a single sender's route expects."""
+
+    def __init__(self, master_urls: List[str], worker_id: str,
+                 port: Optional[int] = None):
+        self.worker_id = str(worker_id)
+        self.port = port
+        self._lock = threading.Lock()
+        self._senders: Dict[str, HeartbeatSender] = {  # guarded-by: _lock
+            u.rstrip("/"): HeartbeatSender(u, worker_id, port=port)
+            for u in dict.fromkeys(
+                x.strip() for x in master_urls if x.strip())}
+
+    @property
+    def master_urls(self) -> List[str]:
+        with self._lock:
+            return sorted(self._senders)
+
+    def _all(self) -> List[HeartbeatSender]:
+        with self._lock:
+            return list(self._senders.values())
+
+    def start(self) -> None:
+        for hb in self._all():
+            hb.start()
+
+    def stop(self) -> None:
+        for hb in self._all():
+            hb.stop()
+
+    def beat_once(self) -> int:
+        return sum(1 for hb in self._all() if hb.beat_once())
+
+    def rehome(self, master_url: str, attempts: int = 3) -> bool:
+        """A master announced itself: make sure a heartbeat goes to it
+        and register there now."""
+        url = master_url.rstrip("/")
+        with self._lock:
+            hb = self._senders.get(url)
+            fresh = hb is None
+            if fresh:
+                hb = self._senders[url] = HeartbeatSender(
+                    url, self.worker_id, port=self.port)
+        if fresh:
+            hb.start()
+        for i in range(max(attempts, 1)):
+            if hb.beat_once():
+                return True
+            time.sleep(min(0.2 * (2 ** i), 1.0))
+        return False
+
+
+def maybe_start_heartbeat(port: Optional[int] = None):
+    """Start the worker's heartbeat when ``DTPU_WORKER_ID`` and a master
+    are set: ``DTPU_MASTER_URLS`` (a comma list, one lease per master
+    shard) or ``DTPU_MASTER_URL``."""
+    multi = os.environ.get(C.MASTER_URLS_ENV, "")
     master = os.environ.get(C.MASTER_URL_ENV)
     wid = os.environ.get(C.WORKER_ID_ENV)
-    if not wid or not master:
+    if not wid or not (multi or master):
         return None
+    if multi:
+        mhb = MultiHeartbeatSender(multi.split(","), wid, port=port)
+        mhb.start()
+        log(f"heartbeat: renewing {len(mhb.master_urls)} master-shard "
+            f"lease(s) for {wid!r} ({', '.join(mhb.master_urls)})")
+        return mhb
     hb = HeartbeatSender(master, wid, port=port)
     hb.start()
     log(f"heartbeat: renewing lease for {wid!r} at {master} every "

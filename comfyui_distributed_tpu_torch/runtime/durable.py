@@ -821,8 +821,13 @@ class DurableMaster:
     # -- construction -------------------------------------------------------------
 
     @classmethod
-    def attach(cls, state) -> Optional["DurableMaster"]:
-        d = wal_dir()
+    def attach(cls, state, dirpath: Optional[str] = None,
+               owner: Optional[str] = None) -> Optional["DurableMaster"]:
+        """``dirpath`` and ``owner``: a sharded master's own log under the
+        shared root, with its shard id as the lease owner (a restart of
+        the shard takes its lease back; a peer's absorb is a new owner,
+        one epoch up)."""
+        d = dirpath or wal_dir()
         if not d or state.is_worker:
             return None
         standby = os.environ.get(C.STANDBY_ENV, "").lower() \
@@ -830,7 +835,7 @@ class DurableMaster:
         # a same-owner acquire is the restart's path, so a standby must
         # not share the primary's default identity: it could take a
         # live lease
-        owner = os.environ.get(C.WAL_OWNER_ENV, "").strip() \
+        owner = owner or os.environ.get(C.WAL_OWNER_ENV, "").strip() \
             or (f"standby_{os.getpid()}" if standby else "master")
         dm = cls(d, owner=owner, standby=standby)
         dm._state = state

@@ -14,8 +14,11 @@ keys go with the queue.  With the write-ahead log attached
 (``runtime/durable.py``) a new key is logged before the upload is
 answered, and a restarted master takes the replayed keys back
 (``attach_wal``), so an upload answered before a crash still counts
-once after it.  The JAX package's shard scopes (``set_scope``) wait for
-more than one master.
+once after it.  A sharded master namespaces its keys by its shard id
+(``set_scope``), and the keys of a dead peer's shard it absorbs keep
+that shard's namespace (``merge_idem(..., scope=)``), so a takeover
+never mistakes another master's acknowledged unit for its own.  An
+unscoped store keys as before.
 """
 
 from __future__ import annotations
@@ -38,6 +41,20 @@ class JobStore:
         self._tile_seen: Dict[str, Set[str]] = {}      # guarded-by: _lock
         self._lock = threading.Lock()
         self._wal = None                               # guarded-by: _lock
+        # the owning shard's id ("" unsharded: keys unprefixed) and, for
+        # an absorbed shard's jobs, that shard's id
+        self._scope = ""                               # guarded-by: _lock
+        self._job_scope: Dict[str, str] = {}           # guarded-by: _lock
+
+    def set_scope(self, scope: Optional[str]) -> None:
+        with self._lock:
+            self._scope = str(scope or "")
+
+    def _scoped(self, job_id: str, idem_key: str) -> str:
+        """The key as kept: prefixed by the job's shard when sharded.
+        The caller holds the lock."""
+        s = self._job_scope.get(str(job_id), self._scope)
+        return f"{s}|{idem_key}" if s else str(idem_key)
 
     def attach_wal(self, wal, recovered_idem: Optional[Dict[str, Any]]
                    = None) -> None:
@@ -47,15 +64,23 @@ class JobStore:
             self._wal = wal
         self.merge_idem(recovered_idem)
 
-    def merge_idem(self, recovered_idem: Optional[Dict[str, Any]]) -> None:
+    def merge_idem(self, recovered_idem: Optional[Dict[str, Any]],
+                   scope: Optional[str] = None) -> None:
         """Add replayed keys: an upload answered before a crash and
-        retried after it is answered again, not queued."""
+        retried after it is answered again, not queued.  ``scope`` names
+        the shard they came from (an absorbed peer's); by default this
+        store's own."""
         idem = recovered_idem or {}
         with self._lock:
-            for seen, scope in ((self._seen, "image"),
-                                (self._tile_seen, "tile")):
-                for job, keys in (idem.get(scope) or {}).items():
-                    seen.setdefault(str(job), set()).update(map(str, keys))
+            scope = self._scope if scope is None else str(scope)
+            pfx = f"{scope}|" if scope else ""
+            for seen, kind in ((self._seen, "image"),
+                               (self._tile_seen, "tile")):
+                for job, keys in (idem.get(kind) or {}).items():
+                    if scope != self._scope:
+                        self._job_scope[str(job)] = scope
+                    seen.setdefault(str(job), set()).update(
+                        f"{pfx}{k}" for k in keys)
 
     def _log_idem(self, scope: str, job_id: str, idem_key: str) -> None:
         """Log an accepted key (fsync'd per ``DTPU_WAL_SYNC``) before the
@@ -87,10 +112,11 @@ class JobStore:
                 q = jobs[job_id] = queue.Queue()
             if idem_key:
                 keys = seen.setdefault(job_id, set())
-                if idem_key in keys:
+                scoped = self._scoped(job_id, idem_key)
+                if scoped in keys:
                     GLOBAL_COUNTERS.bump("idem_dropped")
                     return True
-                keys.add(idem_key)
+                keys.add(scoped)
         if idem_key:
             self._log_idem(scope, job_id, idem_key)
         q.put(item)

@@ -22,10 +22,10 @@ other:
   received by wire format, the seconds spent decoding them
   (``wire_decode_s``), and the JAX package's ``phases``, ``nodes``,
   ``tracing``, ``pipeline`` (stages, event counters, gauges),
-  ``cluster``, ``durability``, ``analysis`` and ``resources`` blocks and
-  ``transfers`` (its ``slo``, ``batching``, ``admission``, ``shard``,
-  ``autoscale``, ``chaos`` and ``reuse`` blocks belong to modules not
-  ported yet);
+  ``cluster``, ``durability``, ``shard``, ``admission``, ``slo``,
+  ``analysis`` and ``resources`` blocks and ``transfers`` (its
+  ``batching``, ``autoscale``, ``chaos`` and ``reuse`` blocks belong to
+  modules not ported yet);
 - observability (``utils/trace.py``, ``trace_export.py``,
   ``trace_analysis.py``, ``resource.py``): ``GET
   /distributed/metrics.prom`` (Prometheus text), ``/distributed/traces``
@@ -65,11 +65,21 @@ other:
   /distributed/takeover`` (a standby takes the expired lease, or a live
   one with ``{"force": true}``; 409 while another master's lives) and a
   worker's ``POST /distributed/rehome`` (its heartbeat follows a new
-  master).
+  master);
+- admission and SLOs (``workflow/scheduler.py``, ``utils/slo.py``): a
+  prompt's tenant class (``priority``, untagged = paid), the 429 ladder
+  on the queued count (``DTPU_MAX_QUEUE``, per-class shed bars and token
+  buckets) with a ``Retry-After`` header, 503 while draining, ``GET
+  /distributed/slo`` (the burn rates of ``DTPU_SLO_SPEC``) and a
+  request's ``slo_s`` deadline for its fan-out's hedging;
+- sharded masters (``runtime/shard.py``, ``DTPU_SHARD_ID``): ``GET
+  /distributed/ring``, ``POST /distributed/ring/gossip``; a prompt id
+  another shard owns is forwarded one hop.
 
-One execution thread runs the queue in FIFO order through the port's
-``WorkflowExecutor`` on the server's device; handler threads answer
-while it runs.  Every prompt gets a trace: a ``job`` root span from its
+One execution thread runs the queue through the port's
+``WorkflowExecutor`` on the server's device, the tenant classes in
+weighted fair order (FIFO within a class); handler threads answer while
+it runs.  Every prompt gets a trace: a ``job`` root span from its
 admission to its end (a worker's takes the ``traceparent`` of the
 master's ``dispatch`` span as its parent; a master's fan-out root covers
 the ``preflight`` and ``dispatch`` spans too), a ``queue_wait`` event, an
@@ -88,7 +98,12 @@ and replays its write-ahead log before the execution thread starts: each
 admission is logged before its prompt id is answered and each finished
 prompt after its run, and :func:`serve` resumes the interrupted prompts
 once the port is bound; a server's resource monitor starts there too.
-Admission control and previews wait.
+A sharded master's log is ``DTPU_SHARD_WAL_ROOT/<id>`` with its shard id
+as the lease owner, and its peers' shards are watched for a takeover.
+On SIGINT or SIGTERM :func:`serve` drains: new prompts get 503, the
+queue runs within ``DTPU_DRAIN_TIMEOUT_S`` and what is left is
+cancelled, its admission left open in the log for a restart or the
+shard's absorbing peer.  Previews wait.
 """
 
 from __future__ import annotations
@@ -100,8 +115,11 @@ import dataclasses
 import gc
 import http.client
 import inspect
+import itertools
 import json
+import math
 import os
+import signal
 import sys
 import threading
 import time
@@ -120,6 +138,7 @@ from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.runtime import durable as durable_mod
+from comfyui_distributed_tpu_torch.runtime import shard as shard_mod
 from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
 from comfyui_distributed_tpu_torch.runtime import interrupt
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
@@ -131,6 +150,7 @@ from comfyui_distributed_tpu_torch.runtime.manager import (
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import resource
+from comfyui_distributed_tpu_torch.utils import slo as slo_mod
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils import trace_analysis as analysis_mod
 from comfyui_distributed_tpu_torch.utils import trace_export as export_mod
@@ -145,18 +165,40 @@ from comfyui_distributed_tpu_torch.utils.net import (
     get_json,
     network_info,
     parse_multipart,
+    request_json,
 )
 from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+from comfyui_distributed_tpu_torch.workflow import scheduler as sched_mod
 from comfyui_distributed_tpu_torch.workflow.dispatcher import worker_url
 from comfyui_distributed_tpu_torch.workflow.orchestrate import (
     is_dispatched_share,
     run_distributed,
 )
 
-Response = Tuple[int, Any]
+# (status, body) or (status, body, the answer's extra headers)
+Response = Tuple[Any, ...]
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 PANEL_HTML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "panel.html")
+
+
+class QueueFullError(RuntimeError):
+    """``enqueue_prompt`` met the ``DTPU_MAX_QUEUE`` cap."""
+
+
+class ShedError(QueueFullError):
+    """Admission shed the prompt (its class's bar or its client's token
+    bucket); the rejection says why and for how long to back off."""
+
+    def __init__(self, rejection: Dict[str, Any]):
+        self.rejection = dict(rejection)
+        super().__init__(
+            f"shed ({rejection.get('reason')}) for tenant class "
+            f"{rejection.get('tenant')!r}")
+
+
+class DrainingError(RuntimeError):
+    """``enqueue_prompt`` refused: the server is shutting down."""
 
 
 @dataclasses.dataclass
@@ -209,19 +251,52 @@ class ServerState:
             "wire_decode_s": 0.0,
         }
         self._history: Dict[str, Dict[str, Any]] = {}
-        self._queue: collections.deque = collections.deque()
-        self._running = False
+        self._queue: list = []                        # guarded-by: _cond
+        self._running = False                         # guarded-by: _cond
+        self._draining = False                        # guarded-by: _cond
+        self._exec_started = bool(start_exec_thread)
         self._cond = threading.Condition()
         self._metrics_lock = threading.Lock()
+        self._id_counter = itertools.count()
+        self.max_queue = int(os.environ.get(C.MAX_QUEUE_ENV,
+                                            C.MAX_QUEUE_DEFAULT))
+        # tenant classes: the shed ladder, token buckets and the weighted
+        # fair dequeue; untagged traffic rides the highest class
+        self.admission = sched_mod.AdmissionController()
+        # the burn rates of DTPU_SLO_SPEC (record() does nothing without)
+        self.slo = slo_mod.SLOEngine.from_env()
+        # the monotonic time of each finalize: the drain rate the 429's
+        # Retry-After is estimated from
+        self._completions: collections.deque = collections.deque(
+            maxlen=128)
+        # a sharded master's config resolves before the log attaches:
+        # its log is DTPU_SHARD_WAL_ROOT/<id>, its shard id the lease
+        # owner, and its idempotency keys are scoped by the shard
+        shard_cfg = None if is_worker else shard_mod.shard_config()
+        shard_dir = shard_owner = None
+        if shard_cfg is not None:
+            self.jobs.set_scope(shard_cfg["id"])
+            shard_owner = shard_cfg["id"]
+            if shard_cfg.get("wal_root"):
+                shard_dir = os.path.join(shard_cfg["wal_root"],
+                                         shard_cfg["id"])
         # the durability plane: the lease taken (or watched), the log
         # replayed and the ledger and keys preloaded before the execution
         # thread can pop anything; a lease another master holds refuses
         # the start
         try:
-            self.durable = durable_mod.DurableMaster.attach(self)
+            self.durable = durable_mod.DurableMaster.attach(
+                self, dirpath=shard_dir, owner=shard_owner)
         except durable_mod.WalError as e:
             raise RuntimeError(f"durable master start refused: {e}") \
                 from None
+        # the ring, gossip and peer-lease watch attach after the log, so
+        # an absorb merges into live planes; one client's rate splits
+        # over the members
+        self.shard = shard_mod.ShardManager.attach(
+            self, cfg=shard_cfg, start_threads=start_exec_thread)
+        if self.shard is not None:
+            self.admission.set_rate_scale(1.0 / self.shard.n_members())
         if start_exec_thread:
             threading.Thread(target=self._exec_loop, name="dtpu-exec",
                              daemon=True).start()
@@ -234,47 +309,198 @@ class ServerState:
                        pid: Optional[str] = None,
                        _recovered: bool = False,
                        trace_parent: Optional[Tuple[str, str]] = None,
-                       trace_span: Optional[trace_mod.Span] = None) -> str:
+                       trace_span: Optional[trace_mod.Span] = None,
+                       tenant: Optional[str] = None,
+                       span_attrs: Optional[Dict[str, Any]] = None,
+                       _preadmitted: bool = False,
+                       _absorbed: bool = False) -> str:
         """Queue a prompt; returns its id.  With the log on, the admission
         is durable before the id is returned (a crash after it runs the
         prompt again on recovery).  ``pid`` and ``_recovered``: a prompt
         resumed from the log under its original id, whose record is
         there already and whose result queues are made here, as
-        ``post_prompt`` makes them for a prepared graph.
+        ``post_prompt`` makes them for a prepared graph; ``_absorbed``: a
+        dead peer shard's, logged again here since its record lives in
+        that shard's log.  Without ``pid`` a sharded master makes an id
+        its own shard owns.
+
+        The prompt is admitted here under the queue lock: refused while
+        draining (:class:`DrainingError`), shed by its class's bar on the
+        queued count or its client's bucket (:class:`ShedError`), refused
+        at ``DTPU_MAX_QUEUE`` (:class:`QueueFullError`).  Recovered
+        prompts and ``_preadmitted`` ones (a fan-out admitted before it
+        dispatched, a master's dispatched share) skip the shed, not the
+        cap.  ``tenant`` (else ``extra_data["priority"]``) is its class.
 
         The prompt's ``job`` span lives from here to the end of its run:
         ``trace_parent`` (trace id, parent span id) from an inbound
         ``traceparent`` makes it a child of the caller's trace (a
         dispatched worker share); ``trace_span`` is an open span adopted
-        as the job span (a master's fan-out root)."""
-        pid = pid or uuid.uuid4().hex
+        as the job span (a master's fan-out root); ``span_attrs`` are
+        set on it."""
+        if pid is None:
+            pid = self.shard.local_pid(self._id_counter) \
+                if self.shard is not None else uuid.uuid4().hex
+        tenant = self.admission.classify(
+            tenant or (extra_data or {}).get("priority"))
         sp = trace_span
         if sp is None:
             tid, par = trace_parent if trace_parent else (None, None)
             sp = trace_mod.start_span(
                 "job", trace_id=tid, parent_id=par,
                 attrs={"prompt_id": pid, "client_id": str(client_id),
+                       "tenant": tenant,
                        "role": "worker" if self.is_worker else "master"})
         else:
             sp.attrs.setdefault("prompt_id", pid)
+            sp.attrs.setdefault("tenant", tenant)
+        if sp is not None:
+            if self.shard is not None:
+                sp.attrs["shard"] = self.shard.id
+                sp.attrs["ring_epoch"] = self.shard.ring_epoch()
+            sp.attrs.update(span_attrs or {})
         if _recovered:
             for kind, mj in _master_jobs(prompt):
                 if kind == "tile":
                     self.jobs.prepare_tile_job(mj)
                 else:
                     self.jobs.prepare_job(mj)
-        elif self.durable is not None:
-            self.durable.log_enqueue(pid, prompt, client_id, extra_data)
+        # a recovered prompt's record is in the log already, an absorbed
+        # one's in the dead shard's
+        to_log = threading.Event() if self.durable is not None and (
+            not _recovered or _absorbed) else None
+        reject: Optional[Tuple[Exception, str]] = None
         with self._cond:
-            self._queue.append({"id": pid, "prompt": prompt,
-                                "extra_data": extra_data or {},
-                                "span": sp, "t_enq": time.perf_counter()})
-            self._cond.notify()
+            if self._draining:
+                reject = (DrainingError("server is draining; not "
+                                        "accepting prompts"),
+                          "rejected: draining")
+            elif not _recovered and not _preadmitted:
+                rejection = self.admission.admit(
+                    tenant, str(client_id), len(self._queue),
+                    self.max_queue)
+                if rejection is not None:
+                    reject = (ShedError(rejection),
+                              f"rejected: shed ({rejection['reason']}, "
+                              f"{tenant})")
+            if reject is None and len(self._queue) >= self.max_queue:
+                reject = (QueueFullError(
+                    f"prompt queue full ({self.max_queue})"),
+                    "rejected: queue full")
+            if reject is None:
+                item = {"id": pid, "prompt": prompt,
+                        "extra_data": extra_data or {}, "tenant": tenant,
+                        "span": sp, "t_enq": time.perf_counter(),
+                        "logged": to_log}
+                self._queue.append(item)
+                self._cond.notify()
+        if reject is not None:
+            self._abandon_span(sp, pid, reject[1])
+            raise reject[0]
+        if to_log is not None:
+            # the admission record is durable before the id is answered,
+            # written outside the queue lock (an fsync would stall every
+            # pop and reader); the execution thread waits on ``logged``,
+            # so no finalize is logged before its admission
+            try:
+                self.durable.log_enqueue(pid, prompt, client_id, extra_data)
+            except Exception as e:
+                with self._cond:
+                    self._queue = [it for it in self._queue
+                                   if it is not item]
+                item["log_error"] = e
+                to_log.set()
+                self._abandon_span(sp, pid, f"rejected: not logged ({e})")
+                raise
+            to_log.set()
         return pid
+
+    def _abandon_span(self, sp: Optional[trace_mod.Span], pid: str,
+                      why: str) -> None:
+        """End and commit the job span of a prompt that never ran."""
+        if sp is None or sp.end_s is not None:
+            return
+        sp.set_status("error", why)
+        sp.end()
+        trace_mod.GLOBAL_TRACES.commit(
+            pid, sp.trace_id, status="error", root_span_id=sp.span_id,
+            duration_s=round(time.time() - sp.start_s, 6))
 
     def queue_remaining(self) -> int:
         with self._cond:
             return len(self._queue) + (1 if self._running else 0)
+
+    def queued_by_class(self) -> Dict[str, int]:
+        """Queued (not yet running) prompts by tenant class."""
+        out = {cls: 0 for cls in self.admission.classes}
+        with self._cond:
+            for item in self._queue:
+                cls = item.get("tenant") or self.admission.default_class
+                out[cls] = out.get(cls, 0) + 1
+        return out
+
+    def drain_rate(self, window_s: float = 30.0) -> float:
+        """Prompts finalized per second over the recent window (0.0
+        before any finished)."""
+        now = time.monotonic()
+        recent = [t for t in list(self._completions) if now - t <= window_s]
+        if not recent:
+            return 0.0
+        return len(recent) / max(now - min(recent), 0.5)
+
+    def retry_after_hint(self, floor_s: float = 1.0) -> int:
+        """Whole seconds a shed client should wait: about when a quarter
+        of the backlog will have drained at the measured rate, in [1,
+        30]; it spreads the retries, it reserves nothing."""
+        depth = self.queue_remaining()
+        rate = self.drain_rate()
+        hint = 5.0 if rate <= 0 else max(depth, 1) / (4.0 * rate)
+        return int(min(max(math.ceil(max(hint, floor_s)), 1), 30))
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown: refuse new prompts (503), let the queue and
+        the running prompt finish within ``timeout`` (default
+        ``DTPU_DRAIN_TIMEOUT_S``), then cancel what is still queued
+        (``cancelled: server drain timeout``, its admission left open in
+        the log) and interrupt the running prompt.  True when everything finished in time.  A sharded master
+        first stops its gossip and its watch, so it absorbs no peer on
+        its way out."""
+        if timeout is None:
+            timeout = float(os.environ.get(C.DRAIN_TIMEOUT_ENV,
+                                           C.DRAIN_TIMEOUT_DEFAULT))
+        if self.shard is not None:
+            self.shard.stop()
+        with self._cond:
+            self._draining = True
+        deadline = time.monotonic() + max(timeout, 0.0)
+        while True:
+            with self._cond:
+                # without an execution thread only the running work can
+                # drain
+                if not self._running and (not self._queue
+                                          or not self._exec_started):
+                    return True
+            if time.monotonic() >= deadline:
+                break
+            time.sleep(0.05)
+        # the queue goes first, or the execution thread would go on
+        # popping (and clearing the interrupt) through the shutdown
+        with self._cond:
+            purged, self._queue = self._queue, []
+        # their admission records stay open, so a restart or the shard's
+        # absorbing peer runs them again
+        done_t = time.time()
+        for item in purged:
+            self._abandon_span(item.get("span"), item["id"],
+                               "cancelled: server drain timeout")
+            self._history[item["id"]] = {
+                "status": "error", "error": "cancelled: server drain timeout",
+                "finished_at": done_t}
+        self.bump(prompts_failed=len(purged))
+        log(f"drain timeout after {timeout:.1f}s; cancelled {len(purged)} "
+            f"queued prompt(s), interrupting the running one")
+        interrupt.request_interrupt()
+        return False
 
     def bump(self, **counts: int) -> None:
         with self._metrics_lock:
@@ -286,8 +512,17 @@ class ServerState:
             with self._cond:
                 while not self._queue:
                     self._cond.wait()
-                item = self._queue.popleft()
+                # the tenant classes in weighted fair order
+                item = sched_mod.pop_fair_group(self._queue,
+                                                self.admission)[0]
                 self._running = True
+            if item.get("logged") is not None:
+                item["logged"].wait()
+                if "log_error" in item:
+                    # its admission failed and was answered so
+                    with self._cond:
+                        self._running = False
+                    continue
             wait = time.perf_counter() - item["t_enq"]
             now_wall = time.time()
             trace_mod.GLOBAL_STAGES.record("queue_wait", wait)
@@ -317,6 +552,7 @@ class ServerState:
                         extra_pnginfo=item["extra_data"].get(
                             "extra_pnginfo"))
         sp = item["span"]
+        item["started_at"] = time.time()
         res, err = None, None
         trace_mod.GLOBAL_COUNTERS.bump("exec_runs")
         try:
@@ -359,11 +595,14 @@ class ServerState:
                                          if on_cuda else None)}
         # metrics before history: a client that sees the prompt done
         # also sees it counted
+        self._record_slo(item, err is None, t0)
         if err is None:
             self.bump(prompts_executed=1)
             self._history[item["id"]] = {
                 "status": "success", "images": len(res.images),
-                "duration_s": res.total_s, "finished_at": time.time()}
+                "duration_s": res.total_s, "tenant": item["tenant"],
+                "started_at": item["started_at"],
+                "finished_at": time.time()}
             types = {k: n.get("class_type", "")
                      for k, n in item["prompt"].items() if isinstance(n, dict)}
             done.update(images=len(res.images),
@@ -375,9 +614,34 @@ class ServerState:
             self.bump(prompts_failed=1)
             self._history[item["id"]] = {
                 "status": "error", "error": str(err),
+                "tenant": item["tenant"], "started_at": item["started_at"],
                 "finished_at": time.time()}
             done["error"] = str(err)
+        # a finished prompt frees a slot (the Retry-After estimate); the
+        # class counts its completion
+        self._completions.append(time.monotonic())
+        if err is None:
+            self.admission.on_complete(item["tenant"])
         log(f"prompt {json.dumps(done)}")
+
+    def _record_slo(self, item: Dict[str, Any], ok: bool,
+                    t0: float) -> None:
+        """Feed the SLO windows (every finished prompt, traced or not)
+        with its seconds from admission, and mark a prompt over its
+        class's latency bar with an ``slo_breach`` event span."""
+        done_t = time.time()
+        sp = item["span"]
+        dur = round(done_t - sp.start_s, 6) if sp is not None \
+            else max(time.perf_counter() - t0, 0.0)
+        tenant = item["tenant"]
+        self.slo.record(tenant, dur, ok)
+        if sp is None:
+            return
+        thr = self.slo.latency_threshold(tenant)
+        if thr is not None and dur > thr:
+            trace_mod.event_span("slo_breach", done_t, done_t, parent=sp,
+                                 attrs={"tenant": tenant,
+                                        "threshold_s": thr})
 
     def _seal_trace(self, item: Dict[str, Any], status: str,
                     err: Optional[BaseException]) -> None:
@@ -430,14 +694,40 @@ class ServerState:
         return cfg if cfg_mod.enabled_workers(cfg) else None
 
     def post_prompt(self, data: Dict[str, Any],
-                    traceparent: Optional[str] = None) -> Response:
-        """``POST /prompt``: queue the prompt, or fan it out when this
-        master orchestrates it.  ``traceparent`` (the request's header)
-        parents the prompt's trace under the caller's span; malformed or
-        absent, the prompt gets a trace of its own."""
+                    traceparent: Optional[str] = None,
+                    forwarded_from: Optional[str] = None) -> Response:
+        """``POST /prompt``: admit the prompt and queue it, or fan it out
+        when this master orchestrates it.  ``traceparent`` (the request's
+        header) parents the prompt's trace under the caller's span;
+        malformed or absent, the prompt gets a trace of its own.
+
+        ``priority`` (or ``extra_data.priority``) names the tenant class
+        and ``slo_s`` a deadline for the fan-out's jobs; both ride
+        ``extra_data``, which the log keeps.  A shed answers 429 with a
+        ``Retry-After`` header, a draining server 503.  On a sharded
+        master a ``prompt_id`` another shard owns is forwarded there
+        once; ``forwarded_from`` (the header of such a hop) is never
+        forwarded again."""
         prompt = data.get("prompt")
         if not isinstance(prompt, dict) or not prompt:
             return 400, {"error": "missing prompt"}
+        with self._cond:
+            draining = self._draining
+        if draining:
+            # refused before a fan-out could dispatch worker shares
+            return 503, {"error": "server is draining; not accepting "
+                                  "prompts"}
+        pid_hint = str(data.get("prompt_id") or "") or None
+        span_attrs = {"forwarded_from": forwarded_from} \
+            if forwarded_from else None
+        if self.shard is not None and pid_hint and not forwarded_from \
+                and not self.shard.is_mine(pid_hint):
+            fwd = self._forward_prompt(pid_hint, data, traceparent)
+            if fwd is not None:
+                return fwd
+            # the owner is unreachable: taken here, where the span says
+            # it landed, while the ring heals by gossip and absorb
+            trace_mod.GLOBAL_COUNTERS.bump("shard_forward_fallbacks")
         # a master sent an already prepared graph: its tile queues exist
         # before execution starts, or a fast worker's tiles 404 through
         # every retry
@@ -446,21 +736,104 @@ class ServerState:
                 self.jobs.prepare_tile_job(mj)
         client_id = data.get("client_id", "unknown")
         extra_data = data.get("extra_data") or {}
+        priority = data.get("priority") or extra_data.get("priority")
+        tenant = self.admission.classify(priority)
+        if priority:
+            # the class rides extra_data, which the log keeps: a
+            # recovered prompt runs at the same priority
+            extra_data = {**extra_data, "priority": tenant}
+        slo_s = data.get("slo_s") or extra_data.get("slo_s")
+        try:
+            slo_s = float(slo_s) if slo_s is not None else None
+        except (TypeError, ValueError):
+            slo_s = None
+        if slo_s is not None and slo_s > 0:
+            extra_data = {**extra_data, "slo_s": slo_s}
         trace_parent = trace_mod.parse_traceparent(traceparent)
         try:
             cfg = self.orchestration_config(prompt)
             if cfg is not None:
+                # admitted before the fan-out: a prompt that will be shed
+                # never reaches the workers; its master share is then
+                # pre-admitted
+                with self._cond:
+                    depth = len(self._queue)
+                rejection = self.admission.admit(
+                    tenant, str(client_id), depth, self.max_queue)
+                if rejection is not None:
+                    return self._shed_response(rejection)
                 return self._fan_out(prompt, cfg, client_id, extra_data,
-                                     trace_parent)
-            pid = self.enqueue_prompt(prompt, extra_data, client_id,
-                                      trace_parent=trace_parent)
+                                     trace_parent, tenant, span_attrs,
+                                     pid_hint)
+            # a share a master dispatched was admitted where it entered
+            # the cluster: a worker never sheds it
+            pid = self.enqueue_prompt(
+                prompt, extra_data, client_id, pid=pid_hint,
+                trace_parent=trace_parent, tenant=tenant,
+                span_attrs=span_attrs,
+                _preadmitted=is_dispatched_share(prompt))
+        except ShedError as e:
+            return self._shed_response(e.rejection)
+        except QueueFullError as e:
+            retry_after = self.retry_after_hint()
+            return (429, {"error": str(e),
+                          "queue_remaining": self.queue_remaining(),
+                          "retry_after_s": retry_after,
+                          "max_queue": self.max_queue},
+                    {"Retry-After": str(retry_after)})
+        except DrainingError as e:
+            return 503, {"error": str(e)}
         except Exception as e:  # noqa: BLE001 - reported to the client
             return 400, {"error": str(e)}
         return 200, {"prompt_id": pid, "number": self.queue_remaining()}
 
+    def _shed_response(self, rejection: Dict[str, Any]) -> Response:
+        """A shed's 429: why, for which class, and ``Retry-After``, the
+        larger of the rejection's floor and the drain-rate estimate."""
+        retry_after = max(int(rejection.get("retry_after_s", 1)),
+                          self.retry_after_hint())
+        return (429, {"error": f"shed ({rejection['reason']}): tenant "
+                               f"class {rejection['tenant']!r}",
+                      "tenant": rejection["tenant"],
+                      "reason": rejection["reason"],
+                      "retry_after_s": retry_after,
+                      "queue_remaining": self.queue_remaining(),
+                      "max_queue": self.max_queue},
+                {"Retry-After": str(retry_after)})
+
+    def _forward_prompt(self, pid: str, data: Dict[str, Any],
+                        traceparent: Optional[str]) -> Optional[Response]:
+        """Relay a prompt to the shard that owns its id, marked with
+        ``SHARD_FORWARD_HEADER`` so the owner never forwards it again;
+        the owner's answer (a 429's ``Retry-After`` too).  None when the
+        owner cannot be reached."""
+        owner = self.shard.owner_of(pid)
+        url = self.shard.member_url(owner)
+        if not url:
+            return None
+        headers = {C.SHARD_FORWARD_HEADER: self.shard.id}
+        if traceparent:
+            headers[C.TRACEPARENT_HEADER] = traceparent
+        try:
+            status, body, hdrs = request_json("POST", f"{url}/prompt", data,
+                                              timeout=120, headers=headers)
+        except Exception as e:  # noqa: BLE001 - taken here instead
+            debug_log(f"shard: forward to {owner} failed: {e}")
+            return None
+        self.shard.forwards += 1
+        trace_mod.GLOBAL_COUNTERS.bump("shard_forwarded")
+        if isinstance(body, dict):
+            body.setdefault("shard", owner)
+            body["forwarded_from"] = self.shard.id
+        ra = hdrs.get("Retry-After")
+        return status, body, ({"Retry-After": ra} if ra is not None else {})
+
     def _fan_out(self, prompt: Dict[str, Any], cfg: Dict[str, Any],
                  client_id: str, extra_data: Dict[str, Any],
-                 trace_parent: Optional[Tuple[str, str]]) -> Response:
+                 trace_parent: Optional[Tuple[str, str]],
+                 tenant: Optional[str] = None,
+                 span_attrs: Optional[Dict[str, Any]] = None,
+                 pid: Optional[str] = None) -> Response:
         """The headless interceptor: one ``job`` root span covers the
         whole fan-out (the preflight and dispatch spans, the master's
         share, which adopts it, and the workers' shipped spans)."""
@@ -468,15 +841,16 @@ class ServerState:
         root = trace_mod.start_span(
             "job", trace_id=tid, parent_id=par,
             attrs={"client_id": str(client_id), "role": "master",
-                   "fanout": True})
+                   "tenant": tenant, "fanout": True})
         host = cfg.get("master", {}).get("host") or "127.0.0.1"
         try:
             with trace_mod.use_span(root):
                 out = run_distributed(
                     prompt, f"http://{host}:{self.port or 8288}",
-                    lambda g: self.enqueue_prompt(g.to_api_format(),
-                                                  extra_data, client_id,
-                                                  trace_span=root),
+                    lambda g: self.enqueue_prompt(
+                        g.to_api_format(), extra_data, client_id, pid=pid,
+                        trace_span=root, tenant=tenant,
+                        span_attrs=span_attrs, _preadmitted=True),
                     cfg_mod.enabled_workers(cfg), job_store=self.jobs,
                     client_id=client_id, extra_data=extra_data,
                     cluster=self.cluster, ledger=self.ledger)
@@ -597,7 +971,8 @@ def _form_text(form: Dict[str, FormPart], key: str, default: str = "") -> str:
 def routes(state: ServerState
            ) -> Dict[Tuple[str, str], Callable[..., Response]]:
     """(method, path) -> handler(body bytes, content type, query, the
-    client's address) -> (status, JSON body or :class:`Raw`).  A handler
+    client's address) -> (status, JSON body or :class:`Raw`), or with a
+    third item, the answer's extra headers.  A handler
     that takes ``headers`` gets the request's; a ``{name}`` segment of a
     path matches any one segment and comes in the query under ``name``."""
 
@@ -615,9 +990,11 @@ def routes(state: ServerState
                                    state.queue_remaining()}}
 
     def post_prompt(body, ctype, query, remote=None, headers=None):
+        headers = headers or {}
         return state.post_prompt(
             json_body(body),
-            traceparent=(headers or {}).get(C.TRACEPARENT_HEADER))
+            traceparent=headers.get(C.TRACEPARENT_HEADER),
+            forwarded_from=headers.get(C.SHARD_FORWARD_HEADER))
 
     def history(body, ctype, query, remote=None):
         return 200, dict(state._history)
@@ -784,6 +1161,16 @@ def routes(state: ServerState
                         "policy": cluster_mod.fault_policy(),
                         "hedge_armed": cluster_mod.hedge_armed()},
             "durability": durability(),
+            # the ring, owned and absorbed shards, forwards
+            "shard": (state.shard.snapshot() if state.shard is not None
+                      else {"enabled": False}),
+            # per-class admitted, shed and completed counts, the weights
+            # and bars, the queue by class and the drain rate
+            "admission": {**state.admission.snapshot(),
+                          "queued_by_class": state.queued_by_class(),
+                          "drain_rate_per_s": round(state.drain_rate(), 4),
+                          "max_queue": state.max_queue},
+            "slo": state.slo.evaluate(),
             # the live anomaly plane and the workers' clock skews
             "analysis": {**analysis_mod.LIVE.snapshot(),
                          "skew": state.cluster.skew_snapshot()},
@@ -1006,6 +1393,8 @@ def routes(state: ServerState
         analysis_mod.reset_live()
         cleared["analysis"] = True
         cleared["skew_estimates"] = state.cluster.reset_skew()
+        state.slo.reset()
+        cleared["slo_windows"] = True
         if data.get("include_traces"):
             trace_mod.GLOBAL_TRACES.reset()
             cleared["traces"] = True
@@ -1089,7 +1478,32 @@ def routes(state: ServerState
             ("dtpu_queue_remaining", "gauge",
              "Prompts queued or executing.",
              [({}, state.queue_remaining())]),
+            ("dtpu_queue_capacity", "gauge",
+             "DTPU_MAX_QUEUE backpressure cap.", [({}, state.max_queue)]),
         ]
+        queued = state.queued_by_class()
+        adm = state.admission.snapshot()["per_class"]
+        extra.extend([
+            ("dtpu_tenant_queued", "gauge",
+             "Queued prompts by tenant class.",
+             [({"tenant": cls}, n) for cls, n in sorted(queued.items())]),
+            ("dtpu_tenant_admitted_total", "counter",
+             "Prompts admitted by tenant class.",
+             [({"tenant": cls}, v["admitted"])
+              for cls, v in sorted(adm.items())]),
+            ("dtpu_tenant_shed_total", "counter",
+             "Prompts shed (429) by tenant class and reason.",
+             [({"tenant": cls, "reason": reason}, v[f"shed_{reason}"])
+              for cls, v in sorted(adm.items())
+              for reason in ("rate", "overload")]),
+            ("dtpu_tenant_completed_total", "counter",
+             "Prompts completed by tenant class.",
+             [({"tenant": cls}, v["completed"])
+              for cls, v in sorted(adm.items())]),
+            ("dtpu_queue_drain_rate", "gauge",
+             "Prompts finalized per second (recent window).",
+             [({}, round(state.drain_rate(), 4))]),
+        ])
         workers = state.cluster.snapshot()["workers"].values()
         extra.append(
             ("dtpu_cluster_workers", "gauge",
@@ -1126,6 +1540,26 @@ def routes(state: ServerState
                  "Lease takeovers performed by this process.",
                  [({}, ds.get("takeovers", 0))]),
             ])
+        if state.shard is not None:
+            ssnap = state.shard.snapshot()
+            extra.extend([
+                ("dtpu_shard_owner", "gauge",
+                 "Shards owned by this master (1 per owned shard; an "
+                 "absorbed peer's shard appears after takeover).",
+                 [({"shard": sh}, 1) for sh in ssnap["owned"]]),
+                ("dtpu_ring_epoch", "gauge",
+                 "Consistent-hash ring membership epoch.",
+                 [({}, ssnap["ring_epoch"])]),
+                ("dtpu_shard_members", "gauge",
+                 "Members in this master's ring view.",
+                 [({}, len(ssnap["members"]))]),
+                ("dtpu_shard_forwards_total", "counter",
+                 "Mis-routed /prompt submissions forwarded to their "
+                 "owning shard.", [({}, ssnap["forwards"])]),
+                ("dtpu_shard_takeovers_total", "counter",
+                 "Dead peer shards absorbed by this master.",
+                 [({}, ssnap["takeovers"])]),
+            ])
         exp = export_mod.stats()
         if exp.get("enabled"):
             extra.extend([
@@ -1144,6 +1578,7 @@ def routes(state: ServerState
                  "Oldest capture segments deleted by the retention cap.",
                  [({}, exp["retired_segments"])]),
             ])
+        extra.extend(state.slo.prom_families())
         extra.append(
             ("dtpu_analysis_anomalies_total", "counter",
              "Per-trace category blame exceeding the armed baseline "
@@ -1291,6 +1726,26 @@ def routes(state: ServerState
     def profile_status(body, ctype, query, remote=None):
         return 200, trace_mod.trace_status()
 
+    # --- SLOs and the ring ---------------------------------------------------
+
+    def slo_view(body, ctype, query, remote=None):
+        """Per-class objectives with each window's stats, burn rates and
+        the budget left (``cli slo`` reads this)."""
+        return 200, state.slo.evaluate()
+
+    def ring_info(body, ctype, query, remote=None):
+        """The ring: members, epoch, vnodes, what a router or a client
+        needs to place a prompt id."""
+        if state.shard is None:
+            return 200, {"enabled": False}
+        return 200, state.shard.ring_snapshot()
+
+    def ring_gossip(body, ctype, query, remote=None):
+        """A peer's ring view merged; the answer is this master's."""
+        if state.shard is None:
+            return 409, {"error": f"sharding off (set {C.SHARD_ID_ENV})"}
+        return 200, state.shard.merge_gossip(json_body(body))
+
     def panel(body, ctype, query, remote=None):
         with open(PANEL_HTML, "rb") as f:
             return 200, Raw(f.read(), "text/html; charset=utf-8")
@@ -1342,6 +1797,9 @@ def routes(state: ServerState
         ("POST", "/distributed/profile/start"): profile_start,
         ("POST", "/distributed/profile/stop"): profile_stop,
         ("GET", "/distributed/profile/status"): profile_status,
+        ("GET", "/distributed/slo"): slo_view,
+        ("GET", "/distributed/ring"): ring_info,
+        ("POST", "/distributed/ring/gossip"): ring_gossip,
     }
 
 
@@ -1382,6 +1840,7 @@ def make_handler(state: ServerState) -> type:
             query = dict(urllib.parse.parse_qsl(url.query))
             fn, params = _match(table, method, url.path)
             query.update(params)
+            extra: Dict[str, str] = {}
             try:
                 body = self.rfile.read(int(
                     self.headers.get("Content-Length") or 0))
@@ -1392,9 +1851,11 @@ def make_handler(state: ServerState) -> type:
                     kw = {"headers": {k.lower(): v for k, v in
                                       self.headers.items()}} \
                         if fn in takes_headers else {}
-                    status, payload = fn(body,
-                                         self.headers.get("Content-Type", ""),
-                                         query, self.client_address[0], **kw)
+                    status, payload, *more = fn(
+                        body, self.headers.get("Content-Type", ""), query,
+                        self.client_address[0], **kw)
+                    # a third item: headers of the answer (Retry-After)
+                    extra = more[0] if more else {}
             except ValueError as e:
                 status, payload = 400, {"error": str(e)}
             except Exception as e:  # noqa: BLE001 - a 500, not a dead thread
@@ -1408,6 +1869,8 @@ def make_handler(state: ServerState) -> type:
             self.send_response(status)
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in extra.items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
@@ -1435,15 +1898,17 @@ def make_server(state: ServerState, host: str = "127.0.0.1",
 
 def serve(state: ServerState, host: str = "127.0.0.1",
           port: int = 8288) -> None:
-    """Serve until interrupted: a master polls its workers' health,
+    """Serve until SIGINT or SIGTERM: a master polls its workers' health,
     launches its enabled local workers when the config's
     ``settings.auto_launch_workers`` is true and stops its managed
     workers when it exits (so it must run on the main thread, which
     signal handlers need); a worker renews its lease at
-    ``DTPU_MASTER_URL`` as ``DTPU_WORKER_ID`` when both are set.  A
-    durable master resumes its interrupted prompts once bound, on a
-    thread (it probes the workers first), and closes its log on the way
-    out (SIGINT, or SIGTERM through the exit hooks)."""
+    ``DTPU_MASTER_URL`` (or each of ``DTPU_MASTER_URLS``) as
+    ``DTPU_WORKER_ID`` when both are set.  A durable master resumes its
+    interrupted prompts once bound, on a thread (it probes the workers
+    first).  The signal drains the server while it goes on answering
+    (:meth:`ServerState.drain`: 503 to new prompts, the queue run within
+    ``DTPU_DRAIN_TIMEOUT_S``), then stops it and closes the log."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
     state.resources = resource.install_monitor(
@@ -1451,12 +1916,33 @@ def serve(state: ServerState, host: str = "127.0.0.1",
     if state.is_worker:
         state.heartbeat = cluster_mod.maybe_start_heartbeat(port=state.port)
     else:
+        # the managed workers stop at exit, after the drain below
         install_exit_hooks(state.manager)
         state.health.start()
         auto_launch_workers(state.manager)
         if state.durable is not None:
             threading.Thread(target=state.resume_recovered,
                              name="dtpu-resume", daemon=True).start()
+    draining: list = []
+
+    def drain_then_stop() -> None:
+        t0 = time.monotonic()
+        ok = state.drain()
+        log(f"drained in {time.monotonic() - t0:.3f}s"
+            + ("" if ok else " (timed out)"))
+        server.shutdown()
+
+    def on_signal(signum, frame) -> None:
+        # the drain runs while the server answers: /history stays
+        # readable and a new /prompt gets 503
+        if not draining:
+            log(f"signal {signum}: draining")
+            draining.append(threading.Thread(target=drain_then_stop,
+                                             name="dtpu-drain"))
+            draining[0].start()
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, on_signal)
     log(f"{role} listening on {host}:{state.port} (device {state.device})")
     sys.stdout.flush()
     try:

@@ -1,6 +1,7 @@
 """Timeouts, node-type sets and wire constants of the HTTP fan-out, the
-worker manager, the write-ahead log and the observability plane (traces,
-capture files, critical-path analysis, resources): the subset of
+worker manager, the write-ahead log, the observability plane (traces,
+capture files, critical-path analysis, resources), admission and SLOs
+and the sharded masters: the subset of
 ``comfyui_distributed_tpu/utils/constants.py`` that the port reads, with
 the same values, so a worker of either package keeps to a master of the
 other.
@@ -150,6 +151,76 @@ RES_RING_DEFAULT = 720                   # samples per series (~1h @ 5s)
 # GET /distributed/resource and cached back into the registry
 RES_FED_TTL_ENV = "DTPU_RES_FED_TTL_S"
 RES_FED_TTL_DEFAULT = 10.0
+
+# --- the serving queue (server/app.py) ----------------------------------------
+MAX_QUEUE_ENV = "DTPU_MAX_QUEUE"         # /prompt backpressure cap
+MAX_QUEUE_DEFAULT = 256                  # full queue -> HTTP 429
+DRAIN_TIMEOUT_ENV = "DTPU_DRAIN_TIMEOUT_S"
+DRAIN_TIMEOUT_DEFAULT = 30.0             # graceful-shutdown drain bound
+
+# --- SLO burn-rate engine (utils/slo.py) -------------------------------------
+# Per-tenant-class objectives over a fast and a slow rolling window, fed
+# by the finalize path.  Spec: "class:obj,obj;class:obj", obj = pNN<DURs
+# (at most (100-NN)% of requests slower than DUR) or completion>RATIO,
+# e.g. "paid:p95<2s,completion>0.999;free:p95<10s".
+SLO_SPEC_ENV = "DTPU_SLO_SPEC"           # unset/empty: engine disarmed
+SLO_FAST_WINDOW_ENV = "DTPU_SLO_FAST_S"
+SLO_FAST_WINDOW_DEFAULT = 300.0          # fast burn window (~5m)
+SLO_SLOW_WINDOW_ENV = "DTPU_SLO_SLOW_S"
+SLO_SLOW_WINDOW_DEFAULT = 3600.0         # slow burn window (~1h)
+SLO_RING_MAX = 4096                      # samples kept per tenant window
+AUTOSCALE_SLO_ENV = "DTPU_AUTOSCALE_SLO"  # "1": paid fast burn>1 scales up
+
+# --- multi-tenant admission (workflow/scheduler.py) ---------------------------
+# Untagged traffic rides the highest class, so a single-tenant deployment
+# keeps plain DTPU_MAX_QUEUE backpressure; {"priority": "free"|"batch"}
+# opts into the lower classes.
+TENANT_CLASSES = ("paid", "free", "batch")
+TENANT_DEFAULT_CLASS_ENV = "DTPU_TENANT_DEFAULT_CLASS"
+TENANT_DEFAULT_CLASS = "paid"
+# stride-scheduling dequeue weights: "paid=6,free=3,batch=1"
+TENANT_WEIGHTS_ENV = "DTPU_TENANT_WEIGHTS"
+TENANT_WEIGHTS_DEFAULT = {"paid": 6.0, "free": 3.0, "batch": 1.0}
+# a class is shed (429) once the queued count reaches ceil(bar x max_queue)
+TENANT_SHED_ENV = "DTPU_TENANT_SHED"      # "batch=0.5,free=0.85,paid=1"
+TENANT_SHED_DEFAULT = {"paid": 1.0, "free": 0.85, "batch": 0.5}
+# per-client token buckets: prompts/s and burst; 0/unset = unlimited
+TENANT_RATE_ENV = "DTPU_TENANT_RATE"
+TENANT_BURST_ENV = "DTPU_TENANT_BURST"
+TENANT_BURST_DEFAULT = 10.0
+TENANT_BUCKETS_KEPT = 1024       # LRU bound on per-client bucket state
+# deadline hedging: a request's {"slo_s": N} stamps its distributed jobs
+# with a deadline; a unit silent longer than max(fraction x the budget
+# left, SLO_MIN_WAIT_S) is hedged, with no min-progress gate
+SLO_HEDGE_FRACTION_ENV = "DTPU_SLO_HEDGE_FRACTION"
+SLO_HEDGE_FRACTION_DEFAULT = 0.25
+SLO_MIN_WAIT_S = 0.25
+
+# --- sharded masters (runtime/shard.py) ---------------------------------------
+# N active masters own the prompt-id space on a consistent-hash ring.
+# DTPU_SHARD_ID arms it; DTPU_SHARD_PEERS is "id=url,id=url" (self
+# included); each shard's log is DTPU_SHARD_WAL_ROOT/<id>, and a dead
+# master's shard is absorbed by its ring successor.
+SHARD_ID_ENV = "DTPU_SHARD_ID"
+SHARD_PEERS_ENV = "DTPU_SHARD_PEERS"
+SHARD_WAL_ROOT_ENV = "DTPU_SHARD_WAL_ROOT"
+SHARD_VNODES_ENV = "DTPU_SHARD_VNODES"       # virtual nodes per member
+SHARD_VNODES_DEFAULT = 512
+SHARD_GOSSIP_ENV = "DTPU_SHARD_GOSSIP_S"    # ring-gossip interval
+SHARD_GOSSIP_DEFAULT = 2.0
+# a peer silent on gossip this long reads as down (takeover keys on its
+# master lease, not on this)
+SHARD_PEER_DOWN_ENV = "DTPU_SHARD_PEER_DOWN_S"
+SHARD_PEER_DOWN_DEFAULT = 10.0
+SHARD_TAKEOVER_ENV = "DTPU_SHARD_TAKEOVER"  # "0": watch only, never absorb
+# the shard owning this key is the fleet autoscaler's one actuator
+AUTOSCALE_ACTUATOR_KEY = "dtpu-fleet-autoscale-actuator"
+MASTER_URLS_ENV = "DTPU_MASTER_URLS"   # a worker's masters, comma list
+ROUTER_MASTERS_ENV = "DTPU_ROUTER_MASTERS"  # the router's seed masters
+ROUTER_REFRESH_ENV = "DTPU_ROUTER_REFRESH_S"  # ring re-pull cadence
+ROUTER_REFRESH_DEFAULT = 5.0
+# a /prompt with this header is never forwarded again
+SHARD_FORWARD_HEADER = "x-dtpu-forwarded-from"
 
 # --- critical-path analysis (utils/trace_analysis.py) ------------------------
 ANALYSIS_BASELINE_ENV = "DTPU_ANALYSIS_BASELINE"   # unset/empty: disarmed

@@ -162,6 +162,29 @@ def post_json(url: str, payload: Any, timeout: float = 30.0,
         raise RuntimeError(f"POST {url}: {e.code}: {body[:200]}") from None
 
 
+def request_json(method: str, url: str, payload: Any = None,
+                 timeout: float = 30.0,
+                 headers: Optional[Dict[str, str]] = None
+                 ) -> Tuple[int, Any, Dict[str, str]]:
+    """One JSON request that keeps what an error status carries: (the
+    status, the decoded body or None, the response headers).  A
+    connection error raises."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw, hdrs = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        status, raw, hdrs = e.code, e.read(), dict(e.headers or {})
+    try:
+        body = json.loads(raw) if raw else None
+    except ValueError:
+        body = None
+    return status, body, hdrs
+
+
 def _retry_after_hint(headers) -> Optional[float]:
     raw = (headers or {}).get("Retry-After")
     if raw is None:

@@ -21,8 +21,9 @@ dead, and each distributed job gets a redispatcher on the ledger, so a
 collector can re-issue a dead or straggling participant's units to a
 healthy worker.  A master that resumes a prompt from its write-ahead log
 registers the same redispatchers from the prompt's prepared graph
-(:func:`register_recovery_redispatchers`).  The JAX package's SLO
-deadlines wait for their slice.
+(:func:`register_recovery_redispatchers`).  A request's ``slo_s`` (in
+``extra_data``) stamps its jobs with a deadline on the ledger, which
+hedges on the budget left.
 
 Under the caller's span (the master's ``job`` root) the preflight is a
 ``preflight`` span, each worker's dispatch a ``dispatch`` span whose
@@ -328,6 +329,17 @@ def run_distributed(graph_or_doc: Any, master_url: str,
                 fut.result()
 
     job_id_map = dsp.make_job_id_map(graph)
+    # a request's SLO budget stamps each of its jobs with a deadline: the
+    # ledger's hedging keys on the budget left
+    slo_s = (extra_data or {}).get("slo_s")
+    if ledger is not None and slo_s:
+        try:
+            deadline = time.monotonic() + float(slo_s)
+        except (TypeError, ValueError):
+            deadline = None
+        if deadline is not None:
+            for mj in job_id_map.values():
+                ledger.set_deadline(mj, deadline)
     for nid, mj in job_id_map.items():
         kind = "tile" if graph.nodes[nid].class_type in dsp.UPSCALER_TYPES \
             else "image"

@@ -102,7 +102,7 @@ def test_completed_prompts_not_resumed(tmp_path, wal):
     st = _state(tmp_path)
     pid = st.enqueue_prompt({"1": {"class_type": "NoSuchOp"}}, {}, "c")
     with st._cond:
-        item = st._queue.popleft()
+        item = st._queue.pop(0)
     st._execute(item)    # fails alone, and its end is logged
     assert st._history[pid]["status"] == "error"
     assert dur.replay(wal)[0].counts["exec_done"] == 1
@@ -313,7 +313,11 @@ class DurableCluster:
 
     def post_until_three_tiles_in(self, master, seed):
         """POST the upscale with w1 stalled; the prompt id once the
-        master holds every tile but w1's."""
+        master's log holds every tile but w1's, each with its payload
+        stored.  The ledger (``/distributed/cluster``) marks a unit done
+        before its payload and its check-in record are on disk, so a kill
+        timed by the ledger alone can fall between the two and leave
+        that tile to be refined again."""
         self.states["w1"].fault_inject = {"stall_s": DRILL_S}
         url = self.urls[master]
         resp = net.post_json(url + "/prompt", {
@@ -321,12 +325,14 @@ class DurableCluster:
         assert sorted(resp["workers"]) == ["w0", "w1"], resp
         deadline = time.monotonic() + DRILL_S
         while time.monotonic() < deadline:
-            jobs = net.get_json(url + "/distributed/cluster")["ledger"][
-                "active_jobs"]
-            if any(j["done_units"] >= 3 for j in jobs.values()):
+            replayed, _ = dur.replay(os.environ[C.WAL_DIR_ENV])
+            if any(j["kind"] == "tile" and sum(
+                    1 for u in j["units"].values()
+                    if u["done"] and u["spilled"]) >= 3
+                   for j in replayed.jobs.values()):
                 return resp["prompt_id"]
             time.sleep(0.05)
-        raise AssertionError("the job never reached 3 of 4 tiles")
+        raise AssertionError("the log never held 3 of 4 tiles")
 
     def wait_history(self, name, pid):
         deadline = time.monotonic() + DRILL_S
