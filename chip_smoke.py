@@ -15,7 +15,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ignored ``setmaxnreg``;
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the paths below give them
-   (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, the SDXL refiner's 12 and
+   (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, and at B = 8 and 16 for
+   phase 19's coalesced groups of 4 and of DTPU_MAX_COALESCE's 8, the SDXL refiner's 12 and
    24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
    and at B = 12 and 10 for phase 14's shares, hedges and reassignments,
    at B = 2 for the inpaint requests at 512^2 and 768 x 512 and at B = 3
@@ -206,7 +207,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``DTPU_WAL_DIR`` (fsync always, a ``PHASE16_MASTER_LEASE_S`` lease),
    standby B on the same log (``DTPU_STANDBY=1``), w0, and w1 stalling
    ``PHASE16_STALL_S`` before it sends.  References on A with w1
-   disabled: the upscale (seed 42) cold and twice warm, each within
+   disabled: the upscale (seed 42) cold and once warm (a second warm
+   run was cut to hold the script's time), each within
    ``FANOUT_ATOL["one_batch"]`` of phase 7's image, with A's
    ``wal_spill`` and ``wal_append`` seconds beside phase 8's warm
    upscale, and the inpaint fan-out, equal to phase 14's in-process
@@ -300,10 +302,74 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``phase18`` line: the card, the decisions and the order, the burn
    rates, the hedge's silence, the kill's seconds, the drain's and each
    server's peak memory and sm90 launches.
+19. the JAX package's default dispatch model (coalescing, the overlapped
+   finalize, the reuse plane's three tiers, ``/distributed/warmup``, the
+   preview route), through one ``cli serve`` and the reuse plane on (a
+   ``cli worker`` beside it, enabled only for step 5b), SDXL txt2img at
+   1024^2 and 20 euler/karras steps as a
+   plain graph (``distributed-txt2img.json`` without DistributedSeed and
+   DistributedCollector), virtual weights.  Its in-process references
+   are made where their pipelines are warm: serial runs of the burst's
+   seeds (and of the encode tier's seed with ``DTPU_CACHE=0``) right
+   after phase 5, the tile tier's ``DTPU_CACHE=0`` upscale of the
+   changed source right after phase 7 (their launches are not
+   counted).  The pipelines are released first (it fails unless
+   ``PHASE19_MIN_FREE`` bytes are free).  (1) ``POST
+   /distributed/warmup`` (batch 1, the request's shape) and the first
+   request after it.  (2) An occupier (another prompt text: another
+   signature) starts, then four plain graphs at seeds
+   ``PHASE19_SEEDS`` and a queued PreviewImage graph (a third text) are
+   posted: the four must run as one dispatch, each history entry
+   ``coalesced: 4``, ``coalesced_batches`` up by one, each PNG's
+   ``prompt`` chunk with its own seed and each image within
+   ``FANOUT_ATOL["one_batch"]`` of its serial run; a preview client of
+   the queued graph disconnects and the graph must end ``abandoned``
+   with no launch (two runs in all), while a client of the first of the
+   four gets the terminal event.  (3) A PreviewImage graph twice: the
+   second history entry is the JAX package's cache-hit entry, its job
+   span ``cache_hit``.  (4) The first text at a new seed: both
+   CLIPTextEncode spans ``cache_hit``, the PNG equal to the bit to the
+   ``DTPU_CACHE=0`` in-process run.  (5) The tile tier:
+   ``distributed-upscale.json`` with its ImageScale reading a 512^2
+   source directly (the RRDB's receptive field spans the whole source,
+   so any change there moves every tile) twice on one source: the
+   second run skips all 16 tiles, launches nothing and equals the first
+   to the bit; then one tile's region of the source changes: 15 tiles
+   skipped, tile 5 refined alone (B = 2), the image equal to the bit to
+   an in-process ``DTPU_CACHE=0`` run of the changed source outside
+   tile 5's region and within the one-batch limits inside it.  (5b)
+   The tile tier on the fan-out, the worker enabled (the master hedges
+   nothing, as phase 8's): a third source
+   (step 5's flipped upside down) split between the master and the
+   worker (8 tiles each; none skipped, the worker's 8 received and
+   stored by the master), then its re-run: all 16 tiles skipped (they
+   check in to the ledger as ``cache`` before any work, so the drain
+   ends without the worker's sends), the master launching nothing, the
+   image equal to the first fan-out's to the bit.  (6)
+   ``cli reuse`` shows entries in all three tiers, ``/distributed/
+   metrics`` ``pipeline.overlap`` and ``pipeline.coalesce`` true and the
+   ``reuse`` block, ``metrics.prom`` the ``dtpu_cache_*`` and
+   ``dtpu_preview_*`` families and ``clear_memory`` a
+   ``cache_freed_bytes`` above 0.  Every launch must be sm90 at shapes
+   phase 3 checked; they count in the ``kernels`` line (the servers'
+   prompt lines: a group's head line carries its run's launches; the
+   worker's share of the re-run fails once its uploads find the
+   master's job finished, and its line still counts its launches).  It
+   prints a ``phase19`` line: the card, the warmup's timings, the
+   seconds an image coalesced and serial, the replay's seconds, the
+   tiles skipped, the peak memory and the sm90 launches.
+
+The servers of phases 8 and 14-18 start with ``DTPU_CACHE=0``
+(``RECOMPUTE_ENV``), and phase 8's in-process two-batch upscale runs
+with it too: their checks need each request recomputed (a warm fan-out
+upscale's master would take every tile from the tile tier, so its
+share's launches, its profile and its batches would not be the ones
+checked).  The in-process requests of phases 4-13 run with the plane on
+(the encode memo: a warm request takes its text encodes from it).
 
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after (phase 15's interrupted request and every
-request of phases 16 and 18: their servers' prompt lines).  The line before the last is ``{"kernels":
+request of phases 16, 18 and 19: their servers' prompt lines).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -408,6 +474,11 @@ PLAIN_CHUNK_BYTES = 2 << 30
 # max 13/255 and mean 0.0053 (about half of these limits).
 FANOUT_ATOL = {"same": (2 / 255, 1e-4), "one_batch": (0.1, 0.01)}
 FANOUT_START_S = 180     # a server must answer /prompt within this
+# the servers of phases 8 and 14-18 run with the reuse plane off: their
+# checks need each request recomputed (a warm fan-out upscale's master
+# would take every tile from the tile tier, and its launches and
+# profile would read 0); phase 19's server turns it on
+RECOMPUTE_ENV = {"DTPU_CACHE": "0"}
 # phase 8's master and worker; the master hedges nothing, so each share
 # refines exactly its part of the tiles (phase 14 drills the hedge)
 PHASE8_ROLES = {"serve": ("serve", {"DTPU_HEDGE": "0"}),
@@ -495,7 +566,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# (tag, seconds since the start) of each emitted line: where the run's
+# time goes, printed as the ``timeline`` line before the ``kernels`` line
+_T0 = time.perf_counter()
+TIMELINE = []
+
+
 def emit(tag: str, obj) -> None:
+    TIMELINE.append([tag, round(time.perf_counter() - _T0, 3)])
+    print(f"chip_smoke: {tag} at {TIMELINE[-1][1]} s", file=sys.stderr,
+          flush=True)
     print(json.dumps({tag: obj}), flush=True)
 
 
@@ -981,7 +1061,7 @@ def totals(shapes, by_shape, keys):
 
 def kernels_line(rows, variant_counts, shape_counts):
     """The contract's entries over the launches of phases 5-7, 9-13, 15's
-    interrupted request and 16: one per kernel variant that they
+    interrupted request, 16, 18 and 19: one per kernel variant that they
     launched, each over exactly its shapes."""
     by_shape = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
                 for r in rows if not r.get("named")}
@@ -1082,7 +1162,8 @@ class Cluster:
                  "--input-dir", os.path.join(d, "input"),
                  "--output-dir", os.path.join(d, "output")],
                 cwd=self.cwd, stdout=log, stderr=subprocess.STDOUT,
-                env={**os.environ, **(extra if env is None else env)})
+                env={**os.environ, **RECOMPUTE_ENV,
+                     **(extra if env is None else env)})
 
     def wait_up(self, roles):
         from comfyui_distributed_tpu_torch.utils.net import get_json
@@ -1314,10 +1395,17 @@ def fanout(docs, input_dir, upscale_ref, rows):
         return out
 
     Upscaler._refine_tiles = in_parts
+    # with the plane off: phase 7's tiles at seed 42 are in the tile tier
+    prev = os.environ.get("DTPU_CACHE")
+    os.environ["DTPU_CACHE"] = "0"
     try:
         up_ref = run(copy.deepcopy(docs["upscale"]))
     finally:
         Upscaler._refine_tiles = whole
+        if prev is None:
+            os.environ.pop("DTPU_CACHE", None)
+        else:
+            os.environ["DTPU_CACHE"] = prev
     fa.reset_counts()
     registry.clear_pipeline_cache()
     gc.collect()
@@ -2347,7 +2435,7 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
     ``PHASE16_MASTER_LEASE_S`` lease), a standby B on the same log, and
     workers w0 and w1 (w1 stalling ``PHASE16_STALL_S`` before it sends)
     start as four ``cli`` servers.  References on A with w1 disabled:
-    the upscale cold and twice warm and the inpaint fan-out.  Drill 1:
+    the upscale cold and once warm and the inpaint fan-out.  Drill 1:
     the upscale with w1, A and w1 SIGKILLed once every tile but w1's is
     in; B takes over when the lease expires, resumes the prompt under
     its id, blends the stored tiles and redispatches w1's to w0.  Drill
@@ -2551,7 +2639,9 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
 
             # references on A, w1 disabled: A and w0 a half each
             refs = {}
-            for run in ("cold", "warm", "warm 2"):
+            # cold and once warm (a second warm run was cut to keep the
+            # script inside its time limit)
+            for run in ("cold", "warm"):
                 t1 = time.perf_counter()
                 pid = post("A", up, ["w0"], f"upscale {run}")
                 history("A", pid, f"upscale {run}")
@@ -2581,7 +2671,7 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
                                         if kk != "path"}
                                     if isinstance(v, dict) else v
                                     for k, v in refs.items()}
-            warm = [refs[k] for k in ("upscale warm", "upscale warm 2")]
+            warm = [refs["upscale warm"]]
             report["spill"] = {
                 "warm_upscale_s": [r["seconds"] for r in warm],
                 "wal_spill_s": [r["stage_seconds"]["wal_spill"] for r in warm],
@@ -3993,6 +4083,629 @@ def phase13(docs, input_dir, shape_counts, rows):
     return report, requests
 
 
+# --- phase 19: the default dispatch model ------------------------------------
+
+# phase 19's own server keeps the reuse plane on (every other phase's
+# servers start with it off, RECOMPUTE_ENV); its master hedges nothing,
+# as phase 8's, so step 5b's worker refines exactly its part of the
+# tiles (a cold worker's share would otherwise be hedged on the master)
+PHASE19_ENV = {"DTPU_CACHE": "1"}
+PHASE19_MIN_FREE = 60_000_000_000
+# the coalesced burst: k plain SDXL txt2img prompts behind one occupier
+PHASE19_BURST = 4
+PHASE19_SEEDS = (1001, 1002, 1003, 1004)
+# the tile tier's one changed tile (row 1, column 1 of the 4 x 4 grid)
+PHASE19_DIRTY_TILES = [5]
+# a CPU rehearsal launches no kernel: it sets this False to skip the
+# checks of the changed run's batch
+PHASE19_CHECK_BATCHES = True
+# /history polls while a run goes on: each answer is JSON the handler
+# thread encodes, holding the GIL the execution thread's host-bound
+# sampler needs, so the phase polls at 0.1 s (the replay at 1 ms) and
+# times the runs by their /history timestamps
+PHASE19_POLL_S = 0.1
+
+
+def phase19_tile_geometry(doc):
+    """(source size, output size, tile size, padding, the changed source
+    box) of the tile tier's upscale: a source a quarter of node 16's
+    size (a 4x lanczos upscale, as the RRDB's), and a box inside tile 5's
+    core more than the padding and lanczos' 3-pixel reach (both in
+    source pixels) away from every other tile's window, so only tile 5's
+    window moves."""
+    out = int(doc["16"]["inputs"]["width"])
+    tile = int(doc["2"]["inputs"]["tile_width"])
+    pad = int(doc["2"]["inputs"]["padding"])
+    src, t = out // 4, tile // 4
+    margin = -(-pad // 4) + 3 + 2
+    return src, out, tile, pad, (t + margin, 2 * t - margin)
+
+
+def plain_txt2img(doc, seed, text=None, save=True):
+    """``distributed-txt2img.json`` as a plain graph: DistributedSeed and
+    DistributedCollector taken out, the seed a KSampler widget, SaveImage
+    (or PreviewImage) on the decode; ``text``: another positive prompt
+    (another coalescing signature, the same shapes)."""
+    out = {}
+    for nid, node in copy.deepcopy(doc).items():
+        if not isinstance(node, dict):
+            out[nid] = node
+        elif node["class_type"] not in ("DistributedSeed",
+                                        "DistributedCollector"):
+            out[nid] = node
+    ks = next(n for n in out.values() if isinstance(n, dict)
+              and n["class_type"] == "KSampler")
+    ks["inputs"]["seed"] = int(seed)
+    dec = next(nid for nid, n in out.items() if isinstance(n, dict)
+               and n["class_type"] == "VAEDecode")
+    for n in out.values():
+        if isinstance(n, dict) and n["class_type"] in ("PreviewImage",
+                                                       "SaveImage"):
+            n["class_type"] = "SaveImage" if save else "PreviewImage"
+            n["inputs"] = {"images": [dec, 0]}
+    if text is not None:
+        pos = ks["inputs"]["positive"][0]
+        out[pos]["inputs"]["text"] = text
+    return out
+
+
+def tile_tier_doc(doc, image_name):
+    """``distributed-upscale.json`` with its ImageScale reading the
+    source directly, the RRDB taken out (its receptive field spans the
+    whole 512^2 source, so any change there would move every tile), and
+    SaveImage; the SD1.5 tiled upscaler as the workflow has it."""
+    out = with_save_image(doc)
+    src = next(nid for nid, n in out.items() if isinstance(n, dict)
+               and n["class_type"] == "LoadImage")
+    out[src]["inputs"]["image"] = image_name
+    for nid in [nid for nid, n in out.items() if isinstance(n, dict)
+                and n["class_type"] in ("UpscaleModelLoader",
+                                        "ImageUpscaleWithModel")]:
+        del out[nid]
+    scale = next(n for n in out.values() if isinstance(n, dict)
+                 and n["class_type"] == "ImageScale")
+    scale["inputs"]["image"] = [src, 0]
+    return out
+
+
+def sse_events(url, pid, timeout=FANOUT_REQUEST_S):
+    """The events of ``/distributed/preview/<pid>`` until the stream
+    ends: [(event, data)]."""
+    import urllib.request
+    events = []
+    with urllib.request.urlopen(f"{url}/distributed/preview/{pid}",
+                                timeout=timeout) as r:
+        for block in r.read().decode().split("\n\n"):
+            fields = dict(ln.split(": ", 1) for ln in block.splitlines()
+                          if ln and not ln.startswith(":"))
+            if "event" in fields:
+                events.append((fields["event"], json.loads(fields["data"])))
+    return events
+
+
+def phase19_in_process(doc, cache, input_dir=None):
+    """One in-process run of ``doc`` with the reuse plane on or off ->
+    its image [H, W, 3]."""
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+    prev = os.environ.get("DTPU_CACHE")
+    os.environ["DTPU_CACHE"] = "1" if cache else "0"
+    try:
+        res = WorkflowExecutor(OpContext(
+            device=DEVICE, input_dir=input_dir)).execute(copy.deepcopy(doc))
+    finally:
+        if prev is None:
+            os.environ.pop("DTPU_CACHE", None)
+        else:
+            os.environ["DTPU_CACHE"] = prev
+    torch.cuda.synchronize()
+    return res.image_batch[0]
+
+
+def phase19_sources(doc):
+    """The tile tier's two sources: a smooth image (the upscale's tiles
+    must differ) and the same with one tile's region changed."""
+    import numpy as np
+    size, _, _, _, (lo, hi) = phase19_tile_geometry(doc)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    src = np.stack([0.5 + 0.4 * np.sin(6.0 * xx + 2.0 * yy),
+                    0.5 + 0.4 * np.cos(5.0 * yy - 3.0 * xx),
+                    0.3 + 0.6 * xx * yy], -1).astype(np.float32)
+    changed = src.copy()
+    changed[lo:hi, lo:hi] = np.random.default_rng(19).uniform(
+        size=(hi - lo, hi - lo, 3))
+    return src, changed
+
+
+PHASE19_ENCODE_SEED = 1006
+
+
+def phase19_sdxl_references(docs):
+    """Phase 19's in-process SDXL references, run while phase 5 has the
+    pipeline warm: the burst's seeds one at a time (the plane on) and
+    the encode tier's seed with ``DTPU_CACHE=0``."""
+    txt = docs["txt2img"]
+    refs, seconds = {}, []
+    for s in PHASE19_SEEDS:
+        t0 = time.perf_counter()
+        refs[s] = phase19_in_process(plain_txt2img(txt, s, save=False),
+                                     True)
+        seconds.append(time.perf_counter() - t0)
+    refs["encode"] = phase19_in_process(
+        plain_txt2img(txt, PHASE19_ENCODE_SEED, save=False), False)
+    return refs, seconds
+
+
+def phase19_tile_reference(docs):
+    """Phase 19's in-process tile-tier reference, run while phase 7 has
+    the SD1.5 pipeline warm: the changed source's upscale with
+    ``DTPU_CACHE=0`` (every tile refined in one batch)."""
+    from comfyui_distributed_tpu_torch.utils.image import save_png
+    _, changed = phase19_sources(docs["upscale"])
+    with tempfile.TemporaryDirectory() as d:
+        save_png(os.path.join(d, "tile_b.png"), changed)
+        return phase19_in_process(tile_tier_doc(docs["upscale"],
+                                                "tile_b.png"), False,
+                                  input_dir=d)
+
+
+def default_dispatch(docs, rows, refs):
+    """Phase 19: the JAX package's default dispatch model through ``cli
+    serve`` (SDXL at 1024^2 at full width and depth, virtual weights;
+    a ``cli worker`` enabled only for the fan-out's tile tier): warmup,
+    a coalesced burst, the three reuse tiers, the tile tier on the
+    fan-out, the preview route and the surfaces.  ``refs``: the in-process images
+    (``phase19_sdxl_references``' and, under ``"tiles"``,
+    ``phase19_tile_reference``'s) and seconds.  Returns the report and
+    the launches of its server's prompt lines."""
+    import gc
+    import socket
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops import tiling
+    from comfyui_distributed_tpu_torch.utils.image import (
+        decode_png,
+        save_png,
+    )
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"])
+               for r in rows if not r.get("named")}
+    txt = docs["txt2img"]
+    base_text = next(n["inputs"]["text"] for n in txt.values()
+                     if isinstance(n, dict)
+                     and n["class_type"] == "CLIPTextEncode")
+    report = {"card": card_line()}
+    serial_refs, encode_ref = refs["sdxl"], refs["sdxl"]["encode"]
+    serial_s = refs["serial_s"]
+    encode_seed = PHASE19_ENCODE_SEED
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    if free < PHASE19_MIN_FREE:
+        fail(f"phase 19 needs {PHASE19_MIN_FREE} bytes free, {free} are")
+    launches = {"variants": collections.Counter(),
+                "shapes": collections.Counter()}
+    _, out_size, tile, pad, _ = phase19_tile_geometry(docs["upscale"])
+    src, changed = phase19_sources(docs["upscale"])
+    with tempfile.TemporaryDirectory() as root:
+        cluster = Cluster(root, {"serve": ("serve", {**PHASE19_ENV,
+                                                     "DTPU_HEDGE": "0"}),
+                                 "worker": ("worker", PHASE19_ENV)})
+        url = cluster.url("serve")
+        for role in cluster.roles:
+            for name, img in (("tile_a.png", src), ("tile_b.png", changed),
+                              ("tile_c.png", np.ascontiguousarray(
+                                  src[::-1]))):
+                save_png(os.path.join(cluster.dirs[role], "input", name),
+                         img)
+        out_dir = os.path.join(cluster.dirs["serve"], "output")
+
+        def post(doc, client="chip_smoke"):
+            return post_json(url + "/prompt", {"prompt": doc,
+                                               "client_id": client})[
+                "prompt_id"]
+
+        def history(pids, poll_s=PHASE19_POLL_S):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                hist = get_json(url + "/history")
+                if all(p in hist for p in pids):
+                    return {p: hist[p] for p in pids}
+                if time.time() > deadline:
+                    cluster.fail(f"phase 19: no history for {pids}")
+                time.sleep(poll_s)
+
+        def counters():
+            return get_json(url + "/distributed/metrics")["pipeline"][
+                "counters"]
+
+        def lines_of(pids):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                got = {ln["prompt_id"]: ln
+                       for ln in cluster.prompt_lines("serve")
+                       if ln["prompt_id"] in pids}
+                if len(got) == len(pids):
+                    return got
+                if time.time() > deadline:
+                    cluster.fail(f"phase 19: no prompt line for {pids}")
+                time.sleep(0.05)
+
+        def files_since(before):
+            return sorted(set(os.listdir(out_dir)) - before) \
+                if os.path.isdir(out_dir) else []
+
+        def outputs():
+            return set(os.listdir(out_dir)) if os.path.isdir(out_dir) \
+                else set()
+
+        try:
+            t0 = time.perf_counter()
+            cluster.start()
+            report["server_start_s"] = time.perf_counter() - t0
+            # 1. warmup
+            t0 = time.perf_counter()
+            # the request's own shape: its latent size and sampler
+            lat = next(n["inputs"] for n in txt.values()
+                       if isinstance(n, dict)
+                       and n["class_type"] == "EmptyLatentImage")
+            ks = next(n["inputs"] for n in txt.values()
+                      if isinstance(n, dict)
+                      and n["class_type"] == "KSampler")
+            body = post_json(url + "/distributed/warmup", {
+                "ckpt_name": txt["4"]["inputs"]["ckpt_name"],
+                "width": lat["width"], "height": lat["height"], "batch": 1,
+                **{k: ks[k] for k in ("steps", "cfg", "sampler_name",
+                                      "scheduler")}}, timeout=600)
+            report["warmup"] = {"post_s": time.perf_counter() - t0,
+                                "timings": body["timings"]}
+            if set(body["timings"]) != {"clip_s", "sample_s", "vae_s",
+                                        "total_s"}:
+                cluster.fail(f"phase 19: warmup answered {body}")
+            t0 = time.perf_counter()
+            first = post(plain_txt2img(txt, 1000))
+            h = history([first])[first]
+            report["first_request_s"] = {
+                "post_to_history": time.perf_counter() - t0,
+                "run": h["finished_at"] - h["started_at"]}
+            # 2. coalescing: an occupier (another signature), the burst
+            # of 4 behind it, and a queued prompt whose preview client
+            # leaves (another signature again)
+            c0 = counters()
+            before = outputs()
+            occupier = post(plain_txt2img(txt, 1000,
+                                          text=base_text + ", occupier"))
+            deadline = time.time() + FANOUT_REQUEST_S
+            while counters().get("exec_runs", 0) \
+                    <= c0.get("exec_runs", 0):
+                if time.time() > deadline:
+                    cluster.fail("phase 19: the occupier never started")
+                time.sleep(0.02)
+            burst = [post(plain_txt2img(txt, s)) for s in PHASE19_SEEDS]
+            victim = post(plain_txt2img(txt, 1007, text=base_text
+                                        + ", abandoned", save=False))
+            watched = {}
+            watcher = threading.Thread(
+                target=lambda: watched.update(
+                    events=sse_events(url, burst[0])), daemon=True)
+            watcher.start()
+            with socket.create_connection(("127.0.0.1",
+                                           cluster.ports["serve"]),
+                                          timeout=30) as sock:
+                sock.sendall(f"GET /distributed/preview/{victim} "
+                             f"HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+                head = sock.recv(4096)
+            if b" 200 " not in head.split(b"\r\n", 1)[0]:
+                cluster.fail(f"phase 19: preview answered {head[:80]!r}")
+            hist = history([occupier, *burst, victim])
+            watcher.join(FANOUT_REQUEST_S)
+            c1 = counters()
+            group = [hist[p] for p in burst]
+            if any(h.get("status") != "success"
+                   or h.get("coalesced") != PHASE19_BURST for h in group):
+                cluster.fail(f"phase 19: the burst's history {group}")
+            if c1.get("coalesced_batches", 0) \
+                    - c0.get("coalesced_batches", 0) != 1:
+                cluster.fail("phase 19: coalesced_batches did not rise "
+                             "by 1")
+            if hist[victim]["status"] != "abandoned" \
+                    or c1.get("exec_runs", 0) - c0.get("exec_runs", 0) != 2:
+                cluster.fail(f"phase 19: the abandoned prompt "
+                             f"{hist[victim]}, exec runs "
+                             f"{c1.get('exec_runs', 0) - c0.get('exec_runs', 0)}")
+            ev = watched.get("events") or []
+            if not ev or ev[-1][0] != "done" \
+                    or ev[-1][1].get("status") not in ("ok", "success"):
+                cluster.fail(f"phase 19: the running prompt's stream "
+                             f"{ev[-3:]}")
+            lines = lines_of([first, occupier, *burst, victim])
+            if lines[victim]["launches"].get("sm90", 0) != 0:
+                cluster.fail("phase 19: the abandoned prompt launched")
+            # each saved PNG: its own seed, its serial run's image
+            files = files_since(before)
+            if len(files) != 1 + PHASE19_BURST:
+                cluster.fail(f"phase 19: {len(files)} files saved")
+            by_seed = {}
+            for f in files:
+                path = os.path.join(out_dir, f)
+                prompt = json.loads(dict(png_text_chunks(path))["prompt"])
+                seed = next(n["inputs"]["seed"] for n in prompt.values()
+                            if n["class_type"] == "KSampler")
+                by_seed.setdefault(seed, []).append(path)
+            if sorted(by_seed) != sorted((1000, *PHASE19_SEEDS)) \
+                    or any(len(v) != 1 for v in by_seed.values()):
+                cluster.fail(f"phase 19: the PNGs' seeds {by_seed}")
+            diffs = {}
+            for s in PHASE19_SEEDS:
+                diffs[s] = image_diff(by_seed[s][0], serial_refs[s])
+                lim = FANOUT_ATOL["one_batch"]
+                if diffs[s][0] > lim[0] or diffs[s][1] > lim[1]:
+                    cluster.fail(f"phase 19: seed {s}'s coalesced image "
+                                 f"differs {diffs[s]} from its serial run")
+            t_group = max(h["finished_at"] for h in group) \
+                - group[0]["started_at"]
+            serial_server = [hist[occupier]["finished_at"]
+                             - hist[occupier]["started_at"]]
+            report["coalesce"] = {
+                "group_s": t_group,
+                "coalesced_s_per_image": t_group / PHASE19_BURST,
+                "serial_s_per_image_server": serial_server,
+                "serial_s_per_image_in_process": serial_s,
+                "max_mean_diff": {str(s): d for s, d in diffs.items()},
+                "head_launches": lines[burst[0]]["launches"],
+                "node_seconds": {
+                    "serial": lines[occupier].get("node_seconds"),
+                    "group": lines[burst[0]].get("node_seconds")},
+                "max_memory_allocated": lines[burst[0]][
+                    "max_memory_allocated"]}
+            # 3. the result tier: a PreviewImage graph twice
+            replay_doc = plain_txt2img(txt, 1005, save=False)
+            r1 = post(replay_doc)
+            history([r1])
+            t0 = time.perf_counter()
+            r2 = post(replay_doc)
+            entry = history([r2], poll_s=0.001)[r2]
+            replay_s = time.perf_counter() - t0
+            if set(entry) != {"status", "images", "duration_s",
+                              "cache_hit", "finished_at"} \
+                    or entry["cache_hit"] is not True \
+                    or entry["status"] != "success" or entry["images"] != 1:
+                cluster.fail(f"phase 19: the replay's history {entry}")
+            root_attrs = next(
+                s["attrs"] for s in get_json(
+                    f"{url}/distributed/trace/{r2}")["spans"]
+                if s["name"] == "job")
+            if root_attrs.get("cache_hit") is not True:
+                cluster.fail(f"phase 19: the replay's span {root_attrs}")
+            report["replay_s"] = replay_s
+            # 4. the encode tier: the same text, a new seed
+            before = outputs()
+            e1 = post(plain_txt2img(txt, encode_seed))
+            history([e1])
+            enc = [s for s in get_json(
+                f"{url}/distributed/trace/{e1}")["spans"]
+                if s["name"] == "CLIPTextEncode"]
+            if len(enc) != 2 or not all(s["attrs"].get("cache_hit")
+                                        for s in enc):
+                cluster.fail(f"phase 19: the encode spans "
+                             f"{[s['attrs'] for s in enc]}")
+            (png,) = files_since(before)
+            enc_diff = image_diff(os.path.join(out_dir, png), encode_ref)
+            if enc_diff != (0.0, 0.0):
+                cluster.fail(f"phase 19: the memoised encode's image "
+                             f"differs {enc_diff} from DTPU_CACHE=0's")
+            # 5. the tile tier: one source twice, then one tile changed
+            tiles_before = counters().get("tiles_skipped", 0)
+            before = outputs()
+            up_a = tile_tier_doc(docs["upscale"], "tile_a.png")
+            u1 = post(up_a)
+            history([u1])
+            u2 = post(copy.deepcopy(up_a))
+            history([u2])
+            skipped = counters().get("tiles_skipped", 0) - tiles_before
+            u3 = post(tile_tier_doc(docs["upscale"], "tile_b.png"))
+            history([u3])
+            skipped_all = counters().get("tiles_skipped", 0) - tiles_before
+            up_lines = lines_of([u1, u2, u3])
+            saved = files_since(before)
+            if len(saved) != 3:
+                cluster.fail(f"phase 19: {len(saved)} upscale files")
+            pngs = {}
+            for pid, f in zip((u1, u2, u3), saved):
+                with open(os.path.join(out_dir, f), "rb") as fh:
+                    pngs[pid] = decode_png(fh.read())[0]
+            n_tiles = len(tiling.calculate_tiles(out_size, out_size, tile,
+                                                 tile))
+            if skipped != n_tiles or not np.array_equal(pngs[u1], pngs[u2]):
+                cluster.fail(f"phase 19: the re-run skipped {skipped} "
+                             f"tiles; equal "
+                             f"{np.array_equal(pngs[u1], pngs[u2])}")
+            if skipped_all - skipped != n_tiles - len(PHASE19_DIRTY_TILES):
+                cluster.fail(f"phase 19: the changed source skipped "
+                             f"{skipped_all - skipped} tiles")
+            dirty_b = sorted({s[0] for s in up_lines[u3][
+                "launches_by_shape"]})
+            if PHASE19_CHECK_BATCHES and (
+                    dirty_b != [2 * len(PHASE19_DIRTY_TILES)]
+                    or up_lines[u2]["launches"].get("sm90", 0) != 0):
+                cluster.fail(f"phase 19: the changed run's batches "
+                             f"{dirty_b}, the re-run's launches "
+                             f"{up_lines[u2]['launches']}")
+            # 5b. the tile tier on the fan-out: a fresh source split
+            # with the worker, then its re-run from the tile tier
+            post_json(url + "/distributed/config/update_worker",
+                      {"id": "w0", "name": "w0",
+                       "port": cluster.ports["worker"], "enabled": True})
+            before = outputs()
+            up_c = tile_tier_doc(docs["upscale"], "tile_c.png")
+            fan = {}
+            for run in ("cold", "rerun"):
+                m0 = get_json(url + "/distributed/metrics")
+                t0 = time.perf_counter()
+                resp = post_json(url + "/prompt",
+                                 {"prompt": copy.deepcopy(up_c),
+                                  "client_id": "chip_smoke"})
+                if resp.get("workers") != ["w0"]:
+                    cluster.fail(f"phase 19: the fan-out upscale did not "
+                                 f"fan out: {resp}")
+                pid = resp["prompt_id"]
+                entry = history([pid])[pid]
+                seconds = time.perf_counter() - t0
+                m1 = get_json(url + "/distributed/metrics")
+                if entry.get("status") != "success":
+                    cluster.fail(f"phase 19: the fan-out upscale's "
+                                 f"{run} history {entry}")
+                fan[run] = {
+                    "pid": pid, "seconds": seconds,
+                    "tiles_skipped": m1["pipeline"]["counters"].get(
+                        "tiles_skipped", 0) - m0["pipeline"]["counters"].get(
+                        "tiles_skipped", 0),
+                    "tiles_received": m1["tiles_received"]
+                    - m0["tiles_received"]}
+            fan_lines = lines_of([fan["cold"]["pid"], fan["rerun"]["pid"]])
+            saved = files_since(before)
+            if len(saved) != 2:
+                cluster.fail(f"phase 19: {len(saved)} fan-out files")
+            fan_pngs = []
+            for f in saved:
+                with open(os.path.join(out_dir, f), "rb") as fh:
+                    fan_pngs.append(decode_png(fh.read())[0])
+            worker_part = len(tiling.partition_tiles(n_tiles, 1)[1])
+            if fan["cold"]["tiles_skipped"] != 0 \
+                    or fan["cold"]["tiles_received"] != worker_part \
+                    or fan["rerun"]["tiles_skipped"] != n_tiles \
+                    or not np.array_equal(fan_pngs[0], fan_pngs[1]) \
+                    or np.array_equal(fan_pngs[0], pngs[u1]):
+                cluster.fail(f"phase 19: the fan-out's tile tier {fan}, "
+                             f"equal "
+                             f"{np.array_equal(fan_pngs[0], fan_pngs[1])}")
+            if PHASE19_CHECK_BATCHES and fan_lines[fan["rerun"]["pid"]][
+                    "launches"].get("sm90", 0) != 0:
+                cluster.fail(f"phase 19: the fan-out re-run's master "
+                             f"launched {fan_lines[fan['rerun']['pid']]}")
+            # 6. surfaces
+            import contextlib
+            import io
+
+            from comfyui_distributed_tpu_torch import cli
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["reuse", "--url", url])
+            tiers = {ln.split()[0]: int(ln.split()[1])
+                     for ln in out.getvalue().splitlines()
+                     if ln.split()[:1] in (["result"], ["embed"], ["tile"])}
+            if rc != 0 or len(tiers) != 3 or not all(tiers.values()):
+                cluster.fail(f"phase 19: cli reuse: {out.getvalue()}")
+            m = get_json(url + "/distributed/metrics")
+            if m["pipeline"].get("overlap") is not True \
+                    or m["pipeline"].get("coalesce") is not True \
+                    or "reuse" not in m:
+                cluster.fail(f"phase 19: metrics pipeline "
+                             f"{m['pipeline'].get('overlap')} "
+                             f"{m['pipeline'].get('coalesce')}")
+            prom = urllib_text(url + "/distributed/metrics.prom")
+            fams = [f for f in ("dtpu_cache_hits_total",
+                                "dtpu_cache_misses_total",
+                                "dtpu_cache_evictions_total",
+                                "dtpu_cache_bytes",
+                                "dtpu_cache_replays_total",
+                                "dtpu_cache_tiles_skipped_total",
+                                "dtpu_preview_clients",
+                                "dtpu_preview_events_total",
+                                "dtpu_jobs_abandoned_total")
+                    if f"# TYPE {f} " not in prom]
+            if fams:
+                cluster.fail(f"phase 19: metrics.prom lacks {fams}")
+            parse_prom(prom, "phase 19 metrics.prom")
+            cleared = post_json(url + "/distributed/clear_memory", {})
+            if not cleared.get("cache_freed_bytes", 0) > 0:
+                cluster.fail(f"phase 19: clear_memory {cleared}")
+            report["reuse"] = {"tiers": tiers,
+                               "snapshot": m["reuse"],
+                               "cache_freed_bytes":
+                                   cleared["cache_freed_bytes"],
+                               "freed_bytes": cleared["freed_bytes"]}
+            all_lines = lines_of([first, occupier, *burst, victim, r1, e1,
+                                  u1, u2, u3, fan["cold"]["pid"],
+                                  fan["rerun"]["pid"]])
+            # the worker's two shares: the re-run's line follows its
+            # uploads' retries against the finished job
+            deadline = time.time() + FANOUT_REQUEST_S
+            while len(cluster.prompt_lines("worker")) < 2:
+                if time.time() > deadline:
+                    cluster.fail("phase 19: the worker's shares left no "
+                                 "prompt line")
+                time.sleep(0.1)
+            worker_lines = cluster.prompt_lines("worker")
+        finally:
+            cluster.stop()
+    for ln in [*all_lines.values(), *worker_lines]:
+        for v, n in ln["launches"].items():
+            if n:
+                launches["variants"][v] += n
+        for *shape, n in ln["launches_by_shape"]:
+            launches["shapes"][tuple(shape)] += n
+    if set(launches["variants"]) - {"sm90"}:
+        fail(f"phase 19: launched {dict(launches['variants'])}")
+    unchecked = [s for s in launches["shapes"] if s not in checked]
+    if unchecked:
+        fail(f"phase 19: shapes phase 3 did not check: {unchecked}")
+    # the changed source in process with the plane off: the clean tiles
+    # to the bit, the dirty one (refined at B = 2, not 32) within the
+    # one-batch limits
+    from comfyui_distributed_tpu_torch.utils.image import to_uint8
+    want = to_uint8(refs["tiles"]).astype(np.float32) / 255.0
+    got = pngs[u3]
+    tiles = tiling.calculate_tiles(out_size, out_size, tile, tile)
+    outside = np.ones(got.shape[:2], bool)
+    for i in PHASE19_DIRTY_TILES:
+        x1, y1, x2, y2 = tiling.extraction_region(
+            *tiles[i], tile, tile, pad, out_size, out_size)
+        outside[y1:y2, x1:x2] = False
+    d = np.abs(got - want)
+    tile_diff = {"outside_max": float(d[outside].max()),
+                 "inside_max": float(d[~outside].max()),
+                 "inside_mean": float(d[~outside].mean()),
+                 "equal_to_the_bit": bool(d.max() == 0.0)}
+    lim = FANOUT_ATOL["one_batch"]
+    if tile_diff["outside_max"] != 0.0 or tile_diff["inside_max"] > lim[0] \
+            or tile_diff["inside_mean"] > lim[1]:
+        fail(f"phase 19: the changed upscale against DTPU_CACHE=0: "
+             f"{tile_diff}")
+    report["tiles"] = {"skipped_rerun": skipped,
+                       "skipped_changed": skipped_all - skipped,
+                       "dirty": PHASE19_DIRTY_TILES,
+                       "changed_run_batches": dirty_b,
+                       "against_cache_off": tile_diff,
+                       "seconds": {k: all_lines[p]["seconds"] for k, p in
+                                   (("cold", u1), ("rerun", u2),
+                                    ("changed", u3))}}
+    report["fanout_tiles"] = {
+        run: {k: v for k, v in f.items() if k != "pid"}
+        for run, f in fan.items()}
+    report["fanout_tiles"]["worker_shares"] = [
+        {"status": ln["status"], "seconds": ln["seconds"],
+         "launches": ln["launches"]} for ln in worker_lines]
+    report["sm90_launches"] = launches["variants"].get("sm90", 0)
+    report["peak_memory"] = max(ln["max_memory_allocated"] or 0
+                                for ln in all_lines.values())
+    report["encode_tier_diff"] = enc_diff
+    return report, launches
+
+
+def urllib_text(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
 def main() -> int:
     try:
         import torch
@@ -4028,6 +4741,13 @@ def main() -> int:
         (2, 1024, 1024, 20, 64, bf, "SDXL self 32x32 latent"),
         (2, 4096, 77, 10, 64, bf, "SDXL cross 64x64 latent"),
         (2, 1024, 77, 20, 64, bf, "SDXL cross 32x32 latent"),
+        # phase 19: k coalesced SDXL prompts at B = 2k, k = 4 (its burst)
+        # and 8 (DTPU_MAX_COALESCE's default)
+        *[(b, n, m, h, 64, bf, f"SDXL coalesced B = {b} {kind}")
+          for b in (8, 16)
+          for n, m, h, kind in (
+              (4096, 4096, 10, "self 64x64"), (1024, 1024, 20, "self 32x32"),
+              (4096, 77, 10, "cross 64x64"), (1024, 77, 20, "cross 32x32"))],
         # phase 11: the SDXL refiner at 1024^2 (12 heads at 768 channels,
         # 24 at 1536) and SDXL's hires-fix at 832^2 and 1216^2
         (2, 4096, 4096, 12, 64, bf, "refiner self 64x64 latent"),
@@ -4162,11 +4882,15 @@ def main() -> int:
         shape_counts = collections.Counter()
         requests = run_requests("txt2img", docs["txt2img"], SEEDS,
                                 input_dir, shape_counts)
+        # phase 19's in-process references while SDXL, then SD1.5, is
+        # warm here (its own launches are not counted)
+        p19_refs, p19_serial_s = phase19_sdxl_references(docs)
         requests += run_requests("img2img", docs["img2img"], SEEDS[:1],
                                  input_dir, shape_counts)
         upscaled = {}
         requests += run_requests("upscale", docs["upscale"], (42, 43),
                                  input_dir, shape_counts, upscaled)
+        p19_tiles = phase19_tile_reference(docs)
         emit("workflow", {"requests": requests,
                           "seconds": [r["seconds"] for r in requests],
                           "launches_per_request": [r["launches"]
@@ -4221,6 +4945,13 @@ def main() -> int:
         shape_counts.update(sharded["shapes"])
         requests.append(sharded)
         emit("phase18", report18)
+    report19, dispatched = default_dispatch(
+        docs, rows, {"sdxl": p19_refs, "serial_s": p19_serial_s,
+                     "tiles": p19_tiles})
+    shape_counts.update(dispatched["shapes"])
+    requests.append(dispatched)
+    emit("phase19", report19)
+    emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:
         variant_counts.update(r["variants"])

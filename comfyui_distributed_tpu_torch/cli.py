@@ -13,6 +13,7 @@
   python -m comfyui_distributed_tpu_torch.cli router --masters URL,URL \
       [--host H] [--port 8290]
   python -m comfyui_distributed_tpu_torch.cli slo [--url URL] [--json]
+  python -m comfyui_distributed_tpu_torch.cli reuse [--url URL] [--json]
   python -m comfyui_distributed_tpu_torch.cli devices
   python -m comfyui_distributed_tpu_torch.cli wal [--dir D] [--job S] [--json]
   python -m comfyui_distributed_tpu_torch.cli trace [PROMPT_ID] \\
@@ -47,6 +48,15 @@ absorbs a dead peer's shard.  A worker with ``DTPU_MASTER_URLS`` (a
 comma list) heartbeats every master.  Admission (``DTPU_MAX_QUEUE``,
 ``DTPU_TENANT_*``), the SLO spec (``DTPU_SLO_SPEC``) and the drain
 (``DTPU_DRAIN_TIMEOUT_S``, on SIGINT or SIGTERM) apply to both roles.
+The dispatch model is the JAX package's default: coalesced groups of
+signature-equal plain graphs (``DTPU_COALESCE``, ``DTPU_MAX_COALESCE``),
+the finalize overlapped with the next group (``DTPU_OVERLAP``,
+``DTPU_HOSTIO_THREADS``, ``DTPU_HOSTIO_PENDING``), the reuse plane's
+three tiers (``DTPU_CACHE``, ``DTPU_CACHE_BYTES``,
+``DTPU_CACHE_DEVICE_BYTES``, ``DTPU_CACHE_TILE_BYTES``,
+``DTPU_CACHE_ENTRIES``), the preview route (``DTPU_PREVIEW``,
+``DTPU_PREVIEW_MAX_CLIENTS``) and a startup warmup (``DTPU_WARMUP``, a
+JSON body of ``POST /distributed/warmup``).
 
 ``router`` runs the stateless admission router over the masters
 (``--masters`` or ``DTPU_ROUTER_MASTERS``): each ``/prompt`` goes to the
@@ -55,6 +65,10 @@ shard that owns its id, a 429's ``Retry-After`` is relayed, and
 metrics`` are merged over the shards.  It imports no torch and opens no
 card.  ``slo`` prints a server's burn rates (``GET /distributed/slo``):
 each class's objectives, its fast and slow windows and the budget left.
+``reuse`` prints the reuse plane of a server's ``GET
+/distributed/metrics``: each tier's entries, bytes against its budget,
+hits, misses and evictions, the replays and abandonments and the
+preview channel's clients.
 
 ``run`` executes an API-format workflow in this process, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -370,6 +384,40 @@ def cmd_slo(args) -> int:
             print(f"    {wname:4s} n={w['count']:4d} "
                   f"ok={w['ok_ratio']:.3f} p95={w['p95_s']:.3f}s "
                   f"burn={w['burn_rate']:.2f}{flag}")
+    return 0
+
+
+def cmd_reuse(args) -> int:
+    """The reuse plane's tiers, replays and preview channel, as the JAX
+    package's ``cli reuse`` prints them."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    data = get_json(f"{args.url}/distributed/metrics", timeout=10)
+    reuse = data.get("reuse") or {}
+    if args.json:
+        print(json.dumps(reuse, indent=2))
+        return 0
+    if not reuse:
+        print("(no reuse block reported — older server?)")
+        return 1
+    print(f"reuse plane: enabled={reuse.get('enabled')} "
+          f"total={reuse.get('bytes_total', 0) / 1e6:.1f}MB "
+          f"generation={reuse.get('generation', 0)}")
+    print(f"{'tier':8s} {'entries':>7s} {'mb':>9s} {'budget_mb':>9s} "
+          f"{'hits':>7s} {'misses':>7s} {'evict':>6s}")
+    for tier in ("result", "embed", "tile"):
+        t = reuse.get(tier) or {}
+        print(f"{tier:8s} {t.get('entries', 0):>7d} "
+              f"{t.get('bytes', 0) / 1e6:>9.1f} "
+              f"{t.get('max_bytes', 0) / 1e6:>9.1f} "
+              f"{t.get('hits', 0):>7d} {t.get('misses', 0):>7d} "
+              f"{t.get('evictions', 0):>6d}")
+    print(f"replays={data.get('prompts_replayed', 0)} "
+          f"abandoned={data.get('prompts_abandoned', 0)}")
+    pv = reuse.get("previews") or {}
+    print(f"previews: enabled={pv.get('enabled')} "
+          f"clients={pv.get('clients', 0)} "
+          f"watched={pv.get('watched_prompts', 0)} "
+          f"abandon_pending={pv.get('abandoned_pending', 0)}")
     return 0
 
 
@@ -798,6 +846,15 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--json", action="store_true",
                     help="the raw /distributed/slo body")
     so.set_defaults(fn=cmd_slo)
+
+    ru = sub.add_parser("reuse", help="cross-request reuse status: "
+                                      "per-tier cache counters and "
+                                      "residency, exact-hit replays, "
+                                      "preview clients")
+    ru.add_argument("--url", default="http://127.0.0.1:8288")
+    ru.add_argument("--json", action="store_true",
+                    help="the raw reuse block")
+    ru.set_defaults(fn=cmd_reuse)
 
     wl = sub.add_parser("wal", help="verify a write-ahead log: segments, "
                                     "checksums, lease, records, replay")

@@ -19,6 +19,7 @@ import hashlib
 import itertools
 import os
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ from comfyui_distributed_tpu_torch.models.samplers import (
 )
 from comfyui_distributed_tpu_torch.models.tokenizer import make_tokenizer
 from comfyui_distributed_tpu_torch.models.weights import fill_virtual
+from comfyui_distributed_tpu_torch.utils.log import log
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,6 +367,63 @@ class DiffusionPipeline:
         if noise_mask is not None:
             out = out * m + src * (1.0 - m)
         return out
+
+    def warmup(self, height: int = 512, width: int = 512, batch: int = 1,
+               steps: int = 20, cfg: float = 7.5,
+               sampler_name: str = "euler", scheduler: str = "normal",
+               denoise: float = 1.0, with_vae: bool = True
+               ) -> Dict[str, float]:
+        """Run one txt2img-shaped request on zeros: the CLIP encode of
+        an empty prompt, ``steps`` sampler steps over a ``batch`` x
+        ``height // 8`` x ``width // 8`` latent and (``with_vae``) its
+        VAE decode, each synchronized.  There is no jit to warm: on a
+        card this builds the attention kernels at their first use,
+        loads cuBLAS and cuDNN and settles the caching allocator at the
+        request's shapes, so the first real request pays none of it.
+        Returns ``clip_s``, ``sample_s``, ``vae_s`` (with the VAE) and
+        ``total_s``, wall seconds."""
+        from comfyui_distributed_tpu_torch.ops.base import Conditioning
+        from comfyui_distributed_tpu_torch.ops.basic import _sdxl_vector_cond
+
+        def sync() -> None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        timings: Dict[str, float] = {}
+        t_all = time.perf_counter()
+        t0 = time.perf_counter()
+        ctx1, pooled = self.encode_prompt([""])
+        sync()
+        timings["clip_s"] = time.perf_counter() - t0
+        batch = max(int(batch), 1)
+        lh, lw = max(int(height) // 8, 1), max(int(width) // 8, 1)
+        context = ctx1.repeat(batch, 1, 1)
+        y = None
+        if self.family.unet.adm_in_channels is not None:
+            y = _sdxl_vector_cond(
+                self, Conditioning(context=ctx1, pooled=pooled), batch,
+                lh * 8, lw * 8)
+        lat = torch.zeros((batch, lh, lw, self.family.latent_channels),
+                          dtype=torch.float32, device=self.device)
+        t0 = time.perf_counter()
+        out = self.sample(lat, context, context,
+                          np.zeros((batch,), np.uint64), steps=int(steps),
+                          cfg=float(cfg), sampler_name=str(sampler_name),
+                          scheduler=str(scheduler), denoise=float(denoise),
+                          y=y)
+        sync()
+        timings["sample_s"] = time.perf_counter() - t0
+        if with_vae:
+            t0 = time.perf_counter()
+            self.vae_decode(out)
+            sync()
+            timings["vae_s"] = time.perf_counter() - t0
+        timings["total_s"] = time.perf_counter() - t_all
+        log(f"warmup {self.name}: {batch}x{width}x{height} "
+            f"{sampler_name}x{steps} in {timings['total_s']:.2f}s "
+            f"(clip {timings['clip_s']:.2f}s, "
+            f"sample {timings['sample_s']:.2f}s)")
+        return timings
 
 
 def _entries(context, dev) -> List[Tuple]:

@@ -11,6 +11,13 @@ around a torch tensor on the run's device; the only host edge is
 :func:`as_image_array` of a device value) report their bytes through
 ``utils.trace.record_transfer``, attributed to the executing node, as
 the JAX package's do (``d2h`` and ``h2d``; on a card real copies).
+
+An output node collects its images through :meth:`OpContext.collect_images`:
+inline, or with a host pool (the server's overlapped finalize) on the
+pool, so one job's PNG encodes run while the next job's kernels do.  The
+copy to the host stays on the execution thread, and the pool gets the
+numpy array: a copy issued from a pool thread would instead queue behind
+the next job's kernels on the default stream.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +83,9 @@ class SeedValue:
     adds its offset."""
     base: int
     distributed: bool = False
+    # the coalescing scheduler's seeds, one a merged prompt:
+    # _prepare_sample_inputs repeats each over its prompt's rows
+    per_prompt: Any = None
 
     def __index__(self) -> int:
         return int(self.base)
@@ -87,6 +97,14 @@ class OpContext:
     the run lives: ``cuda`` unless the caller asks for ``cpu``."""
     device: str = "cuda"
     models_dir: Optional[str] = None
+    # signature-equal prompts merged into this run by the coalescing
+    # scheduler; EmptyLatentImage multiplies its batch by it
+    coalesce: int = 1
+    # the overlapped finalize (utils.net.HostIOPool): when set, output
+    # nodes' host work (the copy's wait, PNG encodes, disk writes) runs
+    # on the pool and lands in image_futures instead of saved_images
+    host_pool: Any = None
+    image_futures: List[Any] = dataclasses.field(default_factory=list)
     # where LoadImage resolves relative file names
     input_dir: Optional[str] = None
     output_dir: Optional[str] = None
@@ -112,6 +130,13 @@ class OpContext:
     # stores each in a text chunk of its PNGs
     prompt_json: Any = None
     extra_pnginfo: Optional[Dict[str, Any]] = None
+    # the run's hidden overrides (``WorkflowExecutor.execute(hidden=)``):
+    # SaveImage writes each merged prompt's own seed from them
+    hidden_overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
+    # the executing node's input sub-graph content key
+    # (runtime/reuse.subgraph_keys), or None: the encode memo's key
+    content_key: Optional[str] = None
     # collected artifacts
     saved_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     node_timings: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -129,6 +154,18 @@ class OpContext:
         prompt ends as an error at its next check."""
         if self.interrupt_event.is_set():
             raise InterruptedError("execution interrupted")
+
+    def collect_images(self, make_host_images: Callable[[], List]) -> None:
+        """An output node's images: ``make_host_images()`` does the host
+        work and returns the images.  Without a host pool it runs here
+        into ``saved_images``; with one it runs on the pool and its
+        future goes into ``image_futures`` (in submission order, which
+        ``ExecutionResult.wait_host`` keeps)."""
+        if self.host_pool is None:
+            self.saved_images.extend(make_host_images())
+        else:
+            self.image_futures.append(self.host_pool.submit(
+                make_host_images))
 
 
 @contextlib.contextmanager

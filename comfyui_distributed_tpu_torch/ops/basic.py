@@ -15,8 +15,22 @@
 ``InpaintModelConditioning``, ``InstructPixToPixConditioning``,
 ``SetLatentNoiseMask``, ``UpscaleModelLoader``,
 ``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
-``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode
-neither memoises nor expands the batch).
+``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode does
+not expand the batch).
+
+The reuse plane's encode memo (``runtime/reuse.py``): CLIPTextEncode,
+CLIPTextEncodeSDXL and VAEEncode keep their result on the device under
+the executing node's input sub-graph key (``OpContext.content_key``), as
+the JAX ops do, and a later run with the same sub-graph takes it (its
+node span marked ``cache_hit``).  The port's memo key also names the
+pipeline object (``ReusePlane.model_salt``), so one graph run on the
+CPU and on the card, or under two families, in one process never
+shares an entry.  Coalesced runs (``OpContext.coalesce``):
+EmptyLatentImage lays out ``batch_size * k`` rows prompt-major, KSampler
+takes the per-prompt seeds (``coalesced_seeds``) and each saved PNG
+carries its own prompt's seed.  PreviewImage and SaveImage collect
+through ``OpContext.collect_images``: on the server's host pool their
+encodes and writes overlap the next run.
 
 A MASK travels as a float32 tensor on the run's device ([H, W] or
 [B, H, W], 1 = resample); a latent's ``noise_mask`` and a
@@ -29,6 +43,7 @@ slice.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -58,12 +73,14 @@ from comfyui_distributed_tpu_torch.ops.base import (
     as_image_array,
     register_op,
 )
+from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
 from comfyui_distributed_tpu_torch.ops.tiling import tiled_apply
 from comfyui_distributed_tpu_torch.utils.image import (
     decode_png,
     resize_image,
     save_png,
 )
+from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import Timer
 
 
@@ -244,14 +261,44 @@ class CLIPSetLastLayer(Op):
         return (registry.derive_pipeline(clip, f"clip{stop}", family=fam2),)
 
 
+def _embed_cache_get(ctx: OpContext, kind: str, pipe):
+    """The encode memo's lookup: (key, hit), the key None when the node
+    has no content key, the plane is off or ``pipe`` has no identity.
+    A hit marks the node's span ``cache_hit``/``cache_tier``."""
+    if not reuse_mod.reuse_enabled() or not ctx.content_key:
+        return None, None
+    plane = reuse_mod.get_reuse()
+    salt = plane.model_salt(pipe)
+    if salt is None:
+        return None, None
+    key = f"{kind}:{ctx.content_key}:{salt}"
+    hit = plane.subgraph.get(key)
+    if hit is not None:
+        sp = trace_mod.current_span()
+        if sp is not None:
+            sp.attrs["cache_hit"] = True
+            sp.attrs["cache_tier"] = "embed"
+    return key, hit
+
+
+def _embed_cache_put(key, value, nbytes: int) -> None:
+    if key is not None:
+        reuse_mod.get_reuse().subgraph.put(key, value, nbytes)
+
+
 @register_op
 class CLIPTextEncode(Op):
     TYPE = "CLIPTextEncode"
     WIDGETS = ["text"]
 
     def execute(self, ctx: OpContext, clip, text: str):
+        key, hit = _embed_cache_get(ctx, "embed", clip)
+        if hit is not None:
+            return (hit,)
         context, pooled = clip.encode_prompt([text])
-        return (Conditioning(context=context, pooled=pooled),)
+        cond = Conditioning(context=context, pooled=pooled)
+        _embed_cache_put(key, cond, reuse_mod.conditioning_nbytes(cond))
+        return (cond,)
 
 
 @register_op
@@ -269,13 +316,18 @@ class CLIPTextEncodeSDXL(Op):
     def execute(self, ctx: OpContext, clip, width: int, height: int,
                 crop_w: int = 0, crop_h: int = 0, target_width: int = 0,
                 target_height: int = 0, text_g: str = "", text_l: str = ""):
+        key, hit = _embed_cache_get(ctx, "embed_sdxl", clip)
+        if hit is not None:
+            return (hit,)
         context, pooled = clip.encode_prompt([str(text_l)],
                                              texts_alt=[str(text_g)])
-        return (Conditioning(
+        cond = Conditioning(
             context=context, pooled=pooled,
             size_cond=(int(height), int(width), int(crop_h), int(crop_w),
                        int(target_height) or int(height),
-                       int(target_width) or int(width))),)
+                       int(target_width) or int(width)))
+        _embed_cache_put(key, cond, reuse_mod.conditioning_nbytes(cond))
+        return (cond,)
 
 
 @register_op
@@ -471,17 +523,21 @@ class unCLIPCheckpointLoader(Op):
 
 @register_op
 class EmptyLatentImage(Op):
-    """Zero latent batch on the run's device."""
+    """Zero latent batch on the run's device.  A coalesced run lays out
+    ``batch_size * coalesce`` rows prompt-major (``[prompt0 x b, prompt1
+    x b, ...]``, the order ``scheduler.split_images`` relies on); the
+    latent carries ``local_batch``, each prompt's ``batch_size``."""
     TYPE = "EmptyLatentImage"
     WIDGETS = ["width", "height", "batch_size"]
     DEFAULTS = {"width": 512, "height": 512, "batch_size": 1}
 
     def execute(self, ctx: OpContext, width: int, height: int,
                 batch_size: int = 1):
-        lat = torch.zeros((int(batch_size), int(height) // 8,
-                           int(width) // 8, 4),
+        total = int(batch_size) * max(int(ctx.coalesce), 1)
+        lat = torch.zeros((total, int(height) // 8, int(width) // 8, 4),
                           dtype=torch.float32, device=ctx.device)
-        return ({"samples": DeviceLatent(lat)},)
+        return ({"samples": DeviceLatent(lat),
+                 "local_batch": int(batch_size)},)
 
 
 @dataclasses.dataclass
@@ -573,8 +629,11 @@ def adm_cond_source(family, e: Conditioning,
 
 def _latent_meta(samples) -> dict:
     """What a latent-space op carries on from its input besides the
-    samples: the inpaint mask."""
-    return {k: samples[k] for k in ("noise_mask",) if k in samples}
+    samples: each prompt's batch size (``local_batch``; a later sampler
+    of a coalesced run restarts its fold-in indices with it) and the
+    inpaint mask."""
+    return {k: samples[k] for k in ("local_batch", "noise_mask")
+            if k in samples}
 
 
 def _prepare_sample_inputs(model, seed, latent_image,
@@ -585,8 +644,10 @@ def _prepare_sample_inputs(model, seed, latent_image,
     resolution and an inpaint or ip2p model's concat channels (from the
     first conditioning that carries them, resized bilinear to the latent
     and cycled to the batch).  At fanout 1 every row takes the base seed
-    (a DistributedSeed's replica 0 keeps it too) and its batch position
-    as fold-in index.
+    (a DistributedSeed's replica 0 keeps it too) and its position in its
+    prompt's batch (``local_batch`` rows) as fold-in index; a coalesced
+    run's seed (``SeedValue.per_prompt``) gives prompt j's rows seed j,
+    so each row draws the ``(seed, index)`` noise of its serial run.
 
     Both CFG sides build alike: the conditioning and the siblings
     ConditioningCombine bundled, each entry's tokens aligned across
@@ -599,7 +660,17 @@ def _prepare_sample_inputs(model, seed, latent_image,
     lat = as_device_array(latent_image["samples"], dev)
     total, h, w = int(lat.shape[0]), int(lat.shape[1]), int(lat.shape[2])
     base = seed.base if isinstance(seed, SeedValue) else int(seed)
-    seeds = np.full((total,), np.uint64(base), np.uint64)
+    per_prompt = seed.per_prompt if isinstance(seed, SeedValue) else None
+    if per_prompt is not None and len(per_prompt) > 0 \
+            and total % len(per_prompt) == 0:
+        seeds = np.repeat(np.asarray(per_prompt, np.uint64),
+                          total // len(per_prompt))
+    else:
+        seeds = np.full((total,), np.uint64(base), np.uint64)
+    # the fold-in index restarts with each prompt's batch
+    local_b = max(int(latent_image.get("local_batch", total)), 1)
+    sample_idx = np.tile(np.arange(local_b, dtype=np.uint32),
+                         -(-total // local_b))[:total]
     pos_entries = [positive, *positive.siblings]
     neg_entries = [negative, *negative.siblings]
     t_align = cond_token_align(pos_entries + neg_entries)
@@ -641,8 +712,7 @@ def _prepare_sample_inputs(model, seed, latent_image,
             c_concat = resize_image(c_concat, w, h, "bilinear")
         c_concat = cycle_batch(c_concat, total)
     return _SampleInputs(latents=lat, context=context, uncond=uncond,
-                         seeds=seeds,
-                         sample_idx=np.arange(total, dtype=np.uint32), y=y,
+                         seeds=seeds, sample_idx=sample_idx, y=y,
                          noise_mask=mask, c_concat=c_concat)
 
 
@@ -739,16 +809,23 @@ def _sdxl_vector_cond(pipe, cond: Conditioning, batch: int, height: int,
 
 @register_op
 class KSampler(Op):
-    """Denoise loop over the latent batch (one process, one card)."""
+    """Denoise loop over the latent batch (one process, one card).
+    ``coalesced_seeds``: the coalescing scheduler's per-prompt seeds, a
+    hidden override of a merged run."""
     TYPE = "KSampler"
     WIDGETS = ["seed", CONTROL, "steps", "cfg", "sampler_name", "scheduler",
                "denoise"]
     DEFAULTS = {"denoise": 1.0}
+    HIDDEN = ["coalesced_seeds"]
 
     def execute(self, ctx: OpContext, model, seed, steps, cfg,
                 sampler_name, scheduler, positive: Conditioning,
-                negative: Conditioning, latent_image, denoise: float = 1.0):
+                negative: Conditioning, latent_image, denoise: float = 1.0,
+                coalesced_seeds=None):
         ctx.check_interrupt()
+        if coalesced_seeds is not None and not isinstance(seed, SeedValue):
+            seed = SeedValue(int(seed), per_prompt=np.asarray(
+                coalesced_seeds, np.uint64))
         prep = _prepare_sample_inputs(model, seed, latent_image, positive,
                                       negative)
         with Timer(f"ksampler[{sampler_name}x{steps}]"):
@@ -865,8 +942,14 @@ class VAEEncode(Op):
     TYPE = "VAEEncode"
 
     def execute(self, ctx: OpContext, pixels, vae):
+        # the encoded latent is memoised on the device by its input
+        # sub-graph; no op writes into a latent, so the entry is shared
+        key, hit = _embed_cache_get(ctx, "vaeenc", vae)
+        if hit is not None:
+            return ({"samples": DeviceLatent(hit)},)
         with Timer("vae_encode"):
             lat = vae.vae_encode(as_device_image(pixels, vae.device))
+        _embed_cache_put(key, lat, reuse_mod.nbytes_of(lat))
         return ({"samples": DeviceLatent(lat)},)
 
 
@@ -1145,7 +1228,9 @@ class PreviewImage(Op):
     TYPE = "PreviewImage"
 
     def execute(self, ctx: OpContext, images):
-        ctx.saved_images.extend(list(as_image_array(images)))
+        with trace_mod.stage("d2h"):
+            arr = as_image_array(images)
+        ctx.collect_images(lambda: list(arr))
         return ()
 
 
@@ -1167,38 +1252,81 @@ class SaveImage(Op):
     """Output node: writes each image as ``{prefix}_NNNNN.png`` into the
     output directory, the counter continuing after the highest file
     there, with the run's API-format graph and the request's
-    ``extra_pnginfo`` in text chunks (:func:`png_text`); the images also
-    go into the run's collected images."""
+    ``extra_pnginfo`` in text chunks (:func:`png_text`; in a coalesced
+    run each prompt's images carry that prompt's own seed); the images
+    also go into the run's collected images.  The copy to the host runs
+    here; the encodes and the writes run on the host pool when the run
+    has one, with the metadata taken now."""
     TYPE = "SaveImage"
     WIDGETS = ["filename_prefix"]
     DEFAULTS = {"filename_prefix": "DistributedTPU"}
 
     def execute(self, ctx: OpContext, images,
                 filename_prefix: str = "DistributedTPU"):
-        arr = as_image_array(images)
-        if ctx.output_dir:
-            probe = _safe_output_path(ctx.output_dir,
-                                      f"{filename_prefix}_00000.png")
-            d, fname = os.path.split(probe)
-            base = fname[:-len("_00000.png")]
-            os.makedirs(d, exist_ok=True)
-            with _save_counter_lock:
-                start = _next_image_counter(d, base)
-                for i, img in enumerate(arr):
-                    save_png(os.path.join(d, f"{base}_{start + i:05d}.png"),
-                             img, png_text(ctx))
-        ctx.saved_images.extend(list(arr))
+        output_dir = ctx.output_dir
+        texts = png_text_per_prompt(ctx)
+        with trace_mod.stage("d2h"):
+            arr = as_image_array(images)
+
+        def host_side():
+            if output_dir:
+                probe = _safe_output_path(output_dir,
+                                          f"{filename_prefix}_00000.png")
+                d, fname = os.path.split(probe)
+                base = fname[:-len("_00000.png")]
+                os.makedirs(d, exist_ok=True)
+                # prompt-major: image i is prompt i // per's
+                per = arr.shape[0] // len(texts) \
+                    if arr.shape[0] % len(texts) == 0 else arr.shape[0]
+                with trace_mod.stage("encode"), _save_counter_lock:
+                    start = _next_image_counter(d, base)
+                    for i, img in enumerate(arr):
+                        save_png(os.path.join(
+                            d, f"{base}_{start + i:05d}.png"), img,
+                            texts[min(i // max(per, 1), len(texts) - 1)])
+            return list(arr)
+
+        ctx.collect_images(host_side)
         return ()
 
 
-def png_text(ctx: OpContext) -> Optional[dict]:
+def png_text(ctx: OpContext, prompt_json: Any = None) -> Optional[dict]:
     """The text chunks of a saved PNG, in the JAX package's order and
-    encoding: ``prompt`` (the API-format graph), then one per key of the
-    request's ``extra_pnginfo`` (the UI's ``workflow``), each value
-    JSON-encoded; None when there is neither."""
+    encoding: ``prompt`` (the API-format graph; ``prompt_json`` in place
+    of the run's), then one per key of the request's ``extra_pnginfo``
+    (the UI's ``workflow``), each value JSON-encoded; None when there is
+    neither."""
     text = {}
-    if ctx.prompt_json is not None:
-        text["prompt"] = json.dumps(ctx.prompt_json)
+    if prompt_json is None:
+        prompt_json = ctx.prompt_json
+    if prompt_json is not None:
+        text["prompt"] = json.dumps(prompt_json)
     for k, v in dict(ctx.extra_pnginfo or {}).items():
         text[str(k)] = json.dumps(v)
     return text or None
+
+
+def png_text_per_prompt(ctx: OpContext) -> list:
+    """One :func:`png_text` a prompt merged into the run (one when not
+    coalesced): the merged graph is prompt 0's, and prompt j's
+    ``prompt`` chunk takes back its own values of the masked widgets
+    from the ``coalesced_<widget>s`` hidden overrides."""
+    k = max(int(ctx.coalesce), 1)
+    overrides = ctx.hidden_overrides or {}
+    if k <= 1 or not overrides or ctx.prompt_json is None:
+        return [png_text(ctx)] * k
+    texts = []
+    for j in range(k):
+        pj = copy.deepcopy(ctx.prompt_json)
+        for nid, ov in overrides.items():
+            node = pj.get(nid)
+            if not isinstance(node, dict):
+                continue
+            for key, vals in ov.items():
+                if key.startswith("coalesced_") and key.endswith("s") \
+                        and isinstance(vals, (list, tuple)) \
+                        and j < len(vals):
+                    widget = key[len("coalesced_"):-1]
+                    node.setdefault("inputs", {})[widget] = vals[j]
+        texts.append(png_text(ctx, prompt_json=pj))
+    return texts

@@ -38,14 +38,23 @@ Tracing, as in the JAX package: a worker's tile copies to the host are
 the job's span and transfer context), its POSTs ``upload`` stages with
 the ``traceparent``, and its last tile ships its spans of the job.  The
 master's drain is a ``collect`` span; a redispatch or a refine of lost
-tiles on the master a ``reassign`` span, a hedge a ``hedge`` span.  The
-changed-tile cache is not ported, so ``tiles_skipped`` stays 0.
+tiles on the master a ``reassign`` span, a hedge a ``hedge`` span.
 
 Regional conditionings (siblings, area masks, timestep ranges) refine
 with each entry's canvas mask cropped through the same padded tile
 windows as the pixels.  Not ported: PerpNeg raises
-``NotImplementedError``; the JAX package's changed-tile cache waits (a
-single run misses every tile anyway, so the image is the same).
+``NotImplementedError``.
+
+Changed-tile skipping (the reuse plane's tile tier, ``runtime/reuse.py``):
+in one process and on the master, every extracted tile is hashed with
+the pipeline's identity, the conditionings, the refine parameters and
+its index before any refine; a tile whose key is stored takes its stored
+refined window (the span's ``tiles_skipped`` and the process counter
+count it) and only the others are refined.  On the master the cached
+tiles check in to the ledger at once (owner ``cache``), so the drain
+waits for the dirty tiles alone.  The tier is armed for plain
+conditionings only (no regional entries, concat channels or unCLIP
+vector) and with ``DTPU_CACHE`` on.
 """
 
 from __future__ import annotations
@@ -86,6 +95,7 @@ from comfyui_distributed_tpu_torch.ops.distributed import (
     wire_payload,
 )
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
+from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import log
@@ -102,6 +112,16 @@ from comfyui_distributed_tpu_torch.utils.net import (
 def _is_regional(c: Conditioning) -> bool:
     return bool(c.siblings or c.area_mask is not None
                 or c.timestep_range is not None)
+
+
+def _tile_cache_eligible(positive: Conditioning,
+                         negative: Conditioning) -> bool:
+    """The tile tier is armed for a plain refine only: canvas-wide single
+    conditionings (a regional mask resolves by the tile's position,
+    which its content key does not hold), no concat channels or unCLIP
+    vector.  A PerpNeg pipeline raises before."""
+    return not any(_is_regional(c) or c.concat_latent is not None
+                   or c.unclip is not None for c in (positive, negative))
 
 
 def _window_payload(window: torch.Tensor):
@@ -170,11 +190,78 @@ class UltimateSDUpscaleDistributed(Op):
              p: Dict[str, Any]) -> torch.Tensor:
         h, w = image.shape[1:3]
         all_tiles = tiling.calculate_tiles(w, h, p["tile_w"], p["tile_h"])
-        everything = list(range(len(all_tiles)))
-        windows = self._refine_tiles(ctx, pipe, image, all_tiles, everything,
-                                     positive, negative, p)
+        windows: Dict[int, torch.Tensor] = {}
+        keys = self._tile_cache_probe(ctx, image, all_tiles, pipe, positive,
+                                      negative, p, windows)
+        dirty = [i for i in range(len(all_tiles)) if i not in windows]
+        if windows:
+            log(f"tiled upscale: {len(windows)}/{len(all_tiles)} tiles "
+                f"unchanged (cache hits); refining {len(dirty)}")
+        if dirty:
+            fresh = self._refine_tiles(ctx, pipe, image, all_tiles, dirty,
+                                       positive, negative, p)
+            self._tile_cache_store(keys, fresh)
+            windows.update(fresh)
         with stage(ctx, "tile_blend"):
             return self._blend_all(image, windows, all_tiles, p)
+
+    # --- changed-tile skipping -----------------------------------------------
+
+    def _tile_cache_probe(self, ctx: OpContext, image: torch.Tensor,
+                          all_tiles: List[Tuple[int, int]], pipe,
+                          positive: Conditioning, negative: Conditioning,
+                          p: Dict[str, Any],
+                          windows: Dict[int, torch.Tensor]
+                          ) -> Optional[Dict[int, str]]:
+        """Look every tile up in the tile tier: a tile's key is the
+        pipeline's identity, the conditionings' fingerprint, the refine
+        parameters, its index (its seed is ``seed + index``) and its
+        extracted pixels.  Hits go into ``windows`` (the stored refined
+        window, as the run that stored it blended it) and count in the
+        ``tiles_skipped`` counter and span attribute.  Returns tile index
+        -> key for storing the misses, or None when the tier is off or
+        this refine is not eligible."""
+        if not reuse_mod.reuse_enabled() \
+                or not _tile_cache_eligible(positive, negative):
+            return None
+        plane = reuse_mod.get_reuse()
+        salt = plane.model_salt(pipe)
+        if salt is None:
+            return None
+        with stage(ctx, "tile_extract"):
+            tiles = tiling.extract_tiles(image, all_tiles, p["tile_w"],
+                                         p["tile_h"], p["padding"])
+        indices = list(range(len(all_tiles)))
+        keys = dict(zip(indices, reuse_mod.tile_keys(
+            salt, reuse_mod.conditioning_fingerprint(positive, negative),
+            p, tiles, indices)))
+        hits = 0
+        for i, key in keys.items():
+            win = plane.tiles.get(key)
+            if win is not None:
+                windows[i] = win
+                hits += 1
+        if hits:
+            trace_mod.GLOBAL_COUNTERS.bump("tiles_skipped", hits)
+            sp = trace_mod.current_span()
+            if sp is not None:
+                sp.attrs["tiles_skipped"] = \
+                    int(sp.attrs.get("tiles_skipped", 0)) + hits
+        return keys
+
+    @staticmethod
+    def _tile_cache_store(keys: Optional[Dict[int, str]],
+                          windows: Dict[int, torch.Tensor]) -> None:
+        """Store refined windows under their keys (each its own copy, so
+        an entry never holds a whole batch's storage)."""
+        if keys is None:
+            return
+        plane = reuse_mod.get_reuse()
+        for i, win in windows.items():
+            key = keys.get(int(i))
+            if key is not None:
+                win = win.clone()
+                plane.tiles.put(key, win, reuse_mod.tile_nbytes(win))
 
     def _refine_tiles(self, ctx: OpContext, pipe, image: torch.Tensor,
                       all_tiles: List[Tuple[int, int]],
@@ -439,6 +526,15 @@ class UltimateSDUpscaleDistributed(Op):
         parts = tiling.partition_tiles(len(all_tiles), len(workers))
         active_workers = sum(1 for part in parts[1:] if part)
         mj = multi_job_id
+        # the tile tier first: the cached tiles check in before any work,
+        # so the drain waits for the dirty tiles alone, and a worker's
+        # send of a cached tile loses the first-wins check-in
+        cached: Dict[int, torch.Tensor] = {}
+        keys = self._tile_cache_probe(ctx, image, all_tiles, pipe, positive,
+                                      negative, p, cached)
+        if cached:
+            log(f"tiled upscale master: {len(cached)}/{len(all_tiles)} "
+                f"tiles unchanged (cache hits)")
         # the work ledger: who owns which tile, before any work happens
         ledger = ctx.ledger
         if ledger is not None:
@@ -447,21 +543,25 @@ class UltimateSDUpscaleDistributed(Op):
                 for i in part:
                     owners[int(i)] = workers[wi]
             ledger.create_job(mj, owners, kind="tile")
+            for i, win in cached.items():
+                ledger.check_in(mj, i, "cache", payload=_window_payload(win))
 
         def refine_units(units: Sequence[int]) -> Dict[int, torch.Tensor]:
             """The master's own refine of any units (recovery and
             hedges): tile i takes seed + i, so it is the tile its lost
             or late owner would have sent."""
-            return self._refine_tiles(ctx, pipe, image, all_tiles,
-                                      [int(u) for u in units], positive,
-                                      negative, p)
+            out = self._refine_tiles(ctx, pipe, image, all_tiles,
+                                     [int(u) for u in units], positive,
+                                     negative, p)
+            self._tile_cache_store(keys, out)
+            return out
 
         if active_workers and ctx.job_store is not None:
             # a worker may finish first: its tiles need the queue now
             ctx.job_store.prepare_tile_job(mj)
         try:
-            windows: Dict[int, torch.Tensor] = {}
-            mine = list(parts[0])
+            windows: Dict[int, torch.Tensor] = dict(cached)
+            mine = [i for i in parts[0] if int(i) not in cached]
             if ledger is not None:
                 # a recovered job: the tiles that checked in before the
                 # crash blend from their payloads, never refined again,
@@ -485,12 +585,18 @@ class UltimateSDUpscaleDistributed(Op):
                     collected = self._collect_tiles(
                         ctx, mj, active_workers, refine_window=refine_units)
                 for i, item in collected.items():
+                    if i in cached:
+                        # without a ledger a worker's send of a cached
+                        # tile is dropped here
+                        continue
                     # the master's own recovery is at the window size;
                     # a worker's tile at its extraction region's
-                    windows[i] = item["window_tensor"] \
-                        if "window_tensor" in item \
-                        else self._worker_tile_to_window(
+                    if "window_tensor" in item:
+                        windows[i] = item["window_tensor"]
+                    else:
+                        windows[i] = self._worker_tile_to_window(
                             item, all_tiles[i], p, (w, h), image.device)
+                        self._tile_cache_store(keys, {i: windows[i]})
             if ledger is not None:
                 self._settle_pending(ctx, mj, refine_units, windows)
             with stage(ctx, "tile_blend"):

@@ -23,9 +23,9 @@ other:
   (``wire_decode_s``), and the JAX package's ``phases``, ``nodes``,
   ``tracing``, ``pipeline`` (stages, event counters, gauges),
   ``cluster``, ``durability``, ``shard``, ``admission``, ``slo``,
-  ``analysis`` and ``resources`` blocks and ``transfers`` (its
-  ``batching``, ``autoscale``, ``chaos`` and ``reuse`` blocks belong to
-  modules not ported yet);
+  ``analysis``, ``reuse`` and ``resources`` blocks and ``transfers`` (its
+  ``batching``, ``autoscale`` and ``chaos`` blocks belong to modules not
+  ported yet);
 - observability (``utils/trace.py``, ``trace_export.py``,
   ``trace_analysis.py``, ``resource.py``): ``GET
   /distributed/metrics.prom`` (Prometheus text), ``/distributed/traces``
@@ -74,36 +74,59 @@ other:
   request's ``slo_s`` deadline for its fan-out's hedging;
 - sharded masters (``runtime/shard.py``, ``DTPU_SHARD_ID``): ``GET
   /distributed/ring``, ``POST /distributed/ring/gossip``; a prompt id
-  another shard owns is forwarded one hop.
+  another shard owns is forwarded one hop;
+- ``POST /distributed/warmup`` (one txt2img-shaped request of a
+  checkpoint on zeros, its seconds by stage; ``DTPU_WARMUP`` runs one at
+  :func:`serve`'s start) and ``GET /distributed/preview/<prompt_id>``
+  (server-sent events: the terminal ``done`` event; a queued prompt
+  whose last client disconnects is abandoned and never runs; 403 under
+  ``DTPU_PREVIEW=0``, 429 past ``DTPU_PREVIEW_MAX_CLIENTS``, 404 for an
+  unknown id, with the JAX package's bodies).
 
-One execution thread runs the queue through the port's
-``WorkflowExecutor`` on the server's device, the tenant classes in
-weighted fair order (FIFO within a class); handler threads answer while
-it runs.  Every prompt gets a trace: a ``job`` root span from its
-admission to its end (a worker's takes the ``traceparent`` of the
+The JAX package's default dispatch model: one execution thread runs the
+queue through the port's ``WorkflowExecutor`` on the server's device,
+the tenant classes in weighted fair order (FIFO within a class), handler
+threads answering while it runs.  It pops a group: the head prompt and
+the contiguous run of its class's signature-equal plain graphs behind
+it, up to ``DTPU_MAX_COALESCE`` (8), run as one batched dispatch
+(``DTPU_COALESCE=0``: one prompt a dispatch); history entries of a
+merged group carry ``coalesced``.  Each group's finalize (the wait for
+its images' copies, PNG encodes and writes on a ``HostIOPool``, history,
+the log record, the prompt lines, the sealed traces) runs on a finalize
+thread while the next group computes (``DTPU_OVERLAP=0``: inline).  The
+reuse plane (``runtime/reuse.py``, ``DTPU_CACHE=0`` turns it off): a
+byte-identical plain re-submission is settled from the exact-hit tier
+at its admission (history ``cache_hit``, ``prompts_replayed``), the
+encode memo and the tile tier work inside the run, and
+``clear_memory`` empties all three.
+
+Every prompt gets a trace: a ``job`` root span from its admission to
+its end (a worker's takes the ``traceparent`` of the
 master's ``dispatch`` span as its parent; a master's fan-out root covers
 the ``preflight`` and ``dispatch`` spans too), a ``queue_wait`` event, an
-``execute`` span over the run and a ``finalize`` span; the root is
-committed to the flight recorder under the prompt id, and to the
-capture files and the live analyzer behind it.  Each finished prompt
-logs one line, ``dtpu-torch prompt {...}``, with its kernel launches by
-variant and by shape, its copies between host and card by direction and
-``torch.cuda.max_memory_allocated()``.  A master owns a
-``ClusterRegistry`` seeded from its config, a ``WorkLedger`` and a
-``HealthPoller`` (started by :func:`serve`) and a
-``WorkerProcessManager``; a worker started with ``DTPU_MASTER_URL`` and
-``DTPU_WORKER_ID`` heartbeats its master.  With ``DTPU_WAL_DIR`` a
-master takes the master lease (or, with ``DTPU_STANDBY=1``, watches it)
-and replays its write-ahead log before the execution thread starts: each
-admission is logged before its prompt id is answered and each finished
-prompt after its run, and :func:`serve` resumes the interrupted prompts
-once the port is bound; a server's resource monitor starts there too.
-A sharded master's log is ``DTPU_SHARD_WAL_ROOT/<id>`` with its shard id
-as the lease owner, and its peers' shards are watched for a takeover.
-On SIGINT or SIGTERM :func:`serve` drains: new prompts get 503, the
-queue runs within ``DTPU_DRAIN_TIMEOUT_S`` and what is left is
-cancelled, its admission left open in the log for a restart or the
-shard's absorbing peer.  Previews wait.
+``execute`` span over the run and a ``finalize`` span over the wait for
+its host work; the root is committed to the flight recorder under the
+prompt id, and to the capture files and the live analyzer behind it.
+Each finished prompt logs one line, ``dtpu-torch prompt {...}``, with
+its kernel launches by variant and by shape, its copies between host and
+card by direction and ``torch.cuda.max_memory_allocated()``; in a merged
+group the head's line carries the run's counts and each other's line
+zeros and ``coalesced_into``.  A master owns a ``ClusterRegistry``
+seeded from its config, a ``WorkLedger`` and a ``HealthPoller`` (started
+by :func:`serve`) and a ``WorkerProcessManager``; a worker started with
+``DTPU_MASTER_URL`` and ``DTPU_WORKER_ID`` heartbeats its master.  With
+``DTPU_WAL_DIR`` a master takes the master lease (or, with
+``DTPU_STANDBY=1``, watches it) and replays its write-ahead log before
+the execution thread starts: each admission is logged before its prompt
+id is answered and each finished prompt after its run, and :func:`serve`
+resumes the interrupted prompts once the port is bound; a server's
+resource monitor starts there too.  A sharded master's log is
+``DTPU_SHARD_WAL_ROOT/<id>`` with its shard id as the lease owner, and
+its peers' shards are watched for a takeover.  On SIGINT or SIGTERM
+:func:`serve` drains: new prompts get 503, the queue, the running group,
+the pending finalizes and the host pool run within
+``DTPU_DRAIN_TIMEOUT_S`` and what is left is cancelled, its admission
+left open in the log for a restart or the shard's absorbing peer.
 """
 
 from __future__ import annotations
@@ -119,7 +142,10 @@ import itertools
 import json
 import math
 import os
+import queue
+import select
 import signal
+import socket
 import sys
 import threading
 import time
@@ -138,6 +164,7 @@ from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.runtime import durable as durable_mod
+from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
 from comfyui_distributed_tpu_torch.runtime import shard as shard_mod
 from comfyui_distributed_tpu_torch.runtime.health import HealthPoller
 from comfyui_distributed_tpu_torch.runtime import interrupt
@@ -162,6 +189,7 @@ from comfyui_distributed_tpu_torch.utils.image import (
 from comfyui_distributed_tpu_torch.utils.log import debug_log, log
 from comfyui_distributed_tpu_torch.utils.net import (
     FormPart,
+    HostIOPool,
     get_json,
     network_info,
     parse_multipart,
@@ -180,6 +208,11 @@ Response = Tuple[Any, ...]
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 PANEL_HTML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "panel.html")
+
+
+def _env_flag(name: str, default: str = "1") -> bool:
+    return os.environ.get(name, default).lower() not in ("0", "false",
+                                                         "off")
 
 
 class QueueFullError(RuntimeError):
@@ -209,6 +242,17 @@ class Raw:
     content_type: str
 
 
+@dataclasses.dataclass
+class Stream:
+    """A streamed response: the handler sends the headers (no length,
+    the connection closes at the end), then ``run(write, gone)``;
+    ``write`` sends one chunk at once and raises ``OSError`` once the
+    client is gone, and ``gone()`` says whether the client has closed
+    its side (an end of file on a connection that sends nothing more)."""
+    run: Callable[[Callable[[bytes], None], Callable[[], bool]], None]
+    content_type: str
+
+
 class ServerState:
     """Queue, history, metrics and result queues of one server."""
 
@@ -218,7 +262,9 @@ class ServerState:
                  output_dir: Optional[str] = None,
                  models_dir: Optional[str] = None,
                  device: str = "cuda",
-                 start_exec_thread: bool = True):
+                 start_exec_thread: bool = True,
+                 overlap: Optional[bool] = None,
+                 coalesce: Optional[bool] = None):
         self.config_path = config_path
         self.is_worker = is_worker
         self.port: Optional[int] = None   # set by serve()
@@ -249,13 +295,38 @@ class ServerState:
             "wire_tensor_msgs": 0, "wire_tensor_bytes": 0,
             "wire_png_msgs": 0, "wire_png_bytes": 0,
             "wire_decode_s": 0.0,
+            "prompts_replayed": 0, "prompts_abandoned": 0,
         }
         self._history: Dict[str, Dict[str, Any]] = {}
         self._queue: list = []                        # guarded-by: _cond
         self._running = False                         # guarded-by: _cond
         self._draining = False                        # guarded-by: _cond
+        # every admitted prompt not yet finalized (queued, running or in
+        # its finalize): the preview route's liveness check
+        self._inflight: set = set()                   # guarded-by: _cond
+        self._finalize_pending = 0                    # guarded-by: _cond
         self._exec_started = bool(start_exec_thread)
         self._cond = threading.Condition()
+        # held by a dispatch from its kernel-count reset to its read and
+        # by a warmup: the counts and the peak memory are process-wide,
+        # so a prompt line counts its own group's work alone
+        self._device_lock = threading.Lock()
+        # the default dispatch model: coalesced groups, finalized on
+        # their own thread while the next group runs
+        self.overlap_enabled = _env_flag(C.OVERLAP_ENV) \
+            if overlap is None else bool(overlap)
+        self.coalesce_enabled = _env_flag(C.COALESCE_ENV) \
+            if coalesce is None else bool(coalesce)
+        self.coalesce_max = max(1, int(os.environ.get(
+            C.COALESCE_MAX_ENV, C.COALESCE_MAX_DEFAULT)))
+        self.host_pool = HostIOPool() if self.overlap_enabled else None
+        # (group, result, error, t0, run stats) for the finalize thread,
+        # in execution order
+        self._finalize_q: "queue.Queue" = queue.Queue()
+        # a test hook: the execution thread waits here before each pop,
+        # so a caller can clear it, queue a burst and set it again
+        self._exec_gate = threading.Event()
+        self._exec_gate.set()
         self._metrics_lock = threading.Lock()
         self._id_counter = itertools.count()
         self.max_queue = int(os.environ.get(C.MAX_QUEUE_ENV,
@@ -300,6 +371,9 @@ class ServerState:
         if start_exec_thread:
             threading.Thread(target=self._exec_loop, name="dtpu-exec",
                              daemon=True).start()
+            if self.overlap_enabled:
+                threading.Thread(target=self._finalize_loop,
+                                 name="dtpu-finalize", daemon=True).start()
 
     # --- queue ---------------------------------------------------------------
 
@@ -365,6 +439,24 @@ class ServerState:
                     self.jobs.prepare_tile_job(mj)
                 else:
                     self.jobs.prepare_job(mj)
+        # the signature is hashed outside the lock (it walks the graph);
+        # the pop only compares strings
+        sig = sched_mod.coalesce_signature(prompt) \
+            if self.coalesce_enabled else None
+        # the exact-hit tier: a byte-identical re-submission is settled
+        # from the stored images and never queued; a recovered prompt
+        # always runs (its first run may not have stored)
+        rkey = None
+        if not self.is_worker and not _recovered \
+                and reuse_mod.reuse_enabled():
+            rkey = reuse_mod.result_key(prompt, input_dir=self.input_dir,
+                                        models_dir=self.models_dir,
+                                        scope=self.shard_cache_scope())
+            if rkey is not None:
+                entry = reuse_mod.get_reuse().result.get(rkey)
+                if entry is not None:
+                    self._replay_cached(pid, sp, entry)
+                    return pid
         # a recovered prompt's record is in the log already, an absorbed
         # one's in the dead shard's
         to_log = threading.Event() if self.durable is not None and (
@@ -390,9 +482,11 @@ class ServerState:
             if reject is None:
                 item = {"id": pid, "prompt": prompt,
                         "extra_data": extra_data or {}, "tenant": tenant,
+                        "sig": sig, "rkey": rkey,
                         "span": sp, "t_enq": time.perf_counter(),
                         "logged": to_log}
                 self._queue.append(item)
+                self._inflight.add(pid)
                 self._cond.notify()
         if reject is not None:
             self._abandon_span(sp, pid, reject[1])
@@ -408,12 +502,48 @@ class ServerState:
                 with self._cond:
                     self._queue = [it for it in self._queue
                                    if it is not item]
+                    self._inflight.discard(pid)
                 item["log_error"] = e
                 to_log.set()
                 self._abandon_span(sp, pid, f"rejected: not logged ({e})")
                 raise
             to_log.set()
         return pid
+
+    def shard_cache_scope(self) -> Optional[str]:
+        """The exact-hit tier's key scope on a sharded master: its shard
+        id and log epoch, so shards never replay each other's entries
+        and a deposed epoch's go cold after a takeover.  None (keys
+        unchanged) without sharding."""
+        if self.shard is None:
+            return None
+        epoch = self.durable.epoch if self.durable is not None else 0
+        return f"{self.shard.id}:e{epoch}"
+
+    def _replay_cached(self, pid: str, sp: Optional[trace_mod.Span],
+                       entry: Dict[str, Any]) -> None:
+        """Settle an exact hit now from its stored images: a success
+        history entry marked ``cache_hit``, the job span marked
+        ``cache_hit``/``cache_tier``.  It counts as ``prompts_replayed``
+        alone: nothing ran, nothing was admitted, no slot freed."""
+        done_t = time.time()
+        self.bump(prompts_replayed=1)
+        trace_mod.GLOBAL_COUNTERS.bump("cache_result_replays")
+        trace_mod.GLOBAL_STAGES.record("cache_replay", 0.0)
+        self._history[pid] = {
+            "status": "success",
+            "images": len(entry.get("images", ())),
+            "duration_s": 0.0,
+            "cache_hit": True,
+            "finished_at": done_t,
+        }
+        if sp is not None:
+            sp.attrs["cache_hit"] = True
+            sp.attrs["cache_tier"] = "result"
+            sp.end()
+            trace_mod.GLOBAL_TRACES.commit(
+                pid, sp.trace_id, status="ok", root_span_id=sp.span_id,
+                duration_s=round(done_t - sp.start_s, 6))
 
     def _abandon_span(self, sp: Optional[trace_mod.Span], pid: str,
                       why: str) -> None:
@@ -458,13 +588,14 @@ class ServerState:
         return int(min(max(math.ceil(max(hint, floor_s)), 1), 30))
 
     def drain(self, timeout: Optional[float] = None) -> bool:
-        """Graceful shutdown: refuse new prompts (503), let the queue and
-        the running prompt finish within ``timeout`` (default
-        ``DTPU_DRAIN_TIMEOUT_S``), then cancel what is still queued
-        (``cancelled: server drain timeout``, its admission left open in
-        the log) and interrupt the running prompt.  True when everything finished in time.  A sharded master
-        first stops its gossip and its watch, so it absorbs no peer on
-        its way out."""
+        """Graceful shutdown: refuse new prompts (503), let the queue, the
+        running group, the pending finalizes and the host pool finish
+        within ``timeout`` (default ``DTPU_DRAIN_TIMEOUT_S``), then
+        cancel what is still queued (``cancelled: server drain
+        timeout``, its admission left open in the log), interrupt the
+        running group and stop the pool.  True when everything finished
+        in time.  A sharded master first stops its gossip and its watch,
+        so it absorbs no peer on its way out."""
         if timeout is None:
             timeout = float(os.environ.get(C.DRAIN_TIMEOUT_ENV,
                                            C.DRAIN_TIMEOUT_DEFAULT))
@@ -477,9 +608,11 @@ class ServerState:
             with self._cond:
                 # without an execution thread only the running work can
                 # drain
-                if not self._running and (not self._queue
-                                          or not self._exec_started):
-                    return True
+                idle = (not self._running and self._finalize_pending == 0
+                        and (not self._queue or not self._exec_started))
+            if idle and (self.host_pool is None
+                         or self.host_pool.pending == 0):
+                return True
             if time.monotonic() >= deadline:
                 break
             time.sleep(0.05)
@@ -487,6 +620,8 @@ class ServerState:
         # popping (and clearing the interrupt) through the shutdown
         with self._cond:
             purged, self._queue = self._queue, []
+            for item in purged:
+                self._inflight.discard(item["id"])
         # their admission records stay open, so a restart or the shard's
         # absorbing peer runs them again
         done_t = time.time()
@@ -500,7 +635,19 @@ class ServerState:
         log(f"drain timeout after {timeout:.1f}s; cancelled {len(purged)} "
             f"queued prompt(s), interrupting the running one")
         interrupt.request_interrupt()
+        if self.host_pool is not None:
+            self.host_pool.shutdown(wait=False)
         return False
+
+    def warmup(self, ckpt_name: str, **kwargs: Any) -> Dict[str, float]:
+        """Load ``ckpt_name`` and run one txt2img-shaped request on zeros
+        (``DiffusionPipeline.warmup``), between dispatches: a running
+        group's kernel counts and peak memory never take its work."""
+        with self._device_lock:
+            pipe = registry.load_pipeline(ckpt_name,
+                                          models_dir=self.models_dir,
+                                          device=self.device)
+            return pipe.warmup(**kwargs)
 
     def bump(self, **counts: int) -> None:
         with self._metrics_lock:
@@ -512,66 +659,218 @@ class ServerState:
             with self._cond:
                 while not self._queue:
                     self._cond.wait()
-                # the tenant classes in weighted fair order
-                item = sched_mod.pop_fair_group(self._queue,
-                                                self.admission)[0]
-                self._running = True
-            if item.get("logged") is not None:
-                item["logged"].wait()
-                if "log_error" in item:
-                    # its admission failed and was answered so
-                    with self._cond:
-                        self._running = False
-                    continue
-            wait = time.perf_counter() - item["t_enq"]
-            now_wall = time.time()
-            trace_mod.GLOBAL_STAGES.record("queue_wait", wait)
-            if item["span"] is not None:
-                trace_mod.event_span("queue_wait", now_wall - wait,
-                                     now_wall, parent=item["span"])
+            # the test hook: a caller holding the gate stages a burst
+            # that one pop then sees whole
+            self._exec_gate.wait()
+            self._purge_abandoned()
+            group = self._pop_group()
+            if not group:
+                continue
             try:
-                self._execute(item)
+                if len(group) == 1:
+                    self._execute(group[0])
+                else:
+                    self._execute_group(group)
             finally:
                 with self._cond:
                     self._running = False
 
+    def _pop_group(self) -> list:
+        """Pop the next dispatch group (``pop_fair_group``): the scheduled
+        class's head prompt and, with coalescing on, the contiguous run
+        of its class's signature-equal prompts behind it, up to
+        ``DTPU_MAX_COALESCE``.  Each item waits for its own admission
+        record (an item whose record failed was answered so, and drops
+        out), and its wait goes into its trace."""
+        with self._cond:
+            if not self._queue:
+                return []
+            group = sched_mod.pop_fair_group(
+                self._queue, self.admission,
+                coalesce_max=self.coalesce_max if self.coalesce_enabled
+                else 1)
+            self._running = True
+        for item in group:
+            if item.get("logged") is not None:
+                item["logged"].wait()
+        # an item whose admission failed to log was answered so
+        kept = [item for item in group if "log_error" not in item]
+        now = time.perf_counter()
+        now_wall = time.time()
+        for item in kept:
+            wait = now - item["t_enq"]
+            trace_mod.GLOBAL_STAGES.record("queue_wait", wait)
+            if item["span"] is not None:
+                trace_mod.event_span("queue_wait", now_wall - wait,
+                                     now_wall, parent=item["span"])
+        if not kept:
+            with self._cond:
+                self._running = False
+        return kept
+
     def _execute(self, item: Dict[str, Any]) -> None:
-        # the process-wide flag (``runtime/interrupt.py``), as in the JAX
-        # package: /interrupt sets it, each prompt clears it at its start
-        interrupt.clear_interrupt()
+        """One prompt's dispatch."""
+        self._execute_group([item])
+
+    def _execute_group(self, group: list) -> None:
+        """Run one dispatch group: a coalesced group as one merged run
+        (``build_coalesced``, ``OpContext.coalesce``) under the head
+        prompt's job span (each follower's span names its head in
+        ``coalesced_into``), then hand the finalize over: to the
+        finalize thread with the overlap on, so the next group starts at
+        once, else inline.  The run's kernel counts and peak memory are
+        read here, before the next group resets them."""
+        with self._device_lock:
+            # the process-wide flag (``runtime/interrupt.py``), as in the
+            # JAX package: /interrupt sets it, each dispatch clears it at
+            # its start
+            interrupt.clear_interrupt()
+            res, err, t0, stats = self._run_group(group)
+        self._finalize_hand(group, res, err, t0, stats)
+
+    def _run_group(self, group: list) -> tuple:
+        """The group's run: ``(result, error, t0, run stats)``."""
         on_cuda = torch.device(self.device).type == "cuda"
         fa.reset_counts()
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        first = group[0]
+        k = len(group)
         ctx = OpContext(device=self.device, models_dir=self.models_dir,
                         input_dir=self.input_dir, output_dir=self.output_dir,
                         is_worker=self.is_worker, job_store=self.jobs,
                         cluster=self.cluster, ledger=self.ledger,
                         fault_inject=self.fault_inject,
-                        extra_pnginfo=item["extra_data"].get(
+                        host_pool=self.host_pool,
+                        extra_pnginfo=first["extra_data"].get(
                             "extra_pnginfo"))
-        sp = item["span"]
-        item["started_at"] = time.time()
+        started = time.time()
+        for item in group:
+            item["started_at"] = started
         res, err = None, None
         trace_mod.GLOBAL_COUNTERS.bump("exec_runs")
         try:
-            # the run executes under the prompt's job span: the node and
-            # stage spans made inside attach to its trace
-            with trace_mod.use_span(sp), trace_mod.span("execute"):
-                res = WorkflowExecutor(ctx).execute(item["prompt"])
+            # the run executes under the head prompt's job span: the node
+            # and stage spans made inside attach to its trace
+            with trace_mod.use_span(first["span"]), \
+                    trace_mod.span("execute", coalesced=k):
+                if k > 1:
+                    graph, hidden = sched_mod.build_coalesced(
+                        [it["prompt"] for it in group])
+                    ctx.coalesce = k
+                    trace_mod.GLOBAL_COUNTERS.bump("coalesced_batches")
+                    trace_mod.GLOBAL_COUNTERS.bump("coalesced_prompts", k)
+                    debug_log(f"coalesced {k} prompts into one dispatch "
+                              f"({first['id']}..)")
+                    for item in group[1:]:
+                        if item["span"] is not None:
+                            item["span"].attrs["coalesced_into"] = \
+                                first["id"]
+                    with trace_mod.stage("coalesced_batch"):
+                        res = WorkflowExecutor(ctx).execute(graph,
+                                                            hidden=hidden)
+                else:
+                    res = WorkflowExecutor(ctx).execute(first["prompt"])
             trace_mod.GLOBAL_STAGES.record("compute", res.total_s)
-        except Exception as e:  # noqa: BLE001 - a bad prompt fails alone
+        except Exception as e:  # noqa: BLE001 - a bad group fails alone
             err = e
             traceback.print_exc()
-        with trace_mod.use_span(sp), trace_mod.span("finalize"):
-            self._finalize(item, res, err, t0, on_cuda)
-        self._seal_trace(item, "ok" if err is None else "error", err)
+        stats = {"launches": {v: fa.flash_attention.variants.get(v, 0)
+                              for v in fa.VARIANTS},
+                 "launches_by_shape": [[*key, n] for key, n in sorted(
+                     fa.flash_attention.shapes.items())],
+                 "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                          if on_cuda else None)}
+        return res, err, t0, stats
 
-    def _finalize(self, item: Dict[str, Any], res, err, t0: float,
-                  on_cuda: bool) -> None:
-        """History, metrics, the log record and the prompt line of a
-        finished run."""
+    def _finalize_hand(self, group: list, res, err, t0: float,
+                       stats: Optional[Dict[str, Any]] = None) -> None:
+        """Book a pending finalize and run it on the finalize thread (the
+        overlap, when that thread runs) or here."""
+        with self._cond:
+            self._finalize_pending += 1
+        if self.overlap_enabled and self._exec_started:
+            self._finalize_q.put((group, res, err, t0, stats))
+        else:
+            self._finalize_group(group, res, err, t0, stats)
+
+    def _finalize_loop(self) -> None:
+        while True:
+            # no local keeps the job: its result holds the run's outputs
+            # (the pipelines) and its error a traceback over the
+            # executor's frames, which clear_memory must be able to free
+            try:
+                self._finalize_group(*self._finalize_q.get())
+            except Exception:  # noqa: BLE001 - the next group still settles
+                traceback.print_exc()
+
+    def _purge_abandoned(self) -> int:
+        """Client-gone cancellation of prompts still queued: each whose
+        last preview client left is taken out before the pop and
+        finalized ``abandoned`` (history, log record, sealed trace); it
+        never runs."""
+        bus = reuse_mod.PREVIEWS
+        with self._cond:
+            doomed = [it for it in self._queue
+                      if bus.is_abandoned(it["id"])]
+            if not doomed:
+                return 0
+            gone = {id(it) for it in doomed}
+            self._queue = [it for it in self._queue if id(it) not in gone]
+        err = reuse_mod.AbandonedError(
+            "client disconnected before execution")
+        for item in doomed:
+            self._finalize_hand([item], None, err, time.perf_counter())
+        return len(doomed)
+
+    def _finalize_group(self, group: list, res, err, t0: float,
+                        stats: Optional[Dict[str, Any]] = None) -> None:
+        """Join the run's deferred host work, split the images per
+        prompt, then for each prompt of the group: its history entry
+        (``coalesced`` when merged), metrics, result-tier store, log
+        record, SLO record, prompt line and sealed trace; the preview
+        bus gets each terminal event."""
+        stats = stats or _no_launches()
+        try:
+            if res is not None and err is None:
+                try:
+                    # under the head's span: the wait for the host edge
+                    # shows in its trace
+                    with trace_mod.use_span(group[0]["span"]), \
+                            trace_mod.span("finalize"):
+                        res.wait_host()
+                except Exception as e:  # noqa: BLE001 - a host edge failed
+                    err = e
+                    traceback.print_exc()
+            k = len(group)
+            abandoned = isinstance(err, reuse_mod.AbandonedError)
+            status = "ok" if err is None \
+                else ("abandoned" if abandoned else "error")
+            per_prompt = sched_mod.split_images(res.images, k) \
+                if err is None else [[] for _ in group]
+            reuse_on = reuse_mod.reuse_enabled()
+            for j, (item, imgs) in enumerate(zip(group, per_prompt)):
+                self._finalize_item(item, res, err, status, imgs, t0,
+                                    stats if j == 0 else None, group,
+                                    reuse_on)
+            if abandoned:
+                # not "prompt ...": that prefix is the prompt line's
+                log(f"group {group[0]['id']} (x{k}) abandoned: {err}")
+        finally:
+            with self._cond:
+                self._finalize_pending -= 1
+                for item in group:
+                    self._inflight.discard(item["id"])
+
+    def _finalize_item(self, item: Dict[str, Any], res, err, status: str,
+                       imgs: list, t0: float,
+                       stats: Optional[Dict[str, Any]], group: list,
+                       reuse_on: bool) -> None:
+        """One prompt's share of a finalize.  ``stats`` (the run's kernel
+        counts and peak memory) ride the head prompt's line alone, so
+        the lines of a group sum to its run."""
+        k = len(group)
         # a queue prepared before the run for a run that never reached
         # its collector or upscaler would take uploads for ever
         for kind, mj in _master_jobs(item["prompt"]):
@@ -582,47 +881,57 @@ class ServerState:
         if self.durable is not None:
             # closes the admission record: a crash before this runs the
             # prompt again on recovery, one after it leaves it settled
-            self.durable.log_exec_done(item["id"],
-                                       "ok" if err is None else "error")
+            self.durable.log_exec_done(item["id"], status)
         done = {"prompt_id": item["id"],
-                "status": "success" if err is None else "error",
-                "seconds": time.perf_counter() - t0,
-                "launches": {v: fa.flash_attention.variants.get(v, 0)
-                             for v in fa.VARIANTS},
-                "launches_by_shape": [[*k, n] for k, n in sorted(
-                    fa.flash_attention.shapes.items())],
-                "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                         if on_cuda else None)}
+                "status": {"ok": "success"}.get(status, status),
+                "seconds": time.perf_counter() - t0}
+        done.update(stats if stats is not None
+                    else {**_no_launches(), "coalesced_into": group[0]["id"]})
+        if k > 1:
+            done["coalesced"] = k
         # metrics before history: a client that sees the prompt done
         # also sees it counted
         self._record_slo(item, err is None, t0)
+        entry: Dict[str, Any] = {"tenant": item["tenant"],
+                                 "started_at": item.get("started_at"),
+                                 "finished_at": time.time()}
+        if k > 1:
+            entry["coalesced"] = k
         if err is None:
             self.bump(prompts_executed=1)
-            self._history[item["id"]] = {
-                "status": "success", "images": len(res.images),
-                "duration_s": res.total_s, "tenant": item["tenant"],
-                "started_at": item["started_at"],
-                "finished_at": time.time()}
-            types = {k: n.get("class_type", "")
-                     for k, n in item["prompt"].items() if isinstance(n, dict)}
-            done.update(images=len(res.images),
-                        node_seconds={f"{k} {types.get(k, '')}": v
-                                      for k, v in res.timings.items()},
-                        stage_seconds=res.stages,
-                        transfers=_transfer_totals(res.transfers))
+            entry.update(status="success", images=len(imgs),
+                         duration_s=res.total_s)
+            if reuse_on and item.get("rkey") and imgs:
+                # the exact-hit tier: a byte-identical re-submission
+                # replays these images
+                reuse_mod.store_result(item["rkey"], imgs, res.total_s)
+            if stats is not None:
+                types = {n: node.get("class_type", "")
+                         for n, node in item["prompt"].items()
+                         if isinstance(node, dict)}
+                done.update(node_seconds={f"{n} {types.get(n, '')}": v
+                                          for n, v in res.timings.items()},
+                            stage_seconds=res.stages,
+                            transfers=_transfer_totals(res.transfers))
+            done["images"] = len(imgs)
+        elif status == "abandoned":
+            self.bump(prompts_abandoned=1)
+            entry.update(status="abandoned", error=str(err))
+            done["error"] = str(err)
         else:
             self.bump(prompts_failed=1)
-            self._history[item["id"]] = {
-                "status": "error", "error": str(err),
-                "tenant": item["tenant"], "started_at": item["started_at"],
-                "finished_at": time.time()}
+            entry.update(status="error", error=str(err))
             done["error"] = str(err)
+        self._history[item["id"]] = {"status": entry.pop("status"),
+                                     **entry}
         # a finished prompt frees a slot (the Retry-After estimate); the
         # class counts its completion
         self._completions.append(time.monotonic())
         if err is None:
             self.admission.on_complete(item["tenant"])
         log(f"prompt {json.dumps(done)}")
+        self._seal_trace(item, status, err)
+        reuse_mod.PREVIEWS.finish(item["id"], status)
 
     def _record_slo(self, item: Dict[str, Any], ok: bool,
                     t0: float) -> None:
@@ -948,6 +1257,13 @@ def _master_jobs(prompt: Dict[str, Any]):
                    else "image"), str(h["multi_job_id"])
 
 
+def _no_launches() -> Dict[str, Any]:
+    """A prompt line's kernel counts for a prompt that ran no kernel of
+    its own (purged, or a coalesced group's follower)."""
+    return {"launches": {v: 0 for v in fa.VARIANTS},
+            "launches_by_shape": [], "max_memory_allocated": None}
+
+
 def _transfer_totals(transfers: Dict[str, Dict[str, float]]
                      ) -> Dict[str, int]:
     """A run's transfer ledger summed over its nodes, by direction."""
@@ -1155,7 +1471,9 @@ def routes(state: ServerState
             # the stage timeline (queue_wait, compute, d2h, encode,
             # upload, job_e2e, ...), the event counters and gauges
             "pipeline": {**trace_mod.pipeline_snapshot(),
-                         "overlap": False, "coalesce": False},
+                         "overlap": state.overlap_enabled,
+                         "coalesce": state.coalesce_enabled,
+                         "max_queue": state.max_queue},
             "cluster": {**state.cluster.snapshot(),
                         "ledger": state.ledger.snapshot(),
                         "policy": cluster_mod.fault_policy(),
@@ -1174,6 +1492,10 @@ def routes(state: ServerState
             # the live anomaly plane and the workers' clock skews
             "analysis": {**analysis_mod.LIVE.snapshot(),
                          "skew": state.cluster.skew_snapshot()},
+            # the reuse plane's tiers (hits, misses, evictions, bytes
+            # against their budgets) and the preview channel's gauges
+            "reuse": {**reuse_mod.get_reuse().snapshot(),
+                      "previews": reuse_mod.PREVIEWS.snapshot()},
             "resources": (state.resources.snapshot()
                           if state.resources is not None
                           else {"enabled": False}),
@@ -1313,6 +1635,10 @@ def routes(state: ServerState
         before = resource.device_memory_snapshot(state.device)
         rss_before = resource.host_rss_bytes()
         registry.clear_pipeline_cache()
+        # the reuse plane goes too, before the allocator gives memory
+        # back: a reloaded checkpoint never meets an old entry, and the
+        # encode tier's device bytes count in the freed ones
+        cache_freed = reuse_mod.get_reuse().clear()
         for _ in range(3):
             gc.collect()
         if torch.device(state.device).type == "cuda":
@@ -1320,9 +1646,9 @@ def routes(state: ServerState
         after = resource.device_memory_snapshot(state.device)
         freed = max(before["bytes_in_use"] - after["bytes_in_use"], 0)
         log(f"cleared the pipeline caches (freed {freed / 1e6:.1f} MB, "
+            f"reuse caches {cache_freed / 1e6:.1f} MB, "
             f"source={after['source']})")
-        # cache_freed_bytes: the JAX package's reuse plane, not ported
-        return ok(freed_bytes=freed, cache_freed_bytes=0,
+        return ok(freed_bytes=freed, cache_freed_bytes=cache_freed,
                   device_bytes_before=before["bytes_in_use"],
                   device_bytes_after=after["bytes_in_use"],
                   host_rss_before=rss_before,
@@ -1503,6 +1829,40 @@ def routes(state: ServerState
             ("dtpu_queue_drain_rate", "gauge",
              "Prompts finalized per second (recent window).",
              [({}, round(state.drain_rate(), 4))]),
+        ])
+        # the reuse plane and the preview channel
+        rs = reuse_mod.get_reuse().snapshot()
+        pv = reuse_mod.PREVIEWS.snapshot()
+        tiers = ("result", "embed", "tile")
+        extra.extend([
+            ("dtpu_cache_hits_total", "counter",
+             "Reuse-cache hits by tier.",
+             [({"tier": t}, rs[t]["hits"]) for t in tiers]),
+            ("dtpu_cache_misses_total", "counter",
+             "Reuse-cache misses by tier.",
+             [({"tier": t}, rs[t]["misses"]) for t in tiers]),
+            ("dtpu_cache_evictions_total", "counter",
+             "Reuse-cache LRU evictions by tier.",
+             [({"tier": t}, rs[t]["evictions"]) for t in tiers]),
+            ("dtpu_cache_bytes", "gauge",
+             "Bytes resident in the reuse cache by tier.",
+             [({"tier": t}, rs[t]["bytes"]) for t in tiers]),
+            ("dtpu_cache_replays_total", "counter",
+             "Prompts settled by exact-hit replay.",
+             [({}, m["prompts_replayed"])]),
+            ("dtpu_cache_tiles_skipped_total", "counter",
+             "Upscale tiles skipped via per-tile content hashes.",
+             [({}, trace_mod.GLOBAL_COUNTERS.get("tiles_skipped"))]),
+            ("dtpu_preview_clients", "gauge",
+             "Attached SSE preview clients.",
+             [({}, pv["clients"])]),
+            ("dtpu_preview_events_total", "counter",
+             "Progressive preview frames published.",
+             [({}, trace_mod.GLOBAL_COUNTERS.get("preview_events"))]),
+            ("dtpu_jobs_abandoned_total", "counter",
+             "Jobs abandoned by client disconnect (queue purges + "
+             "freed CB slots).",
+             [({}, m["prompts_abandoned"])]),
         ])
         workers = state.cluster.snapshot()["workers"].values()
         extra.append(
@@ -1746,6 +2106,91 @@ def routes(state: ServerState
             return 409, {"error": f"sharding off (set {C.SHARD_ID_ENV})"}
         return 200, state.shard.merge_gossip(json_body(body))
 
+    # --- warmup and previews ---------------------------------------------
+
+    def warmup(body, ctype, query, remote=None):
+        """Run one txt2img-shaped request on zeros for a checkpoint
+        (``DiffusionPipeline.warmup``), so the next matching prompt pays
+        no first-use cost.  Body: ``ckpt_name`` and optionally
+        ``width``, ``height``, ``batch``, ``steps``, ``cfg``,
+        ``sampler_name``, ``scheduler``, ``denoise``."""
+        data = json_body(body)
+        ckpt = data.get("ckpt_name", "model.safetensors")
+        kwargs = {k: data[k] for k in
+                  ("height", "width", "batch", "steps", "cfg",
+                   "sampler_name", "scheduler", "denoise") if k in data}
+        return ok(ckpt_name=ckpt, timings=state.warmup(ckpt, **kwargs))
+
+    def prompt_live(pid: str) -> bool:
+        """Admitted and not yet finalized (an unknown id must never arm
+        an abandonment or pin a client slot)."""
+        with state._cond:
+            return pid in state._inflight
+
+    def preview_stream(body, ctype, query, remote=None):
+        """Server-sent events for one prompt: ``event: preview`` frames
+        when a publisher sends them, then one ``event: done`` with its
+        status.  The stream is also the cancellation channel: when the
+        last client of a queued prompt disconnects, the prompt is
+        abandoned and purged before it runs."""
+        if not reuse_mod.previews_enabled():
+            return 403, {"error": f"previews disabled "
+                                  f"({C.PREVIEW_ENV}=0)"}
+        pid = query.get("prompt_id", "")
+        if pid not in state._history and not prompt_live(pid):
+            return 404, {"error": f"unknown prompt {pid!r} (not queued, "
+                                  "not executing, not in history)"}
+        bus = reuse_mod.PREVIEWS
+        q = bus.subscribe(pid)
+        if q is None:
+            return 429, {"error": "too many preview clients"}
+
+        def run(write: Callable[[bytes], None],
+                gone: Callable[[], bool]) -> None:
+            disconnected = False
+            try:
+                last_beat = time.monotonic()
+                while True:
+                    if gone():
+                        raise ConnectionResetError("client closed")
+                    try:
+                        ev = q.get_nowait()
+                    except queue.Empty:
+                        ev = None
+                    if ev is None:
+                        hist = state._history.get(pid)
+                        if hist is not None:
+                            ev = {"type": "done", "prompt_id": pid,
+                                  "status": hist.get("status", "done")}
+                        else:
+                            if time.monotonic() - last_beat >= 1.0:
+                                # a comment between frames: a write to a
+                                # closed connection raises
+                                write(b": ping\n\n")
+                                last_beat = time.monotonic()
+                            time.sleep(0.05)
+                            continue
+                    write(f"event: {ev['type']}\n"
+                          f"data: {json.dumps(ev)}\n\n".encode())
+                    if ev.get("type") == "done":
+                        break
+            except OSError:
+                # BrokenPipeError, ConnectionResetError: the client left
+                disconnected = True
+            finally:
+                remaining = bus.unsubscribe(pid, q)
+                if disconnected and remaining == 0 \
+                        and pid not in state._history and prompt_live(pid):
+                    bus.abandon(pid)
+                    with state._cond:
+                        state._cond.notify()
+                    if pid in state._history:
+                        # the prompt settled between the check and the
+                        # flag: nothing else would consume it
+                        bus.clear_abandoned(pid)
+
+        return 200, Stream(run, "text/event-stream")
+
     def panel(body, ctype, query, remote=None):
         with open(PANEL_HTML, "rb") as f:
             return 200, Raw(f.read(), "text/html; charset=utf-8")
@@ -1800,6 +2245,8 @@ def routes(state: ServerState
         ("GET", "/distributed/slo"): slo_view,
         ("GET", "/distributed/ring"): ring_info,
         ("POST", "/distributed/ring/gossip"): ring_gossip,
+        ("POST", "/distributed/warmup"): warmup,
+        ("GET", "/distributed/preview/{prompt_id}"): preview_stream,
     }
 
 
@@ -1861,6 +2308,9 @@ def make_handler(state: ServerState) -> type:
             except Exception as e:  # noqa: BLE001 - a 500, not a dead thread
                 traceback.print_exc()
                 status, payload = 500, {"error": str(e)}
+            if isinstance(payload, Stream):
+                self._stream(status, payload)
+                return
             if isinstance(payload, Raw):
                 data, content_type = payload.data, payload.content_type
             else:
@@ -1873,6 +2323,33 @@ def make_handler(state: ServerState) -> type:
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
+
+        def _stream(self, status: int, payload: Stream) -> None:
+            self.close_connection = True
+            try:
+                self.send_response(status)
+                self.send_header("Content-Type", payload.content_type)
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Accel-Buffering", "no")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                self.wfile.flush()
+            except OSError:
+                pass
+
+            def write(data: bytes) -> None:
+                self.wfile.write(data)
+                self.wfile.flush()
+
+            def gone() -> bool:
+                try:
+                    ready, _, _ = select.select([self.connection], [], [], 0)
+                    return bool(ready) and not self.connection.recv(
+                        1, socket.MSG_PEEK)
+                except OSError:
+                    return True
+
+            payload.run(write, gone)
 
         def do_GET(self) -> None:
             self._dispatch("GET")
@@ -1911,6 +2388,20 @@ def serve(state: ServerState, host: str = "127.0.0.1",
     ``DTPU_DRAIN_TIMEOUT_S``), then stops it and closes the log."""
     server = make_server(state, host, port)
     role = "worker" if state.is_worker else "master"
+    warmup_spec = os.environ.get(C.WARMUP_ENV)
+    if warmup_spec and not state.is_worker:
+        # DTPU_WARMUP='{"ckpt_name": ..., "width": ..., ...}': one
+        # request's shapes run on zeros while the server already answers
+        def startup_warmup() -> None:
+            try:
+                spec = json.loads(warmup_spec)
+                state.warmup(spec.pop("ckpt_name", "model.safetensors"),
+                             **spec)
+            except Exception as e:  # noqa: BLE001 - warmup is best-effort
+                log(f"startup warmup failed: {type(e).__name__}: {e}")
+
+        threading.Thread(target=startup_warmup, daemon=True,
+                         name="dtpu-warmup").start()
     state.resources = resource.install_monitor(
         queue_depth_fn=state.queue_remaining, device=state.device)
     if state.is_worker:

@@ -1,7 +1,8 @@
 """Timeouts, node-type sets and wire constants of the HTTP fan-out, the
 worker manager, the write-ahead log, the observability plane (traces,
-capture files, critical-path analysis, resources), admission and SLOs
-and the sharded masters: the subset of
+capture files, critical-path analysis, resources), admission and SLOs,
+the sharded masters, the coalescing scheduler, the overlapped finalize
+and the reuse plane: the subset of
 ``comfyui_distributed_tpu/utils/constants.py`` that the port reads, with
 the same values, so a worker of either package keeps to a master of the
 other.
@@ -157,6 +158,69 @@ MAX_QUEUE_ENV = "DTPU_MAX_QUEUE"         # /prompt backpressure cap
 MAX_QUEUE_DEFAULT = 256                  # full queue -> HTTP 429
 DRAIN_TIMEOUT_ENV = "DTPU_DRAIN_TIMEOUT_S"
 DRAIN_TIMEOUT_DEFAULT = 30.0             # graceful-shutdown drain bound
+OVERLAP_ENV = "DTPU_OVERLAP"             # "0" -> serial (host work inline)
+COALESCE_ENV = "DTPU_COALESCE"           # "0" -> one prompt per dispatch
+COALESCE_MAX_ENV = "DTPU_MAX_COALESCE"
+COALESCE_MAX_DEFAULT = 8                 # largest batched prompt group
+HOSTIO_THREADS_ENV = "DTPU_HOSTIO_THREADS"
+HOSTIO_THREADS_DEFAULT = 2               # encoder pool width
+HOSTIO_PENDING_ENV = "DTPU_HOSTIO_PENDING"
+HOSTIO_PENDING_DEFAULT = 16              # bounded: submit blocks past this
+WARMUP_ENV = "DTPU_WARMUP"               # serve-startup warmup JSON
+
+# Node types the coalescing scheduler may merge along the batch: each is
+# batch-parallel (no cross-sample state, no HTTP side channel), the only
+# batch source is EmptyLatentImage, and prompts of one group differ only
+# in the KSampler seed (masked out of the signature).  Anything else
+# runs one prompt a dispatch.
+COALESCE_SAFE_NODE_TYPES = frozenset({
+    "CheckpointLoaderSimple", "CLIPTextEncode", "CLIPSetLastLayer",
+    "LoraLoader", "LoraLoaderModelOnly", "EmptyLatentImage", "KSampler",
+    "VAEDecode", "VAEDecodeTiled", "SaveImage", "PreviewImage",
+})
+
+# --- cross-request reuse (runtime/reuse.py) ----------------------------------
+# Three content-addressed tiers, each an LRU with its own byte budget:
+# exact-hit results (host), text and VAE encodes (on the device) and
+# refined upscale tiles.  DTPU_CACHE=0 turns every tier off before any
+# key is computed.
+CACHE_ENV = "DTPU_CACHE"                 # "0" disables every tier
+CACHE_BYTES_ENV = "DTPU_CACHE_BYTES"     # exact-hit result tier budget
+CACHE_BYTES_DEFAULT = 256 << 20
+CACHE_DEVICE_BYTES_ENV = "DTPU_CACHE_DEVICE_BYTES"  # on-device encode tier
+CACHE_DEVICE_BYTES_DEFAULT = 128 << 20
+CACHE_TILE_BYTES_ENV = "DTPU_CACHE_TILE_BYTES"      # refined-tile tier
+CACHE_TILE_BYTES_DEFAULT = 256 << 20
+CACHE_ENTRIES_ENV = "DTPU_CACHE_ENTRIES"  # per-tier entry cap
+CACHE_ENTRIES_DEFAULT = 256
+# previews over server-sent events (GET /distributed/preview/<prompt_id>);
+# a client that disconnects from a queued prompt abandons it
+PREVIEW_ENV = "DTPU_PREVIEW"             # "0" disables the route
+PREVIEW_EVERY_ENV = "DTPU_PREVIEW_EVERY"  # publish every N steps
+PREVIEW_EVERY_DEFAULT = 1
+PREVIEW_MAX_CLIENTS_ENV = "DTPU_PREVIEW_MAX_CLIENTS"
+PREVIEW_MAX_CLIENTS_DEFAULT = 64
+
+# Node types whose output is a pure function of their widgets and their
+# upstream content keys: the encode memo's addressable set
+# (runtime/reuse.subgraph_keys).  LoadImage takes part through a salt
+# of its file's stat.
+REUSE_KEY_NODE_TYPES = frozenset({
+    "CheckpointLoaderSimple", "CLIPSetLastLayer", "LoraLoader",
+    "LoraLoaderModelOnly", "CLIPTextEncode", "CLIPTextEncodeSDXL",
+    "CLIPTextEncodeSDXLRefiner", "LoadImage", "VAEEncode",
+    "ImageScale", "EmptyLatentImage",
+})
+
+# Node types a whole graph may consist of and still be replayed from the
+# exact-hit tier: deterministic functions of their widgets and inputs.
+# Distributed nodes never qualify, nor does SaveImage (its contract is a
+# new file on disk each time, which a replay cannot honour).
+RESULT_CACHE_SAFE_NODE_TYPES = (COALESCE_SAFE_NODE_TYPES | frozenset({
+    "LoadImage", "VAEEncode", "VAEEncodeTiled", "ImageScale",
+    "CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner",
+    "KSamplerAdvanced",
+})) - frozenset({"SaveImage"})
 
 # --- SLO burn-rate engine (utils/slo.py) -------------------------------------
 # Per-tenant-class objectives over a fast and a slow rolling window, fed

@@ -2,7 +2,9 @@
 ``comfyui_distributed_tpu/utils/logging.py``.
 
 By default a line is ``dtpu-torch <message>`` on standard output,
-flushed, one a line (``chip_smoke.py`` reads the servers' logs).  With
+flushed, one a line, written whole under a lock, so lines of two threads
+(the execution and the finalize thread) never interleave
+(``chip_smoke.py`` reads the servers' logs).  With
 ``DTPU_LOG_JSON=1`` (or :func:`set_json_logs`) each line is one JSON
 object, ``{"ts", "level", "msg"}`` plus the active request trace's
 ``trace_id``, ``span_id`` and ``prompt_id`` (``utils.trace.
@@ -18,6 +20,8 @@ package; ``DISTRIBUTED_TPU_DEBUG`` set to a true value keeps it on.
 
 import json
 import os
+import sys
+import threading
 import time
 
 _LOG_JSON_ENV = "DTPU_LOG_JSON"   # utils.constants.LOG_JSON_ENV (log sits
@@ -52,10 +56,21 @@ def json_logs_enabled() -> bool:
     return _json_enabled
 
 
+_write_lock = threading.Lock()
+
+
+def _write(line: str) -> None:
+    """One line in one write: ``print`` writes the text and the newline
+    apart, and another thread's line can fall between them."""
+    with _write_lock:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+
 def _emit(level: str, msg: str) -> None:
     if not _json_enabled:
         tag = "" if level == "info" else "[DEBUG] "
-        print(f"dtpu-torch {tag}{msg}", flush=True)
+        _write(f"dtpu-torch {tag}{msg}")
         return
     out = {"ts": round(time.time(), 6), "level": level, "msg": msg}
     try:
@@ -67,7 +82,7 @@ def _emit(level: str, msg: str) -> None:
         ids = None
     if ids:
         out.update(ids)
-    print(json.dumps(out, ensure_ascii=False, default=str), flush=True)
+    _write(json.dumps(out, ensure_ascii=False, default=str))
 
 
 def log(msg: str) -> None:

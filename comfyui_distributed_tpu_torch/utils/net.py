@@ -15,6 +15,9 @@ of ``comfyui_distributed_tpu/utils/net.py`` without ``aiohttp``.
   pipeline ``stage``: the counterpart of the JAX package's
   ``HostIOPool.submit`` handoff, so the data plane's encodes and copies
   stay in the job's trace and transfer ledger.
+- :class:`HostIOPool`: the overlapped finalize's bounded pool, whose
+  tasks run through :func:`in_context`, so a deferred encode stays in
+  the job's trace.
 - :func:`negotiate_wire_format` / :func:`wire_codec`: one
   ``GET /distributed/wire_formats`` per master decides between raw-tensor
   uploads and PNG.
@@ -24,8 +27,10 @@ of ``comfyui_distributed_tpu/utils/net.py`` without ``aiohttp``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import http.client
 import json
+import os
 import random
 import socket
 import threading
@@ -258,6 +263,58 @@ def in_context(fn: Callable[..., Any], stage: Optional[str] = None
                     return fn(*args, **kwargs)
             return fn(*args, **kwargs)
     return run
+
+
+# --- overlapped host-IO pool -------------------------------------------------
+
+class HostIOPool:
+    """Bounded pool of the overlapped finalize: output nodes' host work
+    (the wait for a copy, PNG encodes, disk writes) runs here, so one
+    job's encodes overlap the next job's kernels.  ``max_pending`` tasks
+    in flight (``DTPU_HOSTIO_PENDING``), then :meth:`submit` blocks the
+    producer: the card cannot outrun a slow disk by buffering images
+    without bound.  ``DTPU_HOSTIO_THREADS`` threads."""
+
+    def __init__(self, max_workers: Optional[int] = None,
+                 max_pending: Optional[int] = None):
+        max_workers = max_workers or int(os.environ.get(
+            C.HOSTIO_THREADS_ENV, C.HOSTIO_THREADS_DEFAULT))
+        max_pending = max_pending or int(os.environ.get(
+            C.HOSTIO_PENDING_ENV, C.HOSTIO_PENDING_DEFAULT))
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(1, max_workers),
+            thread_name_prefix="dtpu-hostio")
+        self._slots = threading.BoundedSemaphore(max(1, max_pending))
+        self._pending = 0  # guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return self._pending
+
+    def submit(self, fn: Callable[..., Any],
+               *args) -> concurrent.futures.Future:
+        """Schedule ``fn(*args)``; returns its future.  It runs in the
+        submitting thread's transfer attribution and span context
+        (:func:`in_context`)."""
+        bound = in_context(fn)
+        self._slots.acquire()
+        with self._lock:
+            self._pending += 1
+
+        def run():
+            try:
+                return bound(*args)
+            finally:
+                with self._lock:
+                    self._pending -= 1
+                self._slots.release()
+
+        return self._pool.submit(run)
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._pool.shutdown(wait=wait, cancel_futures=not wait)
 
 
 # --- wire-format negotiation -------------------------------------------------

@@ -21,7 +21,8 @@
 - :func:`describe_devices`: the device view of ``/distributed/status``
   and ``cli devices``.
 
-The port has no reuse plane, so ``cache_bytes`` is 0.
+``cache_bytes`` is the reuse plane's residency over its three tiers
+(``runtime/reuse.cache_bytes_total``).
 """
 
 from __future__ import annotations
@@ -119,8 +120,9 @@ def describe_devices(device: str = "cuda") -> Dict[str, Any]:
 
 
 def _cache_bytes() -> int:
-    """Bytes in the cross-request reuse caches: the port has none."""
-    return 0
+    """Bytes in the cross-request reuse caches (0 before any was made)."""
+    from comfyui_distributed_tpu_torch.runtime.reuse import cache_bytes_total
+    return cache_bytes_total()
 
 
 def snapshot_now(queue_depth: Optional[int] = None,

@@ -263,7 +263,9 @@ class CounterStats:
 
 
 # coalesced_batches / coalesced_prompts / exec_runs / wire_tensor_msgs /
-# wire_png_msgs / wire_bytes ... — the scheduler and wire layers bump,
+# wire_png_msgs / wire_bytes / tiles_skipped / preview_events /
+# preview_clients / jobs_abandoned / cache_<tier>_{hits,misses,evictions}
+# / cache_result_replays ... — the scheduler, wire and reuse layers bump,
 # /distributed/metrics reads
 GLOBAL_COUNTERS = CounterStats()
 

@@ -6,8 +6,17 @@ Each node runs under ``utils.trace.node_scope`` (its device copies are
 attributed to it) and a span named for its ``class_type`` in the active
 request trace (none outside a job), and its seconds go to the per-type
 ``GLOBAL_NODES`` histogram.  A run's copies between host and device are
-also kept in a run-local ledger, ``ExecutionResult.transfers``.  Reuse
-keys and the per-node memory attribution of the resource plane wait.
+also kept in a run-local ledger, ``ExecutionResult.transfers``.
+
+``hidden`` maps node ids to per-run hidden-input overrides (the
+coalescing scheduler's ``coalesced_seeds``); they reach the ops and
+``OpContext.hidden_overrides`` and never change the graph.  With the
+reuse plane on (``DTPU_CACHE``), one pass before the run computes each
+addressable node's input sub-graph key (``runtime/reuse.subgraph_keys``),
+set as ``OpContext.content_key`` while the node runs: the encode memo's
+key.  Output nodes run on the context's host pool when it has one; the
+result's ``images`` are then whole after :meth:`ExecutionResult.wait_host`.
+The per-node memory attribution of the resource plane waits.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.ops.base import OpContext, get_op
+from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import debug_log
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
@@ -40,6 +50,28 @@ class ExecutionResult:
     # node id (or "_unattributed") -> {d2h,h2d}_{bytes,calls} of this run
     transfers: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    # output nodes' host work still on the host pool, one future a
+    # collecting node in topological order; ``images`` is whole after
+    # wait_host()
+    image_futures: List[Any] = dataclasses.field(default_factory=list)
+    # prompts the coalescing scheduler merged into this run
+    coalesced: int = 1
+    # the run's live transfer ledger: deferred copies count into it after
+    # the run's snapshot, so wait_host takes it again
+    _transfer_stats: Any = None
+
+    def wait_host(self, timeout: Optional[float] = None
+                  ) -> "ExecutionResult":
+        """Join the deferred host work into ``images``; raises what it
+        raised."""
+        futures, self.image_futures = self.image_futures, []
+        for f in futures:
+            out = f.result(timeout)
+            if out:
+                self.images.extend(out)
+        if futures and self._transfer_stats is not None:
+            self.transfers = self._transfer_stats.snapshot()
+        return self
 
     @property
     def image_batch(self) -> Optional[np.ndarray]:
@@ -52,14 +84,27 @@ class WorkflowExecutor:
     def __init__(self, ctx: Optional[OpContext] = None):
         self.ctx = ctx or OpContext()
 
-    def execute(self, workflow: Any) -> ExecutionResult:
-        """Run a workflow (path, JSON, dict or Graph).  Node timings end in
-        a device synchronize, so each is the node's own device time."""
+    def execute(self, workflow: Any,
+                hidden: Optional[Dict[str, Dict[str, Any]]] = None
+                ) -> ExecutionResult:
+        """Run a workflow (path, JSON, dict or Graph), with ``hidden``
+        (node id -> hidden-input overrides) for this run.  Node timings
+        end in a device synchronize, so each is the node's own device
+        time."""
         graph = workflow if isinstance(workflow, Graph) \
             else parse_workflow(workflow)
+        hidden = hidden or {}
+        reuse_keys: Dict[str, str] = {}
+        if reuse_mod.reuse_enabled():
+            reuse_keys = reuse_mod.subgraph_keys(
+                graph, hidden, input_dir=self.ctx.input_dir,
+                models_dir=self.ctx.models_dir)
+        # fresh lists: an earlier result keeps its own
         self.ctx.saved_images = []
+        self.ctx.image_futures = []
         self.ctx.stage_seconds = {}
         self.ctx.prompt_json = graph.to_api_format()
+        self.ctx.hidden_overrides = dict(hidden)
         on_cuda = torch.device(self.ctx.device).type == "cuda"
         outputs: Dict[str, Tuple] = {}
         timings: Dict[str, float] = {}
@@ -73,6 +118,7 @@ class WorkflowExecutor:
             for nid in order:
                 node = graph.nodes[nid]
                 op = ops[nid]
+                self.ctx.content_key = reuse_keys.get(nid)
                 kwargs: Dict[str, Any] = {}
                 for name, value in node.inputs.items():
                     if isinstance(value, (list, tuple)) and len(value) == 2 \
@@ -82,7 +128,9 @@ class WorkflowExecutor:
                         kwargs[name] = outputs[str(value[0])][int(value[1])]
                     else:
                         kwargs[name] = value
-                for hname, hval in node.hidden.items():
+                # the graph's hidden inputs, then this run's overrides
+                for hname, hval in {**node.hidden,
+                                    **hidden.get(nid, {})}.items():
                     if hname in op.HIDDEN:
                         kwargs[hname] = hval
                 debug_log(f"exec node {nid} ({node.class_type})")
@@ -100,10 +148,14 @@ class WorkflowExecutor:
                 timings[nid] = time.perf_counter() - t0
                 trace_mod.GLOBAL_NODES.record(node.class_type, timings[nid])
         total = time.perf_counter() - t_start
+        self.ctx.content_key = None
         self.ctx.node_timings.update(timings)
         return ExecutionResult(outputs=outputs,
                                images=list(self.ctx.saved_images),
                                timings=timings, total_s=total,
                                stages=dict(self.ctx.stage_seconds),
                                node_max_memory=max_memory,
-                               transfers=run_transfers.snapshot())
+                               transfers=run_transfers.snapshot(),
+                               image_futures=list(self.ctx.image_futures),
+                               coalesced=max(int(self.ctx.coalesce), 1),
+                               _transfer_stats=run_transfers)

@@ -14,25 +14,118 @@ Three mechanisms:
 - **weighted fair dequeue** (stride scheduling) interleaves the classes
   that were admitted; within a class the order stays FIFO.
 
-The batch-coalescing half of the JAX module (``coalesce_signature``,
-``build_coalesced``, ``pop_cb_admit``, ``split_images``) and the
-controller's ``peek_class``, which only ``pop_cb_admit`` calls, belong
-to continuous batching and are not here: no queued item has a ``sig``,
-so :func:`pop_fair_group` pops one prompt at a time.
+The batch-coalescing half: queued prompts that differ only in their
+KSampler seed run as one batched dispatch.  Their **signature**
+(:func:`coalesce_signature`) hashes the graph with the seed masked out;
+:func:`pop_fair_group` takes the scheduled class's head prompt and the
+contiguous run of its class's signature-equal prompts behind it (so no
+prompt overtakes another of its class), :func:`build_coalesced` makes
+the merged run (the first prompt's graph, ``EmptyLatentImage`` laying
+out ``batch_size * k`` rows prompt-major through ``OpContext.coalesce``,
+each KSampler given the per-prompt seeds as its ``coalesced_seeds``
+hidden input) and :func:`split_images` gives each prompt its images
+back.  Each prompt's rows draw the noise of its serial run, so
+coalescing changes latencies, not images.  Only graphs of
+``COALESCE_SAFE_NODE_TYPES`` coalesce.  ``pop_cb_admit`` and the
+controller's ``peek_class`` belong to continuous batching and are not
+here.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import math
 import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from comfyui_distributed_tpu_torch.utils import clock as clock_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
+from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
+
+# class_type -> widget names that are per-prompt data, not program shape:
+# masked out of the signature and handed on per prompt at merge time
+_MASKED_WIDGETS: Dict[str, Tuple[str, ...]] = {
+    "KSampler": ("seed",),
+}
+
+
+def _canonical(prompt: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The signature view of an API-format prompt: its nodes with the
+    masked widgets replaced by a sentinel.  None when the prompt does
+    not coalesce (an unsafe node type, hidden inputs, no
+    EmptyLatentImage and KSampler to batch over)."""
+    has_latent_source = False
+    has_sampler = False
+    out: Dict[str, Any] = {}
+    for nid, node in prompt.items():
+        if not isinstance(node, dict) or "class_type" not in node:
+            continue  # metadata keys ride along untouched
+        ct = node.get("class_type")
+        if ct not in C.COALESCE_SAFE_NODE_TYPES:
+            return None
+        if node.get("hidden"):
+            # a dispatched share carries its participant's hidden state
+            return None
+        has_latent_source |= ct == "EmptyLatentImage"
+        has_sampler |= ct == "KSampler"
+        inputs = dict(node.get("inputs", {}))
+        for w in _MASKED_WIDGETS.get(ct, ()):
+            if w in inputs:
+                inputs[w] = "__coalesced__"
+        out[str(nid)] = {"class_type": ct, "inputs": inputs}
+    if not out or not has_latent_source or not has_sampler:
+        return None
+    return out
+
+
+def coalesce_signature(prompt: Dict[str, Any]) -> Optional[str]:
+    """The prompt's coalescing signature (the JAX package's string for
+    the same graph), or None when it runs alone.  Signature-equal
+    prompts differ only in masked widgets."""
+    canon = _canonical(prompt)
+    if canon is None:
+        return None
+    try:
+        blob = json.dumps(canon, sort_keys=True, default=str)
+    except (TypeError, ValueError):
+        return None
+    return hashlib.sha1(blob.encode()).hexdigest()
+
+
+def build_coalesced(prompts: List[Dict[str, Any]]
+                    ) -> Tuple[Graph, Dict[str, Dict[str, Any]]]:
+    """Merge signature-equal prompts into one run: ``(graph, hidden)``,
+    the first prompt's graph and per-node hidden overrides with the
+    per-prompt values of each masked widget (``coalesced_seeds``: JSON
+    ints, which SaveImage writes into each prompt's PNG)."""
+    graph = parse_workflow(prompts[0])
+    hidden: Dict[str, Dict[str, Any]] = {}
+    for nid, node in graph.nodes.items():
+        for widget in _MASKED_WIDGETS.get(node.class_type, ()):
+            per_prompt = [
+                int(p[nid]["inputs"].get(widget, node.inputs.get(widget, 0)))
+                for p in prompts]
+            hidden.setdefault(nid, {})[f"coalesced_{widget}s"] = per_prompt
+    return graph, hidden
+
+
+def split_images(images: List[Any], k: int) -> List[List[Any]]:
+    """A merged run's prompt-major images back per prompt: EmptyLatentImage
+    lays out ``[prompt0 x b, prompt1 x b, ...]`` and every coalescable op
+    keeps the batch order, so even chunks are the prompts'.  A count
+    that does not divide goes all to the first prompt."""
+    if k <= 1:
+        return [list(images)]
+    n = len(images)
+    per = n // k if k and n % k == 0 else None
+    if per is None:
+        return [list(images)] + [[] for _ in range(k - 1)]
+    return [list(images[i * per:(i + 1) * per]) for i in range(k)]
 
 
 def _parse_kv_floats(raw: Optional[str],

@@ -46,6 +46,7 @@ from comfyui_distributed_tpu_torch.ops import distributed as tdist
 from comfyui_distributed_tpu_torch.ops import tiled_upscale as tup
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.runtime import cluster as cl
+from comfyui_distributed_tpu_torch.runtime import reuse
 from comfyui_distributed_tpu_torch.runtime.jobs import JobStore
 from comfyui_distributed_tpu_torch.server.app import ServerState, make_server
 from comfyui_distributed_tpu_torch.utils import constants as C
@@ -53,6 +54,7 @@ from comfyui_distributed_tpu_torch.utils import net
 from comfyui_distributed_tpu_torch.utils import trace as ttrace
 from comfyui_distributed_tpu_torch.utils.image import (decode_png,
                                                        decode_tensor,
+                                                       save_png,
                                                        to_uint8)
 from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
 from comfyui_distributed_tpu_torch.workflow import dispatcher as dsp
@@ -812,16 +814,18 @@ class Drill:
         self.servers[name].shutdown()
         self.servers[name].server_close()
 
-    def run(self, doc):
-        """POST ``doc`` to the master, ``kill("w1")`` as soon as /prompt
-        returns (the dispatch has landed), wait for the history; returns
-        (response, history entry, /distributed/cluster, new PNGs)."""
+    def run(self, doc, kill="w1"):
+        """POST ``doc`` to the master, ``kill(kill)`` (None: no one) as
+        soon as /prompt returns (the dispatch has landed), wait for the
+        history; returns (response, history entry, /distributed/cluster,
+        new PNGs)."""
         url = self.urls["master"]
         out = self.root / "master" / "output"
         before = set(out.glob("*.png")) if out.exists() else set()
         resp = net.post_json(url + "/prompt", {"prompt": doc,
                                                "client_id": "drill"})
-        self.kill("w1")
+        if kill is not None:
+            self.kill(kill)
         deadline = time.time() + DRILL_S
         while resp["prompt_id"] not in net.get_json(url + "/history"):
             assert time.time() < deadline, "no history"
@@ -846,6 +850,9 @@ def drill_env(monkeypatch):
     monkeypatch.setenv(C.SUSPECT_PROBES_ENV, "1")
     monkeypatch.setenv(C.FAULT_POLICY_ENV, "reassign")
     monkeypatch.setenv(C.HEDGE_ENV, "0")    # the lease path alone
+    # the drills rerun one upscale: the reuse plane's tile tier would
+    # settle the master's tiles from the earlier run
+    monkeypatch.setenv(C.CACHE_ENV, "0")
     net.reset_wire_cache()
     yield
     treg.clear_pipeline_cache()
@@ -938,3 +945,94 @@ def test_drill_kill_w1_after_an_image_fanout_dispatch(tmp_path, drill_env):
         assert _png_diff(files[2], refs[1]) > 0.1
     finally:
         drill.stop()
+
+
+def test_fanout_upscale_with_the_tile_tier(tmp_path, drill_env,
+                                           monkeypatch):
+    """The fan-out upscale with the reuse plane on, its default (no
+    worker killed).  The master stores its own and the workers' refined
+    tiles; a re-run checks every tile in to the ledger as ``cache``
+    before any work, drops the workers' sends of them, ends its drain
+    and equals the first run to the bit.  A source changed inside tiles
+    0 and 3 refines only those, each where its owner is (the master,
+    w1), and equals a ``DTPU_CACHE=0`` fan-out of it to the bit outside
+    their windows and within one 8-bit step inside (tile 0 is refined
+    alone, not in a batch of two)."""
+    monkeypatch.delenv(C.CACHE_ENV)
+    reuse.reset_reuse()
+    rng = np.random.default_rng(31)
+    src = rng.uniform(size=(64, 64, 3)).astype(np.float32)
+    changed = src.copy()
+    changed[2:6, 2:6] = 1.0 - changed[2:6, 2:6]      # tile 0's core
+    changed[58:62, 58:62] = 1.0 - changed[58:62, 58:62]  # tile 3's
+    tiles = tiling.calculate_tiles(64, 64, 32, 32)
+    regions = [tiling.extraction_region(*t, 32, 32, 8, 64, 64)
+               for t in tiles]
+    dirty = [i for i, (x1, y1, x2, y2) in enumerate(regions)
+             if not np.array_equal(src[y1:y2, x1:x2],
+                                   changed[y1:y2, x1:x2])]
+    assert dirty == [0, 3]
+
+    def doc(image):
+        out = _upscale_prompt()
+        out["10"]["inputs"]["image"] = image
+        return out
+
+    drill = Drill(tmp_path)
+    for name in ("master", "w0", "w1"):
+        d = tmp_path / name / "input"
+        d.mkdir(parents=True, exist_ok=True)
+        save_png(str(d / "a.png"), src)
+        save_png(str(d / "b.png"), changed)
+    checkins = []
+    ledger = drill.master.ledger
+    real = ledger.check_in
+
+    def spy(job_id, unit, worker_id, *a, **kw):
+        won = real(job_id, unit, worker_id, *a, **kw)
+        checkins.append((str(job_id), int(unit), str(worker_id), won))
+        return won
+
+    monkeypatch.setattr(ledger, "check_in", spy)
+
+    def run(image):
+        del checkins[:]
+        skipped0 = ttrace.GLOBAL_COUNTERS.get("tiles_skipped")
+        resp, entry, snap, files = drill.run(doc(image), kill=None)
+        assert sorted(resp["workers"]) == ["w0", "w1"], resp
+        assert entry["status"] == "success", entry
+        job = next(j for j in reversed(snap["ledger"]["completed_jobs"])
+                   if j["kind"] == "tile")
+        assert job["done_units"] == job["total_units"] == 4
+        assert job["pending_units"] == [], job
+        winners = {u: w for jid, u, w, won in checkins
+                   if won and jid == job["job_id"]}
+        (f,) = files
+        return (winners, ttrace.GLOBAL_COUNTERS.get("tiles_skipped")
+                - skipped0, decode_png(f.read_bytes())[0])
+
+    try:
+        winners, skipped, first = run("a.png")
+        assert winners == {0: "master", 1: "master", 2: "w0", 3: "w1"}
+        assert skipped == 0
+        winners, skipped, again = run("a.png")
+        assert winners == {i: "cache" for i in range(4)} and skipped == 4
+        np.testing.assert_array_equal(again, first)
+        winners, skipped, got = run("b.png")
+        assert winners == {0: "master", 1: "cache", 2: "cache", 3: "w1"}
+        assert skipped == 2
+        monkeypatch.setenv(C.CACHE_ENV, "0")
+        winners, skipped, want = run("b.png")
+        assert winners == {0: "master", 1: "master", 2: "w0", 3: "w1"}
+        assert skipped == 0
+    finally:
+        drill.stop()
+        reuse.reset_reuse()
+    outside = np.ones(got.shape[:2], bool)
+    for i in dirty:
+        x1, y1, x2, y2 = regions[i]
+        outside[y1:y2, x1:x2] = False
+    assert outside.any()
+    np.testing.assert_array_equal(got[outside], want[outside])
+    assert float(np.abs(got - want).max()) <= ONE_STEP
+    assert np.abs(got - first).max() > 0.1

@@ -368,6 +368,9 @@ def acceptance_env(tmp_path, monkeypatch):
     monkeypatch.setenv(C.LEASE_ENV, "4.0")
     monkeypatch.setenv(C.FAULT_POLICY_ENV, "reassign")
     monkeypatch.setenv(C.HEDGE_ENV, "0")
+    # the drills rerun one upscale: the reuse plane's tile tier would
+    # settle the master's tiles from the earlier run
+    monkeypatch.setenv(C.CACHE_ENV, "0")
     net.reset_wire_cache()
     yield
     treg.clear_pipeline_cache()

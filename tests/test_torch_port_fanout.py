@@ -249,8 +249,12 @@ def refs(tmp_path_factory):
     inp = tmp_path_factory.mktemp("refs_input")
     _input_png(inp / "input.png")
     saved = (os.environ.get("DTPU_DEFAULT_FAMILY"), tup.TINY_RRDB_CONFIG,
-             jreg.TINY_RRDB_CONFIG, jreg._upscaler_cache)
+             jreg.TINY_RRDB_CONFIG, jreg._upscaler_cache,
+             os.environ.get("DTPU_CACHE"))
     os.environ["DTPU_DEFAULT_FAMILY"] = "tiny"
+    # the upscale runs twice here, the second in the fan-out's batches:
+    # the reuse plane's tile tier would hand it the first run's tiles
+    os.environ["DTPU_CACHE"] = "0"
     tup.TINY_RRDB_CONFIG = dataclasses.replace(tup.TINY_RRDB_CONFIG,
                                                dtype=torch.float32)
     jreg.TINY_RRDB_CONFIG = dataclasses.replace(jreg.TINY_RRDB_CONFIG,
@@ -288,12 +292,14 @@ def refs(tmp_path_factory):
         finally:
             Upscaler._refine_tiles = whole
     finally:
-        if saved[0] is None:
-            os.environ.pop("DTPU_DEFAULT_FAMILY", None)
-        else:
-            os.environ["DTPU_DEFAULT_FAMILY"] = saved[0]
+        for name, value in (("DTPU_DEFAULT_FAMILY", saved[0]),
+                            ("DTPU_CACHE", saved[4])):
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
         tup.TINY_RRDB_CONFIG, jreg.TINY_RRDB_CONFIG, \
-            jreg._upscaler_cache = saved[1:]
+            jreg._upscaler_cache = saved[1:4]
         treg.clear_pipeline_cache()
     return out
 
@@ -358,12 +364,33 @@ def test_distributed_upscale_torch_worker(cluster, refs):
     assert _diff(f, refs["jax"]["upscale"]) <= ONE_STEP
 
 
+def _warm_jax_worker(cluster):
+    """One plain request at the shapes of the JAX worker's share, posted
+    to it directly: it compiles with its cache off, and under load a
+    cold compile can outlast the master's ``WORKER_JOB_TIMEOUT`` window
+    for the share under test."""
+    doc = _txt2img(SEED + 1, save=False)
+    doc["3"]["inputs"]["seed"] = SEED + 1
+    doc["9"]["inputs"]["images"] = ["8", 0]
+    del doc["13"], doc["14"]
+    url = cluster.url("j0")
+    pid = post_json(url + "/prompt", {"prompt": doc,
+                                      "client_id": "warm"})["prompt_id"]
+    deadline = time.time() + DEADLINE_S
+    while pid not in get_json(url + "/history"):
+        assert time.time() < deadline, cluster.logs()
+        time.sleep(0.2)
+    assert get_json(url + "/history")[pid]["status"] == "success", \
+        cluster.logs()
+
+
 def test_torch_master_with_jax_worker(cluster, refs):
     """The JAX package's own ``cli worker`` behind the port's master: it
     negotiates the tensor wire (zlib, the only codec the port lists), and
     the gathered batch equals the all-torch cluster's: image 0 (the
     master's) exactly, image 1 (the JAX worker's) within one 8-bit
     step."""
+    _warm_jax_worker(cluster)
     files, delta = _parallel_generation(cluster, "j0")
     assert delta["wire_tensor_msgs"] == 1 and delta["wire_png_msgs"] == 0
     assert _diff(files[0], refs["torch"][SEED]) <= EXACT

@@ -763,6 +763,9 @@ def test_kill_the_owning_master_mid_upscale_bit_identical(
     monkeypatch.setenv(C.LEASE_ENV, "4.0")
     monkeypatch.setenv(C.FAULT_POLICY_ENV, "reassign")
     monkeypatch.setenv(C.HEDGE_ENV, "0")
+    # the drill reruns one upscale: the reuse plane's tile tier would
+    # settle the owner's tiles from the earlier run
+    monkeypatch.setenv(C.CACHE_ENV, "0")
     # a re-homed worker writes its master into the environment
     monkeypatch.delenv(C.MASTER_URL_ENV, raising=False)
     monkeypatch.delenv(C.WORKER_ID_ENV, raising=False)

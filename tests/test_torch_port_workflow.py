@@ -138,9 +138,9 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port, the HTTP fan-out's, the CLIP-vision
     tower's, the worker manager's, the write-ahead log's and the
     observability plane's (traces, capture files, trace analysis,
-    resources, the ``cli`` readers), admission's, the SLO engine's and
-    the sharded masters' (``cli router`` and ``slo``) too, imports
-    without JAX, the JAX
+    resources, the ``cli`` readers), admission's, the SLO engine's, the
+    sharded masters' (``cli router`` and ``slo``) and the reuse plane's
+    (``cli reuse``) too, imports without JAX, the JAX
     package, Pillow or aiohttp (the card's machine has none of the last
     two), and the regional, split-loader and unCLIP ops register."""
     assert {"comfyui_distributed_tpu_torch.server.app",
@@ -160,7 +160,8 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             "comfyui_distributed_tpu_torch.utils.log",
             "comfyui_distributed_tpu_torch.workflow.scheduler",
             "comfyui_distributed_tpu_torch.utils.slo",
-            "comfyui_distributed_tpu_torch.runtime.shard"} \
+            "comfyui_distributed_tpu_torch.runtime.shard",
+            "comfyui_distributed_tpu_torch.runtime.reuse"} \
         <= set(_modules())
     ops = ["ConditioningCombine", "ConditioningSetAreaPercentage",
            "ConditioningSetTimestepRange", "UNETLoader", "CLIPLoader",
@@ -181,7 +182,8 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             # the cli's trace readers parse, and a commit's lazy taps
             # (capture files, analysis) load without JAX too
             "from comfyui_distributed_tpu_torch import cli\n"
-            "for sub in ('trace', 'why', 'analyze', 'router', 'slo'):\n"
+            "for sub in ('trace', 'why', 'analyze', 'router', 'slo', "
+            "'reuse'):\n"
             "    assert cli.build_parser().parse_args("
             "[sub, 'p'] if sub == 'why' else [sub]).fn\n"
             "from comfyui_distributed_tpu_torch.utils import trace\n"
