@@ -16,7 +16,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
 3. kernel checks: the flash-attention kernels against their plain
    PyTorch version on the card at every shape the paths below give them
    (SDXL's D = 64 at 1024^2, 832^2 and 1216^2, and at B = 8 and 16 for
-   phase 19's coalesced groups of 4 and of DTPU_MAX_COALESCE's 8, the SDXL refiner's 12 and
+   phase 19's coalesced groups of 4 and of DTPU_MAX_COALESCE's 8 and at
+   B = 4 for phase 20's buckets at pad 2, the SDXL refiner's 12 and
    24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
    and at B = 12 and 10 for phase 14's shares, hedges and reassignments,
    at B = 2 for the inpaint requests at 512^2 and 768 x 512 and at B = 3
@@ -358,8 +359,43 @@ Run from the root of a checkout on a machine with a CUDA card (and
    prints a ``phase19`` line: the card, the warmup's timings, the
    seconds an image coalesced and serial, the replay's seconds, the
    tiles skipped, the peak memory and the sm90 launches.
+20. continuous batching, through one ``cli serve`` with
+   ``PHASE20_ENV`` (``DTPU_CB=1``, parking armed, the reuse plane off,
+   two slots and the pad set {2}: every boundary at attention batch
+   B = 4, previews every 5 steps), SDXL txt2img at 1024^2 and 20 steps as
+   phase 19's plain graph.  Its references are phase 19's in-process
+   runs (and two euler_ancestral ones made with them).  It first times
+   ``samplers.step_noise_rows`` at the ancestral bucket's shape in
+   process.  (0) ``POST /distributed/warmup``, then the graph with
+   dpmpp_2m (no extracted step: the fallback, one dispatch at B = 2),
+   the server's serial yardstick.  (1) Prompt a (euler), its preview
+   stream watched; once its bucket has stepped ``PHASE20_JOIN_AT``
+   times, prompt b: b must join a's bucket (one bucket, two admits, b's
+   ``cb_admit`` span at slot 1, under 40 boundaries for the two); then
+   an euler_ancestral pair makes a second bucket.  Each image within
+   ``FANOUT_ATOL["one_batch"]`` of its serial run; a's stream four
+   preview frames, at steps 5, 10, 15 and 20, each a PNG of the latent's
+   size.  (2) The batch-class prompt at seed 1004 alone (its unparked
+   run), then batch-class prompts at 1003 and 1004 (1004 admitted
+   second), then a paid prompt once their bucket has stepped
+   ``PHASE20_PREEMPT_AT`` times: one park (1004, its ``cb_park`` span
+   ``preempted_by`` paid, the parked count seen at 1), one preemption,
+   one resume, the paid prompt done before 1004, every image within the
+   one-batch limits of its serial run; 1004's image against its
+   unparked run's is recorded (to the bit expected).  (3) ``cli
+   flightdeck --json``: a deck row a boundary, its admits, retires and
+   preemptions summing to the drills' (8, 8, 1); the table's last rows
+   printed.  Each bucket must have launched sm90 140 times a boundary at
+   shapes phase 3 checked; the buckets' and the fallback's launches
+   count in the ``kernels`` line.  It prints a ``phase20`` line: the
+   seconds an image of the late-join pair and of the second bucket
+   against the fallback's, the park and resume seconds, the noise
+   draw's host seconds, the flight deck's histogram and the launches.
 
-The servers of phases 8 and 14-18 start with ``DTPU_CACHE=0``
+The servers of phases 14-20 load phase 10's model files
+(``SERVER_MODELS_DIR``; phase 10 keeps them while 8 GiB of disk stay
+free beside them) instead of filling their pipelines virtually.  The
+servers of phases 8 and 14-18 start with ``DTPU_CACHE=0``
 (``RECOMPUTE_ENV``), and phase 8's in-process two-batch upscale runs
 with it too: their checks need each request recomputed (a warm fan-out
 upscale's master would take every tile from the tile tier, so its
@@ -369,7 +405,8 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after (phase 15's interrupted request and every
-request of phases 16, 18 and 19: their servers' prompt lines).  The line before the last is ``{"kernels":
+request of phases 16, 18 and 19: their servers' prompt lines; phase
+20's: its buckets' counts, each step's own, and its prompt lines).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -393,6 +430,7 @@ worker, fresh servers a turn (:func:`fanout_ab`).
 
 from __future__ import annotations
 
+import atexit
 import collections
 import copy
 import json
@@ -443,6 +481,12 @@ BF16_REL_BAR = 2e-2
 FP32_ABS_BAR = 2e-4
 SEEDS = (123456789, 987654321, 42)
 DEVICE = "cuda"
+# phase 10's model files, kept for every later server (``--models-dir``):
+# a server loads SDXL from its file in about 1.5 s, SD1.5 in 0.5 s, where
+# a virtual fill takes 11-15 s and 3.7-7.6 s; phase 10 holds the files
+# equal to the virtual weights (its images to the bit).  None: servers
+# fill virtually.
+SERVER_MODELS_DIR = None
 # (variant, launches) of one request of each path
 EXPECTED = {"txt2img": ("sm90", 2800), "img2img": ("sm90", 2800),
             "upscale": ("sm90", 640), "sdxl": ("sm90", 2800),
@@ -1153,6 +1197,8 @@ class Cluster:
         role's own extra environment."""
         cmd, extra = self.roles[role]
         d = self.dirs[role]
+        models = ["--models-dir", SERVER_MODELS_DIR] \
+            if SERVER_MODELS_DIR else []
         with open(self.logs[role], "a") as log:
             self.procs[role] = subprocess.Popen(
                 [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli",
@@ -1160,7 +1206,7 @@ class Cluster:
                  "--port", str(self.ports[role]), "--device", DEVICE,
                  "--config", os.path.join(d, "cluster_config.json"),
                  "--input-dir", os.path.join(d, "input"),
-                 "--output-dir", os.path.join(d, "output")],
+                 "--output-dir", os.path.join(d, "output"), *models],
                 cwd=self.cwd, stdout=log, stderr=subprocess.STDOUT,
                 env={**os.environ, **RECOMPUTE_ENV,
                      **(extra if env is None else env)})
@@ -3635,6 +3681,10 @@ class HostMemory:
                 **{f"{k}_peak": v for k, v in self.peak.items()}}
 
 
+# the free disk phase 10 leaves beside the files it keeps for servers
+SERVER_FILES_SPARE = 8 << 30
+
+
 def models_dir_root():
     """The directory for phase 10's files: whichever of the temporary
     directory and the checkout has more free bytes."""
@@ -3675,7 +3725,10 @@ def rrdb_old_arch(net):
 def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
     """Phase 10: SDXL base, then SD1.5 and the 4x RRDB, written from
     their virtual weights by the port and read back by its loaders; the
-    requests must give phase 9's and phase 7's images to the bit."""
+    requests must give phase 9's and phase 7's images to the bit.  The
+    files stay for the later phases' servers (``SERVER_MODELS_DIR``)
+    while the disk keeps 8 GiB beside them: (report, requests, their
+    directory or None)."""
     import gc
 
     import numpy as np
@@ -3699,6 +3752,7 @@ def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
           flush=True)
     report, requests = {"free_bytes": free, "dir": root}, []
     models_dir = tempfile.mkdtemp(prefix="chip_smoke_models_", dir=root)
+    kept = []
     try:
         # SDXL base: bf16 UNet and CLIP, fp32 VAE
         xl_name = docs["sdxl"]["1"]["inputs"]["ckpt_name"]
@@ -3730,7 +3784,8 @@ def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
                  f"image (max {np.abs(images[777] - sdxl_img).max()})")
         del results
         release()
-        os.remove(path)
+        if shutil.disk_usage(models_dir).free < SERVER_FILES_SPARE:
+            os.remove(path)
         # SD1.5 and the 4x RRDB (old-arch .pth)
         up_doc = docs["upscale"]
         sd_name = up_doc["4"]["inputs"]["ckpt_name"]
@@ -3765,10 +3820,15 @@ def from_disk(docs, input_dir, shape_counts, sdxl_img, upscale_img):
                  f"image (max {np.abs(images[42] - upscale_img).max()})")
         del results
         release()
+        kept = sorted(os.listdir(models_dir))
+        if shutil.disk_usage(models_dir).free < SERVER_FILES_SPARE:
+            kept = []
     finally:
-        shutil.rmtree(models_dir, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(models_dir, ignore_errors=True)
     report["equal_to_virtual"] = True
-    return report, requests
+    report["kept_for_servers"] = kept
+    return report, requests, models_dir if kept else None
 
 
 def staged_request_pair(path, doc, input_dir, shape_counts):
@@ -4235,6 +4295,11 @@ def phase19_sdxl_references(docs):
         seconds.append(time.perf_counter() - t0)
     refs["encode"] = phase19_in_process(
         plain_txt2img(txt, PHASE19_ENCODE_SEED, save=False), False)
+    # phase 20's euler_ancestral pair (its euler prompts reuse the
+    # seeds above)
+    for s in PHASE20_ANCESTRAL_SEEDS:
+        refs[s] = phase19_in_process(with_sampler(plain_txt2img(
+            txt, s, save=False), "euler_ancestral"), False)
     return refs, seconds
 
 
@@ -4700,6 +4765,391 @@ def default_dispatch(docs, rows, refs):
     return report, launches
 
 
+# --- phase 20: continuous batching -------------------------------------------
+
+# one server for every drill: two slots and one pad (2), so every step
+# of a bucket runs at attention batch B = 4 and a parked row's pads are
+# its unparked run's; parking armed, the reuse plane off (every request
+# recomputed), a preview frame every 5 steps, a deck ring longer than
+# the phase's boundaries
+PHASE20_ENV = {"DTPU_CB": "1", "DTPU_CB_PARK": "1", "DTPU_CACHE": "0",
+               "DTPU_CB_SLOTS": "2", "DTPU_CB_PAD_BUCKETS": "2",
+               "DTPU_PREVIEW_EVERY": "5", "DTPU_CB_DECK_RING": "1024"}
+PHASE20_MIN_FREE = 40_000_000_000
+# the late joiner posts once the first prompt's bucket stepped this often
+PHASE20_JOIN_AT = 5
+PHASE20_ANCESTRAL_SEEDS = (2001, 2002)
+# the preemption drill: two batch-class prompts fill both slots, then a
+# paid one (seed 1006: phase 19's encode-tier reference)
+PHASE20_BATCH_SEEDS = (1003, 1004)
+PHASE20_PAID_SEED = 1006
+# the paid prompt posts once the batch bucket stepped this often
+PHASE20_PREEMPT_AT = 4
+# the sm90 launches of one SDXL step (70 blocks, self and cross)
+SM90_PER_STEP = 140
+# a CPU rehearsal launches no kernel: it sets this False to skip the
+# launch count of each bucket
+PHASE20_CHECK_LAUNCHES = True
+
+
+def with_sampler(doc, name):
+    out = copy.deepcopy(doc)
+    for n in out.values():
+        if isinstance(n, dict) and n["class_type"] == "KSampler":
+            n["inputs"]["sampler_name"] = name
+    return out
+
+
+def phase20_noise_draw(reps=10):
+    """Host seconds of one boundary's step-noise draw of phase 20's
+    euler_ancestral bucket: ``samplers.step_noise_rows`` at its shape (4
+    rows of 128 x 128 x 4, two live), ending in a synchronize."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import samplers as smp
+    from comfyui_distributed_tpu_torch.models.prng import sample_keys
+    x = torch.zeros((4, 128, 128, 4), device=DEVICE)
+    keys = sample_keys(np.asarray([2001, 2002, 0, 0], np.uint64),
+                       np.zeros(4, np.uint32))
+    live = np.asarray([True, True, False, False])
+    out = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        smp.step_noise_rows(keys, np.full(4, i), x, live)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def continuous_batching(docs, rows, refs):
+    """Phase 20: continuous batching through ``cli serve`` (SDXL at
+    1024^2, 20 steps, full width and depth, ``PHASE20_ENV``): a late
+    joiner, a second signature's bucket, a preemption with its park and
+    resume, preview frames and ``cli flightdeck``.  ``refs``: phase 19's
+    in-process images by seed.  Returns the report and the launches of
+    the server (its buckets' and its prompt lines')."""
+    import contextlib
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch import cli
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.utils.image import decode_png
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"])
+               for r in rows if not r.get("named")}
+    txt = docs["txt2img"]
+    report = {"card": card_line()}
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    if free < PHASE20_MIN_FREE:
+        fail(f"phase 20 needs {PHASE20_MIN_FREE} bytes free, {free} are")
+    report["noise_draw_s"] = phase20_noise_draw()
+    lim = FANOUT_ATOL["one_batch"]
+    launches = {"variants": collections.Counter(),
+                "shapes": collections.Counter()}
+    with tempfile.TemporaryDirectory() as root:
+        cluster = Cluster(root, {"serve": ("serve", PHASE20_ENV)})
+        url = cluster.url("serve")
+        out_dir = os.path.join(cluster.dirs["serve"], "output")
+
+        def post(doc, priority=None):
+            body = {"prompt": doc, "client_id": "chip_smoke"}
+            if priority:
+                body["priority"] = priority
+            return post_json(url + "/prompt", body)["prompt_id"]
+
+        def history(pids):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                hist = get_json(url + "/history")
+                if all(p in hist for p in pids):
+                    return {p: hist[p] for p in pids}
+                if time.time() > deadline:
+                    cluster.fail(f"phase 20: no history for {pids}")
+                time.sleep(PHASE19_POLL_S)
+
+        def batching():
+            return get_json(url + "/distributed/metrics")["batching"]
+
+        def wait_steps(pred, what):
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                b = batching()
+                if pred(b):
+                    return b
+                if time.time() > deadline:
+                    cluster.fail(f"phase 20: {what}: {b}")
+                time.sleep(0.02)
+
+        def saved_by_seed(before):
+            out = {}
+            for f in sorted(set(os.listdir(out_dir)) - before):
+                path = os.path.join(out_dir, f)
+                prompt = json.loads(dict(png_text_chunks(path))["prompt"])
+                seed = next(n["inputs"]["seed"] for n in prompt.values()
+                            if n["class_type"] == "KSampler")
+                out[seed] = path
+            return out
+
+        def outputs():
+            return set(os.listdir(out_dir)) if os.path.isdir(out_dir) \
+                else set()
+
+        def spans(pid):
+            return get_json(f"{url}/distributed/trace/{pid}")["spans"]
+
+        def run_s(h):
+            return h["finished_at"] - h["started_at"]
+
+        try:
+            t0 = time.perf_counter()
+            cluster.start()
+            report["server_start_s"] = time.perf_counter() - t0
+            lat = next(n["inputs"] for n in txt.values()
+                       if isinstance(n, dict)
+                       and n["class_type"] == "EmptyLatentImage")
+            ks = next(n["inputs"] for n in txt.values()
+                      if isinstance(n, dict)
+                      and n["class_type"] == "KSampler")
+            t0 = time.perf_counter()
+            body = post_json(url + "/distributed/warmup", {
+                "ckpt_name": txt["4"]["inputs"]["ckpt_name"],
+                "width": lat["width"], "height": lat["height"], "batch": 1,
+                **{k: ks[k] for k in ("steps", "cfg", "sampler_name",
+                                      "scheduler")}}, timeout=600)
+            report["warmup"] = {"post_s": time.perf_counter() - t0,
+                                "timings": body["timings"]}
+            # the serial yardstick on this server: dpmpp_2m (one model
+            # call a step, as euler) has no extracted step, so it runs
+            # on the fallback thread as one dispatch at B = 2
+            before = outputs()
+            serial = post(with_sampler(plain_txt2img(txt, 1000),
+                                       "dpmpp_2m"))
+            h_serial = history([serial])[serial]
+            b0 = batching()
+            if h_serial["status"] != "success" or b0["fallbacks"] != 1 \
+                    or b0["admits"] != 0:
+                cluster.fail(f"phase 20: the fallback {h_serial} {b0}")
+            report["serial_s"] = run_s(h_serial)
+            # drill 1: a, b joining at step >= 5, previews of a
+            a = post(plain_txt2img(txt, PHASE19_SEEDS[0]))
+            watched = {}
+            watcher = threading.Thread(
+                target=lambda: watched.update(events=sse_events(url, a)),
+                daemon=True)
+            watcher.start()
+            b_at = wait_steps(lambda b: any(
+                k["steps"] >= PHASE20_JOIN_AT for k in b["buckets"]),
+                "a never stepped")
+            b = post(plain_txt2img(txt, PHASE19_SEEDS[1]))
+            hist = history([a, b])
+            watcher.join(FANOUT_REQUEST_S)
+            mid = batching()
+            if len(mid["buckets"]) != 1 or mid["buckets"][0]["admits"] != 2:
+                cluster.fail(f"phase 20: b did not join a's bucket: {mid}")
+            joined_at = b_at["buckets"][0]["steps"]
+            euler_sig = mid["buckets"][0]["sig"]
+
+            def euler_bucket(snap):
+                return next(k for k in snap["buckets"]
+                            if k["sig"] == euler_sig)
+            b_admit = [s["attrs"] for s in spans(b)
+                       if s["name"] == "cb_admit"]
+            if [x.get("slot") for x in b_admit] != [1]:
+                cluster.fail(f"phase 20: b's cb_admit spans {b_admit}")
+            ab = [hist[a], hist[b]]
+            report["late_join"] = {
+                "joined_after_steps": joined_at,
+                "bucket_steps": mid["buckets"][0]["steps"],
+                "pair_s": max(h["finished_at"] for h in ab)
+                - min(h["started_at"] for h in ab),
+                "run_s": [run_s(h) for h in ab]}
+            report["late_join"]["s_per_image"] = \
+                report["late_join"]["pair_s"] / 2
+            # drill 1, second signature: an euler_ancestral pair
+            c, d = (post(with_sampler(plain_txt2img(txt, s),
+                                      "euler_ancestral"))
+                    for s in PHASE20_ANCESTRAL_SEEDS)
+            hist.update(history([c, d]))
+            two = batching()
+            if len(two["buckets"]) != 2 \
+                    or sorted(k["admits"] for k in two["buckets"]) != [2, 2]:
+                cluster.fail(f"phase 20: the second bucket {two}")
+            cd = [hist[c], hist[d]]
+            report["second_bucket_s_per_image"] = (
+                max(h["finished_at"] for h in cd)
+                - min(h["started_at"] for h in cd)) / 2
+            files = saved_by_seed(before)
+            diffs = {}
+            for seed in (*PHASE19_SEEDS[:2], *PHASE20_ANCESTRAL_SEEDS):
+                if seed not in files:
+                    cluster.fail(f"phase 20: no image of seed {seed}")
+                diffs[seed] = image_diff(files[seed], refs[seed])
+                if diffs[seed][0] > lim[0] or diffs[seed][1] > lim[1]:
+                    cluster.fail(f"phase 20: seed {seed}'s image differs "
+                                 f"{diffs[seed]} from its serial run")
+            report["late_join"]["max_mean_diff"] = {
+                str(k): v for k, v in diffs.items()}
+            # previews: 20 / 5 frames of a, each its latent's PNG
+            ev = watched.get("events") or []
+            frames = [e for name, e in ev if name == "preview"]
+            steps = [e["step"] for e in frames]
+            if steps != [5, 10, 15, 20] or ev[-1][0] != "done":
+                cluster.fail(f"phase 20: a's preview stream {steps} "
+                             f"{[n for n, _ in ev][-3:]}")
+            import base64
+            pngs = [decode_png(base64.b64decode(e["png_b64"]))[0]
+                    for e in frames]
+            if any(p.shape[:2] != (lat["height"] // 8, lat["width"] // 8)
+                   for p in pngs) or any(
+                    np.array_equal(p, q) for p, q in zip(pngs, pngs[1:])):
+                cluster.fail(f"phase 20: preview frames "
+                             f"{[p.shape for p in pngs]}")
+            report["previews"] = {"steps": steps,
+                                  "shape": list(pngs[0].shape)}
+            # drill 2: preemption.  First the victim's unparked run
+            # (alone, pad 2), then both batch prompts, then the paid one
+            bseed = PHASE20_BATCH_SEEDS
+            before = outputs()
+            u = post(plain_txt2img(txt, bseed[1]), "batch")
+            history([u])
+            unparked = saved_by_seed(before)[bseed[1]]
+            s0 = batching()
+            before = outputs()
+            # b2 is admitted after b1: the younger, so the one parked
+            b1 = post(plain_txt2img(txt, bseed[0]), "batch")
+            wait_steps(lambda b: b["admits"] == s0["admits"] + 1,
+                       "b1 never admitted")
+            b2 = post(plain_txt2img(txt, bseed[1]), "batch")
+            steps0 = euler_bucket(s0)["steps"]
+            wait_steps(lambda b: b["slots_active"] == 2
+                       and b["admits"] == s0["admits"] + 2
+                       and euler_bucket(b)["steps"] >= steps0
+                       + PHASE20_PREEMPT_AT, "the batch pair never ran")
+            w_paid = time.time()
+            paid = post(plain_txt2img(txt, PHASE20_PAID_SEED), "paid")
+            parked_seen = 0
+            deadline = time.time() + FANOUT_REQUEST_S
+            while True:
+                snap = batching()
+                parked_seen = max(parked_seen, snap["parked"])
+                hist_now = get_json(url + "/history")
+                if all(p in hist_now for p in (b1, b2, paid)):
+                    break
+                if time.time() > deadline:
+                    cluster.fail("phase 20: the preemption drill never "
+                                 "finished")
+                time.sleep(0.05)
+            hist = history([b1, b2, paid])
+            s1 = batching()
+            moved = {k: s1[k] - s0[k] for k in ("parks", "preemptions",
+                                                "resumes", "retires")}
+            if moved != {"parks": 1, "preemptions": 1, "resumes": 1,
+                         "retires": 3} or parked_seen != 1 \
+                    or s1["parked"] != 0 \
+                    or any(hist[p]["status"] != "success"
+                           for p in (b1, b2, paid)) \
+                    or not hist[paid]["finished_at"] \
+                    < hist[b2]["finished_at"]:
+                cluster.fail(f"phase 20: preemption {moved}, parked seen "
+                             f"{parked_seen}, {hist}")
+            park = [x for x in spans(b2) if x["name"] == "cb_park"]
+            resume = [x for x in spans(b2) if x["name"] == "cb_resume"]
+            if len(park) != 1 or len(resume) != 1 \
+                    or park[0]["attrs"].get("preempted_by") != "paid":
+                cluster.fail(f"phase 20: b2's park spans {park} {resume}")
+            files = saved_by_seed(before)
+            pre_diffs = {}
+            for seed, ref in ((bseed[0], refs[bseed[0]]),
+                              (bseed[1], refs[bseed[1]]),
+                              (PHASE20_PAID_SEED, refs["encode"])):
+                pre_diffs[seed] = image_diff(files[seed], ref)
+                if pre_diffs[seed][0] > lim[0] \
+                        or pre_diffs[seed][1] > lim[1]:
+                    cluster.fail(f"phase 20: seed {seed}'s image differs "
+                                 f"{pre_diffs[seed]} from its serial run")
+            with open(unparked, "rb") as f:
+                want = decode_png(f.read())[0]
+            with open(files[bseed[1]], "rb") as f:
+                got = decode_png(f.read())[0]
+            stages = get_json(url + "/distributed/metrics")["pipeline"][
+                "stages"]
+            report["preemption"] = {
+                "parked_at_step": park[0]["attrs"].get("step"),
+                "parked_s": resume[0]["start_s"] - park[0]["start_s"],
+                "paid_post_to_done_s": hist[paid]["finished_at"] - w_paid,
+                "paid_run_s": run_s(hist[paid]),
+                "batch_run_s": [run_s(hist[b1]), run_s(hist[b2])],
+                "park_op_s": stages.get("cb_park", {}).get("total_s"),
+                "resume_op_s": stages.get("cb_resume", {}).get("total_s"),
+                "max_mean_diff": {str(k): v for k, v in pre_diffs.items()},
+                "resumed_vs_unparked_max": float(np.abs(got - want).max()),
+                "resumed_equals_unparked": bool(np.array_equal(got, want))}
+            # the flight deck against the drills
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["flightdeck", "--url", url, "--json"])
+            deck = json.loads(out.getvalue())
+            rows_ = deck["deck"]
+            total_steps = sum(k["steps"] for k in deck["buckets"])
+            sums = {k: sum(r[k] for r in rows_)
+                    for k in ("admits", "retires", "preemptions")}
+            if rc != 0 or len(rows_) != total_steps \
+                    or sums != {"admits": deck["admits"],
+                                "retires": deck["retires"],
+                                "preemptions": 1} \
+                    or deck["admits"] != 8 or deck["retires"] != 8:
+                cluster.fail(f"phase 20: flightdeck {len(rows_)} rows, "
+                             f"{total_steps} steps, sums {sums}, admits "
+                             f"{deck['admits']}, retires {deck['retires']}")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["flightdeck", "--url", url, "--last", "4"])
+            print(out.getvalue(), flush=True)
+            report["flightdeck"] = {
+                "boundaries": len(rows_), **sums,
+                "admit_to_first_step": deck["admit_to_first_step"]}
+            # every step launched sm90 140 times, at shapes phase 3 checked
+            for k in deck["buckets"]:
+                if PHASE20_CHECK_LAUNCHES and k["launches"] != {
+                        "sm90": SM90_PER_STEP * k["steps"]}:
+                    cluster.fail(f"phase 20: bucket {k['sig']} launched "
+                                 f"{k['launches']} in {k['steps']} steps")
+                for *shape, n in k["launches_by_shape"]:
+                    launches["shapes"][tuple(shape)] += n
+                launches["variants"]["sm90"] += k["launches"].get("sm90", 0)
+            report["buckets"] = [{x: k[x] for x in (
+                "sig", "admits", "retires", "steps", "retraces",
+                "pad_transitions", "launches")} for k in deck["buckets"]]
+            report["late_join"]["sm90"] = deck["buckets"][0]["launches"]
+            for ln in cluster.prompt_lines("serve"):
+                for v, n in ln["launches"].items():
+                    if n:
+                        launches["variants"][v] += n
+                for *shape, n in ln["launches_by_shape"]:
+                    launches["shapes"][tuple(shape)] += n
+        finally:
+            cluster.stop()
+    if report["late_join"]["bucket_steps"] >= 40:
+        fail(f"phase 20: a and b took {report['late_join']['bucket_steps']} "
+             f"boundaries: b did not share a's steps")
+    if set(launches["variants"]) - {"sm90"}:
+        fail(f"phase 20: launched {dict(launches['variants'])}")
+    unchecked = [s for s in launches["shapes"] if s not in checked]
+    if unchecked:
+        fail(f"phase 20: shapes phase 3 did not check: {unchecked}")
+    report["sm90_launches"] = launches["variants"].get("sm90", 0)
+    return report, launches
+
+
 def urllib_text(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=30) as r:
@@ -4707,6 +5157,7 @@ def urllib_text(url):
 
 
 def main() -> int:
+    global SERVER_MODELS_DIR
     try:
         import torch
     except ImportError:
@@ -4742,9 +5193,11 @@ def main() -> int:
         (2, 4096, 77, 10, 64, bf, "SDXL cross 64x64 latent"),
         (2, 1024, 77, 20, 64, bf, "SDXL cross 32x32 latent"),
         # phase 19: k coalesced SDXL prompts at B = 2k, k = 4 (its burst)
-        # and 8 (DTPU_MAX_COALESCE's default)
-        *[(b, n, m, h, 64, bf, f"SDXL coalesced B = {b} {kind}")
-          for b in (8, 16)
+        # and 8 (DTPU_MAX_COALESCE's default); phase 20: a continuous-
+        # batching bucket at pad 2 (B = 4)
+        *[(b, n, m, h, 64, bf, f"SDXL coalesced B = {b} {kind}"
+           if b != 4 else f"SDXL continuous batching pad 2 {kind}")
+          for b in (4, 8, 16)
           for n, m, h, kind in (
               (4096, 4096, 10, "self 64x64"), (1024, 1024, 20, "self 32x32"),
               (4096, 77, 10, "cross 64x64"), (1024, 77, 20, "cross 32x32"))],
@@ -4902,8 +5355,11 @@ def main() -> int:
             docs["sdxl"], input_dir, shape_counts)
         requests += sdxl_reqs
         emit("sdxl", sdxl_report)
-        disk_report, disk_reqs = from_disk(docs, input_dir, shape_counts,
-                                           sdxl_img, upscaled[42])
+        disk_report, disk_reqs, kept_dir = from_disk(
+            docs, input_dir, shape_counts, sdxl_img, upscaled[42])
+        if kept_dir is not None:
+            SERVER_MODELS_DIR = kept_dir
+            atexit.register(shutil.rmtree, kept_dir, True)
         requests += disk_reqs
         emit("from_disk", disk_report)
         staged_report, staged_reqs = staged(docs, input_dir, shape_counts)
@@ -4951,6 +5407,10 @@ def main() -> int:
     shape_counts.update(dispatched["shapes"])
     requests.append(dispatched)
     emit("phase19", report19)
+    report20, batched = continuous_batching(docs, rows, p19_refs)
+    shape_counts.update(batched["shapes"])
+    requests.append(batched)
+    emit("phase20", report20)
     emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:

@@ -14,6 +14,8 @@
       [--host H] [--port 8290]
   python -m comfyui_distributed_tpu_torch.cli slo [--url URL] [--json]
   python -m comfyui_distributed_tpu_torch.cli reuse [--url URL] [--json]
+  python -m comfyui_distributed_tpu_torch.cli flightdeck [--url URL] \\
+      [--last N] [--json]
   python -m comfyui_distributed_tpu_torch.cli devices
   python -m comfyui_distributed_tpu_torch.cli wal [--dir D] [--job S] [--json]
   python -m comfyui_distributed_tpu_torch.cli trace [PROMPT_ID] \\
@@ -384,6 +386,45 @@ def cmd_slo(args) -> int:
             print(f"    {wname:4s} n={w['count']:4d} "
                   f"ok={w['ok_ratio']:.3f} p95={w['p95_s']:.3f}s "
                   f"burn={w['burn_rate']:.2f}{flag}")
+    return 0
+
+
+def cmd_flightdeck(args) -> int:
+    """The continuous-batching flight deck, as the JAX package's ``cli
+    flightdeck`` prints it: the step-boundary timeline (busy, free and
+    parked slots, the admits, retires and preemptions a boundary) and
+    the admit-to-first-step histogram."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    b = get_json(f"{args.url}/distributed/metrics",
+                 timeout=10).get("batching") or {}
+    if args.json:
+        print(json.dumps(b, indent=2))
+        return 0
+    if not b.get("enabled"):
+        print("(no batching block reported — continuous batching off?)")
+        return 1
+    print(f"flight deck: running={b.get('running')} "
+          f"admits={b.get('admits', 0)} retires={b.get('retires', 0)} "
+          f"preemptions={b.get('preemptions', 0)} "
+          f"retraces={b.get('retraces', 0)} "
+          f"parked={b.get('parked', 0)}")
+    h = b.get("admit_to_first_step") or {}
+    if h.get("count"):
+        print(f"admit->first step: n={h['count']} "
+              f"p50={h.get('p50_s', 0):.3f}s p95={h.get('p95_s', 0):.3f}s "
+              f"max={h.get('max_s', 0):.3f}s")
+    deck = b.get("deck") or []
+    rows = deck[-args.last:] if args.last else deck
+    if rows:
+        print(f"{'seq':>6s} {'bucket':8s} {'occupancy':18s} "
+              f"{'park':>4s} {'adm':>4s} {'ret':>4s} {'pre':>4s}")
+    for r in rows:
+        bar = "#" * r["busy"] + "." * r["free"]
+        print(f"{r['seq']:>6d} {r['bucket']:8s} {bar:18s} "
+              f"{r['parked']:>4d} {r['admits']:>4d} {r['retires']:>4d} "
+              f"{r['preemptions']:>4d}")
+    if not rows:
+        print("(deck timeline empty — no step boundaries yet)")
     return 0
 
 
@@ -855,6 +896,17 @@ def build_parser() -> argparse.ArgumentParser:
     ru.add_argument("--json", action="store_true",
                     help="the raw reuse block")
     ru.set_defaults(fn=cmd_reuse)
+
+    fd = sub.add_parser("flightdeck", help="continuous-batching flight "
+                                           "deck: step-boundary occupancy "
+                                           "timeline + admit-to-first-"
+                                           "step latency")
+    fd.add_argument("--url", default="http://127.0.0.1:8288")
+    fd.add_argument("--last", type=int, default=32, metavar="N",
+                    help="show only the last N timeline rows (0 = all)")
+    fd.add_argument("--json", action="store_true",
+                    help="raw JSON batching block instead of the table")
+    fd.set_defaults(fn=cmd_flightdeck)
 
     wl = sub.add_parser("wal", help="verify a write-ahead log: segments, "
                                     "checksums, lease, records, replay")

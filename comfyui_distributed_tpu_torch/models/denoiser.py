@@ -41,7 +41,9 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
     """``model(x, sigma, context=..., y=...) -> denoised`` over
     ``unet(x, timesteps, context, y)``; ``sigma`` is a host float (made
     a float32 scalar on x's device by a fill, not a copy that would wait
-    for the card) or a float32 scalar tensor.  ``concat`` [B, h, w, K]:
+    for the card), a float32 scalar tensor, or a [B] tensor, one sigma a
+    row of x (continuous batching), shaped [B, 1, 1, 1] against x as
+    the JAX package's ``_broadcast_sigma`` does.  ``concat`` [B, h, w, K]:
     the inpaint models' extra input channels (mask and masked latent),
     appended unscaled after the ``c_in`` scaling, its rows repeated to
     the CFG-stacked batch ([cond rows; uncond rows] each get them)."""
@@ -58,8 +60,12 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
         else:
             sigma = torch.full((), float(sigma), dtype=torch.float32,
                                device=x.device)
+        ts = t_from_sigma(sigma).reshape(-1)
+        if ts.shape[0] == 1:
+            ts = ts.expand(x.shape[0])
+        if sigma.ndim:
+            sigma = sigma.reshape((-1,) + (1,) * (x.ndim - 1))
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
-        ts = t_from_sigma(sigma).expand(x.shape[0])
         xin = x * c_in
         if concat is not None:
             reps = x.shape[0] // concat.shape[0]

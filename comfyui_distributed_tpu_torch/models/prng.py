@@ -144,5 +144,24 @@ def batch_normal(keys: np.ndarray, index: int, sample_shape: Sequence[int],
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """[B, *sample_shape] noise, row b drawn from
     ``fold_in(keys[b], index)``."""
-    return torch.stack([normal(fold_in(k, index), sample_shape, device)
-                        for k in keys])
+    return rows_normal(keys, np.full((len(keys),), int(index), np.int64),
+                       sample_shape, device)
+
+
+def rows_normal(keys: np.ndarray, indices: Sequence[int],
+                sample_shape: Sequence[int],
+                device: torch.device | str = "cpu",
+                live: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """[B, *sample_shape] noise, row b drawn from
+    ``fold_in(keys[b], indices[b])``: each row at its own index (a
+    continuous-batching bucket's rows sit at different steps).  Rows
+    where ``live`` is False are zeros and hash nothing.  One copy to
+    the device, ``erfinv`` over the whole batch: elementwise, so a row
+    is the same whichever rows share its call."""
+    shape = tuple(int(d) for d in sample_shape)
+    u = np.zeros((len(keys),) + shape, np.float32)
+    for b, (k, i) in enumerate(zip(keys, indices)):
+        if live is None or live[b]:
+            u[b] = uniform_open(fold_in(k, int(i)), shape)
+    t = torch.from_numpy(u).to(device, non_blocking=True)
+    return erfinv(t) * np.float32(np.sqrt(2.0))

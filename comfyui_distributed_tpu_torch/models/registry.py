@@ -43,6 +43,7 @@ from comfyui_distributed_tpu_torch.models.samplers import (
     _norm_entries,
     cfg_denoiser_multi,
     get_sampler,
+    get_sampler_step,
 )
 from comfyui_distributed_tpu_torch.models.tokenizer import make_tokenizer
 from comfyui_distributed_tpu_torch.models.weights import fill_virtual
@@ -237,6 +238,10 @@ class DiffusionPipeline:
         self.cache_token = next(_pipeline_tokens)
         self.prediction_type = family.unet.prediction_type
         self.schedule = sch.make_discrete_schedule()
+        # continuous batching's step callables (denoise_step_fn), one a
+        # (sampler, cfg, rows, latent size, ADM, prediction type)
+        self._step_fns: Dict[Tuple, Callable] = {}
+        self._step_lock = threading.Lock()
         # CLIP pads with EOT, OpenCLIP-only families with 0
         self.tokenizer = make_tokenizer(
             assets_dir=assets_dir,
@@ -367,6 +372,62 @@ class DiffusionPipeline:
         if noise_mask is not None:
             out = out * m + src * (1.0 - m)
         return out
+
+    def denoise_step_fn(self, sampler_name: str, cfg: float, rows: int,
+                        latent_hw: tuple, has_y: bool = False
+                        ) -> Tuple[Callable, bool]:
+        """One denoise step over a padded ``rows``-sample batch: the
+        continuous-batching executor's step (``workflow/
+        batch_executor.py``), ``(step, built)`` with ``built`` True when
+        this call made it.
+
+            step(x, ctx, unc, y, keys, sigma, sigma_next, step_i,
+                 active) -> x
+
+        ``x`` [rows, h, w, C] on the pipeline's device, updated in
+        place and returned; ``ctx``/``unc`` the cond and uncond contexts
+        and ``y`` the ADM vectors of the rows (None without); ``keys``
+        [rows, 2], ``sigma``, ``sigma_next``, ``step_i`` and ``active``
+        per-row host vectors: each row at its own place in its own
+        schedule, and an inactive row (a pad, a finished slot) passing
+        through unchanged.  The model is :meth:`sample`'s for one plain
+        cond and uncond entry (``make_denoiser``,
+        ``cfg_denoiser_multi``, ``stack_y``) and the step the serial
+        sampler's own (``samplers.SAMPLER_STEPS``).  Cached per
+        (sampler, cfg, rows, latent size, ADM, prediction type); the
+        JAX package's jit and ``constrain_rows`` (a tensor-parallel
+        layout pin) have nothing to do here."""
+        key = ("cb_step", str(sampler_name), float(cfg), 0.0, int(rows),
+               tuple(int(d) for d in latent_hw), bool(has_y),
+               self.prediction_type)
+        with self._step_lock:
+            fn = self._step_fns.get(key)
+            if fn is not None:
+                return fn, False
+            fn = self._step_fns[key] = self._make_step(
+                str(sampler_name), float(cfg))
+            return fn, True
+
+    def _make_step(self, sampler_name: str, cfg: float) -> Callable:
+        step_impl = get_sampler_step(sampler_name)
+        self._require(self.unet, "UNet")
+        dev = self.device
+        den = make_denoiser(self.unet, self.schedule, self.prediction_type,
+                            device=dev)
+        reps = 2 if cfg != 1.0 else 1
+
+        @torch.inference_mode()
+        def step(x, ctx, unc, y, keys, sigma, sigma_next, step_i, active):
+            model = cfg_denoiser_multi(den, [(ctx, None, 1.0, None)],
+                                       [(unc, None, 1.0, None)], cfg)
+            extra = {} if y is None else {"y": stack_y(y, reps, dev)}
+            x_new = step_impl(model, x, sigma, sigma_next, step_i, keys,
+                              extra_args=extra)
+            act = torch.from_numpy(np.asarray(active, bool)).to(
+                dev, non_blocking=True).reshape((-1,) + (1,) * (x.ndim - 1))
+            return torch.where(act, x_new, x, out=x)
+
+        return step
 
     def warmup(self, height: int = 512, width: int = 512, batch: int = 1,
                steps: int = 20, cfg: float = 7.5,

@@ -19,7 +19,10 @@ draw more than once a step use its indices (2i and 2i + 1, or 3i to
 sampler) is skipped: adding it would change nothing.
 
 Model convention: ``model(x, sigma, **extra) -> denoised`` (x0
-prediction) on NHWC latents, ``sigma`` a host float.  A CFG wrapper
+prediction) on NHWC latents, ``sigma`` a host float; the extracted
+steps (euler, ddim, euler_ancestral, ``SAMPLER_STEPS``) pass a [B]
+float32 tensor on x's device when their rows' sigmas differ (a
+continuous-batching bucket).  A CFG wrapper
 (:func:`cfg_denoiser_multi`) leaves the uncond denoised of its last call
 in ``model.last_uncond``, which the CFG++ samplers read; a bare model
 falls back to the denoised.
@@ -34,7 +37,7 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
-from comfyui_distributed_tpu_torch.models.prng import batch_normal
+from comfyui_distributed_tpu_torch.models.prng import batch_normal, rows_normal
 from comfyui_distributed_tpu_torch.runtime import interrupt as itr
 
 Model = Callable[..., torch.Tensor]
@@ -109,20 +112,125 @@ def _phi2(neg_h: float) -> float:
     return (_phi1(neg_h) - 1.0) / neg_h
 
 
+# --- extracted steps (continuous batching) ----------------------------------
+#
+# The step executor (workflow/batch_executor.py) advances a padded batch
+# one sigma pair at a time with every row at its own place in its own
+# schedule, so these samplers' step is a callable of its own,
+# ``<name>_step(model, x, sigma, sigma_next, step_i, keys, extra_args)``,
+# taking per-row [B] vectors (a host float or int stands for every row).
+# sample_euler, sample_ddim and sample_euler_ancestral run through the
+# same callables, so the serial loop and a bucket do the same arithmetic
+# on a row: its coefficients in float32 on the host, one copy of them a
+# step to the device, the same device expressions.
+
+def _row_vector(v, n: int, dtype=np.float32) -> np.ndarray:
+    """A host [n] vector from a scalar (every row) or a [n] vector."""
+    return np.broadcast_to(np.asarray(v, dtype), (n,)).copy()
+
+
+def _rows_on_device(x: torch.Tensor, *cols: np.ndarray
+                    ) -> List[torch.Tensor]:
+    """Host float32 [B] columns -> [B] tensors on x's device, one copy
+    for all of them."""
+    t = torch.from_numpy(np.stack(cols).astype(np.float32)).to(
+        x.device, non_blocking=True)
+    return list(t.unbind(0))
+
+
+def _per_row(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _model_sigma(s: np.ndarray, s_dev: torch.Tensor):
+    """The model's sigma: a host float while every row shares it (the
+    serial loop; the model convention above), else the [B] tensor.  The
+    denoiser makes the same per-row values of either."""
+    return float(s[0]) if (s == s[0]).all() else s_dev
+
+
+def _ancestral_rows(s: np.ndarray, s_next: np.ndarray, eta: float = 1.0
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(sigma_down, sigma_up) per row, float32 as the JAX package's."""
+    f = np.float32
+    su = np.minimum(s_next, f(eta) * np.sqrt(np.maximum(
+        s_next * s_next * (s * s - s_next * s_next)
+        / np.maximum(s * s, f(1e-20)), f(0.0))))
+    sd = np.sqrt(np.maximum(s_next * s_next - su * su, f(0.0)))
+    return sd, su
+
+
+def step_noise_rows(keys: np.ndarray, step_i, x: torch.Tensor,
+                    live: np.ndarray) -> torch.Tensor:
+    """[B, *x.shape[1:]] normals, row b from ``fold_in(keys[b],
+    step_i[b])`` (zeros where ``live`` is False)."""
+    return rows_normal(keys, _row_vector(step_i, x.shape[0], np.int64),
+                       tuple(x.shape[1:]), x.device, live=live)
+
+
+def euler_step(model: Model, x: torch.Tensor, sigma, sigma_next,
+               step_i=0, keys=None, extra_args: Extra = None
+               ) -> torch.Tensor:
+    """One Euler (== deterministic DDIM) step; ``step_i`` and ``keys``
+    are taken for a uniform signature and unused."""
+    n = x.shape[0]
+    s, s_next = _row_vector(sigma, n), _row_vector(sigma_next, n)
+    s_dev, s_div, dt = _rows_on_device(
+        x, s, np.maximum(s, np.float32(1e-20)), s_next - s)
+    denoised = model(x, _model_sigma(s, s_dev), **(extra_args or {}))
+    return x + (x - denoised) / _per_row(s_div, x) * _per_row(dt, x)
+
+
+def euler_ancestral_step(model: Model, x: torch.Tensor, sigma,
+                         sigma_next, step_i, keys,
+                         extra_args: Extra = None,
+                         eta: float = 1.0) -> torch.Tensor:
+    """One ancestral Euler step: to sigma_down, then row b's noise from
+    ``fold_in(keys[b], step_i[b])`` at sigma_up.  No row draws where
+    its sigma_up is 0 (the last step, a pad row): adding nothing leaves
+    it as it is."""
+    _need_keys("euler_ancestral", keys)
+    n = x.shape[0]
+    s, s_next = _row_vector(sigma, n), _row_vector(sigma_next, n)
+    sd, su = _ancestral_rows(s, s_next, eta)
+    s_dev, s_div, c_down, c_up = _rows_on_device(
+        x, s, np.maximum(s, np.float32(1e-20)), sd - s, su)
+    denoised = model(x, _model_sigma(s, s_dev), **(extra_args or {}))
+    x = x + (x - denoised) / _per_row(s_div, x) * _per_row(c_down, x)
+    live = su > 0
+    if not live.any():
+        return x
+    if np.ndim(step_i) == 0 and live.all():
+        noise = step_noise(keys, int(step_i), x)
+    else:
+        noise = step_noise_rows(keys, step_i, x, live)
+    return x + noise * _per_row(c_up, x)
+
+
+# sampler name -> its extracted step: what the step executor admits
+# (constants.CB_SAFE_SAMPLERS names the same keys)
+SAMPLER_STEPS: Dict[str, Callable] = {
+    "euler": euler_step,
+    "ddim": euler_step,
+    "euler_ancestral": euler_ancestral_step,
+}
+
+
+def get_sampler_step(name: str) -> Callable:
+    if name not in SAMPLER_STEPS:
+        raise ValueError(
+            f"sampler {name!r} has no extracted step callable; "
+            f"continuous batching supports: {sorted(SAMPLER_STEPS)}")
+    return SAMPLER_STEPS[name]
+
+
 # --- first-order and ancestral ----------------------------------------------
-
-def euler_step(model: Model, x: torch.Tensor, sigma: float,
-               sigma_next: float, extra_args: Extra = None) -> torch.Tensor:
-    """One Euler (== deterministic DDIM) step."""
-    denoised = model(x, sigma, **(extra_args or {}))
-    return x + _to_d(x, sigma, denoised) * (sigma_next - sigma)
-
 
 def sample_euler(model: Model, x: torch.Tensor, sigmas, extra_args: Extra
                  = None, keys=None) -> torch.Tensor:
     sig = _host_sigmas(sigmas)
-    for _, s, s_next in _steps(sig):
-        x = euler_step(model, x, s, s_next, extra_args)
+    for i, s, s_next in _steps(sig):
+        x = euler_step(model, x, s, s_next, i, keys, extra_args)
     return x
 
 
@@ -133,14 +241,10 @@ def sample_euler_ancestral(model: Model, x: torch.Tensor, sigmas,
                            extra_args: Extra = None, keys=None,
                            eta: float = 1.0) -> torch.Tensor:
     _need_keys("euler_ancestral", keys)
-    extra = extra_args or {}
     sig = _host_sigmas(sigmas)
     for i, s, s_next in _steps(sig):
-        denoised = model(x, s, **extra)
-        sd, su = _ancestral_sigmas(s, s_next, eta)
-        x = x + _to_d(x, s, denoised) * (sd - s)
-        if su > 0:
-            x = x + step_noise(keys, i, x) * su
+        x = euler_ancestral_step(model, x, s, s_next, i, keys, extra_args,
+                                 eta)
     return x
 
 
@@ -1150,8 +1254,11 @@ def cfg_denoiser_multi(model: Model, conds, uncond,
             return den
         ctx = [c for c, _, _, _ in conds] \
             + ([c for c, _, _, _ in unconds] if use_uncond else [])
-        out = model(torch.cat([x] * reps), sigma, context=torch.cat(ctx),
-                    y=y)
+        # a [B] sigma (one a row) repeats with the stacked rows
+        sigma_rep = sigma.repeat(reps) \
+            if isinstance(sigma, torch.Tensor) and sigma.ndim else sigma
+        out = model(torch.cat([x] * reps), sigma_rep,
+                    context=torch.cat(ctx), y=y)
         parts = out.chunk(reps)
         den_cond = _mask_blend(conds, parts[:n], sigma)
         if not use_uncond:

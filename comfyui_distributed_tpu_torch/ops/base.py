@@ -41,6 +41,14 @@ from comfyui_distributed_tpu_torch.utils.trace import (
 CONTROL = "__control__"
 
 
+class CBCapture(Exception):
+    """The continuous-batching bucket build's stop
+    (``workflow/batch_executor.py``): with ``OpContext.cb_capture`` set,
+    the KSampler puts its resolved inputs into that dict and raises
+    this instead of sampling, so the run ends before the graph's tail
+    (decode, save)."""
+
+
 @dataclasses.dataclass
 class Conditioning:
     """CLIP encoding result (comfy CONDITIONING): context [1, T, C] and,
@@ -134,6 +142,9 @@ class OpContext:
     # SaveImage writes each merged prompt's own seed from them
     hidden_overrides: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
+    # continuous batching's bucket build: the KSampler records its
+    # inputs here and raises CBCapture (None: it samples)
+    cb_capture: Optional[Dict[str, Any]] = None
     # the executing node's input sub-graph content key
     # (runtime/reuse.subgraph_keys), or None: the encode memo's key
     content_key: Optional[str] = None

@@ -62,6 +62,7 @@ from comfyui_distributed_tpu_torch.models.layers import timestep_embedding
 from comfyui_distributed_tpu_torch.models.lora import apply_lora_to_pipeline
 from comfyui_distributed_tpu_torch.ops.base import (
     CONTROL,
+    CBCapture,
     Conditioning,
     DeviceImage,
     DeviceLatent,
@@ -811,18 +812,35 @@ def _sdxl_vector_cond(pipe, cond: Conditioning, batch: int, height: int,
 class KSampler(Op):
     """Denoise loop over the latent batch (one process, one card).
     ``coalesced_seeds``: the coalescing scheduler's per-prompt seeds, a
-    hidden override of a merged run."""
+    hidden override of a merged run.  ``cb_latent``: a finished
+    continuous-batching slot's latent rows (the executor's decode
+    tail), returned as they are, so the graph's tail runs unchanged; the
+    tail's graph has no upstream links, hence the defaults.  With
+    ``OpContext.cb_capture`` set the sampler records its resolved inputs
+    there and raises ``CBCapture`` (the bucket build)."""
     TYPE = "KSampler"
     WIDGETS = ["seed", CONTROL, "steps", "cfg", "sampler_name", "scheduler",
                "denoise"]
     DEFAULTS = {"denoise": 1.0}
-    HIDDEN = ["coalesced_seeds"]
+    HIDDEN = ["coalesced_seeds", "cb_latent"]
 
-    def execute(self, ctx: OpContext, model, seed, steps, cfg,
-                sampler_name, scheduler, positive: Conditioning,
-                negative: Conditioning, latent_image, denoise: float = 1.0,
-                coalesced_seeds=None):
+    def execute(self, ctx: OpContext, model=None, seed=0, steps=20,
+                cfg=8.0, sampler_name="euler", scheduler="normal",
+                positive: Conditioning = None,
+                negative: Conditioning = None, latent_image=None,
+                denoise: float = 1.0, coalesced_seeds=None, cb_latent=None):
         ctx.check_interrupt()
+        if ctx.cb_capture is not None:
+            ctx.cb_capture.update(
+                model=model, seed=seed, steps=steps, cfg=cfg,
+                sampler_name=str(sampler_name), scheduler=str(scheduler),
+                denoise=denoise, positive=positive, negative=negative,
+                latent_image=latent_image)
+            raise CBCapture("KSampler inputs captured")
+        if cb_latent is not None:
+            lat = as_device_array(cb_latent, ctx.device)
+            return ({"samples": DeviceLatent(lat),
+                     "local_batch": int(lat.shape[0])},)
         if coalesced_seeds is not None and not isinstance(seed, SeedValue):
             seed = SeedValue(int(seed), per_prompt=np.asarray(
                 coalesced_seeds, np.uint64))

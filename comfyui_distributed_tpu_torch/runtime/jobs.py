@@ -19,13 +19,16 @@ once after it.  A sharded master namespaces its keys by its shard id
 that shard's namespace (``merge_idem(..., scope=)``), so a takeover
 never mistakes another master's acknowledged unit for its own.  An
 unscoped store keys as before.
+
+:class:`ParkedStore` holds the continuous-batching rows parked to the
+host (``workflow/batch_executor.py``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set
 
 from comfyui_distributed_tpu_torch.utils.log import debug_log
 from comfyui_distributed_tpu_torch.utils.trace import GLOBAL_COUNTERS
@@ -179,3 +182,92 @@ class JobStore:
         with self._lock:
             return {"image_jobs": sorted(self._jobs),
                     "tile_jobs": sorted(self._tile_jobs)}
+
+
+class ParkedStore:
+    """The continuous-batching rows parked to the host, the counterpart
+    of the JAX package's ``ParkedStore``.  A record is a started prompt
+    whose slot a higher class took: its latent rows, its sigma index and
+    its admit time, the whole slot, so its resume continues it exactly
+    (its keys are rebuilt from its seed).  ``DTPU_CB_SLOTS`` stays the
+    device's cap; admission may count ``room()`` more started prompts.
+
+    The store reads only ``pid`` (the double-park guard, the client-gone
+    lookup), ``sig`` (a row resumes into a bucket of its signature),
+    ``rank`` (its class: highest resumes first) and ``t_park`` (FIFO in
+    a class).  Its own lock: the driver thread parks and resumes, the
+    metrics routes read ``count()``."""
+
+    def __init__(self, capacity: int) -> None:
+        self._capacity = max(0, int(capacity))
+        self._rows: List[Any] = []            # guarded-by: self._lock
+        self._pids: Set[str] = set()          # guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    def park(self, records: List[Any]) -> None:
+        """Register parked rows; ``ValueError`` past the capacity (check
+        :meth:`room` first) or for a prompt parked already (its slot
+        would fork in two), and then nothing is registered."""
+        with self._lock:
+            if len(self._rows) + len(records) > self._capacity:
+                raise ValueError(
+                    f"parked-store overflow: {len(self._rows)} resident + "
+                    f"{len(records)} new > capacity {self._capacity}")
+            for rec in records:
+                if str(rec.pid) in self._pids:
+                    raise ValueError(f"double-park of prompt {rec.pid}")
+            for rec in records:
+                self._pids.add(str(rec.pid))
+                self._rows.append(rec)
+
+    def _take(self, picked: List[Any]) -> List[Any]:
+        for rec in picked:
+            self._rows.remove(rec)
+            self._pids.discard(str(rec.pid))
+        return picked
+
+    def pop_for(self, sig: Any, k: int) -> List[Any]:
+        """Up to ``k`` records of signature ``sig``: highest class
+        first, then the longest parked."""
+        if k <= 0:
+            return []
+        with self._lock:
+            cands = sorted((r for r in self._rows if r.sig == sig),
+                           key=lambda r: (-int(r.rank), float(r.t_park)))
+            return self._take(cands[:k])
+
+    def pop_abandoned(self, is_abandoned: Callable[[str], bool]
+                      ) -> List[Any]:
+        """Take out the records whose client left: freed, never
+        resumed."""
+        with self._lock:
+            return self._take([r for r in self._rows
+                               if is_abandoned(str(r.pid))])
+
+    def drain_all(self) -> List[Any]:
+        with self._lock:
+            rows, self._rows = self._rows, []
+            self._pids.clear()
+            return rows
+
+    def has(self, pid: str) -> bool:
+        with self._lock:
+            return str(pid) in self._pids
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    def room(self) -> int:
+        with self._lock:
+            return max(0, self._capacity - len(self._rows))
+
+    def sigs(self) -> List[Any]:
+        """The signatures of the parked rows, in resume order."""
+        with self._lock:
+            out: List[Any] = []
+            for r in sorted(self._rows,
+                            key=lambda r: (-int(r.rank), float(r.t_park))):
+                if r.sig not in out:
+                    out.append(r.sig)
+            return out

@@ -100,6 +100,20 @@ class WorkerProcessManager:
             # auto-launch timer and the route cannot both start it
             self.processes[wid] = {"pid": None, "launching": True}
         try:
+            env = self._worker_env(wid)
+            # a malformed continuous-batching knob fails this launch,
+            # naming it, not the worker's first admission
+            if any(env.get(k) for k in (
+                    C.CB_ENV, C.CB_PARK_ENV, C.CB_SLOTS_ENV,
+                    C.CB_PARK_MAX_ENV, C.CB_PARK_HBM_FRACTION_ENV)):
+                from comfyui_distributed_tpu_torch.workflow.batch_executor \
+                    import validate_cb_env
+                validate_cb_env(env)
+                if env.get(C.CB_PARK_ENV):
+                    log(f"worker {wid}: continuous batching with latent "
+                        f"paging ({C.CB_PARK_ENV}={env[C.CB_PARK_ENV]}, "
+                        f"max parked="
+                        f"{env.get(C.CB_PARK_MAX_ENV) or C.CB_PARK_MAX_DEFAULT})")
             cmd = self.build_launch_command(worker)
             if stop_on_master_exit:
                 cmd = [proc.get_python_executable(), "-m",
@@ -112,7 +126,7 @@ class WorkerProcessManager:
                            f"cmd={' '.join(cmd)} ===\n")
                 logf.flush()
                 # the child keeps its own copy of the descriptor
-                p = proc.popen_detached(cmd, env=self._worker_env(wid),
+                p = proc.popen_detached(cmd, env=env,
                                         stdout=logf, stderr=logf)
         except BaseException:
             with self._lock:   # give the reservation back

@@ -23,9 +23,10 @@ other:
   (``wire_decode_s``), and the JAX package's ``phases``, ``nodes``,
   ``tracing``, ``pipeline`` (stages, event counters, gauges),
   ``cluster``, ``durability``, ``shard``, ``admission``, ``slo``,
-  ``analysis``, ``reuse`` and ``resources`` blocks and ``transfers`` (its
-  ``batching``, ``autoscale`` and ``chaos`` blocks belong to modules not
-  ported yet);
+  ``analysis``, ``reuse``, ``resources`` and ``batching`` blocks (the
+  last ``{"enabled": false}`` without continuous batching) and
+  ``transfers`` (its ``autoscale`` and ``chaos`` blocks belong to modules
+  not ported yet);
 - observability (``utils/trace.py``, ``trace_export.py``,
   ``trace_analysis.py``, ``resource.py``): ``GET
   /distributed/metrics.prom`` (Prometheus text), ``/distributed/traces``
@@ -83,7 +84,16 @@ other:
   ``DTPU_PREVIEW=0``, 429 past ``DTPU_PREVIEW_MAX_CLIENTS``, 404 for an
   unknown id, with the JAX package's bodies).
 
-The JAX package's default dispatch model: one execution thread runs the
+With continuous batching on (``DTPU_CB=1`` or ``ServerState(cb=True)``;
+``workflow/batch_executor.py``) its step executor consumes the queue
+instead: an eligible prompt (``quick_eligible``, decided at enqueue)
+joins its signature's running batch at a step boundary and leaves it,
+decoded on a tail thread, when its schedule ends, parked to the host
+under a higher class's arrival with ``DTPU_CB_PARK=1``; an ineligible
+one runs as below on the executor's fallback thread; the queue depth
+counts the slots and the decodes in flight.
+
+Without it, the JAX package's default dispatch model: one execution thread runs the
 queue through the port's ``WorkflowExecutor`` on the server's device,
 the tenant classes in weighted fair order (FIFO within a class), handler
 threads answering while it runs.  It pops a group: the head prompt and
@@ -264,7 +274,8 @@ class ServerState:
                  device: str = "cuda",
                  start_exec_thread: bool = True,
                  overlap: Optional[bool] = None,
-                 coalesce: Optional[bool] = None):
+                 coalesce: Optional[bool] = None,
+                 cb: Optional[bool] = None):
         self.config_path = config_path
         self.is_worker = is_worker
         self.port: Optional[int] = None   # set by serve()
@@ -319,6 +330,11 @@ class ServerState:
             if coalesce is None else bool(coalesce)
         self.coalesce_max = max(1, int(os.environ.get(
             C.COALESCE_MAX_ENV, C.COALESCE_MAX_DEFAULT)))
+        # continuous batching: the step executor (batch_executor.py)
+        # takes the queue; off by default
+        self.cb_enabled = _env_flag(C.CB_ENV, "0") if cb is None \
+            else bool(cb)
+        self.cb: Optional[Any] = None
         self.host_pool = HostIOPool() if self.overlap_enabled else None
         # (group, result, error, t0, run stats) for the finalize thread,
         # in execution order
@@ -369,8 +385,14 @@ class ServerState:
         if self.shard is not None:
             self.admission.set_rate_scale(1.0 / self.shard.n_members())
         if start_exec_thread:
-            threading.Thread(target=self._exec_loop, name="dtpu-exec",
-                             daemon=True).start()
+            if self.cb_enabled:
+                from comfyui_distributed_tpu_torch.workflow import \
+                    batch_executor as cb_mod
+                self.cb = cb_mod.ContinuousBatchExecutor(self)
+                self.cb.start()
+            else:
+                threading.Thread(target=self._exec_loop, name="dtpu-exec",
+                                 daemon=True).start()
             if self.overlap_enabled:
                 threading.Thread(target=self._finalize_loop,
                                  name="dtpu-finalize", daemon=True).start()
@@ -439,10 +461,15 @@ class ServerState:
                     self.jobs.prepare_tile_job(mj)
                 else:
                     self.jobs.prepare_job(mj)
-        # the signature is hashed outside the lock (it walks the graph);
-        # the pop only compares strings
+        # the signature and the step executor's screen are computed
+        # outside the lock (they walk the graph); the pop only compares
         sig = sched_mod.coalesce_signature(prompt) \
-            if self.coalesce_enabled else None
+            if (self.coalesce_enabled or self.cb_enabled) else None
+        cb_ok = False
+        if self.cb_enabled and sig is not None:
+            from comfyui_distributed_tpu_torch.workflow import \
+                batch_executor as cb_mod
+            cb_ok = cb_mod.quick_eligible(prompt)
         # the exact-hit tier: a byte-identical re-submission is settled
         # from the stored images and never queued; a recovered prompt
         # always runs (its first run may not have stored)
@@ -482,7 +509,7 @@ class ServerState:
             if reject is None:
                 item = {"id": pid, "prompt": prompt,
                         "extra_data": extra_data or {}, "tenant": tenant,
-                        "sig": sig, "rkey": rkey,
+                        "sig": sig, "cb": cb_ok, "rkey": rkey,
                         "span": sp, "t_enq": time.perf_counter(),
                         "logged": to_log}
                 self._queue.append(item)
@@ -557,8 +584,14 @@ class ServerState:
             duration_s=round(time.time() - sp.start_s, 6))
 
     def queue_remaining(self) -> int:
+        """Prompts queued or executing; with continuous batching the
+        slots and the decodes in flight count too (not the parked
+        rows)."""
         with self._cond:
-            return len(self._queue) + (1 if self._running else 0)
+            n = len(self._queue) + (1 if self._running else 0)
+        if self.cb is not None:
+            n += self.cb.active_prompts()
+        return n
 
     def queued_by_class(self) -> Dict[str, int]:
         """Queued (not yet running) prompts by tenant class."""
@@ -610,8 +643,14 @@ class ServerState:
                 # drain
                 idle = (not self._running and self._finalize_pending == 0
                         and (not self._queue or not self._exec_started))
+            if idle and self.cb is not None:
+                # slots, decodes, parked rows and fallback groups are
+                # work in flight too
+                idle = self.cb.idle()
             if idle and (self.host_pool is None
                          or self.host_pool.pending == 0):
+                if self.cb is not None:
+                    self.cb.stop()
                 return True
             if time.monotonic() >= deadline:
                 break
@@ -635,6 +674,13 @@ class ServerState:
         log(f"drain timeout after {timeout:.1f}s; cancelled {len(purged)} "
             f"queued prompt(s), interrupting the running one")
         interrupt.request_interrupt()
+        if self.cb is not None:
+            # a beat for the driver to abort its slots on the flag, then
+            # its threads stop
+            stop_by = time.monotonic() + 2.0
+            while time.monotonic() < stop_by and not self.cb.idle():
+                time.sleep(0.02)
+            self.cb.stop()
         if self.host_pool is not None:
             self.host_pool.shutdown(wait=False)
         return False
@@ -787,7 +833,8 @@ class ServerState:
     def _finalize_hand(self, group: list, res, err, t0: float,
                        stats: Optional[Dict[str, Any]] = None) -> None:
         """Book a pending finalize and run it on the finalize thread (the
-        overlap, when that thread runs) or here."""
+        overlap, when that thread runs) or here; the continuous-batching
+        executor's entry too (its decodes, aborts and drops)."""
         with self._cond:
             self._finalize_pending += 1
         if self.overlap_enabled and self._exec_started:
@@ -1474,6 +1521,10 @@ def routes(state: ServerState
                          "overlap": state.overlap_enabled,
                          "coalesce": state.coalesce_enabled,
                          "max_queue": state.max_queue},
+            # continuous batching: slots, buckets, parking, the flight
+            # deck (cli flightdeck)
+            "batching": (state.cb.snapshot() if state.cb is not None
+                         else {"enabled": False}),
             "cluster": {**state.cluster.snapshot(),
                         "ledger": state.ledger.snapshot(),
                         "policy": cluster_mod.fault_policy(),
@@ -1830,6 +1881,49 @@ def routes(state: ServerState
              "Prompts finalized per second (recent window).",
              [({}, round(state.drain_rate(), 4))]),
         ])
+        if state.cb is not None:
+            # continuous batching: slots by state, the step executor's
+            # counters, each bucket's step callables built (the JAX
+            # package's retraces: one a pad, then none) and parking
+            bsnap = state.cb.snapshot()
+            extra.extend([
+                ("dtpu_batch_slots", "gauge",
+                 "Continuous-batching slots by state (all shape "
+                 "buckets).",
+                 [({"state": "active"}, bsnap["slots_active"]),
+                  ({"state": "free"}, bsnap["slots_free"])]),
+                ("dtpu_cb_admits_total", "counter",
+                 "Prompts admitted into a running batch at a step "
+                 "boundary.", [({}, bsnap["admits"])]),
+                ("dtpu_cb_retires_total", "counter",
+                 "Slots retired (prompt finished its steps and moved "
+                 "to decode).", [({}, bsnap["retires"])]),
+                ("dtpu_cb_steps_total", "counter",
+                 "Batched denoise steps executed.",
+                 [({}, bsnap["steps"])]),
+                ("dtpu_cb_fallback_total", "counter",
+                 "Prompts dispatched through the legacy fallback "
+                 "executor.", [({}, bsnap["fallbacks"])]),
+                ("dtpu_cb_bucket_retraces_total", "counter",
+                 "Step callables a bucket built (one a pad; none in "
+                 "steady state).",
+                 [({"bucket": b["sig"]}, b["retraces"])
+                  for b in bsnap["buckets"]]),
+                ("dtpu_cb_parked", "gauge",
+                 "Continuous-batching rows parked to host (started "
+                 "jobs waiting on slot residency).",
+                 [({}, bsnap["parked"])]),
+                ("dtpu_cb_parks_total", "counter",
+                 "Slots parked to host at a step boundary.",
+                 [({}, bsnap["parks"])]),
+                ("dtpu_cb_resumes_total", "counter",
+                 "Parked rows resumed into a slot.",
+                 [({}, bsnap["resumes"])]),
+                ("dtpu_cb_preemptions_total", "counter",
+                 "Parks forced by a higher-class admit (SLO "
+                 "preemption; subset of parks).",
+                 [({}, bsnap["preemptions"])]),
+            ])
         # the reuse plane and the preview channel
         rs = reuse_mod.get_reuse().snapshot()
         pv = reuse_mod.PREVIEWS.snapshot()

@@ -162,6 +162,41 @@ OVERLAP_ENV = "DTPU_OVERLAP"             # "0" -> serial (host work inline)
 COALESCE_ENV = "DTPU_COALESCE"           # "0" -> one prompt per dispatch
 COALESCE_MAX_ENV = "DTPU_MAX_COALESCE"
 COALESCE_MAX_DEFAULT = 8                 # largest batched prompt group
+# continuous batching (workflow/batch_executor.py): the unit of
+# scheduling is one denoise step of a padded batch a signature (a
+# bucket); a prompt joins a running bucket at a step boundary and
+# leaves it when its schedule ends, its decode on a tail thread.  Off by
+# default, as in the JAX package.
+CB_ENV = "DTPU_CB"                       # "1" arms the step executor
+CB_SLOTS_ENV = "DTPU_CB_SLOTS"           # slots a bucket (its max batch)
+CB_SLOTS_DEFAULT = 4
+# each step runs at the smallest pad of this set >= the active slots;
+# pads above DTPU_CB_SLOTS are ignored and the slot count always joins
+CB_PAD_BUCKETS_ENV = "DTPU_CB_PAD_BUCKETS"
+CB_PAD_BUCKETS_DEFAULT = "1,2,4,8"
+CB_MAX_BUCKETS_ENV = "DTPU_CB_MAX_BUCKETS"  # signatures stepping at once
+CB_MAX_BUCKETS_DEFAULT = 4
+# how long the driver lingers at a new batch's first boundary for more
+# arrivals (0: step at once)
+CB_ADMIT_WINDOW_ENV = "DTPU_CB_ADMIT_WINDOW_S"
+CB_ADMIT_WINDOW_DEFAULT = 0.0
+# samplers with an extracted step (models/samplers.SAMPLER_STEPS): each
+# step is a function of (x, sigma, sigma_next, keys, step index) alone
+CB_SAFE_SAMPLERS = frozenset({"euler", "ddim", "euler_ancestral"})
+# park and resume: a lower class's row goes to the host when a higher
+# class's prompt needs its slot, or while device memory is above the
+# fraction, and comes back at a later boundary
+CB_PARK_ENV = "DTPU_CB_PARK"             # "1" arms parking
+CB_PARK_MAX_ENV = "DTPU_CB_PARK_MAX"     # rows parked at most
+CB_PARK_MAX_DEFAULT = 64
+CB_PARK_HBM_FRACTION_ENV = "DTPU_CB_PARK_HBM_FRACTION"
+CB_PARK_HBM_FRACTION_DEFAULT = 0.9
+# leftmost parks first; a class preempts only the classes before it, so
+# paid (absent) is never parked
+CB_PREEMPT_ORDER = ("batch", "free")
+# the flight deck's ring of step-boundary rows (cli flightdeck)
+CB_DECK_RING_ENV = "DTPU_CB_DECK_RING"
+CB_DECK_RING_DEFAULT = 128
 HOSTIO_THREADS_ENV = "DTPU_HOSTIO_THREADS"
 HOSTIO_THREADS_DEFAULT = 2               # encoder pool width
 HOSTIO_PENDING_ENV = "DTPU_HOSTIO_PENDING"

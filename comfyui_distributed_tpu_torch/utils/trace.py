@@ -265,8 +265,9 @@ class CounterStats:
 # coalesced_batches / coalesced_prompts / exec_runs / wire_tensor_msgs /
 # wire_png_msgs / wire_bytes / tiles_skipped / preview_events /
 # preview_clients / jobs_abandoned / cache_<tier>_{hits,misses,evictions}
-# / cache_result_replays ... — the scheduler, wire and reuse layers bump,
-# /distributed/metrics reads
+# / cache_result_replays / cb_{admits,retires,steps,retraces,parks,
+# resumes,preemptions,abandoned} ... — the scheduler, wire, reuse and
+# continuous-batching layers bump, /distributed/metrics reads
 GLOBAL_COUNTERS = CounterStats()
 
 
@@ -297,8 +298,14 @@ class GaugeStats:
             self._values.clear()
 
 
-# level views next to the monotonic counters on the same metrics
-# surfaces
+# cb_parked (continuous-batching rows parked to the host) ... — level
+# views next to the monotonic counters on the same metrics surfaces.
+# The continuous-batching spans of a prompt's trace
+# (workflow/batch_executor.py) are instant events at its admit into a
+# bucket (cb_admit), its exit (cb_exit: finished, dropped or abandoned),
+# a park (cb_park) and a resume (cb_resume), and the decode tail's span
+# (cb_decode); cb_admit_to_first_step is a stage histogram.
+# utils/trace_analysis.py files each under its category.
 GLOBAL_GAUGES = GaugeStats()
 
 

@@ -16,7 +16,17 @@ addressable node's input sub-graph key (``runtime/reuse.subgraph_keys``),
 set as ``OpContext.content_key`` while the node runs: the encode memo's
 key.  Output nodes run on the context's host pool when it has one; the
 result's ``images`` are then whole after :meth:`ExecutionResult.wait_host`.
-The per-node memory attribution of the resource plane waits.
+With the resource plane on (``DTPU_RESOURCE``), each node's span gets
+``mem_peak_mb``, the rise of the device's peak memory over the node
+(``utils/resource.device_memory_snapshot``: the card's, or this
+process's resident set on the CPU) where it rose, as the JAX executor
+sets it; ``cli trace`` prints it.
+
+Continuous batching drives two runs of its own: ``cb_capture`` runs a
+graph up to its KSampler, which records its inputs and stops the walk
+(``ops.base.CBCapture``), and a decode tail passes the finished latent
+as the KSampler's ``cb_latent`` with ``prompt_json`` the client's whole
+graph for the PNGs.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from comfyui_distributed_tpu_torch.ops.base import OpContext, get_op
+from comfyui_distributed_tpu_torch.ops.base import CBCapture, OpContext, get_op
 from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
+from comfyui_distributed_tpu_torch.utils import resource as resource_mod
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
 from comfyui_distributed_tpu_torch.utils.log import debug_log
 from comfyui_distributed_tpu_torch.workflow.graph import Graph, parse_workflow
@@ -85,12 +96,16 @@ class WorkflowExecutor:
         self.ctx = ctx or OpContext()
 
     def execute(self, workflow: Any,
-                hidden: Optional[Dict[str, Dict[str, Any]]] = None
-                ) -> ExecutionResult:
+                hidden: Optional[Dict[str, Dict[str, Any]]] = None,
+                cb_capture: Optional[Dict[str, Any]] = None,
+                prompt_json: Optional[Any] = None) -> ExecutionResult:
         """Run a workflow (path, JSON, dict or Graph), with ``hidden``
         (node id -> hidden-input overrides) for this run.  Node timings
         end in a device synchronize, so each is the node's own device
-        time."""
+        time.  ``cb_capture``: a dict arms the bucket build's run (see
+        the module docstring), whose result holds the outputs before the
+        KSampler; ``prompt_json``: the graph SaveImage embeds (default:
+        this one)."""
         graph = workflow if isinstance(workflow, Graph) \
             else parse_workflow(workflow)
         hidden = hidden or {}
@@ -103,8 +118,10 @@ class WorkflowExecutor:
         self.ctx.saved_images = []
         self.ctx.image_futures = []
         self.ctx.stage_seconds = {}
-        self.ctx.prompt_json = graph.to_api_format()
+        self.ctx.prompt_json = prompt_json if prompt_json is not None \
+            else graph.to_api_format()
         self.ctx.hidden_overrides = dict(hidden)
+        self.ctx.cb_capture = cb_capture
         on_cuda = torch.device(self.ctx.device).type == "cuda"
         outputs: Dict[str, Tuple] = {}
         timings: Dict[str, float] = {}
@@ -113,6 +130,11 @@ class WorkflowExecutor:
         # an unported node type fails the run before any node runs
         ops = {nid: get_op(graph.nodes[nid].class_type) for nid in order}
         run_transfers = trace_mod.TransferStats()
+        # one memory probe a node boundary: a node's start is the
+        # previous node's end
+        res_on = resource_mod.resource_enabled()
+        prev_mem = resource_mod.device_memory_snapshot(self.ctx.device) \
+            if res_on else None
         t_start = time.perf_counter()
         with trace_mod.transfer_sink(run_transfers):
             for nid in order:
@@ -135,20 +157,36 @@ class WorkflowExecutor:
                         kwargs[hname] = hval
                 debug_log(f"exec node {nid} ({node.class_type})")
                 t0 = time.perf_counter()
-                with trace_mod.node_scope(nid), \
-                        trace_mod.span(node.class_type, node=nid), \
-                        torch.no_grad():
-                    outputs[nid] = op.execute(self.ctx, **kwargs)
-                    if on_cuda:
-                        # inside the span, so the node's span ends with
-                        # its device work
-                        torch.cuda.synchronize(self.ctx.device)
-                        max_memory[nid] = torch.cuda.max_memory_allocated(
-                            self.ctx.device)
+                try:
+                    with trace_mod.node_scope(nid), \
+                            trace_mod.span(node.class_type, node=nid) as nsp, \
+                            torch.no_grad():
+                        outputs[nid] = op.execute(self.ctx, **kwargs)
+                        if on_cuda:
+                            # inside the span, so the node's span ends
+                            # with its device work
+                            torch.cuda.synchronize(self.ctx.device)
+                            max_memory[nid] = \
+                                torch.cuda.max_memory_allocated(
+                                    self.ctx.device)
+                        if res_on:
+                            mem = resource_mod.device_memory_snapshot(
+                                self.ctx.device)
+                            rise = mem["peak_bytes_in_use"] \
+                                - prev_mem["peak_bytes_in_use"]
+                            prev_mem = mem
+                            if nsp is not None and rise > 0:
+                                nsp.attrs["mem_peak_mb"] = round(
+                                    rise / 1e6, 2)
+                except CBCapture:
+                    # the bucket build: the sampler's inputs are in
+                    # ctx.cb_capture, and the tail must not run
+                    break
                 timings[nid] = time.perf_counter() - t0
                 trace_mod.GLOBAL_NODES.record(node.class_type, timings[nid])
         total = time.perf_counter() - t_start
         self.ctx.content_key = None
+        self.ctx.cb_capture = None
         self.ctx.node_timings.update(timings)
         return ExecutionResult(outputs=outputs,
                                images=list(self.ctx.saved_images),

@@ -26,9 +26,13 @@ each KSampler given the per-prompt seeds as its ``coalesced_seeds``
 hidden input) and :func:`split_images` gives each prompt its images
 back.  Each prompt's rows draw the noise of its serial run, so
 coalescing changes latencies, not images.  Only graphs of
-``COALESCE_SAFE_NODE_TYPES`` coalesce.  ``pop_cb_admit`` and the
-controller's ``peek_class`` belong to continuous batching and are not
-here.
+``COALESCE_SAFE_NODE_TYPES`` coalesce.
+
+Continuous batching (``workflow/batch_executor.py``) pops through
+:func:`pop_cb_admit`: the same stride decision, but a step-batchable
+head joins a running bucket with its class's same-signature prompts
+from anywhere behind it; the controller's ``peek_class`` lets a blocked
+class be passed over without charging its stride.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from comfyui_distributed_tpu_torch.utils import clock as clock_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
@@ -299,6 +303,28 @@ class AdmissionController:
 
     # -- weighted fair dequeue ------------------------------------------------
 
+    def peek_class(self, queued: Dict[str, int]) -> Optional[str]:
+        """The class :meth:`next_class` would pick, charging nothing and
+        leaving the idle-return state as it is: the continuous-batching
+        pop commits the charge only when it dequeues (a class blocked on
+        a full bucket is not skipping its turn)."""
+        with self._lock:
+            active = [cls for cls in self.classes if queued.get(cls)]
+            if not active:
+                return None
+            carried = [cls for cls in active if cls in self._active_prev]
+            base = min(self._pass[cls] for cls in carried) \
+                if carried else None
+            best, best_key = None, None
+            for cls in active:
+                p = self._pass[cls]
+                if base is not None and cls not in self._active_prev:
+                    p = max(p, base)
+                key = (p, self.classes.index(cls))
+                if best_key is None or key < best_key:
+                    best, best_key = cls, key
+            return best
+
     def next_class(self, queued: Dict[str, int]) -> Optional[str]:
         """Stride scheduling over the classes with queued work: the
         smallest virtual finish time wins and advances by 1 / weight.  A
@@ -366,3 +392,84 @@ def pop_fair_group(queue: List[Dict[str, Any]],
             break
         group.append(queue.pop(j))
     return group
+
+
+def pop_cb_admit(queue: List[Dict[str, Any]],
+                 admission: AdmissionController,
+                 room_for: Callable[[Dict[str, Any]], int],
+                 fallback_ok: bool = True,
+                 legacy_max: int = 1) -> Tuple[str, List[Dict[str, Any]]]:
+    """The continuous-batching pop: :func:`pop_fair_group`'s stride
+    decision, so the classes dequeue in the same ratios whichever model
+    runs the queue, but the scheduled class's head may join a running
+    bucket.  ``room_for(item)``: > 0, batchable with that many slots
+    free; 0, not batchable (the one-dispatch path); < 0, batchable but
+    full (it waits for a slot exit).  Outcomes:
+
+    - ``("cb", items)``: the head and up to ``room - 1`` more of its
+      class and signature from anywhere behind it (passed-over items
+      keep their places);
+    - ``("fallback", group)``: the head is not batchable: the legacy
+      group pop (its class's contiguous same-signature run, up to
+      ``legacy_max``);
+    - ``("defer", [])``: every queued class is blocked (full, or not
+      batchable while ``fallback_ok`` is False): nothing popped, no
+      stride charged.
+
+    A blocked class drops out of the counts and the stride peeks again,
+    so a paid prompt admits (by preemption, with parking on) while the
+    batch class's head waits for a slot.  The caller holds the queue
+    lock."""
+    if not queue:
+        return "defer", []
+
+    def cls_of(item: Dict[str, Any]) -> str:
+        return item.get("tenant") or admission.default_class
+
+    counts_all: Dict[str, int] = {}
+    for item in queue:
+        counts_all[cls_of(item)] = counts_all.get(cls_of(item), 0) + 1
+    blocked: set = set()
+    while True:
+        counts = {c: n for c, n in counts_all.items() if c not in blocked}
+        if not counts:
+            return "defer", []
+        # peek, then charge only on a dequeue: next_class() on the same
+        # counts picks the peeked class again
+        cls = admission.peek_class(counts) or admission.default_class
+        idx = next((i for i, item in enumerate(queue)
+                    if cls_of(item) == cls), None)
+        if idx is None:
+            # the default class has nothing queued: the first unblocked
+            # item's class instead
+            idx = next(i for i, item in enumerate(queue)
+                       if cls_of(item) not in blocked)
+            cls = cls_of(queue[idx])
+        head = queue[idx]
+        room = int(room_for(head) or 0)
+        if room > 0:
+            admission.next_class(counts)
+            sig = head.get("sig")
+            take = [idx]
+            for j in range(idx + 1, len(queue)):
+                if sig is None or len(take) >= room:
+                    break
+                if cls_of(queue[j]) == cls and queue[j].get("sig") == sig:
+                    take.append(j)
+            items = [queue[i] for i in take]
+            for i in reversed(take):
+                queue.pop(i)
+            return "cb", items
+        if room == 0 and fallback_ok:
+            admission.next_class(counts)
+            group = [queue.pop(idx)]
+            sig = group[0].get("sig")
+            j = idx
+            while sig is not None and len(group) < max(legacy_max, 1):
+                while j < len(queue) and cls_of(queue[j]) != cls:
+                    j += 1
+                if j >= len(queue) or queue[j].get("sig") != sig:
+                    break
+                group.append(queue.pop(j))
+            return "fallback", group
+        blocked.add(cls)
