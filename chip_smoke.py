@@ -391,8 +391,41 @@ Run from the root of a checkout on a machine with a CUDA card (and
    seconds an image of the late-join pair and of the second bucket
    against the fallback's, the park and resume seconds, the noise
    draw's host seconds, the flight deck's histogram and the launches.
+21. the elastic fleet (``runtime/autoscale.py``, ``utils/chaos.py``), on
+   one ``cli serve`` master with no workers (started while phase 20
+   runs) and ``PHASE21_ENV``: the autoscaler armed at a short tempo (up
+   over 2 prompts a participant, down under 0.5, windows of two 0.5 s
+   samples, a 3 s cooldown, at most one worker), the reuse plane,
+   coalescing and the hedge off, and a seeded ``DTPU_CHAOS`` spec
+   faulting only ``/distributed/job_complete`` (503s and corrupted
+   uploads, ``PHASE21_CHAOS``).  Eight ``distributed-txt2img.json``
+   prompts (SDXL 1024^2, 20 steps) at seeds SEEDS[0] + 1 .. + 8 within
+   0.5 s; ``/distributed/fleet`` polled every ``PHASE21_POLL_S``: one
+   ``up`` spawns an ``auto_*`` ``cli worker`` on the card through the
+   process manager; once it is ready (healthy, ``launching`` clear)
+   ``cli top --json`` must list it and a prompt at SEEDS[0] fans out to
+   it, its upload answered 503, then 500 (corrupted), then delivered;
+   once the queue empties one ``down`` marks it ``retiring`` and the
+   reap stops it.  Hard: every prompt ``success`` (one image a burst
+   prompt, two for the fan-out), the decision ring exactly up and down
+   with no flap, no process of the worker's tree alive, the config and
+   the registry without it, at least one 5xx and one corruption injected
+   and one image received, ``cli fleet`` and ``cli top`` exiting 0,
+   ``metrics.prom``'s autoscale counters 1, 1 and 0, 2800 sm90 launches
+   on every prompt line of the master and the worker at shapes phase 3
+   checked, and the burst's image at SEEDS[0] + 1 and the fan-out's two
+   within ``FANOUT_ATOL["same"]`` of phase 8's in-process images.  It
+   prints a ``phase21`` line: the seconds of each event from the burst's
+   first post, the utilization at each decision, the chaos counters, the
+   images' differences and the launches.
 
-The servers of phases 14-20 load phase 10's model files
+Phases 14, 15, 16, 20 and 21 launch their servers before the phase
+before them (13, 14, 15, 19 and 20) runs, so a server's start
+(importing torch, opening the card: about 12 s) overlaps it; each
+releases the pipelines, checks its free device memory and waits for its
+servers when its own turn comes.
+
+The servers of phases 14-21 load phase 10's model files
 (``SERVER_MODELS_DIR``; phase 10 keeps them while 8 GiB of disk stay
 free beside them) instead of filling their pipelines virtually.  The
 servers of phases 8 and 14-18 start with ``DTPU_CACHE=0``
@@ -405,8 +438,9 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 
 Launch counts are zeroed just before each request of phases 5-7 and
 9-13 and read just after (phase 15's interrupted request and every
-request of phases 16, 18 and 19: their servers' prompt lines; phase
-20's: its buckets' counts, each step's own, and its prompt lines).  The line before the last is ``{"kernels":
+request of phases 16, 18, 19 and 21: their servers' prompt lines;
+phase 20's: its buckets' counts, each step's own, and its prompt
+lines).  The line before the last is ``{"kernels":
 [...]}``: for each kernel variant those phases launched, its launches
 and, over exactly
 those launches (each shape's measured time times its launch count),
@@ -1937,10 +1971,12 @@ def drill_request(cluster, name, path, doc, fault, lost, refs, checked):
 
 
 def fault_drills(docs, input_dir, upscale_ref, rows):
-    """Phase 14: the control plane's fault drills on one card.  The
-    in-process inpaint images of the three seed slices first; then the
-    pipelines are released and a master and two workers (w0, w1) start,
-    the workers self-registering; drill 1 runs the upscale with w1
+    """Phase 14: the control plane's fault drills on one card.  A
+    generator (:func:`resumed`): its first step launches a master and two
+    workers (w0, w1), the workers self-registering, so that their start
+    overlaps phase 13; its second makes the in-process inpaint images of
+    the three seed slices, releases the pipelines and, once the servers
+    answer, runs the drills.  Drill 1 runs the upscale with w1
     stalling before its first tile (hedged on the master), drill 2 the
     upscale with w1 killed after dispatch (its tiles reassigned), and
     drill 3, after w1 restarts without a fault, the inpaint fan-out with
@@ -1965,21 +2001,6 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
                      if isinstance(node, dict)
                      and node.get("class_type") == "DistributedSeed")
     inpaint[seed_node]["inputs"]["seed"] = seed
-    inpaint_refs = []
-    for k in range(3):   # the master's slice, w0's, and w1's
-        req = copy.deepcopy(docs["inpaint"])
-        req[seed_node]["inputs"]["seed"] = seed + k
-        inpaint_refs.append({"same": WorkflowExecutor(OpContext(
-            device=DEVICE, input_dir=input_dir)).execute(req).image_batch[0]})
-    registry.clear_pipeline_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    print(f"phase 14: {free} of {total} bytes of device memory free before "
-          f"the servers start", flush=True)
-    if free < DRILL_MIN_FREE:
-        fail(f"phase 14 needs {DRILL_MIN_FREE} bytes free for three SD1.5 "
-             f"servers, {free} are")
     up = with_save_image(docs["upscale"])
     up["2"]["inputs"]["seed"] = 42
     # phase 7 read no file (its 512^2 test card); every server here holds
@@ -2024,10 +2045,29 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
             cluster.launch("w0")
             cluster.launch("w1", {**roles["w1"][1], "DTPU_FAULT_INJECT":
                                   json.dumps({"stall_s": DRILL_STALL_S})})
+            yield
+            inpaint_refs = []
+            for k in range(3):   # the master's slice, w0's, and w1's
+                req = copy.deepcopy(docs["inpaint"])
+                req[seed_node]["inputs"]["seed"] = seed + k
+                inpaint_refs.append({"same": WorkflowExecutor(OpContext(
+                    device=DEVICE, input_dir=input_dir)).execute(
+                        req).image_batch[0]})
+            registry.clear_pipeline_cache()
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            print(f"phase 14: {free} of {total} bytes of device memory free "
+                  f"beside the idle servers", flush=True)
+            if free < DRILL_MIN_FREE:
+                cluster.fail(f"phase 14 needs {DRILL_MIN_FREE} bytes free "
+                             f"for three SD1.5 servers, {free} are")
+            t1 = time.perf_counter()
             cluster.wait_up(roles)
             for role in ("w0", "w1"):
                 wait_healthy(role)
             started_s = time.perf_counter() - t0
+            wait_s = time.perf_counter() - t1
             # partition_tiles(16, 2): master 0-5, w0 6-10, w1 11-15
             drills.append(drill_request(
                 cluster, "1 straggler hedged (cold)", "upscale", up,
@@ -2050,14 +2090,25 @@ def fault_drills(docs, input_dir, upscale_ref, rows):
             emit("drill", drills[-1])
         finally:
             cluster.stop()
-    return {"free_bytes_before": free, "servers_start_s": started_s,
-            "w1_restart_s": restart_s,
+    return {"free_bytes_before": free,
+            "servers_up_after_launch_s": started_s,
+            "servers_wait_s": wait_s, "w1_restart_s": restart_s,
             "seconds": {d["drill"]: d["seconds"] for d in drills},
             "fault_to_success_s": {d["drill"]: d["fault_to_success_s"]
                                    for d in drills},
             "peak_memory": {d["drill"]: d["peak_memory"] for d in drills},
             "ledger": {d["drill"]: d["ledger"] for d in drills}}, \
         inpaint_refs
+
+
+def resumed(phase):
+    """Run a phase generator's second step (its first launched its
+    servers) and return what the phase returns."""
+    try:
+        next(phase)
+    except StopIteration as done:
+        return done.value
+    fail("a phase yielded twice")
 
 
 def proc_tree(pid):
@@ -2193,10 +2244,12 @@ def worker_management(docs, txt_refs, rows):
     share of a txt2img fan-out, and the master alone has an SDXL request
     interrupted mid-sampling; then the cluster is interrupted during a
     fan-out, both servers' memory cleared, w0 stopped, launched again and
-    left to the monitor when the master is killed.  ``txt_refs``: phase
-    8's in-process images of the two shares; ``rows``: phase 3's checks.
-    Returns the report and the interrupted request's launches (by
-    variant and by shape) for the ``kernels`` line."""
+    left to the monitor when the master is killed.  A generator
+    (:func:`resumed`): its first step launches the master, so that its
+    start overlaps phase 14.  ``txt_refs``: phase 8's in-process images
+    of the two shares; ``rows``: phase 3's checks.  Returns the report
+    and the interrupted request's launches (by variant and by shape) for
+    the ``kernels`` line."""
     import gc
 
     import numpy as np
@@ -2210,9 +2263,6 @@ def worker_management(docs, txt_refs, rows):
 
     checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
                for r in rows if not r.get("named")}
-    registry.clear_pipeline_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
     seed = SEEDS[0]
     txt = with_save_image(docs["txt2img"])
     txt["13"]["inputs"]["seed"] = seed
@@ -2268,7 +2318,16 @@ def worker_management(docs, txt_refs, rows):
             return entry, time.perf_counter() - t0
 
         try:
-            cluster.start()
+            t0 = time.perf_counter()
+            cluster.launch("serve")
+            yield
+            registry.clear_pipeline_cache()
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            cluster.wait_up(["serve"])
+            report["server_up_after_launch_s"] = time.perf_counter() - t0
+            report["server_wait_s"] = time.perf_counter() - t1
             # 1. the launch, through the master's route
             entry, ready_s = launch()
             wlog = get_json(master + "/distributed/worker_log?id=w0")["log"]
@@ -2480,7 +2539,9 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
     durable master A (``DTPU_WAL_DIR``, fsync always, a
     ``PHASE16_MASTER_LEASE_S`` lease), a standby B on the same log, and
     workers w0 and w1 (w1 stalling ``PHASE16_STALL_S`` before it sends)
-    start as four ``cli`` servers.  References on A with w1 disabled:
+    start as four ``cli`` servers: a generator (:func:`resumed`) whose
+    first step launches them (B once A answers), so that their start
+    overlaps phase 15.  References on A with w1 disabled:
     the upscale cold and once warm and the inpaint fan-out.  Drill 1:
     the upscale with w1, A and w1 SIGKILLed once every tile but w1's is
     in; B takes over when the lease expires, resumes the prompt under
@@ -2504,15 +2565,6 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
 
     checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
                for r in rows if not r.get("named")}
-    registry.clear_pipeline_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    print(f"phase 16: {free} of {total} bytes of device memory free before "
-          f"the servers start", flush=True)
-    if free < PHASE16_MIN_FREE:
-        fail(f"phase 16 needs {PHASE16_MIN_FREE} bytes free for four SD1.5 "
-             f"servers, {free} are")
     seed = SEEDS[0]
     up = with_save_image(docs["upscale"])
     up["2"]["inputs"]["seed"] = 42
@@ -2528,7 +2580,7 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
     inpaint[seed_node]["inputs"]["seed"] = seed
     launches = {"variants": collections.Counter(),
                 "shapes": collections.Counter()}
-    report = {"card": card_line(), "free_bytes_before": free,
+    report = {"card": card_line(),
               "settings": {"master_lease_s": PHASE16_MASTER_LEASE_S,
                            "wal_sync": "always", "stall_s": PHASE16_STALL_S,
                            "hedge": 0}}
@@ -2664,18 +2716,54 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
                                  f"{kind} units: {state.jobs}")
                 time.sleep(0.05)
 
-        try:
-            t0 = time.perf_counter()
+        # B is launched on a thread once A answers; a phase ending first
+        # (a failure) launches none
+        closing = threading.Lock()
+        closed = []
+
+        def launch_standby():
             # A holds the lease before B looks at it: a standby reads no
             # lease as an expired one
-            cluster.launch("A")
-            cluster.wait_up(["A"])
-            for role in ("B", "w0", "w1"):
+            deadline = time.time() + FANOUT_START_S
+            while time.time() < deadline \
+                    and cluster.procs["A"].poll() is None:
+                try:
+                    get_json(cluster.url("A") + "/prompt", timeout=2)
+                except OSError:
+                    time.sleep(0.5)
+                    continue
+                with closing:
+                    if not closed:
+                        cluster.launch("B")
+                return
+
+        try:
+            t0 = time.perf_counter()
+            for role in ("A", "w0", "w1"):
                 cluster.launch(role)
+            standby = threading.Thread(target=launch_standby, daemon=True)
+            standby.start()
+            yield
+            standby.join()
+            registry.clear_pipeline_cache()
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            print(f"phase 16: {free} of {total} bytes of device memory free "
+                  f"beside the idle servers", flush=True)
+            if free < PHASE16_MIN_FREE:
+                cluster.fail(f"phase 16 needs {PHASE16_MIN_FREE} bytes free "
+                             f"for four SD1.5 servers, {free} are")
+            report["free_bytes_before"] = free
+            t1 = time.perf_counter()
+            cluster.wait_up(["A"])
+            if "B" not in cluster.procs:
+                cluster.fail("B was not launched once A answered")
             cluster.wait_up(["B", "w0", "w1"])
             for role in ("w0", "w1"):
                 wait_healthy("A", role)
-            report["servers_start_s"] = time.perf_counter() - t0
+            report["servers_up_after_launch_s"] = time.perf_counter() - t0
+            report["servers_wait_s"] = time.perf_counter() - t1
             info = get_json(cluster.url("A") + "/distributed/durability")
             binfo = get_json(cluster.url("B") + "/distributed/durability")
             if info.get("epoch") != 1 or info.get("role") != "active" \
@@ -2858,6 +2946,8 @@ def master_failover(docs, input_dir, upscale_ref, inpaint_refs,
             print(f"phase 16: drill 2 kill to success "
                   f"{t_done - t_kill:.3f} s", flush=True)
         finally:
+            with closing:
+                closed.append(True)
             cluster.stop()
         out = subprocess.run(
             [sys.executable, "-m", "comfyui_distributed_tpu_torch.cli", "wal",
@@ -4826,9 +4916,11 @@ def continuous_batching(docs, rows, refs):
     """Phase 20: continuous batching through ``cli serve`` (SDXL at
     1024^2, 20 steps, full width and depth, ``PHASE20_ENV``): a late
     joiner, a second signature's bucket, a preemption with its park and
-    resume, preview frames and ``cli flightdeck``.  ``refs``: phase 19's
-    in-process images by seed.  Returns the report and the launches of
-    the server (its buckets' and its prompt lines')."""
+    resume, preview frames and ``cli flightdeck``.  A generator
+    (:func:`resumed`): its first step launches the server, so that its
+    start overlaps phase 19.  ``refs``: phase 19's in-process images by
+    seed.  Returns the report and the launches of the server (its
+    buckets' and its prompt lines')."""
     import contextlib
     import gc
     import io
@@ -4845,299 +4937,305 @@ def continuous_batching(docs, rows, refs):
                for r in rows if not r.get("named")}
     txt = docs["txt2img"]
     report = {"card": card_line()}
-    registry.clear_pipeline_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, _ = torch.cuda.mem_get_info()
-    if free < PHASE20_MIN_FREE:
-        fail(f"phase 20 needs {PHASE20_MIN_FREE} bytes free, {free} are")
-    report["noise_draw_s"] = phase20_noise_draw()
     lim = FANOUT_ATOL["one_batch"]
     launches = {"variants": collections.Counter(),
                 "shapes": collections.Counter()}
-    with tempfile.TemporaryDirectory() as root:
-        cluster = Cluster(root, {"serve": ("serve", PHASE20_ENV)})
-        url = cluster.url("serve")
-        out_dir = os.path.join(cluster.dirs["serve"], "output")
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase20_")
+    cluster = Cluster(root, {"serve": ("serve", PHASE20_ENV)})
+    url = cluster.url("serve")
+    out_dir = os.path.join(cluster.dirs["serve"], "output")
 
-        def post(doc, priority=None):
-            body = {"prompt": doc, "client_id": "chip_smoke"}
-            if priority:
-                body["priority"] = priority
-            return post_json(url + "/prompt", body)["prompt_id"]
+    def post(doc, priority=None):
+        body = {"prompt": doc, "client_id": "chip_smoke"}
+        if priority:
+            body["priority"] = priority
+        return post_json(url + "/prompt", body)["prompt_id"]
 
-        def history(pids):
-            deadline = time.time() + FANOUT_REQUEST_S
-            while True:
-                hist = get_json(url + "/history")
-                if all(p in hist for p in pids):
-                    return {p: hist[p] for p in pids}
-                if time.time() > deadline:
-                    cluster.fail(f"phase 20: no history for {pids}")
-                time.sleep(PHASE19_POLL_S)
+    def history(pids):
+        deadline = time.time() + FANOUT_REQUEST_S
+        while True:
+            hist = get_json(url + "/history")
+            if all(p in hist for p in pids):
+                return {p: hist[p] for p in pids}
+            if time.time() > deadline:
+                cluster.fail(f"phase 20: no history for {pids}")
+            time.sleep(PHASE19_POLL_S)
 
-        def batching():
-            return get_json(url + "/distributed/metrics")["batching"]
+    def batching():
+        return get_json(url + "/distributed/metrics")["batching"]
 
-        def wait_steps(pred, what):
-            deadline = time.time() + FANOUT_REQUEST_S
-            while True:
-                b = batching()
-                if pred(b):
-                    return b
-                if time.time() > deadline:
-                    cluster.fail(f"phase 20: {what}: {b}")
-                time.sleep(0.02)
+    def wait_steps(pred, what):
+        deadline = time.time() + FANOUT_REQUEST_S
+        while True:
+            b = batching()
+            if pred(b):
+                return b
+            if time.time() > deadline:
+                cluster.fail(f"phase 20: {what}: {b}")
+            time.sleep(0.02)
 
-        def saved_by_seed(before):
-            out = {}
-            for f in sorted(set(os.listdir(out_dir)) - before):
-                path = os.path.join(out_dir, f)
-                prompt = json.loads(dict(png_text_chunks(path))["prompt"])
-                seed = next(n["inputs"]["seed"] for n in prompt.values()
-                            if n["class_type"] == "KSampler")
-                out[seed] = path
-            return out
+    def saved_by_seed(before):
+        out = {}
+        for f in sorted(set(os.listdir(out_dir)) - before):
+            path = os.path.join(out_dir, f)
+            prompt = json.loads(dict(png_text_chunks(path))["prompt"])
+            seed = next(n["inputs"]["seed"] for n in prompt.values()
+                        if n["class_type"] == "KSampler")
+            out[seed] = path
+        return out
 
-        def outputs():
-            return set(os.listdir(out_dir)) if os.path.isdir(out_dir) \
-                else set()
+    def outputs():
+        return set(os.listdir(out_dir)) if os.path.isdir(out_dir) \
+            else set()
 
-        def spans(pid):
-            return get_json(f"{url}/distributed/trace/{pid}")["spans"]
+    def spans(pid):
+        return get_json(f"{url}/distributed/trace/{pid}")["spans"]
 
-        def run_s(h):
-            return h["finished_at"] - h["started_at"]
+    def run_s(h):
+        return h["finished_at"] - h["started_at"]
 
-        try:
-            t0 = time.perf_counter()
-            cluster.start()
-            report["server_start_s"] = time.perf_counter() - t0
-            lat = next(n["inputs"] for n in txt.values()
-                       if isinstance(n, dict)
-                       and n["class_type"] == "EmptyLatentImage")
-            ks = next(n["inputs"] for n in txt.values()
-                      if isinstance(n, dict)
-                      and n["class_type"] == "KSampler")
-            t0 = time.perf_counter()
-            body = post_json(url + "/distributed/warmup", {
-                "ckpt_name": txt["4"]["inputs"]["ckpt_name"],
-                "width": lat["width"], "height": lat["height"], "batch": 1,
-                **{k: ks[k] for k in ("steps", "cfg", "sampler_name",
-                                      "scheduler")}}, timeout=600)
-            report["warmup"] = {"post_s": time.perf_counter() - t0,
-                                "timings": body["timings"]}
-            # the serial yardstick on this server: dpmpp_2m (one model
-            # call a step, as euler) has no extracted step, so it runs
-            # on the fallback thread as one dispatch at B = 2
-            before = outputs()
-            serial = post(with_sampler(plain_txt2img(txt, 1000),
-                                       "dpmpp_2m"))
-            h_serial = history([serial])[serial]
-            b0 = batching()
-            if h_serial["status"] != "success" or b0["fallbacks"] != 1 \
-                    or b0["admits"] != 0:
-                cluster.fail(f"phase 20: the fallback {h_serial} {b0}")
-            report["serial_s"] = run_s(h_serial)
-            # drill 1: a, b joining at step >= 5, previews of a
-            a = post(plain_txt2img(txt, PHASE19_SEEDS[0]))
-            watched = {}
-            watcher = threading.Thread(
-                target=lambda: watched.update(events=sse_events(url, a)),
-                daemon=True)
-            watcher.start()
-            b_at = wait_steps(lambda b: any(
-                k["steps"] >= PHASE20_JOIN_AT for k in b["buckets"]),
-                "a never stepped")
-            b = post(plain_txt2img(txt, PHASE19_SEEDS[1]))
-            hist = history([a, b])
-            watcher.join(FANOUT_REQUEST_S)
-            mid = batching()
-            if len(mid["buckets"]) != 1 or mid["buckets"][0]["admits"] != 2:
-                cluster.fail(f"phase 20: b did not join a's bucket: {mid}")
-            joined_at = b_at["buckets"][0]["steps"]
-            euler_sig = mid["buckets"][0]["sig"]
+    try:
+        t0 = time.perf_counter()
+        cluster.launch("serve")
+        yield
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        if free < PHASE20_MIN_FREE:
+            cluster.fail(f"phase 20 needs {PHASE20_MIN_FREE} bytes free, "
+                         f"{free} are")
+        report["noise_draw_s"] = phase20_noise_draw()
+        t1 = time.perf_counter()
+        cluster.wait_up(["serve"])
+        report["server_up_after_launch_s"] = time.perf_counter() - t0
+        report["server_wait_s"] = time.perf_counter() - t1
+        lat = next(n["inputs"] for n in txt.values()
+                   if isinstance(n, dict)
+                   and n["class_type"] == "EmptyLatentImage")
+        ks = next(n["inputs"] for n in txt.values()
+                  if isinstance(n, dict)
+                  and n["class_type"] == "KSampler")
+        t0 = time.perf_counter()
+        body = post_json(url + "/distributed/warmup", {
+            "ckpt_name": txt["4"]["inputs"]["ckpt_name"],
+            "width": lat["width"], "height": lat["height"], "batch": 1,
+            **{k: ks[k] for k in ("steps", "cfg", "sampler_name",
+                                  "scheduler")}}, timeout=600)
+        report["warmup"] = {"post_s": time.perf_counter() - t0,
+                            "timings": body["timings"]}
+        # the serial yardstick on this server: dpmpp_2m (one model
+        # call a step, as euler) has no extracted step, so it runs
+        # on the fallback thread as one dispatch at B = 2
+        before = outputs()
+        serial = post(with_sampler(plain_txt2img(txt, 1000),
+                                   "dpmpp_2m"))
+        h_serial = history([serial])[serial]
+        b0 = batching()
+        if h_serial["status"] != "success" or b0["fallbacks"] != 1 \
+                or b0["admits"] != 0:
+            cluster.fail(f"phase 20: the fallback {h_serial} {b0}")
+        report["serial_s"] = run_s(h_serial)
+        # drill 1: a, b joining at step >= 5, previews of a
+        a = post(plain_txt2img(txt, PHASE19_SEEDS[0]))
+        watched = {}
+        watcher = threading.Thread(
+            target=lambda: watched.update(events=sse_events(url, a)),
+            daemon=True)
+        watcher.start()
+        b_at = wait_steps(lambda b: any(
+            k["steps"] >= PHASE20_JOIN_AT for k in b["buckets"]),
+            "a never stepped")
+        b = post(plain_txt2img(txt, PHASE19_SEEDS[1]))
+        hist = history([a, b])
+        watcher.join(FANOUT_REQUEST_S)
+        mid = batching()
+        if len(mid["buckets"]) != 1 or mid["buckets"][0]["admits"] != 2:
+            cluster.fail(f"phase 20: b did not join a's bucket: {mid}")
+        joined_at = b_at["buckets"][0]["steps"]
+        euler_sig = mid["buckets"][0]["sig"]
 
-            def euler_bucket(snap):
-                return next(k for k in snap["buckets"]
-                            if k["sig"] == euler_sig)
-            b_admit = [s["attrs"] for s in spans(b)
-                       if s["name"] == "cb_admit"]
-            if [x.get("slot") for x in b_admit] != [1]:
-                cluster.fail(f"phase 20: b's cb_admit spans {b_admit}")
-            ab = [hist[a], hist[b]]
-            report["late_join"] = {
-                "joined_after_steps": joined_at,
-                "bucket_steps": mid["buckets"][0]["steps"],
-                "pair_s": max(h["finished_at"] for h in ab)
-                - min(h["started_at"] for h in ab),
-                "run_s": [run_s(h) for h in ab]}
-            report["late_join"]["s_per_image"] = \
-                report["late_join"]["pair_s"] / 2
-            # drill 1, second signature: an euler_ancestral pair
-            c, d = (post(with_sampler(plain_txt2img(txt, s),
-                                      "euler_ancestral"))
-                    for s in PHASE20_ANCESTRAL_SEEDS)
-            hist.update(history([c, d]))
-            two = batching()
-            if len(two["buckets"]) != 2 \
-                    or sorted(k["admits"] for k in two["buckets"]) != [2, 2]:
-                cluster.fail(f"phase 20: the second bucket {two}")
-            cd = [hist[c], hist[d]]
-            report["second_bucket_s_per_image"] = (
-                max(h["finished_at"] for h in cd)
-                - min(h["started_at"] for h in cd)) / 2
-            files = saved_by_seed(before)
-            diffs = {}
-            for seed in (*PHASE19_SEEDS[:2], *PHASE20_ANCESTRAL_SEEDS):
-                if seed not in files:
-                    cluster.fail(f"phase 20: no image of seed {seed}")
-                diffs[seed] = image_diff(files[seed], refs[seed])
-                if diffs[seed][0] > lim[0] or diffs[seed][1] > lim[1]:
-                    cluster.fail(f"phase 20: seed {seed}'s image differs "
-                                 f"{diffs[seed]} from its serial run")
-            report["late_join"]["max_mean_diff"] = {
-                str(k): v for k, v in diffs.items()}
-            # previews: 20 / 5 frames of a, each its latent's PNG
-            ev = watched.get("events") or []
-            frames = [e for name, e in ev if name == "preview"]
-            steps = [e["step"] for e in frames]
-            if steps != [5, 10, 15, 20] or ev[-1][0] != "done":
-                cluster.fail(f"phase 20: a's preview stream {steps} "
-                             f"{[n for n, _ in ev][-3:]}")
-            import base64
-            pngs = [decode_png(base64.b64decode(e["png_b64"]))[0]
-                    for e in frames]
-            if any(p.shape[:2] != (lat["height"] // 8, lat["width"] // 8)
-                   for p in pngs) or any(
-                    np.array_equal(p, q) for p, q in zip(pngs, pngs[1:])):
-                cluster.fail(f"phase 20: preview frames "
-                             f"{[p.shape for p in pngs]}")
-            report["previews"] = {"steps": steps,
-                                  "shape": list(pngs[0].shape)}
-            # drill 2: preemption.  First the victim's unparked run
-            # (alone, pad 2), then both batch prompts, then the paid one
-            bseed = PHASE20_BATCH_SEEDS
-            before = outputs()
-            u = post(plain_txt2img(txt, bseed[1]), "batch")
-            history([u])
-            unparked = saved_by_seed(before)[bseed[1]]
-            s0 = batching()
-            before = outputs()
-            # b2 is admitted after b1: the younger, so the one parked
-            b1 = post(plain_txt2img(txt, bseed[0]), "batch")
-            wait_steps(lambda b: b["admits"] == s0["admits"] + 1,
-                       "b1 never admitted")
-            b2 = post(plain_txt2img(txt, bseed[1]), "batch")
-            steps0 = euler_bucket(s0)["steps"]
-            wait_steps(lambda b: b["slots_active"] == 2
-                       and b["admits"] == s0["admits"] + 2
-                       and euler_bucket(b)["steps"] >= steps0
-                       + PHASE20_PREEMPT_AT, "the batch pair never ran")
-            w_paid = time.time()
-            paid = post(plain_txt2img(txt, PHASE20_PAID_SEED), "paid")
-            parked_seen = 0
-            deadline = time.time() + FANOUT_REQUEST_S
-            while True:
-                snap = batching()
-                parked_seen = max(parked_seen, snap["parked"])
-                hist_now = get_json(url + "/history")
-                if all(p in hist_now for p in (b1, b2, paid)):
-                    break
-                if time.time() > deadline:
-                    cluster.fail("phase 20: the preemption drill never "
-                                 "finished")
-                time.sleep(0.05)
-            hist = history([b1, b2, paid])
-            s1 = batching()
-            moved = {k: s1[k] - s0[k] for k in ("parks", "preemptions",
-                                                "resumes", "retires")}
-            if moved != {"parks": 1, "preemptions": 1, "resumes": 1,
-                         "retires": 3} or parked_seen != 1 \
-                    or s1["parked"] != 0 \
-                    or any(hist[p]["status"] != "success"
-                           for p in (b1, b2, paid)) \
-                    or not hist[paid]["finished_at"] \
-                    < hist[b2]["finished_at"]:
-                cluster.fail(f"phase 20: preemption {moved}, parked seen "
-                             f"{parked_seen}, {hist}")
-            park = [x for x in spans(b2) if x["name"] == "cb_park"]
-            resume = [x for x in spans(b2) if x["name"] == "cb_resume"]
-            if len(park) != 1 or len(resume) != 1 \
-                    or park[0]["attrs"].get("preempted_by") != "paid":
-                cluster.fail(f"phase 20: b2's park spans {park} {resume}")
-            files = saved_by_seed(before)
-            pre_diffs = {}
-            for seed, ref in ((bseed[0], refs[bseed[0]]),
-                              (bseed[1], refs[bseed[1]]),
-                              (PHASE20_PAID_SEED, refs["encode"])):
-                pre_diffs[seed] = image_diff(files[seed], ref)
-                if pre_diffs[seed][0] > lim[0] \
-                        or pre_diffs[seed][1] > lim[1]:
-                    cluster.fail(f"phase 20: seed {seed}'s image differs "
-                                 f"{pre_diffs[seed]} from its serial run")
-            with open(unparked, "rb") as f:
-                want = decode_png(f.read())[0]
-            with open(files[bseed[1]], "rb") as f:
-                got = decode_png(f.read())[0]
-            stages = get_json(url + "/distributed/metrics")["pipeline"][
-                "stages"]
-            report["preemption"] = {
-                "parked_at_step": park[0]["attrs"].get("step"),
-                "parked_s": resume[0]["start_s"] - park[0]["start_s"],
-                "paid_post_to_done_s": hist[paid]["finished_at"] - w_paid,
-                "paid_run_s": run_s(hist[paid]),
-                "batch_run_s": [run_s(hist[b1]), run_s(hist[b2])],
-                "park_op_s": stages.get("cb_park", {}).get("total_s"),
-                "resume_op_s": stages.get("cb_resume", {}).get("total_s"),
-                "max_mean_diff": {str(k): v for k, v in pre_diffs.items()},
-                "resumed_vs_unparked_max": float(np.abs(got - want).max()),
-                "resumed_equals_unparked": bool(np.array_equal(got, want))}
-            # the flight deck against the drills
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(["flightdeck", "--url", url, "--json"])
-            deck = json.loads(out.getvalue())
-            rows_ = deck["deck"]
-            total_steps = sum(k["steps"] for k in deck["buckets"])
-            sums = {k: sum(r[k] for r in rows_)
-                    for k in ("admits", "retires", "preemptions")}
-            if rc != 0 or len(rows_) != total_steps \
-                    or sums != {"admits": deck["admits"],
-                                "retires": deck["retires"],
-                                "preemptions": 1} \
-                    or deck["admits"] != 8 or deck["retires"] != 8:
-                cluster.fail(f"phase 20: flightdeck {len(rows_)} rows, "
-                             f"{total_steps} steps, sums {sums}, admits "
-                             f"{deck['admits']}, retires {deck['retires']}")
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                cli.main(["flightdeck", "--url", url, "--last", "4"])
-            print(out.getvalue(), flush=True)
-            report["flightdeck"] = {
-                "boundaries": len(rows_), **sums,
-                "admit_to_first_step": deck["admit_to_first_step"]}
-            # every step launched sm90 140 times, at shapes phase 3 checked
-            for k in deck["buckets"]:
-                if PHASE20_CHECK_LAUNCHES and k["launches"] != {
-                        "sm90": SM90_PER_STEP * k["steps"]}:
-                    cluster.fail(f"phase 20: bucket {k['sig']} launched "
-                                 f"{k['launches']} in {k['steps']} steps")
-                for *shape, n in k["launches_by_shape"]:
-                    launches["shapes"][tuple(shape)] += n
-                launches["variants"]["sm90"] += k["launches"].get("sm90", 0)
-            report["buckets"] = [{x: k[x] for x in (
-                "sig", "admits", "retires", "steps", "retraces",
-                "pad_transitions", "launches")} for k in deck["buckets"]]
-            report["late_join"]["sm90"] = deck["buckets"][0]["launches"]
-            for ln in cluster.prompt_lines("serve"):
-                for v, n in ln["launches"].items():
-                    if n:
-                        launches["variants"][v] += n
-                for *shape, n in ln["launches_by_shape"]:
-                    launches["shapes"][tuple(shape)] += n
-        finally:
-            cluster.stop()
+        def euler_bucket(snap):
+            return next(k for k in snap["buckets"]
+                        if k["sig"] == euler_sig)
+        b_admit = [s["attrs"] for s in spans(b)
+                   if s["name"] == "cb_admit"]
+        if [x.get("slot") for x in b_admit] != [1]:
+            cluster.fail(f"phase 20: b's cb_admit spans {b_admit}")
+        ab = [hist[a], hist[b]]
+        report["late_join"] = {
+            "joined_after_steps": joined_at,
+            "bucket_steps": mid["buckets"][0]["steps"],
+            "pair_s": max(h["finished_at"] for h in ab)
+            - min(h["started_at"] for h in ab),
+            "run_s": [run_s(h) for h in ab]}
+        report["late_join"]["s_per_image"] = \
+            report["late_join"]["pair_s"] / 2
+        # drill 1, second signature: an euler_ancestral pair
+        c, d = (post(with_sampler(plain_txt2img(txt, s),
+                                  "euler_ancestral"))
+                for s in PHASE20_ANCESTRAL_SEEDS)
+        hist.update(history([c, d]))
+        two = batching()
+        if len(two["buckets"]) != 2 \
+                or sorted(k["admits"] for k in two["buckets"]) != [2, 2]:
+            cluster.fail(f"phase 20: the second bucket {two}")
+        cd = [hist[c], hist[d]]
+        report["second_bucket_s_per_image"] = (
+            max(h["finished_at"] for h in cd)
+            - min(h["started_at"] for h in cd)) / 2
+        files = saved_by_seed(before)
+        diffs = {}
+        for seed in (*PHASE19_SEEDS[:2], *PHASE20_ANCESTRAL_SEEDS):
+            if seed not in files:
+                cluster.fail(f"phase 20: no image of seed {seed}")
+            diffs[seed] = image_diff(files[seed], refs[seed])
+            if diffs[seed][0] > lim[0] or diffs[seed][1] > lim[1]:
+                cluster.fail(f"phase 20: seed {seed}'s image differs "
+                             f"{diffs[seed]} from its serial run")
+        report["late_join"]["max_mean_diff"] = {
+            str(k): v for k, v in diffs.items()}
+        # previews: 20 / 5 frames of a, each its latent's PNG
+        ev = watched.get("events") or []
+        frames = [e for name, e in ev if name == "preview"]
+        steps = [e["step"] for e in frames]
+        if steps != [5, 10, 15, 20] or ev[-1][0] != "done":
+            cluster.fail(f"phase 20: a's preview stream {steps} "
+                         f"{[n for n, _ in ev][-3:]}")
+        import base64
+        pngs = [decode_png(base64.b64decode(e["png_b64"]))[0]
+                for e in frames]
+        if any(p.shape[:2] != (lat["height"] // 8, lat["width"] // 8)
+               for p in pngs) or any(
+                np.array_equal(p, q) for p, q in zip(pngs, pngs[1:])):
+            cluster.fail(f"phase 20: preview frames "
+                         f"{[p.shape for p in pngs]}")
+        report["previews"] = {"steps": steps,
+                              "shape": list(pngs[0].shape)}
+        # drill 2: preemption.  First the victim's unparked run
+        # (alone, pad 2), then both batch prompts, then the paid one
+        bseed = PHASE20_BATCH_SEEDS
+        before = outputs()
+        u = post(plain_txt2img(txt, bseed[1]), "batch")
+        history([u])
+        unparked = saved_by_seed(before)[bseed[1]]
+        s0 = batching()
+        before = outputs()
+        # b2 is admitted after b1: the younger, so the one parked
+        b1 = post(plain_txt2img(txt, bseed[0]), "batch")
+        wait_steps(lambda b: b["admits"] == s0["admits"] + 1,
+                   "b1 never admitted")
+        b2 = post(plain_txt2img(txt, bseed[1]), "batch")
+        steps0 = euler_bucket(s0)["steps"]
+        wait_steps(lambda b: b["slots_active"] == 2
+                   and b["admits"] == s0["admits"] + 2
+                   and euler_bucket(b)["steps"] >= steps0
+                   + PHASE20_PREEMPT_AT, "the batch pair never ran")
+        w_paid = time.time()
+        paid = post(plain_txt2img(txt, PHASE20_PAID_SEED), "paid")
+        parked_seen = 0
+        deadline = time.time() + FANOUT_REQUEST_S
+        while True:
+            snap = batching()
+            parked_seen = max(parked_seen, snap["parked"])
+            hist_now = get_json(url + "/history")
+            if all(p in hist_now for p in (b1, b2, paid)):
+                break
+            if time.time() > deadline:
+                cluster.fail("phase 20: the preemption drill never "
+                             "finished")
+            time.sleep(0.05)
+        hist = history([b1, b2, paid])
+        s1 = batching()
+        moved = {k: s1[k] - s0[k] for k in ("parks", "preemptions",
+                                            "resumes", "retires")}
+        if moved != {"parks": 1, "preemptions": 1, "resumes": 1,
+                     "retires": 3} or parked_seen != 1 \
+                or s1["parked"] != 0 \
+                or any(hist[p]["status"] != "success"
+                       for p in (b1, b2, paid)) \
+                or not hist[paid]["finished_at"] \
+                < hist[b2]["finished_at"]:
+            cluster.fail(f"phase 20: preemption {moved}, parked seen "
+                         f"{parked_seen}, {hist}")
+        park = [x for x in spans(b2) if x["name"] == "cb_park"]
+        resume = [x for x in spans(b2) if x["name"] == "cb_resume"]
+        if len(park) != 1 or len(resume) != 1 \
+                or park[0]["attrs"].get("preempted_by") != "paid":
+            cluster.fail(f"phase 20: b2's park spans {park} {resume}")
+        files = saved_by_seed(before)
+        pre_diffs = {}
+        for seed, ref in ((bseed[0], refs[bseed[0]]),
+                          (bseed[1], refs[bseed[1]]),
+                          (PHASE20_PAID_SEED, refs["encode"])):
+            pre_diffs[seed] = image_diff(files[seed], ref)
+            if pre_diffs[seed][0] > lim[0] \
+                    or pre_diffs[seed][1] > lim[1]:
+                cluster.fail(f"phase 20: seed {seed}'s image differs "
+                             f"{pre_diffs[seed]} from its serial run")
+        with open(unparked, "rb") as f:
+            want = decode_png(f.read())[0]
+        with open(files[bseed[1]], "rb") as f:
+            got = decode_png(f.read())[0]
+        stages = get_json(url + "/distributed/metrics")["pipeline"][
+            "stages"]
+        report["preemption"] = {
+            "parked_at_step": park[0]["attrs"].get("step"),
+            "parked_s": resume[0]["start_s"] - park[0]["start_s"],
+            "paid_post_to_done_s": hist[paid]["finished_at"] - w_paid,
+            "paid_run_s": run_s(hist[paid]),
+            "batch_run_s": [run_s(hist[b1]), run_s(hist[b2])],
+            "park_op_s": stages.get("cb_park", {}).get("total_s"),
+            "resume_op_s": stages.get("cb_resume", {}).get("total_s"),
+            "max_mean_diff": {str(k): v for k, v in pre_diffs.items()},
+            "resumed_vs_unparked_max": float(np.abs(got - want).max()),
+            "resumed_equals_unparked": bool(np.array_equal(got, want))}
+        # the flight deck against the drills
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["flightdeck", "--url", url, "--json"])
+        deck = json.loads(out.getvalue())
+        rows_ = deck["deck"]
+        total_steps = sum(k["steps"] for k in deck["buckets"])
+        sums = {k: sum(r[k] for r in rows_)
+                for k in ("admits", "retires", "preemptions")}
+        if rc != 0 or len(rows_) != total_steps \
+                or sums != {"admits": deck["admits"],
+                            "retires": deck["retires"],
+                            "preemptions": 1} \
+                or deck["admits"] != 8 or deck["retires"] != 8:
+            cluster.fail(f"phase 20: flightdeck {len(rows_)} rows, "
+                         f"{total_steps} steps, sums {sums}, admits "
+                         f"{deck['admits']}, retires {deck['retires']}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["flightdeck", "--url", url, "--last", "4"])
+        print(out.getvalue(), flush=True)
+        report["flightdeck"] = {
+            "boundaries": len(rows_), **sums,
+            "admit_to_first_step": deck["admit_to_first_step"]}
+        # every step launched sm90 140 times, at shapes phase 3 checked
+        for k in deck["buckets"]:
+            if PHASE20_CHECK_LAUNCHES and k["launches"] != {
+                    "sm90": SM90_PER_STEP * k["steps"]}:
+                cluster.fail(f"phase 20: bucket {k['sig']} launched "
+                             f"{k['launches']} in {k['steps']} steps")
+            for *shape, n in k["launches_by_shape"]:
+                launches["shapes"][tuple(shape)] += n
+            launches["variants"]["sm90"] += k["launches"].get("sm90", 0)
+        report["buckets"] = [{x: k[x] for x in (
+            "sig", "admits", "retires", "steps", "retraces",
+            "pad_transitions", "launches")} for k in deck["buckets"]]
+        report["late_join"]["sm90"] = deck["buckets"][0]["launches"]
+        for ln in cluster.prompt_lines("serve"):
+            for v, n in ln["launches"].items():
+                if n:
+                    launches["variants"][v] += n
+            for *shape, n in ln["launches_by_shape"]:
+                launches["shapes"][tuple(shape)] += n
+    finally:
+        cluster.stop()
+        shutil.rmtree(root, True)
     if report["late_join"]["bucket_steps"] >= 40:
         fail(f"phase 20: a and b took {report['late_join']['bucket_steps']} "
              f"boundaries: b did not share a's steps")
@@ -5148,6 +5246,305 @@ def continuous_batching(docs, rows, refs):
         fail(f"phase 20: shapes phase 3 did not check: {unchecked}")
     report["sm90_launches"] = launches["variants"].get("sm90", 0)
     return report, launches
+
+
+# phase 21: the elastic fleet.  One cli serve master on SDXL with no
+# workers and DTPU_AUTOSCALE=1 at a short tempo (two 0.5 s samples over
+# 2 prompts a participant scale up, two under 0.5 scale down, 3 s
+# cooldown, at most one worker: one SDXL worker beside its master bounds
+# the card's memory); the reuse plane and coalescing off, so each prompt
+# is its own dispatch and the queue depth is the burst's; the hedge off,
+# so the worker's share is its own work.  The chaos spec faults only the
+# worker's uploads (/prompt and the heartbeats stay clean); its seed
+# makes the first upload a 503, then a corrupted payload (a 500), then a
+# delivery (the first six uploads land within the sender's 5 attempts).
+# The resource monitor samples every second (5 s by default), so the
+# utilization the scale-down also needs under its bar reads an idle card
+# a second after the last compute ends.
+PHASE21_CHAOS = {"http_5xx_pct": 50, "corrupt_pct": 50,
+                 "routes": ["/distributed/job_complete"], "seed": 55}
+PHASE21_ENV = {"DTPU_CACHE": "0", "DTPU_COALESCE": "0", "DTPU_HEDGE": "0",
+               "DTPU_AUTOSCALE": "1", "DTPU_AUTOSCALE_INTERVAL_S": "0.5",
+               "DTPU_AUTOSCALE_WINDOW": "2", "DTPU_AUTOSCALE_UP_QUEUE": "2",
+               "DTPU_AUTOSCALE_DOWN_QUEUE": "0.5",
+               "DTPU_AUTOSCALE_COOLDOWN_S": "3", "DTPU_AUTOSCALE_MIN": "0",
+               "DTPU_AUTOSCALE_MAX": "1", "DTPU_RES_INTERVAL_S": "1",
+               "DTPU_CHAOS": json.dumps(PHASE21_CHAOS)}
+PHASE21_BURST = 8
+# the burst's seeds: SEEDS[0] + 1 .. + 8 (the first is phase 8's worker
+# share image); the prompt after the worker is ready: SEEDS[0] (phase
+# 8's two share images, the master's and the worker's)
+PHASE21_MIN_FREE = 40_000_000_000
+PHASE21_POLL_S = 0.075
+# a CPU rehearsal sets this False to skip the launch counts
+PHASE21_CHECK_LAUNCHES = True
+
+
+def elastic_fleet(docs, txt_refs, rows):
+    """Phase 21: the elastic fleet on one card: one ``cli serve`` master
+    with ``PHASE21_ENV`` and no workers, in a directory of its own
+    (``spawn/``: its managed workers' logs and default directories), the
+    package on ``PYTHONPATH`` for the workers it launches.  A generator
+    (:func:`resumed`): its first step launches the master, so that its
+    start overlaps phase 20.  A burst of ``PHASE21_BURST`` txt2img
+    prompts (full SDXL, 20 steps) at distinct seeds; the autoscaler
+    scales up once and spawns an ``auto_*`` worker on the card; once the
+    worker is ready a txt2img prompt fans out to it (its upload faulted
+    by the chaos spec, retried to success); once the queue empties the
+    worker is retired, drained clean and forgotten.  ``txt_refs``: phase
+    8's in-process images at SEEDS[0] and SEEDS[0] + 1; ``rows``: phase
+    3's checks.  Returns the report and the servers' launches."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from comfyui_distributed_tpu_torch import cli
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.utils.net import get_json, post_json
+
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"])
+               for r in rows if not r.get("named")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase21_")
+    spawn_dir = os.path.join(root, "spawn")
+    os.makedirs(spawn_dir)
+    cluster = Cluster(root, {"serve": ("serve", {
+        **PHASE21_ENV, "PYTHONPATH": os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)})},
+        cwd=spawn_dir)
+    config = os.path.join(cluster.dirs["serve"], "cluster_config.json")
+    with open(config, "w") as f:
+        json.dump({"master": {"host": "127.0.0.1",
+                              "port": cluster.ports["serve"]},
+                   "workers": [],
+                   "settings": {"auto_launch_workers": False}}, f)
+    url = cluster.url("serve")
+    out_dir = os.path.join(cluster.dirs["serve"], "output")
+    report = {"card": card_line(),
+              "settings": {**{k: v for k, v in PHASE21_ENV.items()
+                              if k != "DTPU_CHAOS"},
+                           "chaos": PHASE21_CHAOS}}
+    launches = {"variants": collections.Counter(),
+                "shapes": collections.Counter()}
+    seed = SEEDS[0]
+    txt = with_save_image(docs["txt2img"])
+
+    def prompt(s):
+        doc = copy.deepcopy(txt)
+        doc["13"]["inputs"]["seed"] = s
+        return {"prompt": doc, "client_id": "chip_smoke"}
+
+    def cli_out(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        return rc, buf.getvalue()
+
+    try:
+        t0 = time.perf_counter()
+        cluster.launch("serve")
+        yield
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        if free < PHASE21_MIN_FREE:
+            cluster.fail(f"phase 21 needs {PHASE21_MIN_FREE} bytes free, "
+                         f"{free} are")
+        report["free_bytes_before"] = free
+        t1 = time.perf_counter()
+        cluster.wait_up(["serve"])
+        report["server_up_after_launch_s"] = time.perf_counter() - t0
+        report["server_wait_s"] = time.perf_counter() - t1
+        m0 = get_json(url + "/distributed/metrics")
+        t_burst = time.time()
+        burst = []
+        for k in range(PHASE21_BURST):
+            resp = post_json(url + "/prompt", prompt(seed + 1 + k))
+            if resp.get("workers"):
+                cluster.fail(f"phase 21: burst prompt {k} fanned out: {resp}")
+            burst.append(resp["prompt_id"])
+        report["burst_post_s"] = time.time() - t_burst
+        at = {}            # event -> seconds since the burst's first post
+        util = {}          # decision -> utilization the autoscaler read
+        wid = late = tree = log_file = top = None
+        deadline = time.time() + FANOUT_REQUEST_S
+        polls = 0
+        while True:
+            polls += 1
+            fl = get_json(url + "/distributed/fleet")
+            now = time.time() - t_burst
+            a, workers = fl["autoscale"], fl["workers"]
+            sig = a.get("signal") or {}
+            for d in a.get("decisions", []):
+                if d["action"] in ("up", "down") and d["action"] not in at:
+                    at[d["action"]] = d["t"] - t_burst
+                    util[d["action"]] = d.get("utilization")
+                    if d["action"] == "up":
+                        wid = d["worker_id"]
+            if wid is not None and wid in workers \
+                    and "registered" not in at:
+                at["registered"] = now
+            if wid is not None and late is None:
+                managed = get_json(url + "/distributed/managed_workers")
+                entry = managed.get(wid)
+                if entry is not None and not entry["launching"] \
+                        and workers.get(wid, {}).get("state") == "healthy":
+                    at["healthy"] = now
+                    tree = proc_tree(entry["pid"])
+                    log_file = entry["log_file"]
+                    rc, text = cli_out(["top", "--url", url, "--json"])
+                    top = json.loads(text) if rc == 0 else None
+                    if rc != 0 or wid not in top.get("participants", {}):
+                        cluster.fail(f"phase 21: cli top --json rc {rc}, "
+                                     f"{text[-1000:]}")
+                    resp = post_json(url + "/prompt", prompt(seed))
+                    at["share_dispatched"] = time.time() - t_burst
+                    if resp.get("workers") != [wid] \
+                            or resp.get("failed_workers"):
+                        cluster.fail(f"phase 21: the prompt after the "
+                                     f"worker's start fanned out to {resp}")
+                    late = resp["prompt_id"]
+            if sig.get("queue_depth") == 0 and "queue_empty" not in at:
+                if late is None:
+                    cluster.fail(f"phase 21: the queue emptied {now:.2f} s "
+                                 f"after the burst, before the spawned "
+                                 f"worker was ready ({at})")
+                at["queue_empty"] = now
+            if wid is not None and workers.get(wid, {}).get("state") \
+                    == "retiring" and "retiring" not in at:
+                at["retiring"] = now
+            if "down" in at and wid not in workers \
+                    and not a.get("retiring") and not a.get("spawned"):
+                at["reaped"] = now
+                break
+            if time.time() > deadline:
+                cluster.fail(f"phase 21: no reap after {FANOUT_REQUEST_S} s "
+                             f"({at}, {a.get('decisions')})")
+            time.sleep(PHASE21_POLL_S)
+        report["seconds_from_burst"] = at
+        report["utilization_at"] = util
+        report["polls"] = polls
+        missing = [e for e in ("up", "registered", "healthy",
+                               "share_dispatched", "queue_empty", "down",
+                               "retiring", "reaped") if e not in at]
+        if missing:
+            cluster.fail(f"phase 21: never saw {missing} ({at})")
+        hist = get_json(url + "/history")
+        for pid in burst + [late]:
+            h = hist.get(pid, {})
+            want = 2 if pid == late else 1
+            if h.get("status") != "success" or h.get("images") != want:
+                cluster.fail(f"phase 21: {pid}'s history {h}, expected "
+                             f"success with {want} images")
+        fl = get_json(url + "/distributed/fleet")
+        a = fl["autoscale"]
+        actions = [d["action"] for d in a["decisions"]
+                   if d["action"] in ("up", "down")]
+        if actions != ["up", "down"] or a["flaps"] != 0 \
+                or a["scale_ups"] != 1 or a["scale_downs"] != 1:
+            cluster.fail(f"phase 21: decisions {a['decisions']}, flaps "
+                         f"{a['flaps']}")
+        report["decisions"] = a["decisions"]
+        # the reap: the tree gone, the config and the registry without it
+        alive = [p for p in tree if pid_alive(p)]
+        with open(config) as f:
+            listed = [w["id"] for w in json.load(f).get("workers", [])]
+        if alive or wid in listed:
+            cluster.fail(f"phase 21: after the reap {alive} alive, config "
+                         f"{listed}")
+        report["worker"] = {"id": wid, "tree": len(tree)}
+        # the chaos faults, each upload retried to success
+        m1 = get_json(url + "/distributed/metrics")
+        injected = m1["chaos"]["injected"]
+        report["chaos"] = {"injected": injected,
+                           "images_received": m1["images_received"]
+                           - m0["images_received"]}
+        if injected.get("5xx", 0) < 1 or injected.get("corrupt", 0) < 1 \
+                or report["chaos"]["images_received"] != 1:
+            cluster.fail(f"phase 21: chaos {report['chaos']}")
+        rc, text = cli_out(["fleet", "--url", url, "--json"])
+        if rc != 0 or [d["action"] for d in json.loads(text)["autoscale"][
+                "decisions"]] != ["up", "down"]:
+            cluster.fail(f"phase 21: cli fleet --json rc {rc}: "
+                         f"{text[-1000:]}")
+        rc, text = cli_out(["fleet", "--url", url])
+        rc_top, text_top = cli_out(["top", "--url", url])
+        if rc != 0 or rc_top != 0 or "CHAOS ARMED" not in text:
+            cluster.fail(f"phase 21: cli fleet rc {rc}, cli top rc "
+                         f"{rc_top}: {text[-1000:]}")
+        print(text, flush=True)
+        prom = parse_prom(urllib_text(url + "/distributed/metrics.prom"),
+                          "phase 21 metrics.prom")
+        counts = {n: prom.get((f"dtpu_autoscale_{n}_total", ()))
+                  for n in ("scale_ups", "scale_downs", "flaps")}
+        if counts != {"scale_ups": 1.0, "scale_downs": 1.0, "flaps": 0.0}:
+            cluster.fail(f"phase 21: metrics.prom {counts}")
+        # forgotten, and not brought back by a health probe since
+        if wid in get_json(url + "/distributed/cluster")["workers"]:
+            cluster.fail(f"phase 21: the registry still holds {wid}")
+        # sm90 alone, 2800 a request and a share, at checked shapes
+        lines = {"master": cluster.prompt_lines("serve")}
+        with open(log_file, "r", errors="replace") as f:
+            lines["worker"] = [json.loads(ln.split(" ", 2)[2]) for ln in f
+                               if ln.startswith("dtpu-torch prompt ")]
+        if len(lines["master"]) != PHASE21_BURST + 1 \
+                or len(lines["worker"]) != 1:
+            cluster.fail(f"phase 21: prompt lines "
+                         f"{ {k: len(v) for k, v in lines.items()} }")
+        for role, lns in lines.items():
+            for ln in lns:
+                by_shape = {tuple(x[:6]): x[6]
+                            for x in ln["launches_by_shape"]}
+                if ln["status"] != "success" or (
+                        PHASE21_CHECK_LAUNCHES and ln["launches"] != {
+                            "sm90": EXPECTED["txt2img"][1], "mma_sync": 0,
+                            "fp32": 0}) \
+                        or any(s not in checked for s in by_shape):
+                    cluster.fail(f"phase 21: {role}'s prompt line {ln}")
+                launches["variants"].update(ln["launches"])
+                launches["shapes"].update(by_shape)
+        report["sm90_launches"] = {
+            role: sum(ln["launches"]["sm90"] for ln in lns)
+            for role, lns in lines.items()}
+        report["seconds_a_prompt"] = {
+            "master": [ln["seconds"] for ln in lines["master"]],
+            "worker": [ln["seconds"] for ln in lines["worker"]]}
+        # the images: the burst's at SEEDS[0] + 1 and the fanned-out
+        # prompt's two (the master's, the worker's at the seed offset)
+        by_seed = collections.defaultdict(list)
+        for name in sorted(os.listdir(out_dir)):
+            path = os.path.join(out_dir, name)
+            doc = json.loads(dict(png_text_chunks(path))["prompt"])
+            by_seed[doc["13"]["inputs"]["seed"]].append(path)
+        checks = [(by_seed[seed + 1][:1], txt_refs[1:], "burst"),
+                  (by_seed[seed], txt_refs, "fan-out")]
+        lim = FANOUT_ATOL["same"]
+        diffs = {}
+        for paths, refs, what in checks:
+            if len(paths) != len(refs):
+                cluster.fail(f"phase 21: {what} images {paths}")
+            for k, (path, ref) in enumerate(zip(paths, refs)):
+                d = image_diff(path, ref)
+                diffs[f"{what} {k}"] = {"max": d[0], "mean": d[1]}
+                if d[0] > lim[0] or d[1] > lim[1]:
+                    cluster.fail(f"phase 21: {what} image {k} differs by "
+                                 f"{d} from its in-process run")
+        report["abs_diff"] = diffs
+        report["images"] = sum(len(v) for v in by_seed.values())
+    finally:
+        cluster.stop()
+        shutil.rmtree(root, True)
+    unchecked = [s for s in launches["shapes"] if s not in checked]
+    if set(launches["variants"]) - {"sm90", "mma_sync", "fp32"} \
+            or launches["variants"]["mma_sync"] \
+            or launches["variants"]["fp32"] or unchecked:
+        fail(f"phase 21: launched {dict(launches['variants'])}, unchecked "
+             f"shapes {unchecked}")
+    return report, {"path": "phase 21",
+                    "variants": {"sm90": launches["variants"]["sm90"]},
+                    "shapes": dict(launches["shapes"])}
 
 
 def urllib_text(url):
@@ -5379,19 +5776,26 @@ def main() -> int:
         phase13_dir = os.path.join(input_dir, "phase13")
         os.makedirs(phase13_dir)
         write_phase13_inputs(phase13_dir, 512)
+        # each phase of 14-16 launches its servers while the phase
+        # before it runs
+        phase14 = fault_drills(docs, inpaint_dir, upscaled[42], rows)
+        next(phase14)
         report13, reqs13 = phase13(docs, phase13_dir, shape_counts, rows)
         requests += reqs13
         emit("phase13_report", report13)
-        report14, inpaint_refs = fault_drills(docs, inpaint_dir,
-                                              upscaled[42], rows)
+        phase15 = worker_management(docs, txt_refs, rows)
+        next(phase15)
+        report14, inpaint_refs = resumed(phase14)
         emit("phase14", report14)
-        report15, interrupted = worker_management(docs, txt_refs, rows)
+        phase16 = master_failover(
+            docs, inpaint_dir, upscaled[42], inpaint_refs,
+            fanout_report["seconds"]["upscale warm"], rows)
+        next(phase16)
+        report15, interrupted = resumed(phase15)
         shape_counts.update(interrupted["shapes"])
         requests.append(interrupted)
         emit("phase15", report15)
-        report16, failover = master_failover(
-            docs, inpaint_dir, upscaled[42], inpaint_refs,
-            fanout_report["seconds"]["upscale warm"], rows)
+        report16, failover = resumed(phase16)
         shape_counts.update(failover["shapes"])
         requests.append(failover)
         emit("phase16", report16)
@@ -5401,16 +5805,26 @@ def main() -> int:
         shape_counts.update(sharded["shapes"])
         requests.append(sharded)
         emit("phase18", report18)
+    # phase 20's server starts while phase 19 runs
+    phase20 = continuous_batching(docs, rows, p19_refs)
+    next(phase20)
     report19, dispatched = default_dispatch(
         docs, rows, {"sdxl": p19_refs, "serial_s": p19_serial_s,
                      "tiles": p19_tiles})
     shape_counts.update(dispatched["shapes"])
     requests.append(dispatched)
     emit("phase19", report19)
-    report20, batched = continuous_batching(docs, rows, p19_refs)
+    # phase 21's master starts while phase 20 runs
+    phase21 = elastic_fleet(docs, txt_refs, rows)
+    next(phase21)
+    report20, batched = resumed(phase20)
     shape_counts.update(batched["shapes"])
     requests.append(batched)
     emit("phase20", report20)
+    report21, scaled = resumed(phase21)
+    shape_counts.update(scaled["shapes"])
+    requests.append(scaled)
+    emit("phase21", report21)
     emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:

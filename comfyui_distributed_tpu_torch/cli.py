@@ -13,6 +13,8 @@
   python -m comfyui_distributed_tpu_torch.cli router --masters URL,URL \
       [--host H] [--port 8290]
   python -m comfyui_distributed_tpu_torch.cli slo [--url URL] [--json]
+  python -m comfyui_distributed_tpu_torch.cli top [--url URL] [--json]
+  python -m comfyui_distributed_tpu_torch.cli fleet [--url URL] [--json]
   python -m comfyui_distributed_tpu_torch.cli reuse [--url URL] [--json]
   python -m comfyui_distributed_tpu_torch.cli flightdeck [--url URL] \\
       [--last N] [--json]
@@ -58,19 +60,26 @@ three tiers (``DTPU_CACHE``, ``DTPU_CACHE_BYTES``,
 ``DTPU_CACHE_DEVICE_BYTES``, ``DTPU_CACHE_TILE_BYTES``,
 ``DTPU_CACHE_ENTRIES``), the preview route (``DTPU_PREVIEW``,
 ``DTPU_PREVIEW_MAX_CLIENTS``) and a startup warmup (``DTPU_WARMUP``, a
-JSON body of ``POST /distributed/warmup``).
+JSON body of ``POST /distributed/warmup``).  A ``serve`` master with
+``DTPU_AUTOSCALE=1`` runs the elastic fleet (``runtime/autoscale.py``:
+``DTPU_AUTOSCALE_*``): it spawns ``auto_*`` workers under sustained
+queue, utilization or paid-burn pressure and retires them by drain and
+lease non-renewal; ``DTPU_CHAOS`` (``utils/chaos.py``) injects faults.
 
 ``router`` runs the stateless admission router over the masters
 (``--masters`` or ``DTPU_ROUTER_MASTERS``): each ``/prompt`` goes to the
 shard that owns its id, a 429's ``Retry-After`` is relayed, and
-``/history``, ``/distributed/cluster`` and ``/distributed/cluster/
-metrics`` are merged over the shards.  It imports no torch and opens no
+``/history``, ``/distributed/cluster``, ``/distributed/cluster/
+metrics`` and ``/distributed/fleet`` are merged over the shards.  It imports no torch and opens no
 card.  ``slo`` prints a server's burn rates (``GET /distributed/slo``):
 each class's objectives, its fast and slow windows and the budget left.
 ``reuse`` prints the reuse plane of a server's ``GET
 /distributed/metrics``: each tier's entries, bytes against its budget,
 hits, misses and evictions, the replays and abandonments and the
-preview channel's clients.
+preview channel's clients.  ``top`` prints the federated resource
+table of ``GET /distributed/cluster/metrics`` and ``fleet`` the
+autoscaler's decisions and signal, the admission counters and an armed
+chaos spec of ``GET /distributed/fleet``.
 
 ``run`` executes an API-format workflow in this process, writes every
 collected image as ``DIR/run_NNNNN.png`` and prints one JSON summary
@@ -386,6 +395,103 @@ def cmd_slo(args) -> int:
             print(f"    {wname:4s} n={w['count']:4d} "
                   f"ok={w['ok_ratio']:.3f} p95={w['p95_s']:.3f}s "
                   f"burn={w['burn_rate']:.2f}{flag}")
+    return 0
+
+
+def cmd_top(args) -> int:
+    """The fleet's resource table from the master's federated ``GET
+    /distributed/cluster/metrics``, one row a participant (device memory
+    in use and peak, host RSS, utilization, queue depth, the snapshot's
+    age), as the JAX package's ``cli top`` prints it."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    data = get_json(f"{args.url}/distributed/cluster/metrics", timeout=10)
+    if args.json:
+        print(json.dumps(data, indent=2))
+        return 0
+    parts = data.get("participants", {})
+    print(f"{'participant':16s} {'state':8s} {'mem_mb':>9s} "
+          f"{'peak_mb':>9s} {'rss_mb':>9s} {'util':>5s} {'queue':>5s} "
+          f"{'age_s':>6s}  source")
+
+    def mb(v):
+        return f"{v / 1e6:.1f}" if isinstance(v, (int, float)) else "-"
+    for wid, p in sorted(parts.items(),
+                         key=lambda kv: (kv[1].get("state") != "self",
+                                         kv[0])):
+        res = p.get("resources") or {}
+        util = res.get("utilization")
+        qd = res.get("queue_depth")
+        age = p.get("age_s")
+        print(f"{wid:16s} {p.get('state', '?'):8s} "
+              f"{mb(res.get('device_bytes_in_use')):>9s} "
+              f"{mb(res.get('device_peak_bytes')):>9s} "
+              f"{mb(res.get('host_rss_bytes')):>9s} "
+              f"{f'{util:.0%}' if isinstance(util, (int, float)) else '-':>5s} "
+              f"{qd if isinstance(qd, int) else '-':>5} "
+              f"{f'{age:.1f}' if isinstance(age, (int, float)) else '-':>6s}  "
+              f"{res.get('source', '?')}"
+              + ("  STALE" if p.get("stale") else ""))
+    if not parts:
+        print("(no participants reported)")
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """The elastic fleet from ``GET /distributed/fleet``: the
+    autoscaler's state, bars and recent decisions, the signal it scales
+    on, the admission counters by class and an armed chaos spec, as the
+    JAX package's ``cli fleet`` prints them."""
+    from comfyui_distributed_tpu_torch.utils.net import get_json
+    data = get_json(f"{args.url}/distributed/fleet", timeout=10)
+    if args.json:
+        print(json.dumps(data, indent=2))
+        return 0
+    a = data.get("autoscale", {})
+    if a.get("enabled"):
+        th = a.get("thresholds", {})
+        b = a.get("bounds", {})
+        sig = a.get("signal") or {}
+        print(f"autoscaler {'RUNNING' if a.get('running') else 'stopped'}"
+              f"  workers[{b.get('min_workers')},{b.get('max_workers')}]"
+              f"  up>q/p {th.get('up_queue_per_participant')} or util "
+              f"{th.get('up_utilization')}  down<q/p "
+              f"{th.get('down_queue_per_participant')}"
+              f"  window={a.get('window')} cooldown={a.get('cooldown_s')}s")
+        util = sig.get("utilization")
+        print(f"  signal: queue={sig.get('queue_depth')} "
+              f"({sig.get('queue_per_participant')}/participant), "
+              f"util={f'{util:.0%}' if isinstance(util, (int, float)) else '-'}, "
+              f"{sig.get('live_workers')} live workers")
+        print(f"  actions: {a.get('scale_ups', 0)} up, "
+              f"{a.get('scale_downs', 0)} down, "
+              f"{a.get('flaps', 0)} flaps"
+              + (f", retiring {a['retiring']}" if a.get("retiring")
+                 else ""))
+        for d in a.get("decisions", [])[-8:]:
+            print(f"    {d['action']:4s} {d.get('reason', '')}"
+                  + (f"  worker={d['worker_id']}" if d.get("worker_id")
+                     else ""))
+    else:
+        print("autoscaler off"
+              + (" (DTPU_AUTOSCALE=1 set but not installed — worker "
+                 "or embedded server?)" if a.get("armed_env") else
+                 " (set DTPU_AUTOSCALE=1 on the master to arm)"))
+    adm = data.get("admission", {})
+    per = adm.get("per_class", {})
+    queued = adm.get("queued_by_class", {})
+    print(f"admission: default={adm.get('default_class')}  weights="
+          f"{adm.get('weights')}  shed_bars={adm.get('shed_thresholds')}"
+          f"  drain={adm.get('drain_rate_per_s')}/s")
+    for cls in adm.get("classes", sorted(per)):
+        v = per.get(cls, {})
+        print(f"  {cls:6s} queued={queued.get(cls, 0):3d}  "
+              f"admitted={v.get('admitted', 0):5d}  "
+              f"completed={v.get('completed', 0):5d}  "
+              f"shed={v.get('shed_overload', 0)} overload"
+              f"/{v.get('shed_rate', 0)} rate")
+    chaos = data.get("chaos", {})
+    if chaos.get("active"):
+        print(f"CHAOS ARMED: {chaos}")
     return 0
 
 
@@ -887,6 +993,24 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--json", action="store_true",
                     help="the raw /distributed/slo body")
     so.set_defaults(fn=cmd_slo)
+
+    tp = sub.add_parser("top", help="fleet resource table: device memory/"
+                                    "utilization per participant from the "
+                                    "master's federated metrics")
+    tp.add_argument("--url", default="http://127.0.0.1:8288")
+    master_alias(tp)
+    tp.add_argument("--json", action="store_true",
+                    help="raw JSON instead of the table")
+    tp.set_defaults(fn=cmd_top)
+
+    fl = sub.add_parser("fleet", help="elastic-fleet status: autoscaler "
+                                      "decisions + signal, per-tenant "
+                                      "admission counters, chaos spec")
+    fl.add_argument("--url", default="http://127.0.0.1:8288")
+    master_alias(fl)
+    fl.add_argument("--json", action="store_true",
+                    help="raw JSON instead of the pretty report")
+    fl.set_defaults(fn=cmd_fleet)
 
     ru = sub.add_parser("reuse", help="cross-request reuse status: "
                                       "per-tier cache counters and "

@@ -41,7 +41,12 @@ A request's SLO budget (``slo_s``) stamps its jobs with a deadline
 unit silent longer than ``max(DTPU_SLO_HEDGE_FRACTION x the budget
 left, 0.25 s)``, with no min-progress gate.
 
-Not ported yet: the autoscaler's retiring state.
+The autoscaler (``runtime/autoscale.py``) retires a worker it spawned
+by draining it: ``set_retiring`` keeps its lease but reads it as
+``retiring``, so the dispatcher hands it no new work, and ``forget``
+drops its record once it drained clean.  A worker's
+``HeartbeatSender`` skips its beats while the chaos harness
+(``utils/chaos.py``) freezes them.
 ``redispatch`` is a plain call here (the JAX package's is a coroutine):
 the port's drains run on threads.
 """
@@ -65,6 +70,7 @@ HEALTHY = "healthy"
 SUSPECT = "suspect"
 DEAD = "dead"
 UNKNOWN = "unknown"       # registered but never contacted
+RETIRING = "retiring"     # lease fresh, draining: not dispatchable
 
 
 class ClusterFaultError(RuntimeError):
@@ -150,6 +156,10 @@ class ClusterRegistry:
         self.suspect_probes = max(int(suspect_probes), 1)
         self._lock = threading.Lock()
         self._workers: Dict[str, Dict[str, Any]] = {}  # guarded-by: _lock
+        # ids dropped by forget(): a failed probe does not bring them
+        # back (the health poller may have read the config before a
+        # retired worker left it); any live contact does
+        self._forgotten: set = set()                   # guarded-by: _lock
         self._transitions: collections.deque = collections.deque(
             maxlen=C.CLUSTER_TRANSITIONS_KEPT)         # guarded-by: _lock
 
@@ -175,6 +185,7 @@ class ClusterRegistry:
         wid = str(worker_id)
         now = self._clock.monotonic()
         with self._lock:
+            self._forgotten.discard(wid)
             rec = self._record_locked(wid, info, now)
             if alive:
                 rec["last_seen"] = now
@@ -196,6 +207,10 @@ class ClusterRegistry:
         wid = str(worker_id)
         now = self._clock.monotonic()
         with self._lock:
+            if ok:
+                self._forgotten.discard(wid)
+            elif wid in self._forgotten:
+                return
             rec = self._record_locked(wid, info, now)
             if ok:
                 rec["last_seen"] = now
@@ -329,18 +344,39 @@ class ClusterRegistry:
                                 "name": w.get("name")},
                           alive=False)
 
-    def forget(self, worker_id: str) -> bool:
-        """Drop a worker from the registry."""
-        with self._lock:
-            return self._workers.pop(str(worker_id), None) is not None
-
     # -- reads ----------------------------------------------------------------
+
+    def set_retiring(self, worker_id: str, retiring: bool = True) -> bool:
+        """The autoscaler's drain flag: a retiring worker keeps its lease
+        (its units in flight still check in) but reads as RETIRING, so
+        the dispatcher gives it no new work.  False for an unknown id."""
+        wid = str(worker_id)
+        now = self._clock.monotonic()
+        with self._lock:
+            rec = self._workers.get(wid)
+            if rec is None:
+                return False
+            rec["retiring"] = bool(retiring)
+            self._refresh_locked(wid, rec, now)
+            return True
+
+    def forget(self, worker_id: str) -> bool:
+        """Drop a worker from the registry (a retired worker's process is
+        gone; its record would stay a DEAD tombstone in every snapshot).
+        Until a registration or a successful probe, a failed probe of
+        the id records nothing."""
+        wid = str(worker_id)
+        with self._lock:
+            self._forgotten.add(wid)
+            return self._workers.pop(wid, None) is not None
 
     def _compute_locked(self, rec: Dict[str, Any], now: float) -> str:
         if rec["last_seen"] is None:
             return UNKNOWN
         if now - rec["last_seen"] > self.lease_s:
             return DEAD
+        if rec.get("retiring"):
+            return RETIRING
         if rec["failed_probes"] >= self.suspect_probes:
             return SUSPECT
         return HEALTHY
@@ -383,8 +419,7 @@ class ClusterRegistry:
                 seen = rec["last_seen"]
                 workers[wid] = {
                     "state": st,
-                    # the autoscaler's drain flag waits for its slice
-                    "retiring": False,
+                    "retiring": bool(rec.get("retiring")),
                     "last_seen_age_s": (None if seen is None
                                         else round(now - seen, 3)),
                     "failed_probes": rec["failed_probes"],
@@ -953,6 +988,13 @@ class HeartbeatSender:
         self.beats_sent = 0
 
     def beat_once(self, timeout: float = 3.0) -> bool:
+        from comfyui_distributed_tpu_torch.utils import chaos as chaos_mod
+        cm = chaos_mod.get_chaos()
+        if cm.active and cm.heartbeat_frozen(self.worker_id):
+            # a frozen heartbeat ages the lease out while the process
+            # lives: the suspect, dead and rehome edge
+            debug_log(f"chaos: heartbeat for {self.worker_id} frozen")
+            return False
         payload: Dict[str, Any] = {"worker_id": self.worker_id}
         if self.port:
             payload["port"] = self.port

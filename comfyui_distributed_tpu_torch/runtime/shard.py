@@ -30,9 +30,10 @@ marked with ``SHARD_FORWARD_HEADER`` (``server/app.py``), so the owner's
 log holds the admission before the client has the id.
 
 ``peer_queue_depth``, ``live_peer_masters`` and
-``is_autoscale_actuator`` are the autoscaler's readers and have no
-caller until it is ported; the router's ``/distributed/fleet`` waits
-with it.
+``is_autoscale_actuator`` are the autoscaler's readers
+(``runtime/autoscale.py``): the peers' depths join its signal, and only
+the ring's actuator spawns or retires.  The router's
+``/distributed/fleet`` merges the masters' fleet views.
 """
 
 from __future__ import annotations
@@ -887,8 +888,7 @@ class RouterState:
 
 def _router_routes(rs: RouterState):
     """(method, path) -> handler(body) -> (status, JSON body, extra
-    headers): the routes of the JAX package's ``build_router_app``
-    (``/distributed/fleet`` waits for the autoscaler)."""
+    headers): the routes of the JAX package's ``build_router_app``."""
 
     def refresh(force: bool = False) -> bool:
         if not force and not rs.stale():
@@ -1005,12 +1005,52 @@ def _router_routes(rs: RouterState):
             merged["transitions"].extend(b.get("transitions") or [])
         return 200, merged, {}
 
+    def fleet(body: bytes):
+        """The masters' elastic-fleet views: admission counters summed
+        over the shards, each shard's autoscaler block nested under it,
+        workers keyed ``<shard>/<id>``."""
+        per = fanout_json("/distributed/fleet")
+        adm: Dict[str, Any] = {"per_class": {}, "queued_by_class": {},
+                               "classes": None, "drain_rate_per_s": 0.0}
+        auto: Dict[str, Any] = {"enabled": False, "shards": {},
+                                "scale_ups": 0, "scale_downs": 0,
+                                "flaps": 0}
+        workers: Dict[str, Any] = {}
+        for sid in sorted(per):
+            b = per[sid]
+            a = b.get("admission") or {}
+            adm["classes"] = adm["classes"] or a.get("classes")
+            adm.setdefault("default_class", a.get("default_class"))
+            adm.setdefault("weights", a.get("weights"))
+            adm.setdefault("shed_thresholds", a.get("shed_thresholds"))
+            adm["drain_rate_per_s"] = round(
+                adm["drain_rate_per_s"]
+                + float(a.get("drain_rate_per_s") or 0), 4)
+            for cls, v in (a.get("per_class") or {}).items():
+                agg = adm["per_class"].setdefault(cls, {k: 0 for k in v})
+                for k, n in v.items():
+                    agg[k] = agg.get(k, 0) + int(n or 0)
+            for cls, n in (a.get("queued_by_class") or {}).items():
+                adm["queued_by_class"][cls] = \
+                    adm["queued_by_class"].get(cls, 0) + int(n or 0)
+            sa = b.get("autoscale") or {}
+            auto["shards"][sid] = sa
+            if sa.get("enabled"):
+                auto["enabled"] = True
+                for k in ("scale_ups", "scale_downs", "flaps"):
+                    auto[k] += int(sa.get(k, 0) or 0)
+            for wid, w in (b.get("workers") or {}).items():
+                workers[f"{sid}/{wid}"] = w
+        return 200, {"autoscale": auto, "admission": adm,
+                     "workers": workers, "shards": sorted(per)}, {}
+
     return {
         ("POST", "/prompt"): post_prompt,
         ("GET", "/distributed/ring"): ring,
         ("GET", "/history"): history,
         ("GET", "/distributed/cluster/metrics"): cluster_metrics,
         ("GET", "/distributed/cluster"): cluster,
+        ("GET", "/distributed/fleet"): fleet,
     }
 
 

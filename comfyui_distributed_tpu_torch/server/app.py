@@ -23,10 +23,10 @@ other:
   (``wire_decode_s``), and the JAX package's ``phases``, ``nodes``,
   ``tracing``, ``pipeline`` (stages, event counters, gauges),
   ``cluster``, ``durability``, ``shard``, ``admission``, ``slo``,
-  ``analysis``, ``reuse``, ``resources`` and ``batching`` blocks (the
-  last ``{"enabled": false}`` without continuous batching) and
-  ``transfers`` (its ``autoscale`` and ``chaos`` blocks belong to modules
-  not ported yet);
+  ``analysis``, ``reuse``, ``resources``, ``batching`` (``{"enabled":
+  false}`` without continuous batching), ``autoscale`` (the autoscaler's
+  snapshot, or ``{"enabled": false}`` unarmed) and ``chaos`` (the armed
+  spec and its injection counters) blocks and ``transfers``;
 - observability (``utils/trace.py``, ``trace_export.py``,
   ``trace_analysis.py``, ``resource.py``): ``GET
   /distributed/metrics.prom`` (Prometheus text), ``/distributed/traces``
@@ -76,6 +76,13 @@ other:
 - sharded masters (``runtime/shard.py``, ``DTPU_SHARD_ID``): ``GET
   /distributed/ring``, ``POST /distributed/ring/gossip``; a prompt id
   another shard owns is forwarded one hop;
+- the elastic fleet (``runtime/autoscale.py``, ``utils/chaos.py``): ``GET
+  /distributed/fleet`` (the autoscaler's snapshot and decision ring with
+  its live signal, the admission block, the registry's workers and the
+  chaos spec; ``{"enabled": false, "armed_env": ...}`` on a worker or
+  without ``DTPU_AUTOSCALE=1``); under ``DTPU_CHAOS`` a request on a
+  scoped route may get a 503 or a delay before its handler runs, and an
+  upload a corruption that fails its decode with a 500;
 - ``POST /distributed/warmup`` (one txt2img-shaped request of a
   checkpoint on zeros, its seconds by stage; ``DTPU_WARMUP`` runs one at
   :func:`serve`'s start) and ``GET /distributed/preview/<prompt_id>``
@@ -172,6 +179,7 @@ import torch
 from comfyui_distributed_tpu_torch.models import registry
 from comfyui_distributed_tpu_torch.ops.base import OpContext
 from comfyui_distributed_tpu_torch.ops.kernels import flash_attention as fa
+from comfyui_distributed_tpu_torch.runtime import autoscale as autoscale_mod
 from comfyui_distributed_tpu_torch.runtime import cluster as cluster_mod
 from comfyui_distributed_tpu_torch.runtime import durable as durable_mod
 from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
@@ -184,6 +192,7 @@ from comfyui_distributed_tpu_torch.runtime.manager import (
     auto_launch_workers,
     install_exit_hooks,
 )
+from comfyui_distributed_tpu_torch.utils import chaos as chaos_mod
 from comfyui_distributed_tpu_torch.utils import config as cfg_mod
 from comfyui_distributed_tpu_torch.utils import constants as C
 from comfyui_distributed_tpu_torch.utils import resource
@@ -238,6 +247,10 @@ class ShedError(QueueFullError):
         super().__init__(
             f"shed ({rejection.get('reason')}) for tenant class "
             f"{rejection.get('tenant')!r}")
+
+
+class UploadDecodeError(RuntimeError):
+    """An upload's payload did not decode (a 500: the sender retries)."""
 
 
 class DrainingError(RuntimeError):
@@ -297,6 +310,9 @@ class ServerState:
                                    manager=self.manager,
                                    registry=self.cluster)
         self.heartbeat: Optional[cluster_mod.HeartbeatSender] = None
+        # the elastic fleet's reconciliation loop: serve() arms it on a
+        # master under DTPU_AUTOSCALE=1 (runtime/autoscale.install)
+        self.autoscaler: Optional[autoscale_mod.FleetAutoscaler] = None
         # the process-wide resource monitor; serve() starts it
         self.resources: Optional[resource.ResourceMonitor] = None
         self.fault_inject = cluster_mod.fault_injection()
@@ -632,6 +648,10 @@ class ServerState:
         if timeout is None:
             timeout = float(os.environ.get(C.DRAIN_TIMEOUT_ENV,
                                            C.DRAIN_TIMEOUT_DEFAULT))
+        if self.autoscaler is not None:
+            # a reconciliation during the shutdown would spawn workers
+            # into a dying fleet
+            self.autoscaler.stop()
         if self.shard is not None:
             self.shard.stop()
         with self._cond:
@@ -1238,22 +1258,28 @@ class ServerState:
 
     def decode_upload(self, part: FormPart):
         """An image or tile part -> [B, H, W, C] float32, by the part's
-        content type (raw tensor or PNG), counted by format and timed."""
+        content type (raw tensor or PNG), counted by format and timed.
+        The chaos harness may corrupt the payload here: the decode then
+        fails (a 500, :class:`UploadDecodeError`), the sender's retry
+        delivers it clean, and the idempotency key counts it once."""
         t0 = time.perf_counter()
-        if (part.content_type or "").split(";")[0].strip() \
-                == C.TENSOR_WIRE_CONTENT_TYPE:
-            out = decode_tensor(part.data)
-            self.bump(wire_tensor_msgs=1, wire_tensor_bytes=len(part.data),
-                      wire_decode_s=time.perf_counter() - t0)
-            trace_mod.GLOBAL_COUNTERS.bump("wire_tensor_msgs")
-            trace_mod.GLOBAL_COUNTERS.bump("wire_tensor_bytes",
-                                           len(part.data))
-            return out
-        out = decode_png(part.data)
-        self.bump(wire_png_msgs=1, wire_png_bytes=len(part.data),
+        data = part.data
+        cm = chaos_mod.get_chaos()
+        if cm.active:
+            data = cm.corrupt(data, what="tile/image upload")
+        tensor = (part.content_type or "").split(";")[0].strip() \
+            == C.TENSOR_WIRE_CONTENT_TYPE
+        try:
+            out = decode_tensor(data) if tensor else decode_png(data)
+        except Exception as e:  # noqa: BLE001 - any decode failure is a 500
+            raise UploadDecodeError(
+                f"upload decode failed: {type(e).__name__}: {e}") from e
+        kind = "tensor" if tensor else "png"
+        self.bump(**{f"wire_{kind}_msgs": 1,
+                     f"wire_{kind}_bytes": len(data)},
                   wire_decode_s=time.perf_counter() - t0)
-        trace_mod.GLOBAL_COUNTERS.bump("wire_png_msgs")
-        trace_mod.GLOBAL_COUNTERS.bump("wire_png_bytes", len(part.data))
+        trace_mod.GLOBAL_COUNTERS.bump(f"wire_{kind}_msgs")
+        trace_mod.GLOBAL_COUNTERS.bump(f"wire_{kind}_bytes", len(data))
         return out
 
     def ingest_remote_trace(self, form: Dict[str, FormPart], name: str,
@@ -1539,6 +1565,12 @@ def routes(state: ServerState
                           "queued_by_class": state.queued_by_class(),
                           "drain_rate_per_s": round(state.drain_rate(), 4),
                           "max_queue": state.max_queue},
+            # the elastic fleet: the decision ring and its counters
+            "autoscale": (state.autoscaler.snapshot()
+                          if state.autoscaler is not None
+                          else {"enabled": autoscale_mod.autoscale_armed()}),
+            # the armed chaos spec and its injections (zeros unarmed)
+            "chaos": chaos_mod.get_chaos().snapshot(),
             "slo": state.slo.evaluate(),
             # the live anomaly plane and the workers' clock skews
             "analysis": {**analysis_mod.LIVE.snapshot(),
@@ -1964,7 +1996,8 @@ def routes(state: ServerState
              "Registered workers by lease state.",
              [({"state": st}, sum(1 for w in workers if w["state"] == st))
               for st in (cluster_mod.HEALTHY, cluster_mod.SUSPECT,
-                         cluster_mod.DEAD, cluster_mod.UNKNOWN)]))
+                         cluster_mod.DEAD, cluster_mod.UNKNOWN,
+                         cluster_mod.RETIRING)]))
         if state.durable is not None:
             ds = state.durable.stats()
             wal = ds.get("wal") or {}
@@ -2013,6 +2046,22 @@ def routes(state: ServerState
                 ("dtpu_shard_takeovers_total", "counter",
                  "Dead peer shards absorbed by this master.",
                  [({}, ssnap["takeovers"])]),
+            ])
+        if state.autoscaler is not None:
+            asnap = state.autoscaler.snapshot()
+            extra.extend([
+                ("dtpu_autoscale_scale_ups_total", "counter",
+                 "Autoscaler scale-up actions.",
+                 [({}, asnap["scale_ups"])]),
+                ("dtpu_autoscale_scale_downs_total", "counter",
+                 "Autoscaler scale-down actions.",
+                 [({}, asnap["scale_downs"])]),
+                ("dtpu_autoscale_flaps_total", "counter",
+                 "Direction reversals inside the flap window "
+                 "(should stay 0).", [({}, asnap["flaps"])]),
+                ("dtpu_autoscale_retiring", "gauge",
+                 "Workers currently draining toward retirement.",
+                 [({}, len(asnap["retiring"]))]),
             ])
         exp = export_mod.stats()
         if exp.get("enabled"):
@@ -2285,6 +2334,29 @@ def routes(state: ServerState
 
         return 200, Stream(run, "text/event-stream")
 
+    def fleet_info(body, ctype, query, remote=None):
+        """The elastic fleet: the autoscaler's snapshot with the live
+        signal it scales on, the admission block, the registry's
+        workers and the chaos spec (``cli fleet`` renders it)."""
+        scaler = state.autoscaler
+        snap = {"enabled": False,
+                "armed_env": autoscale_mod.autoscale_armed()}
+        signal = None
+        if scaler is not None:
+            snap = scaler.snapshot()
+            signal = scaler.fleet_signal()
+        return 200, {
+            "autoscale": {**snap, "signal": signal},
+            "admission": {
+                **state.admission.snapshot(),
+                "queued_by_class": state.queued_by_class(),
+                "drain_rate_per_s": round(state.drain_rate(), 4),
+                "max_queue": state.max_queue,
+            },
+            "workers": state.cluster.snapshot()["workers"],
+            "chaos": chaos_mod.get_chaos().snapshot(),
+        }
+
     def panel(body, ctype, query, remote=None):
         with open(PANEL_HTML, "rb") as f:
             return 200, Raw(f.read(), "text/html; charset=utf-8")
@@ -2341,6 +2413,7 @@ def routes(state: ServerState
         ("POST", "/distributed/ring/gossip"): ring_gossip,
         ("POST", "/distributed/warmup"): warmup,
         ("GET", "/distributed/preview/{prompt_id}"): preview_stream,
+        ("GET", "/distributed/fleet"): fleet_info,
     }
 
 
@@ -2385,7 +2458,16 @@ def make_handler(state: ServerState) -> type:
             try:
                 body = self.rfile.read(int(
                     self.headers.get("Content-Length") or 0))
-                if fn is None:
+                # the server's half of a flaky network, before the handler
+                cm = chaos_mod.get_chaos()
+                chaos_status, delay = cm.server_edge(url.path) \
+                    if cm.active else (None, 0.0)
+                if delay > 0:
+                    time.sleep(delay)
+                if chaos_status is not None:
+                    status, payload = chaos_status, {
+                        "error": "chaos: injected failure"}
+                elif fn is None:
                     status, payload = 404, {"error": f"no route {method} "
                                                      f"{url.path}"}
                 else:
@@ -2504,6 +2586,9 @@ def serve(state: ServerState, host: str = "127.0.0.1",
         # the managed workers stop at exit, after the drain below
         install_exit_hooks(state.manager)
         state.health.start()
+        # the elastic fleet under DTPU_AUTOSCALE=1: spawn on sustained
+        # pressure, retire by drain and lease non-renewal
+        state.autoscaler = autoscale_mod.install(state)
         auto_launch_workers(state.manager)
         if state.durable is not None:
             threading.Thread(target=state.resume_recovered,
@@ -2536,6 +2621,8 @@ def serve(state: ServerState, host: str = "127.0.0.1",
         pass
     finally:
         state.health.stop()
+        if state.autoscaler is not None:
+            state.autoscaler.stop()
         if state.heartbeat is not None:
             state.heartbeat.stop()
         if state.durable is not None:

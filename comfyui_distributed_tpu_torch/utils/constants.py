@@ -295,6 +295,39 @@ SLO_HEDGE_FRACTION_ENV = "DTPU_SLO_HEDGE_FRACTION"
 SLO_HEDGE_FRACTION_DEFAULT = 0.25
 SLO_MIN_WAIT_S = 0.25
 
+# --- elastic-fleet autoscaler (runtime/autoscale.py) -------------------------
+# A master's reconciliation loop spawns workers when the federated queue
+# depth a participant (or the utilization, or the paid class's burn
+# rate) sits over its bar for WINDOW consecutive samples, and retires
+# the ones it spawned, by drain and lease non-renewal, when both sit
+# under the strictly lower DOWN bars.  COOLDOWN after any action blocks
+# the next.  Off by default; DTPU_AUTOSCALE=1 arms it in serve().
+AUTOSCALE_ENV = "DTPU_AUTOSCALE"
+AUTOSCALE_INTERVAL_ENV = "DTPU_AUTOSCALE_INTERVAL_S"
+AUTOSCALE_INTERVAL_DEFAULT = 5.0
+AUTOSCALE_MIN_ENV = "DTPU_AUTOSCALE_MIN"     # floor on worker count
+AUTOSCALE_MIN_DEFAULT = 0
+AUTOSCALE_MAX_ENV = "DTPU_AUTOSCALE_MAX"     # ceiling on worker count
+AUTOSCALE_MAX_DEFAULT = 4
+AUTOSCALE_UP_QUEUE_ENV = "DTPU_AUTOSCALE_UP_QUEUE"
+AUTOSCALE_UP_QUEUE_DEFAULT = 4.0             # queued prompts a participant
+AUTOSCALE_DOWN_QUEUE_ENV = "DTPU_AUTOSCALE_DOWN_QUEUE"
+AUTOSCALE_DOWN_QUEUE_DEFAULT = 1.0
+AUTOSCALE_UP_UTIL_ENV = "DTPU_AUTOSCALE_UP_UTIL"
+AUTOSCALE_UP_UTIL_DEFAULT = 0.85             # device-utilization fraction
+AUTOSCALE_DOWN_UTIL_ENV = "DTPU_AUTOSCALE_DOWN_UTIL"
+AUTOSCALE_DOWN_UTIL_DEFAULT = 0.30
+AUTOSCALE_WINDOW_ENV = "DTPU_AUTOSCALE_WINDOW"
+AUTOSCALE_WINDOW_DEFAULT = 3                 # consecutive samples over bar
+AUTOSCALE_COOLDOWN_ENV = "DTPU_AUTOSCALE_COOLDOWN_S"
+AUTOSCALE_COOLDOWN_DEFAULT = 30.0
+AUTOSCALE_DRAIN_ENV = "DTPU_AUTOSCALE_DRAIN_S"
+AUTOSCALE_DRAIN_DEFAULT = 30.0               # retirement drain bound
+# a reversal within this long of the previous action is a FLAP
+AUTOSCALE_FLAP_S = 60.0
+AUTOSCALE_DECISIONS_KEPT = 128               # decision-ring bound
+WORKER_STATE_RETIRING = "retiring"           # registry state during drain
+
 # --- sharded masters (runtime/shard.py) ---------------------------------------
 # N active masters own the prompt-id space on a consistent-hash ring.
 # DTPU_SHARD_ID arms it; DTPU_SHARD_PEERS is "id=url,id=url" (self
@@ -320,6 +353,21 @@ ROUTER_REFRESH_ENV = "DTPU_ROUTER_REFRESH_S"  # ring re-pull cadence
 ROUTER_REFRESH_DEFAULT = 5.0
 # a /prompt with this header is never forwarded again
 SHARD_FORWARD_HEADER = "x-dtpu-forwarded-from"
+
+# --- chaos fault injection (utils/chaos.py) ----------------------------------
+# DTPU_CHAOS is a JSON spec; unset costs one env read an edge:
+#   {"drop_pct": 5, "delay_pct": 5, "delay_s": 0.2, "http_5xx_pct": 5,
+#    "corrupt_pct": 2, "freeze_heartbeats": true|["w0"],
+#    "routes": ["/distributed/tile_complete", ...], "seed": 1234}
+# pcts are 0-100 shares of matching edges; "routes" scopes the server's
+# side; "seed" (or DTPU_CHAOS_SEED) makes a run replay.  Every injection
+# bumps a chaos_* event counter.
+CHAOS_ENV = "DTPU_CHAOS"
+CHAOS_SEED_ENV = "DTPU_CHAOS_SEED"
+CHAOS_DEFAULT_ROUTES = ("/prompt", "/distributed/tile_complete",
+                        "/distributed/job_complete",
+                        "/distributed/heartbeat")
+CHAOS_DELAY_DEFAULT_S = 0.25
 
 # --- critical-path analysis (utils/trace_analysis.py) ------------------------
 ANALYSIS_BASELINE_ENV = "DTPU_ANALYSIS_BASELINE"   # unset/empty: disarmed

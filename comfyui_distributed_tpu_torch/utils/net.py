@@ -219,7 +219,12 @@ def post_form_with_retry(url: str, make_form: Callable[[], FormData],
     """POST a multipart form until the server answers 200; any other
     status (404 while the master has not prepared the job, 5xx) or a
     connection error is retried after the next backoff delay, or after a
-    longer ``Retry-After`` of a 429/503.  Raises after the last try."""
+    longer ``Retry-After`` of a 429/503.  Raises after the last try.
+
+    The chaos harness (``utils/chaos.py``) may drop an attempt (a
+    ``ChaosDropError``, retried as a transport error) or delay it: the
+    client's half of a flaky network."""
+    from comfyui_distributed_tpu_torch.utils import chaos as chaos_mod
     retries = max_retries if max_retries is not None else C.SEND_MAX_RETRIES
     delays = backoff_delays(retries)
     attempt_timeout = min(timeout, C.SEND_ATTEMPT_TIMEOUT_CAP)
@@ -231,6 +236,11 @@ def post_form_with_retry(url: str, make_form: Callable[[], FormData],
                                               form.content_type,
                                               **(headers or {})})
         try:
+            cm = chaos_mod.get_chaos()
+            if cm.active:
+                extra = cm.client_edge(url, what=what)  # a drop raises
+                if extra > 0:
+                    time.sleep(extra)
             with urllib.request.urlopen(req, timeout=attempt_timeout) as r:
                 r.read()
                 return

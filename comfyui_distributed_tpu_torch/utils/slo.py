@@ -25,8 +25,10 @@ each a bounded ring pruned by age.
 Surfaces: ``GET /distributed/slo``, the ``slo`` block of
 ``/distributed/metrics``, the ``dtpu_slo_burn_rate`` and
 ``dtpu_slo_budget_remaining`` gauges of ``/distributed/metrics.prom``
-and ``cli slo``.  :func:`autoscale_slo_armed` is the autoscaler's switch
-and has no reader until the autoscaler is ported.
+and ``cli slo``.  Under :func:`autoscale_slo_armed`
+(``DTPU_AUTOSCALE_SLO=1``) the autoscaler (``runtime/autoscale.py``)
+reads the paid class's fast :meth:`SLOEngine.burn_rate` as a third
+scale-up trigger.
 """
 
 from __future__ import annotations

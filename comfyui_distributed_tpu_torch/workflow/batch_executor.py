@@ -647,6 +647,11 @@ class ContinuousBatchExecutor:
         with self._lock:
             return self._active + self._tailing + self._admitting
 
+    def parked_count(self) -> int:
+        """The parked backlog, the autoscaler's reader (any thread: the
+        store locks itself)."""
+        return self.parked.count()
+
     def idle(self) -> bool:
         with self._lock:
             busy = self._active or self._tailing or self._admitting \

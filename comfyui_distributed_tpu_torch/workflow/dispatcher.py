@@ -152,9 +152,9 @@ def preflight_check(workers: List[Dict[str, Any]],
 
     With a ``registry`` (``runtime/cluster.py``) a worker it holds DEAD
     is dropped without a probe (one that died between jobs, or whose
-    socket outlives its process, gets no work), a SUSPECT one is
-    dispatched with a warning, and every probe's result feeds the
-    registry."""
+    socket outlives its process, gets no work), so is a RETIRING one
+    (the autoscaler drains it), a SUSPECT one is dispatched with a
+    warning, and every probe's result feeds the registry."""
     def probe(w: Dict[str, Any]) -> bool:
         wid = str(w.get("id"))
         if registry is not None:
@@ -162,6 +162,11 @@ def preflight_check(workers: List[Dict[str, Any]],
             if st == cl.DEAD:
                 log(f"preflight: skipping worker {wid}: the registry "
                     f"holds it dead (lease expired)")
+                return False
+            if st == cl.RETIRING:
+                # alive and finishing its units in flight, but drained
+                log(f"preflight: skipping worker {wid}: retiring "
+                    f"(autoscaler drain)")
                 return False
             if st == cl.SUSPECT:
                 log(f"preflight: worker {wid} is suspect (failed "

@@ -139,8 +139,9 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
     tower's, the worker manager's, the write-ahead log's and the
     observability plane's (traces, capture files, trace analysis,
     resources, the ``cli`` readers), admission's, the SLO engine's, the
-    sharded masters' (``cli router`` and ``slo``) and the reuse plane's
-    (``cli reuse``) too, imports without JAX, the JAX
+    sharded masters' (``cli router`` and ``slo``), the reuse plane's
+    (``cli reuse``) and the elastic fleet's (the autoscaler, the chaos
+    harness, ``cli top`` and ``fleet``) too, imports without JAX, the JAX
     package, Pillow or aiohttp (the card's machine has none of the last
     two), and the regional, split-loader and unCLIP ops register."""
     assert {"comfyui_distributed_tpu_torch.server.app",
@@ -161,7 +162,9 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             "comfyui_distributed_tpu_torch.workflow.scheduler",
             "comfyui_distributed_tpu_torch.utils.slo",
             "comfyui_distributed_tpu_torch.runtime.shard",
-            "comfyui_distributed_tpu_torch.runtime.reuse"} \
+            "comfyui_distributed_tpu_torch.runtime.reuse",
+            "comfyui_distributed_tpu_torch.runtime.autoscale",
+            "comfyui_distributed_tpu_torch.utils.chaos"} \
         <= set(_modules())
     ops = ["ConditioningCombine", "ConditioningSetAreaPercentage",
            "ConditioningSetTimestepRange", "UNETLoader", "CLIPLoader",
@@ -183,7 +186,7 @@ def test_imports_load_no_jax_and_nothing_of_the_jax_package():
             # (capture files, analysis) load without JAX too
             "from comfyui_distributed_tpu_torch import cli\n"
             "for sub in ('trace', 'why', 'analyze', 'router', 'slo', "
-            "'reuse'):\n"
+            "'reuse', 'top', 'fleet'):\n"
             "    assert cli.build_parser().parse_args("
             "[sub, 'p'] if sub == 'why' else [sub]).fn\n"
             "from comfyui_distributed_tpu_torch.utils import trace\n"
