@@ -35,7 +35,7 @@ Run from the root of a checkout on a machine with a CUDA card (and
    its SFUs could take for one exp2 a score (``exp2_ms``).  Times are
    device times: the card is kept busy by a sleep kernel while the host
    enqueues, the candidates run in turns (forward, then reversed) and
-   each time is the median of five rounds;
+   each time is the median of three rounds;
 4. the tiny family on the card against the same runs on the CPU (plain
    versions): txt2img, img2img, the tiled upscale, the SDXL workflow
    (``tiny_sdxl``, 4 dpmpp_2m steps), txt2img from a tiny checkpoint
@@ -418,6 +418,34 @@ Run from the root of a checkout on a machine with a CUDA card (and
    prints a ``phase21`` line: the seconds of each event from the burst's
    first post, the utilization at each decision, the chaos counters, the
    images' differences and the launches.
+22. ControlNet and the UNet's structural patches, in process on SD1.5
+   (phase 10's file when it was kept, else its virtual weights; 512^2,
+   batch 1, 20 euler/karras steps, cfg 7), graphs built here: the plain
+   graph's image; it written as a PNG, ``LoadImage`` and ``Canny(0.4,
+   0.8)`` give the hint.  A virtual ControlNet through ControlNetApply,
+   ControlNetApplyAdvanced with the window (0, 1), and with an empty
+   window (1, 1), each equal to the plain image to the bit (the virtual
+   net's zero projections); a ControlNet file the port writes
+   (``export_controlnet``, its projections drawn from
+   ``PHASE22_PROJ_SEED``), loaded by ControlNetLoader with its family
+   inferred from the file (sd15), run twice: equal to the bit, finite,
+   non-constant and beyond ``FANOUT_ATOL["one_batch"]`` of the plain
+   image; a second file of that net less the UNet's matching leaves
+   through DiffControlNetLoader, within those limits of the file's
+   image; the file's net and the virtual one chained, equal to the
+   file's image to the bit; FreeU and FreeU_V2 (``PHASE22_FREEU``),
+   ``HyperTile`` (``PHASE22_HYPERTILE``) and PatchModelAddDownscale at
+   its defaults, each finite, non-constant and off the plain image; and
+   deep shrink under the file's net, equal to the file's image to the
+   bit with the JAX package's log line.  Each request's sm90 launches
+   are exact (640 a UNet, 280 more a ControlNet that runs: 920 for one
+   net, 1200 for two) and at shapes phase 3 checked (which takes
+   HyperTile's and deep shrink's own shapes from a forward of the
+   patched UNet on the meta device, :func:`patched_attention_shapes`).
+   It prints a ``phase22`` line: each check's max and mean difference,
+   each request's seconds, node seconds, launches, attention ms (phase
+   3's times of its shapes times its launches) and peak memory, and the
+   card.
 
 Phases 14, 15, 16, 20 and 21 launch their servers before the phase
 before them (13, 14, 15, 19 and 20) runs, so a server's start
@@ -436,8 +464,8 @@ share's launches, its profile and its batches would not be the ones
 checked).  The in-process requests of phases 4-13 run with the plane on
 (the encode memo: a warm request takes its text encodes from it).
 
-Launch counts are zeroed just before each request of phases 5-7 and
-9-13 and read just after (phase 15's interrupted request and every
+Launch counts are zeroed just before each request of phases 5-7,
+9-13 and 22 and read just after (phase 15's interrupted request and every
 request of phases 16, 18, 19 and 21: their servers' prompt lines;
 phase 20's: its buckets' counts, each step's own, and its prompt
 lines).  The line before the last is ``{"kernels":
@@ -498,7 +526,9 @@ SOURCES = {
     "mma_sync": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
     "fp32": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
 }
-ROUNDS = 5
+# phase 3's timing rounds (each candidate once a round, in turns): three
+# keep the whole script inside its 1200 s on a slow host
+ROUNDS = 3
 # host seconds one launch may take to enqueue, at most: the sleep that
 # keeps the card busy while the host enqueues a timed run is sized by it
 HOST_S_PER_LAUNCH = 200e-6
@@ -629,6 +659,23 @@ PHASE18_LADDER = ("admit", "admit", "overload", "admit", "admit",
 # alone; a second attempt starts from the first one's passes
 PHASE18_ORDER = (["f1", "b1", "f2", "b2"], ["f1", "f2", "b1", "b2"])
 PHASE18_MIN_FREE = 60_000_000_000
+# phase 22: ControlNet and the UNet patches on SD1.5 at 512^2
+PHASE22_SEED = 2201
+PHASE22_HINT = "phase22_plain.png"
+PHASE22_VIRTUAL_CN = "control_v11p_sd15_canny_virtual.pth"
+PHASE22_CN = "phase22_canny_sd15.safetensors"
+PHASE22_DIFF_CN = "phase22_canny_sd15_diff.safetensors"
+# the file's net: the virtual net's weights, with its zero projections
+# (zero convs, mid_out, the hint ladder's last conv) drawn by the virtual
+# rule from this seed in place of zeros
+PHASE22_PROJ_SEED = 22
+PHASE22_FREEU = (1.5, 1.6, 0.9, 0.2)
+PHASE22_HYPERTILE = (256, 2, 0, False)
+# sm90 launches a request: the UNet's 16 transformer blocks x 2
+# attentions x 20 steps, and a ControlNet's 7 (6 down, 1 middle)
+PHASE22_UNET_LAUNCHES = 640
+PHASE22_NET_LAUNCHES = 280
+PHASE22_BUDGET_S = 40.0
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -5547,6 +5594,363 @@ def elastic_fleet(docs, txt_refs, rows):
                     "shapes": dict(launches["shapes"])}
 
 
+def patched_attention_shapes(patch, hw=(64, 64), batch=2):
+    """The attention shapes ``(B, N, M, H, D, dtype)`` of one SD1.5 UNet
+    call on a ``batch`` x ``hw`` latent under the UNet-config ``patch``
+    (HyperTile's folded tiles, deep shrink's shrunk levels), read off a
+    forward on the meta device with the kernel's wrapper swapped for a
+    recorder: the shapes the code gives, not a copy of its rule."""
+    import dataclasses
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import layers, registry
+    from comfyui_distributed_tpu_torch.models import unet as unet_mod
+    cfg = dataclasses.replace(registry.get_family("sd15").unet, **patch)
+    seen = []
+
+    def record(q, k, v):
+        seen.append((int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+                     int(q.shape[2]), int(q.shape[3]), str(q.dtype)))
+        return torch.empty_like(q)
+
+    saved = layers.flash_attention
+    layers.flash_attention = record
+    try:
+        with torch.device("meta"):
+            unet = unet_mod.UNet(cfg)
+            unet(torch.empty(batch, *hw, cfg.in_channels), torch.empty(batch),
+                 torch.empty(batch, 77, cfg.context_dim))
+    finally:
+        layers.flash_attention = saved
+    return seen
+
+
+def phase22_kernel_shapes():
+    """Phase 3's rows for phase 22's own shapes: HyperTile's and deep
+    shrink's (the shrunk branch) at 512^2, B = 2."""
+    rows = []
+    for patch, what in (({"hypertile": PHASE22_HYPERTILE[:1]
+                          + PHASE22_HYPERTILE[2:]}, "HyperTile"),
+                        ({"deep_shrink": (1, 2.0)}, "deep shrink")):
+        for B, N, M, H, D, dt in sorted(set(patched_attention_shapes(patch))):
+            rows.append((B, N, M, H, D, dt,
+                         f"SD1.5 512^2 {what} {'self' if N == M else 'cross'}"
+                         f" {N} tokens"))
+    return rows
+
+
+class TeeStdout:
+    """``sys.stdout`` copied into ``lines`` while it is entered (the
+    port's log lines go to standard output)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def __enter__(self):
+        self.out, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+
+def phase22_doc(ckpt, seed=PHASE22_SEED):
+    """The plain SD1.5 txt2img graph of phase 22 (512^2, batch 1, 20
+    euler/karras steps, cfg 7) and the hint's nodes: LoadImage of
+    ``PHASE22_HINT`` through Canny(0.4, 0.8)."""
+    return {
+        "4": {"class_type": "CheckpointLoaderSimple",
+              "inputs": {"ckpt_name": ckpt}},
+        "5": {"class_type": "EmptyLatentImage",
+              "inputs": {"width": 512, "height": 512,
+                         "batch_size": 1}},
+        "6": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": "a lighthouse on a cliff at dawn, "
+                                 "volumetric light", "clip": ["4", 1]}},
+        "7": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": "blurry, lowres", "clip": ["4", 1]}},
+        "10": {"class_type": "LoadImage", "inputs": {"image": PHASE22_HINT}},
+        "11": {"class_type": "Canny",
+               "inputs": {"image": ["10", 0], "low_threshold": 0.4,
+                          "high_threshold": 0.8}},
+        "3": {"class_type": "KSampler",
+              "inputs": {"seed": seed, "steps": 20, "cfg": 7.0,
+                         "sampler_name": "euler", "scheduler": "karras",
+                         "denoise": 1.0, "model": ["4", 0],
+                         "positive": ["6", 0], "negative": ["7", 0],
+                         "latent_image": ["5", 0]}},
+        "8": {"class_type": "VAEDecode",
+              "inputs": {"samples": ["3", 0], "vae": ["4", 2]}},
+        "9": {"class_type": "PreviewImage", "inputs": {"images": ["8", 0]}},
+    }
+
+
+def phase22_variant(doc, control=(), advanced=None, patch=None):
+    """``doc`` with ControlNets on its positive and a model patch:
+    ``control`` a list of (loader, name), each net applied at strength 1
+    after the one before (a ``DiffControlNetLoader`` takes the model);
+    ``advanced`` (start, end): the first net through
+    ControlNetApplyAdvanced on both sides instead; ``patch`` (op,
+    widgets) between the checkpoint and the sampler."""
+    doc = copy.deepcopy(doc)
+    ks = doc["3"]["inputs"]
+    cond = ["6", 0]
+    for i, (loader, name) in enumerate(control):
+        lid, aid = str(20 + 2 * i), str(21 + 2 * i)
+        doc[lid] = {"class_type": loader,
+                    "inputs": {"control_net_name": name}}
+        if loader == "DiffControlNetLoader":
+            doc[lid]["inputs"]["model"] = ["4", 0]
+        if advanced is not None and i == 0:
+            doc[aid] = {"class_type": "ControlNetApplyAdvanced",
+                        "inputs": {"positive": cond, "negative": ["7", 0],
+                                   "control_net": [lid, 0],
+                                   "image": ["11", 0], "strength": 1.0,
+                                   "start_percent": advanced[0],
+                                   "end_percent": advanced[1]}}
+            ks["negative"] = [aid, 1]
+        else:
+            doc[aid] = {"class_type": "ControlNetApply",
+                        "inputs": {"conditioning": cond,
+                                   "control_net": [lid, 0],
+                                   "image": ["11", 0], "strength": 1.0}}
+        cond = [aid, 0]
+    ks["positive"] = cond
+    if patch is not None:
+        op, widgets = patch
+        doc["30"] = {"class_type": op,
+                     "inputs": {"model": ["4", 0], **widgets}}
+        ks["model"] = ["30", 0]
+    return doc
+
+
+def write_phase22_nets(models_dir, pipe):
+    """The two ControlNet files of phase 22 in ``models_dir``: the virtual
+    net of ``PHASE22_VIRTUAL_CN`` (loaded already) with its projections
+    drawn, as ``PHASE22_CN``, and (``PHASE22_DIFF_CN``) the
+    same net less ``pipe``'s UNet leaves at the same flax path and shape
+    (in float32, stored in bf16).  Returns each write's seconds and
+    bytes."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
+    from comfyui_distributed_tpu_torch.models import controlnet as cn_mod
+    from comfyui_distributed_tpu_torch.models import registry, weights
+
+    cfg = registry.get_family("sd15").unet
+    virtual = registry.load_controlnet(PHASE22_VIRTUAL_CN, device=pipe.device)
+
+    @torch.no_grad()
+    def drawn(m):
+        m.load_state_dict(virtual.state_dict())
+        for leaf in weights.leaves(m):
+            if cn_mod.is_zero_projection(leaf.flax_path[0]) \
+                    and leaf.kind != "same":
+                arr = weights.virtual_leaf(
+                    PHASE22_PROJ_SEED, leaf.flax_path,
+                    weights._flax_shape(leaf.kind, tuple(leaf.param.shape)))
+                leaf.param.copy_(torch.from_numpy(np.ascontiguousarray(
+                    weights._to_torch_layout(leaf.kind, arr))))
+
+    net = registry._build(lambda: cn_mod.ControlNet(cfg), pipe.device,
+                          cfg.dtype, drawn)
+    unet = ckpt._by_path(pipe.unet)
+
+    @torch.no_grad()
+    def less_unet(m):
+        src = ckpt._by_path(net)
+        for path, leaf in ckpt._by_path(m).items():
+            value = src[path].param
+            base = unet.get(path)
+            if base is not None and base.param.shape == value.shape:
+                value = value.float() - base.param.float()
+            leaf.param.copy_(value)
+
+    diff = registry._build(lambda: cn_mod.ControlNet(cfg), pipe.device,
+                           cfg.dtype, less_unet)
+    report = {}
+    for name, m in ((PHASE22_CN, net), (PHASE22_DIFF_CN, diff)):
+        path = os.path.join(models_dir, name)
+        t0 = time.perf_counter()
+        ckpt.write_safetensors(ckpt.export_controlnet(m, cfg), path)
+        report[name] = {"write_s": time.perf_counter() - t0,
+                        "bytes": os.path.getsize(path)}
+    del net, diff
+    return report
+
+
+def controlnet_and_patches(docs, shape_counts, rows):
+    """Phase 22 (module docstring) on the SD1.5 checkpoint the upscale
+    workflow names (phase 10's file): (report, requests)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops.base import OpContext
+    from comfyui_distributed_tpu_torch.ops.kernels import flash_attention \
+        as fa
+    from comfyui_distributed_tpu_torch.utils.image import save_png
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+
+    t_phase = time.perf_counter()
+    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
+               for r in rows if not r.get("named")}
+    ckpt_name = docs["upscale"]["4"]["inputs"]["ckpt_name"]
+    root, _ = models_dir_root()
+    models_dir = tempfile.mkdtemp(prefix="chip_smoke_phase22_", dir=root)
+    input_dir = tempfile.mkdtemp(prefix="chip_smoke_phase22_in_")
+    src = None if SERVER_MODELS_DIR is None \
+        else os.path.join(SERVER_MODELS_DIR, ckpt_name)
+    if src is None or not os.path.exists(src):
+        fail(f"phase 22: phase 10's SD1.5 file {ckpt_name} is missing")
+    os.symlink(src, os.path.join(models_dir, ckpt_name))
+    requests, images, report = [], {}, {"card": card_line()}
+    base = phase22_doc(ckpt_name)
+
+    def run(tag, doc, nets):
+        want = PHASE22_UNET_LAUNCHES + nets * PHASE22_NET_LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        res = WorkflowExecutor(OpContext(
+            device=DEVICE, input_dir=input_dir,
+            models_dir=models_dir)).execute(copy.deepcopy(doc))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        shapes = dict(fa.flash_attention.shapes)
+        variants = dict(fa.flash_attention.variants)
+        img = res.image_batch
+        finite = bool(img is not None and np.isfinite(img).all())
+        std = float(img.std()) if img is not None else 0.0
+        if img is None or img.ndim != 4 or img.shape[0] != 1 or not finite \
+                or not std > 0.0:
+            fail(f"phase 22 {tag}: image shape "
+                 f"{None if img is None else img.shape}, finite {finite}, "
+                 f"std {std}")
+        if variants != {"sm90": want}:
+            fail(f"phase 22 {tag}: flash-attention launches {variants}; "
+                 f"expected {want} sm90")
+        missing = sorted(set(shapes).difference(checked))
+        if missing:
+            fail(f"phase 22 {tag}: launched shapes phase 3 did not check: "
+                 f"{missing}")
+        shape_counts.update(shapes)
+        # the request's attention: phase 3's times of its shapes times
+        # its launches of each
+        kernel = totals(shapes, checked, ["ms", "plain_ms", "library_ms",
+                                          "mma_sync_ms", "exp2_ms"]) \
+            if shapes and not missing else None
+        requests.append({
+            "path": "phase22", "run": tag, "seconds": seconds,
+            "kernel_ms": kernel,
+            "node_seconds": {f"{k} {doc[k]['class_type']}": round(v, 4)
+                             for k, v in res.timings.items()},
+            "launches": fa.flash_attention.launches, "variants": variants,
+            "launches_by_shape": [[*k, n] for k, n in sorted(shapes.items())],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        images[tag] = img[0]
+        return img[0]
+
+    def diff(a, b):
+        d = np.abs(images[a] - images[b])
+        return {"max": float(d.max()), "mean": float(d.mean())}
+
+    checks = {}
+
+    def same(a, b):
+        checks[f"{a} == {b}"] = diff(a, b)
+        if not np.array_equal(images[a], images[b]):
+            fail(f"phase 22: {a} differs from {b}: {checks[f'{a} == {b}']}")
+
+    def apart(a, b, limits=FANOUT_ATOL["one_batch"]):
+        checks[f"{a} != {b}"] = d = diff(a, b)
+        if not (d["max"] > limits[0] and d["mean"] > limits[1]):
+            fail(f"phase 22: {a} is not beyond {limits} of {b}: {d}")
+
+    try:
+        run("plain", base, 0)
+        save_png(os.path.join(input_dir, PHASE22_HINT), images["plain"])
+        virtual = [("ControlNetLoader", PHASE22_VIRTUAL_CN)]
+        run("virtual", phase22_variant(base, virtual), 1)
+        same("virtual", "plain")
+        run("window (0, 1)", phase22_variant(base, virtual, (0.0, 1.0)), 1)
+        same("window (0, 1)", "virtual")
+        run("window (1, 1)", phase22_variant(base, virtual, (1.0, 1.0)), 0)
+        same("window (1, 1)", "plain")
+        pipe = registry.load_pipeline(ckpt_name, models_dir=models_dir,
+                                      device=DEVICE)
+        report["files"] = write_phase22_nets(models_dir, pipe)
+        del pipe
+        gc.collect()
+        from_file = [("ControlNetLoader", PHASE22_CN)]
+        run("file", phase22_variant(base, from_file), 1)
+        family = registry._cn_family_cache.get(
+            os.path.join(models_dir, PHASE22_CN))
+        if family != "sd15":
+            fail(f"phase 22: ControlNetLoader took family {family!r} from "
+                 f"{PHASE22_CN}; expected sd15")
+        apart("file", "plain")
+        run("file again", phase22_variant(base, from_file), 1)
+        same("file again", "file")
+        run("diff file", phase22_variant(
+            base, [("DiffControlNetLoader", PHASE22_DIFF_CN)]), 1)
+        checks["diff file ~ file"] = d = diff("diff file", "file")
+        limits = FANOUT_ATOL["one_batch"]
+        if not (d["max"] <= limits[0] and d["mean"] <= limits[1]):
+            fail(f"phase 22: the difference file's image is beyond "
+                 f"{limits} of the file's: {d}")
+        run("two nets", phase22_variant(base, from_file + virtual), 2)
+        same("two nets", "file")
+        for tag, op, widgets in (
+                ("FreeU", "FreeU", dict(zip(("b1", "b2", "s1", "s2"),
+                                            PHASE22_FREEU))),
+                ("FreeU_V2", "FreeU_V2", dict(zip(("b1", "b2", "s1", "s2"),
+                                                  PHASE22_FREEU))),
+                ("HyperTile", "HyperTile", dict(zip(
+                    ("tile_size", "swap_size", "max_depth", "scale_depth"),
+                    PHASE22_HYPERTILE))),
+                ("deep shrink", "PatchModelAddDownscale", {})):
+            run(tag, phase22_variant(base, patch=(op, widgets)), 0)
+            checks[f"{tag} != plain"] = d = diff(tag, "plain")
+            if not d["max"] > 0.0:
+                fail(f"phase 22: {tag} gave the plain image")
+        with TeeStdout() as tee:
+            run("deep shrink under the file's net", phase22_variant(
+                base, from_file, patch=("PatchModelAddDownscale", {})), 1)
+        same("deep shrink under the file's net", "file")
+        said = "".join(tee.lines)
+        if "sampling WITHOUT the downscale patch" not in said:
+            fail("phase 22: deep shrink under a ControlNet did not log its "
+                 "drop")
+        report["deep_shrink_log_seen"] = True
+    finally:
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(models_dir, ignore_errors=True)
+        shutil.rmtree(input_dir, ignore_errors=True)
+    report["checks"] = checks
+    report["requests"] = [{k: r[k] for k in (
+        "run", "seconds", "node_seconds", "launches", "kernel_ms",
+        "max_memory_allocated")} for r in requests]
+    report["seconds"] = time.perf_counter() - t_phase
+    if report["seconds"] > PHASE22_BUDGET_S:
+        print(f"chip_smoke: phase 22 took {report['seconds']:.1f} s, over "
+              f"its {PHASE22_BUDGET_S} s budget", file=sys.stderr, flush=True)
+    return report, requests
+
+
 def urllib_text(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=30) as r:
@@ -5719,6 +6123,9 @@ def main() -> int:
         (2, 90, 7, 2, 80, f32, "fp32 D = 80: two threads a row"),
         (1, 33, 200, 2, 160, f32, "fp32 D = 160: four threads a row"),
     ]
+    # phase 22: HyperTile's folded tiles and deep shrink's shrunk levels
+    have = {r[:6] for r in main_shapes}
+    main_shapes += [r for r in phase22_kernel_shapes() if r[:6] not in have]
     rows = check_kernel(main_shapes + extra_shapes)
     emit("kernel_checks", rows)
 
@@ -5825,6 +6232,9 @@ def main() -> int:
     shape_counts.update(scaled["shapes"])
     requests.append(scaled)
     emit("phase21", report21)
+    report22, reqs22 = controlnet_and_patches(docs, shape_counts, rows)
+    requests += reqs22
+    emit("phase22", report22)
     emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:

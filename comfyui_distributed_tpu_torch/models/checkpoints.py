@@ -12,6 +12,10 @@ A single-file SD checkpoint (safetensors, or a torch pickle) holds:
 - ``conditioner.embedders.0.model.*``        -> the SDXL refiner's bigG
   (a family's declared ``clip_prefixes``).
 
+A ControlNet file holds ``control_model.*`` (``_run_controlnet``: the
+UNet encoder's keys, the hint ladder, the zero convs and the middle's
+projection).
+
 One walk a model (``_run_unet``, ``_run_vae``, ``_run_clip_hf``,
 ``_run_openclip``) names each torch key beside the flax path of the
 parameter it feeds; a load mapper and an export mapper run the same
@@ -422,6 +426,83 @@ def _run_unet(m, cfg):
     _groupnorm(m, "out.0", "out_norm")
     m.conv("out.2", "conv_out")
     return m.finish("UNet")
+
+
+def _run_controlnet(m, cfg):
+    """The torch ControlNet layout (``control_model.*``): the UNet
+    encoder's enumeration (``_run_unet``'s down path and middle) plus
+    ``input_hint_block`` (a Sequential with a SiLU between its convs, so
+    the convs sit at the even indices), ``zero_convs`` and
+    ``middle_block_out`` (``models/controlnet.py`` keeps the names)."""
+    from comfyui_distributed_tpu_torch.models.controlnet import (
+        HINT_CHANNELS)
+    from comfyui_distributed_tpu_torch.models.unet import mid_depth
+    m.linear("time_embed.0", "time_fc1")
+    m.linear("time_embed.2", "time_fc2")
+    if cfg.adm_in_channels is not None:
+        m.linear("label_emb.0.0", "label_fc1")
+        m.linear("label_emb.0.2", "label_fc2")
+    m.conv("input_blocks.0.0", "conv_in")
+    for i in range(len(HINT_CHANNELS) + 1):
+        m.conv(f"input_hint_block.{2 * i}", f"hint_conv_{i}")
+    L, lin = cfg.num_levels, cfg.use_linear_in_transformer
+    idx, zi = 1, 1
+    m.conv("zero_convs.0.0", "zero_conv_0")
+    for level in range(L):
+        for i in range(cfg.num_res_blocks):
+            _map_resblock(m, f"input_blocks.{idx}.0", f"down_{level}_res_{i}")
+            if cfg.transformer_depth[level] > 0:
+                _map_spatial_transformer(
+                    m, f"input_blocks.{idx}.1", f"down_{level}_attn_{i}",
+                    cfg.transformer_depth[level], linear_proj=lin)
+            m.conv(f"zero_convs.{zi}.0", f"zero_conv_{zi}")
+            idx += 1
+            zi += 1
+        if level != L - 1:
+            m.conv(f"input_blocks.{idx}.0.op", f"down_{level}_ds/conv")
+            m.conv(f"zero_convs.{zi}.0", f"zero_conv_{zi}")
+            idx += 1
+            zi += 1
+    _map_resblock(m, "middle_block.0", "mid_res_0")
+    _map_spatial_transformer(m, "middle_block.1", "mid_attn",
+                             mid_depth(cfg), linear_proj=lin)
+    _map_resblock(m, "middle_block.2", "mid_res_1")
+    m.conv("middle_block_out.0", "mid_out")
+    return m.finish("ControlNet")
+
+
+CONTROLNET_PREFIX = "control_model."
+
+
+def load_controlnet(path: str, cfg, state_dict: Optional[Tensors] = None
+                    ) -> Tensors:
+    """A ControlNet ``.safetensors``/``.pth`` file (its keys under
+    ``control_model.`` or bare) -> the state dict of
+    ``ControlNet(cfg)``."""
+    from comfyui_distributed_tpu_torch.models.controlnet import ControlNet
+    sd = state_dict if state_dict is not None else load_state_dict(path)
+    prefix = CONTROLNET_PREFIX if any(k.startswith(CONTROLNET_PREFIX)
+                                      for k in sd) else ""
+    with torch.device("meta"):
+        net = ControlNet(cfg)
+    return _run_controlnet(_LoadMapper(sd, prefix, _by_path(net)), cfg)
+
+
+def controlnet_context_dim(sd: Tensors) -> Optional[int]:
+    """The cross-attention width of a ControlNet state dict (768, 1024 or
+    2048: the one width that tells the SD families apart), so the loader
+    takes the family from the file itself."""
+    for k, v in sd.items():
+        if k.endswith("attn2.to_k.weight"):
+            return int(v.shape[-1])
+    return None
+
+
+def export_controlnet(net: nn.Module, cfg) -> Tensors:
+    """A ControlNet module -> its tensors in the ``control_model.*``
+    layout (on the module's device, in its storage dtype)."""
+    return _run_controlnet(_ExportMapper(_by_path(net), CONTROLNET_PREFIX),
+                           cfg)
 
 
 # --- VAE walk ------------------------------------------------------------------

@@ -199,9 +199,26 @@ class TransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x))
 
 
+def _hypertile_divisor(n: int, min_tile: int) -> int:
+    """Largest divisor d of n with n // d >= min_tile: the most tiling
+    that keeps tiles at least ``min_tile`` on a side (the JAX package's
+    deterministic rule)."""
+    best = 1
+    for d in range(1, n + 1):
+        if n % d == 0 and n // d >= min_tile:
+            best = d
+    return best
+
+
 class SpatialTransformer(nn.Module):
     """NCHW map -> tokens -> transformer blocks with text cross-attention
-    -> back to the map, plus the residual (the SD UNet attention block)."""
+    -> back to the map, plus the residual (the SD UNet attention block).
+
+    ``hypertile_tile`` > 0 (HyperTile): the token grid splits into
+    spatial tiles of at least that many latent units a side, which ride
+    the batch axis through the blocks (the context repeats per tile), so
+    self-attention costs O(tiles * (N / tiles)^2); the tiles go to the
+    same attention kernel at the folded batch."""
 
     def __init__(self, channels: int, num_heads: int, depth: int,
                  context_dim: int, dtype: torch.dtype = torch.bfloat16):
@@ -215,13 +232,25 @@ class SpatialTransformer(nn.Module):
                 channels, num_heads, context_dim, dtype=dtype))
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                hypertile_tile: int = 0) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
+        nh = nw = 1
+        if hypertile_tile > 0:
+            nh = _hypertile_divisor(H, hypertile_tile)
+            nw = _hypertile_divisor(W, hypertile_tile)
+        th, tw = H // nh, W // nw
+        if nh * nw > 1:
+            h = h.reshape(B, nh, th, nw, tw, C).transpose(2, 3) \
+                .reshape(B * nh * nw, th * tw, C)
+            context = context.repeat_interleave(nh * nw, dim=0)
         for i in range(self.depth):
             h = getattr(self, f"blocks_{i}")(h, context)
+        if nh * nw > 1:
+            h = h.reshape(B, nh, nw, th, tw, C).transpose(2, 3) \
+                .reshape(B, H * W, C)
         h = self.proj_out(h)
         return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
 

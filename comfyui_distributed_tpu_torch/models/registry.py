@@ -2,8 +2,9 @@
 PyTorch: the counterpart of ``comfyui_distributed_tpu/models/registry.py``.
 
 CheckpointLoaderSimple hands back one :class:`DiffusionPipeline` as
-(MODEL, CLIP, VAE), and UpscaleModelLoader an RRDB network
-(:func:`load_upscaler`).  A file of that name in ``models_dir`` is
+(MODEL, CLIP, VAE), UpscaleModelLoader an RRDB network
+(:func:`load_upscaler`) and ControlNetLoader a ControlNet
+(:func:`load_controlnet`).  A file of that name in ``models_dir`` is
 loaded (``models/checkpoints.py``); with no file, parameters are
 virtually initialized from the name (``models/weights.py``): the same
 name gives the same weights as the JAX package, on any host.  Either
@@ -29,11 +30,16 @@ from torch import nn
 from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
 from comfyui_distributed_tpu_torch.models import clip as clip_mod
 from comfyui_distributed_tpu_torch.models import clip_vision as cv_mod
+from comfyui_distributed_tpu_torch.models import controlnet as cn_mod
 from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models import unet as unet_mod
 from comfyui_distributed_tpu_torch.models import upscalers as up_mod
 from comfyui_distributed_tpu_torch.models import vae as vae_mod
-from comfyui_distributed_tpu_torch.models.denoiser import make_denoiser
+from comfyui_distributed_tpu_torch.models.denoiser import (
+    ControlSpec,
+    make_denoiser,
+    make_t_from_sigma,
+)
 from comfyui_distributed_tpu_torch.models.prng import (
     INIT_NOISE_INDEX,
     batch_normal,
@@ -301,7 +307,8 @@ class DiffusionPipeline:
                end_step: Optional[int] = None,
                force_full_denoise: bool = False,
                noise_mask: Optional[torch.Tensor] = None,
-               c_concat: Optional[torch.Tensor] = None) -> torch.Tensor:
+               c_concat: Optional[torch.Tensor] = None,
+               control=None) -> torch.Tensor:
         """schedule -> initial noise -> sampler loop -> latents.
 
         ``seeds``: per-sample 64-bit host seeds [B]; ``sample_idx``:
@@ -330,7 +337,18 @@ class DiffusionPipeline:
         strength[, sigma_range])`` entries (regional prompting), every
         entry of both sides evaluated in one stacked model call
         (``cfg_denoiser_multi``).  ``y``: one ADM vector [B, A] for
-        every row block, or a list with one per entry, conds first."""
+        every row block, or a list with one per entry, conds first.
+        ``control``: the ops layer's ControlNet links, each ``(net, hint
+        [B, 8h, 8w, 3], (cond strengths, uncond strengths), windows)``
+        with one strength an entry and ``windows`` None or ``(cond
+        windows, uncond windows)`` of sigma pairs (or None) an entry;
+        each link's strengths and windows flatten in lockstep to the
+        stacked blocks that run (the uncond entries' only at cfg != 1).
+        A deep-shrink pipeline (``deep_shrink_spec``) samples with the
+        shrunk UNet while the step's timestep lies in its window, with
+        the plain one else, and without the patch under a control (the
+        residuals' shapes cannot follow the shrunk encoder), which it
+        logs."""
         sampler = get_sampler(sampler_name)
         dev = self.device
         self._require(self.unet, "UNet")
@@ -357,11 +375,33 @@ class DiffusionPipeline:
         noise = batch_normal(keys, INIT_NOISE_INDEX, src.shape[1:], dev) \
             if add_noise else None
         x = src + noise * float(sigmas[0]) if add_noise else src
-        den = make_denoiser(self.unet, self.schedule, self.prediction_type,
-                            device=dev, concat=None if c_concat is None
-                            else c_concat.to(dev, torch.float32))
         conds, unconds = _entries(context, dev), _entries(uncond_context,
                                                           dev)
+        concat = None if c_concat is None else c_concat.to(dev,
+                                                           torch.float32)
+        chain = None
+        if control:
+            with_uncond = float(cfg) != 1.0
+            chain = []
+            for net, hint, (pos_s, neg_s), windows in control:
+                strengths = tuple(pos_s) + (tuple(neg_s) if with_uncond
+                                            else ())
+                window = None
+                if windows is not None:
+                    window = tuple(windows[0]) + (tuple(windows[1])
+                                                  if with_uncond else ())
+                chain.append(ControlSpec(net, hint.to(dev), strengths,
+                                         window))
+        ds_spec = getattr(self, "deep_shrink_spec", None)
+        if ds_spec is not None and chain:
+            log("deep shrink: ControlNet residual shapes can't follow "
+                "the shrunk encoder; sampling WITHOUT the downscale "
+                "patch")
+            ds_spec = None
+        den = make_denoiser(self.unet, self.schedule, self.prediction_type,
+                            device=dev, concat=concat, control=chain)
+        if ds_spec is not None:
+            den = self._deep_shrink_denoiser(den, ds_spec, concat)
         model = cfg_denoiser_multi(den, conds, unconds, float(cfg))
         if noise_mask is not None:
             m = noise_mask.to(dev, torch.float32)
@@ -372,6 +412,33 @@ class DiffusionPipeline:
         if noise_mask is not None:
             out = out * m + src * (1.0 - m)
         return out
+
+    def _deep_shrink_denoiser(self, den: Callable, ds_spec: Tuple,
+                              concat: Optional[torch.Tensor]) -> Callable:
+        """``den`` and the same denoiser over the shrunk UNet (one module,
+        shared weights, ``unet.with_config``), the shrunk one taken while
+        the call's timestep ``t`` has ``t_lo < t <= t_hi``.  ``t`` is
+        the denoiser's own ``t_from_sigma`` of the step's sigma, a host
+        float, computed on the host, so the branch makes the host wait
+        for the card nowhere; a tensor sigma (continuous batching's,
+        which refuses deep shrink) raises."""
+        lvl, fac, t_lo, t_hi = ds_spec
+        shrunk = make_denoiser(
+            unet_mod.with_config(self.unet, dataclasses.replace(
+                self.unet.cfg, deep_shrink=(int(lvl), float(fac)))),
+            self.schedule, self.prediction_type, device=self.device,
+            concat=concat)
+        host_t = make_t_from_sigma(self.schedule, "cpu")
+
+        def model(x, sigma, **kw):
+            if isinstance(sigma, torch.Tensor):
+                raise TypeError("deep shrink takes the step's sigma as a "
+                                "host float, not a tensor")
+            t0 = float(host_t(torch.tensor(float(sigma),
+                                           dtype=torch.float32)))
+            return (shrunk if t_lo < t0 <= t_hi else den)(x, sigma, **kw)
+
+        return model
 
     def denoise_step_fn(self, sampler_name: str, cfg: float, rows: int,
                         latent_hw: tuple, has_y: bool = False
@@ -764,15 +831,117 @@ def load_clip_vision(clip_name: str, models_dir: Optional[str] = None,
         return tower
 
 
+# ControlNets, one a (name, family, models dir, device), and each file's
+# inferred family, so a repeated load reads no file
+_controlnet_cache: Dict[Tuple, nn.Module] = {}
+_cn_family_cache: Dict[str, str] = {}
+CONTROLNET_FAMILIES = ("sd15", "sd21", "sdxl", "tiny")
+
+
+def load_controlnet(cn_name: str, models_dir: Optional[str] = None,
+                    family_name: Optional[str] = None,
+                    device="cuda") -> nn.Module:
+    """ControlNetLoader: the named ControlNet on ``device``, cached.  A
+    file of that name in ``models_dir`` is loaded (``control_model.*``
+    or bare keys), and without ``family_name`` its family comes from the
+    file's cross-attention width (the first of sd15, sd21, sdxl and tiny
+    that has it; memoised by path), not from ``DTPU_DEFAULT_FAMILY``.
+    With no file the net is virtual: ``family_name``, the env's family
+    or sd15, the JAX package's weights drawn from the name, then the
+    zero convs, ``mid_out`` and the ladder's last conv zeroed, so a
+    fresh virtual net leaves the UNet exactly as it is.  Weights are
+    stored in the family's compute dtype."""
+    device = torch.device(device)
+    fam = get_family(family_name or os.environ.get(FAMILY_ENV) or "sd15")
+    path = _model_file(models_dir, cn_name)
+    sd = None
+    if path is not None and family_name is None:
+        with _pipeline_lock:
+            cached = _cn_family_cache.get(path)
+        if cached is not None:
+            fam = get_family(cached)
+        else:
+            sd = ckpt.load_state_dict(path)
+            ctx_dim = ckpt.controlnet_context_dim(sd)
+            if ctx_dim is not None and ctx_dim != fam.unet.context_dim:
+                fam = next((get_family(n) for n in CONTROLNET_FAMILIES
+                            if FAMILIES[n].unet.context_dim == ctx_dim),
+                           fam)
+            with _pipeline_lock:
+                _cn_family_cache[path] = fam.name
+    key = (cn_name, fam.name, models_dir or "", str(device))
+    with _pipeline_lock:
+        net = _controlnet_cache.get(key)
+        if net is not None:
+            return net
+        if path is not None:
+            state = ckpt.load_controlnet(path, fam.unet, state_dict=sd)
+            fill = lambda m: ckpt.load_into(m, state)  # noqa: E731
+            log(f"loaded ControlNet {cn_name} ({fam.name}) from {path}")
+        else:
+            seed = _name_seed(cn_name)
+
+            def fill(m: nn.Module) -> None:
+                fill_virtual(m, seed)
+                cn_mod.zero_projections(m)
+            log(f"virtual ControlNet {cn_name!r} ({fam.name}): no file on "
+                f"disk, deterministic init (seed {seed}, zero projections)")
+        net = _build(lambda: cn_mod.ControlNet(fam.unet), device,
+                     fam.unet.dtype, fill)
+        _controlnet_cache[key] = net
+        return net
+
+
+def load_diff_controlnet(model: DiffusionPipeline, cn_name: str,
+                         models_dir: Optional[str] = None) -> nn.Module:
+    """DiffControlNetLoader: a 'difference' ControlNet, whose stored
+    weights are deltas over the base model's encoder.  The named net is
+    loaded on ``model``'s family (:func:`load_controlnet`), then each of
+    its leaves that ``model``'s UNet has at the same flax path and shape
+    gains the UNet's value (summed in float32, stored in the net's
+    dtype) in a new module; the zero convs and the other net-only leaves
+    pass as they are.  Cached per (model, name, models dir)."""
+    key = ("diff", model.cache_token, cn_name, models_dir or "")
+    with _pipeline_lock:
+        net = _controlnet_cache.get(key)
+    if net is not None:
+        return net
+    raw = load_controlnet(cn_name, models_dir, family_name=model.family.name,
+                          device=model.device)
+    base = ckpt._by_path(model._require(model.unet, "UNet"))
+    matched = [0]
+
+    @torch.no_grad()
+    def fill(m: nn.Module) -> None:
+        src = ckpt._by_path(raw)
+        for path, leaf in ckpt._by_path(m).items():
+            value = src[path].param
+            other = base.get(path)
+            if other is not None and \
+                    tuple(other.param.shape) == tuple(value.shape):
+                matched[0] += 1
+                value = value.float() + other.param.float()
+            leaf.param.copy_(value)
+
+    net = _build(lambda: cn_mod.ControlNet(raw.cfg), model.device,
+                 raw.cfg.dtype, fill)
+    log(f"DiffControlNetLoader: added base-model weights into "
+        f"{matched[0]} shared leaves of {cn_name}")
+    with _pipeline_lock:
+        net = _controlnet_cache.setdefault(key, net)
+    return net
+
+
 def clear_pipeline_cache() -> None:
     """Drop every cached pipeline (split parts too), derived pipeline,
-    LoRA-patched pipeline, CLIP-vision tower and upscaler, so their
-    device memory can go."""
+    LoRA-patched pipeline, CLIP-vision tower, upscaler and ControlNet,
+    so their device memory can go."""
     with _pipeline_lock:
         _pipeline_cache.clear()
         _derived_cache.clear()
         _upscaler_cache.clear()
         _clip_vision_cache.clear()
+        _controlnet_cache.clear()
     from comfyui_distributed_tpu_torch.models import lora as lora_mod
     lora_mod.clear_lora_cache()
 
@@ -787,28 +956,48 @@ _DERIVED_CACHE_CAP = 8
 def copy_sampler_patches(src: DiffusionPipeline,
                          dst: DiffusionPipeline) -> None:
     """What a derived or LoRA-patched pipeline keeps of its base's
-    sampling: the schedule (the JAX package's other sampling patches,
-    RescaleCFG and PerpNeg, are not ported)."""
+    sampling: the schedule and every attribute a derivation set through
+    ``extra_attrs`` (deep shrink's ``deep_shrink_spec``); the JAX
+    package's other sampling patches, RescaleCFG and PerpNeg, are not
+    ported."""
     dst.schedule = src.schedule
+    riding = set(getattr(src, "_riding_attrs", ()))
+    for attr in riding:
+        if hasattr(src, attr):
+            setattr(dst, attr, getattr(src, attr))
+    dst._riding_attrs = frozenset(riding)
 
 
 def derive_pipeline(base: DiffusionPipeline, tag: str,
-                    family: ModelFamily) -> DiffusionPipeline:
-    """Cached clone of ``base`` with a replacement family, everything
-    else shared by reference: the UNet and VAE as they are, each text
-    tower's weights under the new family's tower config
-    (:func:`clip_mod.with_config`)."""
+                    family: Optional[ModelFamily] = None,
+                    extra_attrs: Optional[Dict[str, object]] = None
+                    ) -> DiffusionPipeline:
+    """Cached clone of ``base`` with a replacement family and sampling
+    patches, everything else shared by reference: the UNet's weights
+    under the new family's UNet config (:func:`unet_mod.with_config`:
+    FreeU, HyperTile), the VAE as it is, each text tower's weights under
+    the new family's tower config (:func:`clip_mod.with_config`:
+    clip-skip).  ``extra_attrs`` are set on the clone and ride every
+    further derivation (:func:`copy_sampler_patches`)."""
     key = (base.cache_token, tag)
     with _pipeline_lock:
         if key in _derived_cache:
             _derived_cache.move_to_end(key)
             return _derived_cache[key]
+    family = family or base.family
     clone = DiffusionPipeline(
-        f"{base.name}|{tag}", family, base.unet,
+        f"{base.name}|{tag}", family,
+        None if base.unet is None
+        else unet_mod.with_config(base.unet, family.unet),
         [clip_mod.with_config(m, c)
          for m, c in zip(base.clip_models, family.clips, strict=True)],
         base.vae, base.device, assets_dir=base.assets_dir)
     copy_sampler_patches(base, clone)
+    if extra_attrs:
+        for k, v in extra_attrs.items():
+            setattr(clone, k, v)
+        clone._riding_attrs = frozenset(set(clone._riding_attrs)
+                                        | set(extra_attrs))
     with _pipeline_lock:
         clone = _derived_cache.setdefault(key, clone)
         while len(_derived_cache) > _DERIVED_CACHE_CAP:

@@ -4,15 +4,21 @@
 The forward takes and returns the JAX package's NHWC layout (x [B, H, W,
 C]) and runs NCHW inside.  Eps-prediction by default; the denoiser
 (``models/denoiser.py``) wraps it into ``denoised = f(x, sigma)``.  The
-model patches of the JAX UNet (FreeU, HyperTile, deep shrink, ToMe,
-GLIGEN, SAG capture, ControlNet residuals) are not ported yet and raise.
+forward takes ControlNet residuals (``models/controlnet.py``), and the
+config carries three of the JAX UNet's structural patches: FreeU (v1
+and v2), HyperTile and deep shrink.  They change no weight, so a
+patched pipeline shares its base's module through :func:`with_config`.
+The JAX UNet's other patches (SAG capture, ToMe, GLIGEN) are not ported
+and raise.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -48,11 +54,22 @@ class UNetConfig:
     # checkpoint-layout metadata: torch checkpoints store the transformer
     # proj_in/proj_out as 1x1 convs (SD1.x) or Linear (SDXL); both are Dense
     use_linear_in_transformer: bool = False
-    # model patches of the JAX UNet that wait for a later port slice
+    # FreeU (Si et al.): decoder backbone boost and skip low-pass, (b1,
+    # b2, s1, s2) or None; version 2 scales the boost by the per-pixel
+    # normalized hidden mean
     freeu: Optional[Tuple[float, float, float, float]] = None
+    freeu_version: int = 1
+    # HyperTile: (tile_size_px, max_depth, scale_depth) or None; levels
+    # up to max_depth tile their transformers' tokens into tiles of at
+    # least tile_size // 8 latent units a side (models/layers.py)
     hypertile: Optional[Tuple[int, int, bool]] = None
-    sag_capture: bool = False
+    # deep shrink (PatchModelAddDownscale): (level, factor) or None; the
+    # hidden is downscaled bilinearly at the level's entry and upsampled
+    # at the first skip of another size.  The sigma window that turns it
+    # on lives in the sampler (models/registry.py)
     deep_shrink: Optional[Tuple[int, float]] = None
+    # patches of the JAX UNet that are not ported (they raise)
+    sag_capture: bool = False
     tome_ratio: float = 0.0
     gligen: int = 0
     dtype: torch.dtype = torch.bfloat16
@@ -108,8 +125,10 @@ TINY_CONFIG = UNetConfig(
     dtype=torch.float32,  # exact CPU comparisons; real families use bf16
 )
 
-_PATCHES = ("freeu", "hypertile", "sag_capture", "deep_shrink",
-            "tome_ratio", "gligen")
+_UNPORTED_PATCHES = ("sag_capture", "tome_ratio", "gligen")
+# config fields that change no weight: a module built under one value
+# serves every other through with_config
+_PATCH_FIELDS = ("freeu", "freeu_version", "hypertile", "deep_shrink")
 
 
 def mid_depth(cfg: UNetConfig) -> int:
@@ -122,7 +141,7 @@ def mid_depth(cfg: UNetConfig) -> int:
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        unported = [p for p in _PATCHES if getattr(cfg, p)]
+        unported = [p for p in _UNPORTED_PATCHES if getattr(cfg, p)]
         if unported:
             raise NotImplementedError(
                 f"UNet patches {unported} are not ported to the torch "
@@ -185,18 +204,28 @@ class UNet(nn.Module):
         self.conv_out = Conv(cur, cfg.out_channels, 3, padding=1,
                              dtype=torch.float32)
 
+    def _ht_tile(self, level: int) -> int:
+        """HyperTile's least latent tile side at ``level`` (0: off)."""
+        if self.cfg.hypertile is None:
+            return 0
+        tile_px, max_depth, scale_depth = self.cfg.hypertile
+        if level > int(max_depth):
+            return 0
+        return max(32, int(tile_px)) // 8 * (2 ** level if scale_depth
+                                            else 1)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
                 y: Optional[torch.Tensor] = None,
-                control=None) -> torch.Tensor:
+                control: Optional[Tuple[List[torch.Tensor],
+                                        torch.Tensor]] = None
+                ) -> torch.Tensor:
         """x: [B, H, W, C_in] latent; timesteps: [B]; context: [B, M, Cc]
         text tokens; y: [B, adm_in] vector conditioning (SDXL).  Returns
-        the fp32 prediction [B, H, W, C_out].  ControlNet residuals
-        (``control``) are not ported yet."""
-        if control is not None:
-            raise NotImplementedError(
-                "ControlNet residuals are not ported to the torch package "
-                "yet")
+        the fp32 prediction [B, H, W, C_out].  ``control``: ControlNet
+        residuals ``(skips, middle)`` in NCHW, one a skip in down-path
+        order, added to the skips (``skip[i] + control[i]``) and to the
+        middle block's output; a count that does not match raises."""
         cfg = self.cfg
         emb = self.time_fc1(timestep_embedding(timesteps,
                                                cfg.model_channels))
@@ -210,27 +239,146 @@ class UNet(nn.Module):
         h = self.conv_in(x.permute(0, 3, 1, 2))
         skips = [h]
         for level in range(cfg.num_levels):
+            if cfg.deep_shrink is not None and level == cfg.deep_shrink[0]:
+                f = float(cfg.deep_shrink[1])
+                h = resize_bilinear(h, max(1, int(round(h.shape[2] / f))),
+                                    max(1, int(round(h.shape[3] / f))))
             for i in range(cfg.num_res_blocks):
                 h = getattr(self, f"down_{level}_res_{i}")(h, emb)
                 if cfg.transformer_depth[level] > 0:
-                    h = getattr(self, f"down_{level}_attn_{i}")(h, context)
+                    h = getattr(self, f"down_{level}_attn_{i}")(
+                        h, context, self._ht_tile(level))
                 skips.append(h)
             if level != cfg.num_levels - 1:
                 h = getattr(self, f"down_{level}_ds")(h)
                 skips.append(h)
 
+        if control is not None:
+            ctrl_skips, ctrl_mid = control
+            skips = [s + c for s, c in zip(skips, ctrl_skips, strict=True)]
+
         h = self.mid_res_0(h, emb)
-        h = self.mid_attn(h, context)
+        h = self.mid_attn(h, context, self._ht_tile(cfg.num_levels - 1))
         h = self.mid_res_1(h, emb)
+        if control is not None:
+            h = h + ctrl_mid
 
         for level in reversed(range(cfg.num_levels)):
             for i in range(cfg.num_res_blocks + 1):
-                h = torch.cat([h, skips.pop()], dim=1)
+                skip = skips.pop()
+                if h.shape[2:] != skip.shape[2:]:
+                    # deep shrink: back to full size at the first skip of
+                    # another size
+                    h = resize_bilinear(h, skip.shape[2], skip.shape[3])
+                if cfg.freeu is not None:
+                    h, skip = _apply_freeu(cfg, h, skip)
+                h = torch.cat([h, skip], dim=1)
                 h = getattr(self, f"up_{level}_res_{i}")(h, emb)
                 if cfg.transformer_depth[level] > 0:
-                    h = getattr(self, f"up_{level}_attn_{i}")(h, context)
+                    h = getattr(self, f"up_{level}_attn_{i}")(
+                        h, context, self._ht_tile(level))
             if level != 0:
                 h = getattr(self, f"up_{level}_us")(h)
 
         h = self.conv_out(F.silu(self.out_norm(h)))
         return h.float().permute(0, 2, 3, 1)
+
+
+def with_config(unet: UNet, cfg: UNetConfig) -> UNet:
+    """``unet``'s weights under ``cfg``, which may differ from its own
+    config only in the patch fields (FreeU, HyperTile, deep shrink):
+    ``unet`` itself when the configs are equal, else a shallow copy that
+    shares every parameter and reads ``cfg``."""
+    if cfg == unet.cfg:
+        return unet
+    changed = [f.name for f in dataclasses.fields(cfg)
+               if f.name not in _PATCH_FIELDS
+               and getattr(cfg, f.name) != getattr(unet.cfg, f.name)]
+    if changed:
+        raise ValueError(f"with_config: {changed} differ; only the patch "
+                         f"fields {_PATCH_FIELDS} may change on shared "
+                         "weights")
+    out = copy.copy(unet)
+    out.cfg = cfg
+    return out
+
+
+def _resize_weights(n_in: int, n_out: int, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+    """[n_out, n_in] weights of ``jax.image.resize``'s bilinear filter on
+    one axis: the triangle kernel at half-pixel centres, widened by the
+    scale when it shrinks (antialiasing), each row normalized, in
+    float32 and then cast to the input's dtype, as there."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    ks = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    dist = (sample[:, None] - torch.arange(n_in, dtype=torch.float32,
+                                           device=device)[None, :]).abs()
+    w = torch.clamp(1.0 - dist / ks, min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w)).to(dtype)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """NCHW ``x`` to ``height`` x ``width`` as ``jax.image.resize(...,
+    "bilinear")`` resizes it (deep shrink's two resizes): an axis of
+    unchanged size is left alone, each other is one contraction with
+    :func:`_resize_weights`, in ``x``'s dtype."""
+    H, W = int(x.shape[2]), int(x.shape[3])
+    if H != height:
+        wh = _resize_weights(H, height, x.dtype, x.device)
+        x = torch.einsum("bchw,Hh->bcHw", x, wh)
+    if W != width:
+        ww = _resize_weights(W, width, x.dtype, x.device)
+        x = torch.einsum("bchw,Ww->bchW", x, ww)
+    return x
+
+
+def _fourier_filter(x: torch.Tensor, threshold: int,
+                    scale: float) -> torch.Tensor:
+    """FreeU's skip filter on an NCHW map: the centred low-frequency box
+    of the 2-D spectrum scaled by ``scale``, in float32."""
+    xf = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=(2, 3)),
+                            dim=(2, 3))
+    H, W = int(x.shape[2]), int(x.shape[3])
+    cr, cc = H // 2, W // 2
+    mask = torch.ones((1, 1, H, W), dtype=torch.float32, device=x.device)
+    mask[:, :, max(cr - threshold, 0):cr + threshold,
+         max(cc - threshold, 0):cc + threshold] = scale
+    xf = torch.fft.ifftshift(xf * mask, dim=(2, 3))
+    return torch.fft.ifftn(xf, dim=(2, 3)).real.to(x.dtype)
+
+
+def _apply_freeu(cfg: UNetConfig, h: torch.Tensor, hsp: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FreeU at a decoder concat, only where the backbone has
+    model_channels * 4 (b1, s1) or * 2 (b2, s2) channels: the first half
+    of the backbone's channels times the boost (v2: scaled by the
+    per-pixel channel mean, min-max normalized over each sample), the
+    skip through :func:`_fourier_filter`."""
+    b1, b2, s1, s2 = cfg.freeu
+    scales = {cfg.model_channels * 4: (float(b1), float(s1)),
+              cfg.model_channels * 2: (float(b2), float(s2))}
+    sc = scales.get(int(h.shape[1]))
+    if sc is None:
+        return h, hsp
+    b, s = sc
+    half = h.shape[1] // 2
+    if cfg.freeu_version == 2:
+        hm = h.float().mean(dim=1, keepdim=True)
+        flat = hm.reshape(h.shape[0], -1)
+        hmin = flat.min(dim=1).values.reshape(-1, 1, 1, 1)
+        hmax = flat.max(dim=1).values.reshape(-1, 1, 1, 1)
+        hm = (hm - hmin) / torch.clamp(hmax - hmin, min=1e-6)
+        boost = ((b - 1.0) * hm + 1.0).to(h.dtype)
+    else:
+        boost = torch.tensor(b, dtype=h.dtype, device=h.device)
+    h = torch.cat([h[:, :half] * boost, h[:, half:]], dim=1)
+    return h, _fourier_filter(hsp, 1, s)

@@ -185,3 +185,12 @@ def rrdb_from_flax(cfg, params):
     with torch.device("meta"):
         net = RRDBNet(cfg)
     return state_dict_from_flax(net, params)
+
+
+def controlnet_from_flax(cfg, params):
+    """The JAX package's ControlNet tree -> the port's ``ControlNet``
+    state dict for ``cfg`` (a ``unet.UNetConfig`` of the port)."""
+    from comfyui_distributed_tpu_torch.models.controlnet import ControlNet
+    with torch.device("meta"):
+        net = ControlNet(cfg)
+    return state_dict_from_flax(net, params)

@@ -70,7 +70,11 @@ class Conditioning:
     entries ConditioningCombine bundled; ``timestep_range`` (start,
     end) in sampling percent (0 = the first step) limits when the
     entry counts.  ``unclip``: (image_embed [1, D], strength,
-    noise_augmentation) entries for an unCLIP model's ADM vector."""
+    noise_augmentation) entries for an unCLIP model's ADM vector.
+    ``control``: the ControlNet chain attached to the entry, a tuple of
+    ``(net, hint image [B, H, W, 3], strength[, (start_percent,
+    end_percent)])`` links (ComfyUI's previous_controlnet chain: every
+    link runs and their residuals sum)."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
     size_cond: Optional[Tuple[float, ...]] = None
@@ -80,6 +84,7 @@ class Conditioning:
     siblings: Tuple["Conditioning", ...] = ()
     timestep_range: Optional[Tuple[float, float]] = None
     unclip: Optional[Tuple[Tuple[Any, float, float], ...]] = None
+    control: Optional[Tuple[Tuple[Any, ...], ...]] = None
 
 
 @dataclasses.dataclass

@@ -14,7 +14,10 @@
 ``ImageScale``, ``ImagePadForOutpaint``, ``VAEEncodeForInpaint``,
 ``InpaintModelConditioning``, ``InstructPixToPixConditioning``,
 ``SetLatentNoiseMask``, ``UpscaleModelLoader``,
-``ImageUpscaleWithModel``, ``PreviewImage`` and ``SaveImage`` in
+``ImageUpscaleWithModel``, ``PreviewImage``, ``SaveImage``,
+``ControlNetLoader``, ``DiffControlNetLoader``, ``ControlNetApply``,
+``ControlNetApplyAdvanced``, ``Canny``, ``FreeU``, ``FreeU_V2``,
+``HyperTile`` and ``PatchModelAddDownscale`` in
 ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode does
 not expand the batch).
 
@@ -35,7 +38,8 @@ encodes and writes overlap the next run.
 A MASK travels as a float32 tensor on the run's device ([H, W] or
 [B, H, W], 1 = resample); a latent's ``noise_mask`` and a
 conditioning's area mask stay at image resolution until the sampler
-takes them to the latent's (:func:`image_mask_to_latent`).  ControlNet,
+takes them to the latent's (:func:`image_mask_to_latent`), and so does a
+ControlNet's hint (8x the latent's size, :func:`gather_control`).
 GLIGEN and the 3-row guidances (DualCFG, PerpNeg) that
 ``_prepare_sample_inputs`` handles in the JAX package wait for a later
 slice.
@@ -82,7 +86,7 @@ from comfyui_distributed_tpu_torch.utils.image import (
     save_png,
 )
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
-from comfyui_distributed_tpu_torch.utils.log import Timer
+from comfyui_distributed_tpu_torch.utils.log import Timer, debug_log
 
 
 @register_op
@@ -554,6 +558,8 @@ class _SampleInputs:
     y: Any
     noise_mask: Optional[torch.Tensor] = None
     c_concat: Optional[torch.Tensor] = None
+    # the ControlNet links for DiffusionPipeline.sample (gather_control)
+    control: Any = None
 
 
 def as_mask(mask, device) -> torch.Tensor:
@@ -714,7 +720,83 @@ def _prepare_sample_inputs(model, seed, latent_image,
         c_concat = cycle_batch(c_concat, total)
     return _SampleInputs(latents=lat, context=context, uncond=uncond,
                          seeds=seeds, sample_idx=sample_idx, y=y,
-                         noise_mask=mask, c_concat=c_concat)
+                         noise_mask=mask, c_concat=c_concat,
+                         control=gather_control(model.schedule, pos_entries,
+                                                neg_entries, total, h, w))
+
+
+def control_chain(cond: Conditioning) -> tuple:
+    """A conditioning's ControlNet links as a tuple (empty without)."""
+    return tuple(cond.control or ())
+
+
+def gather_control(schedule, pos_entries, neg_entries, total: int, h: int,
+                   w: int):
+    """The sampler's ControlNet links from every entry of both sides
+    (ComfyUI honours a control on any entry): each distinct (net, hint)
+    in first-seen order, and the same net chained twice on one entry
+    keeps both links (ComfyUI runs every link and sums).  A link's
+    strengths and windows are per entry, 0 and None where the entry does
+    not carry it, so a control steers only its own entries' rows; the
+    percent windows become sigma pairs on ``schedule``.  Each hint is
+    resized bilinearly to 8x the latent's size and cycled to the
+    ``total`` rows.  Returns ``[(net, hint, (cond strengths, uncond
+    strengths), (cond windows, uncond windows) or None)]``, or None."""
+    nets = []            # (net, hint) in first-seen order
+    net_max_ord = []     # per net: the most links of it on one entry
+    spec_slot = {}       # id(link) -> (net index, ordinal on its entry)
+
+    def net_index(spec) -> int:
+        for i, (n, hint) in enumerate(nets):
+            if spec[0] is n and (spec[1] is hint or (
+                    spec[1].shape == hint.shape
+                    and torch.equal(spec[1], hint))):
+                return i
+        return -1
+
+    for e in list(pos_entries) + list(neg_entries):
+        counts = {}
+        for spec in control_chain(e):
+            i = spec_slot[id(spec)][0] if id(spec) in spec_slot \
+                else net_index(spec)
+            if i < 0:
+                nets.append((spec[0], spec[1]))
+                net_max_ord.append(0)
+                i = len(nets) - 1
+            j = counts.get(i, 0)
+            counts[i] = j + 1
+            spec_slot.setdefault(id(spec), (i, j))
+            net_max_ord[i] = max(net_max_ord[i], j + 1)
+    if not nets:
+        return None
+
+    def entry_spec(e, slot):
+        return next((sp for sp in control_chain(e)
+                     if spec_slot.get(id(sp)) == slot), None)
+
+    def to_sigma(w_):
+        return None if w_ is None else (
+            schedule.percent_to_sigma(float(w_[0])),
+            schedule.percent_to_sigma(float(w_[1])))
+
+    wire = []
+    for i, n in enumerate(net_max_ord):
+        for j in range(n):
+            net, hint = nets[i]
+            specs = ([entry_spec(e, (i, j)) for e in pos_entries],
+                     [entry_spec(e, (i, j)) for e in neg_entries])
+            strengths = tuple(tuple(0.0 if sp is None else float(sp[2])
+                                    for sp in side) for side in specs)
+            windows = tuple(tuple(
+                None if sp is None or len(sp) <= 3 or sp[3] is None
+                else to_sigma(sp[3]) for sp in side) for side in specs)
+            if all(w_ is None for side in windows for w_ in side):
+                windows = None
+            hint = hint.float()
+            if hint.shape[1] != h * 8 or hint.shape[2] != w * 8:
+                hint = resize_image(hint, w * 8, h * 8, "bilinear")
+            wire.append((net, cycle_batch(hint, total), strengths, windows))
+    return wire
 
 
 def cond_token_align(entries) -> int:
@@ -853,7 +935,7 @@ class KSampler(Op):
                 sampler_name=str(sampler_name), scheduler=str(scheduler),
                 denoise=float(denoise), y=prep.y,
                 sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
-                c_concat=prep.c_concat)
+                c_concat=prep.c_concat, control=prep.control)
         # the mask stays on the latent, as ComfyUI keeps it
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
@@ -892,7 +974,8 @@ class KSamplerAdvanced(Op):
                 end_step=min(int(end_at_step), int(steps)),
                 force_full_denoise=str(return_with_leftover_noise)
                 == "disable",
-                noise_mask=prep.noise_mask, c_concat=prep.c_concat)
+                noise_mask=prep.noise_mask, c_concat=prep.c_concat,
+                control=prep.control)
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
 
@@ -1205,6 +1288,287 @@ class ImagePadForOutpaint(Op):
             inner = v * v
         mask[top:top + h, left:left + w] = inner
         return (DeviceImage(out), mask)
+
+
+# --- ControlNet and the UNet's structural patches ------------------------------
+
+@register_op
+class ControlNetLoader(Op):
+    """-> CONTROL_NET; a file of that name in ``ctx.models_dir`` is
+    loaded (its family from its cross-attention width), else the net is
+    virtual, its zero projections at zero so it leaves the UNet exactly
+    as it is (``registry.load_controlnet``)."""
+    TYPE = "ControlNetLoader"
+    WIDGETS = ["control_net_name"]
+
+    def execute(self, ctx: OpContext, control_net_name: str):
+        return (registry.load_controlnet(str(control_net_name),
+                                         models_dir=ctx.models_dir,
+                                         device=ctx.device),)
+
+
+@register_op
+class DiffControlNetLoader(Op):
+    """'Difference' ControlNet: the file's weights are deltas over the
+    model's encoder, so each leaf the model's UNet has at the same path
+    and shape is added on (``registry.load_diff_controlnet``, cached per
+    model)."""
+    TYPE = "DiffControlNetLoader"
+    WIDGETS = ["control_net_name"]
+
+    def execute(self, ctx: OpContext, model, control_net_name: str):
+        return (registry.load_diff_controlnet(model, str(control_net_name),
+                                              models_dir=ctx.models_dir),)
+
+
+def _attach_control(cond: Conditioning, link) -> Conditioning:
+    """``link`` chained onto the conditioning and every sibling (ComfyUI
+    loops the entries): a second apply adds a link, it replaces none."""
+    return dataclasses.replace(
+        cond, control=control_chain(cond) + (link,),
+        siblings=tuple(dataclasses.replace(
+            s, control=control_chain(s) + (link,)) for s in cond.siblings))
+
+
+@register_op
+class ControlNetApply(Op):
+    """A ControlNet and its hint image attached to a conditioning at a
+    strength: it steers only the rows of the entries that carry it.
+    Strength 0 returns the conditioning as it is."""
+    TYPE = "ControlNetApply"
+    WIDGETS = ["strength"]
+    DEFAULTS = {"strength": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                control_net, image, strength: float = 1.0):
+        if float(strength) == 0.0:
+            return (conditioning,)
+        link = (control_net, as_device_image(image, ctx.device),
+                float(strength))
+        return (_attach_control(conditioning, link),)
+
+
+@register_op
+class ControlNetApplyAdvanced(Op):
+    """ControlNetApply on both CFG sides with a sampling-percent window:
+    the residuals count only while start_percent <= progress <=
+    end_percent (a sigma gate in the denoiser)."""
+    TYPE = "ControlNetApplyAdvanced"
+    WIDGETS = ["strength", "start_percent", "end_percent"]
+    DEFAULTS = {"strength": 1.0, "start_percent": 0.0, "end_percent": 1.0}
+
+    def execute(self, ctx: OpContext, positive: Conditioning,
+                negative: Conditioning, control_net, image,
+                strength: float = 1.0, start_percent: float = 0.0,
+                end_percent: float = 1.0):
+        if float(strength) == 0.0:
+            return (positive, negative)
+        link = (control_net, as_device_image(image, ctx.device),
+                float(strength), (float(start_percent), float(end_percent)))
+        return (_attach_control(positive, link),
+                _attach_control(negative, link))
+
+
+def _freeu_pipeline(model, version: int, b1, b2, s1, s2):
+    """MODEL -> a derived pipeline whose UNet config carries FreeU; the
+    weights are the base's."""
+    fam = model.family
+    fam2 = dataclasses.replace(fam, unet=dataclasses.replace(
+        fam.unet, freeu=(float(b1), float(b2), float(s1), float(s2)),
+        freeu_version=int(version)))
+    return registry.derive_pipeline(
+        model, f"freeu{version}:{b1}:{b2}:{s1}:{s2}", family=fam2)
+
+
+@register_op
+class FreeU(Op):
+    """FreeU (Si et al.): the decoder's backbone boost and skip low-pass,
+    no weight change."""
+    TYPE = "FreeU"
+    WIDGETS = ["b1", "b2", "s1", "s2"]
+    DEFAULTS = {"b1": 1.1, "b2": 1.2, "s1": 0.9, "s2": 0.2}
+
+    def execute(self, ctx: OpContext, model, b1: float = 1.1,
+                b2: float = 1.2, s1: float = 0.9, s2: float = 0.2):
+        return (_freeu_pipeline(model, 1, b1, b2, s1, s2),)
+
+
+@register_op
+class FreeU_V2(Op):
+    """FreeU v2: the backbone boost scales with the per-pixel normalized
+    hidden mean."""
+    TYPE = "FreeU_V2"
+    WIDGETS = ["b1", "b2", "s1", "s2"]
+    DEFAULTS = {"b1": 1.3, "b2": 1.4, "s1": 0.9, "s2": 0.2}
+
+    def execute(self, ctx: OpContext, model, b1: float = 1.3,
+                b2: float = 1.4, s1: float = 0.9, s2: float = 0.2):
+        return (_freeu_pipeline(model, 2, b1, b2, s1, s2),)
+
+
+@register_op
+class HyperTile(Op):
+    """HyperTile: the self-attention of the levels up to ``max_depth``
+    tiled spatially, its tiles riding the batch axis.  The tiling is the
+    JAX package's deterministic one (the largest divisor with tiles of
+    at least tile_size // 8 latent units), so ``swap_size`` is accepted
+    and has no effect."""
+    TYPE = "HyperTile"
+    WIDGETS = ["tile_size", "swap_size", "max_depth", "scale_depth"]
+    DEFAULTS = {"tile_size": 256, "swap_size": 2, "max_depth": 0,
+                "scale_depth": False}
+
+    def execute(self, ctx: OpContext, model, tile_size: int = 256,
+                swap_size: int = 2, max_depth: int = 0,
+                scale_depth=False):
+        if int(swap_size) != 2:
+            debug_log("HyperTile: swap_size has no effect (deterministic "
+                      "static tiling)")
+        sd = str(scale_depth).lower() not in ("false", "0", "")
+        fam = model.family
+        fam2 = dataclasses.replace(fam, unet=dataclasses.replace(
+            fam.unet, hypertile=(int(tile_size), int(max_depth), sd)))
+        return (registry.derive_pipeline(
+            model, f"hypertile:{tile_size}:{max_depth}:{int(sd)}",
+            family=fam2),)
+
+
+@register_op
+class PatchModelAddDownscale(Op):
+    """Kohya's deep shrink: early in sampling (the sigma window from
+    start_percent to end_percent) the UNet downscales its hidden at the
+    given input block and upsamples at the first skip of another size.
+    The block maps to a UNet level (blocks 1..num_res_blocks are level 0,
+    a level's trailing downsample belongs to the next); the window
+    becomes timesteps on the model's schedule.  Both resizes are
+    bilinear, so the two method widgets have no effect, as in the JAX
+    package."""
+    TYPE = "PatchModelAddDownscale"
+    WIDGETS = ["block_number", "downscale_factor", "start_percent",
+               "end_percent", "downscale_after_skip",
+               "downscale_method", "upscale_method"]
+    DEFAULTS = {"block_number": 3, "downscale_factor": 2.0,
+                "start_percent": 0.0, "end_percent": 0.35,
+                "downscale_after_skip": True,
+                "downscale_method": "bicubic",
+                "upscale_method": "bicubic"}
+
+    def execute(self, ctx: OpContext, model, block_number: int = 3,
+                downscale_factor: float = 2.0,
+                start_percent: float = 0.0, end_percent: float = 0.35,
+                downscale_after_skip=True,
+                downscale_method: str = "bicubic",
+                upscale_method: str = "bicubic"):
+        ucfg = model.family.unet
+        nrb = int(ucfg.num_res_blocks)
+        b = max(int(block_number), 1)
+        lvl = (b - 1) // (nrb + 1)
+        if (b - 1) % (nrb + 1) == nrb:
+            lvl += 1
+        lvl = min(lvl, ucfg.num_levels - 1)
+        sched = model.schedule
+        s_hi = sched.percent_to_sigma(float(start_percent))
+        s_lo = sched.percent_to_sigma(float(end_percent))
+        t_hi = float(np.asarray(sched.t_from_sigma(
+            np.asarray([s_hi], np.float32)))[0]) + 1e-3
+        t_lo = float(np.asarray(sched.t_from_sigma(
+            np.asarray([s_lo], np.float32)))[0])
+        return (registry.derive_pipeline(
+            model, f"deepshrink:{lvl}:{float(downscale_factor)}"
+                   f":{start_percent}:{end_percent}",
+            extra_attrs={"deep_shrink_spec": (
+                float(lvl), float(downscale_factor), t_lo, t_hi)}),)
+
+
+# --- Canny (the ControlNet hint preprocessor) ---------------------------------
+
+def _accumulate(terms) -> torch.Tensor:
+    """``sum(terms)`` in the given order from a zero start, as the JAX
+    package's numpy sums run (the signed zeros come out alike)."""
+    acc = None
+    for t in terms:
+        acc = torch.zeros_like(t) + t if acc is None else acc + t
+    return acc
+
+
+def _blur_axis(x: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
+    """One pass of a separable blur over ``axis`` (1: rows, 2: columns)
+    of [B, H, W], reflect-padded."""
+    r = (len(k) - 1) // 2
+    pad = (0, 0, r, r) if axis == 1 else (r, r, 0, 0)
+    xp = torch.nn.functional.pad(x[:, None], pad, mode="reflect")[:, 0]
+    n = x.shape[axis]
+    return _accumulate(float(k[i]) * xp.narrow(axis, i, n)
+                       for i in range(len(k)))
+
+
+def canny_edges(gray: torch.Tensor, low: float, high: float
+                ) -> torch.Tensor:
+    """Canny on [B, H, W] grayscale frames on their own device, the JAX
+    package's ``_canny_edges`` step for step in float32: a 5x5 gaussian
+    (sigma 1.4, reflect padding), Sobel on edge padding, non-maximum
+    suppression along the gradient quantized to four directions, then
+    the double threshold with exact hysteresis: a weak pixel survives
+    when its 8-connected component of candidates holds a strong one
+    (flooded from the strong pixels until nothing changes, checked every
+    ``16`` steps).  Returns 0/1 float32 [B, H, W]."""
+    xs = np.arange(-2, 3, dtype=np.float32)
+    k = np.exp(-(xs ** 2) / max(2.0 * 1.4 * 1.4, 1e-8))
+    k = k / k.sum()
+    g = _blur_axis(_blur_axis(gray.float(), k, 1), k, 2)
+    H, W = g.shape[1], g.shape[2]
+    pad = torch.nn.functional.pad(g[:, None], (1, 1, 1, 1),
+                                  mode="replicate")[:, 0]
+    kx = np.asarray([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float32)
+    ky = kx.T
+    gx = _accumulate(float(kx[i, j]) * pad[:, i:i + H, j:j + W]
+                     for i in range(3) for j in range(3))
+    gy = _accumulate(float(ky[i, j]) * pad[:, i:i + H, j:j + W]
+                     for i in range(3) for j in range(3))
+    mag = torch.hypot(gx, gy)
+    deg = float(np.float32(180.0) / np.float32(np.pi))
+    ang = torch.remainder(torch.atan2(gy, gx) * deg + 180.0, 180.0)
+    mp = torch.nn.functional.pad(mag, (1, 1, 1, 1))
+    offs = torch.where(ang < 22.5, 0, torch.where(
+        ang < 67.5, 1, torch.where(ang < 112.5, 2, torch.where(
+            ang < 157.5, 3, 0))))
+    dirs = {0: ((0, 1), (0, -1)), 1: ((-1, 1), (1, -1)),
+            2: ((-1, 0), (1, 0)), 3: ((-1, -1), (1, 1))}
+    keep = torch.zeros_like(mag, dtype=torch.bool)
+    for o, ((dy1, dx1), (dy2, dx2)) in dirs.items():
+        n1 = mp[:, 1 + dy1:1 + dy1 + H, 1 + dx1:1 + dx1 + W]
+        n2 = mp[:, 1 + dy2:1 + dy2 + H, 1 + dx2:1 + dx2 + W]
+        keep |= (offs == o) & (mag >= n1) & (mag >= n2)
+    nms = torch.where(keep, mag, torch.zeros_like(mag))
+    strong = nms >= high
+    cand = (strong | (nms >= low)).float()[:, None]
+    cur = strong.float()[:, None]
+    while True:
+        prev = cur
+        for _ in range(16):
+            cur = torch.nn.functional.max_pool2d(cur, 3, 1, 1) * cand
+        if torch.equal(cur, prev):
+            return cur[:, 0]
+
+
+@register_op
+class Canny(Op):
+    """IMAGE -> edge IMAGE (the ControlNet hint preprocessor), on the
+    run's device: the frames' luma (0.299, 0.587, 0.114) through
+    :func:`canny_edges`, repeated to three channels."""
+    TYPE = "Canny"
+    WIDGETS = ["low_threshold", "high_threshold"]
+    DEFAULTS = {"low_threshold": 0.4, "high_threshold": 0.8}
+
+    def execute(self, ctx: OpContext, image, low_threshold: float = 0.4,
+                high_threshold: float = 0.8):
+        img = as_device_image(image, ctx.device)
+        luma = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32,
+                            device=img.device)
+        with Timer("canny"):
+            edges = canny_edges(img @ luma, float(low_threshold),
+                                float(high_threshold))
+        return (DeviceImage(edges[..., None].repeat(1, 1, 1, 3)),)
 
 
 @register_op

@@ -114,14 +114,20 @@ def _is_regional(c: Conditioning) -> bool:
                 or c.timestep_range is not None)
 
 
-def _tile_cache_eligible(positive: Conditioning,
-                         negative: Conditioning) -> bool:
+def _tile_cache_eligible(positive: Conditioning, negative: Conditioning,
+                         pipe=None) -> bool:
     """The tile tier is armed for a plain refine only: canvas-wide single
     conditionings (a regional mask resolves by the tile's position,
-    which its content key does not hold), no concat channels or unCLIP
-    vector.  A PerpNeg pipeline raises before."""
+    which its content key does not hold), no concat channels, unCLIP
+    vector or ControlNet, and a pipeline without deep shrink (a sampling
+    patch the key does not hold).  A PerpNeg pipeline raises before.
+    The refine itself passes no control to the tile sampling, as the JAX
+    package's does not."""
+    if getattr(pipe, "deep_shrink_spec", None):
+        return False
     return not any(_is_regional(c) or c.concat_latent is not None
-                   or c.unclip is not None for c in (positive, negative))
+                   or c.unclip is not None or c.control is not None
+                   for c in (positive, negative))
 
 
 def _window_payload(window: torch.Tensor):
@@ -222,7 +228,7 @@ class UltimateSDUpscaleDistributed(Op):
         -> key for storing the misses, or None when the tier is off or
         this refine is not eligible."""
         if not reuse_mod.reuse_enabled() \
-                or not _tile_cache_eligible(positive, negative):
+                or not _tile_cache_eligible(positive, negative, pipe):
             return None
         plane = reuse_mod.get_reuse()
         salt = plane.model_salt(pipe)

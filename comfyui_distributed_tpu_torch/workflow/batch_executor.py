@@ -312,6 +312,8 @@ class _Bucket:
         self.sampler_name = str(capture["sampler_name"])
         self.cfg = float(capture["cfg"])
         smp.get_sampler_step(self.sampler_name)   # raises on non-step
+        if getattr(pipe, "deep_shrink_spec", None):
+            raise CBIneligible("model patch present: deep_shrink_spec")
         self.sigmas_np = np.asarray(sch.compute_sigmas(
             pipe.schedule, str(capture["scheduler"]),
             int(capture["steps"]), float(capture["denoise"])), np.float32)
@@ -330,7 +332,8 @@ class _Bucket:
                                              device=dev),
                       "local_batch": rows_max},
             capture["positive"], capture["negative"])
-        if prep.noise_mask is not None or prep.c_concat is not None \
+        if prep.control is not None or prep.noise_mask is not None \
+                or prep.c_concat is not None \
                 or isinstance(prep.y, (list, tuple)) \
                 or isinstance(prep.context, list) \
                 or isinstance(prep.uncond, list):

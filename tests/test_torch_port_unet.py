@@ -100,16 +100,21 @@ def test_resblock_and_timestep_embedding():
                               jnp.asarray(emb))), **TOL)
 
 
-@pytest.mark.parametrize("patch", [dict(freeu=(1.1, 1.2, 0.9, 0.2)),
+@pytest.mark.parametrize("patch", [dict(freeu=(1.1, 1.2, 0.9, 0.2),
+                                        tome_ratio=0.5),
                                    dict(tome_ratio=0.5), dict(gligen=768),
                                    dict(sag_capture=True)])
 def test_unported_patches_raise(patch):
+    """ToMe, GLIGEN and SAG capture are not ported and raise, beside a
+    ported patch (FreeU) too."""
     with pytest.raises(NotImplementedError):
         tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, **patch))
 
 
 def test_control_residuals_raise():
+    """ControlNet residuals are ported: a list that does not hold one
+    residual a skip raises, as the JAX UNet's strict zip does."""
     model = tunet.UNet(tunet.TINY_CONFIG)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         model(torch.zeros(1, 8, 8, 4), torch.zeros(1), torch.zeros(1, 77, 64),
               control=([], None))
