@@ -446,6 +446,33 @@ Run from the root of a checkout on a machine with a CUDA card (and
    each request's seconds, node seconds, launches, attention ms (phase
    3's times of its shapes times its launches) and peak memory, and the
    card.
+23. Custom sampling and the CFG variants, in phase 22's process on its
+   SD1.5 file, seed and plain graph (:func:`phase23_doc`) with
+   ``DTPU_CACHE=0``, phase 22's plain image reused.  Equal to it to the
+   bit: SamplerCustomAdvanced (RandomNoise, CFGGuider at the same cfg,
+   KSamplerSelect euler, BasicScheduler karras 20), SamplerCustom with
+   the same sampler and sigmas, and ModelSamplingDiscrete (eps, zsnr
+   off) under KSampler; equal to the first of those to the bit, the
+   sigmas split at step 10 (``PHASE23_SPLIT_AT``) into two
+   SamplerCustomAdvanced, the second under DisableNoise.  Within the
+   one-batch limits (``FANOUT_ATOL["one_batch"]``) of plain, since they
+   reduce to plain CFG but run other batches: DualCFGGuider with cond2
+   the negative, PerpNegGuider whose empty conditioning is an encode of
+   the negative's text, and SelfAttentionGuidance at scale 0.  The
+   PerpNeg patch under KSampler with that empty conditioning equal to
+   PerpNegGuider's image to the bit.  Finite and beyond those limits of
+   plain: SAG at ``PHASE23_SAG``, RescaleCFG ``PHASE23_RESCALE``,
+   AlignYourStepsScheduler SD1 with 10 dpmpp_2m steps, and one
+   SDTurboScheduler step under BasicGuider.  Each request's sm90
+   launches are exact (:func:`phase23_launches`: 640 at B = 3 for the
+   3-row guidances, 1260 for SAG, 620 at B = 2 and 640 at B = 1, its
+   captured middle self-attention launching none, 32 at B = 1 for
+   SDTurbo) and at shapes phase 3 checked (its B = 1 rows and the
+   counts of a call, 32 and SAG's capture 31, from
+   :func:`phase23_kernel_shapes`, a meta-device forward).  It prints a
+   ``phase23`` line: each check's max and mean difference, each
+   request's seconds, sampler-node seconds, node seconds, launches,
+   attention ms and peak memory, and the card.
 
 Phases 14, 15, 16, 20 and 21 launch their servers before the phase
 before them (13, 14, 15, 19 and 20) runs, so a server's start
@@ -465,7 +492,7 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 (the encode memo: a warm request takes its text encodes from it).
 
 Launch counts are zeroed just before each request of phases 5-7,
-9-13 and 22 and read just after (phase 15's interrupted request and every
+9-13, 22 and 23 and read just after (phase 15's interrupted request and every
 request of phases 16, 18, 19 and 21: their servers' prompt lines;
 phase 20's: its buckets' counts, each step's own, and its prompt
 lines).  The line before the last is ``{"kernels":
@@ -676,6 +703,19 @@ PHASE22_HYPERTILE = (256, 2, 0, False)
 PHASE22_UNET_LAUNCHES = 640
 PHASE22_NET_LAUNCHES = 280
 PHASE22_BUDGET_S = 40.0
+# phase 23: custom sampling and the CFG variants on phase 22's SD1.5 file,
+# seed and graph; an SD1.5 UNet call launches 32 attentions (16
+# transformer blocks x 2), SAG's capture call 31 (its middle block's
+# first self-attention is materialised, not launched)
+PHASE23_CALL_LAUNCHES = 32
+PHASE23_CAPTURE_LAUNCHES = 31
+PHASE23_STEPS = 20
+PHASE23_SPLIT_AT = 10
+PHASE23_DUAL_CFG2 = 3.0
+PHASE23_SAG = (0.5, 2.0)
+PHASE23_RESCALE = 0.7
+PHASE23_AYS_STEPS = 10
+PHASE23_BUDGET_S = 30.0
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -5594,11 +5634,12 @@ def elastic_fleet(docs, txt_refs, rows):
                     "shapes": dict(launches["shapes"])}
 
 
-def patched_attention_shapes(patch, hw=(64, 64), batch=2):
-    """The attention shapes ``(B, N, M, H, D, dtype)`` of one SD1.5 UNet
-    call on a ``batch`` x ``hw`` latent under the UNet-config ``patch``
-    (HyperTile's folded tiles, deep shrink's shrunk levels), read off a
-    forward on the meta device with the kernel's wrapper swapped for a
+def patched_attention_shapes(patch, hw=(64, 64), batch=2, capture=False):
+    """The attention shapes ``(B, N, M, H, D, dtype)`` that one SD1.5
+    UNet call on a ``batch`` x ``hw`` latent under the UNet-config
+    ``patch`` (HyperTile's folded tiles, deep shrink's shrunk levels,
+    SAG's capture with ``capture``) gives the kernel's wrapper, read off
+    a forward on the meta device with the wrapper swapped for a
     recorder: the shapes the code gives, not a copy of its rule."""
     import dataclasses
 
@@ -5620,7 +5661,8 @@ def patched_attention_shapes(patch, hw=(64, 64), batch=2):
         with torch.device("meta"):
             unet = unet_mod.UNet(cfg)
             unet(torch.empty(batch, *hw, cfg.in_channels), torch.empty(batch),
-                 torch.empty(batch, 77, cfg.context_dim))
+                 torch.empty(batch, 77, cfg.context_dim),
+                 **({"capture": True} if capture else {}))
     finally:
         layers.flash_attention = saved
     return seen
@@ -5637,6 +5679,32 @@ def phase22_kernel_shapes():
             rows.append((B, N, M, H, D, dt,
                          f"SD1.5 512^2 {what} {'self' if N == M else 'cross'}"
                          f" {N} tokens"))
+    return rows
+
+
+def phase23_kernel_shapes():
+    """Phase 3's rows for phase 23's batches at 512^2: the 3-row
+    guidances' B = 3 and SAG's uncond-only call and a BasicGuider step at
+    B = 1.  The capture call's 31 launches at B = 2 are the plain B = 2
+    shapes (its middle self-attention launches nothing), and the calls'
+    counts must be the launch constants'."""
+    rows = []
+    for batch, what in ((3, "3-row guidance"), (1, "one-row call")):
+        shapes = patched_attention_shapes({}, batch=batch)
+        if len(shapes) != PHASE23_CALL_LAUNCHES:
+            fail(f"phase 23: an SD1.5 call at B = {batch} gives "
+                 f"{len(shapes)} attentions, not {PHASE23_CALL_LAUNCHES}")
+        for B, N, M, H, D, dt in sorted(set(shapes)):
+            rows.append((B, N, M, H, D, dt,
+                         f"SD1.5 512^2 {what} {'self' if N == M else 'cross'}"
+                         f" {N} tokens"))
+    cap = patched_attention_shapes({"sag_capture": True}, capture=True)
+    plain = patched_attention_shapes({})
+    if len(cap) != PHASE23_CAPTURE_LAUNCHES \
+            or not set(cap) <= set(plain):
+        fail(f"phase 23: SAG's capture call gives {len(cap)} attentions "
+             f"(expected {PHASE23_CAPTURE_LAUNCHES} of the plain call's "
+             "shapes)")
     return rows
 
 
@@ -5788,24 +5856,10 @@ def write_phase22_nets(models_dir, pipe):
     return report
 
 
-def controlnet_and_patches(docs, shape_counts, rows):
-    """Phase 22 (module docstring) on the SD1.5 checkpoint the upscale
-    workflow names (phase 10's file): (report, requests)."""
-    import gc
-
-    import numpy as np
-    import torch
-
-    from comfyui_distributed_tpu_torch.models import registry
-    from comfyui_distributed_tpu_torch.ops.base import OpContext
-    from comfyui_distributed_tpu_torch.ops.kernels import flash_attention \
-        as fa
-    from comfyui_distributed_tpu_torch.utils.image import save_png
-    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
-
-    t_phase = time.perf_counter()
-    checked = {(r["B"], r["N"], r["M"], r["H"], r["D"], r["dtype"]): r
-               for r in rows if not r.get("named")}
+def sd15_phase_dirs(docs):
+    """Phases 22 and 23's directories: a models directory holding a link
+    to phase 10's SD1.5 file (the checkpoint the upscale workflow names)
+    and an input directory.  Released by :func:`release_phase_dirs`."""
     ckpt_name = docs["upscale"]["4"]["inputs"]["ckpt_name"]
     root, _ = models_dir_root()
     models_dir = tempfile.mkdtemp(prefix="chip_smoke_phase22_", dir=root)
@@ -5815,17 +5869,52 @@ def controlnet_and_patches(docs, shape_counts, rows):
     if src is None or not os.path.exists(src):
         fail(f"phase 22: phase 10's SD1.5 file {ckpt_name} is missing")
     os.symlink(src, os.path.join(models_dir, ckpt_name))
-    requests, images, report = [], {}, {"card": card_line()}
-    base = phase22_doc(ckpt_name)
+    return {"ckpt": ckpt_name, "models_dir": models_dir,
+            "input_dir": input_dir}
 
-    def run(tag, doc, nets):
-        want = PHASE22_UNET_LAUNCHES + nets * PHASE22_NET_LAUNCHES
+
+def release_phase_dirs(dirs):
+    """Drop the pipelines and the device memory, remove the directories."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    registry.clear_pipeline_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(dirs["models_dir"], ignore_errors=True)
+    shutil.rmtree(dirs["input_dir"], ignore_errors=True)
+
+
+class PhaseRequests:
+    """The in-process requests of phases 22 and 23: each run's image, its
+    launches (zeroed just before, read just after, held to the expected
+    sm90 count and to shapes phase 3 checked, failing at once) and its
+    line; and the image checks between runs, whose failures
+    :meth:`report` prints with the phase's line before it fails."""
+
+    def __init__(self, phase, dirs, shape_counts, rows):
+        self.phase, self.dirs, self.shape_counts = phase, dirs, shape_counts
+        self.checked = {(r["B"], r["N"], r["M"], r["H"], r["D"],
+                         r["dtype"]): r for r in rows if not r.get("named")}
+        self.requests, self.images, self.checks = [], {}, {}
+        self.problems = []
+
+    def run(self, tag, doc, want, sampler_nodes=("3",)):
+        import numpy as np
+        import torch
+
+        from comfyui_distributed_tpu_torch.ops.base import OpContext
+        from comfyui_distributed_tpu_torch.ops.kernels import \
+            flash_attention as fa
+        from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
         torch.cuda.reset_peak_memory_stats()
         fa.reset_counts()
         t0 = time.perf_counter()
         res = WorkflowExecutor(OpContext(
-            device=DEVICE, input_dir=input_dir,
-            models_dir=models_dir)).execute(copy.deepcopy(doc))
+            device=DEVICE, input_dir=self.dirs["input_dir"],
+            models_dir=self.dirs["models_dir"])).execute(copy.deepcopy(doc))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         shapes = dict(fa.flash_attention.shapes)
@@ -5835,49 +5924,95 @@ def controlnet_and_patches(docs, shape_counts, rows):
         std = float(img.std()) if img is not None else 0.0
         if img is None or img.ndim != 4 or img.shape[0] != 1 or not finite \
                 or not std > 0.0:
-            fail(f"phase 22 {tag}: image shape "
+            fail(f"phase {self.phase} {tag}: image shape "
                  f"{None if img is None else img.shape}, finite {finite}, "
                  f"std {std}")
         if variants != {"sm90": want}:
-            fail(f"phase 22 {tag}: flash-attention launches {variants}; "
-                 f"expected {want} sm90")
-        missing = sorted(set(shapes).difference(checked))
+            fail(f"phase {self.phase} {tag}: flash-attention launches "
+                 f"{variants}; expected {want} sm90")
+        missing = sorted(set(shapes).difference(self.checked))
         if missing:
-            fail(f"phase 22 {tag}: launched shapes phase 3 did not check: "
-                 f"{missing}")
-        shape_counts.update(shapes)
+            fail(f"phase {self.phase} {tag}: launched shapes phase 3 did "
+                 f"not check: {missing}")
+        self.shape_counts.update(shapes)
         # the request's attention: phase 3's times of its shapes times
         # its launches of each
-        kernel = totals(shapes, checked, ["ms", "plain_ms", "library_ms",
-                                          "mma_sync_ms", "exp2_ms"]) \
-            if shapes and not missing else None
-        requests.append({
-            "path": "phase22", "run": tag, "seconds": seconds,
+        kernel = totals(shapes, self.checked,
+                        ["ms", "plain_ms", "library_ms", "mma_sync_ms",
+                         "exp2_ms"]) if shapes else None
+        self.requests.append({
+            "path": f"phase{self.phase}", "run": tag, "seconds": seconds,
             "kernel_ms": kernel,
             "node_seconds": {f"{k} {doc[k]['class_type']}": round(v, 4)
                              for k, v in res.timings.items()},
+            "sampler_seconds": round(sum(res.timings[k]
+                                         for k in sampler_nodes), 4),
             "launches": fa.flash_attention.launches, "variants": variants,
             "launches_by_shape": [[*k, n] for k, n in sorted(shapes.items())],
             "max_memory_allocated": torch.cuda.max_memory_allocated()})
-        images[tag] = img[0]
+        self.images[tag] = img[0]
         return img[0]
 
-    def diff(a, b):
-        d = np.abs(images[a] - images[b])
+    def diff(self, a, b):
+        import numpy as np
+        d = np.abs(self.images[a] - self.images[b])
         return {"max": float(d.max()), "mean": float(d.mean())}
 
-    checks = {}
+    def same(self, a, b):
+        import numpy as np
+        self.checks[f"{a} == {b}"] = d = self.diff(a, b)
+        if not np.array_equal(self.images[a], self.images[b]):
+            self.problems.append(f"{a} differs from {b}: {d}")
 
-    def same(a, b):
-        checks[f"{a} == {b}"] = diff(a, b)
-        if not np.array_equal(images[a], images[b]):
-            fail(f"phase 22: {a} differs from {b}: {checks[f'{a} == {b}']}")
+    def within(self, a, b, limits=FANOUT_ATOL["one_batch"]):
+        self.checks[f"{a} ~ {b}"] = d = self.diff(a, b)
+        if not (d["max"] <= limits[0] and d["mean"] <= limits[1]):
+            self.problems.append(f"{a} is beyond {limits} of {b}: {d}")
 
-    def apart(a, b, limits=FANOUT_ATOL["one_batch"]):
-        checks[f"{a} != {b}"] = d = diff(a, b)
+    def apart(self, a, b, limits=FANOUT_ATOL["one_batch"]):
+        self.checks[f"{a} != {b}"] = d = self.diff(a, b)
         if not (d["max"] > limits[0] and d["mean"] > limits[1]):
-            fail(f"phase 22: {a} is not beyond {limits} of {b}: {d}")
+            self.problems.append(f"{a} is not beyond {limits} of {b}: {d}")
 
+    def report(self, t_phase, budget_s, extra=None):
+        """The phase's line; with a failed check, printed and failed."""
+        out = {"card": card_line(), "checks": self.checks,
+               "requests": [{k: r[k] for k in (
+                   "run", "seconds", "sampler_seconds", "node_seconds",
+                   "launches", "kernel_ms", "max_memory_allocated")}
+                   for r in self.requests],
+               "seconds": time.perf_counter() - t_phase}
+        out.update(extra or {})
+        if self.problems:
+            emit(f"phase{self.phase}", out)
+            fail(f"phase {self.phase}: {'; '.join(self.problems)}")
+        if out["seconds"] > budget_s:
+            print(f"chip_smoke: phase {self.phase} took "
+                  f"{out['seconds']:.1f} s, over its {budget_s} s budget",
+                  file=sys.stderr, flush=True)
+        return out
+
+
+def controlnet_and_patches(dirs, shape_counts, rows):
+    """Phase 22 (module docstring) on the SD1.5 checkpoint of ``dirs``
+    (:func:`sd15_phase_dirs`): (report, requests, the plain image)."""
+    import gc
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.utils.image import save_png
+
+    t_phase = time.perf_counter()
+    ckpt_name, models_dir = dirs["ckpt"], dirs["models_dir"]
+    input_dir = dirs["input_dir"]
+    runs = PhaseRequests(22, dirs, shape_counts, rows)
+    images, checks, report = runs.images, runs.checks, {}
+    base = phase22_doc(ckpt_name)
+
+    def run(tag, doc, nets):
+        return runs.run(tag, doc, PHASE22_UNET_LAUNCHES
+                        + nets * PHASE22_NET_LAUNCHES)
+
+    diff, same, apart = runs.diff, runs.same, runs.apart
     try:
         run("plain", base, 0)
         save_png(os.path.join(input_dir, PHASE22_HINT), images["plain"])
@@ -5892,7 +6027,6 @@ def controlnet_and_patches(docs, shape_counts, rows):
                                       device=DEVICE)
         report["files"] = write_phase22_nets(models_dir, pipe)
         del pipe
-        gc.collect()
         from_file = [("ControlNetLoader", PHASE22_CN)]
         run("file", phase22_variant(base, from_file), 1)
         family = registry._cn_family_cache.get(
@@ -5905,11 +6039,7 @@ def controlnet_and_patches(docs, shape_counts, rows):
         same("file again", "file")
         run("diff file", phase22_variant(
             base, [("DiffControlNetLoader", PHASE22_DIFF_CN)]), 1)
-        checks["diff file ~ file"] = d = diff("diff file", "file")
-        limits = FANOUT_ATOL["one_batch"]
-        if not (d["max"] <= limits[0] and d["mean"] <= limits[1]):
-            fail(f"phase 22: the difference file's image is beyond "
-                 f"{limits} of the file's: {d}")
+        runs.within("diff file", "file")
         run("two nets", phase22_variant(base, from_file + virtual), 2)
         same("two nets", "file")
         for tag, op, widgets in (
@@ -5935,20 +6065,157 @@ def controlnet_and_patches(docs, shape_counts, rows):
                  "drop")
         report["deep_shrink_log_seen"] = True
     finally:
-        registry.clear_pipeline_cache()
+        # phase 23 takes the SD1.5 pipeline on; the ControlNets go
+        registry._controlnet_cache.clear()
         gc.collect()
-        torch.cuda.empty_cache()
-        shutil.rmtree(models_dir, ignore_errors=True)
-        shutil.rmtree(input_dir, ignore_errors=True)
-    report["checks"] = checks
-    report["requests"] = [{k: r[k] for k in (
-        "run", "seconds", "node_seconds", "launches", "kernel_ms",
-        "max_memory_allocated")} for r in requests]
-    report["seconds"] = time.perf_counter() - t_phase
-    if report["seconds"] > PHASE22_BUDGET_S:
-        print(f"chip_smoke: phase 22 took {report['seconds']:.1f} s, over "
-              f"its {PHASE22_BUDGET_S} s budget", file=sys.stderr, flush=True)
-    return report, requests
+    return (runs.report(t_phase, PHASE22_BUDGET_S, report), runs.requests,
+            images["plain"])
+
+
+def phase23_doc(base, variant):
+    """Phase 23's graph ``variant`` on phase 22's plain graph ``base``
+    (its hint nodes dropped): the same checkpoint, prompts, latent,
+    seed, cfg, sampler and schedule, sampled through the slice's ops.
+    Returns (doc, the sampler nodes)."""
+    doc = {k: copy.deepcopy(v) for k, v in base.items()
+           if k not in ("10", "11")}
+    ks = doc["3"]["inputs"]
+    seed, cfg = ks["seed"], ks["cfg"]
+    model, pos, neg = ["4", 0], ["6", 0], ["7", 0]
+    nodes = ("3",)
+
+    def node(nid, class_type, **inputs):
+        doc[nid] = {"class_type": class_type, "inputs": inputs}
+
+    def custom(guider=None):
+        node("20", "RandomNoise", noise_seed=seed)
+        node("21", "KSamplerSelect", sampler_name=ks["sampler_name"])
+        node("22", "BasicScheduler", model=model, scheduler=ks["scheduler"],
+             steps=ks["steps"], denoise=1.0)
+        node("23", "CFGGuider", model=model, positive=pos, negative=neg,
+             cfg=cfg)
+        if guider is not None:
+            node("23", *guider[:1], **guider[1])
+        node("3", "SamplerCustomAdvanced", noise=["20", 0],
+             guider=["23", 0], sampler=["21", 0], sigmas=["22", 0],
+             latent_image=["5", 0])
+
+    def patch(class_type, **widgets):
+        node("30", class_type, model=model, **widgets)
+        ks["model"] = ["30", 0]
+
+    empty_text = doc["7"]["inputs"]["text"]
+    if variant == "SamplerCustomAdvanced":
+        custom()
+    elif variant == "SamplerCustom":
+        custom()
+        node("3", "SamplerCustom", model=model, add_noise=True,
+             noise_seed=seed, cfg=cfg, positive=pos, negative=neg,
+             latent_image=["5", 0], sampler=["21", 0], sigmas=["22", 0])
+    elif variant == "ModelSamplingDiscrete eps":
+        patch("ModelSamplingDiscrete", sampling="eps", zsnr=False)
+    elif variant == "SplitSigmas":
+        custom()
+        node("25", "SplitSigmas", sigmas=["22", 0], step=PHASE23_SPLIT_AT)
+        node("26", "DisableNoise")
+        doc["3"]["inputs"]["sigmas"] = ["25", 0]
+        node("27", "SamplerCustomAdvanced", noise=["26", 0],
+             guider=["23", 0], sampler=["21", 0], sigmas=["25", 1],
+             latent_image=["3", 0])
+        doc["8"]["inputs"]["samples"] = ["27", 0]
+        nodes = ("3", "27")
+    elif variant == "DualCFGGuider":
+        custom(("DualCFGGuider", dict(
+            model=model, cond1=pos, cond2=neg, negative=neg, cfg_conds=cfg,
+            cfg_cond2_negative=PHASE23_DUAL_CFG2)))
+    elif variant == "PerpNegGuider":
+        # the empty prompt's own encode, of the negative's text
+        node("24", "CLIPTextEncode", text=empty_text, clip=["4", 1])
+        custom(("PerpNegGuider", dict(
+            model=model, positive=pos, negative=neg,
+            empty_conditioning=["24", 0], cfg=cfg, neg_scale=1.0)))
+    elif variant == "PerpNeg":
+        node("24", "CLIPTextEncode", text=empty_text, clip=["4", 1])
+        patch("PerpNeg", empty_conditioning=["24", 0], neg_scale=1.0)
+    elif variant == "SAG 0":
+        patch("SelfAttentionGuidance", scale=0.0,
+              blur_sigma=PHASE23_SAG[1])
+    elif variant == "SAG":
+        patch("SelfAttentionGuidance", scale=PHASE23_SAG[0],
+              blur_sigma=PHASE23_SAG[1])
+    elif variant == "RescaleCFG":
+        patch("RescaleCFG", multiplier=PHASE23_RESCALE)
+    elif variant == "AlignYourSteps":
+        custom()
+        node("21", "KSamplerSelect", sampler_name="dpmpp_2m")
+        node("22", "AlignYourStepsScheduler", model_type="SD1",
+             steps=PHASE23_AYS_STEPS, denoise=1.0)
+    elif variant == "SDTurbo":
+        custom(("BasicGuider", dict(model=model, conditioning=pos)))
+        node("22", "SDTurboScheduler", model=model, steps=1, denoise=1.0)
+    else:
+        raise ValueError(variant)
+    return doc, nodes
+
+
+def phase23_launches(variant):
+    """sm90 launches of a phase 23 request: 32 a UNet call at B = 2 or 3
+    (20 steps), SAG's capture call and its uncond call at B = 1 (31 + 32
+    a step), AYS's 10 dpmpp_2m steps, SDTurbo's one step at B = 1."""
+    call, steps = PHASE23_CALL_LAUNCHES, PHASE23_STEPS
+    if variant in ("SAG 0", "SAG"):
+        return steps * (PHASE23_CAPTURE_LAUNCHES + call)
+    if variant == "AlignYourSteps":
+        return PHASE23_AYS_STEPS * call
+    if variant == "SDTurbo":
+        return call
+    return steps * call
+
+
+def custom_sampling(dirs, plain, shape_counts, rows):
+    """Phase 23 (module docstring) in phase 22's process, on its SD1.5
+    file, seed and graph, with the reuse plane off; ``plain`` is phase
+    22's plain image: (report, requests)."""
+    t_phase = time.perf_counter()
+    runs = PhaseRequests(23, dirs, shape_counts, rows)
+    runs.images["phase 22 plain"] = plain
+    base = phase22_doc(dirs["ckpt"])
+    prev = os.environ.get("DTPU_CACHE")
+    os.environ["DTPU_CACHE"] = "0"
+    logs = {}
+    try:
+        for variant in ("SamplerCustomAdvanced", "SamplerCustom",
+                        "ModelSamplingDiscrete eps", "SplitSigmas",
+                        "DualCFGGuider", "PerpNegGuider", "PerpNeg",
+                        "SAG 0", "SAG", "RescaleCFG", "AlignYourSteps",
+                        "SDTurbo"):
+            doc, nodes = phase23_doc(base, variant)
+            with TeeStdout() as tee:
+                runs.run(variant, doc, phase23_launches(variant), nodes)
+            logs[variant] = "".join(tee.lines)
+    finally:
+        if prev is None:
+            os.environ.pop("DTPU_CACHE", None)
+        else:
+            os.environ["DTPU_CACHE"] = prev
+    plain_tag = "phase 22 plain"
+    for variant in ("SamplerCustomAdvanced", "SamplerCustom",
+                    "ModelSamplingDiscrete eps"):
+        runs.same(variant, plain_tag)
+    runs.same("SplitSigmas", "SamplerCustomAdvanced")
+    for variant in ("DualCFGGuider", "PerpNegGuider", "SAG 0"):
+        runs.within(variant, plain_tag)
+    runs.same("PerpNeg", "PerpNegGuider")
+    for variant in ("SAG", "AlignYourSteps", "SDTurbo"):
+        runs.apart(variant, plain_tag)
+    # RescaleCFG samples at plain's batch, so without the rescale it would
+    # be plain to the bit: held beyond the same-batch limits
+    runs.apart("RescaleCFG", plain_tag, FANOUT_ATOL["same"])
+    dropped = [v for v, said in logs.items()
+               if "WITHOUT self-attention guidance" in said]
+    if dropped:
+        runs.problems.append(f"SAG was dropped in {dropped}")
+    return runs.report(t_phase, PHASE23_BUDGET_S), runs.requests
 
 
 def urllib_text(url):
@@ -6123,9 +6390,12 @@ def main() -> int:
         (2, 90, 7, 2, 80, f32, "fp32 D = 80: two threads a row"),
         (1, 33, 200, 2, 160, f32, "fp32 D = 160: four threads a row"),
     ]
-    # phase 22: HyperTile's folded tiles and deep shrink's shrunk levels
-    have = {r[:6] for r in main_shapes}
-    main_shapes += [r for r in phase22_kernel_shapes() if r[:6] not in have]
+    # phase 22: HyperTile's folded tiles and deep shrink's shrunk levels;
+    # phase 23: the 3-row guidances at B = 3, SAG's uncond call and an
+    # SDTurbo step at B = 1
+    for extra in (phase22_kernel_shapes(), phase23_kernel_shapes()):
+        have = {r[:6] for r in main_shapes}
+        main_shapes += [r for r in extra if r[:6] not in have]
     rows = check_kernel(main_shapes + extra_shapes)
     emit("kernel_checks", rows)
 
@@ -6232,9 +6502,18 @@ def main() -> int:
     shape_counts.update(scaled["shapes"])
     requests.append(scaled)
     emit("phase21", report21)
-    report22, reqs22 = controlnet_and_patches(docs, shape_counts, rows)
-    requests += reqs22
-    emit("phase22", report22)
+    dirs22 = sd15_phase_dirs(docs)
+    try:
+        report22, reqs22, plain22 = controlnet_and_patches(
+            dirs22, shape_counts, rows)
+        requests += reqs22
+        emit("phase22", report22)
+        report23, reqs23 = custom_sampling(dirs22, plain22, shape_counts,
+                                           rows)
+        requests += reqs23
+        emit("phase23", report23)
+    finally:
+        release_phase_dirs(dirs22)
     emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:

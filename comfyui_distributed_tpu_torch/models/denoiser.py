@@ -1,7 +1,7 @@
-"""Denoiser wrapper: UNet (eps/v prediction) -> k-diffusion interface.
-The counterpart of ``comfyui_distributed_tpu/models/denoiser.py``: the
-plain path, the inpaint models' extra input channels and a chain of
-ControlNets (no hypernetworks yet).
+"""Denoiser wrapper: UNet (eps, v or x0 prediction) -> k-diffusion
+interface.  The counterpart of ``comfyui_distributed_tpu/models/
+denoiser.py``: the plain path, the inpaint models' extra input channels,
+a chain of ControlNets and SAG's capture (no hypernetworks yet).
 
 The UNet input is pre-scaled by ``1/sqrt(sigma^2+1)`` and the timestep is
 the continuous index of sigma in the model's table.
@@ -131,8 +131,8 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
                   prediction_type: str = "eps",
                   device=None,
                   concat: Optional[torch.Tensor] = None,
-                  control: Optional[Sequence[ControlSpec]] = None
-                  ) -> Callable:
+                  control: Optional[Sequence[ControlSpec]] = None,
+                  capture: bool = False) -> Callable:
     """``model(x, sigma, context=..., y=...) -> denoised`` over
     ``unet(x, timesteps, context, y)``; ``sigma`` is a host float (made
     a float32 scalar on x's device by a fill, not a copy that would wait
@@ -144,8 +144,13 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
     the CFG-stacked batch ([cond rows; uncond rows] each get them).
     ``control``: a chain of :class:`ControlSpec`, run each call on the
     same scaled input the UNet sees (before the concat channels), their
-    summed residuals passed as the UNet's ``control``."""
-    if prediction_type not in ("eps", "v"):
+    summed residuals passed as the UNet's ``control``.  ``capture``
+    (SAG): the UNet runs its capture forward and the denoiser returns
+    (denoised, the middle block's attention weights).
+    ``prediction_type``: ``"eps"``, ``"v"`` (denoised = x / (sigma^2 +
+    1) - v * sigma / sqrt(sigma^2 + 1)) or ``"x0"`` (the output is the
+    denoised sample; ModelSamplingDiscrete's ``x0``)."""
+    if prediction_type not in ("eps", "v", "x0"):
         raise ValueError(f"prediction type {prediction_type!r} is not "
                          "ported to the torch package")
     t_from_sigma = make_t_from_sigma(ds, device)
@@ -173,13 +178,19 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
             reps = x.shape[0] // concat.shape[0]
             xin = torch.cat([xin, concat.to(xin.dtype).repeat(reps, 1, 1, 1)],
                             dim=-1)
-        out = unet(xin, ts, context, y) if ctrl is None \
-            else unet(xin, ts, context, y, ctrl)
+        kw = {"capture": True} if capture else {}
+        out = unet(xin, ts, context, y, **kw) if ctrl is None \
+            else unet(xin, ts, context, y, ctrl, **kw)
+        out, probs = out if capture else (out, None)
         if prediction_type == "v":
             # VP parameterization: denoised = c_skip*x - c_out*v
             c_skip = 1.0 / (sigma ** 2 + 1.0)
             c_out = sigma / torch.sqrt(sigma ** 2 + 1.0)
-            return x * c_skip - out * c_out
-        return x - out * sigma
+            den = x * c_skip - out * c_out
+        elif prediction_type == "x0":
+            den = out
+        else:
+            den = x - out * sigma
+        return (den, probs) if capture else den
 
     return denoiser

@@ -13,7 +13,11 @@ Conventions carried over from the JAX package:
 - feature maps are NCHW inside the modules (PyTorch's convolution layout);
   the UNet and VAE keep the JAX package's NHWC at their public functions;
 - every attention of the UNet goes through the CUDA kernel's wrapper
-  (``ops/kernels/flash_attention.py``).
+  (``ops/kernels/flash_attention.py``), but one: under SAG's capture the
+  middle block's first self-attention runs
+  :meth:`Attention.forward_capture`, which materialises its fp32
+  softmax weights, as the JAX package computes that layer outside
+  Pallas.
 """
 
 from __future__ import annotations
@@ -153,6 +157,23 @@ class Attention(nn.Module):
         out = flash_attention(q, k, v)
         return self.to_out(out.reshape(B, N, h * d))
 
+    def forward_capture(self, x: torch.Tensor):
+        """Self-attention with its softmax weights materialised: (output,
+        weights [B, heads, N, N] in fp32).  SAG's capture of the middle
+        block (a few dozen tokens), as the JAX layer's ``sow_probs``:
+        fp32 logits at scale 1/sqrt(D), an fp32 softmax, the weights cast
+        to v's dtype for the product.  It launches no kernel."""
+        B, N, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        q = self.to_q(x).view(B, N, h, d)
+        k = self.to_k(x).view(B, N, h, d)
+        v = self.to_v(x).view(B, N, h, d)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) \
+            * (1.0 / math.sqrt(d))
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhnm,bmhd->bnhd", weights.to(v.dtype), v)
+        return self.to_out(out.reshape(B, N, h * d)), weights
+
 
 class GEGLU(nn.Module):
     """Gated GELU projection with the exact (erf) gelu."""
@@ -192,11 +213,19 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                capture: bool = False):
+        """``capture``: attn1 through :meth:`Attention.forward_capture`,
+        returning (output, attn1's weights)."""
+        probs = None
+        if capture:
+            a, probs = self.attn1.forward_capture(self.norm1(x))
+            x = x + a
+        else:
+            x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context=context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.ff(self.norm3(x))
+        return (x, probs) if capture else x
 
 
 def _hypertile_divisor(n: int, min_tile: int) -> int:
@@ -218,7 +247,9 @@ class SpatialTransformer(nn.Module):
     spatial tiles of at least that many latent units a side, which ride
     the batch axis through the blocks (the context repeats per tile), so
     self-attention costs O(tiles * (N / tiles)^2); the tiles go to the
-    same attention kernel at the folded batch."""
+    same attention kernel at the folded batch.  ``capture`` (SAG): the
+    first block's attn1 returns its softmax weights, and the forward
+    returns (output, weights); a folded grid raises under it."""
 
     def __init__(self, channels: int, num_heads: int, depth: int,
                  context_dim: int, dtype: torch.dtype = torch.bfloat16):
@@ -233,7 +264,7 @@ class SpatialTransformer(nn.Module):
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                hypertile_tile: int = 0) -> torch.Tensor:
+                hypertile_tile: int = 0, capture: bool = False):
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
@@ -243,16 +274,24 @@ class SpatialTransformer(nn.Module):
             nw = _hypertile_divisor(W, hypertile_tile)
         th, tw = H // nh, W // nw
         if nh * nw > 1:
+            if capture:
+                raise ValueError("SAG's capture takes an unfolded token "
+                                 "grid; HyperTile folds this block")
             h = h.reshape(B, nh, th, nw, tw, C).transpose(2, 3) \
                 .reshape(B * nh * nw, th * tw, C)
             context = context.repeat_interleave(nh * nw, dim=0)
+        probs = None
         for i in range(self.depth):
-            h = getattr(self, f"blocks_{i}")(h, context)
+            if capture and i == 0:
+                h, probs = self.blocks_0(h, context, capture=True)
+            else:
+                h = getattr(self, f"blocks_{i}")(h, context)
         if nh * nw > 1:
             h = h.reshape(B, nh, nw, th, tw, C).transpose(2, 3) \
                 .reshape(B, H * W, C)
         h = self.proj_out(h)
-        return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        out = x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        return (out, probs) if capture else out
 
 
 class ResBlock(nn.Module):

@@ -47,7 +47,10 @@ from comfyui_distributed_tpu_torch.models.prng import (
 )
 from comfyui_distributed_tpu_torch.models.samplers import (
     _norm_entries,
+    cfg_denoiser_dual,
     cfg_denoiser_multi,
+    cfg_denoiser_perp_neg,
+    cfg_denoiser_sag,
     get_sampler,
     get_sampler_step,
 )
@@ -244,6 +247,8 @@ class DiffusionPipeline:
         self.cache_token = next(_pipeline_tokens)
         self.prediction_type = family.unet.prediction_type
         self.schedule = sch.make_discrete_schedule()
+        # RescaleCFG's multiplier (0: off), set by derive_pipeline
+        self.cfg_rescale = 0.0
         # continuous batching's step callables (denoise_step_fn), one a
         # (sampler, cfg, rows, latent size, ADM, prediction type)
         self._step_fns: Dict[Tuple, Callable] = {}
@@ -308,7 +313,9 @@ class DiffusionPipeline:
                force_full_denoise: bool = False,
                noise_mask: Optional[torch.Tensor] = None,
                c_concat: Optional[torch.Tensor] = None,
-               control=None) -> torch.Tensor:
+               control=None, sigmas_override=None,
+               middle_context: Optional[torch.Tensor] = None,
+               cfg2: float = 1.0, guidance: str = "dual") -> torch.Tensor:
         """schedule -> initial noise -> sampler loop -> latents.
 
         ``seeds``: per-sample 64-bit host seeds [B]; ``sample_idx``:
@@ -348,21 +355,63 @@ class DiffusionPipeline:
         shrunk UNet while the step's timestep lies in its window, with
         the plain one else, and without the patch under a control (the
         residuals' shapes cannot follow the shrunk encoder), which it
-        logs."""
+        logs.
+
+        ``sigmas_override`` (SamplerCustom and its Advanced form): the
+        exact host sigma sequence, 1-D, in any order (FlipSigmas feeds
+        it ascending); the scheduler, steps, denoise and window
+        arguments are ignored, and fewer than two sigmas return
+        ``latents`` unchanged.  A tensor raises: the sigmas stay on the
+        host.  ``middle_context`` [B, T, C] (DualCFGGuider,
+        PerpNegGuider, the PerpNeg patch): the third row block of a
+        [cond, middle, uncond] call, combined by
+        ``cfg_denoiser_perp_neg`` when ``guidance`` is ``"perp_neg"``
+        and by ``cfg_denoiser_dual`` else, at ``cfg`` and ``cfg2``; it
+        takes one plain entry a side, ``y`` as one vector or three, and
+        each control link's strengths and windows as flat
+        [cond, middle, uncond] triples.  A RescaleCFG pipeline
+        (``cfg_rescale``) rescales every combine.  A SAG pipeline
+        (``sag_params``) samples with ``cfg_denoiser_sag`` where it
+        applies: cfg != 1, no middle, no control, one plain entry a side
+        and a middle block that HyperTile does not fold; else it logs
+        and samples without it.  Deep shrink yields to SAG, with a log
+        line."""
         sampler = get_sampler(sampler_name)
         dev = self.device
         self._require(self.unet, "UNet")
-        # host float32 sigmas: the sampler's branches and coefficients
-        # never wait for the card
-        sigmas = sch.compute_sigmas(self.schedule, scheduler, steps, denoise)
-        start = max(int(start_step), 0)
-        end = steps if end_step is None else min(int(end_step), steps)
-        if start >= end:
-            return latents
-        if start > 0 or end < steps:
-            sigmas = sigmas[start:end + 1].copy()
-            if force_full_denoise:
-                sigmas[-1] = 0.0
+        conds, unconds = _entries(context, dev), _entries(uncond_context,
+                                                          dev)
+        dual = middle_context is not None
+        if dual and (len(conds) != 1 or len(unconds) != 1 or any(
+                m is not None or s != 1.0 or sr is not None
+                for _, m, s, sr in conds + unconds)):
+            raise ValueError(f"3-row guidance ({guidance}) requires plain "
+                             "single-entry positive/negative "
+                             "conditionings")
+        if sigmas_override is not None:
+            if isinstance(sigmas_override, torch.Tensor):
+                raise TypeError("sigmas_override takes host sigmas (a "
+                                "numpy array), not a tensor")
+            sigmas = np.asarray(sigmas_override, np.float32)
+            if sigmas.ndim != 1:
+                raise ValueError("sigmas_override must be a 1-D sigma "
+                                 "sequence (order is the sampler's "
+                                 "business: FlipSigmas feeds ascending)")
+            if sigmas.shape[0] < 2:
+                return latents
+        else:
+            # host float32 sigmas: the sampler's branches and
+            # coefficients never wait for the card
+            sigmas = sch.compute_sigmas(self.schedule, scheduler, steps,
+                                        denoise)
+            start = max(int(start_step), 0)
+            end = steps if end_step is None else min(int(end_step), steps)
+            if start >= end:
+                return latents
+            if start > 0 or end < steps:
+                sigmas = sigmas[start:end + 1].copy()
+                if force_full_denoise:
+                    sigmas[-1] = 0.0
         want = self.family.unet.in_channels - int(latents.shape[-1])
         have = 0 if c_concat is None else int(c_concat.shape[-1])
         if want != have:
@@ -375,38 +424,82 @@ class DiffusionPipeline:
         noise = batch_normal(keys, INIT_NOISE_INDEX, src.shape[1:], dev) \
             if add_noise else None
         x = src + noise * float(sigmas[0]) if add_noise else src
-        conds, unconds = _entries(context, dev), _entries(uncond_context,
-                                                          dev)
         concat = None if c_concat is None else c_concat.to(dev,
                                                            torch.float32)
         chain = None
         if control:
             with_uncond = float(cfg) != 1.0
             chain = []
-            for net, hint, (pos_s, neg_s), windows in control:
-                strengths = tuple(pos_s) + (tuple(neg_s) if with_uncond
-                                            else ())
-                window = None
-                if windows is not None:
-                    window = tuple(windows[0]) + (tuple(windows[1])
-                                                  if with_uncond else ())
-                chain.append(ControlSpec(net, hint.to(dev), strengths,
-                                         window))
+            for net, hint, strengths, windows in control:
+                if not dual:
+                    # (cond strengths, uncond strengths) flatten to the
+                    # blocks that run, the windows in lockstep
+                    pos_s, neg_s = strengths
+                    strengths = tuple(pos_s) + (tuple(neg_s) if with_uncond
+                                                else ())
+                    if windows is not None:
+                        windows = tuple(windows[0]) + (
+                            tuple(windows[1]) if with_uncond else ())
+                chain.append(ControlSpec(net, hint.to(dev),
+                                         tuple(strengths), windows))
+        cfg_rescale = float(self.cfg_rescale)
         ds_spec = getattr(self, "deep_shrink_spec", None)
         if ds_spec is not None and chain:
             log("deep shrink: ControlNet residual shapes can't follow "
                 "the shrunk encoder; sampling WITHOUT the downscale "
                 "patch")
             ds_spec = None
+        sag = getattr(self, "sag_params", None)
+        sag_ok = False
+        if sag is not None:
+            ucfg = self.family.unet
+            mid_folded = ucfg.hypertile is not None \
+                and ucfg.num_levels - 1 <= int(ucfg.hypertile[1])
+            sag_ok = (not dual and float(cfg) != 1.0 and len(conds) == 1
+                      and len(unconds) == 1 and not chain
+                      and not mid_folded
+                      and not any(m is not None or s != 1.0
+                                  or sr is not None
+                                  for _, m, s, sr in conds + unconds))
+            if not sag_ok:
+                log("SAG: unsupported combination (regional/dual/"
+                    "control/cfg==1/hypertiled mid-block); sampling "
+                    "WITHOUT self-attention guidance")
+        if ds_spec is not None and sag_ok:
+            log("deep shrink: does not compose with SAG's capture "
+                "branch; sampling WITHOUT the downscale patch")
+            ds_spec = None
         den = make_denoiser(self.unet, self.schedule, self.prediction_type,
                             device=dev, concat=concat, control=chain)
         if ds_spec is not None:
             den = self._deep_shrink_denoiser(den, ds_spec, concat)
-        model = cfg_denoiser_multi(den, conds, unconds, float(cfg))
+        if dual:
+            combine = cfg_denoiser_perp_neg if guidance == "perp_neg" \
+                else cfg_denoiser_dual
+            model = combine(den, conds[0][0], middle_context.to(dev),
+                            unconds[0][0], float(cfg), float(cfg2),
+                            cfg_rescale=cfg_rescale)
+            reps = 3
+        elif sag_ok:
+            # the middle block's grid: each stride-2 level ceil-halves
+            mh, mw = int(src.shape[1]), int(src.shape[2])
+            for _ in range(self.family.unet.num_levels - 1):
+                mh, mw = (mh + 1) // 2, (mw + 1) // 2
+            den_cap = make_denoiser(self.unet, self.schedule,
+                                    self.prediction_type, device=dev,
+                                    concat=concat, capture=True)
+            model = cfg_denoiser_sag(den_cap, den, conds[0][0],
+                                     unconds[0][0], float(cfg),
+                                     float(sag[0]), float(sag[1]),
+                                     (mh, mw), cfg_rescale=cfg_rescale)
+            reps = 2
+        else:
+            model = cfg_denoiser_multi(den, conds, unconds, float(cfg),
+                                       cfg_rescale=cfg_rescale)
+            reps = len(conds) + (len(unconds) if float(cfg) != 1.0 else 0)
         if noise_mask is not None:
             m = noise_mask.to(dev, torch.float32)
             model = _masked_model(model, m, src, noise)
-        reps = len(conds) + (len(unconds) if float(cfg) != 1.0 else 0)
         extra = {} if y is None else {"y": stack_y(y, reps, dev)}
         out = sampler(model, x, sigmas, extra_args=extra, keys=keys)
         if noise_mask is not None:
@@ -956,11 +1049,14 @@ _DERIVED_CACHE_CAP = 8
 def copy_sampler_patches(src: DiffusionPipeline,
                          dst: DiffusionPipeline) -> None:
     """What a derived or LoRA-patched pipeline keeps of its base's
-    sampling: the schedule and every attribute a derivation set through
-    ``extra_attrs`` (deep shrink's ``deep_shrink_spec``); the JAX
-    package's other sampling patches, RescaleCFG and PerpNeg, are not
-    ported."""
+    sampling: RescaleCFG's ``cfg_rescale``, the schedule (a zsnr
+    rescale), the prediction type and every attribute a derivation set
+    through ``extra_attrs`` (deep shrink's ``deep_shrink_spec``, SAG's
+    ``sag_params``, PerpNeg's ``perp_neg_cond`` and
+    ``perp_neg_scale``)."""
+    dst.cfg_rescale = src.cfg_rescale
     dst.schedule = src.schedule
+    dst.prediction_type = src.prediction_type
     riding = set(getattr(src, "_riding_attrs", ()))
     for attr in riding:
         if hasattr(src, attr):
@@ -970,15 +1066,20 @@ def copy_sampler_patches(src: DiffusionPipeline,
 
 def derive_pipeline(base: DiffusionPipeline, tag: str,
                     family: Optional[ModelFamily] = None,
+                    cfg_rescale: Optional[float] = None,
+                    prediction_type: Optional[str] = None,
+                    schedule: Optional[sch.DiscreteSchedule] = None,
                     extra_attrs: Optional[Dict[str, object]] = None
                     ) -> DiffusionPipeline:
     """Cached clone of ``base`` with a replacement family and sampling
     patches, everything else shared by reference: the UNet's weights
     under the new family's UNet config (:func:`unet_mod.with_config`:
-    FreeU, HyperTile), the VAE as it is, each text tower's weights under
-    the new family's tower config (:func:`clip_mod.with_config`:
-    clip-skip).  ``extra_attrs`` are set on the clone and ride every
-    further derivation (:func:`copy_sampler_patches`)."""
+    FreeU, HyperTile, SAG's capture), the VAE as it is, each text
+    tower's weights under the new family's tower config
+    (:func:`clip_mod.with_config`: clip-skip).  ``cfg_rescale``
+    (RescaleCFG), ``prediction_type`` and ``schedule``
+    (ModelSamplingDiscrete) replace the base's; they and ``extra_attrs``
+    ride every further derivation (:func:`copy_sampler_patches`)."""
     key = (base.cache_token, tag)
     with _pipeline_lock:
         if key in _derived_cache:
@@ -993,6 +1094,12 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
          for m, c in zip(base.clip_models, family.clips, strict=True)],
         base.vae, base.device, assets_dir=base.assets_dir)
     copy_sampler_patches(base, clone)
+    if cfg_rescale is not None:
+        clone.cfg_rescale = cfg_rescale
+    if prediction_type is not None:
+        clone.prediction_type = prediction_type
+    if schedule is not None:
+        clone.schedule = schedule
     if extra_attrs:
         for k, v in extra_attrs.items():
             setattr(clone, k, v)

@@ -1,7 +1,8 @@
 """k-diffusion samplers in PyTorch: the counterpart of the ``SAMPLERS``
 table of ``comfyui_distributed_tpu/models/samplers.py`` (all 34 of
-KSampler's ``sampler_name`` values) and of its classifier-free guidance
-for one cond and one uncond entry.
+KSampler's ``sampler_name`` values) and of its classifier-free guidance:
+the multi-entry combine with its optional CFG rescale, and the combines
+outside ``SAMPLERS`` (dual CFG, Perp-Neg, self-attention guidance).
 
 Each sampler is a Python loop over consecutive sigma pairs, ended early
 by an interrupt (:func:`_until_interrupted`, checked at the top of each
@@ -1222,8 +1223,8 @@ def _mask_blend(entries, parts, sigma) -> torch.Tensor:
     return acc / torch.clamp(wsum, min=1e-9)
 
 
-def cfg_denoiser_multi(model: Model, conds, uncond,
-                       cfg_scale: float) -> Model:
+def cfg_denoiser_multi(model: Model, conds, uncond, cfg_scale: float,
+                       cfg_rescale: float = 0.0) -> Model:
     """Classifier-free guidance over ComfyUI's multi-entry conditioning
     lists (the JAX package's ``cfg_denoiser_multi``).  ``conds`` and
     ``uncond``: lists of ``(context [B, T, C], mask [1 or B, h, w, 1] or
@@ -1237,7 +1238,8 @@ def cfg_denoiser_multi(model: Model, conds, uncond,
     (``registry.stack_y``).  Each call leaves its blended uncond
     (the blended cond at cfg == 1) in ``last_uncond`` for the CFG++
     samplers.  One plain entry a side blends to its own prediction to
-    the bit (weight 1, sum 1)."""
+    the bit (weight 1, sum 1).  ``cfg_rescale`` (RescaleCFG's
+    multiplier) re-stds the combine with :func:`_rescale_cfg`."""
     conds = _norm_entries(conds) if isinstance(conds, (list, tuple)) \
         else [(conds, None, 1.0, None)]
     unconds = _norm_entries(uncond) if isinstance(uncond, (list, tuple)) \
@@ -1254,10 +1256,7 @@ def cfg_denoiser_multi(model: Model, conds, uncond,
             return den
         ctx = [c for c, _, _, _ in conds] \
             + ([c for c, _, _, _ in unconds] if use_uncond else [])
-        # a [B] sigma (one a row) repeats with the stacked rows
-        sigma_rep = sigma.repeat(reps) \
-            if isinstance(sigma, torch.Tensor) and sigma.ndim else sigma
-        out = model(torch.cat([x] * reps), sigma_rep,
+        out = model(torch.cat([x] * reps), _rows_sigma(sigma, reps),
                     context=torch.cat(ctx), y=y)
         parts = out.chunk(reps)
         den_cond = _mask_blend(conds, parts[:n], sigma)
@@ -1266,5 +1265,188 @@ def cfg_denoiser_multi(model: Model, conds, uncond,
             return den_cond
         den_uncond = _mask_blend(unconds, parts[n:], sigma)
         wrapped.last_uncond = den_uncond
+        if cfg_rescale:
+            return _rescale_cfg(x, sigma, den_cond, den_uncond, cfg_scale,
+                                cfg_rescale)
         return den_uncond + (den_cond - den_uncond) * cfg_scale
     return wrapped
+
+
+def _rows_sigma(sigma, reps: int):
+    """A [B] sigma (one a row) repeated with ``reps`` stacked row blocks;
+    a host float or a scalar as it is."""
+    if isinstance(sigma, torch.Tensor) and sigma.ndim:
+        return sigma.repeat(reps)
+    return sigma
+
+
+def _sigma_like(sigma, x: torch.Tensor) -> torch.Tensor:
+    """The step's sigma as a float32 tensor shaped against ``x``: a
+    scalar filled on x's device (no copy that waits for the card), or a
+    [B] tensor as [B, 1, 1, 1]."""
+    if isinstance(sigma, torch.Tensor):
+        s = sigma.to(device=x.device, dtype=x.dtype)
+        return s.reshape((-1,) + (1,) * (x.ndim - 1)) if s.ndim else s
+    return torch.full((), float(sigma), dtype=x.dtype, device=x.device)
+
+
+def cfg_denoiser_dual(model: Model, cond: torch.Tensor,
+                      middle: torch.Tensor, uncond: torch.Tensor,
+                      cfg1: float, cfg2: float,
+                      cfg_rescale: float = 0.0) -> Model:
+    """Dual-CFG guidance (ComfyUI's DualCFGGuider, the InstructPix2Pix
+    combine): one model call on the stacked [cond; middle; uncond] rows,
+
+        out = (uncond + cfg2 * (middle - uncond)) + cfg1 * (cond - middle)
+
+    a RescaleCFG patch applying to the middle/uncond combine.  ``y``
+    must already be stacked to the three blocks."""
+    def wrapped(x: torch.Tensor, sigma,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = model(torch.cat([x, x, x]), _rows_sigma(sigma, 3),
+                    context=torch.cat([cond, middle, uncond]), y=y)
+        pos, mid, neg = out.chunk(3)
+        wrapped.last_uncond = neg
+        if cfg_rescale:
+            base = _rescale_cfg(x, sigma, mid, neg, cfg2, cfg_rescale)
+        else:
+            base = neg + (mid - neg) * cfg2
+        return base + (pos - mid) * cfg1
+    return wrapped
+
+
+def cfg_denoiser_perp_neg(model: Model, cond: torch.Tensor,
+                          empty: torch.Tensor, uncond: torch.Tensor,
+                          cfg_scale: float, neg_scale: float,
+                          cfg_rescale: float = 0.0) -> Model:
+    """Perp-Neg guidance (Armandpour et al.; ComfyUI's PerpNeg and
+    PerpNegGuider): one call on the stacked [cond; empty; uncond] rows,
+    then with pos = cond - empty and neg = uncond - empty
+
+        perp = neg - (<neg, pos> / max(|pos|^2, 1e-12)) pos
+        out  = empty + cfg * (pos - neg_scale * perp)
+
+    the products reduced per sample (over axes 1..n), never over the
+    batch.  A RescaleCFG patch re-stds the combine toward the cond
+    prediction."""
+    def wrapped(x: torch.Tensor, sigma,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = model(torch.cat([x, x, x]), _rows_sigma(sigma, 3),
+                    context=torch.cat([cond, empty, uncond]), y=y)
+        den_cond, den_empty, den_unc = out.chunk(3)
+        wrapped.last_uncond = den_unc
+        pos = den_cond - den_empty
+        neg = den_unc - den_empty
+        axes = tuple(range(1, x.ndim))
+        dot = torch.sum(neg * pos, dim=axes, keepdim=True)
+        sq = torch.clamp(torch.sum(pos * pos, dim=axes, keepdim=True),
+                         min=1e-12)
+        direction = pos - neg_scale * (neg - (dot / sq) * pos)
+        if cfg_rescale:
+            return _rescale_cfg(x, sigma, den_empty + direction, den_empty,
+                                cfg_scale, cfg_rescale)
+        return den_empty + cfg_scale * direction
+    return wrapped
+
+
+def _gaussian_blur_nhwc(x: torch.Tensor, ksize: int = 9,
+                        sigma: float = 2.0) -> torch.Tensor:
+    """Separable gaussian blur of [B, H, W, C] with reflect padding (the
+    SAG reference's gaussian_blur_2d), the taps summed in order."""
+    r = ksize // 2
+    xs = torch.arange(-r, r + 1, dtype=torch.float32, device=x.device)
+    k = torch.exp(-(xs ** 2) / max(2.0 * sigma * sigma, 1e-8))
+    k = (k / k.sum()).to(x.dtype)
+    n_h, n_w = int(x.shape[1]), int(x.shape[2])
+    h = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, 0, r, r),
+                                mode="reflect").permute(0, 2, 3, 1)
+    acc = 0
+    for i in range(ksize):
+        acc = acc + k[i] * h[:, i:i + n_h]
+    h = torch.nn.functional.pad(acc.permute(0, 3, 1, 2), (r, r, 0, 0),
+                                mode="reflect").permute(0, 2, 3, 1)
+    out = 0
+    for i in range(ksize):
+        out = out + k[i] * h[:, :, i:i + n_w]
+    return out
+
+
+def _nearest_rows(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize(..., "nearest")``'s source index of each output
+    position on one axis: floor((i + 0.5) * n_in / n_out)."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * (n_in / n_out)
+    return torch.clamp(torch.floor(pos).long(), 0, n_in - 1)
+
+
+def sag_mask(probs: torch.Tensor, b: int, mid_hw: tuple,
+             out_hw: tuple) -> torch.Tensor:
+    """SAG's degradation mask [B, H, W, 1] from the captured middle-block
+    weights [2B, heads, N, N] (uncond rows second): the key tokens whose
+    attention mass (mean over heads, summed over queries) exceeds 1, on
+    the middle block's grid, resized nearest to the latent's."""
+    a = probs[b:].mean(dim=1).sum(dim=1)
+    mask = (a > 1.0).to(probs.dtype).reshape(b, mid_hw[0], mid_hw[1], 1)
+    rows = _nearest_rows(mid_hw[0], out_hw[0], mask.device)
+    cols = _nearest_rows(mid_hw[1], out_hw[1], mask.device)
+    return mask[:, rows][:, :, cols]
+
+
+def cfg_denoiser_sag(model_capture: Callable, model_plain: Model,
+                     cond: torch.Tensor, uncond: torch.Tensor,
+                     cfg_scale: float, sag_scale: float, blur_sigma: float,
+                     mid_hw: tuple, cfg_rescale: float = 0.0) -> Model:
+    """Self-attention guidance (Hong et al.; the reference ecosystem's
+    SelfAttentionGuidance): the stacked [cond; uncond] call also returns
+    the middle block's first self-attention weights
+    (``model_capture``); where the uncond rows attend strongly
+    (:func:`sag_mask`) the uncond prediction is gaussian-blurred, the
+    degraded estimate re-noised to the step's level and denoised once
+    more under the uncond context (``model_plain``, its ``y`` the
+    uncond block's rows), and
+
+        out = cfg(cond, uncond) + sag_scale * (degraded - den_degraded)
+
+    Three UNet rows a step: two in the capture call, one after."""
+    def wrapped(x: torch.Tensor, sigma,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = x.shape[0]
+        out, probs = model_capture(torch.cat([x, x]), _rows_sigma(sigma, 2),
+                                   context=torch.cat([cond, uncond]), y=y)
+        den_cond, den_unc = out.chunk(2)
+        wrapped.last_uncond = den_unc
+        mask = sag_mask(probs, b, mid_hw, (x.shape[1], x.shape[2])) \
+            .to(x.dtype)
+        blurred = _gaussian_blur_nhwc(den_unc, 9, float(blur_sigma))
+        degraded = blurred * mask + den_unc * (1.0 - mask)
+        den_sag = model_plain(degraded + x - den_unc, sigma, context=uncond,
+                              y=None if y is None else y[b:2 * b])
+        if cfg_rescale:
+            cfg_out = _rescale_cfg(x, sigma, den_cond, den_unc, cfg_scale,
+                                   cfg_rescale)
+        else:
+            cfg_out = den_unc + (den_cond - den_unc) * cfg_scale
+        return cfg_out + (degraded - den_sag) * sag_scale
+    return wrapped
+
+
+def _rescale_cfg(x: torch.Tensor, sigma, den_cond: torch.Tensor,
+                 den_uncond: torch.Tensor, cfg_scale: float,
+                 multiplier: float) -> torch.Tensor:
+    """RescaleCFG (Lin et al.): the CFG combine in v-space re-stded toward
+    the cond prediction's per-sample std, blended by ``multiplier``;
+    x0 predictions in, x0 out.  The std is the population one
+    (``correction=0``), as ``jnp.std``."""
+    s = _sigma_like(sigma, x)
+    s2 = s * s
+    xs = x / (s2 + 1.0)
+    root = torch.sqrt(s2 + 1.0)
+    v_cond = (xs - (x - den_cond)) * root / s
+    v_unc = (xs - (x - den_uncond)) * root / s
+    v_cfg = v_unc + (v_cond - v_unc) * cfg_scale
+    axes = tuple(range(1, x.ndim))
+    ro_pos = torch.std(v_cond, dim=axes, keepdim=True, correction=0)
+    ro_cfg = torch.std(v_cfg, dim=axes, keepdim=True, correction=0)
+    v_res = v_cfg * (ro_pos / torch.clamp(ro_cfg, min=1e-9))
+    v_fin = multiplier * v_res + (1.0 - multiplier) * v_cfg
+    return x - (xs - v_fin * s / root)

@@ -1,8 +1,9 @@
 """Noise schedules and sigma tables (numpy): the port's own copy of
 ``comfyui_distributed_tpu/models/schedules.py``'s discrete VP table and
-its nine step schedulers (KSampler's ``scheduler`` widget).  The
-custom-sampler schedule functions (polyexponential, VP, Laplace, AYS,
-SD-Turbo) are not ported yet.
+its nine step schedulers (KSampler's ``scheduler`` widget), the
+custom-sampler schedules (Karras with explicit bounds, polyexponential,
+VP, Laplace, Align-Your-Steps, SD-Turbo) and ModelSamplingDiscrete's
+zero-terminal-SNR rescale.
 
 Sigmas are returned descending with a trailing 0.0, shape ``[steps +
 1]`` (the k-diffusion convention).
@@ -73,6 +74,21 @@ def _append_zero(sigmas: np.ndarray) -> np.ndarray:
     return np.concatenate([sigmas, [0.0]]).astype(np.float32)
 
 
+def rescale_zero_terminal_snr(ds: DiscreteSchedule) -> DiscreteSchedule:
+    """Zero-terminal-SNR rescale (Lin et al., "Common Diffusion Noise
+    Schedules and Sample Steps are Flawed"), ModelSamplingDiscrete's
+    ``zsnr``: sqrt(abar) shifted and scaled so the last step carries no
+    signal, the terminal abar clamped at 4.8973451890853435e-08 (sigma
+    about 4519, the constant the reference ecosystem pins)."""
+    abar_sqrt = np.sqrt(ds.alphas_cumprod)
+    a0, aT = abar_sqrt[0], abar_sqrt[-1]
+    abar_sqrt = (abar_sqrt - aT) * (a0 / (a0 - aT))
+    abar = np.clip(abar_sqrt ** 2, 4.8973451890853435e-08, 1.0)
+    sigmas = np.sqrt((1.0 - abar) / abar)
+    return DiscreteSchedule(sigmas=sigmas.astype(np.float32),
+                            alphas_cumprod=abar.astype(np.float32))
+
+
 def normal_scheduler(ds: DiscreteSchedule, steps: int,
                      sgm: bool = False) -> np.ndarray:
     """Uniform in timestep space over the model's sigma table; ``sgm``
@@ -86,12 +102,87 @@ def normal_scheduler(ds: DiscreteSchedule, steps: int,
     return _append_zero(ds.sigma_from_t(ts))
 
 
-def karras_scheduler(ds: DiscreteSchedule, steps: int,
-                     rho: float = 7.0) -> np.ndarray:
-    """Karras et al. 2022 rho-schedule between the table's bounds."""
+def karras_scheduler(ds: Optional[DiscreteSchedule], steps: int,
+                     rho: float = 7.0, sigma_min: Optional[float] = None,
+                     sigma_max: Optional[float] = None) -> np.ndarray:
+    """Karras et al. 2022 rho-schedule between the table's bounds, or
+    between explicit ones (the KarrasScheduler op, ``ds`` None)."""
+    lo = float(sigma_min if sigma_min is not None else ds.sigma_min)
+    hi = float(sigma_max if sigma_max is not None else ds.sigma_max)
     ramp = np.linspace(0, 1, steps)
-    min_r, max_r = ds.sigma_min ** (1 / rho), ds.sigma_max ** (1 / rho)
+    min_r, max_r = lo ** (1 / rho), hi ** (1 / rho)
     return _append_zero((max_r + ramp * (min_r - max_r)) ** rho)
+
+
+def polyexponential_sigmas(steps: int, sigma_max: float, sigma_min: float,
+                           rho: float = 1.0) -> np.ndarray:
+    """k-diffusion's get_sigmas_polyexponential: a polynomial ramp in
+    log sigma (PolyexponentialScheduler; ExponentialScheduler at rho
+    1)."""
+    ramp = np.linspace(1.0, 0.0, steps) ** rho
+    sig = np.exp(ramp * (math.log(sigma_max) - math.log(sigma_min))
+                 + math.log(sigma_min))
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
+
+
+def vp_sigmas(steps: int, beta_d: float = 19.9, beta_min: float = 0.1,
+              eps_s: float = 1e-3) -> np.ndarray:
+    """k-diffusion's get_sigmas_vp: the continuous VP-SDE schedule
+    (VPScheduler)."""
+    t = np.linspace(1.0, eps_s, steps)
+    sig = np.sqrt(np.exp(beta_d * t ** 2 / 2 + beta_min * t) - 1.0)
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
+
+
+def laplace_sigmas(steps: int, sigma_max: float, sigma_min: float,
+                   mu: float = 0.0, beta: float = 0.5) -> np.ndarray:
+    """k-diffusion's get_sigmas_laplace (LaplaceScheduler): inverse
+    Laplace CDF spacing in log sigma, clipped to the bounds."""
+    epsilon = 1e-5
+    x = np.linspace(0.0, 1.0, steps)
+    lmb = mu - beta * np.sign(0.5 - x) * np.log(1 - 2 * np.abs(0.5 - x)
+                                                + epsilon)
+    sig = np.clip(np.exp(lmb), sigma_min, sigma_max)
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
+
+
+# NVIDIA Align-Your-Steps' published 10-step noise levels; other step
+# counts interpolate them log-linearly
+AYS_TABLES = {
+    "SD1": [14.615, 6.475, 3.861, 2.697, 1.886, 1.396, 0.963, 0.652,
+            0.399, 0.152, 0.029],
+    "SDXL": [14.615, 6.315, 3.771, 2.181, 1.342, 0.862, 0.555, 0.380,
+             0.234, 0.113, 0.029],
+    "SVD": [700.00, 54.5, 15.886, 7.977, 4.248, 1.789, 0.981, 0.403,
+            0.173, 0.034, 0.002],
+}
+
+
+def ays_sigmas(model_type: str, steps: int) -> np.ndarray:
+    """Align-Your-Steps: the model line's table log-linearly interpolated
+    to ``steps + 1`` levels (its last, 0.029 or 0.002, not zeroed)."""
+    key = str(model_type).upper().replace("1.5", "1").replace("SD15",
+                                                              "SD1")
+    if key not in AYS_TABLES:
+        raise ValueError(f"unknown AYS model type {model_type!r}; "
+                         f"available: {tuple(AYS_TABLES)}")
+    table = np.asarray(AYS_TABLES[key], np.float64)
+    xs = np.linspace(0.0, 1.0, table.shape[0])
+    xq = np.linspace(0.0, 1.0, int(steps) + 1)
+    return np.exp(np.interp(xq, xs, np.log(table))).astype(np.float32)
+
+
+def sd_turbo_sigmas(ds: DiscreteSchedule, steps: int,
+                    denoise: float = 1.0) -> np.ndarray:
+    """SDTurboScheduler: the last ``steps`` of the timesteps 999, 899,
+    ..., 99 after skipping ``10 - int(10 * denoise)`` of them (the
+    reference node's indexing, not ``int(10 - 10 * denoise)``: 0.25
+    skips 8), their sigmas on the table, trailing 0."""
+    steps = max(int(steps), 1)
+    start = max(10 - int(10 * float(denoise)), 0)
+    ts = np.flip(np.arange(1, 11) * 100 - 1)[start:start + steps]
+    sig = ds.sigmas[ts.astype(int)]
+    return np.concatenate([sig, [0.0]]).astype(np.float32)
 
 
 def exponential_scheduler(ds: DiscreteSchedule, steps: int) -> np.ndarray:

@@ -5,11 +5,11 @@ The forward takes and returns the JAX package's NHWC layout (x [B, H, W,
 C]) and runs NCHW inside.  Eps-prediction by default; the denoiser
 (``models/denoiser.py``) wraps it into ``denoised = f(x, sigma)``.  The
 forward takes ControlNet residuals (``models/controlnet.py``), and the
-config carries three of the JAX UNet's structural patches: FreeU (v1
-and v2), HyperTile and deep shrink.  They change no weight, so a
-patched pipeline shares its base's module through :func:`with_config`.
-The JAX UNet's other patches (SAG capture, ToMe, GLIGEN) are not ported
-and raise.
+config carries four of the JAX UNet's structural patches: FreeU (v1
+and v2), HyperTile, deep shrink and SAG's capture.  They change no
+weight, so a patched pipeline shares its base's module through
+:func:`with_config`.  The JAX UNet's other patches (ToMe, GLIGEN) are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -68,8 +68,10 @@ class UNetConfig:
     # at the first skip of another size.  The sigma window that turns it
     # on lives in the sampler (models/registry.py)
     deep_shrink: Optional[Tuple[int, float]] = None
-    # patches of the JAX UNet that are not ported (they raise)
+    # SAG: a forward with ``capture=True`` returns the middle block's
+    # first self-attention weights beside the prediction
     sag_capture: bool = False
+    # patches of the JAX UNet that are not ported (they raise)
     tome_ratio: float = 0.0
     gligen: int = 0
     dtype: torch.dtype = torch.bfloat16
@@ -125,10 +127,11 @@ TINY_CONFIG = UNetConfig(
     dtype=torch.float32,  # exact CPU comparisons; real families use bf16
 )
 
-_UNPORTED_PATCHES = ("sag_capture", "tome_ratio", "gligen")
+_UNPORTED_PATCHES = ("tome_ratio", "gligen")
 # config fields that change no weight: a module built under one value
 # serves every other through with_config
-_PATCH_FIELDS = ("freeu", "freeu_version", "hypertile", "deep_shrink")
+_PATCH_FIELDS = ("freeu", "freeu_version", "hypertile", "deep_shrink",
+                 "sag_capture")
 
 
 def mid_depth(cfg: UNetConfig) -> int:
@@ -218,15 +221,20 @@ class UNet(nn.Module):
                 context: torch.Tensor,
                 y: Optional[torch.Tensor] = None,
                 control: Optional[Tuple[List[torch.Tensor],
-                                        torch.Tensor]] = None
-                ) -> torch.Tensor:
+                                        torch.Tensor]] = None,
+                capture: bool = False):
         """x: [B, H, W, C_in] latent; timesteps: [B]; context: [B, M, Cc]
         text tokens; y: [B, adm_in] vector conditioning (SDXL).  Returns
         the fp32 prediction [B, H, W, C_out].  ``control``: ControlNet
         residuals ``(skips, middle)`` in NCHW, one a skip in down-path
         order, added to the skips (``skip[i] + control[i]``) and to the
-        middle block's output; a count that does not match raises."""
+        middle block's output; a count that does not match raises.
+        ``capture`` (a ``sag_capture`` config only): returns
+        (prediction, the middle block's first self-attention weights
+        [B, heads, N, N] in fp32)."""
         cfg = self.cfg
+        if capture and not cfg.sag_capture:
+            raise ValueError("capture needs a UNet config with sag_capture")
         emb = self.time_fc1(timestep_embedding(timesteps,
                                                cfg.model_channels))
         emb = self.time_fc2(F.silu(emb))
@@ -258,7 +266,13 @@ class UNet(nn.Module):
             skips = [s + c for s, c in zip(skips, ctrl_skips, strict=True)]
 
         h = self.mid_res_0(h, emb)
-        h = self.mid_attn(h, context, self._ht_tile(cfg.num_levels - 1))
+        probs = None
+        if capture:
+            h, probs = self.mid_attn(h, context,
+                                     self._ht_tile(cfg.num_levels - 1),
+                                     capture=True)
+        else:
+            h = self.mid_attn(h, context, self._ht_tile(cfg.num_levels - 1))
         h = self.mid_res_1(h, emb)
         if control is not None:
             h = h + ctrl_mid
@@ -281,12 +295,14 @@ class UNet(nn.Module):
                 h = getattr(self, f"up_{level}_us")(h)
 
         h = self.conv_out(F.silu(self.out_norm(h)))
-        return h.float().permute(0, 2, 3, 1)
+        out = h.float().permute(0, 2, 3, 1)
+        return (out, probs) if capture else out
 
 
 def with_config(unet: UNet, cfg: UNetConfig) -> UNet:
     """``unet``'s weights under ``cfg``, which may differ from its own
-    config only in the patch fields (FreeU, HyperTile, deep shrink):
+    config only in the patch fields (FreeU, HyperTile, deep shrink, SAG's
+    capture):
     ``unet`` itself when the configs are equal, else a shallow copy that
     shares every parameter and reads ``cfg``."""
     if cfg == unet.cfg:

@@ -17,9 +17,18 @@
 ``ImageUpscaleWithModel``, ``PreviewImage``, ``SaveImage``,
 ``ControlNetLoader``, ``DiffControlNetLoader``, ``ControlNetApply``,
 ``ControlNetApplyAdvanced``, ``Canny``, ``FreeU``, ``FreeU_V2``,
-``HyperTile`` and ``PatchModelAddDownscale`` in
-``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode does
-not expand the batch).
+``HyperTile``, ``PatchModelAddDownscale``, the custom-sampling graph
+(``KSamplerSelect``, ``BasicScheduler``, ``KarrasScheduler``,
+``ExponentialScheduler``, ``PolyexponentialScheduler``,
+``VPScheduler``, ``LaplaceScheduler``, ``BetaSamplingScheduler``,
+``AlignYourStepsScheduler``, ``SDTurboScheduler``,
+``SplitSigmasDenoise``, ``SplitSigmas``, ``FlipSigmas``,
+``SamplerCustom``, ``RandomNoise``, ``DisableNoise``, ``BasicGuider``,
+``CFGGuider``, ``DualCFGGuider``, ``PerpNegGuider``,
+``SamplerCustomAdvanced``) and the sampling patches ``RescaleCFG``,
+``ModelSamplingDiscrete``, ``SelfAttentionGuidance`` and ``PerpNeg``
+in ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode
+does not expand the batch).  SIGMAS travel as host float32 arrays.
 
 The reuse plane's encode memo (``runtime/reuse.py``): CLIPTextEncode,
 CLIPTextEncodeSDXL and VAEEncode keep their result on the device under
@@ -40,9 +49,8 @@ A MASK travels as a float32 tensor on the run's device ([H, W] or
 conditioning's area mask stay at image resolution until the sampler
 takes them to the latent's (:func:`image_mask_to_latent`), and so does a
 ControlNet's hint (8x the latent's size, :func:`gather_control`).
-GLIGEN and the 3-row guidances (DualCFG, PerpNeg) that
-``_prepare_sample_inputs`` handles in the JAX package wait for a later
-slice.
+GLIGEN, which ``_prepare_sample_inputs`` handles in the JAX package, is
+not ported.
 """
 
 from __future__ import annotations
@@ -61,9 +69,11 @@ import numpy as np
 import torch
 
 from comfyui_distributed_tpu_torch.models import registry
+from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models.checkpoints import save_checkpoint
 from comfyui_distributed_tpu_torch.models.layers import timestep_embedding
 from comfyui_distributed_tpu_torch.models.lora import apply_lora_to_pipeline
+from comfyui_distributed_tpu_torch.models.samplers import get_sampler
 from comfyui_distributed_tpu_torch.ops.base import (
     CONTROL,
     CBCapture,
@@ -560,6 +570,13 @@ class _SampleInputs:
     c_concat: Optional[torch.Tensor] = None
     # the ControlNet links for DiffusionPipeline.sample (gather_control)
     control: Any = None
+    # 3-row guidance (DualCFGGuider, PerpNegGuider, the PerpNeg patch):
+    # the middle conditioning's context [B, T, C], None for plain CFG;
+    # ``guidance`` and ``cfg2`` are what a PerpNeg-patched pipeline
+    # injects ("perp_neg" and its scale)
+    mid_context: Optional[torch.Tensor] = None
+    guidance: str = "dual"
+    cfg2: float = 1.0
 
 
 def as_mask(mask, device) -> torch.Tensor:
@@ -645,7 +662,9 @@ def _latent_meta(samples) -> dict:
 
 def _prepare_sample_inputs(model, seed, latent_image,
                            positive: Conditioning,
-                           negative: Conditioning) -> _SampleInputs:
+                           negative: Conditioning,
+                           middle: Optional[Conditioning] = None
+                           ) -> _SampleInputs:
     """Latent unpack, per-row seeds and fold-in indices, the conditioning
     entries, the ADM vectors, the latent's inpaint mask at the latent's
     resolution and an inpaint or ip2p model's concat channels (from the
@@ -660,9 +679,25 @@ def _prepare_sample_inputs(model, seed, latent_image,
     ConditioningCombine bundled, each entry's tokens aligned across
     both sides (:func:`cond_token_align`), its area mask at the latent's
     size, its strength, its sigma range and (on an ADM family) its own
-    vector.  With one plain entry a side the contexts go as single
+    vector).  With one plain entry a side the contexts go as single
     tensors and the positive's vector rides both sides (on an unCLIP
-    family each side has its own)."""
+    family each side has its own).
+
+    ``middle`` (DualCFGGuider, PerpNegGuider): a third conditioning in
+    the same pass.  Token alignment spans all three, it carries its own
+    ADM vector (``y`` is [cond, middle, cond] on an SDXL-kind family,
+    [cond, middle, uncond] on an unCLIP one), a ControlNet on any of the
+    three gets flat [cond, middle, uncond] strengths and windows, and
+    every side must be one plain entry.  A PerpNeg-patched pipeline
+    (``perp_neg_cond``) injects its empty conditioning as the middle
+    when none is given."""
+    guidance, cfg2 = "dual", 1.0
+    if middle is None:
+        pn = getattr(model, "perp_neg_cond", None)
+        if pn is not None:
+            middle = pn
+            guidance = "perp_neg"
+            cfg2 = float(getattr(model, "perp_neg_scale", 1.0))
     dev = model.device
     lat = as_device_array(latent_image["samples"], dev)
     total, h, w = int(lat.shape[0]), int(lat.shape[1]), int(lat.shape[2])
@@ -680,7 +715,8 @@ def _prepare_sample_inputs(model, seed, latent_image,
                          -(-total // local_b))[:total]
     pos_entries = [positive, *positive.siblings]
     neg_entries = [negative, *negative.siblings]
-    t_align = cond_token_align(pos_entries + neg_entries)
+    mid_entries = [middle] if middle is not None else []
+    t_align = cond_token_align(pos_entries + neg_entries + mid_entries)
 
     def entry(e):
         return (align_cond_tokens(e.context, t_align).to(dev).repeat(
@@ -695,16 +731,27 @@ def _prepare_sample_inputs(model, seed, latent_image,
 
     cond_entries = [entry(e) for e in pos_entries]
     unc_entries = [entry(e) for e in neg_entries]
+    mid_built = [entry(e) for e in mid_entries]
     multi = len(cond_entries) > 1 or len(unc_entries) > 1 or any(
         m is not None or s != 1.0 or sr is not None
-        for _, m, s, sr in cond_entries + unc_entries)
+        for _, m, s, sr in cond_entries + unc_entries + mid_built)
+    if middle is not None and multi:
+        raise ValueError(
+            f"3-row guidance ({guidance}: "
+            f"{'PerpNeg patch' if guidance == 'perp_neg' else 'DualCFG'}"
+            ") requires plain single-entry positive/negative "
+            "conditionings")
     if multi:
         context, uncond = cond_entries, unc_entries
     else:
         context, uncond = cond_entries[0][0], unc_entries[0][0]
     y = None
     if model.family.unet.adm_in_channels is not None:
-        if multi or model.family.adm_kind == "unclip":
+        unclip = model.family.adm_kind == "unclip"
+        if middle is not None:
+            y = [vector(positive), vector(middle),
+                 vector(negative) if unclip else vector(positive)]
+        elif multi or unclip:
             y = [vector(e) for e in pos_entries + neg_entries]
         else:
             y = vector(positive)
@@ -722,7 +769,11 @@ def _prepare_sample_inputs(model, seed, latent_image,
                          seeds=seeds, sample_idx=sample_idx, y=y,
                          noise_mask=mask, c_concat=c_concat,
                          control=gather_control(model.schedule, pos_entries,
-                                                neg_entries, total, h, w))
+                                                neg_entries, total, h, w,
+                                                mid_entries),
+                         mid_context=None if middle is None
+                         else mid_built[0][0],
+                         guidance=guidance, cfg2=cfg2)
 
 
 def control_chain(cond: Conditioning) -> tuple:
@@ -731,7 +782,7 @@ def control_chain(cond: Conditioning) -> tuple:
 
 
 def gather_control(schedule, pos_entries, neg_entries, total: int, h: int,
-                   w: int):
+                   w: int, mid_entries=()):
     """The sampler's ControlNet links from every entry of both sides
     (ComfyUI honours a control on any entry): each distinct (net, hint)
     in first-seen order, and the same net chained twice on one entry
@@ -741,7 +792,10 @@ def gather_control(schedule, pos_entries, neg_entries, total: int, h: int,
     percent windows become sigma pairs on ``schedule``.  Each hint is
     resized bilinearly to 8x the latent's size and cycled to the
     ``total`` rows.  Returns ``[(net, hint, (cond strengths, uncond
-    strengths), (cond windows, uncond windows) or None)]``, or None."""
+    strengths), (cond windows, uncond windows) or None)]``, or None.
+    With a 3-row guidance's ``mid_entries`` (one entry a side) each
+    link's strengths and windows are flat [cond, middle, uncond]
+    triples instead."""
     nets = []            # (net, hint) in first-seen order
     net_max_ord = []     # per net: the most links of it on one entry
     spec_slot = {}       # id(link) -> (net index, ordinal on its entry)
@@ -754,7 +808,7 @@ def gather_control(schedule, pos_entries, neg_entries, total: int, h: int,
                 return i
         return -1
 
-    for e in list(pos_entries) + list(neg_entries):
+    for e in list(pos_entries) + list(neg_entries) + list(mid_entries):
         counts = {}
         for spec in control_chain(e):
             i = spec_slot[id(spec)][0] if id(spec) in spec_slot \
@@ -783,14 +837,29 @@ def gather_control(schedule, pos_entries, neg_entries, total: int, h: int,
     for i, n in enumerate(net_max_ord):
         for j in range(n):
             net, hint = nets[i]
-            specs = ([entry_spec(e, (i, j)) for e in pos_entries],
-                     [entry_spec(e, (i, j)) for e in neg_entries])
-            strengths = tuple(tuple(0.0 if sp is None else float(sp[2])
-                                    for sp in side) for side in specs)
-            windows = tuple(tuple(
-                None if sp is None or len(sp) <= 3 or sp[3] is None
-                else to_sigma(sp[3]) for sp in side) for side in specs)
-            if all(w_ is None for side in windows for w_ in side):
+
+            def strength(sp):
+                return 0.0 if sp is None else float(sp[2])
+
+            def window(sp):
+                return None if sp is None or len(sp) <= 3 or sp[3] is None \
+                    else to_sigma(sp[3])
+
+            if mid_entries:
+                flat = [entry_spec(e, (i, j)) for e in (
+                    pos_entries[0], mid_entries[0], neg_entries[0])]
+                strengths = tuple(strength(sp) for sp in flat)
+                windows = tuple(window(sp) for sp in flat)
+                flat_windows = windows
+            else:
+                specs = ([entry_spec(e, (i, j)) for e in pos_entries],
+                         [entry_spec(e, (i, j)) for e in neg_entries])
+                strengths = tuple(tuple(strength(sp) for sp in side)
+                                  for side in specs)
+                windows = tuple(tuple(window(sp) for sp in side)
+                                for side in specs)
+                flat_windows = windows[0] + windows[1]
+            if all(w_ is None for w_ in flat_windows):
                 windows = None
             hint = hint.float()
             if hint.shape[1] != h * 8 or hint.shape[2] != w * 8:
@@ -935,7 +1004,9 @@ class KSampler(Op):
                 sampler_name=str(sampler_name), scheduler=str(scheduler),
                 denoise=float(denoise), y=prep.y,
                 sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
-                c_concat=prep.c_concat, control=prep.control)
+                c_concat=prep.c_concat, control=prep.control,
+                middle_context=prep.mid_context, cfg2=prep.cfg2,
+                guidance=prep.guidance)
         # the mask stays on the latent, as ComfyUI keeps it
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
@@ -975,8 +1046,399 @@ class KSamplerAdvanced(Op):
                 force_full_denoise=str(return_with_leftover_noise)
                 == "disable",
                 noise_mask=prep.noise_mask, c_concat=prep.c_concat,
-                control=prep.control)
+                control=prep.control, middle_context=prep.mid_context,
+                cfg2=prep.cfg2, guidance=prep.guidance)
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
+
+
+@dataclasses.dataclass
+class SamplerObject:
+    """SAMPLER wire value (ComfyUI custom sampling): a sampler's name,
+    carried from KSamplerSelect to SamplerCustom."""
+    name: str
+
+
+@register_op
+class KSamplerSelect(Op):
+    TYPE = "KSamplerSelect"
+    WIDGETS = ["sampler_name"]
+
+    def execute(self, ctx: OpContext, sampler_name: str):
+        get_sampler(str(sampler_name))    # fail at selection, not sampling
+        return (SamplerObject(str(sampler_name)),)
+
+
+@register_op
+class BasicScheduler(Op):
+    """-> SIGMAS from the model's own schedule; denoise < 1 keeps the
+    final fraction of the steps."""
+    TYPE = "BasicScheduler"
+    WIDGETS = ["scheduler", "steps", "denoise"]
+    DEFAULTS = {"denoise": 1.0}
+
+    def execute(self, ctx: OpContext, model, scheduler: str, steps: int,
+                denoise: float = 1.0):
+        return (np.asarray(sch.compute_sigmas(
+            model.schedule, str(scheduler), int(steps), float(denoise)),
+            np.float32),)
+
+
+@register_op
+class KarrasScheduler(Op):
+    """-> SIGMAS: the Karras rho-schedule between explicit bounds."""
+    TYPE = "KarrasScheduler"
+    WIDGETS = ["steps", "sigma_max", "sigma_min", "rho"]
+    DEFAULTS = {"sigma_max": 14.614642, "sigma_min": 0.0291675,
+                "rho": 7.0}
+
+    def execute(self, ctx: OpContext, steps: int, sigma_max: float,
+                sigma_min: float, rho: float = 7.0):
+        return (sch.karras_scheduler(None, int(steps), float(rho),
+                                     sigma_min=float(sigma_min),
+                                     sigma_max=float(sigma_max)),)
+
+
+@register_op
+class ExponentialScheduler(Op):
+    """-> SIGMAS: a log-linear ramp between explicit bounds."""
+    TYPE = "ExponentialScheduler"
+    WIDGETS = ["steps", "sigma_max", "sigma_min"]
+    DEFAULTS = {"sigma_max": 14.614642, "sigma_min": 0.0291675}
+
+    def execute(self, ctx: OpContext, steps: int, sigma_max: float,
+                sigma_min: float):
+        return (sch.polyexponential_sigmas(int(steps), float(sigma_max),
+                                           float(sigma_min), rho=1.0),)
+
+
+@register_op
+class PolyexponentialScheduler(Op):
+    TYPE = "PolyexponentialScheduler"
+    WIDGETS = ["steps", "sigma_max", "sigma_min", "rho"]
+    DEFAULTS = {"sigma_max": 14.614642, "sigma_min": 0.0291675,
+                "rho": 1.0}
+
+    def execute(self, ctx: OpContext, steps: int, sigma_max: float,
+                sigma_min: float, rho: float = 1.0):
+        return (sch.polyexponential_sigmas(int(steps), float(sigma_max),
+                                           float(sigma_min),
+                                           rho=float(rho)),)
+
+
+@register_op
+class VPScheduler(Op):
+    TYPE = "VPScheduler"
+    WIDGETS = ["steps", "beta_d", "beta_min", "eps_s"]
+    DEFAULTS = {"beta_d": 19.9, "beta_min": 0.1, "eps_s": 0.001}
+
+    def execute(self, ctx: OpContext, steps: int, beta_d: float = 19.9,
+                beta_min: float = 0.1, eps_s: float = 0.001):
+        return (sch.vp_sigmas(int(steps), float(beta_d), float(beta_min),
+                              float(eps_s)),)
+
+
+@register_op
+class LaplaceScheduler(Op):
+    TYPE = "LaplaceScheduler"
+    WIDGETS = ["steps", "sigma_max", "sigma_min", "mu", "beta"]
+    DEFAULTS = {"sigma_max": 14.614642, "sigma_min": 0.0291675,
+                "mu": 0.0, "beta": 0.5}
+
+    def execute(self, ctx: OpContext, steps: int, sigma_max: float,
+                sigma_min: float, mu: float = 0.0, beta: float = 0.5):
+        return (sch.laplace_sigmas(int(steps), float(sigma_max),
+                                   float(sigma_min), float(mu),
+                                   float(beta)),)
+
+
+@register_op
+class BetaSamplingScheduler(Op):
+    """-> SIGMAS: beta-distribution spacing over the model's schedule."""
+    TYPE = "BetaSamplingScheduler"
+    WIDGETS = ["steps", "alpha", "beta"]
+    DEFAULTS = {"alpha": 0.6, "beta": 0.6}
+
+    def execute(self, ctx: OpContext, model, steps: int,
+                alpha: float = 0.6, beta: float = 0.6):
+        return (np.asarray(sch.beta_scheduler(
+            model.schedule, int(steps), float(alpha), float(beta)),
+            np.float32),)
+
+
+@register_op
+class AlignYourStepsScheduler(Op):
+    """-> SIGMAS: NVIDIA's Align-Your-Steps tables (SD1, SDXL, SVD)
+    interpolated to the step count; denoise < 1 keeps the last
+    ``round(steps * denoise) + 1`` levels, the last set to 0."""
+    TYPE = "AlignYourStepsScheduler"
+    WIDGETS = ["model_type", "steps", "denoise"]
+    DEFAULTS = {"model_type": "SD1", "denoise": 1.0}
+
+    def execute(self, ctx: OpContext, model_type: str, steps: int,
+                denoise: float = 1.0):
+        d = float(denoise)
+        if d <= 0.0:
+            return (np.zeros((0,), np.float32),)
+        total = round(int(steps) * d) if d < 1.0 else int(steps)
+        sig = sch.ays_sigmas(str(model_type), int(steps)).copy()
+        sig = sig[-(total + 1):]
+        sig[-1] = 0.0
+        return (sig,)
+
+
+@register_op
+class SDTurboScheduler(Op):
+    """-> SIGMAS for distilled turbo models: the last ``steps`` of the
+    model schedule's 100-spaced timesteps."""
+    TYPE = "SDTurboScheduler"
+    WIDGETS = ["steps", "denoise"]
+    DEFAULTS = {"steps": 1, "denoise": 1.0}
+
+    def execute(self, ctx: OpContext, model, steps: int = 1,
+                denoise: float = 1.0):
+        return (sch.sd_turbo_sigmas(model.schedule, int(steps),
+                                    float(denoise)),)
+
+
+@register_op
+class SplitSigmasDenoise(Op):
+    """-> (high_sigmas, low_sigmas) split at the denoise fraction: the
+    last ``round(steps * denoise)`` steps go low, the split sigma in
+    both."""
+    TYPE = "SplitSigmasDenoise"
+    WIDGETS = ["denoise"]
+    DEFAULTS = {"denoise": 1.0}
+
+    def execute(self, ctx: OpContext, sigmas, denoise: float = 1.0):
+        s = _sigmas_array(sigmas)
+        steps = s.shape[0] - 1
+        i = max(steps - round(steps * float(denoise)), 0)
+        return (s[:i + 1], s[i:])
+
+
+@register_op
+class SplitSigmas(Op):
+    """-> (high_sigmas, low_sigmas) split at ``step`` (two-stage custom
+    chains), the split sigma in both."""
+    TYPE = "SplitSigmas"
+    WIDGETS = ["step"]
+    DEFAULTS = {"step": 0}
+
+    def execute(self, ctx: OpContext, sigmas, step: int = 0):
+        s = _sigmas_array(sigmas)
+        i = min(max(int(step), 0), s.shape[0] - 1)
+        return (s[:i + 1], s[i:])
+
+
+@register_op
+class FlipSigmas(Op):
+    """-> SIGMAS reversed (unsampling chains); a leading 0 becomes 1e-4
+    so the first model call has a usable sigma."""
+    TYPE = "FlipSigmas"
+
+    def execute(self, ctx: OpContext, sigmas):
+        s = _sigmas_array(sigmas)[::-1].copy()
+        if s.shape[0] and s[0] == 0.0:
+            s[0] = 1e-4
+        return (s,)
+
+
+def _sigmas_array(sigmas) -> np.ndarray:
+    """A SIGMAS value as a host float32 array.  Sigmas stay on the host
+    in the port: a tensor raises."""
+    if isinstance(sigmas, torch.Tensor):
+        raise TypeError("SIGMAS are host float32 arrays in the torch "
+                        "package, not tensors")
+    return np.asarray(sigmas, np.float32)
+
+
+def _sampler_name(sampler) -> str:
+    return sampler.name if isinstance(sampler, SamplerObject) \
+        else str(sampler)
+
+
+@register_op
+class SamplerCustom(Op):
+    """ComfyUI's custom-sampling entry: an explicit SAMPLER and SIGMAS in
+    place of KSampler's widget pair.  Both latent outputs carry the
+    result (no denoised preview stream is kept)."""
+    TYPE = "SamplerCustom"
+    WIDGETS = ["add_noise", "noise_seed", CONTROL, "cfg"]
+    DEFAULTS = {"add_noise": True, "cfg": 8.0}
+
+    def execute(self, ctx: OpContext, model, add_noise, noise_seed, cfg,
+                positive: Conditioning, negative: Conditioning,
+                latent_image, sampler, sigmas):
+        ctx.check_interrupt()
+        prep = _prepare_sample_inputs(model, noise_seed, latent_image,
+                                      positive, negative)
+        name = _sampler_name(sampler)
+        sig = _sigmas_array(sigmas)
+        with Timer(f"sampler_custom[{name}x{len(sig) - 1}]"):
+            out = model.sample(
+                prep.latents, prep.context, prep.uncond, prep.seeds,
+                steps=1, cfg=float(cfg), sampler_name=name,
+                scheduler="normal", y=prep.y,
+                add_noise=str(add_noise).lower()
+                not in ("disable", "false", "0"),
+                sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
+                c_concat=prep.c_concat, control=prep.control,
+                sigmas_override=sig, middle_context=prep.mid_context,
+                cfg2=prep.cfg2, guidance=prep.guidance)
+        out_d = {**_latent_meta(latent_image), "samples": DeviceLatent(out)}
+        return (out_d, dict(out_d))
+
+
+@dataclasses.dataclass
+class NoiseObject:
+    """NOISE wire value (ComfyUI custom sampling): the initial-noise
+    policy from RandomNoise or DisableNoise.  ``seed`` may be a
+    SeedValue, whose DistributedSeed offsets and coalesced seeds ride
+    through."""
+    seed: Any = 0
+    disable: bool = False
+
+
+@dataclasses.dataclass
+class GuiderObject:
+    """GUIDER wire value (ComfyUI custom sampling): the model, the
+    conditionings and the combine, from BasicGuider, CFGGuider,
+    DualCFGGuider or PerpNegGuider."""
+    model: Any
+    positive: Conditioning
+    negative: Optional[Conditioning] = None
+    middle: Optional[Conditioning] = None
+    cfg: float = 1.0
+    cfg2: float = 1.0
+    mode: str = "cfg"          # "basic" | "cfg" | "dual" | "perp"
+
+
+@register_op
+class RandomNoise(Op):
+    """-> NOISE seeded as KSampler's widget is; a DistributedSeed value
+    keeps its per-replica offsets."""
+    TYPE = "RandomNoise"
+    WIDGETS = ["noise_seed", CONTROL]
+
+    def execute(self, ctx: OpContext, noise_seed):
+        return (NoiseObject(seed=noise_seed),)
+
+
+@register_op
+class DisableNoise(Op):
+    """-> NOISE that adds nothing (a later stage whose latent already
+    carries its noise)."""
+    TYPE = "DisableNoise"
+
+    def execute(self, ctx: OpContext):
+        return (NoiseObject(seed=0, disable=True),)
+
+
+@register_op
+class BasicGuider(Op):
+    """-> GUIDER: the conditioning alone, no CFG combine (cfg 1: the
+    uncond rows are never evaluated)."""
+    TYPE = "BasicGuider"
+
+    def execute(self, ctx: OpContext, model, conditioning: Conditioning):
+        return (GuiderObject(model=model, positive=conditioning,
+                             mode="basic"),)
+
+
+@register_op
+class CFGGuider(Op):
+    """-> GUIDER: the positive/negative CFG combine at ``cfg``."""
+    TYPE = "CFGGuider"
+    WIDGETS = ["cfg"]
+    DEFAULTS = {"cfg": 8.0}
+
+    def execute(self, ctx: OpContext, model, positive: Conditioning,
+                negative: Conditioning, cfg: float = 8.0):
+        return (GuiderObject(model=model, positive=positive,
+                             negative=negative, cfg=float(cfg),
+                             mode="cfg"),)
+
+
+@register_op
+class DualCFGGuider(Op):
+    """-> GUIDER with two positives (the InstructPix2Pix combine): cond2
+    CFG'd against the negative at ``cfg_cond2_negative``, then cond1
+    against cond2 at ``cfg_conds`` (``samplers.cfg_denoiser_dual``)."""
+    TYPE = "DualCFGGuider"
+    WIDGETS = ["cfg_conds", "cfg_cond2_negative"]
+    DEFAULTS = {"cfg_conds": 8.0, "cfg_cond2_negative": 8.0}
+
+    def execute(self, ctx: OpContext, model, cond1: Conditioning,
+                cond2: Conditioning, negative: Conditioning,
+                cfg_conds: float = 8.0, cfg_cond2_negative: float = 8.0):
+        return (GuiderObject(model=model, positive=cond1, middle=cond2,
+                             negative=negative, cfg=float(cfg_conds),
+                             cfg2=float(cfg_cond2_negative), mode="dual"),)
+
+
+@register_op
+class PerpNegGuider(Op):
+    """-> GUIDER: Perp-Neg with an explicit empty conditioning, CFG at
+    ``cfg`` and the perpendicular negative at ``neg_scale``
+    (``samplers.cfg_denoiser_perp_neg``)."""
+    TYPE = "PerpNegGuider"
+    WIDGETS = ["cfg", "neg_scale"]
+    DEFAULTS = {"cfg": 8.0, "neg_scale": 1.0}
+
+    def execute(self, ctx: OpContext, model, positive: Conditioning,
+                negative: Conditioning, empty_conditioning: Conditioning,
+                cfg: float = 8.0, neg_scale: float = 1.0):
+        return (GuiderObject(model=model, positive=positive,
+                             negative=negative,
+                             middle=empty_conditioning, cfg=float(cfg),
+                             cfg2=float(neg_scale), mode="perp"),)
+
+
+def _plain_entry(e: Conditioning) -> bool:
+    return (not e.siblings and e.area_mask is None
+            and e.timestep_range is None and float(e.area_strength) == 1.0)
+
+
+@register_op
+class SamplerCustomAdvanced(Op):
+    """ComfyUI's modular sampling entry: NOISE, GUIDER, SAMPLER and
+    SIGMAS.  The guider picks the combine: basic (cfg 1), cfg, dual or
+    Perp-Neg; a PerpNeg-patched model under a plain guider keeps its
+    patch.  Both latent outputs carry the result."""
+    TYPE = "SamplerCustomAdvanced"
+
+    def execute(self, ctx: OpContext, noise: NoiseObject,
+                guider: GuiderObject, sampler, sigmas, latent_image):
+        ctx.check_interrupt()
+        g = guider
+        neg = g.negative if g.negative is not None else g.positive
+        three_row = g.mode in ("dual", "perp")
+        if three_row and not all(
+                _plain_entry(e) for e in (g.positive, g.middle, neg)):
+            raise ValueError(f"{g.mode} guidance does not compose with "
+                             "regional multi-entry conditionings")
+        prep = _prepare_sample_inputs(
+            g.model, noise.seed, latent_image, g.positive, neg,
+            middle=g.middle if three_row else None)
+        if three_row:
+            guidance = "perp_neg" if g.mode == "perp" else "dual"
+            cfg2 = float(g.cfg2)
+        else:
+            guidance, cfg2 = prep.guidance, prep.cfg2
+        cfg = 1.0 if g.mode == "basic" else float(g.cfg)
+        name = _sampler_name(sampler)
+        sig = _sigmas_array(sigmas)
+        with Timer(f"sampler_custom_adv[{g.mode}:{name}x{len(sig) - 1}]"):
+            out = g.model.sample(
+                prep.latents, prep.context, prep.uncond, prep.seeds,
+                steps=1, cfg=cfg, sampler_name=name, scheduler="normal",
+                y=prep.y, add_noise=not noise.disable,
+                sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
+                c_concat=prep.c_concat, control=prep.control,
+                sigmas_override=sig, middle_context=prep.mid_context,
+                cfg2=cfg2, guidance=guidance)
+        out_d = {**_latent_meta(latent_image), "samples": DeviceLatent(out)}
+        return (out_d, dict(out_d))
 
 
 @register_op
@@ -1378,6 +1840,105 @@ def _freeu_pipeline(model, version: int, b1, b2, s1, s2):
         freeu_version=int(version)))
     return registry.derive_pipeline(
         model, f"freeu{version}:{b1}:{b2}:{s1}:{s2}", family=fam2)
+
+
+@register_op
+class RescaleCFG(Op):
+    """RescaleCFG: the CFG combine re-stded toward the cond prediction's
+    v-space statistics, blended by ``multiplier`` (the high-CFG
+    over-saturation fix).  A derived pipeline; the patch rides further
+    derivations."""
+    TYPE = "RescaleCFG"
+    WIDGETS = ["multiplier"]
+    DEFAULTS = {"multiplier": 0.7}
+
+    def execute(self, ctx: OpContext, model, multiplier: float = 0.7):
+        m = float(multiplier)
+        if m == 0.0:
+            return (model,)
+        return (registry.derive_pipeline(model, f"rescale:{m}",
+                                         cfg_rescale=m),)
+
+
+@register_op
+class ModelSamplingDiscrete(Op):
+    """ComfyUI's ModelSamplingDiscrete: how the model's output reads
+    (eps, v_prediction, x0; lcm as eps) and, with ``zsnr``, the schedule
+    rescaled to zero terminal SNR.  A derived pipeline; the patch rides
+    further derivations."""
+    TYPE = "ModelSamplingDiscrete"
+    WIDGETS = ["sampling", "zsnr"]
+    DEFAULTS = {"sampling": "eps", "zsnr": False}
+
+    _MAP = {"eps": "eps", "v_prediction": "v", "x0": "x0", "lcm": "eps"}
+
+    def execute(self, ctx: OpContext, model, sampling: str = "eps",
+                zsnr=False):
+        s = str(sampling)
+        if s not in self._MAP:
+            raise ValueError(f"unknown sampling {s!r}; "
+                             f"available: {tuple(self._MAP)}")
+        if s == "lcm":
+            debug_log("ModelSamplingDiscrete: 'lcm' timestep scaling is "
+                      "not modeled; treating as eps (use the lcm "
+                      "sampler for LCM checkpoints)")
+        z = str(zsnr).lower() not in ("false", "0", "")
+        schedule = sch.rescale_zero_terminal_snr(model.schedule) if z \
+            else None
+        return (registry.derive_pipeline(
+            model, f"msd:{s}:{int(z)}", prediction_type=self._MAP[s],
+            schedule=schedule),)
+
+
+@register_op
+class SelfAttentionGuidance(Op):
+    """SAG (Hong et al.): blur what the model attends to, denoise the
+    degraded latent once more and steer away from it.  A derived
+    pipeline whose UNet config captures the middle block's attention
+    (``sag_capture``); three UNet rows a step."""
+    TYPE = "SelfAttentionGuidance"
+    WIDGETS = ["scale", "blur_sigma"]
+    DEFAULTS = {"scale": 0.5, "blur_sigma": 2.0}
+
+    def execute(self, ctx: OpContext, model, scale: float = 0.5,
+                blur_sigma: float = 2.0):
+        fam = model.family
+        fam2 = dataclasses.replace(fam, unet=dataclasses.replace(
+            fam.unet, sag_capture=True))
+        return (registry.derive_pipeline(
+            model, f"sag:{float(scale)}:{float(blur_sigma)}", family=fam2,
+            extra_attrs={"sag_params": (float(scale),
+                                        float(blur_sigma))}),)
+
+
+@register_op
+class PerpNeg(Op):
+    """ComfyUI's PerpNeg patch: sampling evaluates a third, empty
+    conditioning and subtracts only the negative's component
+    perpendicular to the positive (``samplers.cfg_denoiser_perp_neg``).
+    A derived pipeline, cached per scale and empty conditioning (a crc32
+    of its context and pooled bytes); it rides further derivations."""
+    TYPE = "PerpNeg"
+    WIDGETS = ["neg_scale"]
+    DEFAULTS = {"neg_scale": 1.0}
+
+    def execute(self, ctx: OpContext, model,
+                empty_conditioning: Conditioning, neg_scale: float = 1.0):
+        e = empty_conditioning
+        sig = zlib.crc32(_f32_bytes(e.context))
+        if e.pooled is not None:
+            sig = zlib.crc32(_f32_bytes(e.pooled), sig)
+        return (registry.derive_pipeline(
+            model, f"perpneg:{float(neg_scale)}:{sig:08x}",
+            extra_attrs={"perp_neg_cond": empty_conditioning,
+                         "perp_neg_scale": float(neg_scale)}),)
+
+
+def _f32_bytes(t) -> bytes:
+    """A tensor's (or array's) float32 bytes on the host."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().float().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(t, np.float32)).tobytes()
 
 
 @register_op

@@ -42,8 +42,10 @@ tiles on the master a ``reassign`` span, a hedge a ``hedge`` span.
 
 Regional conditionings (siblings, area masks, timestep ranges) refine
 with each entry's canvas mask cropped through the same padded tile
-windows as the pixels.  Not ported: PerpNeg raises
-``NotImplementedError``.
+windows as the pixels.  A PerpNeg-patched pipeline refines its tiles
+with its empty conditioning as the third row block (its tokens cut,
+repeated or zero-padded to the prompt's), and with the primary prompts
+only when the conditionings are regional, which it logs.
 
 Changed-tile skipping (the reuse plane's tile tier, ``runtime/reuse.py``):
 in one process and on the master, every extracted tile is hashed with
@@ -114,17 +116,34 @@ def _is_regional(c: Conditioning) -> bool:
                 or c.timestep_range is not None)
 
 
+def _align_to(c: torch.Tensor, tm: int) -> torch.Tensor:
+    """A context [1, T, C] brought to ``tm`` tokens: repeated whole when T
+    divides ``tm``, cut when longer, zero-padded when shorter (the JAX
+    tile refine's rule for PerpNeg's empty conditioning)."""
+    t = int(c.shape[1])
+    if t == tm:
+        return c
+    if tm % t == 0:
+        return c.repeat(1, tm // t, 1)
+    if t > tm:
+        return c[:, :tm]
+    return torch.nn.functional.pad(c, (0, 0, 0, tm - t))
+
+
 def _tile_cache_eligible(positive: Conditioning, negative: Conditioning,
                          pipe=None) -> bool:
     """The tile tier is armed for a plain refine only: canvas-wide single
     conditionings (a regional mask resolves by the tile's position,
     which its content key does not hold), no concat channels, unCLIP
-    vector or ControlNet, and a pipeline without deep shrink (a sampling
-    patch the key does not hold).  A PerpNeg pipeline raises before.
-    The refine itself passes no control to the tile sampling, as the JAX
+    vector or ControlNet, and a pipeline without a sampling patch the
+    key does not hold: deep shrink, SAG, PerpNeg or RescaleCFG.  The
+    refine itself passes no control to the tile sampling, as the JAX
     package's does not."""
-    if getattr(pipe, "deep_shrink_spec", None):
+    if getattr(pipe, "perp_neg_cond", None) is not None:
         return False
+    for attr in ("sag_params", "deep_shrink_spec", "cfg_rescale"):
+        if getattr(pipe, attr, None):
+            return False
     return not any(_is_regional(c) or c.concat_latent is not None
                    or c.unclip is not None or c.control is not None
                    for c in (positive, negative))
@@ -167,9 +186,6 @@ class UltimateSDUpscaleDistributed(Op):
                 master_url="", enabled_worker_ids="[]", worker_id="",
                 tile_indices="", dispatch_attempt=0):
         ctx.check_interrupt()
-        if getattr(model, "perp_neg_cond", None) is not None:
-            raise NotImplementedError(
-                "PerpNeg in the tiled upscaler is not ported yet")
         image = as_device_image(upscaled_image, model.device)
         p = dict(seed=int(seed), steps=int(steps), cfg=float(cfg),
                  sampler_name=str(sampler_name), scheduler=str(scheduler),
@@ -344,13 +360,25 @@ class UltimateSDUpscaleDistributed(Op):
         batch in one go; tile ``i`` takes seed ``seed + i`` and fold-in
         index 0, as if it were a batch of one.  Regional conditionings
         refine with their masks cropped to the tiles (``positions`` in
-        the canvas of ``img_size``)."""
+        the canvas of ``img_size``); under PerpNeg, whose three row
+        blocks take one plain entry a side, with the primary prompts
+        only (logged).  A PerpNeg pipeline's empty conditioning is the
+        middle block, its tokens aligned to the positive's as the JAX
+        package aligns them."""
         n = tiles.shape[0]
         seeds = np.asarray([p["seed"] + int(t) for t in tile_indices],
                            np.uint64)
         idx = np.zeros((n,), np.uint32)
         dev = pipe.device
-        if _is_regional(positive) or _is_regional(negative):
+        pn = getattr(pipe, "perp_neg_cond", None)
+        regional = _is_regional(positive) or _is_regional(negative)
+        if regional and pn is not None:
+            log("tiled upscale: regional conditioning cannot be mapped "
+                "into this tile refine (PerpNeg-patched model); using "
+                "the primary prompt only")
+            regional = False
+        mid, guidance, cfg2 = None, "dual", 1.0
+        if regional:
             pos = [positive, *positive.siblings]
             neg = [negative, *negative.siblings]
             t_align = cond_token_align(pos + neg)
@@ -369,13 +397,20 @@ class UltimateSDUpscaleDistributed(Op):
             if pipe.family.unet.adm_in_channels is not None:
                 y = _sdxl_vector_cond(pipe, positive, n, tiles.shape[1],
                                       tiles.shape[2])
+            if pn is not None:
+                mid = _align_to(pn.context.to(dev),
+                                int(positive.context.shape[1])).repeat(
+                                    n, 1, 1)
+                guidance = "perp_neg"
+                cfg2 = float(getattr(pipe, "perp_neg_scale", 1.0))
         with stage(ctx, "tile_encode"):
             lat = pipe.vae_encode(tiles)
         with stage(ctx, "tile_sample"):
             lat = pipe.sample(
                 lat, context, uncond, seeds, steps=p["steps"], cfg=p["cfg"],
                 sampler_name=p["sampler_name"], scheduler=p["scheduler"],
-                denoise=p["denoise"], y=y, add_noise=True, sample_idx=idx)
+                denoise=p["denoise"], y=y, add_noise=True, sample_idx=idx,
+                middle_context=mid, cfg2=cfg2, guidance=guidance)
         # an interrupted sample returns its latent part-way: end the
         # prompt here, so no noisy tile is blended or sent to the master
         ctx.check_interrupt()

@@ -312,8 +312,11 @@ class _Bucket:
         self.sampler_name = str(capture["sampler_name"])
         self.cfg = float(capture["cfg"])
         smp.get_sampler_step(self.sampler_name)   # raises on non-step
-        if getattr(pipe, "deep_shrink_spec", None):
-            raise CBIneligible("model patch present: deep_shrink_spec")
+        for attr in ("sag_params", "deep_shrink_spec", "perp_neg_cond"):
+            if getattr(pipe, attr, None):
+                raise CBIneligible(f"model patch present: {attr}")
+        if float(getattr(pipe, "cfg_rescale", 0.0) or 0.0):
+            raise CBIneligible("cfg_rescale patch present")
         self.sigmas_np = np.asarray(sch.compute_sigmas(
             pipe.schedule, str(capture["scheduler"]),
             int(capture["steps"]), float(capture["denoise"])), np.float32)

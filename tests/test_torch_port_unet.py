@@ -103,10 +103,10 @@ def test_resblock_and_timestep_embedding():
 @pytest.mark.parametrize("patch", [dict(freeu=(1.1, 1.2, 0.9, 0.2),
                                         tome_ratio=0.5),
                                    dict(tome_ratio=0.5), dict(gligen=768),
-                                   dict(sag_capture=True)])
+                                   dict(sag_capture=True, gligen=768)])
 def test_unported_patches_raise(patch):
-    """ToMe, GLIGEN and SAG capture are not ported and raise, beside a
-    ported patch (FreeU) too."""
+    """ToMe and GLIGEN are not ported and raise, beside a ported patch
+    (FreeU, SAG's capture) too."""
     with pytest.raises(NotImplementedError):
         tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, **patch))
 

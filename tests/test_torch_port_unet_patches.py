@@ -176,12 +176,13 @@ def test_patched_unet_matches_jax(weights, name):
 
 
 def test_unported_patches_still_raise_and_with_config_guards_weights():
-    for patch in (dict(sag_capture=True), dict(tome_ratio=0.5),
-                  dict(gligen=16)):
+    for patch in (dict(tome_ratio=0.5), dict(gligen=16)):
         with pytest.raises(NotImplementedError):
             tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, **patch))
     with torch.device("meta"):
         unet = tunet.UNet(tunet.TINY_CONFIG)
+        # SAG's capture is ported: a patch field on shared weights
+        tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, sag_capture=True))
     assert tunet.with_config(unet, tunet.TINY_CONFIG) is unet
     with pytest.raises(ValueError, match="context_dim"):
         tunet.with_config(unet, dataclasses.replace(tunet.TINY_CONFIG,

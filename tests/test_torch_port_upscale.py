@@ -24,7 +24,7 @@ from comfyui_distributed_tpu_torch.models import registry as treg
 from comfyui_distributed_tpu_torch.models import upscalers as tup
 from comfyui_distributed_tpu_torch.models.weights import rrdb_from_flax
 from comfyui_distributed_tpu_torch.ops import tiling
-from comfyui_distributed_tpu_torch.ops.base import OpContext
+from comfyui_distributed_tpu_torch.ops.base import Conditioning, OpContext
 from comfyui_distributed_tpu_torch.ops.basic import ImageUpscaleWithModel
 from comfyui_distributed_tpu_torch.ops.tiled_upscale import (
     UltimateSDUpscaleDistributed)
@@ -341,23 +341,42 @@ def test_upscale_tiles_are_refined_as_one_batch(tiny_family, tmp_path,
 
 @pytest.mark.parametrize("what", ["multi_job_id", "regional", "perp_neg"])
 def test_what_is_not_ported_raises(what):
-    """PerpNeg raises in every mode: in the HTTP worker mode (a
-    ``multi_job_id``) with an area-masked conditioning, with regional
-    siblings and alone.  (Regional conditioning itself is ported:
+    """Nothing of the tile refine raises now: PerpNeg runs in every
+    mode's refine (``_refine_batch``, which the in-process, master and
+    HTTP worker modes share): with an area-masked conditioning (what a
+    worker of a ``multi_job_id`` got), with regional siblings and alone.
+    The sampler gets the empty conditioning as the middle block, with
+    guidance ``perp_neg`` and the patch's scale; regional entries refine
+    with the primary prompt, as the JAX package's refine does.
+    (Regional conditioning itself is ported:
     ``tests/test_torch_port_regional.py``.)"""
-    ctx = OpContext(device="cpu")
-    cond = types.SimpleNamespace(context=torch.zeros(1, 77, 64))
-    model = types.SimpleNamespace(device=torch.device("cpu"),
-                                  perp_neg_cond=cond)
-    kw = {}
+    seen = {}
+    cond = Conditioning(context=torch.zeros(1, 77, 8))
     if what == "multi_job_id":
-        kw.update(multi_job_id="job-1", is_worker=True,
-                  master_url="http://127.0.0.1:9", worker_id="w0",
-                  enabled_worker_ids='["w0"]')
         cond.area_mask = torch.ones(1, 8, 8, 1)
     elif what == "regional":
-        cond.siblings = (cond,)
-    with pytest.raises(NotImplementedError):
-        UltimateSDUpscaleDistributed().execute(
-            ctx, torch.zeros(1, 64, 64, 3), model, cond, cond, None, 1, 2,
-            8.0, "euler", "normal", 0.35, 32, 32, 8, 2, **kw)
+        cond.siblings = (Conditioning(context=torch.ones(1, 77, 8)),)
+
+    def sample(lat, c, u, seeds, **kw):
+        seen.update(kw, context=c)
+        return lat
+
+    model = types.SimpleNamespace(
+        device=torch.device("cpu"),
+        family=types.SimpleNamespace(unet=types.SimpleNamespace(
+            adm_in_channels=None)),
+        perp_neg_cond=Conditioning(context=torch.ones(1, 77, 8)),
+        perp_neg_scale=0.7,
+        vae_encode=lambda t: torch.zeros(t.shape[0], 4, 4, 4),
+        sample=sample,
+        vae_decode=lambda lat: torch.zeros(lat.shape[0], 32, 32, 3))
+    out = UltimateSDUpscaleDistributed()._refine_batch(
+        OpContext(device="cpu"), model, torch.zeros(2, 32, 32, 3), [0, 1],
+        cond, cond, {"seed": 1, "steps": 1, "cfg": 4.0,
+                     "sampler_name": "euler", "scheduler": "normal",
+                     "denoise": 0.5, "tile_w": 32, "tile_h": 32,
+                     "padding": 0}, [(0, 0), (32, 0)], (64, 32))
+    assert tuple(out.shape) == (2, 32, 32, 3)
+    assert seen["guidance"] == "perp_neg" and seen["cfg2"] == 0.7
+    assert tuple(seen["middle_context"].shape) == (2, 77, 8)
+    assert tuple(seen["context"].shape) == (2, 77, 8)
