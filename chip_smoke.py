@@ -35,7 +35,13 @@ Run from the root of a checkout on a machine with a CUDA card (and
    its SFUs could take for one exp2 a score (``exp2_ms``).  Times are
    device times: the card is kept busy by a sleep kernel while the host
    enqueues, the candidates run in turns (forward, then reversed) and
-   each time is the median of three rounds;
+   the kernel's and the library's times are the median of three rounds,
+   the plain version's and ``mma.sync``'s (comparators) of the first
+   round alone.  Each row has its host seconds and the seconds the
+   comparators' two later rounds would have added; the ``phase3`` line
+   sums both, and phase 24's own rows' seconds, beside the seconds the
+   patched UNets' meta-device forwards took (run while phase 2's
+   ``nvcc`` builds) and the seconds the build's end waited for them;
 4. the tiny family on the card against the same runs on the CPU (plain
    versions): txt2img, img2img, the tiled upscale, the SDXL workflow
    (``tiny_sdxl``, 4 dpmpp_2m steps), txt2img from a tiny checkpoint
@@ -473,6 +479,30 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``phase23`` line: each check's max and mean difference, each
    request's seconds, sampler-node seconds, node seconds, launches,
    attention ms and peak memory, and the card.
+24. The UNet's last patches and the conditioning add-ons, in phase 22's
+   process after phase 23, on its SD1.5 file, seed and plain graph
+   (:func:`phase24_doc`) with ``DTPU_CACHE=0``, phase 22's plain image
+   reused.  The phase first writes its files into the models directory
+   (:func:`write_phase24_files`): an A1111 hypernetwork holding the
+   virtual ``PHASE24_HN``'s 768-wide streams, a ViT-L CLIP-vision file
+   of virtual weights and a textual-inversion ``emb_params`` file.
+   Beyond the same-batch limits (``FANOUT_ATOL["same"]``) of plain:
+   TomePatchModel 0.3 (640 launches, 100 of them at (2, 2868, 4096, 8,
+   40): kept tokens are exact, only the merged ones move), the virtual
+   hypernetwork at strength 1, and GLIGEN with the fuser pipeline's
+   gates set to ``PHASE24_GATES``, which repeats to the bit.  Equal to
+   plain to the bit: TomePatchModel 0, HypernetworkLoader at strength
+   0, GLIGENLoader + GLIGENTextBoxApply with one box (the virtual gates
+   are 0; 960 launches, a fuser's attention a block), and a prompt
+   naming an embedding with no file; the hypernetwork file equal to the
+   virtual one to the bit.  Beyond the one-batch limits of plain:
+   CLIPVisionLoader (the ViT-L file) and CLIPVisionEncode of phase 22's
+   hint image with StyleModelLoader and StyleModelApply (320 of the 640
+   launches cross-attend 77 + 8 tokens), and the prompt with
+   ``embedding:`` and the file's name.  Each request's sm90 launches are
+   exact and at shapes phase 3 checked (:func:`phase24_kernel_shapes`, a
+   meta-device forward under each patch).  It prints a ``phase24`` line
+   like phase 23's, with the files' write seconds and bytes.
 
 Phases 14, 15, 16, 20 and 21 launch their servers before the phase
 before them (13, 14, 15, 19 and 20) runs, so a server's start
@@ -492,7 +522,7 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 (the encode memo: a warm request takes its text encodes from it).
 
 Launch counts are zeroed just before each request of phases 5-7,
-9-13, 22 and 23 and read just after (phase 15's interrupted request and every
+9-13 and 22-24 and read just after (phase 15's interrupted request and every
 request of phases 16, 18, 19 and 21: their servers' prompt lines;
 phase 20's: its buckets' counts, each step's own, and its prompt
 lines).  The line before the last is ``{"kernels":
@@ -521,6 +551,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import concurrent.futures
 import copy
 import json
 import math
@@ -716,6 +747,20 @@ PHASE23_SAG = (0.5, 2.0)
 PHASE23_RESCALE = 0.7
 PHASE23_AYS_STEPS = 10
 PHASE23_BUDGET_S = 30.0
+# phase 24: the UNet's last patches and the conditioning add-ons
+PHASE24_TOME = 0.3
+PHASE24_HN = "phase24_hypernetwork.pt"            # no file: the virtual one
+PHASE24_HN_FILE = "phase24_hypernetwork_file.pt"  # its weights, written
+PHASE24_GLIGEN = "gligen_sd14_textbox_pruned.safetensors"
+PHASE24_BOX = ("a lighthouse", 192, 320, 160, 96)  # text, width, height, x, y
+PHASE24_GATES = 0.5
+PHASE24_VISION = "phase24_clip_vit_l.safetensors"  # a ViT-L file, written
+PHASE24_STYLE = "t2iadapter_style_sd14v1.pth"
+PHASE24_STYLE_TOKENS = 8
+PHASE24_EMBEDDING = "phase24_embedding"
+PHASE24_EMB_SHAPE = (4, 768)
+PHASE24_EMB_SEED = 24
+PHASE24_BUDGET_S = 40.0
 # source -> the instantiations that phases 3-7 launch
 LAUNCHED_KERNELS = {
     "flash_attention_sm90": [f"flash_fwd_sm90<{d}>"
@@ -789,17 +834,25 @@ def time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def time_in_turns(fns, reps):
+def time_in_turns(fns, reps, once=()):
     """name -> median device ms over ROUNDS rounds; each round times every
     candidate once, in the given order and then reversed, so a drift of
-    the card's clock falls on all of them alike."""
+    the card's clock falls on all of them alike.  The names in ``once``
+    (comparators, no yardstick) are timed in the first round only.
+    Returns (medians, the host seconds each candidate's timing took)."""
     times = {name: [] for name in fns}
+    walls = dict.fromkeys(fns, 0.0)
     for r in range(ROUNDS):
         order = list(fns) if r % 2 == 0 else list(fns)[::-1]
         for name in order:
+            if r and name in once:
+                continue
             fn, n = fns[name]
+            t0 = time.perf_counter()
             times[name].append(time_ms(fn, max(int(reps * n), 3)))
-    return {name: statistics.median(ts) for name, ts in times.items()}
+            walls[name] += time.perf_counter() - t0
+    return ({name: statistics.median(ts) for name, ts in times.items()},
+            walls)
 
 
 def plain_in_chunks(q, k, v):
@@ -829,6 +882,7 @@ def check_kernel(shapes):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for B, N, M, H, D, dt, role, *named in shapes:
+        t_row = time.perf_counter()
         dtype = getattr(torch, dt.split(".")[1])
         # a row may name the kernel it launches (the older one at a head
         # dim the main path gives to sm90); else the main path's own
@@ -870,7 +924,10 @@ def check_kernel(shapes):
                "plain_ms": (lambda: plain_in_chunks(q, k, v), 0.25)}
         if "mma_sync_ms" in outs:
             fns["mma_sync_ms"] = (outs["mma_sync_ms"], 1.0)
-        times = time_in_turns(fns, 20 if N * M >= 1 << 20 else 100)
+        # the plain version and mma_sync are comparators: one round each
+        once = ("plain_ms", "mma_sync_ms")
+        times, walls = time_in_turns(fns, 20 if N * M >= 1 << 20 else 100,
+                                     once=once)
         b_ms, b_by, flops, nbytes = bound(B, N, M, H, D, dt)
         row = {"role": role, "variant": variant, "B": B, "N": N, "M": M,
                "H": H, "D": D, "dtype": dt, "max_abs_err": errs["ms"][0],
@@ -878,7 +935,12 @@ def check_kernel(shapes):
                "bound_us": b_ms * 1e3, "bound_by": b_by,
                "exp2_ms": exp2_ms(B, N, M, H, D, dt), "named": bool(named),
                "tflops": flops / (times["ms"] * 1e-3) / 1e12,
-               "roofline_share": b_ms / times["ms"]}
+               "roofline_share": b_ms / times["ms"],
+               # host seconds of the row, and what timing the
+               # comparators in every round would have added
+               "seconds": time.perf_counter() - t_row,
+               "rounds_saved_s": (ROUNDS - 1) * sum(walls.get(k, 0.0)
+                                                    for k in once)}
         if "mma_sync_ms" in errs:
             row["mma_sync_rel_err"] = errs["mma_sync_ms"][1]
         rows.append(row)
@@ -5634,13 +5696,16 @@ def elastic_fleet(docs, txt_refs, rows):
                     "shapes": dict(launches["shapes"])}
 
 
-def patched_attention_shapes(patch, hw=(64, 64), batch=2, capture=False):
+def patched_attention_shapes(patch, hw=(64, 64), batch=2, capture=False,
+                             tokens=77):
     """The attention shapes ``(B, N, M, H, D, dtype)`` that one SD1.5
-    UNet call on a ``batch`` x ``hw`` latent under the UNet-config
-    ``patch`` (HyperTile's folded tiles, deep shrink's shrunk levels,
-    SAG's capture with ``capture``) gives the kernel's wrapper, read off
-    a forward on the meta device with the wrapper swapped for a
-    recorder: the shapes the code gives, not a copy of its rule."""
+    UNet call on a ``batch`` x ``hw`` latent and a ``tokens``-long
+    context under the UNet-config ``patch`` (HyperTile's folded tiles,
+    deep shrink's shrunk levels, SAG's capture with ``capture``, ToMe's
+    merged queries, GLIGEN's fusers over one grounding token) gives the
+    kernel's wrapper, read off a forward on the meta device with the
+    wrapper swapped for a recorder: the shapes the code gives, not a
+    copy of its rule."""
     import dataclasses
 
     import torch
@@ -5661,7 +5726,7 @@ def patched_attention_shapes(patch, hw=(64, 64), batch=2, capture=False):
         with torch.device("meta"):
             unet = unet_mod.UNet(cfg)
             unet(torch.empty(batch, *hw, cfg.in_channels), torch.empty(batch),
-                 torch.empty(batch, 77, cfg.context_dim),
+                 torch.empty(batch, tokens, cfg.context_dim),
                  **({"capture": True} if capture else {}))
     finally:
         layers.flash_attention = saved
@@ -5705,6 +5770,24 @@ def phase23_kernel_shapes():
         fail(f"phase 23: SAG's capture call gives {len(cap)} attentions "
              f"(expected {PHASE23_CAPTURE_LAUNCHES} of the plain call's "
              "shapes)")
+    return rows
+
+
+def phase24_kernel_shapes():
+    """Phase 3's rows for phase 24's own shapes at 512^2, B = 2: ToMe's
+    merged level-0 queries, the GLIGEN fusers' self-attention over the
+    tokens and one box, and the cross-attention over a context with the
+    style model's tokens appended (77 + 8)."""
+    rows = []
+    for patch, tokens, what in (
+            ({"tome_ratio": PHASE24_TOME}, 77, "ToMe"),
+            ({"gligen": 768}, 77, "GLIGEN"),
+            ({}, 77 + PHASE24_STYLE_TOKENS, "style")):
+        for B, N, M, H, D, dt in sorted(set(patched_attention_shapes(
+                patch, tokens=tokens))):
+            kind = "cross" if M == tokens else "self"
+            rows.append((B, N, M, H, D, dt,
+                         f"SD1.5 512^2 {what} {kind} {N} x {M} tokens"))
     return rows
 
 
@@ -6218,6 +6301,195 @@ def custom_sampling(dirs, plain, shape_counts, rows):
     return runs.report(t_phase, PHASE23_BUDGET_S), runs.requests
 
 
+def phase24_doc(base, variant):
+    """Phase 24's graph ``variant`` on phase 22's plain graph ``base`` (its
+    Canny node dropped; its LoadImage of the hint feeds the style
+    model's vision encode): the same checkpoint, prompts, latent, seed,
+    cfg, sampler and schedule.  Returns (doc, expected sm90 launches)."""
+    doc = {k: copy.deepcopy(v) for k, v in base.items() if k != "11"}
+    ks = doc["3"]["inputs"]
+    want = PHASE22_UNET_LAUNCHES
+
+    def node(nid, class_type, **inputs):
+        doc[nid] = {"class_type": class_type, "inputs": inputs}
+
+    def patch(class_type, **widgets):
+        node("30", class_type, model=["4", 0], **widgets)
+        ks["model"] = ["30", 0]
+
+    if variant.startswith("ToMe"):
+        patch("TomePatchModel", ratio=float(variant.split()[1]))
+    elif variant.startswith("hypernetwork"):
+        patch("HypernetworkLoader",
+              hypernetwork_name=PHASE24_HN_FILE if "file" in variant
+              else PHASE24_HN, strength=0.0 if variant.endswith(" 0")
+              else 1.0)
+    elif variant.startswith("GLIGEN"):
+        text, width, height, x, y = PHASE24_BOX
+        node("40", "GLIGENLoader", gligen_name=PHASE24_GLIGEN)
+        node("41", "GLIGENTextBoxApply", conditioning_to=["6", 0],
+             clip=["4", 1], gligen_textbox_model=["40", 0], text=text,
+             width=width, height=height, x=x, y=y)
+        ks["positive"] = ["41", 0]
+        # a fuser a transformer block: one more attention each
+        want = PHASE22_UNET_LAUNCHES * 3 // 2
+    elif variant == "style":
+        node("50", "CLIPVisionLoader", clip_name=PHASE24_VISION)
+        node("51", "CLIPVisionEncode", clip_vision=["50", 0],
+             image=["10", 0], crop="center")
+        node("52", "StyleModelLoader", style_model_name=PHASE24_STYLE)
+        node("53", "StyleModelApply", conditioning=["6", 0],
+             style_model=["52", 0], clip_vision_output=["51", 0])
+        ks["positive"] = ["53", 0]
+    elif variant.startswith("embedding"):
+        name = PHASE24_EMBEDDING if variant == "embedding" \
+            else PHASE24_EMBEDDING + "_missing"
+        doc["6"]["inputs"]["text"] += f" embedding:{name}"
+    else:
+        raise ValueError(variant)
+    if variant != "style":
+        doc.pop("10")
+    return doc, want
+
+
+def write_phase24_files(models_dir, device):
+    """Phase 24's files in ``models_dir``: the A1111 hypernetwork
+    ``PHASE24_HN_FILE`` holding the virtual ``PHASE24_HN``'s 768-wide
+    streams (the SD1.5 context's width), a ViT-L CLIP-vision file (the
+    style adapter's width) of virtual weights, and the textual-inversion
+    embedding ``PHASE24_EMBEDDING`` (``emb_params``, drawn from
+    ``PHASE24_EMB_SEED``).  Returns each write's seconds and bytes."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.models.hypernetwork import \
+        load_hypernetwork
+
+    def stream(layers):
+        linears = [e for e in layers if e[0] == "linear"]
+        out = {}
+        for i, (_, w, b) in zip((0, 2), linears):
+            out[f"linear.{i}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(w, np.float32).T))
+            out[f"linear.{i}.bias"] = torch.from_numpy(
+                np.asarray(b, np.float32))
+        return out
+
+    report = {}
+
+    def timed(name, path, write):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        write(path)
+        report[name] = {"write_s": time.perf_counter() - t0,
+                        "bytes": os.path.getsize(path)}
+
+    k, v = load_hypernetwork(PHASE24_HN)[768]
+    timed(PHASE24_HN_FILE,
+          os.path.join(models_dir, "hypernetworks", PHASE24_HN_FILE),
+          lambda p: torch.save({768: [stream(k), stream(v)],
+                                "activation_func": "relu",
+                                "activate_output": False}, p))
+    tower = registry.load_clip_vision(PHASE24_VISION + ".virtual",
+                                      config_name="vit_l", device=device)
+    timed(PHASE24_VISION,
+          os.path.join(models_dir, "clip_vision", PHASE24_VISION),
+          lambda p: ckpt.save_part(p, tower.model, "clip_vision", tower.cfg))
+    del tower
+    registry._clip_vision_cache.clear()
+    vecs = np.random.default_rng(PHASE24_EMB_SEED).standard_normal(
+        PHASE24_EMB_SHAPE).astype(np.float32)
+    timed(PHASE24_EMBEDDING,
+          os.path.join(models_dir, "embeddings",
+                       PHASE24_EMBEDDING + ".safetensors"),
+          lambda p: ckpt.write_safetensors(
+              {"emb_params": torch.from_numpy(vecs)}, p))
+    return report
+
+
+def unet_addons(dirs, plain, shape_counts, rows):
+    """Phase 24 (module docstring) in phase 22's process, on its SD1.5
+    file, seed and graph, with the reuse plane off; ``plain`` is phase
+    22's plain image: (report, requests)."""
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.models.gligen import load_gligen
+    from comfyui_distributed_tpu_torch.ops.basic import gligen_attach
+
+    t_phase = time.perf_counter()
+    runs = PhaseRequests(24, dirs, shape_counts, rows)
+    plain_tag = "phase 22 plain"
+    runs.images[plain_tag] = plain
+    base = phase22_doc(dirs["ckpt"])
+    report = {"files": write_phase24_files(dirs["models_dir"], DEVICE)}
+    prev = os.environ.get("DTPU_CACHE")
+    os.environ["DTPU_CACHE"] = "0"
+    counts = {}
+    tome_shape = (2, 4096 - int(4096 * PHASE24_TOME), 4096, 8, 40,
+                  "torch.bfloat16")
+    try:
+        for variant in ("ToMe 0.3", "ToMe 0", "hypernetwork",
+                        "hypernetwork file", "hypernetwork 0", "GLIGEN",
+                        "GLIGEN gates", "GLIGEN gates again", "style",
+                        "embedding", "embedding missing"):
+            if variant == "GLIGEN gates":
+                # the gates of the fuser pipeline, a copy derived from the
+                # base: its fusers are its own, the base's weights shared
+                pipe = registry.load_pipeline(
+                    dirs["ckpt"], models_dir=dirs["models_dir"],
+                    device=DEVICE)
+                fused = gligen_attach(pipe, load_gligen(
+                    PHASE24_GLIGEN, models_dir=dirs["models_dir"],
+                    device=DEVICE))
+                with torch.no_grad():
+                    for name, p in fused.unet.named_parameters():
+                        if name.endswith((".alpha_attn", ".alpha_dense")):
+                            p.fill_(PHASE24_GATES)
+                del pipe, fused
+            doc, want = phase24_doc(base, variant)
+            runs.run(variant, doc, want)
+            shapes = runs.requests[-1]["launches_by_shape"]
+            counts[variant] = {
+                "tome_shape": sum(n for *k, n in shapes
+                                  if tuple(k) == tome_shape),
+                "style_cross": sum(n for *k, n in shapes
+                                   if k[2] == 77 + PHASE24_STYLE_TOKENS)}
+    finally:
+        if prev is None:
+            os.environ.pop("DTPU_CACHE", None)
+        else:
+            os.environ["DTPU_CACHE"] = prev
+    report["shape_counts"] = counts
+    # kept tokens are exact, only the merged ones move: a weaker bound
+    runs.apart("ToMe 0.3", plain_tag, FANOUT_ATOL["same"])
+    if counts["ToMe 0.3"]["tome_shape"] != 100:
+        runs.problems.append(f"ToMe launched {counts['ToMe 0.3']} at "
+                             f"{tome_shape}, not 100")
+    runs.same("ToMe 0", plain_tag)
+    # the virtual hypernetwork moves the image less than the one-batch
+    # limits (max 0.060, mean 0.0075 on the card); it samples at plain's
+    # batch, where without it the image is plain's to the bit: held
+    # beyond the same-batch limits, as RescaleCFG in phase 23
+    runs.apart("hypernetwork", plain_tag, FANOUT_ATOL["same"])
+    runs.same("hypernetwork file", "hypernetwork")
+    runs.same("hypernetwork 0", plain_tag)
+    # the virtual fusers' gates are 0: the image is plain's
+    runs.same("GLIGEN", plain_tag)
+    runs.apart("GLIGEN gates", plain_tag, FANOUT_ATOL["same"])
+    runs.same("GLIGEN gates again", "GLIGEN gates")
+    runs.apart("style", plain_tag)
+    if counts["style"]["style_cross"] != PHASE22_UNET_LAUNCHES // 2:
+        runs.problems.append(f"style: {counts['style']['style_cross']} "
+                             "cross-attentions over 85 tokens, not "
+                             f"{PHASE22_UNET_LAUNCHES // 2}")
+    runs.apart("embedding", plain_tag)
+    runs.same("embedding missing", plain_tag)
+    return runs.report(t_phase, PHASE24_BUDGET_S, report), runs.requests
+
+
 def urllib_text(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=30) as r:
@@ -6243,7 +6515,21 @@ def main() -> int:
     print(card_line(), flush=True)
 
     from comfyui_distributed_tpu_torch.ops.kernels import build
-    report = build.timed_build_all(force=True)
+
+    def patch_shapes():
+        t0 = time.perf_counter()
+        out = (phase22_kernel_shapes(), phase23_kernel_shapes(),
+               phase24_kernel_shapes())
+        return out, time.perf_counter() - t0
+
+    # phases 22-24's attention shapes come from meta-device forwards of
+    # the host's CPU, which run while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        shapes_job = pool.submit(patch_shapes)
+        report = build.timed_build_all(force=True)
+        t0 = time.perf_counter()
+        patched, shapes_s = shapes_job.result()
+        shapes_wait_s = time.perf_counter() - t0
     emit("build", report)
     problems = {n: p for n, p in report["problems"].items() if p}
     if problems:
@@ -6392,12 +6678,22 @@ def main() -> int:
     ]
     # phase 22: HyperTile's folded tiles and deep shrink's shrunk levels;
     # phase 23: the 3-row guidances at B = 3, SAG's uncond call and an
-    # SDTurbo step at B = 1
-    for extra in (phase22_kernel_shapes(), phase23_kernel_shapes()):
+    # SDTurbo step at B = 1; phase 24: ToMe's merged queries, the GLIGEN
+    # fusers and the style tokens' longer context
+    for extra in patched:
         have = {r[:6] for r in main_shapes}
-        main_shapes += [r for r in extra if r[:6] not in have]
+        new = [r for r in extra if r[:6] not in have]
+        main_shapes += new
     rows = check_kernel(main_shapes + extra_shapes)
     emit("kernel_checks", rows)
+    # the last loop's rows are phase 24's own
+    p24 = [r for r in rows if r["role"] in {n[6] for n in new}]
+    emit("phase3", {
+        "rows": len(rows), "seconds": sum(r["seconds"] for r in rows),
+        "rounds_saved_s": sum(r["rounds_saved_s"] for r in rows),
+        "patch_shapes_s": shapes_s, "patch_shapes_wait_s": shapes_wait_s,
+        "phase24_rows": [r["role"] for r in p24],
+        "phase24_rows_s": sum(r["seconds"] for r in p24)})
 
     docs = {}
     for name, path in WORKFLOWS.items():
@@ -6512,6 +6808,9 @@ def main() -> int:
                                            rows)
         requests += reqs23
         emit("phase23", report23)
+        report24, reqs24 = unet_addons(dirs22, plain22, shape_counts, rows)
+        requests += reqs24
+        emit("phase24", report24)
     finally:
         release_phase_dirs(dirs22)
     emit("timeline", TIMELINE)

@@ -106,6 +106,9 @@ class CLIPLayer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
+    # parameters the weight bridge carries under their own flax names
+    FLAX_RAW = ("position_embedding",)
+
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
@@ -118,14 +121,23 @@ class CLIPTextModel(nn.Module):
             self.text_projection = Dense(cfg.width, cfg.projection_dim,
                                          bias=False, dtype=torch.float32)
 
-    def forward(self, tokens: torch.Tensor
+    def forward(self, tokens: torch.Tensor,
+                emb_override: Optional[torch.Tensor] = None,
+                emb_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: [B, max_length] int.  Returns fp32 (hidden [B, N,
-        width], pooled [B, width or projection_dim])."""
+        width], pooled [B, width or projection_dim]).  ``emb_override``
+        [B, N, width] with ``emb_mask`` [B, N] (textual inversion): where
+        the mask is set, the supplied vector replaces the token's looked-up
+        embedding (its id is a placeholder 0, which never wins the EOT
+        argmax)."""
         cfg = self.cfg
         B, N = tokens.shape
-        x = self.token_embedding(tokens) \
-            + self.position_embedding[None, :N].to(cfg.dtype)
+        tok_emb = self.token_embedding(tokens)
+        if emb_override is not None:
+            tok_emb = torch.where(emb_mask[..., None].bool(),
+                                  emb_override.to(tok_emb.dtype), tok_emb)
+        x = tok_emb + self.position_embedding[None, :N].to(cfg.dtype)
         mask = torch.full((N, N), float("-inf"), device=tokens.device
                           ).triu(1)[None, None]
         hidden = []

@@ -55,6 +55,9 @@ TINY_VISION_CONFIG = CLIPVisionConfig(width=64, layers=2, heads=4,
 
 
 class CLIPVisionModel(nn.Module):
+    # parameters the weight bridge carries under their own flax names
+    FLAX_RAW = ("class_embedding", "position_embedding")
+
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
         self.cfg = cfg

@@ -1,7 +1,8 @@
 """Denoiser wrapper: UNet (eps, v or x0 prediction) -> k-diffusion
 interface.  The counterpart of ``comfyui_distributed_tpu/models/
 denoiser.py``: the plain path, the inpaint models' extra input channels,
-a chain of ControlNets and SAG's capture (no hypernetworks yet).
+a chain of ControlNets, SAG's capture, hypernetworks and GLIGEN's
+grounding tokens.
 
 The UNet input is pre-scaled by ``1/sqrt(sigma^2+1)`` and the timestep is
 the continuous index of sigma in the model's table.
@@ -132,7 +133,8 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
                   device=None,
                   concat: Optional[torch.Tensor] = None,
                   control: Optional[Sequence[ControlSpec]] = None,
-                  capture: bool = False) -> Callable:
+                  capture: bool = False,
+                  hypernet: Optional[Sequence[Tuple]] = None) -> Callable:
     """``model(x, sigma, context=..., y=...) -> denoised`` over
     ``unet(x, timesteps, context, y)``; ``sigma`` is a host float (made
     a float32 scalar on x's device by a fill, not a copy that would wait
@@ -149,15 +151,27 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
     (denoised, the middle block's attention weights).
     ``prediction_type``: ``"eps"``, ``"v"`` (denoised = x / (sigma^2 +
     1) - v * sigma / sqrt(sigma^2 + 1)) or ``"x0"`` (the output is the
-    denoised sample; ModelSamplingDiscrete's ``x0``)."""
+    denoised sample; ModelSamplingDiscrete's ``x0``).
+    ``hypernet``: (parsed hypernetwork, strength) entries applied in
+    order (chained loaders compose): each turns the text context into
+    key and value streams once a call (``models/hypernetwork.py``), the
+    UNet's cross-attentions take them as ``context`` and ``context_v``;
+    a ControlNet keeps the plain context.  The model's ``objs`` (GLIGEN's
+    grounding tokens, one set a stacked row) go to the UNet as they
+    are."""
     if prediction_type not in ("eps", "v", "x0"):
         raise ValueError(f"prediction type {prediction_type!r} is not "
                          "ported to the torch package")
     t_from_sigma = make_t_from_sigma(ds, device)
+    if hypernet:
+        from comfyui_distributed_tpu_torch.models import hypernetwork as hn_mod
+        hypernet = [(hn_mod.hypernet_on(hn, device), float(s))
+                    for hn, s in hypernet]
 
     def denoiser(x: torch.Tensor, sigma: torch.Tensor,
                  context: Optional[torch.Tensor] = None,
-                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 y: Optional[torch.Tensor] = None,
+                 objs: Optional[torch.Tensor] = None) -> torch.Tensor:
         sigma_in = sigma
         if isinstance(sigma, torch.Tensor):
             sigma = sigma.to(device=x.device, dtype=torch.float32)
@@ -179,8 +193,17 @@ def make_denoiser(unet: Callable, ds: DiscreteSchedule,
             xin = torch.cat([xin, concat.to(xin.dtype).repeat(reps, 1, 1, 1)],
                             dim=-1)
         kw = {"capture": True} if capture else {}
-        out = unet(xin, ts, context, y, **kw) if ctrl is None \
-            else unet(xin, ts, context, y, ctrl, **kw)
+        ctx_in = context
+        if hypernet and context is not None:
+            ctx_v = context
+            for hn, s in hypernet:
+                ctx_in, ctx_v = hn_mod.apply_hypernetwork_pair(hn, s, ctx_in,
+                                                               ctx_v)
+            kw["context_v"] = ctx_v
+        if objs is not None:
+            kw["objs"] = objs
+        out = unet(xin, ts, ctx_in, y, **kw) if ctrl is None \
+            else unet(xin, ts, ctx_in, y, ctrl, **kw)
         out, probs = out if capture else (out, None)
         if prediction_type == "v":
             # VP parameterization: denoised = c_skip*x - c_out*v

@@ -12,7 +12,8 @@ Conventions carried over from the JAX package:
   so weights map across mechanically (``models/weights.py``);
 - feature maps are NCHW inside the modules (PyTorch's convolution layout);
   the UNet and VAE keep the JAX package's NHWC at their public functions;
-- every attention of the UNet goes through the CUDA kernel's wrapper
+- every attention of the UNet (the GLIGEN fusers' and ToMe's merged
+  queries too) goes through the CUDA kernel's wrapper
   (``ops/kernels/flash_attention.py``), but one: under SAG's capture the
   middle block's first self-attention runs
   :meth:`Attention.forward_capture`, which materialises its fp32
@@ -34,7 +35,7 @@ from comfyui_distributed_tpu_torch.ops.kernels.flash_attention import (
 
 
 def _param(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.empty(*shape), requires_grad=False)
+    return nn.Parameter(torch.empty(shape), requires_grad=False)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -146,14 +147,19 @@ class Attention(nn.Module):
         self.to_out = Dense(inner, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                context_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``context_v``: a separate value-side context (a hypernetwork
+        transforms the key and value streams apart); ``context`` by
+        default."""
         ctx = x if context is None else context
+        ctx_v = ctx if context_v is None else context_v
         B, N, _ = x.shape
         M = ctx.shape[1]
         h, d = self.num_heads, self.head_dim
         q = self.to_q(x).view(B, N, h, d)
         k = self.to_k(ctx).view(B, M, h, d)
-        v = self.to_v(ctx).view(B, M, h, d)
+        v = self.to_v(ctx_v).view(B, M, h, d)
         out = flash_attention(q, k, v)
         return self.to_out(out.reshape(B, N, h * d))
 
@@ -199,14 +205,52 @@ class FeedForward(nn.Module):
         return self.out(self.geglu(x))
 
 
+class GatedSelfAttention(nn.Module):
+    """The GLIGEN fuser (GatedSelfAttentionDense): self-attention over
+    [visual tokens; grounding tokens] and a feed-forward, each gated by
+    tanh of a learned scalar, so a fuser with zero gates leaves the
+    image as it is (its attention still runs).  The grounding tokens are
+    projected from their ``objs_dim`` to the block's width first
+    (``linear``)."""
+
+    # parameters the weight bridge carries under their own flax names
+    FLAX_RAW = ("alpha_attn", "alpha_dense")
+
+    def __init__(self, dim: int, num_heads: int, objs_dim: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.linear = Dense(objs_dim, dim, dtype=dtype)
+        self.alpha_attn = _param()
+        self.alpha_dense = _param()
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads, dtype=dtype)
+        self.norm2 = LayerNorm(dim)
+        self.ff = FeedForward(dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, objs: torch.Tensor) -> torch.Tensor:
+        n = x.shape[1]
+        o = self.linear(objs)
+        h = self.norm1(torch.cat([x, o.to(x.dtype)], dim=1))
+        att = self.attn(h)[:, :n]
+        x = x + torch.tanh(self.alpha_attn.float()).to(x.dtype) * att
+        return x + torch.tanh(self.alpha_dense.float()).to(x.dtype) \
+            * self.ff(self.norm2(x))
+
+
 class TransformerBlock(nn.Module):
-    """Self-attn -> cross-attn -> FF with pre-LN residuals."""
+    """Self-attn -> (the GLIGEN fuser) -> cross-attn -> FF with pre-LN
+    residuals.  ``gligen`` > 0 builds the fuser for grounding tokens of
+    that width."""
 
     def __init__(self, dim: int, num_heads: int, context_dim: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, gligen: int = 0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, num_heads, dtype=dtype)
+        self.gligen = int(gligen)
+        if self.gligen:
+            self.fuser = GatedSelfAttention(dim, num_heads, self.gligen,
+                                            dtype=dtype)
         self.norm2 = LayerNorm(dim)
         self.attn2 = Attention(dim, num_heads, context_dim=context_dim,
                                dtype=dtype)
@@ -214,16 +258,35 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                capture: bool = False):
+                capture: bool = False,
+                context_v: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None,
+                tome_ratio: float = 0.0, hw: Optional[tuple] = None):
         """``capture``: attn1 through :meth:`Attention.forward_capture`,
-        returning (output, attn1's weights)."""
+        returning (output, attn1's weights).  ``context_v``: attn2's
+        value context (a hypernetwork's).  ``objs`` [B, n, gligen]: the
+        fuser's grounding tokens (None: one zero token).  ``tome_ratio``
+        with the token grid ``hw`` (ToMe, ``models/tome.py``): attn1's
+        queries merge, the merged ones attend the whole token set, and
+        the outputs unmerge; not under ``capture``."""
         probs = None
+        xn = self.norm1(x)
         if capture:
-            a, probs = self.attn1.forward_capture(self.norm1(x))
+            a, probs = self.attn1.forward_capture(xn)
             x = x + a
+        elif tome_ratio > 0.0 and hw is not None:
+            from comfyui_distributed_tpu_torch.models.tome import build_merge
+            merge, unmerge, r = build_merge(xn, hw[0], hw[1], tome_ratio)
+            x = x + (unmerge(self.attn1(merge(xn), context=xn)) if r > 0
+                     else self.attn1(xn))
         else:
-            x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context=context)
+            x = x + self.attn1(xn)
+        if self.gligen:
+            o = objs if objs is not None else torch.zeros(
+                (x.shape[0], 1, self.gligen), dtype=x.dtype, device=x.device)
+            x = self.fuser(x, o)
+        x = x + self.attn2(self.norm2(x), context=context,
+                           context_v=context_v)
         x = x + self.ff(self.norm3(x))
         return (x, probs) if capture else x
 
@@ -249,10 +312,15 @@ class SpatialTransformer(nn.Module):
     self-attention costs O(tiles * (N / tiles)^2); the tiles go to the
     same attention kernel at the folded batch.  ``capture`` (SAG): the
     first block's attn1 returns its softmax weights, and the forward
-    returns (output, weights); a folded grid raises under it."""
+    returns (output, weights); a folded grid raises under it.
+    ``context_v`` (a hypernetwork's value context) and ``objs`` (GLIGEN's
+    grounding tokens, ``gligen`` > 0 builds the fusers) repeat per tile
+    as the context does; ``tome_ratio`` merges every block's attn1
+    queries on the (tile's) token grid."""
 
     def __init__(self, channels: int, num_heads: int, depth: int,
-                 context_dim: int, dtype: torch.dtype = torch.bfloat16):
+                 context_dim: int, dtype: torch.dtype = torch.bfloat16,
+                 gligen: int = 0):
         super().__init__()
         # CompVis Normalize: GroupNorm eps 1e-6 (ResBlock uses 1e-5)
         self.norm = GroupNorm32(channels, epsilon=1e-6)
@@ -260,11 +328,15 @@ class SpatialTransformer(nn.Module):
         self.depth = depth
         for i in range(depth):
             self.add_module(f"blocks_{i}", TransformerBlock(
-                channels, num_heads, context_dim, dtype=dtype))
+                channels, num_heads, context_dim, dtype=dtype,
+                gligen=gligen))
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                hypertile_tile: int = 0, capture: bool = False):
+                hypertile_tile: int = 0, capture: bool = False,
+                context_v: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None,
+                tome_ratio: float = 0.0):
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
@@ -280,12 +352,18 @@ class SpatialTransformer(nn.Module):
             h = h.reshape(B, nh, th, nw, tw, C).transpose(2, 3) \
                 .reshape(B * nh * nw, th * tw, C)
             context = context.repeat_interleave(nh * nw, dim=0)
+            if context_v is not None:
+                context_v = context_v.repeat_interleave(nh * nw, dim=0)
+            if objs is not None:
+                objs = objs.repeat_interleave(nh * nw, dim=0)
         probs = None
+        kw = dict(context_v=context_v, objs=objs, tome_ratio=tome_ratio,
+                  hw=(th, tw))
         for i in range(self.depth):
             if capture and i == 0:
-                h, probs = self.blocks_0(h, context, capture=True)
+                h, probs = self.blocks_0(h, context, capture=True, **kw)
             else:
-                h = getattr(self, f"blocks_{i}")(h, context)
+                h = getattr(self, f"blocks_{i}")(h, context, **kw)
         if nh * nw > 1:
             h = h.reshape(B, nh, nw, th, tw, C).transpose(2, 3) \
                 .reshape(B, H * W, C)

@@ -54,7 +54,11 @@ from comfyui_distributed_tpu_torch.models.samplers import (
     get_sampler,
     get_sampler_step,
 )
-from comfyui_distributed_tpu_torch.models.tokenizer import make_tokenizer
+from comfyui_distributed_tpu_torch.models.tokenizer import (
+    encode_with_embeddings,
+    has_embedding_refs,
+    make_tokenizer,
+)
 from comfyui_distributed_tpu_torch.models.weights import fill_virtual
 from comfyui_distributed_tpu_torch.utils.log import log
 
@@ -276,17 +280,36 @@ class DiffusionPipeline:
         around the per-sequence mean (ComfyUI-style emphasis).
         ``texts_alt``: the prompts of every tower after the first
         (CLIPTextEncodeSDXL's text_g beside text_l); single-tower
-        families ignore it."""
+        families ignore it.  ``embedding:name`` references (textual
+        inversion) splice the vectors of ``<assets_dir>/embeddings/
+        <name>`` into each tower's token stream
+        (:func:`load_textual_embedding`); a name without a file is
+        dropped."""
         outs, pooled = [], None
+
+        def dev(arrays):
+            return torch.as_tensor(np.stack(arrays), device=self.device)
+
         for i, m in enumerate(self._require(self.clip_models,
                                             "text encoder")):
             ts = texts if i == 0 or texts_alt is None else texts_alt
-            pairs = [self.tokenizer.encode(t) for t in ts]
-            ids = torch.as_tensor(np.stack([x for x, _ in pairs]),
-                                  device=self.device).long()
-            wa = torch.as_tensor(np.stack([w for _, w in pairs]),
-                                 device=self.device)
-            hidden, pooled = m(ids)
+            if any(has_embedding_refs(t) for t in ts):
+                width = int(m.cfg.width)
+
+                def look(name, _i=i, _w=width):
+                    return load_textual_embedding(name, self.assets_dir, _w,
+                                                  tower_idx=_i)
+
+                quads = [encode_with_embeddings(self.tokenizer, t, look,
+                                                width) for t in ts]
+                wa = dev([q[1] for q in quads])
+                hidden, pooled = m(dev([q[0] for q in quads]).long(),
+                                   dev([q[2] for q in quads]),
+                                   dev([q[3] for q in quads]))
+            else:
+                pairs = [self.tokenizer.encode(t) for t in ts]
+                wa = dev([w for _, w in pairs])
+                hidden, pooled = m(dev([x for x, _ in pairs]).long())
             mean = hidden.mean(dim=1, keepdim=True)
             outs.append(mean + (hidden - mean) * wa[..., None])
         return torch.cat(outs, dim=-1), pooled
@@ -315,7 +338,8 @@ class DiffusionPipeline:
                c_concat: Optional[torch.Tensor] = None,
                control=None, sigmas_override=None,
                middle_context: Optional[torch.Tensor] = None,
-               cfg2: float = 1.0, guidance: str = "dual") -> torch.Tensor:
+               cfg2: float = 1.0, guidance: str = "dual",
+               gligen_objs=None) -> torch.Tensor:
         """schedule -> initial noise -> sampler loop -> latents.
 
         ``seeds``: per-sample 64-bit host seeds [B]; ``sample_idx``:
@@ -375,7 +399,15 @@ class DiffusionPipeline:
         applies: cfg != 1, no middle, no control, one plain entry a side
         and a middle block that HyperTile does not fold; else it logs
         and samples without it.  Deep shrink yields to SAG, with a log
-        line."""
+        line.  A hypernetwork pipeline (``hypernets``: (hypernetwork,
+        strength) entries) transforms the context in every denoiser.
+
+        ``gligen_objs`` (a GLIGEN pipeline, ``ops/basic.py:
+        gligen_attach``): ``(sets [S, B, n, D], null set [B, n, D],
+        indices)``, the grounding tokens of each distinct spec and the
+        null set, and one index a row block (conds first, then the
+        middle, then unconds; -1 the null set): each block's rows get
+        their set."""
         sampler = get_sampler(sampler_name)
         dev = self.device
         self._require(self.unet, "UNet")
@@ -469,8 +501,10 @@ class DiffusionPipeline:
             log("deep shrink: does not compose with SAG's capture "
                 "branch; sampling WITHOUT the downscale patch")
             ds_spec = None
+        hn = getattr(self, "hypernets", None) or None
         den = make_denoiser(self.unet, self.schedule, self.prediction_type,
-                            device=dev, concat=concat, control=chain)
+                            device=dev, concat=concat, control=chain,
+                            hypernet=hn)
         if ds_spec is not None:
             den = self._deep_shrink_denoiser(den, ds_spec, concat)
         if dual:
@@ -487,7 +521,8 @@ class DiffusionPipeline:
                 mh, mw = (mh + 1) // 2, (mw + 1) // 2
             den_cap = make_denoiser(self.unet, self.schedule,
                                     self.prediction_type, device=dev,
-                                    concat=concat, capture=True)
+                                    concat=concat, capture=True,
+                                    hypernet=hn)
             model = cfg_denoiser_sag(den_cap, den, conds[0][0],
                                      unconds[0][0], float(cfg),
                                      float(sag[0]), float(sag[1]),
@@ -501,6 +536,12 @@ class DiffusionPipeline:
             m = noise_mask.to(dev, torch.float32)
             model = _masked_model(model, m, src, noise)
         extra = {} if y is None else {"y": stack_y(y, reps, dev)}
+        if gligen_objs is not None:
+            sets, null, idxs = gligen_objs
+            parts = [sets[i] if i >= 0 else null
+                     for i in tuple(idxs)[:reps]]
+            parts += [null] * (reps - len(parts))
+            extra["objs"] = torch.cat(parts).to(dev)
         out = sampler(model, x, sigmas, extra_args=extra, keys=keys)
         if noise_mask is not None:
             out = out * m + src * (1.0 - m)
@@ -520,7 +561,7 @@ class DiffusionPipeline:
             unet_mod.with_config(self.unet, dataclasses.replace(
                 self.unet.cfg, deep_shrink=(int(lvl), float(fac)))),
             self.schedule, self.prediction_type, device=self.device,
-            concat=concat)
+            concat=concat, hypernet=getattr(self, "hypernets", None) or None)
         host_t = make_t_from_sigma(self.schedule, "cpu")
 
         def model(x, sigma, **kw):
@@ -1025,18 +1066,74 @@ def load_diff_controlnet(model: DiffusionPipeline, cn_name: str,
     return net
 
 
+_embedding_cache: Dict[Tuple, Optional[np.ndarray]] = {}
+
+
+def load_textual_embedding(name: str, assets_dir: Optional[str],
+                           width: int, tower_idx: int = 0
+                           ) -> Optional[np.ndarray]:
+    """The vectors of an ``embedding:name`` prompt reference:
+    ``<assets_dir>/embeddings/<name>[.safetensors]``.  An SDXL file
+    holds one tensor a tower (``clip_l`` for tower 0, ``clip_g`` for
+    tower 1), an SD1.x export one ``emb_params``, else the first key in
+    sorted order is taken.  Returns [K, width] float32, or None (no
+    file, no key for the tower, or another width: dropped, as ComfyUI
+    warns and skips)."""
+    if not assets_dir:
+        return None
+    key = (assets_dir, name, width, tower_idx)
+    if key in _embedding_cache:
+        return _embedding_cache[key]
+    base = os.path.join(assets_dir, "embeddings")
+    path = None
+    for cand in (name, name + ".safetensors"):
+        p = os.path.join(base, cand.replace("\\", "/"))
+        if os.path.isfile(p):
+            path = p
+            break
+    result = None
+    if path is not None and path.endswith(".safetensors"):
+        tensors = ckpt.read_safetensors(path)
+        keys = set(tensors)
+        if keys & {"clip_l", "clip_g"}:
+            chosen = {0: "clip_l", 1: "clip_g"}.get(tower_idx)
+            chosen = chosen if chosen in keys else None
+        elif "emb_params" in keys:
+            chosen = "emb_params"
+        else:
+            chosen = next(iter(sorted(keys)), None)
+        if chosen is not None:
+            arr = tensors[chosen].float().numpy()
+            arr = arr.reshape(-1, arr.shape[-1])
+            if arr.shape[-1] == width:
+                result = np.array(arr, np.float32)
+            else:
+                log(f"textual inversion {name!r}: width {arr.shape[-1]} != "
+                    f"tower width {width}; dropping")
+    _embedding_cache[key] = result
+    return result
+
+
 def clear_pipeline_cache() -> None:
     """Drop every cached pipeline (split parts too), derived pipeline,
-    LoRA-patched pipeline, CLIP-vision tower, upscaler and ControlNet,
-    so their device memory can go."""
+    LoRA-patched pipeline, CLIP-vision tower, upscaler, ControlNet,
+    textual-inversion embedding, hypernetwork, GLIGEN position net and
+    style model, so their memory can go."""
     with _pipeline_lock:
         _pipeline_cache.clear()
         _derived_cache.clear()
         _upscaler_cache.clear()
         _clip_vision_cache.clear()
         _controlnet_cache.clear()
+        _embedding_cache.clear()
+    from comfyui_distributed_tpu_torch.models import gligen as gg_mod
+    from comfyui_distributed_tpu_torch.models import hypernetwork as hn_mod
     from comfyui_distributed_tpu_torch.models import lora as lora_mod
+    from comfyui_distributed_tpu_torch.models import style_model as sm_mod
     lora_mod.clear_lora_cache()
+    hn_mod.clear_hypernetwork_cache()
+    gg_mod.clear_gligen_cache()
+    sm_mod.clear_style_model_cache()
 
 
 # derived pipelines (clip-skip variants): modules shared with the base,
@@ -1069,7 +1166,8 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
                     cfg_rescale: Optional[float] = None,
                     prediction_type: Optional[str] = None,
                     schedule: Optional[sch.DiscreteSchedule] = None,
-                    extra_attrs: Optional[Dict[str, object]] = None
+                    extra_attrs: Optional[Dict[str, object]] = None,
+                    unet: Optional[Callable[[], nn.Module]] = None
                     ) -> DiffusionPipeline:
     """Cached clone of ``base`` with a replacement family and sampling
     patches, everything else shared by reference: the UNet's weights
@@ -1079,7 +1177,9 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
     (:func:`clip_mod.with_config`: clip-skip).  ``cfg_rescale``
     (RescaleCFG), ``prediction_type`` and ``schedule``
     (ModelSamplingDiscrete) replace the base's; they and ``extra_attrs``
-    ride every further derivation (:func:`copy_sampler_patches`)."""
+    ride every further derivation (:func:`copy_sampler_patches`).
+    ``unet``: makes the clone's UNet when its weights are not all the
+    base's (GLIGEN's fusers), called only on a cache miss."""
     key = (base.cache_token, tag)
     with _pipeline_lock:
         if key in _derived_cache:
@@ -1088,7 +1188,7 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
     family = family or base.family
     clone = DiffusionPipeline(
         f"{base.name}|{tag}", family,
-        None if base.unet is None
+        unet() if unet is not None else None if base.unet is None
         else unet_mod.with_config(base.unet, family.unet),
         [clip_mod.with_config(m, c)
          for m, c in zip(base.clip_models, family.clips, strict=True)],

@@ -1235,9 +1235,9 @@ def cfg_denoiser_multi(model: Model, conds, uncond, cfg_scale: float,
     cfg == 1); each side's predictions blend by :func:`_mask_blend`,
     then ``uncond + (cond - uncond) * cfg``.  A ``y`` in the call's
     arguments must already be stacked to those rows
-    (``registry.stack_y``).  Each call leaves its blended uncond
-    (the blended cond at cfg == 1) in ``last_uncond`` for the CFG++
-    samplers.  One plain entry a side blends to its own prediction to
+    (``registry.stack_y``), and so must GLIGEN's ``objs``.  Each call
+    leaves its blended uncond (the blended cond at cfg == 1) in
+    ``last_uncond`` for the CFG++ samplers.  One plain entry a side blends to its own prediction to
     the bit (weight 1, sum 1).  ``cfg_rescale`` (RescaleCFG's
     multiplier) re-stds the combine with :func:`_rescale_cfg`."""
     conds = _norm_entries(conds) if isinstance(conds, (list, tuple)) \
@@ -1247,17 +1247,18 @@ def cfg_denoiser_multi(model: Model, conds, uncond, cfg_scale: float,
     n, nu = len(conds), len(unconds)
 
     def wrapped(x: torch.Tensor, sigma,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None) -> torch.Tensor:
         use_uncond = cfg_scale != 1.0
         reps = n + (nu if use_uncond else 0)
         if reps == 1 and conds[0][1] is None and conds[0][3] is None:
-            den = model(x, sigma, context=conds[0][0], y=y)
+            den = model(x, sigma, context=conds[0][0], y=y, **_objs(objs))
             wrapped.last_uncond = den
             return den
         ctx = [c for c, _, _, _ in conds] \
             + ([c for c, _, _, _ in unconds] if use_uncond else [])
         out = model(torch.cat([x] * reps), _rows_sigma(sigma, reps),
-                    context=torch.cat(ctx), y=y)
+                    context=torch.cat(ctx), y=y, **_objs(objs))
         parts = out.chunk(reps)
         den_cond = _mask_blend(conds, parts[:n], sigma)
         if not use_uncond:
@@ -1270,6 +1271,12 @@ def cfg_denoiser_multi(model: Model, conds, uncond, cfg_scale: float,
                                 cfg_rescale)
         return den_uncond + (den_cond - den_uncond) * cfg_scale
     return wrapped
+
+
+def _objs(objs) -> dict:
+    """GLIGEN's grounding tokens as the model's keyword, when there are
+    any: a model without grounding takes no ``objs``."""
+    return {} if objs is None else {"objs": objs}
 
 
 def _rows_sigma(sigma, reps: int):
@@ -1302,9 +1309,11 @@ def cfg_denoiser_dual(model: Model, cond: torch.Tensor,
     a RescaleCFG patch applying to the middle/uncond combine.  ``y``
     must already be stacked to the three blocks."""
     def wrapped(x: torch.Tensor, sigma,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None) -> torch.Tensor:
         out = model(torch.cat([x, x, x]), _rows_sigma(sigma, 3),
-                    context=torch.cat([cond, middle, uncond]), y=y)
+                    context=torch.cat([cond, middle, uncond]), y=y,
+                    **_objs(objs))
         pos, mid, neg = out.chunk(3)
         wrapped.last_uncond = neg
         if cfg_rescale:
@@ -1330,9 +1339,11 @@ def cfg_denoiser_perp_neg(model: Model, cond: torch.Tensor,
     batch.  A RescaleCFG patch re-stds the combine toward the cond
     prediction."""
     def wrapped(x: torch.Tensor, sigma,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None) -> torch.Tensor:
         out = model(torch.cat([x, x, x]), _rows_sigma(sigma, 3),
-                    context=torch.cat([cond, empty, uncond]), y=y)
+                    context=torch.cat([cond, empty, uncond]), y=y,
+                    **_objs(objs))
         den_cond, den_empty, den_unc = out.chunk(3)
         wrapped.last_uncond = den_unc
         pos = den_cond - den_empty
@@ -1409,18 +1420,23 @@ def cfg_denoiser_sag(model_capture: Callable, model_plain: Model,
 
     Three UNet rows a step: two in the capture call, one after."""
     def wrapped(x: torch.Tensor, sigma,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = x.shape[0]
         out, probs = model_capture(torch.cat([x, x]), _rows_sigma(sigma, 2),
-                                   context=torch.cat([cond, uncond]), y=y)
+                                   context=torch.cat([cond, uncond]), y=y,
+                                   **_objs(objs))
         den_cond, den_unc = out.chunk(2)
         wrapped.last_uncond = den_unc
         mask = sag_mask(probs, b, mid_hw, (x.shape[1], x.shape[2])) \
             .to(x.dtype)
         blurred = _gaussian_blur_nhwc(den_unc, 9, float(blur_sigma))
         degraded = blurred * mask + den_unc * (1.0 - mask)
+        # the per-row extras of the uncond block
         den_sag = model_plain(degraded + x - den_unc, sigma, context=uncond,
-                              y=None if y is None else y[b:2 * b])
+                              y=None if y is None else y[b:2 * b],
+                              **_objs(None if objs is None
+                                      else objs[b:2 * b]))
         if cfg_rescale:
             cfg_out = _rescale_cfg(x, sigma, den_cond, den_unc, cfg_scale,
                                    cfg_rescale)

@@ -1,6 +1,6 @@
 """Prompt tokenization with ComfyUI-style attention weighting: the
-port's own copy of ``comfyui_distributed_tpu/models/tokenizer.py``
-(without the textual-inversion splice, which waits).
+port's own copy of ``comfyui_distributed_tpu/models/tokenizer.py``,
+with its textual-inversion splice (:func:`encode_with_embeddings`).
 
 Two backends:
 - :class:`BPETokenizer` — real CLIP byte-pair encoding when vocab/merges
@@ -187,6 +187,64 @@ class BPETokenizer:
         pad = self.max_length - len(ids)
         return (np.asarray(ids + [self.pad_id] * pad, dtype=np.int32),
                 np.asarray(weights + [1.0] * pad, dtype=np.float32))
+
+
+EMBEDDING_RE = re.compile(r"embedding:([\w\.\-]+)", re.IGNORECASE)
+
+
+def has_embedding_refs(text: str) -> bool:
+    return bool(EMBEDDING_RE.search(text))
+
+
+def encode_with_embeddings(tok, text: str, lookup, emb_dim: int):
+    """Tokenize with ComfyUI's ``embedding:name`` textual-inversion
+    syntax: each reference splices the embedding's vectors into the
+    token stream at its place (token id 0 as a placeholder; the CLIP
+    tower takes the supplied vector where ``mask`` is set,
+    ``models/clip.py``).  Emphasis weights a spliced vector like any
+    other token.  ``lookup(name) -> np [K, emb_dim] | None``; a name it
+    does not find is dropped with a debug log, as ComfyUI warns and
+    skips.  Returns (ids [T] int32, weights [T] f32, override [T,
+    emb_dim] f32, mask [T] f32)."""
+    from comfyui_distributed_tpu_torch.utils.log import debug_log
+
+    zero = np.zeros((emb_dim,), np.float32)
+    ids: List[int] = [tok.start]
+    weights: List[float] = [1.0]
+    override = [zero]
+    mask: List[float] = [0.0]
+    for frag, w in parse_weighted_prompt(text):
+        # a split on one capture group alternates [text, name, text,
+        # name, ...]: the odd pieces are embedding names
+        for j, piece in enumerate(EMBEDDING_RE.split(frag)):
+            if not piece:
+                continue
+            if j % 2 == 1:
+                vecs = lookup(piece)
+                if vecs is None:
+                    debug_log(f"textual inversion {piece!r} not found; "
+                              "dropping the reference")
+                    continue
+                for v in np.asarray(vecs, np.float32).reshape(-1, emb_dim):
+                    ids.append(0)
+                    weights.append(w)
+                    override.append(v)
+                    mask.append(1.0)
+                continue
+            for wid in tok._frag_ids(piece):
+                ids.append(wid)
+                weights.append(w)
+                override.append(zero)
+                mask.append(0.0)
+    T = tok.max_length
+    pad = T - min(len(ids), T - 1) - 1
+    ids = ids[: T - 1] + [tok.end] + [tok.pad_id] * pad
+    weights = weights[: T - 1] + [1.0] + [1.0] * pad
+    override = override[: T - 1] + [zero] * (pad + 1)
+    mask = mask[: T - 1] + [0.0] * (pad + 1)
+    return (np.asarray(ids, np.int32), np.asarray(weights, np.float32),
+            np.stack(override).astype(np.float32),
+            np.asarray(mask, np.float32))
 
 
 def make_tokenizer(assets_dir: Optional[str] = None,

@@ -4,12 +4,14 @@
 The forward takes and returns the JAX package's NHWC layout (x [B, H, W,
 C]) and runs NCHW inside.  Eps-prediction by default; the denoiser
 (``models/denoiser.py``) wraps it into ``denoised = f(x, sigma)``.  The
-forward takes ControlNet residuals (``models/controlnet.py``), and the
-config carries four of the JAX UNet's structural patches: FreeU (v1
-and v2), HyperTile, deep shrink and SAG's capture.  They change no
-weight, so a patched pipeline shares its base's module through
-:func:`with_config`.  The JAX UNet's other patches (ToMe, GLIGEN) are
-not ported and raise.
+forward takes ControlNet residuals (``models/controlnet.py``), a
+hypernetwork's value context and GLIGEN's grounding tokens, and the
+config carries the JAX UNet's structural patches: FreeU (v1 and v2),
+HyperTile, deep shrink, SAG's capture and ToMe.  They change no weight,
+so a patched pipeline shares its base's module through
+:func:`with_config`.  ``gligen`` > 0 builds a GLIGEN fuser into every
+transformer block: weights of their own, grafted beside the base's
+(``ops/basic.py:gligen_attach``).
 """
 
 from __future__ import annotations
@@ -71,8 +73,11 @@ class UNetConfig:
     # SAG: a forward with ``capture=True`` returns the middle block's
     # first self-attention weights beside the prediction
     sag_capture: bool = False
-    # patches of the JAX UNet that are not ported (they raise)
+    # ToMe (TomePatchModel): merge this fraction of attn1's query tokens
+    # at the highest-resolution attention level only (level 0); 0 = off
     tome_ratio: float = 0.0
+    # GLIGEN: > 0 builds a GatedSelfAttention fuser in every transformer
+    # block for grounding tokens of this width (``objs`` of the forward)
     gligen: int = 0
     dtype: torch.dtype = torch.bfloat16
     prediction_type: str = "eps"  # "eps" | "v"
@@ -127,11 +132,10 @@ TINY_CONFIG = UNetConfig(
     dtype=torch.float32,  # exact CPU comparisons; real families use bf16
 )
 
-_UNPORTED_PATCHES = ("tome_ratio", "gligen")
 # config fields that change no weight: a module built under one value
 # serves every other through with_config
 _PATCH_FIELDS = ("freeu", "freeu_version", "hypertile", "deep_shrink",
-                 "sag_capture")
+                 "sag_capture", "tome_ratio")
 
 
 def mid_depth(cfg: UNetConfig) -> int:
@@ -144,11 +148,6 @@ def mid_depth(cfg: UNetConfig) -> int:
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        unported = [p for p in _UNPORTED_PATCHES if getattr(cfg, p)]
-        if unported:
-            raise NotImplementedError(
-                f"UNet patches {unported} are not ported to the torch "
-                "package yet")
         self.cfg = cfg
         dt = cfg.dtype
         ch = cfg.model_channels
@@ -161,7 +160,7 @@ class UNet(nn.Module):
 
         def attn(c: int, depth: int) -> SpatialTransformer:
             return SpatialTransformer(c, heads(c), depth, cfg.context_dim,
-                                      dtype=dt)
+                                      dtype=dt, gligen=cfg.gligen)
 
         self.time_fc1 = Dense(ch, time_dim, dtype=dt)
         self.time_fc2 = Dense(time_dim, time_dim, dtype=dt)
@@ -222,7 +221,9 @@ class UNet(nn.Module):
                 y: Optional[torch.Tensor] = None,
                 control: Optional[Tuple[List[torch.Tensor],
                                         torch.Tensor]] = None,
-                capture: bool = False):
+                capture: bool = False,
+                context_v: Optional[torch.Tensor] = None,
+                objs: Optional[torch.Tensor] = None):
         """x: [B, H, W, C_in] latent; timesteps: [B]; context: [B, M, Cc]
         text tokens; y: [B, adm_in] vector conditioning (SDXL).  Returns
         the fp32 prediction [B, H, W, C_out].  ``control``: ControlNet
@@ -231,7 +232,9 @@ class UNet(nn.Module):
         middle block's output; a count that does not match raises.
         ``capture`` (a ``sag_capture`` config only): returns
         (prediction, the middle block's first self-attention weights
-        [B, heads, N, N] in fp32)."""
+        [B, heads, N, N] in fp32).  ``context_v`` [B, M, Cc]: every
+        cross-attention's value context (a hypernetwork's); ``objs`` [B,
+        n, gligen]: the GLIGEN fusers' grounding tokens."""
         cfg = self.cfg
         if capture and not cfg.sag_capture:
             raise ValueError("capture needs a UNet config with sag_capture")
@@ -244,6 +247,11 @@ class UNet(nn.Module):
                                 dtype=x.dtype, device=x.device)
             emb = emb + self.label_fc2(F.silu(self.label_fc1(y)))
 
+        def kw(level: int) -> dict:
+            # ToMe merges at level 0 only
+            return dict(context_v=context_v, objs=objs,
+                        tome_ratio=cfg.tome_ratio if level == 0 else 0.0)
+
         h = self.conv_in(x.permute(0, 3, 1, 2))
         skips = [h]
         for level in range(cfg.num_levels):
@@ -255,7 +263,7 @@ class UNet(nn.Module):
                 h = getattr(self, f"down_{level}_res_{i}")(h, emb)
                 if cfg.transformer_depth[level] > 0:
                     h = getattr(self, f"down_{level}_attn_{i}")(
-                        h, context, self._ht_tile(level))
+                        h, context, self._ht_tile(level), **kw(level))
                 skips.append(h)
             if level != cfg.num_levels - 1:
                 h = getattr(self, f"down_{level}_ds")(h)
@@ -267,12 +275,14 @@ class UNet(nn.Module):
 
         h = self.mid_res_0(h, emb)
         probs = None
+        mid = dict(context_v=context_v, objs=objs)
         if capture:
             h, probs = self.mid_attn(h, context,
                                      self._ht_tile(cfg.num_levels - 1),
-                                     capture=True)
+                                     capture=True, **mid)
         else:
-            h = self.mid_attn(h, context, self._ht_tile(cfg.num_levels - 1))
+            h = self.mid_attn(h, context, self._ht_tile(cfg.num_levels - 1),
+                              **mid)
         h = self.mid_res_1(h, emb)
         if control is not None:
             h = h + ctrl_mid
@@ -290,7 +300,7 @@ class UNet(nn.Module):
                 h = getattr(self, f"up_{level}_res_{i}")(h, emb)
                 if cfg.transformer_depth[level] > 0:
                     h = getattr(self, f"up_{level}_attn_{i}")(
-                        h, context, self._ht_tile(level))
+                        h, context, self._ht_tile(level), **kw(level))
             if level != 0:
                 h = getattr(self, f"up_{level}_us")(h)
 
@@ -302,7 +312,7 @@ class UNet(nn.Module):
 def with_config(unet: UNet, cfg: UNetConfig) -> UNet:
     """``unet``'s weights under ``cfg``, which may differ from its own
     config only in the patch fields (FreeU, HyperTile, deep shrink, SAG's
-    capture):
+    capture, ToMe):
     ``unet`` itself when the configs are equal, else a shallow copy that
     shares every parameter and reads ``cfg``."""
     if cfg == unet.cfg:

@@ -8,9 +8,11 @@ its module path plus a leaf name, and the mapping is mechanical:
 - LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
 - GroupNorm32 holds flax's implicit ``GroupNorm_0`` (``in_norm/GroupNorm_0/
   scale`` -> ``in_norm.weight``);
-- Embed ``embedding``          -> ``weight``; CLIP's raw
-  ``position_embedding`` (and the vision tower's ``class_embedding``)
-  keeps its name and layout.
+- Embed ``embedding``          -> ``weight``;
+- each parameter a module names in ``FLAX_RAW`` keeps its name and
+  layout: CLIP's ``position_embedding`` (and the vision tower's
+  ``class_embedding``), the GLIGEN fuser's gates, the position net's
+  null features, the style adapter's queries.
 
 :func:`fill_virtual` is the virtual checkpoint: every leaf is drawn in
 flax layout by the JAX package's rule (``registry._virtual_leaf``) — a
@@ -90,12 +92,8 @@ def leaves(module: nn.Module) -> List[Leaf]:
             add(mname, ("GroupNorm_0", "bias"), "bias", "same", mod)
         elif isinstance(mod, Embed):
             add(mname, ("embedding",), "weight", "same", mod)
-        elif isinstance(mod, CLIPTextModel):
-            add(mname, ("position_embedding",), "position_embedding",
-                "same", mod)
-        elif isinstance(mod, CLIPVisionModel):
-            for raw in ("class_embedding", "position_embedding"):
-                add(mname, (raw,), raw, "same", mod)
+        for raw in getattr(mod, "FLAX_RAW", ()):
+            add(mname, (raw,), raw, "same", mod)
     covered = {leaf.name for leaf in out}
     missing = [n for n, _ in module.named_parameters() if n not in covered]
     if missing:
@@ -104,9 +102,13 @@ def leaves(module: nn.Module) -> List[Leaf]:
 
 
 def virtual_leaf(seed: int, flax_path: Tuple[str, ...],
-                 shape: Tuple[int, ...]) -> np.ndarray:
-    """One virtual-checkpoint leaf in flax layout, float32."""
-    name = "".join(f"['{k}']" for k in ("params",) + tuple(flax_path))
+                 shape: Tuple[int, ...], root: str = "['params']"
+                 ) -> np.ndarray:
+    """One virtual-checkpoint leaf in flax layout, float32.  ``root``
+    starts the path string the stream is keyed by: the JAX package's
+    partial fill of missing leaves (GLIGEN's fusers) spells it
+    ``params``."""
+    name = root + "".join(f"['{k}']" for k in flax_path)
     rng = np.random.default_rng(
         (np.uint64(seed), np.uint64(zlib.crc32(name.encode()))))
     if flax_path[-1] == "scale":
@@ -120,16 +122,21 @@ def virtual_leaf(seed: int, flax_path: Tuple[str, ...],
 
 
 @torch.no_grad()
-def fill_virtual(module: nn.Module, seed: int, workers: int = 8) -> None:
+def fill_virtual(module: nn.Module, seed: int, workers: int = 8,
+                 only=None, root: str = "['params']") -> None:
     """Fill every parameter of ``module`` (any device, any float dtype)
-    with its virtual-checkpoint value; leaves are drawn in parallel."""
+    with its virtual-checkpoint value; leaves are drawn in parallel.
+    ``only(leaf) -> bool`` picks the leaves to fill; ``root`` as in
+    :func:`virtual_leaf`."""
     def one(leaf: Leaf) -> None:
         arr = virtual_leaf(seed, leaf.flax_path,
-                           _flax_shape(leaf.kind, tuple(leaf.param.shape)))
+                           _flax_shape(leaf.kind, tuple(leaf.param.shape)),
+                           root)
         leaf.param.copy_(torch.from_numpy(_to_torch_layout(leaf.kind, arr)))
 
+    todo = [leaf for leaf in leaves(module) if only is None or only(leaf)]
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        for f in [ex.submit(one, leaf) for leaf in leaves(module)]:
+        for f in [ex.submit(one, leaf) for leaf in todo]:
             f.result()
 
 
@@ -193,4 +200,22 @@ def controlnet_from_flax(cfg, params):
     from comfyui_distributed_tpu_torch.models.controlnet import ControlNet
     with torch.device("meta"):
         net = ControlNet(cfg)
+    return state_dict_from_flax(net, params)
+
+
+def gligen_from_flax(cfg, params):
+    """The JAX package's PositionNet tree -> the port's ``PositionNet``
+    state dict for ``cfg`` (a ``gligen.GligenConfig``)."""
+    from comfyui_distributed_tpu_torch.models.gligen import PositionNet
+    with torch.device("meta"):
+        net = PositionNet(cfg)
+    return state_dict_from_flax(net, params)
+
+
+def style_adapter_from_flax(cfg, params):
+    """The JAX package's StyleAdapter tree -> the port's ``StyleAdapter``
+    state dict for ``cfg`` (a ``style_model.StyleAdapterConfig``)."""
+    from comfyui_distributed_tpu_torch.models.style_model import StyleAdapter
+    with torch.device("meta"):
+        net = StyleAdapter(cfg)
     return state_dict_from_flax(net, params)

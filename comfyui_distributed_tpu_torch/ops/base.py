@@ -74,7 +74,10 @@ class Conditioning:
     ``control``: the ControlNet chain attached to the entry, a tuple of
     ``(net, hint image [B, H, W, 3], strength[, (start_percent,
     end_percent)])`` links (ComfyUI's previous_controlnet chain: every
-    link runs and their residuals sum)."""
+    link runs and their residuals sum).  ``gligen``: (GLIGEN model,
+    ((phrase embedding [1, D], box (x, y, w, h) in latent units), ...))
+    from GLIGENTextBoxApply; the sampler grounds this entry's rows on
+    those boxes."""
     context: torch.Tensor
     pooled: Optional[torch.Tensor] = None
     size_cond: Optional[Tuple[float, ...]] = None
@@ -85,6 +88,8 @@ class Conditioning:
     timestep_range: Optional[Tuple[float, float]] = None
     unclip: Optional[Tuple[Tuple[Any, float, float], ...]] = None
     control: Optional[Tuple[Tuple[Any, ...], ...]] = None
+    gligen: Optional[Tuple[Any, Tuple[Tuple[Any, Tuple[int, ...]], ...]]] \
+        = None
 
 
 @dataclasses.dataclass

@@ -25,8 +25,10 @@
 ``SplitSigmasDenoise``, ``SplitSigmas``, ``FlipSigmas``,
 ``SamplerCustom``, ``RandomNoise``, ``DisableNoise``, ``BasicGuider``,
 ``CFGGuider``, ``DualCFGGuider``, ``PerpNegGuider``,
-``SamplerCustomAdvanced``) and the sampling patches ``RescaleCFG``,
-``ModelSamplingDiscrete``, ``SelfAttentionGuidance`` and ``PerpNeg``
+``SamplerCustomAdvanced``), the sampling patches ``RescaleCFG``,
+``ModelSamplingDiscrete``, ``SelfAttentionGuidance`` and ``PerpNeg``,
+and ``TomePatchModel``, ``HypernetworkLoader``, ``GLIGENLoader``,
+``GLIGENTextBoxApply``, ``StyleModelLoader`` and ``StyleModelApply``
 in ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode
 does not expand the batch).  SIGMAS travel as host float32 arrays.
 
@@ -49,8 +51,10 @@ A MASK travels as a float32 tensor on the run's device ([H, W] or
 conditioning's area mask stay at image resolution until the sampler
 takes them to the latent's (:func:`image_mask_to_latent`), and so does a
 ControlNet's hint (8x the latent's size, :func:`gather_control`).
-GLIGEN, which ``_prepare_sample_inputs`` handles in the JAX package, is
-not ported.
+GLIGEN's grounding tokens are built in ``_prepare_sample_inputs`` for
+one set a row block (:func:`grounding_tokens`), and a grounded
+conditioning makes the sampler take the fuser pipeline
+(:func:`_maybe_gligen_model`).
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ from comfyui_distributed_tpu_torch.utils.image import (
     save_png,
 )
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
-from comfyui_distributed_tpu_torch.utils.log import Timer, debug_log
+from comfyui_distributed_tpu_torch.utils.log import Timer, debug_log, log
 
 
 @register_op
@@ -577,6 +581,9 @@ class _SampleInputs:
     mid_context: Optional[torch.Tensor] = None
     guidance: str = "dual"
     cfg2: float = 1.0
+    # GLIGEN's grounding tokens for DiffusionPipeline.sample (its
+    # ``gligen_objs``), None without a grounded entry
+    gligen_objs: Any = None
 
 
 def as_mask(mask, device) -> torch.Tensor:
@@ -758,6 +765,8 @@ def _prepare_sample_inputs(model, seed, latent_image,
     mask = latent_image.get("noise_mask")
     if mask is not None:
         mask = image_mask_to_latent(as_mask(mask, dev), h, w, total)
+    gligen_objs = grounding_tokens(pos_entries, neg_entries, mid_entries,
+                                   total, h, w)
     c_concat = next((c.concat_latent for c in pos_entries + neg_entries
                      if c.concat_latent is not None), None)
     if c_concat is not None:
@@ -773,7 +782,81 @@ def _prepare_sample_inputs(model, seed, latent_image,
                                                 mid_entries),
                          mid_context=None if middle is None
                          else mid_built[0][0],
-                         guidance=guidance, cfg2=cfg2)
+                         guidance=guidance, cfg2=cfg2,
+                         gligen_objs=gligen_objs)
+
+
+def grounding_tokens(pos_entries, neg_entries, mid_entries, total: int,
+                     h: int, w: int):
+    """GLIGEN's grounding tokens a row block, as the JAX package's
+    sampler prep builds them: each distinct spec (by identity, first
+    seen over positive, negative and middle entries) becomes one token
+    set, padded with null tokens to the most boxes any spec has; a block
+    whose entry has no spec gets the all-null set.  Boxes (x, y, w, h)
+    in latent units become xyxy fractions of this latent, clipped to
+    [0, 1]; a phrase embedding wider or narrower than the first model's
+    text width is cut or zero-padded.  Returns (sets [S, total, n, D],
+    null set [total, n, D], one index a block: positives, the middle,
+    negatives; -1 the null set), or None without a spec."""
+    specs = []
+    for e in list(pos_entries) + list(neg_entries) + list(mid_entries):
+        sp = e.gligen
+        if sp is not None and all(sp is not s for s in specs):
+            specs.append(sp)
+    if not specs:
+        return None
+    gmodel = specs[0][0]
+    if any(sp[0] is not gmodel for sp in specs):
+        log("GLIGEN: conditioning entries carry DIFFERENT gligen "
+            "models; grounding tokens all run through the first model's "
+            "fusers")
+    n_max = max(len(sp[1]) for sp in specs)
+    d_text = gmodel.cfg.text_dim
+
+    def spec_tokens(entries_g):
+        embs = np.zeros((1, n_max, d_text), np.float32)
+        boxes = np.zeros((1, n_max, 4), np.float32)
+        alive = np.zeros((1, n_max), np.float32)
+        for i, (t, b) in enumerate(entries_g):
+            v = (t.detach().float().cpu().numpy()
+                 if isinstance(t, torch.Tensor)
+                 else np.asarray(t, np.float32)).reshape(-1)
+            cut = min(v.shape[0], d_text)
+            embs[0, i, :cut] = v[:cut]
+            bx = np.asarray([b[0], b[1], b[0] + b[2], b[1] + b[3]],
+                            np.float32) / np.asarray([w, h, w, h],
+                                                     np.float32)
+            boxes[0, i] = np.clip(bx, 0.0, 1.0)
+            alive[0, i] = 1.0
+        tok = gmodel.grounding_tokens(embs, boxes, alive)
+        return tok.expand(total, -1, -1)
+
+    sets = torch.stack([spec_tokens(sp[1]) for sp in specs])
+    null = spec_tokens(())
+
+    def spec_index(e):
+        return next((i for i, s in enumerate(specs) if s is e.gligen), -1)
+
+    idxs = tuple(spec_index(e) for e in pos_entries) \
+        + tuple(spec_index(e) for e in mid_entries) \
+        + tuple(spec_index(e) for e in neg_entries)
+    return sets, null, idxs
+
+
+def _maybe_gligen_model(model, *conds):
+    """The pipeline a grounded conditioning samples with: any entry (or
+    sibling) carrying a GLIGEN spec pulls in the fuser pipeline of its
+    model (:func:`gligen_attach`), as the JAX package's samplers do; the
+    graph carries the grounding on the conditioning only."""
+    for c in conds:
+        if c is None:
+            continue
+        for e in (c, *c.siblings):
+            if e.gligen is not None:
+                if model.family.unet.gligen:
+                    return model
+                return gligen_attach(model, e.gligen[0])
+    return model
 
 
 def control_chain(cond: Conditioning) -> tuple:
@@ -995,6 +1078,7 @@ class KSampler(Op):
         if coalesced_seeds is not None and not isinstance(seed, SeedValue):
             seed = SeedValue(int(seed), per_prompt=np.asarray(
                 coalesced_seeds, np.uint64))
+        model = _maybe_gligen_model(model, positive, negative)
         prep = _prepare_sample_inputs(model, seed, latent_image, positive,
                                       negative)
         with Timer(f"ksampler[{sampler_name}x{steps}]"):
@@ -1006,7 +1090,7 @@ class KSampler(Op):
                 sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
                 c_concat=prep.c_concat, control=prep.control,
                 middle_context=prep.mid_context, cfg2=prep.cfg2,
-                guidance=prep.guidance)
+                guidance=prep.guidance, gligen_objs=prep.gligen_objs)
         # the mask stays on the latent, as ComfyUI keeps it
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
@@ -1031,6 +1115,7 @@ class KSamplerAdvanced(Op):
                 start_at_step: int = 0, end_at_step: int = 10000,
                 return_with_leftover_noise: str = "disable"):
         ctx.check_interrupt()
+        model = _maybe_gligen_model(model, positive, negative)
         prep = _prepare_sample_inputs(model, noise_seed, latent_image,
                                       positive, negative)
         with Timer(f"ksampler_adv[{sampler_name}x{steps}"
@@ -1047,7 +1132,8 @@ class KSamplerAdvanced(Op):
                 == "disable",
                 noise_mask=prep.noise_mask, c_concat=prep.c_concat,
                 control=prep.control, middle_context=prep.mid_context,
-                cfg2=prep.cfg2, guidance=prep.guidance)
+                cfg2=prep.cfg2, guidance=prep.guidance,
+                gligen_objs=prep.gligen_objs)
         return ({**_latent_meta(latent_image), "samples": DeviceLatent(out)},)
 
 
@@ -1270,6 +1356,7 @@ class SamplerCustom(Op):
                 positive: Conditioning, negative: Conditioning,
                 latent_image, sampler, sigmas):
         ctx.check_interrupt()
+        model = _maybe_gligen_model(model, positive, negative)
         prep = _prepare_sample_inputs(model, noise_seed, latent_image,
                                       positive, negative)
         name = _sampler_name(sampler)
@@ -1284,7 +1371,8 @@ class SamplerCustom(Op):
                 sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
                 c_concat=prep.c_concat, control=prep.control,
                 sigmas_override=sig, middle_context=prep.mid_context,
-                cfg2=prep.cfg2, guidance=prep.guidance)
+                cfg2=prep.cfg2, guidance=prep.guidance,
+                gligen_objs=prep.gligen_objs)
         out_d = {**_latent_meta(latent_image), "samples": DeviceLatent(out)}
         return (out_d, dict(out_d))
 
@@ -1412,6 +1500,8 @@ class SamplerCustomAdvanced(Op):
         ctx.check_interrupt()
         g = guider
         neg = g.negative if g.negative is not None else g.positive
+        g = dataclasses.replace(g, model=_maybe_gligen_model(
+            g.model, g.positive, neg, g.middle))
         three_row = g.mode in ("dual", "perp")
         if three_row and not all(
                 _plain_entry(e) for e in (g.positive, g.middle, neg)):
@@ -1436,7 +1526,7 @@ class SamplerCustomAdvanced(Op):
                 sample_idx=prep.sample_idx, noise_mask=prep.noise_mask,
                 c_concat=prep.c_concat, control=prep.control,
                 sigmas_override=sig, middle_context=prep.mid_context,
-                cfg2=cfg2, guidance=guidance)
+                cfg2=cfg2, guidance=guidance, gligen_objs=prep.gligen_objs)
         out_d = {**_latent_meta(latent_image), "samples": DeviceLatent(out)}
         return (out_d, dict(out_d))
 
@@ -2039,6 +2129,186 @@ class PatchModelAddDownscale(Op):
                    f":{start_percent}:{end_percent}",
             extra_attrs={"deep_shrink_spec": (
                 float(lvl), float(downscale_factor), t_lo, t_hi)}),)
+
+
+# --- ToMe, hypernetworks, GLIGEN and style models --------------------------------
+
+@register_op
+class TomePatchModel(Op):
+    """ToMe token merging at the highest-resolution attention level
+    (level 0, the reference's max_downsample=1): its self-attentions
+    merge ``ratio`` (clipped to [0, 0.9]) of their query tokens into
+    their most similar 2x2-cell destinations and copy the outputs back
+    (``models/tome.py``; the destination grid is deterministic).  A
+    family without level-0 attention (SDXL) gets a logged no-op, and
+    ratio 0 the model itself.  A derived pipeline sharing the base's
+    weights."""
+    TYPE = "TomePatchModel"
+    WIDGETS = ["ratio"]
+    DEFAULTS = {"ratio": 0.3}
+
+    def execute(self, ctx: OpContext, model, ratio: float = 0.3):
+        r = min(max(float(ratio), 0.0), 0.9)
+        if r == 0.0:
+            return (model,)
+        fam = model.family
+        if fam.unet.transformer_depth[0] == 0:
+            log(f"TomePatchModel: {fam.name} has no level-0 attention "
+                "(SDXL layout); the patch is a no-op, as with the "
+                "reference's default max_downsample=1")
+            return (model,)
+        fam2 = dataclasses.replace(fam, unet=dataclasses.replace(
+            fam.unet, tome_ratio=r))
+        return (registry.derive_pipeline(model, f"tome:{r}", family=fam2),)
+
+
+@register_op
+class HypernetworkLoader(Op):
+    """An A1111 hypernetwork (``<models_dir>/hypernetworks/<name>``, or
+    the JAX package's virtual one of the name): residual MLPs on the
+    cross-attentions' key and value context at ``strength``
+    (``models/hypernetwork.py``).  Chained loaders compose; strength 0
+    returns the model.  A derived pipeline; the chain rides further
+    derivations."""
+    TYPE = "HypernetworkLoader"
+    WIDGETS = ["hypernetwork_name", "strength"]
+    DEFAULTS = {"strength": 1.0}
+
+    def execute(self, ctx: OpContext, model, hypernetwork_name: str,
+                strength: float = 1.0):
+        from comfyui_distributed_tpu_torch.models.hypernetwork import \
+            load_hypernetwork
+        s = float(strength)
+        if s == 0.0:
+            return (model,)
+        hn = load_hypernetwork(str(hypernetwork_name),
+                               models_dir=ctx.models_dir)
+        chain = tuple(getattr(model, "hypernets", ())) + ((hn, s),)
+        # the tag names the chain's content (name and directory), never an
+        # object's id, which a cache clear could hand to another
+        chain_tag = (getattr(model, "hypernet_tag", "")
+                     + f"|{hypernetwork_name}@{ctx.models_dir or ''}x{s}")
+        return (registry.derive_pipeline(
+            model, "hypernet:" + chain_tag,
+            extra_attrs={"hypernets": chain, "hypernet_tag": chain_tag}),)
+
+
+@register_op
+class GLIGENLoader(Op):
+    """-> GLIGEN: the position net (``models/gligen.py``, virtual from the
+    name).  The fusers join the model when a grounded conditioning
+    reaches a sampler (:func:`gligen_attach`)."""
+    TYPE = "GLIGENLoader"
+    WIDGETS = ["gligen_name"]
+
+    def execute(self, ctx: OpContext, gligen_name: str):
+        from comfyui_distributed_tpu_torch.models.gligen import load_gligen
+        return (load_gligen(str(gligen_name), models_dir=ctx.models_dir,
+                            device=ctx.device),)
+
+
+def gligen_attach(model, gligen):
+    """The derived pipeline with GLIGEN fusers: a UNet built with them
+    that shares every parameter of ``model``'s UNet by reference and
+    fills only the fusers, with the JAX package's virtual draws for the
+    missing leaves (seed of ``gligen:<name>``), so the base's weights
+    stay as they were.  The fusers' gates are 0 by that rule."""
+    from comfyui_distributed_tpu_torch.models import unet as unet_mod
+    from comfyui_distributed_tpu_torch.models.weights import fill_virtual
+    tag = f"gligen:{gligen.name}"
+    fam = model.family
+    fam2 = dataclasses.replace(fam, unet=dataclasses.replace(
+        fam.unet, gligen=int(gligen.cfg.out_dim)))
+
+    def make():
+        base = dict(model.unet.named_parameters())
+        dt = next(iter(base.values())).dtype
+        with torch.device("meta"):
+            unet = unet_mod.UNet(fam2.unet)
+        for mname, mod in unet.named_modules():
+            for pname, p in list(mod._parameters.items()):
+                if p is None:
+                    continue
+                full = f"{mname}.{pname}" if mname else pname
+                mod._parameters[pname] = base[full] if full in base \
+                    else torch.nn.Parameter(torch.empty(
+                        p.shape, dtype=dt, device=model.device),
+                        requires_grad=False)
+        with torch.no_grad():
+            fill_virtual(unet, registry._name_seed(tag), root="params",
+                         only=lambda leaf: leaf.name not in base)
+        return unet.eval()
+
+    return registry.derive_pipeline(model, tag, family=fam2, unet=make)
+
+
+@register_op
+class GLIGENTextBoxApply(Op):
+    """Ground a phrase to a box: the phrase's pooled encoding (its
+    tokens' mean without one), cut or zero-padded to the model's text
+    width, and the box in latent units (x // 8, y // 8, w // 8, h // 8,
+    at least 1) join the entry's grounding, on every sibling too (each
+    keeps its own earlier boxes).  The sampler grafts the fusers in."""
+    TYPE = "GLIGENTextBoxApply"
+    WIDGETS = ["text", "width", "height", "x", "y"]
+
+    def execute(self, ctx: OpContext, conditioning_to: Conditioning, clip,
+                gligen_textbox_model, text: str, width: int, height: int,
+                x: int, y: int):
+        g = gligen_textbox_model
+        ctx_arr, pooled = clip.encode_prompt([str(text)])
+        emb = (pooled if pooled is not None else ctx_arr.mean(dim=1)) \
+            .detach().float().cpu().numpy()
+        if emb.shape[-1] < g.cfg.text_dim:
+            emb = np.pad(emb, ((0, 0), (0, g.cfg.text_dim - emb.shape[-1])))
+        emb = emb[:, : g.cfg.text_dim]
+        box = (int(x) // 8, int(y) // 8, max(int(width) // 8, 1),
+               max(int(height) // 8, 1))
+
+        def ground(e: Conditioning) -> Conditioning:
+            prev = e.gligen[1] if e.gligen is not None else ()
+            return dataclasses.replace(e, gligen=(g, prev + ((emb, box),)))
+
+        return (dataclasses.replace(
+            ground(conditioning_to),
+            siblings=tuple(ground(s) for s in conditioning_to.siblings)),)
+
+
+@register_op
+class StyleModelLoader(Op):
+    """-> STYLE_MODEL (``models/style_model.py``, virtual from the
+    name)."""
+    TYPE = "StyleModelLoader"
+    WIDGETS = ["style_model_name"]
+
+    def execute(self, ctx: OpContext, style_model_name: str):
+        from comfyui_distributed_tpu_torch.models.style_model import \
+            load_style_model
+        return (load_style_model(str(style_model_name),
+                                 models_dir=ctx.models_dir,
+                                 device=ctx.device),)
+
+
+@register_op
+class StyleModelApply(Op):
+    """The style tokens of a CLIP-vision output appended to the
+    conditioning's token axis (every sibling too): the style steers
+    through the ordinary cross-attention."""
+    TYPE = "StyleModelApply"
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning,
+                style_model, clip_vision_output):
+        with Timer("style_model_apply"):
+            tokens = style_model.get_cond(clip_vision_output)
+
+        def cat(e: Conditioning) -> Conditioning:
+            return dataclasses.replace(e, context=torch.cat(
+                [e.context, tokens.to(e.context.device, torch.float32)],
+                dim=1))
+
+        return (dataclasses.replace(
+            cat(conditioning),
+            siblings=tuple(cat(s) for s in conditioning.siblings)),)
 
 
 # --- Canny (the ControlNet hint preprocessor) ---------------------------------

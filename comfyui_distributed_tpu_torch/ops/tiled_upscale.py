@@ -135,17 +135,19 @@ def _tile_cache_eligible(positive: Conditioning, negative: Conditioning,
     """The tile tier is armed for a plain refine only: canvas-wide single
     conditionings (a regional mask resolves by the tile's position,
     which its content key does not hold), no concat channels, unCLIP
-    vector or ControlNet, and a pipeline without a sampling patch the
-    key does not hold: deep shrink, SAG, PerpNeg or RescaleCFG.  The
-    refine itself passes no control to the tile sampling, as the JAX
-    package's does not."""
+    vector, ControlNet or GLIGEN grounding, and a pipeline without a
+    sampling patch the key does not hold: deep shrink, SAG, PerpNeg,
+    RescaleCFG or a hypernetwork.  The refine itself passes no control
+    to the tile sampling, as the JAX package's does not."""
     if getattr(pipe, "perp_neg_cond", None) is not None:
         return False
-    for attr in ("sag_params", "deep_shrink_spec", "cfg_rescale"):
+    for attr in ("sag_params", "hypernets", "deep_shrink_spec",
+                 "cfg_rescale"):
         if getattr(pipe, attr, None):
             return False
     return not any(_is_regional(c) or c.concat_latent is not None
                    or c.unclip is not None or c.control is not None
+                   or c.gligen is not None
                    for c in (positive, negative))
 
 

@@ -312,7 +312,8 @@ class _Bucket:
         self.sampler_name = str(capture["sampler_name"])
         self.cfg = float(capture["cfg"])
         smp.get_sampler_step(self.sampler_name)   # raises on non-step
-        for attr in ("sag_params", "deep_shrink_spec", "perp_neg_cond"):
+        for attr in ("sag_params", "hypernets", "deep_shrink_spec",
+                     "perp_neg_cond"):
             if getattr(pipe, attr, None):
                 raise CBIneligible(f"model patch present: {attr}")
         if float(getattr(pipe, "cfg_rescale", 0.0) or 0.0):
@@ -337,6 +338,7 @@ class _Bucket:
             capture["positive"], capture["negative"])
         if prep.control is not None or prep.noise_mask is not None \
                 or prep.c_concat is not None \
+                or prep.gligen_objs is not None \
                 or isinstance(prep.y, (list, tuple)) \
                 or isinstance(prep.context, list) \
                 or isinstance(prep.uncond, list):

@@ -280,7 +280,8 @@ def test_capture_forward_matches_jax_and_launches_no_kernel():
 
 def test_sag_capture_is_a_patch_field():
     assert "sag_capture" in tunet._PATCH_FIELDS
-    assert "sag_capture" not in tunet._UNPORTED_PATCHES
+    # GLIGEN's fusers are weights of their own: not a patch field
+    assert "gligen" not in tunet._PATCH_FIELDS
     with torch.device("meta"):
         unet = tunet.UNet(tunet.TINY_CONFIG)
     cap = tunet.with_config(unet, dataclasses.replace(tunet.TINY_CONFIG,

@@ -103,12 +103,50 @@ def test_resblock_and_timestep_embedding():
 @pytest.mark.parametrize("patch", [dict(freeu=(1.1, 1.2, 0.9, 0.2),
                                         tome_ratio=0.5),
                                    dict(tome_ratio=0.5), dict(gligen=768),
-                                   dict(sag_capture=True, gligen=768)])
-def test_unported_patches_raise(patch):
-    """ToMe and GLIGEN are not ported and raise, beside a ported patch
-    (FreeU, SAG's capture) too."""
-    with pytest.raises(NotImplementedError):
-        tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, **patch))
+                                   dict(sag_capture=True, gligen=768)],
+                         ids=["freeu_tome", "tome", "gligen",
+                              "sag_capture_gligen"])
+def test_tome_and_gligen_unets_match_jax(patch):
+    """ToMe (level-0 query merging, beside FreeU too) and GLIGEN (a fuser
+    in every block, its gates 0.5 and three grounding tokens a row,
+    under SAG's capture too: the weights as well) against the JAX UNet
+    under the same config, its attention the plain reference (``xla``);
+    the fusers' weights cross by the bridge."""
+    jcfg = dataclasses.replace(junet.TINY_CONFIG, **patch)
+    params = jreg._virtual_params(junet.UNet(jcfg), 7,
+                                  jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
+                                  jnp.zeros((1, 77, 64)))
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v + 0.5 if "alpha" in jax.tree_util.keystr(p) else v,
+        params)
+    model = _load(tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG,
+                                                 **patch)), params)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
+    t = np.asarray([999.0, 20.5], np.float32)
+    ctx = rng.standard_normal((2, 77, 64)).astype(np.float32)
+    kw = {}
+    if patch.get("gligen"):
+        kw["objs"] = rng.standard_normal((2, 3, 768)).astype(np.float32)
+    capture = bool(patch.get("sag_capture"))
+    jmod = junet.UNet(jcfg)
+    jargs = ({"params": params}, jnp.asarray(x), jnp.asarray(t),
+             jnp.asarray(ctx))
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    if capture:
+        jout, inters = jmod.apply(*jargs, mutable=["intermediates"], **jkw)
+        jprobs = jax.tree_util.tree_leaves(inters)[0]
+    else:
+        jout = jmod.apply(*jargs, **jkw)
+    with torch.no_grad():
+        tout = model(torch.from_numpy(x), torch.from_numpy(t),
+                     torch.from_numpy(ctx), capture=capture,
+                     **{k: torch.from_numpy(v) for k, v in kw.items()})
+    if capture:
+        tout, tprobs = tout
+        np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs),
+                                   **TOL)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
 
 
 def test_control_residuals_raise():

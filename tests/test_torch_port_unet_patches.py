@@ -150,6 +150,7 @@ PATCHES = {
     "hypertile_mid": dict(hypertile=(32, 3, False)),
     "deep_shrink": dict(deep_shrink=(1, 2.0)),
     "deep_shrink_odd": dict(deep_shrink=(0, 3.0)),
+    "tome_hypertile": dict(tome_ratio=0.4, hypertile=(32, 1, False)),
 }
 
 
@@ -176,9 +177,9 @@ def test_patched_unet_matches_jax(weights, name):
 
 
 def test_unported_patches_still_raise_and_with_config_guards_weights():
-    for patch in (dict(tome_ratio=0.5), dict(gligen=16)):
-        with pytest.raises(NotImplementedError):
-            tunet.UNet(dataclasses.replace(tunet.TINY_CONFIG, **patch))
+    """Every patch of the JAX UNet is ported now (nothing raises): ToMe
+    rides shared weights like the other patches, GLIGEN's fusers are
+    weights of their own, and with_config refuses any other change."""
     with torch.device("meta"):
         unet = tunet.UNet(tunet.TINY_CONFIG)
         # SAG's capture is ported: a patch field on shared weights
@@ -187,6 +188,13 @@ def test_unported_patches_still_raise_and_with_config_guards_weights():
     with pytest.raises(ValueError, match="context_dim"):
         tunet.with_config(unet, dataclasses.replace(tunet.TINY_CONFIG,
                                                     context_dim=32))
+    # ToMe changes no weight; GLIGEN's fusers are weights of their own
+    tome = tunet.with_config(unet, dataclasses.replace(tunet.TINY_CONFIG,
+                                                       tome_ratio=0.5))
+    assert tome.conv_in.weight is unet.conv_in.weight
+    with pytest.raises(ValueError, match="gligen"):
+        tunet.with_config(unet, dataclasses.replace(tunet.TINY_CONFIG,
+                                                    gligen=16))
 
 
 # --- the ops -------------------------------------------------------------------
