@@ -21,8 +21,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
    24 heads, SD1.5's D = 40/80/160 at B = 32 and 16 for the upscale
    and at B = 12 and 10 for phase 14's shares, hedges and reassignments,
    at B = 2 for the inpaint requests at 512^2 and 768 x 512 and at B = 3
-   for the regional request, and SD2.1's 5/10/20 heads of 64 at 768^2,
-   all in the sm90 kernel), plus the edges of both kernels at every head dim
+   for the regional request, SD2.1's 5/10/20 heads of 64 at 768^2 and
+   at 512^2, and SDXL's cross-attentions over ConditioningConcat's 154
+   tokens, all in the sm90 kernel), plus the edges of both kernels at every head dim
    (N and M not multiples of the tile, M < 16, one batch-head, N < 64;
    the older ``mma.sync`` kernel's launched by name), fp32 and the tiny
    head dims (bf16: relative error < 2e-2; fp32: absolute error < 2e-4,
@@ -53,9 +54,15 @@ Run from the root of a checkout on a machine with a CUDA card (and
    steps, their own small RGBA inputs), and the regional (``tiny``),
    ip2p (``tiny_ip2p`` and the tiny VAE and text tower by their names)
    and unclip (``tiny_unclip``) workflows shrunk, on small inputs of
-   their own, must agree within 1e-3 (the unclip run on the card takes
-   the CPU run's image embedding, as the unCLIP noise is keyed by its
-   bytes, and the card's own embedding must agree within 1e-3 too);
+   their own, and phase 25's compositing graph on ``tiny_inpaint`` (a
+   16-bit RGBA file, tiles that really tile) with a batch graph on
+   ``tiny`` (a palette file, VAEEncodeTiled, RepeatLatentBatch,
+   LatentBatchSeedBehavior "fixed" at B = 2, ConditioningAverage,
+   LatentFromBatch and the image and mask ops:
+   :func:`tiny_composite_docs`), must agree within 1e-3 (the unclip run
+   on the card takes the CPU run's image embedding, as the unCLIP noise
+   is keyed by its bytes, and the card's own embedding must agree within
+   1e-3 too);
 5. txt2img: ``workflows/distributed-txt2img.json`` unchanged (SDXL,
    1024^2, 20 euler/karras steps, cfg 7, virtual weights) through the
    port's WorkflowExecutor as three requests with three seeds; each must
@@ -184,8 +191,9 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``listening`` line.  (2) A cold ``distributed-txt2img.json`` fan-out
    (SaveImage) to ``["w0"]``, checked as phase 8 checks it against
    phase 8's in-process images.  (3) With w0 disabled, the master alone:
-   one request to time by, one with ``POST /interrupt`` half that run's
-   KSampler seconds after the master logs the KSampler's start (its
+   one request to time by, one with ``POST /interrupt``
+   ``PHASE15_INTERRUPT_AT`` of that run's KSampler seconds after the
+   master logs the KSampler's start (its
    debug tier's ``exec node`` line, on through the config's
    ``settings.debug``), which must end as ``execution interrupted``
    within ``PHASE15_INTERRUPT_END_S`` with ``sm90`` launches a whole
@@ -503,6 +511,27 @@ Run from the root of a checkout on a machine with a CUDA card (and
    exact and at shapes phase 3 checked (:func:`phase24_kernel_shapes`, a
    meta-device forward under each patch).  It prints a ``phase24`` line
    like phase 23's, with the files' write seconds and bytes.
+25. The inpaint families and the compositing ops, in process from
+   virtual weights with ``DTPU_CACHE=0`` (:func:`inpaint_composites`):
+   :func:`composite_doc` (LoadImage of a 16-bit RGBA file the phase
+   writes, GrowMask and FeatherMask on its mask, InpaintModelConditioning
+   with ConditioningConcat on the positive and ConditioningZeroOut on
+   the negative, KSampler at 20 euler/karras steps and cfg 7,
+   VAEDecodeTiled at tile 512 and overlap 64, ImageCompositeMasked back
+   onto the source) on ``sd_xl_base_1.0_inpainting_0.1.safetensors``
+   (``sdxl_inpaint``) at 1024^2 cold and warm, and on
+   ``512-inpainting-ema.ckpt`` (``sd21_inpaint``, without the concat)
+   at 512^2 cold.  Hard: every image finite with std > 0; exactly 2800
+   sm90 launches for an SDXL request and 640 for SD2.1, at shapes phase
+   3 checked; the sampled latent equal to the encoded source to the bit
+   where the latent mask is 0; the warm image equal to the cold one;
+   VAEDecodeTiled at a tile of 1024 equal to VAEDecode on the warm
+   latent, and at 512 (9 tiles) and VAEEncodeTiled of the source within
+   ``PHASE25_DECODE_LIMITS`` and ``PHASE25_ENCODE_LIMITS`` of their
+   one-shot forms.  It prints a ``phase25`` line: each request's
+   seconds, node seconds, launches, attention ms and peak memory, the
+   anchoring, and the tiled forms' differences and seconds beside the
+   one-shot ones.
 
 Phases 14, 15, 16, 20 and 21 launch their servers before the phase
 before them (13, 14, 15, 19 and 20) runs, so a server's start
@@ -522,7 +551,7 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 (the encode memo: a warm request takes its text encodes from it).
 
 Launch counts are zeroed just before each request of phases 5-7,
-9-13 and 22-24 and read just after (phase 15's interrupted request and every
+9-13 and 22-25 and read just after (phase 15's interrupted request and every
 request of phases 16, 18, 19 and 21: their servers' prompt lines;
 phase 20's: its buckets' counts, each step's own, and its prompt
 lines).  The line before the last is ``{"kernels":
@@ -673,6 +702,12 @@ FANOUT_REQUEST_S = 300   # a fan-out request must finish within this
 # transformer blocks x 2 attentions
 PHASE15_READY_S = 120
 PHASE15_INTERRUPT_END_S = 2.0
+# the interrupt's time after the KSampler's start, as a share of the
+# calibration request's KSampler seconds: a quarter, so that it lands
+# mid-sampling even when phase 16's servers, starting meanwhile, slowed
+# the calibration on the host (at a half, a slow host's interrupt once
+# came after the sampler's end)
+PHASE15_INTERRUPT_AT = 0.25
 PHASE15_CLUSTER_INTERRUPT_END_S = 5.0
 PHASE15_CLEAR_MIN_FREED = 5_000_000_000
 SDXL_STEP_LAUNCHES = 140
@@ -1013,6 +1048,27 @@ TINY_INPAINT_FAMILY = {"inpaint": "tiny", "outpaint": "tiny",
 # decide, as the split loaders' tiny names do)
 TINY_PHASE13_FAMILY = {"regional": "tiny", "ip2p": None,
                        "unclip": "tiny_unclip"}
+# phase 4's compositing graphs (phase 25's at the tiny size), their
+# family and their inputs: a 16-bit RGBA file and a palette file
+TINY_COMPOSITE_FAMILY = {"inpaint_composite": "tiny_inpaint",
+                         "batch_composite": "tiny"}
+TINY_COMPOSITE_HW = (40, 48)
+
+
+def tiny_composite_docs(input_dir):
+    """Phase 4's two compositing graphs, their PNG inputs written into
+    ``input_dir``: :func:`composite_doc` at 48 x 56 (tiles of 24 pixels,
+    12 latent units, overlapping by 8) and :func:`batch_composite_doc`
+    at ``TINY_COMPOSITE_HW``."""
+    with open(os.path.join(input_dir, "src16.png"), "wb") as f:
+        f.write(png16_rgba(48, 56, 4))
+    with open(os.path.join(input_dir, "palette.png"), "wb") as f:
+        f.write(png_palette(*TINY_COMPOSITE_HW, 5))
+    return {"inpaint_composite": composite_doc(
+                "tiny-inpaint-composite.ckpt", "src16.png", 3, 24, 8),
+            "batch_composite": batch_composite_doc(
+                "tiny-batch-composite.ckpt", "palette.png",
+                TINY_COMPOSITE_HW)}
 
 
 def write_phase13_inputs(input_dir, size):
@@ -1082,6 +1138,180 @@ def write_inpaint_inputs(input_dir, scale):
             f.write(encode_png(card(h * scale, w * scale, hole)))
 
 
+def _png_chunk(tag, body):
+    import struct
+    import zlib
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body)))
+
+
+def png16_rgba(h, w, seed):
+    """A 16-bit RGBA PNG (the port's writer and Pillow write none): a
+    colour gradient with noise, opaque but for a transparent rectangle
+    in the middle (the region to resample)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    rgb = np.stack([xx, yy, 1 - xx * yy], -1) * 50000 \
+        + rng.integers(0, 15000, (h, w, 3))
+    alpha = np.full((h, w, 1), 65535)
+    alpha[h // 3:2 * h // 3, w // 4:3 * w // 4] = 0
+    px = np.concatenate([rgb, alpha], -1).astype(">u2")
+    raw = b"".join(b"\0" + row.tobytes() for row in px.reshape(h, -1))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 6, 0, 0,
+                                              0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, 1))
+            + _png_chunk(b"IEND", b""))
+
+
+def png_palette(h, w, seed):
+    """A 4-bit palette PNG of 16 colours in 4-pixel diagonal bands (``w``
+    even)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    idx = (np.arange(h)[:, None] // 4 + np.arange(w)[None] // 4) % 16
+    pal = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    rows = b"".join(b"\0" + (r[0::2] << 4 | r[1::2]).astype(
+        np.uint8).tobytes() for r in idx)
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 4, 3, 0, 0,
+                                              0))
+            + _png_chunk(b"PLTE", pal.tobytes())
+            + _png_chunk(b"IDAT", zlib.compress(rows))
+            + _png_chunk(b"IEND", b""))
+
+
+def _node(class_type, **inputs):
+    return {"class_type": class_type, "inputs": inputs}
+
+
+def composite_doc(ckpt, image, steps, tile, overlap, concat=True):
+    """Phase 25's inpaint composite (phase 4's on ``tiny_inpaint``):
+    LoadImage of an RGBA file, its mask grown (GrowMask) and feathered
+    (FeatherMask); InpaintModelConditioning of a positive that
+    ConditioningConcat chains from two prompts (154 tokens; with
+    ``concat`` false the first prompt alone) and a negative zeroed by
+    ConditioningZeroOut; KSampler (euler, karras, cfg 7); VAEDecodeTiled
+    at ``tile`` and ``overlap``; ImageCompositeMasked of the result
+    back onto the source through the mask; PreviewImage."""
+    return {
+        "1": _node("CheckpointLoaderSimple", ckpt_name=ckpt),
+        "2": _node("LoadImage", image=image),
+        "3": _node("GrowMask", mask=["2", 1], expand=4,
+                   tapered_corners=True),
+        "4": _node("FeatherMask", mask=["3", 0], left=8, top=8, right=8,
+                   bottom=8),
+        "5": _node("CLIPTextEncode", text="a stone lighthouse on a cliff",
+                   clip=["1", 1]),
+        "6": _node("CLIPTextEncode", text="at dawn, volumetric light",
+                   clip=["1", 1]),
+        "7": _node("ConditioningConcat", conditioning_to=["5", 0],
+                   conditioning_from=["6", 0]),
+        "8": _node("CLIPTextEncode", text="blurry, lowres", clip=["1", 1]),
+        "9": _node("ConditioningZeroOut", conditioning=["8", 0]),
+        "10": _node("InpaintModelConditioning",
+                    positive=["7", 0] if concat else ["5", 0],
+                    negative=["9", 0], vae=["1", 2], pixels=["2", 0],
+                    mask=["4", 0], noise_mask=True),
+        "11": _node("KSampler", seed=2501, steps=steps, cfg=7.0,
+                    sampler_name="euler", scheduler="karras", denoise=1.0,
+                    model=["1", 0], positive=["10", 0], negative=["10", 1],
+                    latent_image=["10", 2]),
+        "12": _node("VAEDecodeTiled", samples=["11", 0], vae=["1", 2],
+                    tile_size=tile, overlap=overlap),
+        "13": _node("ImageCompositeMasked", destination=["2", 0],
+                    source=["12", 0], x=0, y=0, resize_source=False,
+                    mask=["4", 0]),
+        "14": _node("PreviewImage", images=["13", 0]),
+    }
+
+
+def batch_composite_doc(ckpt, image, hw):
+    """Phase 4's batch graph on ``tiny``: LoadImage of a palette file
+    (``hw`` its (height, width)), VAEEncodeTiled (tiles of 32 pixels:
+    the tiny VAE's 16 latent units), RepeatLatentBatch to B = 2,
+    LatentBatchSeedBehavior "fixed", ConditioningAverage of two prompts,
+    KSampler at denoise 0.7, LatentFromBatch of row 1, VAEDecode; then
+    the image and mask ops on the decoded image and the file: blur,
+    sharpen, invert, blend, ImageToMask, ThresholdMask, MaskToImage,
+    Morphology, SolidMask, MaskComposite, InvertMask, CropMask,
+    ImageColorToMask, JoinImageWithAlpha, SplitImageWithAlpha,
+    PorterDuffImageComposite, EmptyImage, ImageBatch, ImageFromBatch,
+    RebatchImages, ImageCrop, ImageScaleBy, ImageScaleToTotalPixels;
+    PreviewImage of the two-image batch.  Every mask comes from the
+    file's pixels, so the card's masks are the CPU's to the bit."""
+    h, w = hw
+    return {
+        "1": _node("CheckpointLoaderSimple", ckpt_name=ckpt),
+        "2": _node("LoadImage", image=image),
+        "3": _node("VAEEncodeTiled", pixels=["2", 0], vae=["1", 2],
+                   tile_size=32, overlap=8),
+        "4": _node("RepeatLatentBatch", samples=["3", 0], amount=2),
+        "5": _node("LatentBatchSeedBehavior", samples=["4", 0],
+                   seed_behavior="fixed"),
+        "6": _node("CLIPTextEncode", text="a mosaic of coloured glass",
+                   clip=["1", 1]),
+        "7": _node("CLIPTextEncode", text="a cathedral window",
+                   clip=["1", 1]),
+        "8": _node("ConditioningAverage", conditioning_to=["6", 0],
+                   conditioning_from=["7", 0],
+                   conditioning_to_strength=0.7),
+        "9": _node("CLIPTextEncode", text="", clip=["1", 1]),
+        "10": _node("KSampler", seed=11, steps=3, cfg=5.0,
+                    sampler_name="euler", scheduler="karras", denoise=0.7,
+                    model=["1", 0], positive=["8", 0], negative=["9", 0],
+                    latent_image=["5", 0]),
+        "11": _node("LatentFromBatch", samples=["10", 0], batch_index=1,
+                    length=1),
+        "12": _node("VAEDecode", samples=["11", 0], vae=["1", 2]),
+        "20": _node("ImageBlur", image=["12", 0], blur_radius=2, sigma=1.0),
+        "21": _node("ImageSharpen", image=["20", 0], sharpen_radius=1,
+                    sigma=1.0, alpha=0.8),
+        "22": _node("ImageInvert", image=["2", 0]),
+        "23": _node("ImageBlend", image1=["21", 0], image2=["22", 0],
+                    blend_factor=0.4, blend_mode="overlay"),
+        "24": _node("ImageToMask", image=["2", 0], channel="green"),
+        "25": _node("ThresholdMask", mask=["24", 0], value=0.5),
+        "26": _node("MaskToImage", mask=["25", 0]),
+        "27": _node("Morphology", image=["26", 0], operation="close",
+                    kernel_size=3),
+        "28": _node("ImageToMask", image=["27", 0], channel="red"),
+        "29": _node("SolidMask", value=0.5, width=w // 2, height=h // 2),
+        "30": _node("MaskComposite", destination=["28", 0],
+                    source=["29", 0], x=w // 4, y=h // 4, operation="add"),
+        "31": _node("InvertMask", mask=["30", 0]),
+        "32": _node("CropMask", mask=["31", 0], x=4, y=4, width=w - 8,
+                    height=h - 8),
+        "33": _node("ImageColorToMask", image=["2", 0], color=0),
+        "34": _node("JoinImageWithAlpha", image=["23", 0], alpha=["32", 0]),
+        "35": _node("SplitImageWithAlpha", image=["34", 0]),
+        "36": _node("PorterDuffImageComposite", source=["35", 0],
+                    source_alpha=["35", 1], destination=["22", 0],
+                    destination_alpha=["33", 0], mode="SRC_OVER"),
+        "37": _node("EmptyImage", width=w, height=h, batch_size=1,
+                    color=0x336699),
+        "38": _node("ImageBatch", image1=["36", 0], image2=["37", 0]),
+        "39": _node("ImageFromBatch", image=["38", 0], batch_index=0,
+                    length=2),
+        "40": _node("RebatchImages", images=["39", 0], batch_size=1),
+        "41": _node("ImageCrop", image=["40", 0], width=w - 8,
+                    height=h - 8, x=4, y=4),
+        "42": _node("ImageScaleBy", image=["41", 0],
+                    upscale_method="bicubic", scale_by=1.5),
+        "43": _node("ImageScaleToTotalPixels", image=["42", 0],
+                    upscale_method="lanczos",
+                    megapixels=h * w / (1 << 20)),
+        "44": _node("PreviewImage", images=["43", 0]),
+    }
+
+
 TINY_FILE = "tiny-from-disk.safetensors"
 # phase 4's stand-ins for the staged workflows' two checkpoints
 TINY_BASE, TINY_REFINER = "tiny_xl_base", "tiny_xl_refiner"
@@ -1118,8 +1348,9 @@ def tiny_against_cpu(docs, input_dir):
     and ``tiny_inpaint``, from their own small RGBA inputs) and the
     regional, ip2p (``tiny_ip2p`` by the names) and unclip
     (``tiny_unclip``, the CPU's image embedding handed to the card:
-    :func:`shared_embedding`) graphs, on the card against the CPU runs
-    of the same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
+    :func:`shared_embedding`) graphs, and the two compositing graphs
+    (:func:`tiny_composite_docs`), on the card against the CPU runs of
+    the same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
     here: its bf16 convolutions round differently in cuDNN and on the
     CPU, which the refine then amplifies past 1e-3."""
     import dataclasses
@@ -1141,6 +1372,7 @@ def tiny_against_cpu(docs, input_dir):
     models_dir = tempfile.mkdtemp(prefix="tiny_models_")
     inpaint_dir = tempfile.mkdtemp(prefix="tiny_inpaint_inputs_")
     phase13_dir = tempfile.mkdtemp(prefix="tiny_phase13_inputs_")
+    composite_dir = tempfile.mkdtemp(prefix="tiny_composite_inputs_")
     try:
         write_inpaint_inputs(inpaint_dir, 1)
         from comfyui_distributed_tpu_torch.models.checkpoints import (
@@ -1150,13 +1382,17 @@ def tiny_against_cpu(docs, input_dir):
         save_checkpoint(os.path.join(models_dir, TINY_FILE), pipe.unet,
                         pipe.clip_models, pipe.vae, pipe.family)
         write_phase13_inputs(phase13_dir, 32)
-        for name, doc in small_docs(docs).items():
+        tiny_docs = small_docs(docs)
+        tiny_docs.update(tiny_composite_docs(composite_dir))
+        for name, doc in tiny_docs.items():
             staged = name in ("refiner", "hires_fix")
             registry.detect_family = staged_family if staged \
                 else detect_family
             family = "tiny_sdxl" if name == "sdxl" \
                 else TINY_PHASE13_FAMILY[name] \
                 if name in TINY_PHASE13_FAMILY \
+                else TINY_COMPOSITE_FAMILY[name] \
+                if name in TINY_COMPOSITE_FAMILY \
                 else TINY_INPAINT_FAMILY.get(name, "tiny")
             if staged or family is None:
                 os.environ.pop("DTPU_DEFAULT_FAMILY", None)
@@ -1164,6 +1400,7 @@ def tiny_against_cpu(docs, input_dir):
                 os.environ["DTPU_DEFAULT_FAMILY"] = family
             run_dir = inpaint_dir if name in TINY_INPAINT_FAMILY \
                 else phase13_dir if name in TINY_PHASE13_FAMILY \
+                else composite_dir if name in TINY_COMPOSITE_FAMILY \
                 else input_dir
             results = {}
             for dev in ("cpu", DEVICE):
@@ -1201,6 +1438,7 @@ def tiny_against_cpu(docs, input_dir):
         shutil.rmtree(models_dir, ignore_errors=True)
         shutil.rmtree(inpaint_dir, ignore_errors=True)
         shutil.rmtree(phase13_dir, ignore_errors=True)
+        shutil.rmtree(composite_dir, ignore_errors=True)
     return out
 
 
@@ -2496,7 +2734,7 @@ def worker_management(docs, txt_refs, rows):
                 cluster, "txt2img", copy.deepcopy(txt), EXPECTED["txt2img"][1],
                 refs, checked)
             # 3. the master alone: one run to time the steps by, one
-            # interrupted at half its KSampler, then 4. the same again
+            # interrupted mid-KSampler, then 4. the same again
             post_json(master + "/distributed/config/update_worker",
                       {"id": "w0", "enabled": False})
             def check_launches(name, line, interrupted):
@@ -2540,12 +2778,13 @@ def worker_management(docs, txt_refs, rows):
                 return r
 
             calib = master_alone("calibration")
-            # the interrupt lands half-way through KSampler: half the
-            # calibration's KSampler seconds after the master logs the
-            # node's start
+            # the interrupt lands mid-KSampler: PHASE15_INTERRUPT_AT of
+            # the calibration's KSampler seconds after the master logs
+            # the node's start
             ksampler_s = next(v for k, v in calib["line"]["node_seconds"]
                               .items() if k.endswith(" KSampler"))
-            intr = master_alone("interrupted", 0.5 * ksampler_s)
+            intr = master_alone("interrupted",
+                                PHASE15_INTERRUPT_AT * ksampler_s)
             nxt = master_alone("next")
             runs = {"calibration": calib, "interrupted": intr, "next": nxt}
             if not np.array_equal(saved(nxt["files"]),
@@ -2581,7 +2820,7 @@ def worker_management(docs, txt_refs, rows):
                       {"id": "w0", "enabled": True})
             n_worker = len(cluster.prompt_lines("worker"))
             ci = master_request(cluster, copy.deepcopy(txt),
-                                0.5 * ksampler_s,
+                                PHASE15_INTERRUPT_AT * ksampler_s,
                                 route="/distributed/cluster/interrupt")
             if ci["workers"] != ["w0"] \
                     or ci["interrupt_answer"].get("workers") != {"w0": 200}:
@@ -5984,7 +6223,7 @@ class PhaseRequests:
         self.requests, self.images, self.checks = [], {}, {}
         self.problems = []
 
-    def run(self, tag, doc, want, sampler_nodes=("3",)):
+    def run(self, tag, doc, want, sampler_nodes=("3",), results=None):
         import numpy as np
         import torch
 
@@ -6034,6 +6273,8 @@ class PhaseRequests:
             "launches_by_shape": [[*k, n] for k, n in sorted(shapes.items())],
             "max_memory_allocated": torch.cuda.max_memory_allocated()})
         self.images[tag] = img[0]
+        if results is not None:
+            results[tag] = res
         return img[0]
 
     def diff(self, a, b):
@@ -6490,6 +6731,165 @@ def unet_addons(dirs, plain, shape_counts, rows):
     return runs.report(t_phase, PHASE24_BUDGET_S, report), runs.requests
 
 
+PHASE25_SDXL = "sd_xl_base_1.0_inpainting_0.1.safetensors"
+PHASE25_SD21 = "512-inpainting-ema.ckpt"
+PHASE25_STEPS = 20
+PHASE25_TILE = (512, 64)
+# (image side, sm90 launches: blocks x 2 attentions x 20 steps, concat)
+PHASE25_REQUESTS = {"sdxl": (PHASE25_SDXL, 1024, 2800, True),
+                    "sd21": (PHASE25_SD21, 512, 640, False)}
+# the tiled forms against the one-shot ones at 1024^2 (max, mean): the
+# decode's on [0, 1] pixels, the encode's on scaled latents (PERF.md)
+PHASE25_DECODE_LIMITS = (1.0, 0.2)
+PHASE25_ENCODE_LIMITS = (1.0, 0.1)
+PHASE25_BUDGET_S = 45.0
+
+
+def phase25_anchoring(res):
+    """The sampled latent against the encoded source under the latent
+    mask: equal to the bit where it is 0, changed where it is 1."""
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.basic import (
+        as_mask, image_mask_to_latent)
+    out = res.outputs["11"][0]
+    sampled = out["samples"].data
+    source = res.outputs["10"][2]["samples"].data
+    m = image_mask_to_latent(as_mask(out["noise_mask"], sampled.device),
+                             sampled.shape[1], sampled.shape[2],
+                             1).expand_as(sampled)
+    keep, redo = m == 0, m == 1
+    return {"kept_values": int(keep.sum()),
+            "resampled_values": int(redo.sum()),
+            "kept_equal_to_the_bit": bool(keep.any()) and bool(
+                torch.equal(sampled[keep], source[keep])),
+            "resampled_max_abs_change": float(
+                (sampled[redo] - source[redo]).abs().max())
+            if redo.any() else 0.0}
+
+
+def phase25_tiled_vae(res):
+    """The warm SDXL request's tiled decode and encode against their
+    one-shot forms (VAEDecodeTiled at a tile of 1024 must fall through
+    to VAEDecode to the bit), each timed on the card."""
+    import torch
+
+    from comfyui_distributed_tpu_torch.ops.base import OpContext, get_op
+
+    ctx = OpContext(device=DEVICE)
+    pipe, latent = res.outputs["1"][2], res.outputs["11"][0]
+    pixels = res.outputs["2"][0]
+    tile, overlap = PHASE25_TILE
+
+    def timed(op, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = get_op(op).execute(ctx, *args, **kw)[0]
+        torch.cuda.synchronize()
+        out = out["samples"] if isinstance(out, dict) else out
+        return out.data, time.perf_counter() - t0
+
+    def diff(a, b):
+        d = (a - b).abs()
+        return {"max": float(d.max()), "mean": float(d.mean())}
+
+    plain, plain_s = timed("VAEDecode", latent, pipe)
+    whole, whole_s = timed("VAEDecodeTiled", latent, pipe, 1024, overlap)
+    tiled, tiled_s = timed("VAEDecodeTiled", latent, pipe, tile, overlap)
+    enc, enc_s = timed("VAEEncode", pixels, pipe)
+    enc_tiled, enc_tiled_s = timed("VAEEncodeTiled", pixels, pipe, tile,
+                                   overlap)
+    return {"decode_s": plain_s, "decode_tiled_1024_s": whole_s,
+            "decode_tiled_s": tiled_s, "encode_s": enc_s,
+            "encode_tiled_s": enc_tiled_s,
+            "decode_tiled_1024_equal": bool(torch.equal(whole, plain)),
+            "decode_tiled": diff(tiled, plain),
+            "encode_tiled": diff(enc_tiled, enc)}
+
+
+def inpaint_composites(shape_counts, rows):
+    """Phase 25 (module docstring): SDXL inpaint at 1024^2 cold and warm,
+    SD2.1 inpaint at 512^2 cold, from virtual weights with the reuse
+    plane off; (report, requests)."""
+    import gc
+
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+
+    def release():
+        registry.clear_pipeline_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    input_dir = tempfile.mkdtemp(prefix="chip_smoke_phase25_in_")
+    dirs = {"input_dir": input_dir, "models_dir": None}
+    runs = PhaseRequests(25, dirs, shape_counts, rows)
+    prev = {k: os.environ.get(k) for k in ("DTPU_CACHE",
+                                            "DTPU_DEFAULT_FAMILY")}
+    os.environ["DTPU_CACHE"] = "0"
+    os.environ.pop("DTPU_DEFAULT_FAMILY", None)
+    report = {"anchoring": {}, "families": {}}
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        for side in sorted({r[1] for r in PHASE25_REQUESTS.values()}):
+            with open(os.path.join(input_dir, f"src16_{side}.png"),
+                      "wb") as f:
+                f.write(png16_rgba(side, side, side))
+        report["inputs_write_s"] = time.perf_counter() - t0
+        tile, overlap = PHASE25_TILE
+        for key, runs_of in (("sdxl", ("cold", "warm")), ("sd21", ("cold",))):
+            ckpt, side, want, concat = PHASE25_REQUESTS[key]
+            doc = composite_doc(ckpt, f"src16_{side}.png", PHASE25_STEPS,
+                                tile, overlap, concat=concat)
+            release()
+            for run in runs_of:
+                tag = f"{key} {run}"
+                runs.run(tag, doc, want, sampler_nodes=("11",),
+                         results=results)
+                if runs.images[tag].shape != (side, side, 3):
+                    fail(f"phase 25 {tag}: image {runs.images[tag].shape}")
+                report["anchoring"][tag] = a = phase25_anchoring(
+                    results[tag])
+                if not (a["kept_equal_to_the_bit"]
+                        and a["resampled_max_abs_change"] > 0.0):
+                    runs.problems.append(f"{tag}: anchoring {a}")
+                report["families"][tag] = \
+                    results[tag].outputs["1"][0].family.name
+                if run == "cold":
+                    results.pop(tag)
+            if key == "sdxl":
+                runs.same("sdxl warm", "sdxl cold")
+                report["tiled_vae"] = v = phase25_tiled_vae(
+                    results.pop("sdxl warm"))
+                if not v["decode_tiled_1024_equal"]:
+                    runs.problems.append("VAEDecodeTiled at 1024 differs "
+                                         "from VAEDecode")
+                for name, (mx, mean) in (
+                        ("decode_tiled", PHASE25_DECODE_LIMITS),
+                        ("encode_tiled", PHASE25_ENCODE_LIMITS)):
+                    d = v[name]
+                    if not (d["max"] <= mx and d["mean"] <= mean):
+                        runs.problems.append(f"{name} {d} beyond "
+                                             f"({mx}, {mean})")
+        if report["families"] != {"sdxl cold": "sdxl_inpaint",
+                                  "sdxl warm": "sdxl_inpaint",
+                                  "sd21 cold": "sd21_inpaint"}:
+            runs.problems.append(f"families {report['families']}")
+    finally:
+        results.clear()
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        release()
+        shutil.rmtree(input_dir, ignore_errors=True)
+    return runs.report(t_phase, PHASE25_BUDGET_S, report), runs.requests
+
+
 def urllib_text(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=30) as r:
@@ -6635,6 +7035,18 @@ def main() -> int:
         (2, 576, 77, 20, 64, bf, "SD2.1 768^2 cross 24x24 latent"),
         (2, 144, 144, 20, 64, bf, "SD2.1 768^2 mid self 12x12 latent"),
         (2, 144, 77, 20, 64, bf, "SD2.1 768^2 mid cross 12x12 latent"),
+        # phase 25: SDXL inpaint's cross-attentions over ConditioningConcat's
+        # 154 tokens, and SD2.1 inpaint at 512^2 (5/10/20 heads of 64)
+        (2, 4096, 154, 10, 64, bf, "SDXL concat cross 64x64 latent"),
+        (2, 1024, 154, 20, 64, bf, "SDXL concat cross 32x32 latent"),
+        (2, 4096, 4096, 5, 64, bf, "SD2.1 512^2 self 64x64 latent"),
+        (2, 4096, 77, 5, 64, bf, "SD2.1 512^2 cross 64x64 latent"),
+        (2, 1024, 1024, 10, 64, bf, "SD2.1 512^2 self 32x32 latent"),
+        (2, 1024, 77, 10, 64, bf, "SD2.1 512^2 cross 32x32 latent"),
+        (2, 256, 256, 20, 64, bf, "SD2.1 512^2 self 16x16 latent"),
+        (2, 256, 77, 20, 64, bf, "SD2.1 512^2 cross 16x16 latent"),
+        (2, 64, 64, 20, 64, bf, "SD2.1 512^2 mid self 8x8 latent"),
+        (2, 64, 77, 20, 64, bf, "SD2.1 512^2 mid cross 8x8 latent"),
     ]
     extra_shapes = [
         # the sm90 kernel's edges at SD1.5's head dims: N off the Q tile
@@ -6813,6 +7225,9 @@ def main() -> int:
         emit("phase24", report24)
     finally:
         release_phase_dirs(dirs22)
+    report25, reqs25 = inpaint_composites(shape_counts, rows)
+    requests += reqs25
+    emit("phase25", report25)
     emit("timeline", TIMELINE)
     variant_counts = collections.Counter()
     for r in requests:

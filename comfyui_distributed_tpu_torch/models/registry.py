@@ -60,6 +60,10 @@ from comfyui_distributed_tpu_torch.models.tokenizer import (
     make_tokenizer,
 )
 from comfyui_distributed_tpu_torch.models.weights import fill_virtual
+from comfyui_distributed_tpu_torch.ops.tiling import (
+    tiled_apply,
+    tiled_apply_down,
+)
 from comfyui_distributed_tpu_torch.utils.log import log
 
 
@@ -142,6 +146,18 @@ FAMILIES: Dict[str, ModelFamily] = {
         clips=(clip_mod.OPEN_CLIP_H_CONFIG,),
         adm_kind="unclip",
     ),
+    "sd21_inpaint": ModelFamily(       # 512-inpainting-ema (eps line)
+        name="sd21_inpaint",
+        unet=dataclasses.replace(unet_mod.SD21_BASE_CONFIG, in_channels=9),
+        vae=vae_mod.SD_VAE_CONFIG,
+        clips=(clip_mod.OPEN_CLIP_H_CONFIG,),
+    ),
+    "sdxl_inpaint": ModelFamily(
+        name="sdxl_inpaint",
+        unet=dataclasses.replace(unet_mod.SDXL_CONFIG, in_channels=9),
+        vae=vae_mod.SDXL_VAE_CONFIG,
+        clips=(clip_mod.CLIP_L_SDXL_CONFIG, clip_mod.OPEN_CLIP_BIGG_CONFIG),
+    ),
     "tiny": ModelFamily(
         name="tiny",
         unet=unet_mod.TINY_CONFIG,
@@ -183,9 +199,7 @@ FAMILY_ENV = "DTPU_DEFAULT_FAMILY"
 
 def detect_family(ckpt_name: str) -> str:
     """Family from checkpoint-name heuristics (the JAX package's rules);
-    ``DTPU_DEFAULT_FAMILY`` overrides (tests force 'tiny').  Names of
-    families not ported yet are returned too, and :func:`get_family`
-    refuses them."""
+    ``DTPU_DEFAULT_FAMILY`` overrides (tests force 'tiny')."""
     env = os.environ.get(FAMILY_ENV)
     if env:
         return env
@@ -217,9 +231,8 @@ def detect_family(ckpt_name: str) -> str:
 
 def get_family(name: str) -> ModelFamily:
     if name not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported to the torch package "
-            f"yet; ported: {sorted(FAMILIES)}")
+        raise KeyError(
+            f"unknown model family {name!r}; known: {sorted(FAMILIES)}")
     return FAMILIES[name]
 
 
@@ -325,6 +338,49 @@ class DiffusionPipeline:
     def vae_decode(self, latents: torch.Tensor) -> torch.Tensor:
         return self._require(self.vae, "VAE").decode(
             latents.to(self.device, torch.float32))
+
+    def _vae_tiles(self, tile_size: int, overlap: int) -> Tuple[int, int]:
+        """(tile, overlap) in latent units: the JAX package's arithmetic,
+        the tile at least twice the overlap."""
+        ds = self.family.vae.downscale
+        lo = max(overlap // ds, 1)
+        return max(tile_size // ds, 2 * lo), lo
+
+    @torch.inference_mode()
+    def vae_encode_tiled(self, images: torch.Tensor, tile_size: int = 512,
+                         overlap: int = 64,
+                         check_interrupt: Optional[Callable[[], None]] = None
+                         ) -> torch.Tensor:
+        """Encode in overlapping pixel tiles, feather-blended at latent
+        resolution (ComfyUI's VAEEncodeTiled).  Each tile's GroupNorm
+        statistics are its own, so the result is close to the one-shot
+        encode, not equal; a source that fits one tile takes the
+        one-shot encode."""
+        ds = self.family.vae.downscale
+        lt, lo = self._vae_tiles(tile_size, overlap)
+        if images.shape[1] // ds <= lt and images.shape[2] // ds <= lt:
+            return self.vae_encode(images)
+        return tiled_apply_down(
+            self.vae_encode, images.to(self.device, torch.float32), lt, lo,
+            ds, out_channels=self.family.latent_channels,
+            check_interrupt=check_interrupt)
+
+    @torch.inference_mode()
+    def vae_decode_tiled(self, latents: torch.Tensor, tile_size: int = 512,
+                         overlap: int = 64,
+                         check_interrupt: Optional[Callable[[], None]] = None
+                         ) -> torch.Tensor:
+        """Decode in overlapping latent tiles with feathered blending
+        (ComfyUI's VAEDecodeTiled): the decoder's activations are bounded
+        by the tile.  Close to the one-shot decode, not equal; a latent
+        that fits one tile takes the one-shot decode."""
+        lt, lo = self._vae_tiles(tile_size, overlap)
+        if latents.shape[1] <= lt and latents.shape[2] <= lt:
+            return self.vae_decode(latents)
+        return tiled_apply(
+            self.vae_decode, latents.to(self.device, torch.float32), lt, lo,
+            self.family.vae.downscale, out_channels=3,
+            check_interrupt=check_interrupt)
 
     @torch.inference_mode()
     def sample(self, latents: torch.Tensor, context, uncond_context,

@@ -27,10 +27,28 @@
 ``CFGGuider``, ``DualCFGGuider``, ``PerpNegGuider``,
 ``SamplerCustomAdvanced``), the sampling patches ``RescaleCFG``,
 ``ModelSamplingDiscrete``, ``SelfAttentionGuidance`` and ``PerpNeg``,
-and ``TomePatchModel``, ``HypernetworkLoader``, ``GLIGENLoader``,
-``GLIGENTextBoxApply``, ``StyleModelLoader`` and ``StyleModelApply``
-in ``comfyui_distributed_tpu/ops/basic.py`` (at fanout 1: VAEEncode
-does not expand the batch).  SIGMAS travel as host float32 arrays.
+``TomePatchModel``, ``HypernetworkLoader``, ``GLIGENLoader``,
+``GLIGENTextBoxApply``, ``StyleModelLoader`` and ``StyleModelApply``,
+``VAEDecodeTiled``, ``VAEEncodeTiled``, ``ConditioningConcat``,
+``ConditioningAverage``, ``ConditioningZeroOut``, and the latent
+(``LatentAdd``, ``LatentSubtract``, ``LatentMultiply``,
+``LatentInterpolate``, ``LatentBlend``, ``LatentComposite``,
+``LatentCompositeMasked``, ``LatentCrop``, ``LatentFlip``,
+``LatentRotate``, ``LatentBatch``, ``LatentFromBatch``,
+``LatentBatchSeedBehavior``, ``RepeatLatentBatch``,
+``RebatchLatents``), mask (``SolidMask``, ``InvertMask``,
+``GrowMask``, ``MaskComposite``, ``MaskToImage``, ``ImageToMask``,
+``ImageColorToMask``, ``CropMask``, ``FeatherMask``,
+``ThresholdMask``, ``Morphology``) and image ops (``EmptyImage``,
+``ImageBatch``, ``ImageFromBatch``, ``RebatchImages``, ``ImageCrop``,
+``ImageInvert``, ``ImageBlend``, ``ImageBlur``, ``ImageSharpen``,
+``ImageCompositeMasked``, ``PorterDuffImageComposite``,
+``SplitImageWithAlpha``, ``JoinImageWithAlpha``, ``ImageScaleBy``,
+``ImageScaleToTotalPixels``) in ``comfyui_distributed_tpu/ops/basic.py``
+(at fanout 1: VAEEncode does not expand the batch).  SIGMAS travel as
+host float32 arrays; the latent, image and mask ops compute on the
+run's device, Morphology as torch min and max windows on scipy's
+border, blur and sharpen on numpy's.
 
 The reuse plane's encode memo (``runtime/reuse.py``): CLIPTextEncode,
 CLIPTextEncodeSDXL and VAEEncode keep their result on the device under
@@ -67,7 +85,7 @@ import os
 import re
 import threading
 import zlib
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +114,7 @@ from comfyui_distributed_tpu_torch.runtime import reuse as reuse_mod
 from comfyui_distributed_tpu_torch.ops.tiling import tiled_apply
 from comfyui_distributed_tpu_torch.utils.image import (
     decode_png,
+    decode_png_rgba,
     resize_image,
     save_png,
 )
@@ -466,6 +485,93 @@ class ConditioningSetTimestepRange(Op):
                         timestep_range=(float(start), float(end))),)
 
 
+def _on_entries(cond: Conditioning, fn) -> Conditioning:
+    """``fn`` applied to the conditioning and to every sibling bundled
+    with it (ComfyUI loops the cond list)."""
+    return dataclasses.replace(
+        fn(cond), siblings=tuple(fn(s) for s in cond.siblings))
+
+
+@register_op
+class ConditioningConcat(Op):
+    """Concatenates along the token axis (prompt chaining), on every
+    entry of ``conditioning_to``; of ``conditioning_from`` only the
+    primary entry counts, as in ComfyUI."""
+    TYPE = "ConditioningConcat"
+
+    def execute(self, ctx: OpContext, conditioning_to: Conditioning,
+                conditioning_from: Conditioning):
+        if conditioning_from.siblings:
+            debug_log("ConditioningConcat: conditioning_from has multiple "
+                      "entries; using the first (ComfyUI behavior)")
+        c_from = conditioning_from.context
+
+        def cat(e: Conditioning) -> Conditioning:
+            return dataclasses.replace(
+                e, context=torch.cat([e.context, c_from.to(e.context.device)],
+                                     dim=1),
+                control=e.control or conditioning_from.control)
+
+        return (_on_entries(conditioning_to, cat),)
+
+
+@register_op
+class ConditioningAverage(Op):
+    """``to * strength + from * (1 - strength)`` on every entry of
+    ``conditioning_to`` (the primary entry of ``conditioning_from``,
+    zero-padded or cut to each entry's token count).  The pooled
+    embeddings blend when both have one, else ``to``'s, else
+    ``from``'s."""
+    TYPE = "ConditioningAverage"
+    WIDGETS = ["conditioning_to_strength"]
+    DEFAULTS = {"conditioning_to_strength": 1.0}
+
+    def execute(self, ctx: OpContext, conditioning_to: Conditioning,
+                conditioning_from: Conditioning,
+                conditioning_to_strength: float = 1.0):
+        if conditioning_from.siblings:
+            debug_log("ConditioningAverage: conditioning_from has "
+                      "multiple entries; using the first (ComfyUI "
+                      "behavior)")
+        w = float(conditioning_to_strength)
+        p_from = conditioning_from.pooled
+
+        def blend(e: Conditioning) -> Conditioning:
+            c_to = e.context
+            c_from = conditioning_from.context.to(c_to.device)
+            t0 = c_to.shape[1]
+            if c_from.shape[1] < t0:
+                c_from = torch.nn.functional.pad(
+                    c_from, (0, 0, 0, t0 - c_from.shape[1]))
+            c_from = c_from[:, :t0]
+            pooled = e.pooled
+            if pooled is not None and p_from is not None:
+                pooled = pooled * w + p_from.to(pooled.device) * (1.0 - w)
+            elif pooled is None:
+                pooled = p_from
+            return dataclasses.replace(
+                e, context=c_to * w + c_from * (1.0 - w), pooled=pooled,
+                control=e.control or conditioning_from.control)
+
+        return (_on_entries(conditioning_to, blend),)
+
+
+@register_op
+class ConditioningZeroOut(Op):
+    """The context and pooled embeddings of every entry set to zeros
+    (the unconditional that is truly nothing)."""
+    TYPE = "ConditioningZeroOut"
+
+    def execute(self, ctx: OpContext, conditioning: Conditioning):
+        def zero(e: Conditioning) -> Conditioning:
+            return dataclasses.replace(
+                e, context=torch.zeros_like(e.context),
+                pooled=None if e.pooled is None
+                else torch.zeros_like(e.pooled))
+
+        return (_on_entries(conditioning, zero),)
+
+
 # --- unCLIP -------------------------------------------------------------------
 
 @register_op
@@ -661,9 +767,10 @@ def adm_cond_source(family, e: Conditioning,
 def _latent_meta(samples) -> dict:
     """What a latent-space op carries on from its input besides the
     samples: each prompt's batch size (``local_batch``; a later sampler
-    of a coalesced run restarts its fold-in indices with it) and the
-    inpaint mask."""
-    return {k: samples[k] for k in ("local_batch", "noise_mask")
+    of a coalesced run restarts its fold-in indices with it), the
+    inpaint mask and LatentBatchSeedBehavior's ``seed_fixed_batch``."""
+    return {k: samples[k] for k in ("local_batch", "noise_mask",
+                                    "seed_fixed_batch")
             if k in samples}
 
 
@@ -680,7 +787,8 @@ def _prepare_sample_inputs(model, seed, latent_image,
     (a DistributedSeed's replica 0 keeps it too) and its position in its
     prompt's batch (``local_batch`` rows) as fold-in index; a coalesced
     run's seed (``SeedValue.per_prompt``) gives prompt j's rows seed j,
-    so each row draws the ``(seed, index)`` noise of its serial run.
+    so each row draws the ``(seed, index)`` noise of its serial run.  A
+    latent marked ``seed_fixed_batch`` gives every row index 0.
 
     Both CFG sides build alike: the conditioning and the siblings
     ConditioningCombine bundled, each entry's tokens aligned across
@@ -720,6 +828,9 @@ def _prepare_sample_inputs(model, seed, latent_image,
     local_b = max(int(latent_image.get("local_batch", total)), 1)
     sample_idx = np.tile(np.arange(local_b, dtype=np.uint32),
                          -(-total // local_b))[:total]
+    if latent_image.get("seed_fixed_batch"):
+        # LatentBatchSeedBehavior "fixed": one noise stream for the batch
+        sample_idx = np.zeros_like(sample_idx)
     pos_entries = [positive, *positive.siblings]
     neg_entries = [negative, *negative.siblings]
     mid_entries = [middle] if middle is not None else []
@@ -1590,6 +1701,46 @@ class VAEDecode(Op):
 
 
 @register_op
+class VAEDecodeTiled(Op):
+    """Decode in overlapping latent tiles, feather-blended
+    (``DiffusionPipeline.vae_decode_tiled``), stopping between tiles once
+    the prompt is interrupted."""
+    TYPE = "VAEDecodeTiled"
+    WIDGETS = ["tile_size", "overlap"]
+    DEFAULTS = {"tile_size": 512, "overlap": 64}
+
+    def execute(self, ctx: OpContext, samples, vae, tile_size: int = 512,
+                overlap: int = 64):
+        ctx.check_interrupt()
+        with Timer("vae_decode_tiled"):
+            img = vae.vae_decode_tiled(
+                as_device_array(samples["samples"], vae.device),
+                tile_size=int(tile_size), overlap=int(overlap),
+                check_interrupt=ctx.check_interrupt)
+        return (DeviceImage(img.clamp(0.0, 1.0)),)
+
+
+@register_op
+class VAEEncodeTiled(Op):
+    """Encode in overlapping pixel tiles, feather-blended at latent
+    resolution (``DiffusionPipeline.vae_encode_tiled``); no encode memo,
+    as in the JAX package."""
+    TYPE = "VAEEncodeTiled"
+    WIDGETS = ["tile_size", "overlap"]
+    DEFAULTS = {"tile_size": 512, "overlap": 64}
+
+    def execute(self, ctx: OpContext, pixels, vae, tile_size: int = 512,
+                overlap: int = 64):
+        ctx.check_interrupt()
+        with Timer("vae_encode_tiled"):
+            lat = vae.vae_encode_tiled(
+                as_device_image(pixels, vae.device),
+                tile_size=int(tile_size), overlap=int(overlap),
+                check_interrupt=ctx.check_interrupt)
+        return ({"samples": DeviceLatent(lat)},)
+
+
+@register_op
 class VAEEncode(Op):
     """Pixels -> latent through the pipeline's encoder (the mean)."""
     TYPE = "VAEEncode"
@@ -1604,6 +1755,12 @@ class VAEEncode(Op):
             lat = vae.vae_encode(as_device_image(pixels, vae.device))
         _embed_cache_put(key, lat, reuse_mod.nbytes_of(lat))
         return ({"samples": DeviceLatent(lat)},)
+
+
+def _truthy(v) -> bool:
+    """A BOOLEAN widget as the JAX ops read it (the strings "false" and
+    "0", and "", are false)."""
+    return str(v).lower() not in ("false", "0", "")
 
 
 def _neutralise(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -1676,7 +1833,7 @@ class InpaintModelConditioning(Op):
         m_lat = cycle_batch(image_mask_to_latent(m, h, w, b), b)
         concat = torch.cat([m_lat, masked], dim=-1)
         out = {"samples": DeviceLatent(orig)}
-        if str(noise_mask).lower() not in ("false", "0", ""):
+        if _truthy(noise_mask):
             out["noise_mask"] = m
         return (dataclasses.replace(positive, concat_latent=concat),
                 dataclasses.replace(negative, concat_latent=concat), out)
@@ -1718,9 +1875,10 @@ def synthetic_test_card() -> np.ndarray:
 
 @register_op
 class LoadImage(Op):
-    """-> (IMAGE, MASK).  Reads an 8-bit PNG from ``ctx.input_dir`` (or an
-    absolute path); a missing file gives the JAX package's gradient test
-    card.  An RGBA file's mask is 1 - alpha, otherwise zeros."""
+    """-> (IMAGE, MASK).  Reads a PNG of any kind from ``ctx.input_dir``
+    (or an absolute path) as ``pil_to_tensor`` does (:func:`decode_png`);
+    a missing file gives the JAX package's gradient test card.  A file
+    that reads as RGBA has the mask 1 - alpha, any other zeros."""
     TYPE = "LoadImage"
     WIDGETS = ["image", CONTROL]  # second widget is the upload button slot
 
@@ -1743,8 +1901,9 @@ class LoadImage(Op):
 @register_op
 class LoadImageMask(Op):
     """One channel of an image as a MASK [1, H, W]: R, G, B or (any other
-    name) alpha, which inverts (transparent = 1 = resample).  An L or
-    RGB file reads as PIL's ``convert("RGBA")`` gives it (R = G = B = L,
+    name) alpha, which inverts (transparent = 1 = resample).  The file
+    reads as PIL's ``convert("RGBA")`` gives it (grey-alpha and a
+    palette's or a colour's tRNS keep their alpha, other kinds have
     alpha 1); a missing file gives the JAX package's 512^2 gradient card
     with alpha 1."""
     TYPE = "LoadImageMask"
@@ -1757,12 +1916,7 @@ class LoadImageMask(Op):
             path = os.path.join(ctx.input_dir, image)
         if os.path.exists(path):
             with open(path, "rb") as f:
-                arr = decode_png(f.read())[0]
-            if arr.shape[-1] == 1:
-                arr = np.repeat(arr, 3, axis=-1)
-            if arr.shape[-1] == 3:
-                arr = np.concatenate(
-                    [arr, np.ones(arr.shape[:2] + (1,), np.float32)], -1)
+                arr = decode_png_rgba(f.read())
         else:
             arr = np.concatenate([synthetic_test_card()[0],
                                   np.ones((512, 512, 1), np.float32)], -1)
@@ -2322,15 +2476,49 @@ def _accumulate(terms) -> torch.Tensor:
     return acc
 
 
+def _pad_index(n: int, before: int, after: int, mode: str,
+               device) -> torch.Tensor:
+    """Source index of each position of an axis of ``n`` padded by
+    ``before`` and ``after``: numpy's "reflect" (mirrored about the edge
+    sample) or "symmetric" (the edge sample repeated, scipy.ndimage's
+    "reflect"), for pads of any length."""
+    i = np.arange(-before, n + after)
+    if mode == "symmetric":
+        i = np.mod(i, 2 * n)
+        i = np.where(i >= n, 2 * n - 1 - i, i)
+    elif n == 1:
+        i = np.zeros_like(i)
+    else:
+        i = np.mod(i, 2 * (n - 1))
+        i = np.where(i >= n, 2 * (n - 1) - i, i)
+    return torch.as_tensor(i, device=device)
+
+
 def _blur_axis(x: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
-    """One pass of a separable blur over ``axis`` (1: rows, 2: columns)
-    of [B, H, W], reflect-padded."""
+    """One pass of a separable blur with taps ``k`` over ``axis`` (1:
+    rows, 2: columns) of [B, H, W] or [B, H, W, C] on numpy's "reflect"
+    border, the taps summed in order as the JAX package's numpy sums
+    run."""
     r = (len(k) - 1) // 2
-    pad = (0, 0, r, r) if axis == 1 else (r, r, 0, 0)
-    xp = torch.nn.functional.pad(x[:, None], pad, mode="reflect")[:, 0]
     n = x.shape[axis]
+    xp = x.index_select(axis, _pad_index(n, r, r, "reflect", x.device))
     return _accumulate(float(k[i]) * xp.narrow(axis, i, n)
                        for i in range(len(k)))
+
+
+def gaussian_kernel(radius: int, sigma: float) -> np.ndarray:
+    """The JAX package's normalised float32 gaussian taps."""
+    xs = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-(xs ** 2) / max(2.0 * sigma * sigma, 1e-8))
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, radius: int,
+                  sigma: float) -> torch.Tensor:
+    """Separable gaussian blur, rows then columns (ComfyUI's ImageBlur
+    and Canny's smoothing)."""
+    k = gaussian_kernel(radius, sigma)
+    return _blur_axis(_blur_axis(img, k, 1), k, 2)
 
 
 def canny_edges(gray: torch.Tensor, low: float, high: float
@@ -2343,10 +2531,7 @@ def canny_edges(gray: torch.Tensor, low: float, high: float
     when its 8-connected component of candidates holds a strong one
     (flooded from the strong pixels until nothing changes, checked every
     ``16`` steps).  Returns 0/1 float32 [B, H, W]."""
-    xs = np.arange(-2, 3, dtype=np.float32)
-    k = np.exp(-(xs ** 2) / max(2.0 * 1.4 * 1.4, 1e-8))
-    k = k / k.sum()
-    g = _blur_axis(_blur_axis(gray.float(), k, 1), k, 2)
+    g = gaussian_blur(gray.float(), 2, 1.4)
     H, W = g.shape[1], g.shape[2]
     pad = torch.nn.functional.pad(g[:, None], (1, 1, 1, 1),
                                   mode="replicate")[:, 0]
@@ -2400,6 +2585,882 @@ class Canny(Op):
             edges = canny_edges(img @ luma, float(low_threshold),
                                 float(high_threshold))
         return (DeviceImage(edges[..., None].repeat(1, 1, 1, 3)),)
+
+
+# --- latent, image and mask ops ----------------------------------------------
+
+
+def _overlap_window(H: int, W: int, h: int, w: int, x: int, y: int):
+    """The visible window of an (h, w) paste at (x, y) into (H, W):
+    ((y0, y1, x0, x1) in the destination, (sy0, sy1, sx0, sx1) in the
+    source), or None when it falls outside."""
+    x0, y0 = max(int(x), 0), max(int(y), 0)
+    x1, y1 = min(int(x) + w, W), min(int(y) + h, H)
+    if x0 >= x1 or y0 >= y1:
+        return None
+    sx0, sy0 = x0 - int(x), y0 - int(y)
+    return ((y0, y1, x0, x1),
+            (sy0, sy0 + (y1 - y0), sx0, sx0 + (x1 - x0)))
+
+
+def paste(dest: torch.Tensor, src: torch.Tensor, x: int, y: int,
+          mask=None) -> torch.Tensor:
+    """``src`` [Bs, h, w, C] pasted onto a copy of ``dest`` [B, H, W, C]
+    at (x, y), blended by ``mask`` ([h, w] or [., h, w], area-resized to
+    the source and clipped to [0, 1]) when given; what falls outside is
+    cut, and a short source or mask batch cycles (the JAX package's
+    ``_paste``, shared by the image, latent and mask composites)."""
+    out = dest.clone()
+    B, H, W, _ = dest.shape
+    h, w = src.shape[1], src.shape[2]
+    win = _overlap_window(H, W, h, w, x, y)
+    if win is None:
+        return out
+    (y0, y1, x0, x1), (sy0, sy1, sx0, sx1) = win
+    src_b = cycle_batch(src.to(out.device), B)[:, sy0:sy1, sx0:sx1]
+    if mask is None:
+        out[:, y0:y1, x0:x1] = src_b
+        return out
+    m = as_mask(mask, out.device)
+    if m.shape[1] != h or m.shape[2] != w:
+        m = resize_image(m[..., None], w, h, "area")[..., 0]
+    m = cycle_batch(m, B)[:, sy0:sy1, sx0:sx1, None].clamp(0.0, 1.0)
+    out[:, y0:y1, x0:x1] = src_b * m + out[:, y0:y1, x0:x1] * (1.0 - m)
+    return out
+
+
+def _latent(samples, device) -> torch.Tensor:
+    return as_device_array(samples["samples"], device)
+
+
+def _latent_out(meta: dict, lat: torch.Tensor) -> tuple:
+    return ({**meta, "samples": DeviceLatent(lat)},)
+
+
+def _latent_pair(samples1, samples2, device):
+    """The two latents of a binary latent op: the second resized
+    (bilinear) to the first's size and cycled to its batch."""
+    a, b = _latent(samples1, device), _latent(samples2, device)
+    if a.shape[1:3] != b.shape[1:3]:
+        b = resize_image(b, a.shape[2], a.shape[1], "bilinear")
+    return a, cycle_batch(b, a.shape[0])
+
+
+@register_op
+class LatentAdd(Op):
+    TYPE = "LatentAdd"
+
+    def execute(self, ctx: OpContext, samples1, samples2):
+        a, b = _latent_pair(samples1, samples2, ctx.device)
+        return _latent_out(_latent_meta(samples1), a + b)
+
+
+@register_op
+class LatentSubtract(Op):
+    TYPE = "LatentSubtract"
+
+    def execute(self, ctx: OpContext, samples1, samples2):
+        a, b = _latent_pair(samples1, samples2, ctx.device)
+        return _latent_out(_latent_meta(samples1), a - b)
+
+
+@register_op
+class LatentMultiply(Op):
+    TYPE = "LatentMultiply"
+    WIDGETS = ["multiplier"]
+    DEFAULTS = {"multiplier": 1.0}
+
+    def execute(self, ctx: OpContext, samples, multiplier: float = 1.0):
+        return _latent_out(_latent_meta(samples),
+                           _latent(samples, ctx.device) * float(multiplier))
+
+
+@register_op
+class LatentInterpolate(Op):
+    """Direction-magnitude interpolation: the unit channel vectors blend
+    by ``ratio`` at each position, and the result takes the blended
+    magnitude."""
+    TYPE = "LatentInterpolate"
+    WIDGETS = ["ratio"]
+    DEFAULTS = {"ratio": 1.0}
+
+    def execute(self, ctx: OpContext, samples1, samples2,
+                ratio: float = 1.0):
+        a, b = _latent_pair(samples1, samples2, ctx.device)
+        t = float(ratio)
+        m1 = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+        m2 = torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+        out = a / m1.clamp(min=1e-10) * t + b / m2.clamp(min=1e-10) * (1.0 - t)
+        mo = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+        out = out / mo.clamp(min=1e-10) * (m1 * t + m2 * (1.0 - t))
+        return _latent_out(_latent_meta(samples1), out)
+
+
+@register_op
+class LatentBlend(Op):
+    """``samples1 * blend_factor + samples2 * (1 - blend_factor)``, the
+    second resized to the first's size."""
+    TYPE = "LatentBlend"
+    WIDGETS = ["blend_factor"]
+    DEFAULTS = {"blend_factor": 0.5}
+
+    def execute(self, ctx: OpContext, samples1, samples2,
+                blend_factor: float = 0.5):
+        a, b = _latent_pair(samples1, samples2, ctx.device)
+        f = float(blend_factor)
+        return _latent_out(_latent_meta(samples1), a * f + b * (1.0 - f))
+
+
+@register_op
+class LatentComposite(Op):
+    """``samples_from`` pasted onto ``samples_to`` at pixel (x, y) (//8
+    latent units); ``feather`` pixels of linear ramp on each edge that
+    has destination beyond it, the corner rates multiplied."""
+    TYPE = "LatentComposite"
+    WIDGETS = ["x", "y", "feather"]
+    DEFAULTS = {"x": 0, "y": 0, "feather": 0}
+
+    def execute(self, ctx: OpContext, samples_to, samples_from,
+                x: int = 0, y: int = 0, feather: int = 0):
+        dest = _latent(samples_to, ctx.device)
+        src = _latent(samples_from, ctx.device)
+        xl, yl = int(x) // 8, int(y) // 8
+        f = max(int(feather), 0) // 8
+        mask = None
+        if f > 0:
+            h, w = src.shape[1], src.shape[2]
+            H, W = dest.shape[1], dest.shape[2]
+            # built on the host, factor by factor in the JAX op's order
+            m = np.ones((1, h, w), np.float32)
+            for t in range(min(f, h, w)):
+                rate = (t + 1) / f
+                if yl != 0:
+                    m[:, t, :] *= rate
+                if yl + h < H:
+                    m[:, h - 1 - t, :] *= rate
+                if xl != 0:
+                    m[:, :, t] *= rate
+                if xl + w < W:
+                    m[:, :, w - 1 - t] *= rate
+            mask = torch.from_numpy(m).to(dest.device)
+        return _latent_out(_latent_meta(samples_to),
+                           paste(dest, src, xl, yl, mask))
+
+
+@register_op
+class LatentCompositeMasked(Op):
+    """LatentComposite through an optional mask; x/y are pixels (//8);
+    ``resize_source`` first resizes the source to the destination."""
+    TYPE = "LatentCompositeMasked"
+    WIDGETS = ["x", "y", "resize_source"]
+    DEFAULTS = {"x": 0, "y": 0, "resize_source": False}
+
+    def execute(self, ctx: OpContext, destination, source, x: int = 0,
+                y: int = 0, resize_source=False, mask=None):
+        dest = _latent(destination, ctx.device)
+        src = _latent(source, ctx.device)
+        if _truthy(resize_source):
+            src = resize_image(src, dest.shape[2], dest.shape[1], "bilinear")
+        return _latent_out(_latent_meta(destination),
+                           paste(dest, src, int(x) // 8, int(y) // 8, mask))
+
+
+@register_op
+class LatentCrop(Op):
+    """A crop; x/y/width/height are pixels (//8), the window kept
+    inside the latent."""
+    TYPE = "LatentCrop"
+    WIDGETS = ["width", "height", "x", "y"]
+
+    def execute(self, ctx: OpContext, samples, width: int, height: int,
+                x: int = 0, y: int = 0):
+        lat = _latent(samples, ctx.device)
+        H, W = lat.shape[1], lat.shape[2]
+        w, h = max(int(width) // 8, 1), max(int(height) // 8, 1)
+        x0 = min(max(int(x) // 8, 0), max(W - w, 0))
+        y0 = min(max(int(y) // 8, 0), max(H - h, 0))
+        return _latent_out(_latent_meta(samples),
+                           lat[:, y0:y0 + h, x0:x0 + w].clone())
+
+
+@register_op
+class LatentFlip(Op):
+    TYPE = "LatentFlip"
+    WIDGETS = ["flip_method"]
+    DEFAULTS = {"flip_method": "x-axis: vertically"}
+
+    def execute(self, ctx: OpContext, samples,
+                flip_method: str = "x-axis: vertically"):
+        dim = 1 if str(flip_method).startswith("x") else 2
+        return _latent_out(_latent_meta(samples),
+                           _latent(samples, ctx.device).flip(dim))
+
+
+@register_op
+class LatentRotate(Op):
+    """Rotation by 90, 180 or 270 degrees clockwise, or none."""
+    TYPE = "LatentRotate"
+    WIDGETS = ["rotation"]
+    DEFAULTS = {"rotation": "none"}
+
+    def execute(self, ctx: OpContext, samples, rotation: str = "none"):
+        lat = _latent(samples, ctx.device)
+        r = str(rotation)
+        k = 3 if r.startswith("90") else 2 if r.startswith("180") \
+            else 1 if r.startswith("270") else 0
+        out = torch.rot90(lat, k, dims=(1, 2)).contiguous() if k else lat
+        return _latent_out(_latent_meta(samples), out)
+
+
+@register_op
+class LatentBatch(Op):
+    """The two batches concatenated (the second resized to the first's
+    size); a plain batch, without the inputs' metadata."""
+    TYPE = "LatentBatch"
+
+    def execute(self, ctx: OpContext, samples1, samples2):
+        a, b = _latent(samples1, ctx.device), _latent(samples2, ctx.device)
+        if a.shape[1:3] != b.shape[1:3]:
+            b = resize_image(b, a.shape[2], a.shape[1], "bilinear")
+        return ({"samples": DeviceLatent(torch.cat([a, b], dim=0))},)
+
+
+@register_op
+class LatentFromBatch(Op):
+    """Rows [batch_index, batch_index + length) of a latent batch, a
+    plain batch; the noise mask goes with its rows (a one-row mask
+    as it is)."""
+    TYPE = "LatentFromBatch"
+    WIDGETS = ["batch_index", "length"]
+    DEFAULTS = {"batch_index": 0, "length": 1}
+
+    def execute(self, ctx: OpContext, samples, batch_index: int = 0,
+                length: int = 1):
+        lat = _latent(samples, ctx.device)
+        i = min(max(int(batch_index), 0), lat.shape[0] - 1)
+        n = min(max(int(length), 1), lat.shape[0] - i)
+        out = {"samples": DeviceLatent(lat[i:i + n])}
+        if "noise_mask" in samples:
+            m = as_mask(samples["noise_mask"], ctx.device)
+            out["noise_mask"] = m if m.shape[0] == 1 \
+                else cycle_batch(m, lat.shape[0])[i:i + n]
+        return (out,)
+
+
+@register_op
+class LatentBatchSeedBehavior(Op):
+    """"fixed": every row of the batch draws the same noise (the
+    sampler's fold-in index is 0 for all); "random" keeps a stream a
+    row."""
+    TYPE = "LatentBatchSeedBehavior"
+    WIDGETS = ["seed_behavior"]
+    DEFAULTS = {"seed_behavior": "random"}
+
+    def execute(self, ctx: OpContext, samples,
+                seed_behavior: str = "random"):
+        meta = _latent_meta(samples)
+        meta.pop("seed_fixed_batch", None)
+        if str(seed_behavior) == "fixed":
+            meta["seed_fixed_batch"] = True
+        return _latent_out(meta, _latent(samples, ctx.device))
+
+
+@register_op
+class RepeatLatentBatch(Op):
+    """The batch repeated ``amount`` times (each prompt's batch size
+    with it)."""
+    TYPE = "RepeatLatentBatch"
+    WIDGETS = ["amount"]
+    DEFAULTS = {"amount": 1}
+
+    def execute(self, ctx: OpContext, samples, amount: int = 1):
+        n = max(int(amount), 1)
+        meta = _latent_meta(samples)
+        if "local_batch" in meta:
+            meta["local_batch"] = meta["local_batch"] * n
+        return _latent_out(meta, _latent(samples, ctx.device).repeat(
+            n, 1, 1, 1))
+
+
+@register_op
+class RebatchLatents(Op):
+    """The latent as it is: the executor carries whole batches, so
+    ``batch_size`` bounds nothing here (as in the JAX package)."""
+    TYPE = "RebatchLatents"
+    WIDGETS = ["batch_size"]
+    DEFAULTS = {"batch_size": 1}
+
+    def execute(self, ctx: OpContext, latents, batch_size: int = 1):
+        return _latent_out(_latent_meta(latents), _latent(latents,
+                                                          ctx.device))
+
+
+# masks
+
+
+@register_op
+class SolidMask(Op):
+    TYPE = "SolidMask"
+    WIDGETS = ["value", "width", "height"]
+    DEFAULTS = {"value": 1.0, "width": 512, "height": 512}
+
+    def execute(self, ctx: OpContext, value: float = 1.0,
+                width: int = 512, height: int = 512):
+        return (torch.full((1, int(height), int(width)), float(value),
+                           dtype=torch.float32, device=ctx.device),)
+
+
+@register_op
+class InvertMask(Op):
+    TYPE = "InvertMask"
+
+    def execute(self, ctx: OpContext, mask):
+        return (1.0 - as_device_array(mask, ctx.device),)
+
+
+@register_op
+class GrowMask(Op):
+    """``expand`` steps of a 3x3 max filter on a zero border (the
+    corners left out when ``tapered_corners``); a negative ``expand``
+    shrinks the mask the same way."""
+    TYPE = "GrowMask"
+    WIDGETS = ["expand", "tapered_corners"]
+    DEFAULTS = {"expand": 0, "tapered_corners": True}
+
+    def execute(self, ctx: OpContext, mask, expand: int = 0,
+                tapered_corners: bool = True):
+        m = as_mask(mask, ctx.device)
+        n = int(expand)
+        if n < 0:
+            m = 1.0 - m
+        shifts = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)]
+        if str(tapered_corners).lower() in ("false", "0"):
+            shifts += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+        H, W = m.shape[1], m.shape[2]
+        for _ in range(abs(n)):
+            p = torch.nn.functional.pad(m, (1, 1, 1, 1))
+            m = torch.stack([p[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                             for dy, dx in shifts]).amax(0)
+        if n < 0:
+            m = 1.0 - m
+        return (m,)
+
+
+@register_op
+class MaskComposite(Op):
+    """``source`` combined into ``destination`` at (x, y): multiply,
+    add, subtract, and, or, xor; clipped to [0, 1]."""
+    TYPE = "MaskComposite"
+    WIDGETS = ["x", "y", "operation"]
+    DEFAULTS = {"x": 0, "y": 0, "operation": "multiply"}
+
+    def execute(self, ctx: OpContext, destination, source, x: int = 0,
+                y: int = 0, operation: str = "multiply"):
+        d = as_mask(destination, ctx.device)
+        s = as_mask(source, ctx.device)
+        out = d.clone()
+        B, H, W = d.shape
+        win = _overlap_window(H, W, s.shape[1], s.shape[2], x, y)
+        if win is None:
+            return (out,)
+        (y0, y1, x0, x1), (sy0, sy1, sx0, sx1) = win
+        sb = cycle_batch(s, B)[:, sy0:sy1, sx0:sx1]
+        reg = out[:, y0:y1, x0:x1]
+        op = str(operation)
+        if op == "multiply":
+            reg = reg * sb
+        elif op == "add":
+            reg = reg + sb
+        elif op == "subtract":
+            reg = reg - sb
+        elif op == "and":
+            reg = torch.minimum(reg.round(), sb.round())
+        elif op == "or":
+            reg = torch.maximum(reg.round(), sb.round())
+        elif op == "xor":
+            reg = (reg.round() - sb.round()).abs()
+        else:
+            raise ValueError(f"unknown mask operation {op!r}")
+        out[:, y0:y1, x0:x1] = reg.clamp(0.0, 1.0)
+        return (out,)
+
+
+@register_op
+class MaskToImage(Op):
+    TYPE = "MaskToImage"
+
+    def execute(self, ctx: OpContext, mask):
+        m = as_mask(mask, ctx.device)
+        return (DeviceImage(m[..., None].repeat(1, 1, 1, 3)),)
+
+
+@register_op
+class ImageToMask(Op):
+    TYPE = "ImageToMask"
+    WIDGETS = ["channel"]
+    DEFAULTS = {"channel": "red"}
+
+    def execute(self, ctx: OpContext, image, channel: str = "red"):
+        img = as_device_image(image, ctx.device)
+        idx = {"red": 0, "green": 1, "blue": 2,
+               "alpha": 3}.get(str(channel), 0)
+        if idx >= img.shape[-1]:
+            raise ValueError(
+                f"ImageToMask: image has no {channel!r} channel "
+                f"({img.shape[-1]} channels)")
+        return (img[..., idx].contiguous(),)
+
+
+@register_op
+class ImageColorToMask(Op):
+    """1 where a pixel's 8-bit RGB, packed as 0xRRGGBB, equals
+    ``color``."""
+    TYPE = "ImageColorToMask"
+    WIDGETS = ["color"]
+    DEFAULTS = {"color": 0}
+
+    def execute(self, ctx: OpContext, image, color: int = 0):
+        q = (as_device_image(image, ctx.device)[..., :3] * 255.0).clamp(
+            0, 255).round().long()
+        packed = (q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2]
+        return ((packed == int(color)).float(),)
+
+
+@register_op
+class CropMask(Op):
+    TYPE = "CropMask"
+    WIDGETS = ["x", "y", "width", "height"]
+
+    def execute(self, ctx: OpContext, mask, x: int = 0, y: int = 0,
+                width: int = 64, height: int = 64):
+        m = as_mask(mask, ctx.device)
+        H, W = m.shape[1], m.shape[2]
+        x0 = min(max(int(x), 0), max(W - 1, 0))
+        y0 = min(max(int(y), 0), max(H - 1, 0))
+        return (m[:, y0:y0 + max(int(height), 1),
+                  x0:x0 + max(int(width), 1)].clone(),)
+
+
+def _feather_factors(n: int, near: int, far: int) -> Tuple[np.ndarray,
+                                                            np.ndarray]:
+    """FeatherMask's factors along one axis: (t + 1) / margin at the
+    t-th line from each side, 1 elsewhere (float32, as numpy applies a
+    Python float to a float32 array)."""
+    lo, hi = np.ones(n, np.float32), np.ones(n, np.float32)
+    for t in range(min(max(int(near), 0), n)):
+        lo[t] = np.float32((t + 1) / int(near))
+    for t in range(min(max(int(far), 0), n)):
+        hi[n - 1 - t] = np.float32((t + 1) / int(far))
+    return lo, hi
+
+
+@register_op
+class FeatherMask(Op):
+    """Linear ramps to 0 over the given margin on each side, (t + 1) /
+    margin at the t-th line, so the innermost feathered line is 1 (a
+    margin of 1 changes nothing)."""
+    TYPE = "FeatherMask"
+    WIDGETS = ["left", "top", "right", "bottom"]
+    DEFAULTS = {"left": 0, "top": 0, "right": 0, "bottom": 0}
+
+    def execute(self, ctx: OpContext, mask, left: int = 0, top: int = 0,
+                right: int = 0, bottom: int = 0):
+        m = as_mask(mask, ctx.device)
+        H, W = m.shape[1], m.shape[2]
+        rows = _feather_factors(H, top, bottom)
+        cols = _feather_factors(W, left, right)
+        # the factors in the JAX op's order: top, bottom, left, right
+
+        def dev(v: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(v).to(m.device)
+
+        out = m * dev(rows[0])[:, None] * dev(rows[1])[:, None]
+        return (out * dev(cols[0]) * dev(cols[1]),)
+
+
+@register_op
+class ThresholdMask(Op):
+    TYPE = "ThresholdMask"
+    WIDGETS = ["value"]
+    DEFAULTS = {"value": 0.5}
+
+    def execute(self, ctx: OpContext, mask, value: float = 0.5):
+        return ((as_mask(mask, ctx.device) > float(value)).float(),)
+
+
+def _window_filter(x: torch.Tensor, k: int, start: int, reduce: str
+                   ) -> torch.Tensor:
+    """A flat k x k min or max filter over dims 1 and 2 of [B, H, W],
+    the window of output i covering inputs i + start .. i + start + k - 1
+    on a "symmetric" border; separable, so exact."""
+    for dim in (1, 2):
+        n = x.shape[dim]
+        xp = x.index_select(dim, _pad_index(n, -start, start + k - 1,
+                                            "symmetric", x.device))
+        win = xp.unfold(dim, k, 1)
+        x = win.amax(-1) if reduce == "max" else win.amin(-1)
+    return x
+
+
+def morphology(m: torch.Tensor, op: str, size: int) -> torch.Tensor:
+    """Grey morphology of [B, H, W] with a flat square of side ``size``,
+    as ``scipy.ndimage``'s grey_* functions give it: a "reflect" border
+    (the edge sample repeated) and, at an even size, the dilation's
+    window one sample later than the erosion's."""
+    k = max(int(size), 1)
+
+    def erode(x):
+        return _window_filter(x, k, -(k // 2), "min")
+
+    def dilate(x):
+        return _window_filter(x, k, -((k - 1) // 2), "max")
+
+    if op == "erode":
+        return erode(m)
+    if op == "dilate":
+        return dilate(m)
+    if op == "open":
+        return dilate(erode(m))
+    if op == "close":
+        return erode(dilate(m))
+    if op == "gradient":
+        return dilate(m) - erode(m)
+    if op == "top_hat":
+        return m - dilate(erode(m))
+    if op == "bottom_hat":
+        return erode(dilate(m)) - m
+    raise ValueError(f"unknown morphology operation {op!r}")
+
+
+@register_op
+class Morphology(Op):
+    """Grey morphology of each channel (:func:`morphology`), clipped to
+    [0, 1]."""
+    TYPE = "Morphology"
+    WIDGETS = ["operation", "kernel_size"]
+    DEFAULTS = {"operation": "dilate", "kernel_size": 3}
+
+    def execute(self, ctx: OpContext, image, operation: str = "dilate",
+                kernel_size: int = 3):
+        img = as_device_image(image, ctx.device)
+        b, h, w, c = img.shape
+        planes = img.permute(0, 3, 1, 2).reshape(b * c, h, w)
+        out = morphology(planes, str(operation), int(kernel_size))
+        return (DeviceImage(out.reshape(b, c, h, w).permute(0, 2, 3, 1)
+                            .clamp(0.0, 1.0).contiguous()),)
+
+
+# images
+
+
+@register_op
+class EmptyImage(Op):
+    TYPE = "EmptyImage"
+    WIDGETS = ["width", "height", "batch_size", "color"]
+    DEFAULTS = {"width": 512, "height": 512, "batch_size": 1, "color": 0}
+
+    def execute(self, ctx: OpContext, width: int = 512, height: int = 512,
+                batch_size: int = 1, color: int = 0):
+        c = int(color)
+        rgb = torch.tensor([(c >> 16) & 0xFF, (c >> 8) & 0xFF, c & 0xFF],
+                           dtype=torch.float32, device=ctx.device) / 255.0
+        return (DeviceImage(rgb.expand(int(batch_size), int(height),
+                                       int(width), 3).contiguous()),)
+
+
+@register_op
+class ImageBatchOp(Op):
+    """Two image batches concatenated, the second resized (bilinear) to
+    the first's size.  (The class is named ...Op as in the JAX package,
+    where ``ImageBatch`` is the fan-out image wrapper.)"""
+    TYPE = "ImageBatch"
+
+    def execute(self, ctx: OpContext, image1, image2):
+        a, b = as_device_image(image1, ctx.device), as_device_image(image2, ctx.device)
+        if a.shape[1:3] != b.shape[1:3]:
+            b = resize_image(b, a.shape[2], a.shape[1], "bilinear")
+        return (DeviceImage(torch.cat([a, b], dim=0)),)
+
+
+@register_op
+class ImageFromBatch(Op):
+    TYPE = "ImageFromBatch"
+    WIDGETS = ["batch_index", "length"]
+    DEFAULTS = {"batch_index": 0, "length": 1}
+
+    def execute(self, ctx: OpContext, image, batch_index: int = 0,
+                length: int = 1):
+        img = as_device_image(image, ctx.device)
+        i = min(max(int(batch_index), 0), img.shape[0] - 1)
+        return (DeviceImage(img[i:i + max(int(length), 1)]),)
+
+
+@register_op
+class RebatchImages(Op):
+    """The images as they are (see RebatchLatents)."""
+    TYPE = "RebatchImages"
+    WIDGETS = ["batch_size"]
+    DEFAULTS = {"batch_size": 1}
+
+    def execute(self, ctx: OpContext, images, batch_size: int = 1):
+        return (DeviceImage(as_device_image(images, ctx.device)),)
+
+
+@register_op
+class ImageCrop(Op):
+    TYPE = "ImageCrop"
+    WIDGETS = ["width", "height", "x", "y"]
+
+    def execute(self, ctx: OpContext, image, width: int, height: int,
+                x: int = 0, y: int = 0):
+        img = as_device_image(image, ctx.device)
+        H, W = img.shape[1], img.shape[2]
+        x0 = min(max(int(x), 0), W - 1)
+        y0 = min(max(int(y), 0), H - 1)
+        x1 = min(x0 + max(int(width), 1), W)
+        y1 = min(y0 + max(int(height), 1), H)
+        return (DeviceImage(img[:, y0:y1, x0:x1].contiguous()),)
+
+
+@register_op
+class ImageInvert(Op):
+    TYPE = "ImageInvert"
+
+    def execute(self, ctx: OpContext, image):
+        return (DeviceImage(1.0 - as_device_image(image, ctx.device)),)
+
+
+@register_op
+class ImageBlend(Op):
+    """``image2`` composited onto ``image1`` by the mode, then mixed by
+    ``blend_factor``; image2 resized (bilinear) to image1's size."""
+    TYPE = "ImageBlend"
+    WIDGETS = ["blend_factor", "blend_mode"]
+    DEFAULTS = {"blend_factor": 0.5, "blend_mode": "normal"}
+
+    MODES = ("normal", "multiply", "screen", "overlay", "soft_light",
+             "difference")
+
+    def execute(self, ctx: OpContext, image1, image2,
+                blend_factor: float = 0.5, blend_mode: str = "normal"):
+        a, b = as_device_image(image1, ctx.device), as_device_image(image2, ctx.device)
+        if b.shape[1:3] != a.shape[1:3]:
+            b = resize_image(b, a.shape[2], a.shape[1], "bilinear")
+        b = cycle_batch(b, a.shape[0])
+        mode = str(blend_mode)
+        if mode == "normal":
+            blended = b
+        elif mode == "multiply":
+            blended = a * b
+        elif mode == "screen":
+            blended = 1.0 - (1.0 - a) * (1.0 - b)
+        elif mode == "overlay":
+            blended = torch.where(a <= 0.5, 2.0 * a * b,
+                                  1.0 - 2.0 * (1.0 - a) * (1.0 - b))
+        elif mode == "soft_light":
+            g = torch.where(a <= 0.25, ((16.0 * a - 12.0) * a + 4.0) * a,
+                            a.clamp(min=0.0).sqrt())
+            blended = torch.where(b <= 0.5,
+                                  a - (1.0 - 2.0 * b) * a * (1.0 - a),
+                                  a + (2.0 * b - 1.0) * (g - a))
+        elif mode == "difference":
+            blended = (a - b).abs()
+        else:
+            raise ValueError(f"ImageBlend: unknown mode {mode!r}; "
+                             f"available: {self.MODES}")
+        f = float(blend_factor)
+        return (DeviceImage((a * (1.0 - f) + blended * f).clamp(0.0, 1.0)),)
+
+
+@register_op
+class ImageBlur(Op):
+    TYPE = "ImageBlur"
+    WIDGETS = ["blur_radius", "sigma"]
+    DEFAULTS = {"blur_radius": 1, "sigma": 1.0}
+
+    def execute(self, ctx: OpContext, image, blur_radius: int = 1,
+                sigma: float = 1.0):
+        img = as_device_image(image, ctx.device)
+        r = int(blur_radius)
+        if r < 1:
+            return (DeviceImage(img),)
+        return (DeviceImage(gaussian_blur(img, r, float(sigma))),)
+
+
+@register_op
+class ImageSharpen(Op):
+    """Unsharp mask: ``image + alpha * (image - blur(image))``, clipped."""
+    TYPE = "ImageSharpen"
+    WIDGETS = ["sharpen_radius", "sigma", "alpha"]
+    DEFAULTS = {"sharpen_radius": 1, "sigma": 1.0, "alpha": 1.0}
+
+    def execute(self, ctx: OpContext, image, sharpen_radius: int = 1,
+                sigma: float = 1.0, alpha: float = 1.0):
+        img = as_device_image(image, ctx.device)
+        r = int(sharpen_radius)
+        if r < 1:
+            return (DeviceImage(img),)
+        blurred = gaussian_blur(img, r, float(sigma))
+        return (DeviceImage((img + float(alpha) * (img - blurred)).clamp(
+            0.0, 1.0)),)
+
+
+@register_op
+class ImageCompositeMasked(Op):
+    """``source`` pasted over ``destination`` at pixel (x, y), through
+    an optional MASK; ``resize_source`` first resizes the source
+    (bilinear) to the destination."""
+    TYPE = "ImageCompositeMasked"
+    WIDGETS = ["x", "y", "resize_source"]
+    DEFAULTS = {"x": 0, "y": 0, "resize_source": False}
+
+    def execute(self, ctx: OpContext, destination, source, x: int = 0,
+                y: int = 0, resize_source=False, mask=None):
+        dest = as_device_image(destination, ctx.device)
+        src = as_device_image(source, ctx.device)
+        if _truthy(resize_source):
+            src = resize_image(src, dest.shape[2], dest.shape[1], "bilinear")
+        return (DeviceImage(paste(dest, src, int(x), int(y), mask)),)
+
+
+def porter_duff(mode: str, cs, cd, a_s, a_d):
+    """The reference node's straight-alpha Porter-Duff table, as the JAX
+    package applies it (its quirks at partial alpha included): (colour
+    [B, H, W, C], alpha [B, H, W])."""
+    asr, adr = a_s[..., None], a_d[..., None]
+    over = a_s + (1 - a_s) * a_d
+    if mode == "ADD":
+        return (cs + cd).clamp(0, 1), (a_s + a_d).clamp(0, 1)
+    if mode == "CLEAR":
+        return torch.zeros_like(cs), torch.zeros_like(a_s)
+    if mode == "DARKEN":
+        return (1 - adr) * cs + (1 - asr) * cd + torch.minimum(cs, cd), over
+    if mode == "DST":
+        return cd, a_d
+    if mode == "DST_ATOP":
+        return asr * cd + (1 - adr) * cs, a_s
+    if mode == "DST_IN":
+        return cd * asr, a_s * a_d
+    if mode == "DST_OUT":
+        return (1 - asr) * cd, (1 - a_s) * a_d
+    if mode == "DST_OVER":
+        return cd + (1 - adr) * cs, a_d + (1 - a_d) * a_s
+    if mode == "LIGHTEN":
+        return (1 - adr) * cs + (1 - asr) * cd + torch.maximum(cs, cd), over
+    if mode == "MULTIPLY":
+        return cs * cd, a_s * a_d
+    if mode == "OVERLAY":
+        lo = 2 * cs * cd + cs * (1 - adr) + cd * (1 - asr)
+        hi = cs * (1 + adr) + cd * (1 + asr) - 2 * cd * cs - adr * asr
+        return torch.where(2 * cd <= adr, lo, hi), over
+    if mode == "SCREEN":
+        return cs + cd - cs * cd, over
+    if mode == "SRC":
+        return cs, a_s
+    if mode == "SRC_ATOP":
+        return adr * cs + (1 - asr) * cd, a_d
+    if mode == "SRC_IN":
+        return cs * adr, a_s * a_d
+    if mode == "SRC_OUT":
+        return (1 - adr) * cs, (1 - a_d) * a_s
+    if mode == "SRC_OVER":
+        return cs + (1 - asr) * cd, over
+    if mode == "XOR":
+        return ((1 - adr) * cs + (1 - asr) * cd,
+                (1 - a_d) * a_s + (1 - a_s) * a_d)
+    raise ValueError(f"unknown Porter-Duff mode {mode!r}")
+
+
+@register_op
+class PorterDuffImageComposite(Op):
+    """(source, source_alpha) composited over (destination,
+    destination_alpha) by :func:`porter_duff`; the destination and both
+    alphas resized (bilinear) to the source and cycled to its batch."""
+    TYPE = "PorterDuffImageComposite"
+    WIDGETS = ["mode"]
+    DEFAULTS = {"mode": "DST"}
+
+    def execute(self, ctx: OpContext, source, source_alpha, destination,
+                destination_alpha, mode: str = "DST"):
+        cs = as_device_image(source, ctx.device)
+        b, h, w, _ = cs.shape
+        cd = as_device_image(destination, ctx.device)
+        if cd.shape[1:3] != cs.shape[1:3]:
+            cd = resize_image(cd, w, h, "bilinear")
+        cd = cycle_batch(cd, b)
+
+        def align(a):
+            a = as_mask(a, ctx.device)
+            if a.shape[1:3] != cs.shape[1:3]:
+                a = resize_image(a[..., None], w, h, "bilinear")[..., 0]
+            return cycle_batch(a, b)
+
+        out_c, out_a = porter_duff(str(mode).upper(), cs, cd,
+                                   align(source_alpha),
+                                   align(destination_alpha))
+        return (DeviceImage(out_c.clamp(0.0, 1.0)), out_a.clamp(0.0, 1.0))
+
+
+@register_op
+class SplitImageWithAlpha(Op):
+    """-> (RGB, 1 - alpha): the mask is the inverted alpha, as in the
+    reference; an image without alpha gives zeros."""
+    TYPE = "SplitImageWithAlpha"
+
+    def execute(self, ctx: OpContext, image):
+        img = as_device_image(image, ctx.device)
+        alpha = img[..., 3] if img.shape[-1] == 4 \
+            else torch.ones(img.shape[:3], device=img.device)
+        return (DeviceImage(img[..., :3].contiguous()), 1.0 - alpha)
+
+
+@register_op
+class JoinImageWithAlpha(Op):
+    """RGB plus ``1 - alpha`` as the fourth channel (the inverse of
+    SplitImageWithAlpha), the alpha resized (bilinear) and cycled to the
+    image."""
+    TYPE = "JoinImageWithAlpha"
+
+    def execute(self, ctx: OpContext, image, alpha):
+        img = as_device_image(image, ctx.device)[..., :3]
+        a = as_mask(alpha, ctx.device)
+        if a.shape[1:3] != img.shape[1:3]:
+            a = resize_image(a[..., None], img.shape[2], img.shape[1],
+                             "bilinear")[..., 0]
+        a = cycle_batch(a, img.shape[0])
+        return (DeviceImage(torch.cat([img, (1.0 - a)[..., None]], dim=-1)),)
+
+
+@register_op
+class ImageScaleBy(Op):
+    TYPE = "ImageScaleBy"
+    WIDGETS = ["upscale_method", "scale_by"]
+    DEFAULTS = {"upscale_method": "lanczos", "scale_by": 2.0}
+
+    def execute(self, ctx: OpContext, image, upscale_method: str,
+                scale_by: float = 2.0):
+        img = as_device_image(image, ctx.device)
+        w = max(round(img.shape[2] * float(scale_by)), 1)
+        h = max(round(img.shape[1] * float(scale_by)), 1)
+        return (DeviceImage(resize_image(img, w, h, str(upscale_method))),)
+
+
+@register_op
+class ImageScaleToTotalPixels(Op):
+    """A resize to about ``megapixels`` x 2^20 pixels, keeping the
+    aspect."""
+    TYPE = "ImageScaleToTotalPixels"
+    WIDGETS = ["upscale_method", "megapixels"]
+    DEFAULTS = {"upscale_method": "lanczos", "megapixels": 1.0}
+
+    def execute(self, ctx: OpContext, image, upscale_method: str = "lanczos",
+                megapixels: float = 1.0):
+        img = as_device_image(image, ctx.device)
+        H, W = img.shape[1], img.shape[2]
+        scale = math.sqrt(float(megapixels) * 1024 * 1024 / (H * W))
+        w = max(int(round(W * scale)), 1)
+        h = max(int(round(H * scale)), 1)
+        return (DeviceImage(resize_image(img, w, h, str(upscale_method))),)
 
 
 @register_op

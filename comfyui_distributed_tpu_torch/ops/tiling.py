@@ -249,10 +249,13 @@ TileFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def tiled_apply_down(fn: TileFn, x: torch.Tensor, tile: int, overlap: int,
-                     down: int, out_channels: int) -> torch.Tensor:
+                     down: int, out_channels: int,
+                     check_interrupt: Optional[Callable[[], None]] = None
+                     ) -> torch.Tensor:
     """:func:`tiled_apply` for a downscaling ``fn`` ([B, th * down,
     tw * down, C] -> [B, th, tw, out_channels], the VAE encoder): windows
-    laid out and blended in output coordinates."""
+    laid out and blended in output coordinates; ``check_interrupt`` runs
+    before each tile."""
     b, h, w, _ = x.shape
     oh, ow = h // down, w // down
     th, tw = min(tile, oh), min(tile, ow)
@@ -262,6 +265,8 @@ def tiled_apply_down(fn: TileFn, x: torch.Tensor, tile: int, overlap: int,
         x.device)[None, :, :, None]
     for y0 in uniform_tile_starts(oh, th, overlap):
         for x0 in uniform_tile_starts(ow, tw, overlap):
+            if check_interrupt is not None:
+                check_interrupt()
             out = fn(x[:, y0 * down:(y0 + th) * down,
                        x0 * down:(x0 + tw) * down, :]).float()
             canvas[:, y0:y0 + th, x0:x0 + tw] += out * mask

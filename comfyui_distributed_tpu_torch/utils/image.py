@@ -2,8 +2,11 @@
 counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 ``resize_image`` in ``comfyui_distributed_tpu/utils/image.py``.
 
-- PNG: an 8-bit L/RGB/RGBA writer (with ``tEXt`` chunks) and reader
-  on ``zlib``.
+- PNG: an 8-bit L/RGB/RGBA writer (with ``tEXt`` chunks) and a reader
+  of every PNG kind (bit depths 1 to 16, grey, RGB, palette, grey-alpha
+  and RGBA, tRNS, Adam7) on ``zlib``, with the two conversions the JAX
+  package's loaders take through Pillow (:func:`decode_png`,
+  :func:`decode_png_rgba`).
 - The raw-tensor wire of the HTTP fan-out (``encode_tensor`` /
   ``decode_tensor``): the JAX package's ``DTT1`` framing, zlib codec.
 - :func:`resize_image` reproduces Pillow's resampling of float ("F")
@@ -18,6 +21,7 @@ counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import io
 import math
@@ -29,9 +33,8 @@ import numpy as np
 import torch
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels, for the 8-bit types read and written
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
-_PNG_COLOUR_TYPE = {c: t for t, c in _PNG_CHANNELS.items()}
+# channels -> PNG colour type, for the 8-bit kinds written
+_PNG_COLOUR_TYPE = {1: 0, 3: 2, 4: 6}
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -164,20 +167,67 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [1, H, W, C] float32 in [0, 1] (C = 1, 3 or 4), as
-    ``pil_to_tensor(Image.open(...))`` gives for an L, RGB or RGBA file.
-    Takes 8-bit greyscale, RGB and RGBA without interlacing; raises
-    ``NotImplementedError`` for the other PNG kinds."""
+# Adam7's seven passes: (x0, y0, dx, dy) of each pass's pixel grid
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# PNG colour type -> samples a pixel (grey, RGB, palette, grey-alpha, RGBA)
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+
+def _unpack_samples(raw: np.ndarray, h: int, w: int, c: int,
+                    depth: int) -> np.ndarray:
+    """``h`` filtered rows of ``w`` pixels of ``c`` samples at ``depth``
+    bits -> [h, w, c] samples, uint16 at 16 bits and uint8 below (rows of
+    sub-byte samples are padded to a whole byte, high bits first)."""
+    stride = (w * c * depth + 7) // 8
+    bpp = max(c * depth // 8, 1)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG data holds {raw.size} bytes for {h} rows of "
+                         f"{stride} bytes")
+    rows = _unfilter(raw, h, stride, bpp)
+    if depth == 8:
+        return rows.reshape(h, w, c)
+    if depth == 16:
+        px = rows.reshape(h, -1, 2).astype(np.uint16)
+        return ((px[..., 0] << 8) | px[..., 1]).reshape(h, w, c)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    px = (rows[..., None] >> shifts) & np.uint8((1 << depth) - 1)
+    return px.reshape(h, -1)[:, :w * c].reshape(h, w, c)
+
+
+@dataclasses.dataclass
+class PngImage:
+    """A PNG as Pillow opens it: ``mode`` ("1", "L", "I;16", "RGB", "P",
+    "LA" or "RGBA"), ``pixels`` [H, W, C] (8-bit values, 16-bit for
+    "I;16", palette indices for "P"; Pillow keeps the high byte of
+    16-bit colour and reads 16-bit grey-alpha as RGBA), ``palette``
+    [256, 3] for "P", and ``transparency`` as Pillow's ``info`` holds
+    the tRNS chunk (a grey value, an RGB triple, or one alpha a palette
+    entry as [256]), or None."""
+    mode: str
+    pixels: np.ndarray
+    palette: Optional[np.ndarray] = None
+    transparency: object = None
+
+
+def read_png(data: bytes) -> PngImage:
+    """PNG bytes -> :class:`PngImage`: every bit depth and colour type of
+    the standard, with or without Adam7 interlacing."""
     if data[:8] != _PNG_MAGIC:
         raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, idat, plte, trns = 8, None, [], None, None
     while pos + 8 <= len(data):
         length, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = body
+        elif tag == b"tRNS":
+            trns = body
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -185,18 +235,104 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, ctype, _comp, _filt, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
-        raise NotImplementedError(
-            f"PNG bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}: only 8-bit L, RGB and RGBA without interlacing "
-            "are read")
-    c = _PNG_CHANNELS[ctype]
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"PNG bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace}: not a valid PNG kind")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without PLTE")
+    c = _PNG_SAMPLES[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * c + 1):
-        raise ValueError(f"PNG data holds {raw.size} bytes for a {w}x{h} "
-                         f"image of {c} channels")
-    px = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    if not interlace:
+        px = _unpack_samples(raw, h, w, c, depth)
+    else:
+        px = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            n = ph * ((pw * c * depth + 7) // 8 + 1)
+            px[y0::dy, x0::dx] = _unpack_samples(raw[off:off + n], ph, pw,
+                                                 c, depth)
+            off += n
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        pal[:len(entries)] = entries
+        alpha = None
+        if trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            t = np.frombuffer(trns, np.uint8)[:256]
+            alpha[:len(t)] = t
+        return PngImage("P", px, pal, alpha)
+    if depth == 16 and ctype != 0:
+        # Pillow's 16-bit colour rawmodes keep each sample's high byte,
+        # and grey-alpha opens as RGBA
+        px = (px >> 8).astype(np.uint8)
+        if ctype == 4:
+            px = px[..., [0, 0, 0, 1]]
+        return PngImage("RGB" if ctype == 2 else "RGBA", px,
+                        transparency=None if trns is None or ctype != 2
+                        else struct.unpack(">HHH", trns[:6]))
+    if ctype == 0:
+        t = None if trns is None else struct.unpack(">H", trns[:2])[0]
+        if depth == 1:
+            return PngImage("1", px * 255,
+                            transparency=None if t is None
+                            else (255 if t else 0))
+        if depth == 16:
+            return PngImage("I;16", px, transparency=t)
+        return PngImage("L", px * (255 // ((1 << depth) - 1)),
+                        transparency=t)
+    return PngImage({2: "RGB", 4: "LA", 6: "RGBA"}[ctype], px,
+                    transparency=None if trns is None or ctype != 2
+                    else struct.unpack(">HHH", trns[:6]))
+
+
+def _png_rgb(img: PngImage) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` pixels [H, W, 3] uint8 (16-bit grey
+    clips at 255, as Pillow converts it; a palette looks its colours
+    up; alpha is dropped)."""
+    px = img.pixels
+    if img.mode == "P":
+        return img.palette[px[..., 0]]
+    if img.mode == "I;16":
+        px = np.minimum(px, 255).astype(np.uint8)
+    return np.repeat(px[..., :1], 3, -1) if px.shape[-1] < 3 else px[..., :3]
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> [1, H, W, C] float32 in [0, 1], as the JAX package's
+    ``pil_to_tensor(Image.open(...))`` gives it: an L (grey of 2 to 8
+    bits), RGB or RGBA image keeps its channels (C = 1, 3 or 4), every
+    other kind is converted to RGB as Pillow converts it."""
+    img = read_png(data)
+    px = img.pixels if img.mode in ("L", "RGB", "RGBA") else _png_rgb(img)
     return (px.astype(np.float32) / 255.0)[None]
+
+
+def decode_png_rgba(data: bytes) -> np.ndarray:
+    """PNG bytes -> [H, W, 4] float32 in [0, 1], as Pillow's
+    ``convert("RGBA")`` gives it: an alpha channel is kept (grey-alpha
+    included), a palette's tRNS gives each entry its alpha, and a grey
+    or RGB tRNS value makes transparent the pixels whose 8-bit value
+    equals it."""
+    img = read_png(data)
+    if img.mode in ("LA", "RGBA"):
+        px = img.pixels
+        rgba = np.concatenate([np.repeat(px[..., :1], 3, -1), px[..., 1:]],
+                              -1) if img.mode == "LA" else px
+    else:
+        rgb = _png_rgb(img)
+        alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
+        t = img.transparency
+        if img.mode == "P" and t is not None:
+            alpha = t[img.pixels]
+        elif t is not None:
+            want = np.asarray(t if isinstance(t, tuple) else (t,) * 3)
+            alpha[np.all(rgb == want, axis=-1)] = 0
+        rgba = np.concatenate([rgb, alpha], -1)
+    return rgba.astype(np.float32) / 255.0
 
 
 # --- resampling -------------------------------------------------------------

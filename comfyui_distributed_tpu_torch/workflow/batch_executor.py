@@ -303,8 +303,9 @@ class _Bucket:
                                                     (int, np.integer)):
             raise CBIneligible("non-plain seed (SeedValue/distributed)")
         lat = capture["latent_image"]
-        if lat.get("noise_mask") is not None:
-            raise CBIneligible("masked latent")
+        if lat.get("noise_mask") is not None \
+                or lat.get("seed_fixed_batch"):
+            raise CBIneligible("masked or fixed-seed-batch latent")
         dev = pipe.device
         samples = as_device_array(lat["samples"], dev)
         self.b = int(samples.shape[0])

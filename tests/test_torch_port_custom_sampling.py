@@ -181,8 +181,9 @@ def test_op_schema_equals_the_jax_packages(name):
 
 def test_the_port_registers_78_ops():
     """78 ops with the custom-sampling slice; 84 since TomePatchModel,
-    HypernetworkLoader, the GLIGEN pair and the style-model pair."""
-    assert len(tbase.NODE_CLASS_MAPPINGS) == 84
+    HypernetworkLoader, the GLIGEN pair and the style-model pair; 130
+    since the tiled VAE, conditioning, latent, image and mask ops."""
+    assert len(tbase.NODE_CLASS_MAPPINGS) == 130
     assert set(SLICE_OPS) <= set(jbase.NODE_CLASS_MAPPINGS)
 
 

@@ -200,23 +200,47 @@ def test_every_row_filter_decodes_as_pillow_reads_it(channels, color_type,
 @pytest.mark.parametrize("kind", ["16-bit", "palette", "interlaced",
                                   "not-png"])
 def test_png_kinds_not_read_raise(kind, tmp_path):
+    """The kinds the reader once refused now read as Pillow reads them
+    through the JAX package's ``pil_to_tensor``; a file that is not a
+    PNG still raises."""
     if kind == "16-bit":
-        Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(
-            tmp_path / "x.png")
+        px = np.random.default_rng(1).integers(0, 600, (4, 5)).astype(
+            np.uint16)
+        Image.fromarray(px).save(tmp_path / "x.png")   # mode I;16
         data = (tmp_path / "x.png").read_bytes()
     elif kind == "palette":
-        Image.new("P", (4, 4)).save(tmp_path / "x.png")
+        im = Image.fromarray(np.random.default_rng(2).integers(
+            0, 256, (4, 5, 3), dtype=np.uint8)).convert("P")
+        im.save(tmp_path / "x.png")
         data = (tmp_path / "x.png").read_bytes()
     elif kind == "interlaced":
-        data = bytearray(_png_with_filters(np.zeros((4, 4, 3), np.uint8),
-                                           [0], 2))
-        data[28] = 1    # the IHDR interlace byte (CRC is not checked)
-        data = bytes(data)
+        # 8 x 8 RGB, Adam7: each pass's rows written with filter 0
+        px = np.random.default_rng(3).integers(0, 256, (8, 8, 3),
+                                               dtype=np.uint8)
+        passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+                  (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+        raw = b"".join(bytes([0]) + row.tobytes()
+                       for x0, y0, dx, dy in passes
+                       for row in px[y0::dy, x0::dx].reshape(
+                           len(range(y0, 8, dy)), -1))
+
+        def chunk(tag, body):
+            return (struct.pack(">I", len(body)) + tag + body
+                    + struct.pack(">I", zlib.crc32(tag + body)))
+
+        data = (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 1))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
     else:
-        data = b"GIF89a" + bytes(20)
-    err = ValueError if kind == "not-png" else NotImplementedError
-    with pytest.raises(err):
-        decode_png(data)
+        with pytest.raises(ValueError):
+            decode_png(b"GIF89a" + bytes(20))
+        return
+    (tmp_path / "y.png").write_bytes(data)
+    from comfyui_distributed_tpu.utils.image import pil_to_tensor
+    want = pil_to_tensor(Image.open(tmp_path / "y.png"))
+    got = decode_png(data)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 # --- ops ---------------------------------------------------------------------

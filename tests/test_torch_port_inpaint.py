@@ -94,8 +94,22 @@ def test_inpaint_family_is_the_jax_packages(family):
 
 @pytest.mark.parametrize("family", ["sdxl_inpaint", "sd21_inpaint"])
 def test_other_inpaint_families_stay_refused(family):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        treg.get_family(family)
+    """Once refused, the SDXL and SD2.1 inpaint families are now the
+    JAX package's: the base family's UNet at 9 input channels, field by
+    field, with its VAE and text towers."""
+    j, t = jreg.FAMILIES[family], treg.get_family(family)
+    base = "sdxl" if family == "sdxl_inpaint" else "sd21_base"
+    assert t.unet.in_channels == j.unet.in_channels == 9
+    assert dataclasses.replace(t.unet, in_channels=4) \
+        == treg.FAMILIES[base].unet
+    for f in dataclasses.fields(j.unet):
+        if hasattr(t.unet, f.name) and f.name != "dtype":
+            assert getattr(t.unet, f.name) == getattr(j.unet, f.name), f.name
+    assert str(t.unet.dtype).split(".")[-1] == j.unet.dtype.__name__
+    assert t.vae == treg.FAMILIES[base].vae
+    assert [c.width for c in t.clips] == [c.width for c in j.clips]
+    assert (t.latent_channels, t.adm_kind) == (j.latent_channels,
+                                               j.adm_kind)
 
 
 def test_tiny_inpaint_virtual_weights_equal_the_jax_packages():

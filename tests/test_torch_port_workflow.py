@@ -120,9 +120,9 @@ def test_parser_refuses_what_is_not_ported():
     doc["3"]["inputs"]["sampler_name"] = "dpmpp_2m"
     graph = parse_workflow(copy.deepcopy(doc))
     assert graph.topo_order().index("4") < graph.topo_order().index("3")
-    doc["3"]["class_type"] = "ImageBlend"
+    doc["3"]["class_type"] = "SaveAnimatedWEBP"
     ctx = OpContext(device="cpu")
-    with pytest.raises(KeyError, match="ImageBlend"):
+    with pytest.raises(KeyError, match="SaveAnimatedWEBP"):
         WorkflowExecutor(ctx).execute(doc)
     assert not ctx.node_timings   # refused before any node ran
 
