@@ -59,7 +59,10 @@ Run from the root of a checkout on a machine with a CUDA card (and
    ``tiny`` (a palette file, VAEEncodeTiled, RepeatLatentBatch,
    LatentBatchSeedBehavior "fixed" at B = 2, ConditioningAverage,
    LatentFromBatch and the image and mask ops:
-   :func:`tiny_composite_docs`), must agree within 1e-3 (the unclip run
+   :func:`tiny_composite_docs`), a merge graph (ModelMergeBlocks, then
+   CLIPMergeSimple: :func:`tiny_merge_doc`) and txt2img as a UI document
+   with a bypassed node (:func:`ui_doc`, whose card image also equals
+   the API document's to the bit), must agree within 1e-3 (the unclip run
    on the card takes the CPU run's image embedding, as the unCLIP noise
    is keyed by its bytes, and the card's own embedding must agree within
    1e-3 too);
@@ -532,6 +535,32 @@ Run from the root of a checkout on a machine with a CUDA card (and
    seconds, node seconds, launches, attention ms and peak memory, the
    anchoring, and the tiled forms' differences and seconds beside the
    one-shot ones.
+26. Merging, saving and the animations, in phase 22's process
+   on its SD1.5 file (A), graph and seed, with ``DTPU_CACHE=0``: a
+   second SD1.5 name (B, ``PHASE26_B``, a virtual fill), then
+   ModelMergeSimple at ratio 1.0 (A's image to the bit), 0.0 (B's) and
+   0.5 (beyond the one-batch limits of both), ModelMergeSubtract(A, B, 1)
+   then ModelMergeAdd(., B) (within them of A: bf16 rounds twice),
+   ModelMergeBlocks(1, 0, 1) (every middle-block weight B's and every
+   other A's, to the bit; the image beyond the same-batch limits of A's,
+   as the middle block alone moves it less than the one-batch ones) and
+   CLIPMergeSimple(0.5) (beyond the one-batch limits of A's).  The 0.5
+   merge's ModelSave, CLIPSave, VAESave and SaveLatent files read back
+   through UNETLoader, CLIPLoader, VAELoader and LoadLatent (then
+   VAEDecode), and its native checkpoint (``runtime/checkpointing.py``)
+   through CheckpointLoaderSimple, each to the 0.5 merge's image to the
+   bit.  SaveAnimatedPNG and SaveAnimatedWEBP (lossless and lossy) write
+   four of those images from the card (their encoders run on the host):
+   the APNG's default image reads back to the bit with the port's
+   ``read_png``, each WEBP's chunks give its frames and durations.
+   ImageQuantize, without and with dither, runs on the card and on the
+   CPU on the whole 0.5 merge's image, to the same output.  Every sampled
+   request launches exactly 640 sm90 at shapes phase 3 checked.  It
+   prints a ``phase26`` line: each request's seconds, node seconds,
+   launches, attention ms and peak memory, the merges' seconds and the
+   peak bytes a merge adds, each file's write and load seconds and
+   bytes, and the native load's seconds beside the lone safetensors
+   files'.
 
 Phases 14, 15, 16, 20 and 21 launch their servers before the phase
 before them (13, 14, 15, 19 and 20) runs, so a server's start
@@ -551,7 +580,7 @@ checked).  The in-process requests of phases 4-13 run with the plane on
 (the encode memo: a warm request takes its text encodes from it).
 
 Launch counts are zeroed just before each request of phases 5-7,
-9-13 and 22-25 and read just after (phase 15's interrupted request and every
+9-13 and 22-26 and read just after (phase 15's interrupted request and every
 request of phases 16, 18, 19 and 21: their servers' prompt lines;
 phase 20's: its buckets' counts, each step's own, and its prompt
 lines).  The line before the last is ``{"kernels":
@@ -1041,6 +1070,62 @@ def small_docs(docs):
             "ip2p": ip2p, "unclip": unclip}
 
 
+def tiny_merge_doc(txt):
+    """Phase 4's merge graph: the tiny txt2img with a second checkpoint,
+    its UNet through ModelMergeBlocks(0.3, 0.6, 0.8) and its CLIP through
+    CLIPMergeSimple(0.4)."""
+    doc = copy.deepcopy(txt)
+    doc["20"] = _node("CheckpointLoaderSimple",
+                      ckpt_name="tiny-merge-b.safetensors")
+    doc["21"] = _node("ModelMergeBlocks", model1=["4", 0], model2=["20", 0],
+                      input=0.3, middle=0.6, out=0.8)
+    doc["22"] = _node("CLIPMergeSimple", clip1=["4", 1], clip2=["20", 1],
+                      ratio=0.4)
+    doc["3"]["inputs"]["model"] = ["21", 0]
+    doc["6"]["inputs"]["clip"] = doc["7"]["inputs"]["clip"] = ["22", 0]
+    return doc
+
+
+def ui_doc(api, bypass):
+    """``api`` as the UI-format document ComfyUI's browser saves: nodes
+    with ``widgets_values`` in each op's ``WIDGETS`` order (``CONTROL``
+    slots "fixed") and links, an ImageInvert in mode 4 (bypassed) spliced
+    into the IMAGE link ``bypass`` = (node id, input) names."""
+    from comfyui_distributed_tpu_torch.ops.base import (CONTROL,
+                                                        NODE_CLASS_MAPPINGS)
+    api = {k: copy.deepcopy(v) for k, v in api.items()
+           if isinstance(v, dict) and "class_type" in v}
+    nid, inp = bypass
+    api["900"] = dict(_node("ImageInvert", image=api[nid]["inputs"][inp]),
+                      mode=4)
+    api[nid]["inputs"][inp] = ["900", 0]
+
+    def is_link(v):
+        return isinstance(v, list) and len(v) == 2 and isinstance(v[1], int)
+
+    nodes, links = [], []
+    for nid, node in api.items():
+        cls = NODE_CLASS_MAPPINGS[node["class_type"]]
+        defaults = cls.DEFAULTS or {}
+        widgets = ["fixed" if w == CONTROL
+                   else defaults.get(w, 0) if is_link(
+                       node["inputs"].get(w)) or w not in node["inputs"]
+                   else node["inputs"][w] for w in cls.WIDGETS]
+        inputs = []
+        for slot, (name, v) in enumerate(node["inputs"].items()):
+            if is_link(v):
+                ltype = "IMAGE" if name in ("image", "images") else name
+                links.append([len(links) + 1, int(v[0]), v[1], int(nid),
+                              slot, ltype])
+                inputs.append({"name": name, "type": ltype,
+                               "link": len(links)})
+        nodes.append({"id": int(nid), "type": node["class_type"],
+                      "mode": node.get("mode", 0), "inputs": inputs,
+                      "outputs": [{"type": "IMAGE"}],
+                      "widgets_values": widgets})
+    return {"nodes": nodes, "links": links, "version": 0.4}
+
+
 # the family of each inpaint workflow's tiny stand-in (phase 4)
 TINY_INPAINT_FAMILY = {"inpaint": "tiny", "outpaint": "tiny",
                        "inpaint_model": "tiny_inpaint"}
@@ -1349,8 +1434,11 @@ def tiny_against_cpu(docs, input_dir):
     regional, ip2p (``tiny_ip2p`` by the names) and unclip
     (``tiny_unclip``, the CPU's image embedding handed to the card:
     :func:`shared_embedding`) graphs, and the two compositing graphs
-    (:func:`tiny_composite_docs`), on the card against the CPU runs of
-    the same graphs (kernels' plain versions).  The tiny RRDB runs in fp32
+    (:func:`tiny_composite_docs`), a merge graph
+    (:func:`tiny_merge_doc`) and the tiny txt2img as a UI document with a
+    bypassed node (:func:`ui_doc`; its card image also equal to the API
+    document's to the bit), on the card against the CPU runs of the same
+    graphs (kernels' plain versions).  The tiny RRDB runs in fp32
     here: its bf16 convolutions round differently in cuDNN and on the
     CPU, which the refine then amplifies past 1e-3."""
     import dataclasses
@@ -1384,6 +1472,10 @@ def tiny_against_cpu(docs, input_dir):
         write_phase13_inputs(phase13_dir, 32)
         tiny_docs = small_docs(docs)
         tiny_docs.update(tiny_composite_docs(composite_dir))
+        tiny_docs["merge"] = tiny_merge_doc(tiny_docs["txt2img"])
+        tiny_docs["txt2img_ui"] = ui_doc(tiny_docs["txt2img"],
+                                         ("14", "images"))
+        card_images = {}
         for name, doc in tiny_docs.items():
             staged = name in ("refiner", "hires_fix")
             registry.detect_family = staged_family if staged \
@@ -1423,6 +1515,14 @@ def tiny_against_cpu(docs, input_dir):
                      f"shapes {card.shape} {host.shape}, max err {err}")
             out[name] = {"shape": list(card.shape), "max_abs_err": err,
                          "atol": 1e-3}
+            card_images[name] = card
+            if name == "txt2img_ui":
+                # the UI document's graph is the API document's
+                same = bool(np.array_equal(card, card_images["txt2img"]))
+                out[name]["equals_api_image"] = same
+                if not same:
+                    fail("tiny txt2img as a UI document: its image on the "
+                         "card differs from the API document's")
             if name == "unclip":
                 if not vision["max_abs_err"] < 1e-3:
                     fail(f"tiny unclip: the card's CLIP-vision embedding "
@@ -6236,7 +6336,9 @@ class PhaseRequests:
         t0 = time.perf_counter()
         res = WorkflowExecutor(OpContext(
             device=DEVICE, input_dir=self.dirs["input_dir"],
-            models_dir=self.dirs["models_dir"])).execute(copy.deepcopy(doc))
+            models_dir=self.dirs["models_dir"],
+            output_dir=self.dirs.get("output_dir"))).execute(
+                copy.deepcopy(doc))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         shapes = dict(fa.flash_attention.shapes)
@@ -6743,6 +6845,16 @@ PHASE25_REQUESTS = {"sdxl": (PHASE25_SDXL, 1024, 2800, True),
 PHASE25_DECODE_LIMITS = (1.0, 0.2)
 PHASE25_ENCODE_LIMITS = (1.0, 0.1)
 PHASE25_BUDGET_S = 45.0
+# phase 26: the second SD1.5 name (no file: a virtual fill), the files
+# the 0.5 merge is saved to (in phase 22's models directory) and the
+# animations' frame rate
+PHASE26_B = "phase26_sd15_b.safetensors"
+PHASE26_UNET = "phase26_unet"
+PHASE26_CLIP = "phase26_clip"
+PHASE26_VAE = "phase26_vae"
+PHASE26_NATIVE = "phase26_native"
+PHASE26_FPS = 6.0
+PHASE26_BUDGET_S = 30.0
 
 
 def phase25_anchoring(res):
@@ -6888,6 +7000,268 @@ def inpaint_composites(shape_counts, rows):
         release()
         shutil.rmtree(input_dir, ignore_errors=True)
     return runs.report(t_phase, PHASE25_BUDGET_S, report), runs.requests
+
+
+def phase26_doc(base, variant):
+    """Phase 22's plain graph (``base``: A at node 4) with B at node 20
+    and ``variant``'s merge, files or loaders; (doc, sm90 launches)."""
+    doc = copy.deepcopy(base)
+    doc["20"] = _node("CheckpointLoaderSimple", ckpt_name=PHASE26_B)
+    model = {"B plain": ["20", 0]}
+    if variant.startswith("merge "):
+        doc["21"] = _node("ModelMergeSimple", model1=["4", 0],
+                          model2=["20", 0], ratio=float(variant[6:]))
+        model[variant] = ["21", 0]
+    if variant == "merge 0.5":
+        doc["22"] = _node("SaveLatent", samples=["3", 0],
+                          filename_prefix="phase26/latent")
+        doc["23"] = _node("ModelSave", model=["21", 0],
+                          filename_prefix=f"diffusion_models/{PHASE26_UNET}")
+        doc["24"] = _node("CLIPSave", clip=["4", 1],
+                          filename_prefix=f"clip/{PHASE26_CLIP}")
+        doc["25"] = _node("VAESave", vae=["4", 2],
+                          filename_prefix=f"vae/{PHASE26_VAE}")
+    elif variant == "subtract add":
+        doc["21"] = _node("ModelMergeSubtract", model1=["4", 0],
+                          model2=["20", 0], multiplier=1.0)
+        doc["22"] = _node("ModelMergeAdd", model1=["21", 0],
+                          model2=["20", 0])
+        model[variant] = ["22", 0]
+    elif variant == "blocks 1 0 1":
+        doc["21"] = _node("ModelMergeBlocks", model1=["4", 0],
+                          model2=["20", 0], input=1.0, middle=0.0, out=1.0)
+        model[variant] = ["21", 0]
+    elif variant == "clip 0.5":
+        doc["21"] = _node("CLIPMergeSimple", clip1=["4", 1],
+                          clip2=["20", 1], ratio=0.5)
+        doc["6"]["inputs"]["clip"] = doc["7"]["inputs"]["clip"] = ["21", 0]
+    elif variant == "files":
+        del doc["4"], doc["20"]
+        doc["30"] = _node("UNETLoader",
+                          unet_name=f"{PHASE26_UNET}.safetensors")
+        doc["31"] = _node("CLIPLoader",
+                          clip_name=f"{PHASE26_CLIP}.safetensors",
+                          type="stable_diffusion")
+        doc["32"] = _node("VAELoader",
+                          vae_name=f"vae/{PHASE26_VAE}.safetensors")
+        model[variant] = ["30", 0]
+        doc["6"]["inputs"]["clip"] = doc["7"]["inputs"]["clip"] = ["31", 0]
+        doc["8"]["inputs"]["vae"] = ["32", 0]
+    elif variant == "native":
+        del doc["20"]
+        doc["4"]["inputs"]["ckpt_name"] = PHASE26_NATIVE
+    if variant in model:
+        doc["3"]["inputs"]["model"] = model[variant]
+    return doc, PHASE22_UNET_LAUNCHES
+
+
+def phase26_frames_expected(frames):
+    """The frame count and durations a WEBP or APNG of ``frames`` holds:
+    a frame equal to the one before adds its duration to it."""
+    import numpy as np
+    ms = int(1000.0 / PHASE26_FPS)
+    durations = []
+    for i, f in enumerate(frames):
+        if i and np.array_equal(f, frames[i - 1]):
+            durations[-1] += ms
+        else:
+            durations.append(ms)
+    return len(durations), durations
+
+
+PHASE26_ANIMATIONS = (("apng", "SaveAnimatedPNG", {}, "png"),
+                      ("webp lossless", "SaveAnimatedWEBP", {}, "webp"),
+                      ("webp lossy", "SaveAnimatedWEBP",
+                       {"lossless": False, "quality": 80}, "webp"))
+
+
+def merges_and_files(dirs, plain, shape_counts, rows):
+    """Phase 26 (module docstring) in phase 22's process, on its SD1.5
+    file, seed and graph, with the reuse plane off; ``plain`` is phase
+    22's plain image: (report, requests)."""
+    import numpy as np
+    import torch
+
+    from comfyui_distributed_tpu_torch.models import registry
+    from comfyui_distributed_tpu_torch.ops.base import (DeviceImage,
+                                                        OpContext, get_op)
+    from comfyui_distributed_tpu_torch.ops.basic import merge_block_section
+    from comfyui_distributed_tpu_torch.runtime import checkpointing
+    from comfyui_distributed_tpu_torch.utils.image import read_png, to_uint8
+    from comfyui_distributed_tpu_torch.utils.webp import webp_frames
+    from comfyui_distributed_tpu_torch.workflow import WorkflowExecutor
+
+    t_phase = time.perf_counter()
+    models_dir = dirs["models_dir"]
+    # the savers write where the loaders read
+    dirs = dict(dirs, output_dir=models_dir)
+    runs = PhaseRequests(26, dirs, shape_counts, rows)
+    runs.images["A plain"] = plain
+    base = phase22_doc(dirs["ckpt"])
+    report = {"files": {}}
+    results = {}
+    prev = os.environ.get("DTPU_CACHE")
+    os.environ["DTPU_CACHE"] = "0"
+    anim_dir = tempfile.mkdtemp(prefix="chip_smoke_phase26_anim_")
+    try:
+        for variant in ("B plain", "merge 1.0", "merge 0.0", "merge 0.5",
+                        "subtract add", "blocks 1 0 1", "clip 0.5"):
+            doc, want = phase26_doc(base, variant)
+            runs.run(variant, doc, want, results=results)
+        a = registry.load_pipeline(dirs["ckpt"], models_dir=models_dir,
+                                   device=DEVICE)
+        b = registry.load_pipeline(PHASE26_B, models_dir=models_dir,
+                                   device=DEVICE)
+        # ModelMergeBlocks(1, 0, 1): every middle-block weight is B's and
+        # every other A's, to the bit
+        (blocks,) = get_op("ModelMergeBlocks").execute(
+            OpContext(device=DEVICE), a, b, input=1.0, middle=0.0, out=1.0)
+        pa, pb = dict(a.unet.named_parameters()), \
+            dict(b.unet.named_parameters())
+        wrong = [n for n, w in blocks.unet.named_parameters()
+                 if not torch.equal(w, (pb if merge_block_section(n)
+                                        == "middle" else pa)[n])]
+        report["blocks_weights"] = {
+            "middle": sum(merge_block_section(n) == "middle" for n in pa),
+            "all": len(pa), "wrong": wrong[:5]}
+        if wrong:
+            runs.problems.append(f"ModelMergeBlocks(1, 0, 1): {len(wrong)} "
+                                 f"weights not from their section's model")
+        del blocks, pa, pb
+        # the bytes a merge adds at its peak, a fresh ratio
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        get_op("ModelMergeSimple").execute(OpContext(device=DEVICE), a, b,
+                                           ratio=0.25)
+        torch.cuda.synchronize()
+        report["merge_alone"] = {
+            "seconds": time.perf_counter() - t0,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - before,
+            "kept_bytes": torch.cuda.memory_allocated() - before}
+        # the 0.5 merge natively, then read back by its name
+        (merged,) = get_op("ModelMergeSimple").execute(
+            OpContext(device=DEVICE), a, b, ratio=0.5)
+        native = os.path.join(models_dir, PHASE26_NATIVE)
+        t0 = time.perf_counter()
+        checkpointing.save_pipeline_checkpoint(
+            native, merged.family.name, merged.unet, merged.clip_models,
+            merged.vae)
+        native_write_s = time.perf_counter() - t0
+        del a, b, merged
+        for variant in ("files", "native"):
+            doc, want = phase26_doc(base, variant)
+            runs.run(variant, doc, want, results=results)
+        # the 0.5 merge's latent through LoadLatent and VAEDecode
+        latent = os.path.join(models_dir, "phase26", "latent_00000.latent")
+        t0 = time.perf_counter()
+        res = WorkflowExecutor(OpContext(
+            device=DEVICE, models_dir=models_dir)).execute({
+                "4": _node("CheckpointLoaderSimple", ckpt_name=dirs["ckpt"]),
+                "1": _node("LoadLatent", latent=latent),
+                "2": _node("VAEDecode", samples=["1", 0], vae=["4", 2]),
+                "3": _node("PreviewImage", images=["2", 0])})
+        torch.cuda.synchronize()
+        runs.images["latent"] = res.image_batch[0]
+        report["files"]["latent"] = {
+            "write_s": results["merge 0.5"].timings["22"],
+            "load_s": res.timings["1"], "decode_s": res.timings["2"],
+            "seconds": time.perf_counter() - t0,
+            "bytes": os.path.getsize(latent)}
+        frames = np.stack([runs.images[t] for t in (
+            "merge 1.0", "merge 0.0", "merge 0.5", "subtract add")])
+        quant = {"side": int(frames.shape[1])}
+        for dither in ("none", "floyd-steinberg"):
+            src = frames[2:3]
+            outs = {}
+            for dev in (DEVICE, "cpu"):
+                t0 = time.perf_counter()
+                (q,) = get_op("ImageQuantize").execute(
+                    OpContext(device=dev),
+                    DeviceImage(torch.from_numpy(src).to(dev)), colors=256,
+                    dither=dither)
+                outs[dev] = q.to_host()
+                quant[f"{dither} {dev} s"] = time.perf_counter() - t0
+            equal = np.array_equal(outs[DEVICE], outs["cpu"])
+            quant[f"{dither} equal"] = equal
+            quant[f"{dither} colours"] = int(len(np.unique(
+                outs[DEVICE].reshape(-1, 3), axis=0)))
+            if not equal:
+                runs.problems.append(f"ImageQuantize ({dither}): the card's "
+                                     "output differs from the CPU's")
+        report["quantize"] = quant
+        # the four images from the card, each animation written whole
+        anims = {}
+        card_frames = DeviceImage(torch.from_numpy(frames).to(DEVICE))
+        want_n, want_ms = phase26_frames_expected(to_uint8(frames))
+        for tag, op, widgets, ext in PHASE26_ANIMATIONS:
+            t0 = time.perf_counter()
+            get_op(op).execute(
+                OpContext(device=DEVICE, output_dir=anim_dir), card_frames,
+                filename_prefix=tag.replace(" ", "_"), fps=PHASE26_FPS,
+                **widgets)
+            anims[tag] = {"seconds": time.perf_counter() - t0}
+            name = f"{tag.replace(' ', '_')}_00000.{ext}"
+            with open(os.path.join(anim_dir, name), "rb") as f:
+                data = f.read()
+            anims[tag]["bytes"] = len(data)
+            if ext == "png":
+                ok = np.array_equal(read_png(data).pixels,
+                                    to_uint8(frames[0]))
+                anims[tag]["first_frame_equal"] = ok
+                if not ok:
+                    runs.problems.append("the APNG's default image is not "
+                                         "the first frame")
+            else:
+                n, durations, loop = webp_frames(data)
+                anims[tag].update(frames=n, durations=durations, loop=loop)
+                if (n, durations, loop) != (want_n, want_ms, 0):
+                    runs.problems.append(
+                        f"{tag}: {n} frames of {durations} ms, loop "
+                        f"{loop}; expected {want_n} of {want_ms}, loop 0")
+        report["animations"] = anims
+    finally:
+        shutil.rmtree(anim_dir, ignore_errors=True)
+        if prev is None:
+            os.environ.pop("DTPU_CACHE", None)
+        else:
+            os.environ["DTPU_CACHE"] = prev
+    runs.same("merge 1.0", "A plain")
+    runs.same("merge 0.0", "B plain")
+    runs.apart("merge 0.5", "A plain")
+    runs.apart("merge 0.5", "B plain")
+    runs.within("subtract add", "A plain")
+    # swapping the middle block alone moves the virtual-weight image less
+    # than the one-batch limits (max 0.060, mean 0.0070 on an NVIDIA H100
+    # 80GB HBM3 at 700.00 W): it samples at plain's batch, and is held
+    # beyond the same-batch limits, its weights to the bit above
+    runs.apart("blocks 1 0 1", "A plain", FANOUT_ATOL["same"])
+    runs.apart("clip 0.5", "A plain")
+    for tag in ("files", "native", "latent"):
+        runs.same(tag, "merge 0.5")
+    t05, tf = results["merge 0.5"].timings, results["files"].timings
+    for kind, (saver, loader, name) in {
+            "unet": ("23", "30", f"diffusion_models/{PHASE26_UNET}"),
+            "clip": ("24", "31", f"clip/{PHASE26_CLIP}"),
+            "vae": ("25", "32", f"vae/{PHASE26_VAE}")}.items():
+        report["files"][kind] = {
+            "write_s": t05[saver], "load_s": tf[loader],
+            "bytes": os.path.getsize(os.path.join(
+                models_dir, f"{name}.safetensors"))}
+    report["files"]["native"] = {
+        "write_s": native_write_s,
+        "load_s": results["native"].timings["4"],
+        "bytes": sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(native) for f in fs),
+        "lone_files_load_s": sum(tf[k] for k in ("30", "31", "32"))}
+    # each merge node's own seconds (subtract add: both of its merges)
+    report["merge_seconds"] = {
+        tag: round(sum(results[tag].timings[k] for k in (
+            ("21", "22") if tag == "subtract add" else ("21",))), 4)
+        for tag in ("merge 1.0", "merge 0.0", "merge 0.5", "subtract add",
+                    "blocks 1 0 1", "clip 0.5")}
+    return runs.report(t_phase, PHASE26_BUDGET_S, report), runs.requests
 
 
 def urllib_text(url):
@@ -7223,6 +7597,10 @@ def main() -> int:
         report24, reqs24 = unet_addons(dirs22, plain22, shape_counts, rows)
         requests += reqs24
         emit("phase24", report24)
+        report26, reqs26 = merges_and_files(dirs22, plain22, shape_counts,
+                                            rows)
+        requests += reqs26
+        emit("phase26", report26)
     finally:
         release_phase_dirs(dirs22)
     report25, reqs25 = inpaint_composites(shape_counts, rows)

@@ -29,7 +29,6 @@ and the VAE, with its base by reference; the base stays untouched.
 from __future__ import annotations
 
 import collections
-import copy
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -39,6 +38,7 @@ from torch import nn
 
 from comfyui_distributed_tpu_torch.models import checkpoints as ckpt
 from comfyui_distributed_tpu_torch.models import registry
+from comfyui_distributed_tpu_torch.models.weights import with_params
 
 UNET_LORA_PREFIX = "lora_unet_"
 
@@ -214,33 +214,6 @@ class _PatchMapper(ckpt._LoadMapper):
         return self.out
 
 
-def _with_params(module: nn.Module, new: Dict[str, torch.Tensor]
-                 ) -> nn.Module:
-    """A copy of ``module`` whose parameters named in ``new`` are the
-    given tensors; every other parameter, and each submodule no name
-    reaches, is ``module``'s own (shared, not copied)."""
-    if not new:
-        return module
-    out = copy.copy(module)
-    out._parameters = dict(module._parameters)
-    out._modules = dict(module._modules)
-    children: Dict[str, Dict[str, torch.Tensor]] = {}
-    for name, t in new.items():
-        head, _, rest = name.partition(".")
-        if rest:
-            children.setdefault(head, {})[rest] = t
-        else:
-            old = module._parameters[head]
-            if tuple(t.shape) != tuple(old.shape):
-                raise ValueError(f"{head}: merged shape {tuple(t.shape)}, "
-                                 f"parameter {tuple(old.shape)}")
-            out._parameters[head] = nn.Parameter(
-                t.to(old.dtype).contiguous(), requires_grad=False)
-    for head, sub in children.items():
-        out._modules[head] = _with_params(module._modules[head], sub)
-    return out
-
-
 def _patch_module(module: nn.Module, merged: Dict[str, torch.Tensor],
                   prefix: str, walk, cfg) -> nn.Module:
     """``module`` with the merged torch-layout tensors under ``prefix``
@@ -249,7 +222,7 @@ def _patch_module(module: nn.Module, merged: Dict[str, torch.Tensor],
     if not mine:
         return module
     mapper = _PatchMapper(mine, prefix, ckpt._by_path(module))
-    return _with_params(module, walk(mapper, cfg))
+    return with_params(module, walk(mapper, cfg))
 
 
 # Patched pipelines, cached per (base, LoRA, strengths, models dir): a

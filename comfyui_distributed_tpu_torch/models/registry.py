@@ -59,7 +59,8 @@ from comfyui_distributed_tpu_torch.models.tokenizer import (
     has_embedding_refs,
     make_tokenizer,
 )
-from comfyui_distributed_tpu_torch.models.weights import fill_virtual
+from comfyui_distributed_tpu_torch.models.weights import (fill_virtual,
+                                                          with_params)
 from comfyui_distributed_tpu_torch.ops.tiling import (
     tiled_apply,
     tiled_apply_down,
@@ -813,13 +814,21 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
                   family_name: Optional[str] = None,
                   device="cuda") -> DiffusionPipeline:
     """The named checkpoint on ``device``: loaded from ``models_dir``
-    when the file is there, else virtually initialized (cached per name,
-    resolved family, models dir and device).  UNet and CLIP weights are
-    stored in the family's compute dtype (bf16 on the real families,
+    when the file is there (a single-file checkpoint, or a native
+    checkpoint directory whose manifest names the family:
+    ``runtime/checkpointing.py``), else virtually initialized (cached
+    per name, resolved family, models dir and device).  UNet and CLIP
+    weights are stored in the family's compute dtype (bf16 on the real families,
     fp32 on the tiny ones), the VAE's in fp32 (its decode is where bf16
     weights visibly cost quality), whatever the file holds."""
+    from comfyui_distributed_tpu_torch.runtime import checkpointing
     device = torch.device(device)
-    fam = get_family(family_name or detect_family(ckpt_name))
+    path = _model_file(models_dir, ckpt_name)
+    # a native checkpoint's manifest names its family, over the name's
+    meta = checkpointing.read_manifest(path) if path is not None \
+        and checkpointing.is_native_checkpoint(path) else None
+    fam = get_family(family_name or (
+        meta["family"] if meta is not None else detect_family(ckpt_name)))
     key = (ckpt_name, fam.name, models_dir or "", str(device))
     with _pipeline_lock:
         pipe = _pipeline_cache.get(key)
@@ -831,9 +840,12 @@ def load_pipeline(ckpt_name: str, models_dir: Optional[str] = None,
                  + [(lambda c=c: clip_mod.CLIPTextModel(c), tower_dt)
                     for c in fam.clips]
                  + [(lambda: vae_mod.VAE(fam.vae), torch.float32)])
-        path = _model_file(models_dir, ckpt_name)
         if path is not None:
-            unet_sd, clip_sds, vae_sd = ckpt.load_checkpoint(path, fam)
+            if meta is not None:
+                _, unet_sd, clip_sds, vae_sd = \
+                    checkpointing.load_pipeline_checkpoint(path, meta)
+            else:
+                unet_sd, clip_sds, vae_sd = ckpt.load_checkpoint(path, fam)
             states = [unet_sd] + clip_sds + [vae_sd]
 
             def fill(i: int, m: nn.Module) -> None:
@@ -1199,6 +1211,15 @@ _derived_cache: "collections.OrderedDict[Tuple, DiffusionPipeline]" = \
 _DERIVED_CACHE_CAP = 8
 
 
+def derived_cached(base: DiffusionPipeline,
+                   tag: str) -> Optional[DiffusionPipeline]:
+    """The clone :func:`derive_pipeline` holds for ``(base, tag)``, or
+    None; builds nothing.  An op whose derivation inputs cost real work
+    (a weight-space merge) asks first."""
+    with _pipeline_lock:
+        return _derived_cache.get((base.cache_token, tag))
+
+
 def copy_sampler_patches(src: DiffusionPipeline,
                          dst: DiffusionPipeline) -> None:
     """What a derived or LoRA-patched pipeline keeps of its base's
@@ -1223,8 +1244,10 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
                     prediction_type: Optional[str] = None,
                     schedule: Optional[sch.DiscreteSchedule] = None,
                     extra_attrs: Optional[Dict[str, object]] = None,
-                    unet: Optional[Callable[[], nn.Module]] = None
-                    ) -> DiffusionPipeline:
+                    unet: Optional[Callable[[], nn.Module]] = None,
+                    unet_params: Optional[Dict[str, torch.Tensor]] = None,
+                    clip_params: Optional[List[Dict[str, torch.Tensor]]]
+                    = None) -> DiffusionPipeline:
     """Cached clone of ``base`` with a replacement family and sampling
     patches, everything else shared by reference: the UNet's weights
     under the new family's UNet config (:func:`unet_mod.with_config`:
@@ -1235,20 +1258,28 @@ def derive_pipeline(base: DiffusionPipeline, tag: str,
     (ModelSamplingDiscrete) replace the base's; they and ``extra_attrs``
     ride every further derivation (:func:`copy_sampler_patches`).
     ``unet``: makes the clone's UNet when its weights are not all the
-    base's (GLIGEN's fusers), called only on a cache miss."""
+    base's (GLIGEN's fusers), called only on a cache miss.
+    ``unet_params`` and ``clip_params`` (one dict a tower): replacement
+    tensors by parameter name (the weight-space merges), every other
+    parameter shared with the base."""
     key = (base.cache_token, tag)
     with _pipeline_lock:
         if key in _derived_cache:
             _derived_cache.move_to_end(key)
             return _derived_cache[key]
     family = family or base.family
-    clone = DiffusionPipeline(
-        f"{base.name}|{tag}", family,
-        unet() if unet is not None else None if base.unet is None
-        else unet_mod.with_config(base.unet, family.unet),
-        [clip_mod.with_config(m, c)
-         for m, c in zip(base.clip_models, family.clips, strict=True)],
-        base.vae, base.device, assets_dir=base.assets_dir)
+    unet_m = unet() if unet is not None else None if base.unet is None \
+        else unet_mod.with_config(base.unet, family.unet)
+    if unet_params is not None:
+        unet_m = with_params(unet_m, unet_params)
+    clips = [clip_mod.with_config(m, c)
+             for m, c in zip(base.clip_models, family.clips, strict=True)]
+    if clip_params is not None:
+        clips = [with_params(m, p)
+                 for m, p in zip(clips, clip_params, strict=True)]
+    clone = DiffusionPipeline(f"{base.name}|{tag}", family, unet_m, clips,
+                              base.vae, base.device,
+                              assets_dir=base.assets_dir)
     copy_sampler_patches(base, clone)
     if cfg_rescale is not None:
         clone.cfg_rescale = cfg_rescale

@@ -25,6 +25,7 @@ trees.
 
 from __future__ import annotations
 
+import copy
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Mapping, NamedTuple, Tuple
@@ -219,3 +220,32 @@ def style_adapter_from_flax(cfg, params):
     with torch.device("meta"):
         net = StyleAdapter(cfg)
     return state_dict_from_flax(net, params)
+
+
+def with_params(module: nn.Module, new: Dict[str, torch.Tensor]
+                ) -> nn.Module:
+    """A copy of ``module`` whose parameters named in ``new`` are the
+    given tensors (cast to each parameter's dtype); every other
+    parameter, and each submodule no name reaches, is ``module``'s own
+    (shared, not copied).  A LoRA merge and a weight-space model merge
+    both build their modules so."""
+    if not new:
+        return module
+    out = copy.copy(module)
+    out._parameters = dict(module._parameters)
+    out._modules = dict(module._modules)
+    children: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, t in new.items():
+        head, _, rest = name.partition(".")
+        if rest:
+            children.setdefault(head, {})[rest] = t
+        else:
+            old = module._parameters[head]
+            if tuple(t.shape) != tuple(old.shape):
+                raise ValueError(f"{head}: merged shape {tuple(t.shape)}, "
+                                 f"parameter {tuple(old.shape)}")
+            out._parameters[head] = nn.Parameter(
+                t.to(old.dtype).contiguous(), requires_grad=False)
+    for head, sub in children.items():
+        out._modules[head] = with_params(module._modules[head], sub)
+    return out

@@ -44,10 +44,22 @@
 ``ImageInvert``, ``ImageBlend``, ``ImageBlur``, ``ImageSharpen``,
 ``ImageCompositeMasked``, ``PorterDuffImageComposite``,
 ``SplitImageWithAlpha``, ``JoinImageWithAlpha``, ``ImageScaleBy``,
-``ImageScaleToTotalPixels``) in ``comfyui_distributed_tpu/ops/basic.py``
-(at fanout 1: VAEEncode does not expand the batch).  SIGMAS travel as
-host float32 arrays; the latent, image and mask ops compute on the
-run's device, Morphology as torch min and max windows on scipy's
+``ImageScaleToTotalPixels``, ``ImageQuantize``), the weight-space merges
+(``ModelMergeSimple``, ``ModelMergeAdd``, ``ModelMergeSubtract``,
+``ModelMergeBlocks``, ``CLIPMergeSimple``, ``CLIPMergeAdd``,
+``CLIPMergeSubtract``), the savers (``ModelSave``, ``CLIPSave``,
+``VAESave``, ``SaveLatent``, ``SaveAnimatedPNG``, ``SaveAnimatedWEBP``)
+and ``LoadLatent`` in ``comfyui_distributed_tpu/ops/basic.py`` (at
+fanout 1: VAEEncode does not expand the batch).  A merge computes each
+weight in fp32 in the JAX package's order of operations, one tensor at
+a time on the pipelines' device, and casts it back to the first model's
+dtype; the merged pipeline is a cached derivation
+(``registry.derive_pipeline``), so a second merge of the same pair
+computes nothing.  The animations and the quantizer have the port's own
+encoders (``utils/image.py:encode_apng``, ``utils/webp.py``,
+``utils/quantize.py``), as the card's machine has no Pillow.  SIGMAS
+travel as host float32 arrays; the latent, image and mask ops compute
+on the run's device, Morphology as torch min and max windows on scipy's
 border, blur and sharpen on numpy's.
 
 The reuse plane's encode memo (``runtime/reuse.py``): CLIPTextEncode,
@@ -90,6 +102,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from comfyui_distributed_tpu_torch.models import checkpoints as ckpt_mod
 from comfyui_distributed_tpu_torch.models import registry
 from comfyui_distributed_tpu_torch.models import schedules as sch
 from comfyui_distributed_tpu_torch.models.checkpoints import save_checkpoint
@@ -115,10 +128,14 @@ from comfyui_distributed_tpu_torch.ops.tiling import tiled_apply
 from comfyui_distributed_tpu_torch.utils.image import (
     decode_png,
     decode_png_rgba,
+    encode_apng,
     resize_image,
     save_png,
+    to_uint8,
 )
+from comfyui_distributed_tpu_torch.utils import quantize as quantize_mod
 from comfyui_distributed_tpu_torch.utils import trace as trace_mod
+from comfyui_distributed_tpu_torch.utils import webp as webp_mod
 from comfyui_distributed_tpu_torch.utils.log import Timer, debug_log, log
 
 
@@ -230,6 +247,74 @@ class CheckpointSave(Op):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         save_checkpoint(path, model.unet, clip.clip_models, vae.vae,
                         model.family)
+        return ()
+
+
+@register_op
+class ModelSave(Op):
+    """Writes the diffusion model alone as ``{prefix}.safetensors`` with
+    ``model.diffusion_model.`` keys, in its storage dtype (UNETLoader
+    reads it back)."""
+    TYPE = "ModelSave"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "diffusion_models/save"}
+
+    def execute(self, ctx: OpContext, model,
+                filename_prefix: str = "diffusion_models/save"):
+        unet = model._require(model.unet, "UNet")
+        if any(p.dtype == torch.bfloat16 for p in unet.parameters()):
+            log("ModelSave: weights are stored bf16 (the family's compute "
+                "dtype); the exported file will be bf16")
+        path = _safe_output_path(ctx.output_dir or os.getcwd(),
+                                 f"{filename_prefix}.safetensors")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        ckpt_mod.save_part(path, unet, "unet", model.family.unet,
+                           ckpt_mod.UNET_PREFIX)
+        debug_log(f"ModelSave: wrote {path}")
+        return ()
+
+
+@register_op
+class CLIPSave(Op):
+    """Writes the text towers as ``{prefix}.safetensors``, each under
+    its in-checkpoint prefix (CLIPLoader and DualCLIPLoader read it
+    back, one name a tower)."""
+    TYPE = "CLIPSave"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "clip/save"}
+
+    def execute(self, ctx: OpContext, clip,
+                filename_prefix: str = "clip/save"):
+        fam = clip.family
+        path = _safe_output_path(ctx.output_dir or os.getcwd(),
+                                 f"{filename_prefix}.safetensors")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        sd = {}
+        for ccfg, m, prefix in zip(
+                fam.clips, clip._require(clip.clip_models, "text encoder"),
+                ckpt_mod._clip_prefixes(fam)):
+            sd.update(ckpt_mod._clip_runner(ccfg)(ckpt_mod._ExportMapper(
+                ckpt_mod._by_path(m), prefix), ccfg))
+        ckpt_mod.write_safetensors(sd, path)
+        debug_log(f"CLIPSave: wrote {path}")
+        return ()
+
+
+@register_op
+class VAESave(Op):
+    """Writes the VAE as ``{prefix}.safetensors`` with bare keys
+    (VAELoader reads it back)."""
+    TYPE = "VAESave"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "vae/save"}
+
+    def execute(self, ctx: OpContext, vae, filename_prefix: str = "vae/save"):
+        path = _safe_output_path(ctx.output_dir or os.getcwd(),
+                                 f"{filename_prefix}.safetensors")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        ckpt_mod.save_part(path, vae._require(vae.vae, "VAE"), "vae",
+                           vae.family.vae)
+        debug_log(f"VAESave: wrote {path}")
         return ()
 
 
@@ -2104,6 +2189,177 @@ class RescaleCFG(Op):
                                          cfg_rescale=m),)
 
 
+# --- weight-space merges -----------------------------------------------------
+
+@torch.no_grad()
+def _merge_modules(m1, m2, fn) -> dict:
+    """``fn(name, a, b)`` over the same-named parameters of two modules
+    of one structure, in fp32 and cast back to ``m1``'s dtype, one tensor
+    at a time on ``m1``'s device: the merge holds one model's new
+    weights, never fp32 copies of whole models."""
+    p1, p2 = dict(m1.named_parameters()), dict(m2.named_parameters())
+    if set(p1) != set(p2):
+        raise ValueError(f"merge: parameter names differ (e.g. "
+                         f"{sorted(set(p1) ^ set(p2))[:3]})")
+    return {name: fn(name, a.float(), p2[name].to(a.device).float())
+            .to(a.dtype) for name, a in p1.items()}
+
+
+def _merge_lerp(ratio_of):
+    """``a * r + b * (1 - r)``, r from the parameter's name: the JAX
+    package's ``_merge_trees`` in its order of operations."""
+    def fn(name, a, b):
+        r = float(ratio_of(name))
+        return a * r + b * (1.0 - r)
+    return fn
+
+
+def _same_unet(op: str, model1, model2, families: bool = True) -> None:
+    if model1.family.unet != model2.family.unet:
+        raise ValueError(f"{op}: UNet configs differ"
+                         + (f" ({model1.family.name} vs "
+                            f"{model2.family.name})" if families else ""))
+
+
+def _merged_model(model1, model2, tag: str, fn):
+    """The cached clone of ``model1`` under ``tag``, its UNet ``fn`` of
+    the two (a second merge of the same pair computes nothing)."""
+    cached = registry.derived_cached(model1, tag)
+    if cached is not None:
+        return (cached,)
+    merged = _merge_modules(model1.unet, model2.unet, fn)
+    return (registry.derive_pipeline(model1, tag, unet_params=merged),)
+
+
+def _merged_clip(op: str, clip1, clip2, tag: str, fn):
+    if len(clip1.clip_models) != len(clip2.clip_models):
+        raise ValueError(f"{op}: tower counts differ")
+    cached = registry.derived_cached(clip1, tag)
+    if cached is not None:
+        return (cached,)
+    merged = [_merge_modules(a, b, fn)
+              for a, b in zip(clip1.clip_models, clip2.clip_models)]
+    return (registry.derive_pipeline(clip1, tag, clip_params=merged),)
+
+
+@register_op
+class ModelMergeSimple(Op):
+    """Weight-space lerp of two same-family UNets: ``model1 * ratio +
+    model2 * (1 - ratio)``."""
+    TYPE = "ModelMergeSimple"
+    WIDGETS = ["ratio"]
+    DEFAULTS = {"ratio": 1.0}
+
+    def execute(self, ctx: OpContext, model1, model2, ratio: float = 1.0):
+        _same_unet(self.TYPE, model1, model2)
+        r = float(ratio)
+        return _merged_model(model1, model2,
+                             f"merge:{model2.cache_token}:{r}",
+                             _merge_lerp(lambda _k: r))
+
+
+@register_op
+class ModelMergeAdd(Op):
+    """Weight-space sum ``model1 + model2`` (the add-difference
+    workflow's second half)."""
+    TYPE = "ModelMergeAdd"
+
+    def execute(self, ctx: OpContext, model1, model2):
+        _same_unet(self.TYPE, model1, model2)
+        return _merged_model(model1, model2,
+                             f"merge_add:{model2.cache_token}",
+                             lambda _k, a, b: a + b)
+
+
+@register_op
+class ModelMergeSubtract(Op):
+    """Weight-space difference ``model1 - multiplier * model2`` (the
+    add-difference workflow's delta)."""
+    TYPE = "ModelMergeSubtract"
+    WIDGETS = ["multiplier"]
+    DEFAULTS = {"multiplier": 1.0}
+
+    def execute(self, ctx: OpContext, model1, model2,
+                multiplier: float = 1.0):
+        _same_unet(self.TYPE, model1, model2)
+        m = float(multiplier)
+        return _merged_model(model1, model2,
+                             f"merge_sub:{model2.cache_token}:{m}",
+                             lambda _k, a, b: a - m * b)
+
+
+def merge_block_section(name: str) -> str:
+    """ModelMergeBlocks' section of a UNet parameter, by the first
+    component of its name (a ResBlock's inner ``out_norm`` is not the
+    head): the middle block is ``middle``; the decoder and the output
+    head are ``out``; the encoder, ``conv_in`` and the time and label
+    embeddings are ``input``."""
+    top = name.split(".", 1)[0]
+    if top.startswith("mid_"):
+        return "middle"
+    if top.startswith("up_") or top in ("out_norm", "conv_out"):
+        return "out"
+    return "input"
+
+
+@register_op
+class ModelMergeBlocks(Op):
+    """Per-section merge ratios (:func:`merge_block_section`)."""
+    TYPE = "ModelMergeBlocks"
+    WIDGETS = ["input", "middle", "out"]
+    DEFAULTS = {"input": 1.0, "middle": 1.0, "out": 1.0}
+
+    def execute(self, ctx: OpContext, model1, model2, input: float = 1.0,
+                middle: float = 1.0, out: float = 1.0):
+        _same_unet(self.TYPE, model1, model2, families=False)
+        ratios = {"input": float(input), "middle": float(middle),
+                  "out": float(out)}
+        return _merged_model(
+            model1, model2,
+            f"mergeb:{model2.cache_token}:{input}:{middle}:{out}",
+            _merge_lerp(lambda k: ratios[merge_block_section(k)]))
+
+
+@register_op
+class CLIPMergeSimple(Op):
+    """Weight-space lerp of two CLIPs' text towers, tower by tower."""
+    TYPE = "CLIPMergeSimple"
+    WIDGETS = ["ratio"]
+    DEFAULTS = {"ratio": 1.0}
+
+    def execute(self, ctx: OpContext, clip1, clip2, ratio: float = 1.0):
+        r = float(ratio)
+        return _merged_clip(self.TYPE, clip1, clip2,
+                            f"clipmerge:{clip2.cache_token}:{r}",
+                            _merge_lerp(lambda _k: r))
+
+
+@register_op
+class CLIPMergeAdd(Op):
+    """Weight-space sum of two CLIPs' text towers."""
+    TYPE = "CLIPMergeAdd"
+
+    def execute(self, ctx: OpContext, clip1, clip2):
+        return _merged_clip(self.TYPE, clip1, clip2,
+                            f"clipmerge_add:{clip2.cache_token}",
+                            lambda _k, a, b: a + b)
+
+
+@register_op
+class CLIPMergeSubtract(Op):
+    """Weight-space difference ``clip1 - multiplier * clip2``."""
+    TYPE = "CLIPMergeSubtract"
+    WIDGETS = ["multiplier"]
+    DEFAULTS = {"multiplier": 1.0}
+
+    def execute(self, ctx: OpContext, clip1, clip2,
+                multiplier: float = 1.0):
+        m = float(multiplier)
+        return _merged_clip(self.TYPE, clip1, clip2,
+                            f"clipmerge_sub:{clip2.cache_token}:{m}",
+                            lambda _k, a, b: a - m * b)
+
+
 @register_op
 class ModelSamplingDiscrete(Op):
     """ComfyUI's ModelSamplingDiscrete: how the model's output reads
@@ -3306,6 +3562,44 @@ class ImageSharpen(Op):
 
 
 @register_op
+class ImageQuantize(Op):
+    """Reduce each frame to at most ``colors`` palette entries: the
+    port's median cut on the host, then each pixel's nearest entry on
+    the run's device, or Floyd-Steinberg on the host
+    (``utils/quantize.py``).  The frame is cut to 8 bits as the JAX op
+    cuts it for Pillow (``x * 255``, truncated)."""
+    TYPE = "ImageQuantize"
+    WIDGETS = ["colors", "dither"]
+    DEFAULTS = {"colors": 256, "dither": "floyd-steinberg"}
+
+    def execute(self, ctx: OpContext, image, colors: int = 256,
+                dither: str = "floyd-steinberg"):
+        img = as_device_image(image, ctx.device)
+        if img.shape[-1] != 3:
+            raise ValueError(f"ImageQuantize takes RGB images; got "
+                             f"{img.shape[-1]} channels")
+        px = (img.clamp(0, 1) * 255).to(torch.uint8)
+        host = px.cpu().numpy()
+        out = []
+        for f, hf in zip(px, host):
+            pal = quantize_mod.median_cut(hf.reshape(-1, 3), colors)
+            if str(dither).startswith("floyd"):
+                idx = torch.from_numpy(quantize_mod.floyd_steinberg(
+                    hf, pal)).to(ctx.device)
+            else:
+                idx = quantize_mod.nearest_entries(
+                    f.reshape(-1, 3), torch.from_numpy(pal)).reshape(
+                        f.shape[:2])
+            # the entries' values divided on the host: a division by a
+            # scalar on the card multiplies by its reciprocal, which can
+            # round the last bit otherwise
+            values = torch.from_numpy(pal.astype(np.float32)
+                                      / np.float32(255.0)).to(ctx.device)
+            out.append(values[idx])
+        return (DeviceImage(torch.stack(out)),)
+
+
+@register_op
 class ImageCompositeMasked(Op):
     """``source`` pasted over ``destination`` at pixel (x, y), through
     an optional MASK; ``resize_source`` first resizes the source
@@ -3513,9 +3807,9 @@ class PreviewImage(Op):
 _save_counter_lock = threading.Lock()
 
 
-def _next_image_counter(dirpath: str, base: str) -> int:
-    """First unused counter of ``base_#####.png`` in ``dirpath``."""
-    pat = re.compile(re.escape(base) + r"_(\d+)\.png$")
+def _next_image_counter(dirpath: str, base: str, ext: str = "png") -> int:
+    """First unused counter of ``base_#####.<ext>`` in ``dirpath``."""
+    pat = re.compile(re.escape(base) + r"_(\d+)\." + re.escape(ext) + "$")
     taken = [int(m.group(1)) for f in os.listdir(dirpath)
              if (m := pat.match(f))]
     return max(taken, default=-1) + 1
@@ -3604,3 +3898,114 @@ def png_text_per_prompt(ctx: OpContext) -> list:
                     node.setdefault("inputs", {})[widget] = vals[j]
         texts.append(png_text(ctx, prompt_json=pj))
     return texts
+
+
+# --- latents and animations on disk ------------------------------------------
+
+def _counted_output_path(ctx: OpContext, filename_prefix: str,
+                         ext: str) -> str:
+    """``{prefix}_NNNNN.{ext}`` in the output directory, the counter
+    after the highest such file there (a second run never overwrites)."""
+    probe = _safe_output_path(ctx.output_dir or os.getcwd(),
+                              f"{filename_prefix}_00000.{ext}")
+    d, fname = os.path.split(probe)
+    base = fname[:-len(f"_00000.{ext}")]
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"{base}_{_next_image_counter(d, base, ext):05d}"
+                           f".{ext}")
+
+
+@register_op
+class SaveLatent(Op):
+    """Writes the latent batch as ``{prefix}_NNNNN.latent``, ComfyUI's
+    safetensors layout: ``latent_tensor`` in NCHW float32 and the
+    ``latent_format_version_0`` marker."""
+    TYPE = "SaveLatent"
+    WIDGETS = ["filename_prefix"]
+    DEFAULTS = {"filename_prefix": "latents/save"}
+
+    def execute(self, ctx: OpContext, samples,
+                filename_prefix: str = "latents/save"):
+        path = _counted_output_path(ctx, filename_prefix, "latent")
+        lat = as_device_array(samples["samples"], ctx.device)
+        ckpt_mod.write_safetensors(
+            {"latent_tensor": lat.permute(0, 3, 1, 2).contiguous(),
+             "latent_format_version_0": torch.tensor([0])}, path)
+        debug_log(f"SaveLatent: wrote {path}")
+        return ()
+
+
+@register_op
+class LoadLatent(Op):
+    """Reads a ``.latent`` file (relative to the input directory) onto
+    the run's device, NHWC; a file without the version marker holds
+    scaled latents and is divided by 0.18215, as ComfyUI reads it."""
+    TYPE = "LoadLatent"
+    WIDGETS = ["latent"]
+
+    def execute(self, ctx: OpContext, latent: str):
+        path = str(latent)
+        if ctx.input_dir and not os.path.isabs(path):
+            path = os.path.join(ctx.input_dir, path)
+        sd = ckpt_mod.read_safetensors(path)
+        lat = sd["latent_tensor"].to(torch.float32)
+        if "latent_format_version_0" not in sd:
+            lat = lat * (1.0 / 0.18215)
+        return ({"samples": DeviceLatent(
+            lat.permute(0, 2, 3, 1).contiguous().to(ctx.device))},)
+
+
+def _frame_ms(fps: float) -> int:
+    return int(1000.0 / max(float(fps), 0.01))
+
+
+@register_op
+class SaveAnimatedWEBP(Op):
+    """Writes the image batch as one animated ``{prefix}_NNNNN.webp``
+    (``utils/webp.py``): lossless VP8L by default, else VP8 at
+    ``quality``; ``method`` (default, fastest, slowest) only sets the
+    lossy encoder's effort."""
+    TYPE = "SaveAnimatedWEBP"
+    WIDGETS = ["filename_prefix", "fps", "lossless", "quality"]
+    DEFAULTS = {"filename_prefix": "anim/save", "fps": 6.0,
+                "lossless": True, "quality": 80}
+    _METHODS = {"default": 4, "fastest": 0, "slowest": 6}
+
+    def execute(self, ctx: OpContext, images,
+                filename_prefix: str = "anim/save", fps: float = 6.0,
+                lossless=True, quality: int = 80, method: str = "default"):
+        frames = to_uint8(as_image_array(images))
+        path = _counted_output_path(ctx, filename_prefix, "webp")
+        data = webp_mod.encode_animated_webp(
+            frames, _frame_ms(fps), loop=0,
+            lossless=str(lossless).lower() not in ("false", "0", ""),
+            quality=int(quality),
+            method=self._METHODS.get(str(method), 4))
+        with open(path, "wb") as f:
+            f.write(data)
+        debug_log(f"SaveAnimatedWEBP: wrote {path} ({len(frames)} frames)")
+        return ()
+
+
+@register_op
+class SaveAnimatedPNG(Op):
+    """Writes the image batch as one APNG ``{prefix}_NNNNN.png`` with the
+    run's ``prompt`` and ``extra_pnginfo`` text chunks
+    (:func:`png_text`)."""
+    TYPE = "SaveAnimatedPNG"
+    WIDGETS = ["filename_prefix", "fps", "compress_level"]
+    DEFAULTS = {"filename_prefix": "anim/save", "fps": 6.0,
+                "compress_level": 4}
+
+    def execute(self, ctx: OpContext, images,
+                filename_prefix: str = "anim/save", fps: float = 6.0,
+                compress_level: int = 4):
+        frames = as_image_array(images)
+        path = _counted_output_path(ctx, filename_prefix, "png")
+        data = encode_apng(frames, _frame_ms(fps), loop=0,
+                           text=png_text(ctx),
+                           compress_level=int(compress_level))
+        with open(path, "wb") as f:
+            f.write(data)
+        debug_log(f"SaveAnimatedPNG: wrote {path} ({len(frames)} frames)")
+        return ()

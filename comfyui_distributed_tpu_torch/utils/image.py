@@ -2,7 +2,8 @@
 counterparts of ``tensor_to_pil(...).save``, ``pil_to_tensor`` and
 ``resize_image`` in ``comfyui_distributed_tpu/utils/image.py``.
 
-- PNG: an 8-bit L/RGB/RGBA writer (with ``tEXt`` chunks) and a reader
+- PNG: an 8-bit L/RGB/RGBA writer (with ``tEXt`` chunks), its animated
+  form (APNG, :func:`encode_apng`: SaveAnimatedPNG), and a reader
   of every PNG kind (bit depths 1 to 16, grey, RGB, palette, grey-alpha
   and RGBA, tRNS, Adam7) on ``zlib``, with the two conversions the JAX
   package's loaders take through Pillow (:func:`decode_png`,
@@ -43,33 +44,95 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
                    255).astype(np.uint8)
 
 
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def _png_head(px: np.ndarray, text: Optional[Dict[str, str]]) -> bytes:
+    """Signature, IHDR of the 8-bit kind of ``px`` [H, W, C], and each
+    ``text`` item as a ``tEXt`` chunk."""
+    h, w, c = px.shape
+    header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOUR_TYPE[c], 0, 0, 0)
+    return (_PNG_MAGIC + _png_chunk(b"IHDR", header)
+            + b"".join(_png_chunk(b"tEXt", k.encode("latin-1") + b"\0"
+                                  + v.encode("latin-1"))
+                       for k, v in (text or {}).items()))
+
+
+def _png_rows(px: np.ndarray, level: int) -> bytes:
+    """``px`` [H, W, C] uint8 as zlib-compressed rows, filter 0."""
+    h, w, c = px.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           px.reshape(h, w * c)], axis=1)
+    return zlib.compress(rows.tobytes(), level)
+
+
+def _png_pixels(img: np.ndarray, what: str) -> np.ndarray:
+    px = to_uint8(img)
+    if px.ndim == 4 and px.shape[0] == 1:
+        px = px[0]
+    if px.ndim != 3 or px.shape[-1] not in _PNG_COLOUR_TYPE:
+        raise ValueError(f"{what} takes [H, W, 1, 3 or 4]; got {px.shape}")
+    return px
+
+
 def encode_png(img: np.ndarray,
                text: Optional[Dict[str, str]] = None) -> bytes:
     """[H, W, C] (or [1, H, W, C]) float image in [0, 1] -> PNG bytes
     (8-bit, no filter: L, RGB or RGBA for C = 1, 3 or 4); each ``text``
     item becomes a ``tEXt`` chunk, as ComfyUI stores the ``prompt`` of a
     saved image."""
-    px = to_uint8(img)
-    if px.ndim == 4 and px.shape[0] == 1:
-        px = px[0]
-    if px.ndim != 3 or px.shape[-1] not in _PNG_COLOUR_TYPE:
-        raise ValueError(f"encode_png takes [H, W, 1, 3 or 4]; got "
-                         f"{px.shape}")
-    h, w, c = px.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           px.reshape(h, w * c)], axis=1)
+    px = _png_pixels(img, "encode_png")
+    return (_png_head(px, text) + _png_chunk(b"IDAT", _png_rows(px, 6))
+            + _png_chunk(b"IEND", b""))
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOUR_TYPE[c], 0, 0, 0)
-    texts = b"".join(chunk(b"tEXt", k.encode("latin-1") + b"\0"
-                           + v.encode("latin-1"))
-                     for k, v in (text or {}).items())
-    return (_PNG_MAGIC + chunk(b"IHDR", header) + texts
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
+def encode_apng(frames: np.ndarray, duration_ms: int, loop: int = 0,
+                text: Optional[Dict[str, str]] = None,
+                compress_level: int = 6) -> bytes:
+    """[B, H, W, C] float frames in [0, 1] -> an animated PNG as
+    Pillow's writer lays it out for ``save_all``: the text chunks, then
+    ``acTL``, and each frame an ``fcTL`` (no disposal, source blend,
+    ``duration_ms``/1000 s) with the first frame's pixels in ``IDAT``
+    (the default image) and the others' in ``fdAT``.  A frame equal to
+    the one before adds its duration to that frame instead, as Pillow
+    merges it, and when one frame is left the file is a still PNG.
+    Every frame is whole (Pillow crops a changed frame to its bounding
+    box; the composited frames read the same)."""
+    kept: List[np.ndarray] = []
+    durations: List[int] = []
+    for f in frames:
+        px = _png_pixels(f, "encode_apng")
+        if kept and np.array_equal(px, kept[-1]):
+            durations[-1] += int(duration_ms)
+            continue
+        kept.append(px)
+        durations.append(int(duration_ms))
+    level = int(compress_level)
+    if len(kept) == 1:
+        return (_png_head(kept[0], text)
+                + _png_chunk(b"IDAT", _png_rows(kept[0], level))
+                + _png_chunk(b"IEND", b""))
+    if max(durations) > 0xFFFF:
+        raise ValueError(f"APNG frame of {max(durations)} ms: fcTL holds "
+                         "at most 65535")
+    h, w, _ = kept[0].shape
+    out = [_png_head(kept[0], text),
+           _png_chunk(b"acTL", struct.pack(">II", len(kept), int(loop)))]
+    seq = 0
+    for i, (px, dur) in enumerate(zip(kept, durations)):
+        out.append(_png_chunk(b"fcTL", struct.pack(
+            ">IIIIIHHBB", seq, w, h, 0, 0, dur, 1000, 0, 0)))
+        seq += 1
+        data = _png_rows(px, level)
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", data))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
 
 
 def save_png(path: str, img: np.ndarray,

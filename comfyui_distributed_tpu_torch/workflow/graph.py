@@ -1,21 +1,27 @@
-"""Workflow graph parsing: the API-format part of
-``comfyui_distributed_tpu/workflow/graph.py``.
+"""Workflow graph parsing: the counterpart of
+``comfyui_distributed_tpu/workflow/graph.py``, both formats.
 
 API format is ``{node_id: {class_type, inputs: {...}}}`` where a link
 input is a ``[src_id, slot]`` pair; keys without a ``class_type`` (such
-as ``__doc__``) are metadata and skipped.  The UI format waits.
+as ``__doc__``) are metadata and skipped.  UI format (what ComfyUI's
+browser saves, and what SaveImage embeds as ``extra_pnginfo.workflow``)
+is ``{nodes: [...], links: [...]}``: each node's ``widgets_values`` map
+onto its op's ``WIDGETS`` in order (``CONTROL`` slots skipped), its
+linked inputs onto ``links``; a bypassed node (mode 4) passes each input
+through to its output of the same type, and a muted node (mode 2) ends
+the link.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Set, Tuple, Union
+from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 # importing the op modules registers their ops
 from comfyui_distributed_tpu_torch.ops import (  # noqa: F401
     basic, distributed, tiled_upscale)
-from comfyui_distributed_tpu_torch.ops.base import NODE_CLASS_MAPPINGS
+from comfyui_distributed_tpu_torch.ops.base import CONTROL, NODE_CLASS_MAPPINGS
 
 Link = Tuple[str, int]  # (source node id, output slot)
 
@@ -102,6 +108,79 @@ def connected_component(graph: Graph, roots: List[str]) -> Set[str]:
     return seen
 
 
+def _widgets_to_inputs(class_type: str,
+                       widgets_values: Optional[Any]) -> Dict[str, Any]:
+    """A UI node's ``widgets_values`` as inputs: over the op's defaults,
+    in ``WIDGETS`` order without the ``CONTROL`` slots; a dict is taken
+    as it is, and an unknown class keeps them under ``__widgets__`` (the
+    executor refuses the class before any node runs)."""
+    cls = NODE_CLASS_MAPPINGS.get(class_type)
+    if cls is None:
+        return {"__widgets__": widgets_values}
+    inputs: Dict[str, Any] = dict(cls.DEFAULTS) if cls.DEFAULTS else {}
+    if not widgets_values:
+        return inputs
+    if isinstance(widgets_values, dict):
+        inputs.update(widgets_values)
+        return inputs
+    for name, value in zip(cls.WIDGETS, widgets_values):
+        if name != CONTROL:
+            inputs[name] = value
+    return inputs
+
+
+def parse_ui_format(doc: Dict[str, Any]) -> Graph:
+    # link id -> (source node, source slot, type); a link row is
+    # [link_id, src_node, src_slot, dst_node, dst_slot, type]
+    links: Dict[int, Tuple[str, int, str]] = {
+        int(ln[0]): (str(ln[1]), int(ln[2]), str(ln[5]) if len(ln) > 5
+                     else "")
+        for ln in doc.get("links", []) or []}
+    raw_nodes = {str(n["id"]): n for n in doc.get("nodes", [])}
+    bypassed = {nid for nid, n in raw_nodes.items() if n.get("mode") == 4}
+    muted = {nid for nid, n in raw_nodes.items() if n.get("mode") == 2}
+
+    def resolve(src: str, slot: int, want_type: str) -> Optional[Link]:
+        """Follow bypassed nodes to the upstream input of the type of
+        the output read; a muted node, a loop or a bypassed node with
+        no such input ends the link."""
+        seen: Set[str] = set()
+        while src in bypassed:
+            if src in seen:
+                return None
+            seen.add(src)
+            n = raw_nodes[src]
+            outs = n.get("outputs", []) or []
+            otype = (outs[slot].get("type", want_type)
+                     if slot < len(outs) else want_type)
+            nxt = next((links[int(inp["link"])]
+                        for inp in n.get("inputs", []) or []
+                        if inp.get("link") is not None
+                        and int(inp["link"]) in links
+                        and inp.get("type", "") == otype), None)
+            if nxt is None:
+                return None
+            src, slot = nxt[0], nxt[1]
+        if src in muted:
+            return None
+        return src, slot
+
+    nodes: Dict[str, Node] = {}
+    for nid, n in raw_nodes.items():
+        if nid in bypassed or nid in muted:
+            continue
+        inputs = _widgets_to_inputs(n["type"], n.get("widgets_values"))
+        for inp in n.get("inputs", []) or []:
+            link_id = inp.get("link")
+            if link_id is not None and int(link_id) in links:
+                src, slot, ltype = links[int(link_id)]
+                resolved = resolve(src, slot, inp.get("type", ltype))
+                if resolved is not None:
+                    inputs[inp["name"]] = [resolved[0], resolved[1]]
+        nodes[nid] = Node(id=nid, class_type=n["type"], inputs=inputs)
+    return Graph(nodes=nodes)
+
+
 def parse_api_format(doc: Dict[str, Any]) -> Graph:
     nodes: Dict[str, Node] = {}
     for nid, entry in doc.items():
@@ -118,7 +197,7 @@ def parse_api_format(doc: Dict[str, Any]) -> Graph:
 
 
 def parse_workflow(doc: Union[str, Dict[str, Any]]) -> Graph:
-    """Parse an API-format workflow from a JSON string, a path or a
+    """Parse a workflow, either format, from a JSON string, a path or a
     dict."""
     if isinstance(doc, str):
         if doc.lstrip().startswith("{"):
@@ -127,7 +206,5 @@ def parse_workflow(doc: Union[str, Dict[str, Any]]) -> Graph:
             with open(doc, "r", encoding="utf-8") as f:
                 doc = json.load(f)
     if isinstance(doc.get("nodes"), list):
-        raise NotImplementedError(
-            "UI-format workflows are not ported yet; export the workflow "
-            "in API format")
+        return parse_ui_format(doc)
     return parse_api_format(doc)

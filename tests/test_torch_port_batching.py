@@ -906,9 +906,14 @@ def test_preview_frames_are_the_jax_packages(tmp_path, monkeypatch):
     st._exec_gate.clear()
     pid = st.enqueue_prompt(make_prompt(12, steps=4))
     q = reuse.PREVIEWS.subscribe(pid)
-    st._exec_gate.set()
-    wait_history(st, [pid])
-    assert st.drain(20) is True
+    try:
+        st._exec_gate.set()
+        wait_history(st, [pid])
+        assert st.drain(20) is True
+    finally:
+        # the bus is process-wide: a queue left subscribed counts as a
+        # preview client in every later test of the process
+        reuse.PREVIEWS.unsubscribe(pid, q)
     events = []
     while not q.empty():
         events.append(q.get_nowait())

@@ -182,8 +182,10 @@ def test_op_schema_equals_the_jax_packages(name):
 def test_the_port_registers_78_ops():
     """78 ops with the custom-sampling slice; 84 since TomePatchModel,
     HypernetworkLoader, the GLIGEN pair and the style-model pair; 130
-    since the tiled VAE, conditioning, latent, image and mask ops."""
-    assert len(tbase.NODE_CLASS_MAPPINGS) == 130
+    since the tiled VAE, conditioning, latent, image and mask ops; all
+    145 of the JAX package's since the merges, the savers, LoadLatent,
+    the animations and ImageQuantize."""
+    assert len(tbase.NODE_CLASS_MAPPINGS) == 145
     assert set(SLICE_OPS) <= set(jbase.NODE_CLASS_MAPPINGS)
 
 

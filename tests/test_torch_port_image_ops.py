@@ -10,8 +10,9 @@ summation order of a norm or a resize, not for a different formula.
 Every PNG kind (bit depths 1 to 16, grey, RGB, palette with and without
 tRNS, grey-alpha and RGBA, with and without Adam7) is read to the bit as
 the JAX package's LoadImage and LoadImageMask read it through Pillow.
-The schema test holds every op the port registers to the JAX package's
-``WIDGETS``, ``DEFAULTS`` and ``HIDDEN``.
+The schema test holds every op the port registers, all 145 of the JAX
+package's, to the JAX package's ``WIDGETS``, ``DEFAULTS`` and
+``HIDDEN``.
 """
 
 import dataclasses
@@ -53,12 +54,8 @@ from comfyui_distributed_tpu_torch.utils.image import (
 EXACT = dict(rtol=0, atol=0)
 ARITH = dict(rtol=0, atol=1e-6)
 
-# ROADMAP.md A.5: the ops the port leaves to a later slice
-UNPORTED = {"ModelMergeSimple", "ModelMergeAdd", "ModelMergeSubtract",
-            "ModelMergeBlocks", "CLIPMergeSimple", "CLIPMergeAdd",
-            "CLIPMergeSubtract", "ModelSave", "CLIPSave", "VAESave",
-            "SaveLatent", "LoadLatent", "SaveAnimatedPNG",
-            "SaveAnimatedWEBP", "ImageQuantize"}
+# every op of the JAX package is ported
+UNPORTED = set()
 
 
 def _np(x):
@@ -470,8 +467,8 @@ def test_schema_equals_the_jax_packages(op):
 
 def test_the_unported_ops_are_exactly_a5():
     assert set(JAX_OPS) - set(NODE_CLASS_MAPPINGS) == UNPORTED
-    assert set(NODE_CLASS_MAPPINGS) <= set(JAX_OPS)
-    assert len(NODE_CLASS_MAPPINGS) == 130
+    assert set(NODE_CLASS_MAPPINGS) == set(JAX_OPS)
+    assert len(NODE_CLASS_MAPPINGS) == len(PORTED) == 145
 
 
 # --- every PNG kind -------------------------------------------------------------

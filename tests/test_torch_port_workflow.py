@@ -114,17 +114,26 @@ def test_distributed_seed_offsets():
 
 
 def test_parser_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        parse_workflow({"nodes": [], "links": []})
+    """A UI-format document parses (its widgets in ``WIDGETS`` order);
+    an unknown ``class_type`` is refused before any node runs, in either
+    format."""
+    ui = {"nodes": [{"id": 5, "type": "EmptyLatentImage", "mode": 0,
+                     "inputs": [], "outputs": [{"type": "LATENT"}],
+                     "widgets_values": [32, 48, 2]}], "links": []}
+    assert parse_workflow(ui).to_api_format() == {"5": {
+        "class_type": "EmptyLatentImage",
+        "inputs": {"width": 32, "height": 48, "batch_size": 2}}}
     doc = _tiny_doc()
     doc["3"]["inputs"]["sampler_name"] = "dpmpp_2m"
     graph = parse_workflow(copy.deepcopy(doc))
     assert graph.topo_order().index("4") < graph.topo_order().index("3")
-    doc["3"]["class_type"] = "SaveAnimatedWEBP"
-    ctx = OpContext(device="cpu")
-    with pytest.raises(KeyError, match="SaveAnimatedWEBP"):
-        WorkflowExecutor(ctx).execute(doc)
-    assert not ctx.node_timings   # refused before any node ran
+    doc["3"]["class_type"] = "NotAnOp"
+    ui["nodes"][0]["type"] = "NotAnOp"
+    for workflow in (doc, ui):
+        ctx = OpContext(device="cpu")
+        with pytest.raises(KeyError, match="NotAnOp"):
+            WorkflowExecutor(ctx).execute(copy.deepcopy(workflow))
+        assert not ctx.node_timings   # refused before any node ran
 
 
 def _modules():
